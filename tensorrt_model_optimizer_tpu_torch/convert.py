@@ -1,0 +1,115 @@
+"""Carry weights and quantized models across from the JAX package.
+
+`params_from_jax` turns a parameter tree (arrays anywhere numpy can read,
+e.g. `jax.tree.map(np.asarray, params)`) into the port's tensors;
+`compressed_from_jax` turns a JAX `CompressedModel` (canonical kinds, as
+`quant.compress.compress` returns them) into the port's, so both packages
+compute the same function. Objects are read by their fields: this module
+imports neither JAX nor the JAX package.
+
+bf16 and fp8 arrays reach numpy as `ml_dtypes` types, which
+`torch.from_numpy` rejects; they cross as a same-width integer view and are
+viewed back as the torch dtype, bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .models.llama import LlamaConfig, QuantLayout, RopeScaling
+from .ops.formats import BlockSpec
+from .quant.compress import CompressedModel
+from .quant.quantizer import QuantizerConfig, QuantizerState
+
+_VIEWS = {  # numpy dtype name -> (integer view, torch dtype)
+    "bfloat16": (np.uint16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+}
+
+
+def torch_dtype(d) -> torch.dtype:
+    """A JAX/numpy dtype (or scalar type) -> the torch dtype."""
+    name = np.dtype(d).name
+    if name in _VIEWS:
+        return _VIEWS[name][1]
+    return torch.from_numpy(np.zeros((), dtype=np.dtype(d))).dtype
+
+
+def tensor_from_array(a, device="cpu") -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name in _VIEWS:
+        view, tdt = _VIEWS[arr.dtype.name]
+        return torch.from_numpy(np.ascontiguousarray(arr).view(view).copy()).view(tdt).to(device)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def params_from_jax(tree, device="cpu"):
+    """Nested dicts/lists/tuples of arrays -> the same structure of tensors."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_jax(v, device) for v in tree)
+    if tree is None or isinstance(tree, (int, float, str, bool)):
+        return tree
+    if type(tree).__name__ == "QuantizerState":
+        return QuantizerState(amax=params_from_jax(tree.amax, device),
+                              pre_quant_scale=params_from_jax(tree.pre_quant_scale, device),
+                              bias=params_from_jax(tree.bias, device))
+    return tensor_from_array(tree, device)
+
+
+def _block(b):
+    if b is None:
+        return None
+    return BlockSpec(sizes=tuple(b.sizes), scale_bits=b.scale_bits,
+                     scale_block_sizes=b.scale_block_sizes, dynamic=b.dynamic)
+
+
+def quantizer_cfg_from_jax(c) -> QuantizerConfig:
+    kw = {f.name: getattr(c, f.name) for f in dataclasses.fields(QuantizerConfig)}
+    kw["block"] = _block(c.block)
+    if c.sequential:
+        kw["sequential"] = tuple(quantizer_cfg_from_jax(s) for s in c.sequential)
+    return QuantizerConfig(**kw)
+
+
+def layout_from_jax(layout) -> QuantLayout:
+    return QuantLayout(sites=tuple((k, quantizer_cfg_from_jax(v)) for k, v in layout.sites))
+
+
+def llama_cfg_from_jax(cfg) -> LlamaConfig:
+    for flag in ("attention_bias", "qk_norm", "clip_qkv"):
+        if getattr(cfg, flag, None):
+            raise NotImplementedError(f"LlamaConfig.{flag} comes with a later slice")
+    if getattr(cfg, "norm_type", "rmsnorm") != "rmsnorm":
+        raise NotImplementedError("layernorm blocks come with a later slice")
+    rs = cfg.rope_scaling
+    if rs is not None:
+        if rs.rope_type != "llama3":
+            raise NotImplementedError(f"rope_scaling {rs.rope_type!r} comes with the MoE-families slice")
+        rs = RopeScaling(rope_type=rs.rope_type, factor=rs.factor, low_freq_factor=rs.low_freq_factor,
+                         high_freq_factor=rs.high_freq_factor,
+                         original_max_position_embeddings=rs.original_max_position_embeddings)
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(LlamaConfig)
+          if f.name not in ("rope_scaling", "dtype")}
+    return LlamaConfig(rope_scaling=rs, dtype=torch_dtype(cfg.dtype), **kw)
+
+
+def compressed_from_jax(cm, device="cpu") -> CompressedModel:
+    """A JAX `CompressedModel` -> the port's, on `device`."""
+    if getattr(cm, "adapters", None):
+        raise NotImplementedError("SVDQuant adapters come with the calibration-algorithms slice")
+    for name, kind in cm.kinds.items():
+        if kind not in ("int4", "int8", "fp8", "bf16"):
+            raise NotImplementedError(f"{name}: JAX kind {kind!r} is not a canonical pack of this slice")
+    return CompressedModel(
+        model_cfg=llama_cfg_from_jax(cm.model_cfg),
+        params=params_from_jax(cm.params, device),
+        kinds=dict(cm.kinds),
+        layout=layout_from_jax(cm.layout),
+        qstate=params_from_jax(cm.qstate, device),
+    )

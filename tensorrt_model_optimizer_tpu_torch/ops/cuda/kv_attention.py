@@ -1,0 +1,70 @@
+"""One-token GQA decode attention over the stored-form, kv-head-major KV
+cache (port of `ops/pallas/kv_attention.py` `kv_decode_attention`).
+
+Kernel: `csrc/kv_decode_attention.cu`, formats bf16 / int8 / fp8 (NVFP4
+planes come with the NVFP4-KV slice). On a CUDA tensor the wrapper launches
+the kernel or raises; only CPU tensors take the plain PyTorch version.
+
+Semantics (split attention): the cache rows `< pos` are valid, row `pos`
+and above are not read, and the current token's code-domain k/v arrive
+separately and join the softmax. The caller folds the per-layer global
+scales: k's into q (with 1/sqrt(hd)), v's into the returned context.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+
+_FMT = {"bf16": (0, torch.bfloat16), "int8": (1, torch.int8), "fp8": (2, torch.float8_e4m3fn)}
+
+
+def kv_decode_attention_plain(q, k_cache, v_cache, k_new, v_new, pos: int, fmt: str) -> torch.Tensor:
+    """Plain PyTorch version: softmax over the valid rows plus the new token."""
+    B, HR, hd = q.shape
+    n_kv = k_cache.shape[1]
+    rep = HR // n_kv
+    q3 = q.float().reshape(B, n_kv, rep, hd)
+    kk = torch.cat([k_cache[:, :, :pos].float(), k_new.float().reshape(B, n_kv, 1, hd)], dim=2)
+    vv = torch.cat([v_cache[:, :, :pos].float(), v_new.float().reshape(B, n_kv, 1, hd)], dim=2)
+    p = torch.softmax(torch.einsum("bgrd,bgsd->bgrs", q3, kk), dim=-1)
+    return torch.einsum("bgrs,bgsd->bgrd", p, vv).reshape(B, HR, hd)
+
+
+def kv_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                        k_new: torch.Tensor, v_new: torch.Tensor, pos: int, fmt: str) -> torch.Tensor:
+    """q [B, n_kv*rep, hd] f32 pre-scaled; caches [B, n_kv, S, hd] stored
+    form; k_new/v_new [B, n_kv, 1, hd] code domain; pos = valid rows.
+    Returns the code-domain context [B, n_kv*rep, hd] f32."""
+    pos = int(pos)
+    B, HR, hd = q.shape
+    _, n_kv, S, C = k_cache.shape
+    if fmt not in _FMT:
+        raise NotImplementedError(f"kv format {fmt!r}: nvfp4 comes with the NVFP4-KV slice")
+    if C != hd or HR % n_kv or v_cache.shape != k_cache.shape or not 0 <= pos <= S:
+        raise ValueError(f"kv_attention: q {tuple(q.shape)} cache {tuple(k_cache.shape)} pos {pos}")
+    if q.device.type == "cpu":
+        return kv_decode_attention_plain(q, k_cache, v_cache, k_new, v_new, pos, fmt)
+    code, dtype = _FMT[fmt]
+    rep = HR // n_kv
+    if k_cache.dtype != dtype or v_cache.dtype != dtype:
+        raise TypeError(f"kv_attention: fmt {fmt} needs {dtype} caches, got {k_cache.dtype}")
+    if hd not in (32, 64, 128) or rep not in (1, 2, 4, 8):
+        raise ValueError(f"kv_attention kernel: head_dim {hd} / rep {rep} unsupported")
+    global launches
+    q = q.float().contiguous()
+    kn = k_new.float().reshape(B, n_kv, hd).contiguous()
+    vn = v_new.float().reshape(B, n_kv, hd).contiguous()
+    k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
+    out = torch.empty((B, HR, hd), dtype=torch.float32, device=q.device)
+    fn = _build.function("kv_decode_attention", "kv_decode_attention",
+                         [_build.c_int] * 3 + [_build.c_void_p] * 6 + [_build.c_int] * 4
+                         + [_build.c_void_p])
+    _build.check(fn(code, hd, rep, _build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
+                    _build.ptr(kn), _build.ptr(vn), _build.ptr(out), B, n_kv, S, pos,
+                    _build.stream()), "kv_decode_attention")
+    launches += 1
+    return out

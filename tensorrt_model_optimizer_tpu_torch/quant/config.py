@@ -1,0 +1,183 @@
+"""Quantization configs: ordered wildcard rules + presets (port of
+`quant/config.py`).
+
+A `QuantizeConfig` maps wildcard patterns over quantizer-site names to
+`QuantizerConfig`s, last matching rule winning, plus a calibration algorithm.
+The presets of the int and fp8 formats keep their JAX names. A preset whose
+format this port does not have yet raises `NotImplementedError` naming the
+slice that brings it, both through `get_preset` and as a module attribute.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import fnmatch
+from typing import Any, Mapping, Optional, Union
+
+from ..ops.formats import BlockSpec
+from .quantizer import DISABLED, QuantizerConfig
+
+AlgorithmSpec = Union[str, dict, None]
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizeConfig:
+    """Top-level PTQ config: ordered (pattern -> quantizer cfg) rules."""
+
+    rules: tuple[tuple[str, QuantizerConfig], ...]
+    algorithm: AlgorithmSpec = "max"
+
+    def resolve(self, site: str) -> QuantizerConfig:
+        """The effective config for one site name (last matching rule wins)."""
+        cfg = DISABLED
+        for pattern, rule_cfg in self.rules:
+            if _match(pattern, site):
+                cfg = rule_cfg
+        return cfg
+
+    def with_rules(self, extra: Mapping[str, Any]) -> "QuantizeConfig":
+        return QuantizeConfig(
+            rules=self.rules + tuple((p, _coerce(c)) for p, c in extra.items()),
+            algorithm=self.algorithm,
+        )
+
+    def replace(self, **kw) -> "QuantizeConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def _match(pattern: str, site: str) -> bool:
+    if any(c in pattern for c in "*?["):
+        return fnmatch.fnmatch(site, pattern)
+    return pattern == site
+
+
+def _coerce(c: Any) -> QuantizerConfig:
+    if isinstance(c, QuantizerConfig):
+        return c
+    if isinstance(c, dict):
+        d = dict(c)
+        if "block_sizes" in d:
+            d["block"] = BlockSpec.from_dict(d.pop("block_sizes"))
+        if d.pop("enable", True) is False:
+            return DISABLED
+        if d.get("type") == "dynamic":
+            d.pop("type")
+            d["dynamic"] = True
+        return QuantizerConfig(**d)
+    raise TypeError(f"cannot coerce {type(c)} to QuantizerConfig")
+
+
+def make_config(quant_cfg: Mapping[str, Any], algorithm: AlgorithmSpec = "max") -> QuantizeConfig:
+    """Build a QuantizeConfig from a reference-style dict of wildcard rules."""
+    return QuantizeConfig(
+        rules=tuple((p, _coerce(c)) for p, c in quant_cfg.items()),
+        algorithm=algorithm,
+    )
+
+
+# Numerics units (the int and fp8 ones; the JAX package's names)
+INT8_PER_CHANNEL = QuantizerConfig(num_bits=8, axis=(0,))
+INT8_PER_TENSOR = QuantizerConfig(num_bits=8)
+INT8_PER_TOKEN_DYNAMIC = QuantizerConfig(num_bits=8, dynamic=True, per_token=True)
+INT4_PER_BLOCK_128 = QuantizerConfig(num_bits=4, block=BlockSpec(sizes=((-1, 128),)))
+FP8_PER_TENSOR = QuantizerConfig(num_bits=(4, 3))
+FP8_PER_CHANNEL = QuantizerConfig(num_bits=(4, 3), axis=(0,))
+FP8_PER_TOKEN_DYNAMIC = QuantizerConfig(num_bits=(4, 3), dynamic=True, per_token=True)
+FP8_2D_BLOCKWISE_128 = QuantizerConfig(num_bits=(4, 3), block=BlockSpec(sizes=((-2, 128), (-1, 128))))
+FP8_KV = QuantizerConfig(num_bits=(4, 3))
+FP8_KV_CAST = QuantizerConfig(num_bits=(4, 3), constant_amax=448.0)
+
+# Sites disabled in every preset (`units/default_disabled_quantizers.yaml`)
+_DEFAULT_DISABLED = {
+    "*lm_head*": DISABLED,
+    "*output_layer*": DISABLED,
+    "*router*": DISABLED,
+    "*gate.*": DISABLED,
+    "*mlp.gate.*": DISABLED,
+    "*embed*": DISABLED,
+    "*final_layernorm*": DISABLED,
+}
+
+
+def _preset(weight: QuantizerConfig, act: Optional[QuantizerConfig], algorithm) -> QuantizeConfig:
+    rules: dict[str, Any] = {
+        "*weight_quantizer": weight,
+        "*input_quantizer": act if act is not None else DISABLED,
+        "*output_quantizer": DISABLED,
+        "*q_bmm_quantizer": DISABLED,
+        "*k_bmm_quantizer": DISABLED,
+        "*v_bmm_quantizer": DISABLED,
+        "*softmax_quantizer": DISABLED,
+    }
+    rules.update(_DEFAULT_DISABLED)
+    return make_config(rules, algorithm)
+
+
+INT8_DEFAULT_CFG = _preset(INT8_PER_CHANNEL, INT8_PER_TENSOR, "max")
+FP8_DEFAULT_CFG = _preset(FP8_PER_TENSOR, FP8_PER_TENSOR, "max")
+FP8_PER_CHANNEL_PER_TOKEN_CFG = _preset(FP8_PER_CHANNEL, FP8_PER_TOKEN_DYNAMIC, "max")
+FP8_2D_BLOCKWISE_WEIGHT_ONLY_CFG = _preset(FP8_2D_BLOCKWISE_128, None, "max")
+INT4_BLOCKWISE_WEIGHT_ONLY_CFG = _preset(INT4_PER_BLOCK_128, None, "max")
+
+KV_FP8_RULES = {"*k_bmm_quantizer": FP8_KV, "*v_bmm_quantizer": FP8_KV}
+KV_FP8_CAST_RULES = {"*k_bmm_quantizer": FP8_KV_CAST, "*v_bmm_quantizer": FP8_KV_CAST}
+KV_INT8_RULES = {"*k_bmm_quantizer": INT8_PER_TENSOR, "*v_bmm_quantizer": INT8_PER_TENSOR}
+FP8_KV_CFG = FP8_DEFAULT_CFG.with_rules(KV_FP8_RULES)
+
+PRESETS: dict[str, QuantizeConfig] = {
+    "INT8_DEFAULT_CFG": INT8_DEFAULT_CFG,
+    "FP8_DEFAULT_CFG": FP8_DEFAULT_CFG,
+    "FP8_PER_CHANNEL_PER_TOKEN_CFG": FP8_PER_CHANNEL_PER_TOKEN_CFG,
+    "FP8_2D_BLOCKWISE_WEIGHT_ONLY_CFG": FP8_2D_BLOCKWISE_WEIGHT_ONLY_CFG,
+    "INT4_BLOCKWISE_WEIGHT_ONLY_CFG": INT4_BLOCKWISE_WEIGHT_ONLY_CFG,
+    "FP8_KV_CFG": FP8_KV_CFG,
+}
+
+# JAX presets whose format or calibration algorithm is not ported yet, with
+# the slice that brings each (ROADMAP.md queue 1)
+UNPORTED_PRESETS: dict[str, str] = {
+    "INT8_SMOOTHQUANT_CFG": "the calibration-algorithms slice (SmoothQuant)",
+    "INT4_AWQ_CFG": "the calibration-algorithms slice (AWQ)",
+    "INT4_GPTQ_CFG": "the calibration-algorithms slice (GPTQ)",
+    "INT4_LOCAL_HESSIAN_CFG": "the calibration-algorithms slice (local Hessian)",
+    "INT4_SVDQUANT_CFG": "the calibration-algorithms slice (SVDQuant)",
+    "INT4_AWQ_KV_FP8_CFG": "the calibration-algorithms slice (AWQ)",
+    "W4A8_AWQ_BETA_CFG": "the calibration-algorithms slice (AWQ)",
+    "FP8_KV_AFFINE_CFG": "the calibration-algorithms slice (affine KV bias)",
+    "NVFP4_DEFAULT_CFG": "the NVFP4 slice",
+    "NVFP4_WEIGHT_ONLY_CFG": "the NVFP4 slice",
+    "W4A16_NVFP4_CFG": "the NVFP4 slice",
+    "NVFP4_AWQ_LITE_CFG": "the NVFP4 slice",
+    "NVFP4_ACT_HEADROOM_CFG": "the NVFP4 slice",
+    "NVFP4_KV_CFG": "the NVFP4 slice",
+    "NVFP4_SVDQUANT_CFG": "the NVFP4 slice",
+    "MXFP4_DEFAULT_CFG": "the NVFP4 slice (MXFP4 shares its kernel)",
+    "MXFP4_WEIGHT_ONLY_CFG": "the NVFP4 slice (MXFP4 shares its kernel)",
+    "MXFP6_DEFAULT_CFG": "the NVFP4 slice (MX formats)",
+    "MXFP8_DEFAULT_CFG": "the NVFP4 slice (MX formats)",
+    "NF4_WEIGHT_ONLY_CFG": "the NVFP4 slice (NF4)",
+}
+
+
+def _unported(name: str) -> NotImplementedError:
+    return NotImplementedError(f"preset {name} is not ported yet: it comes with {UNPORTED_PRESETS[name]}")
+
+
+def __getattr__(name: str):
+    if name in UNPORTED_PRESETS:
+        raise _unported(name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def choices() -> list[str]:
+    return sorted(PRESETS)
+
+
+def get_preset(name) -> QuantizeConfig:
+    if isinstance(name, QuantizeConfig):
+        return name
+    if name in UNPORTED_PRESETS:
+        raise _unported(name)
+    if name not in PRESETS:
+        raise KeyError(f"unknown preset {name!r}; choices: {choices()}")
+    return PRESETS[name]
