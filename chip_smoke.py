@@ -9,15 +9,24 @@ Phases (any failure raises, and the script exits non-zero):
            (one process per source, in parallel) and prints the build time.
   kernels  each kernel against its plain PyTorch version on the card, at the
            Llama-3.1-8B shapes of the served path, with CUDA-event timings,
-           the bound (bytes or operations) and, for flash, the library call.
+           the bound (bytes or operations) and, where PyTorch has one call for
+           the same function (flash, int4 and int8 weight-only), its time.
   anchor   the in-repo trained checkpoint `artifacts/anchor-llama` through
-           load -> INT4 weight-only PTQ -> compress -> W4A8 / int8-KV engine;
-           greedy tokens on the kernels must equal those on the plain versions.
-  full     Llama-3.1-8B at full width and depth (seeded random bf16 weights on
-           the card): PTQ -> compress -> engine, batch 8 x 2048-token prompts
-           then 32 decode steps; launch counts are read around this run, and
-           the prefill logits are held against the plain versions, and against
-           an engine that runs only flash attention on its plain version.
+           load -> PTQ -> compress -> int8-KV engine, once for each served
+           path (W4A8; INT4, NVFP4, MXFP4, INT8 weight-only; FP8 and NVFP4 with
+           their activation quantizers), the
+           kernels against the plain versions: each projection's GEMM at the
+           checkpoint's shapes, the logits at every greedy step against an
+           f32 yardstick, and for W4A8 equal tokens.
+  full     Llama-3.1-8B at full width (seeded random bf16 weights on the
+           card, made once): for each path of `FULL_PATHS`, PTQ -> compress ->
+           engine, batch 8 x 2048-token prompts then 32 decode steps. W4A8,
+           INT4 and NVFP4 run at full depth (32 layers), the other four paths
+           on the first 4 layers. Launch counts are set to 0 before each path
+           and read after it; the prefill logits are held against the plain
+           version of that path's GEMM at depths 1 and 2, and for W4A8 at
+           depths 1, 2, 4, 8 and 32 against the all-plain engine and an engine
+           that runs only flash attention on its plain version.
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -141,6 +150,8 @@ def phase_kernels(torch, dev, sz: Sizes, timer: Timer, rows: dict):
         del packed, scales
     rows["qmm_w4a8"] = dict(shapes[0], shapes=shapes)
 
+    _phase_kernels_wo(torch, dev, sz, timer, rows, g)
+
     # --- KV decode attention: f32 online softmax vs torch.softmax; 1e-5 of
     # the output's scale (f32 rounding of sums taken in another order).
     B, n_kv, rep, hd, S, pos = sz.kv
@@ -207,29 +218,328 @@ def phase_kernels(torch, dev, sz: Sizes, timer: Timer, rows: dict):
     rows["flash_gqa"] = dict(shape, shapes=[shape])
 
 
-def _engine(torch, cm, max_seq: int, dev, plain: tuple = ()):
+def _held(out, ref32) -> tuple[float, float]:
+    """A bf16 kernel output against its plain version's f32 result (before
+    the bf16 cast), per element: |out - ref| <= 2^-8 |ref| + 1e-3 rms(ref).
+    Rounding to bf16 moves a value by at most 2^-8 of itself; the rms term
+    covers the f32 sums taken in another order (the tensor cores' against
+    torch.matmul's), about 1e-6 of the row's sum of |x w|. Returns (worst
+    err/limit, max abs err); a right kernel's worst ratio comes near 1."""
+    diff = (out.float() - ref32).abs()
+    tol = 2.0 ** -8 * ref32.abs() + 1e-3 * float(ref32.square().mean().sqrt())
+    return float((diff / tol).max()), float(diff.max())
+
+
+def _wo_cases(torch, dev, g, O: int, K: int):
+    """(kernel name, label, wrapper, plain, weight arrays, weight bytes,
+    library call) for each weight-only format at one projection shape, from
+    seeded random codes and scales. The library call is `x -> y` through the
+    one PyTorch function that computes the same GEMM from the same codes and
+    scales (repacked to its layout outside the timed call), or None: PyTorch
+    has a bf16 x int4 group-wise call and a bf16 x int8 per-channel call, and
+    none that multiplies bf16 activations by NVFP4, MXFP4 or e4m3 weights
+    (`_scaled_mm` wants both operands in fp8). It is timed and used nowhere
+    in the port."""
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import qmm_wo
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda.qmm import int4_a8_codes
+
+    def rand_bytes(shape):
+        return torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.int32).to(torch.uint8)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    nib = rand_bytes((O, K // 2))
+    s4 = (torch.rand((K // 128, O), generator=g, device=dev) * 0.02 + 0.005).to(torch.bfloat16).float()
+
+    def lib_int4():
+        # codes + 8 as unsigned nibbles, even k in the high nibble; the call
+        # computes (u - 8) * scale + zero with [K/128, O, 2] bf16 scale / zero
+        u = int4_a8_codes(nib).to(torch.int32) + 8
+        w = torch._convert_weight_to_int4pack((u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8), 8)
+        sz = torch.stack([s4, torch.zeros_like(s4)], dim=-1).to(torch.bfloat16).contiguous()
+        return lambda x: torch._weight_int4pack_mm(x, w, 128, sz)
+
+    # the block scales are bf16 values (the default layout rounds them so), held
+    # in the kernel's f32 array: the function must move 2 bytes of each
+    yield ("qmm_int4_wo", "int4", qmm_wo.int4_wo_matmul, qmm_wo.int4_wo_matmul_plain, (nib, s4),
+           nbytes(nib) + 2 * s4.numel(), lib_int4)
+    # e4m3 block scales 2^-3 .. 2^2 with random mantissas; exponents -8 .. 0
+    s_nv = (rand_bytes((O, K // 16)) % 48 + 0x20).view(torch.float8_e4m3fn)
+    gs = torch.tensor(0.0137, dtype=torch.float32, device=dev)
+    yield ("qmm_fp4_wo", "nvfp4", qmm_wo.fp4_wo_matmul, qmm_wo.fp4_wo_matmul_plain, (nib, s_nv, gs),
+           nbytes(nib, s_nv, gs), None)
+    s_mx = (rand_bytes((O, K // 32)) % 9).to(torch.int8) - 8
+    yield "qmm_fp4_wo", "mxfp4", qmm_wo.fp4_wo_matmul, qmm_wo.fp4_wo_matmul_plain, (nib, s_mx), nbytes(nib, s_mx), None
+    q8 = rand_bytes((O, K)).view(torch.int8)
+    sc8 = (torch.rand((O, 1), generator=g, device=dev) * 0.01 + 0.001).to(torch.bfloat16).float()
+
+    def lib_int8():
+        sc = sc8.reshape(-1).to(torch.bfloat16)  # exact: sc8 holds bf16 values
+        return lambda x: torch._weight_int8pack_mm(x, q8, sc)
+
+    yield ("qmm_byte_wo", "int8", qmm_wo.byte_wo_matmul, qmm_wo.byte_wo_matmul_plain, (q8, sc8),
+           nbytes(q8, sc8), lib_int8)
+    qb = rand_bytes((O, K))
+    qf8 = torch.where((qb & 0x7F) == 0x7F, qb & 0x80, qb).view(torch.float8_e4m3fn)  # no NaN codes
+    scf = torch.tensor(0.0021, dtype=torch.float32, device=dev)
+    yield "qmm_byte_wo", "fp8", qmm_wo.byte_wo_matmul, qmm_wo.byte_wo_matmul_plain, (qf8, scf), nbytes(qf8, scf), None
+
+
+def _phase_kernels_wo(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
+    """The three weight-only GEMMs against their plain versions at the 8B
+    shapes, and the e4m3 decode of the byte kernel on every code."""
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import qmm_wo
+
+    # every e4m3 code through the kernel's decoder, exactly: y = I . q^T
+    # with one code per k, through the prefill tiles (N = 256) and the
+    # decode tiles (16 rows of I at a time); the two NaN codes apart
+    codes = torch.arange(256, device=dev, dtype=torch.int32).to(torch.uint8)
+    finite = (codes & 0x7F) != 0x7F
+    q = torch.where(finite, codes, codes & 0x80).view(torch.float8_e4m3fn).expand(16, 256).contiguous()
+    want = q[0].float()
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    eye = torch.eye(256, dtype=torch.bfloat16, device=dev)
+    got = {"prefill tiles": qmm_wo.byte_wo_matmul(eye, q, one)[:, 0].float(),
+           "decode tiles": torch.cat([qmm_wo.byte_wo_matmul(eye[i:i + 16], q, one)[:, 0].float()
+                                      for i in range(0, 256, 16)])}
+    for what, y in got.items():
+        if not torch.equal(y, want):
+            raise AssertionError(f"qmm_byte_wo ({what}): e4m3 decode differs from torch at codes "
+                                 f"{torch.nonzero(y != want).flatten().tolist()[:16]}")
+    nan = torch.full((16, 16), 0x7F, dtype=torch.uint8, device=dev).view(torch.float8_e4m3fn)
+    if not bool(torch.isnan(qmm_wo.byte_wo_matmul(eye[:16, :16].contiguous(), nan, one).float()).all()):
+        raise AssertionError("qmm_byte_wo: the e4m3 NaN code does not decode to NaN")
+    log(json.dumps({"kernel": "qmm_byte_wo", "check": "e4m3 decode: 254 finite codes exact, NaN code NaN"}))
+
+    shapes: dict = {name: [] for name in qmm_wo.launches}
+    for O, K, label in sz.qmm_shapes:
+        for N in sz.qmm_rows:
+            x = torch.randn((N, K), generator=g, device=dev).to(torch.bfloat16)
+            for name, fmt, fn, plain, w, wbytes, lib in _wo_cases(torch, dev, g, O, K):
+                out = fn(x, *w)
+                torch.cuda.synchronize()
+                ref32 = plain(x, *w, out_dtype=torch.float32)
+                worst, err = _held(out, ref32)
+                if not worst <= 1.0:
+                    raise AssertionError(f"{name} {fmt} {label} N={N}: worst err/limit {worst} > 1 "
+                                         f"(2^-8|ref| + 1e-3 rms(ref)), max abs err {err}")
+                ms = timer(lambda: fn(x, *w), sz.reps)
+                plain_ms = timer(lambda: plain(x, *w), 2)
+                lib_ms = lib_rel = None
+                if lib is not None:
+                    # the library rounds (u - 8) * s to bf16 per weight, so it
+                    # is held only as far as shows it is the same function: 1e-2
+                    # of the output's scale (a wrong nibble order reads ~1)
+                    call = lib()
+                    lib_rel = _rel(call(x), ref32)
+                    if not lib_rel <= 1e-2:
+                        raise AssertionError(f"{name} {fmt} {label} N={N}: the library call is {lib_rel} of the "
+                                             f"output's scale from the plain version: not the same function")
+                    lib_ms = timer(lambda: call(x), sz.reps if N <= 16 or fmt == "int4" else 2)
+                    del call
+                del ref32
+                b_ms, b_by = bound(N * K * 2 + wbytes + N * O * 2, 2.0 * N * O * K, "bf16")
+                shapes[name].append({"shape": f"{fmt} {label} N={N} O={O} K={K}", "max_abs_err": err,
+                                     "worst_err_over_limit": worst, "ms": ms, "plain_ms": plain_ms,
+                                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                                     "library_rel_err": lib_rel})
+                log(json.dumps({"kernel": name, **shapes[name][-1]}))
+                del out, w
+            del x
+    for name, sh in shapes.items():
+        rows[name] = dict(sh[0], shapes=sh)
+
+
+def _engine(torch, cm, max_seq: int, dev, plain: tuple = (), **layouts):
     from tensorrt_model_optimizer_tpu_torch.serve.engine import Engine, EngineConfig
 
-    return Engine(cm, EngineConfig(max_seq_len=max_seq, kv_dtype=torch.int8, int4_layout="a8",
-                                   kv_attention_kernel=True, plain_ops=plain), device=dev)
+    return Engine(cm, EngineConfig(max_seq_len=max_seq, kv_dtype=torch.int8, kv_attention_kernel=True,
+                                   plain_ops=plain, **layouts), device=dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class Path:
+    """One served path of the engine: a PTQ config, the engine's layout
+    fields, the depth of its full-width run, and its GEMM kernel."""
+
+    label: str
+    preset: str          # preset name; "" = weight-only INT8 (INT8_DEFAULT_CFG without input quantizers)
+    gemm: str            # the path's GEMM kernel (a key of KERNELS)
+    depth: int = 32      # layers of the full-width run (the model has 32)
+    layouts: tuple = ()  # EngineConfig layout fields, as (name, value) pairs
+    calib: bool = False  # the preset has static input quantizers: calibrate on one batch
+
+    def quant_cfg(self):
+        from tensorrt_model_optimizer_tpu_torch.quant import config
+
+        if self.preset:
+            return config.get_preset(self.preset)
+        return config.INT8_DEFAULT_CFG.with_rules({"*input_quantizer": {"enable": False}})
+
+
+# W4A8, INT4 and NVFP4 at full depth; the formats that share a kernel with
+# them (MXFP4, and NVFP4 with its activation quantizers: dynamic block scales
+# under a calibrated global amax, fake-quantized before the GEMM) or that
+# move twice the weight bytes (INT8, FP8) on 4 layers, which launches every
+# kernel at every full-width shape all the same. The anchor runs every path
+# at its own depth (6 layers).
+FULL_PATHS = (
+    Path("w4a8", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_w4a8", layouts=(("int4_layout", "a8"),)),
+    Path("int4", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_int4_wo"),
+    Path("nvfp4", "NVFP4_WEIGHT_ONLY_CFG", "qmm_fp4_wo"),
+    Path("mxfp4", "MXFP4_WEIGHT_ONLY_CFG", "qmm_fp4_wo", depth=4),
+    Path("int8", "", "qmm_byte_wo", depth=4),
+    Path("fp8", "FP8_DEFAULT_CFG", "qmm_byte_wo", depth=4, calib=True),
+    Path("nvfp4_w4a4", "NVFP4_DEFAULT_CFG", "qmm_fp4_wo", depth=4, calib=True),
+)
+
+# kernel name (KERNELS) -> the engine's `plain_ops` name
+PLAIN_NAME = {"qmm_w4a8": "w4a8", "kv_decode_attention": "kv_attention", "flash_gqa": "flash",
+              "qmm_int4_wo": "int4_wo", "qmm_fp4_wo": "fp4_wo", "qmm_byte_wo": "byte_wo"}
+
+
+def _counts(reset: bool = False) -> dict:
+    """Launch counts of every kernel's wrapper; `reset` sets them to 0."""
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import flash_gqa, kv_attention, qmm, qmm_wo
+
+    if reset:
+        qmm.launches = kv_attention.launches = flash_gqa.launches = 0
+        for k in qmm_wo.launches:
+            qmm_wo.launches[k] = 0
+    return {"qmm_w4a8": qmm.launches, "kv_decode_attention": kv_attention.launches,
+            "flash_gqa": flash_gqa.launches, **qmm_wo.launches}
+
+
+def _compressed(torch, path: Path, cfg, params, dev, seed: int):
+    from tensorrt_model_optimizer_tpu_torch.quant import compress, ptq
+
+    batches = None
+    if path.calib:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        batches = [torch.randint(0, cfg.vocab_size, (2, 64), generator=g, device=dev)]
+    return compress.compress(ptq.quantize(cfg, params, path.quant_cfg(), batches, device=dev))
+
+
+def _anchor_projections(torch, dev, path: Path, cm, g) -> float:
+    """This path's GEMM kernel against its plain version at every projection
+    shape of the checkpoint (hd 32, the ragged K = 704 of down_proj), decode
+    and prefill rows, on random activations; the limit of `_held`. Returns
+    the worst err/limit."""
+    from tensorrt_model_optimizer_tpu_torch.models.llama import slice_state
+    from tensorrt_model_optimizer_tpu_torch.quant.compress import convert_packed_layouts, layer_arrays
+    from tensorrt_model_optimizer_tpu_torch.serve import engine
+
+    layouts = dict(path.layouts)
+    served = convert_packed_layouts(cm, nvfp4=layouts.get("nvfp4_layout", "word2"),
+                                    int4=layouts.get("int4_layout", "bd2"), mxfp4=layouts.get("nvfp4_layout", "word2"))
+    worst = 0.0
+    for name, kind in served.kinds.items():
+        arrays = layer_arrays(served.params["layers"][name], 0)
+        ist = slice_state(served.qstate.get(name, {}).get("input"), 0)
+        K = arrays.get("in_features") or arrays["q"].shape[-1]
+        for n in (4, 128):
+            x = torch.randn((n, K), generator=g, device=dev).to(torch.bfloat16)
+            if kind == "int4a8":
+                x8 = torch.clamp(torch.round(x.float() * 40), -127, 127).to(torch.int8)
+                args = (x8, arrays["packed"], arrays["scales"])
+                out, ref = engine.qmm.w4a8_matmul(*args), engine.qmm.w4a8_matmul_plain(*args)
+                ratio = 0.0 if torch.equal(out, ref) else float("inf")
+            else:
+                def run(ops, **kw):
+                    return engine._qlinear(x, name, kind, arrays, served, ist,
+                                           {k: (lambda *a, f=f: f(*a, **kw)) for k, f in ops.items()})
+                out = run(engine._ops(()))
+                ref = run(engine._ops(engine.PLAIN_ALL), out_dtype=torch.float32)
+                ratio, _ = _held(out, ref)
+            if not ratio <= 1.0:
+                raise AssertionError(f"anchor {path.label}: {name} ({kind}) N={n} K={K}: kernel against plain "
+                                     f"version, worst err/limit {ratio}")
+            worst = max(worst, ratio)
+    return worst
 
 
 def phase_anchor(torch, dev, sz: Sizes):
+    """The trained checkpoint through every path, kernels against plain
+    versions: first each projection's GEMM alone at the checkpoint's shapes,
+    then 4 prompts x 32 tokens and 16 greedy steps end to end.
+
+    End to end the kernel engine picks each token and every engine is fed
+    it, so all stay on one sequence and their logits are compared at every
+    step. Kernel and plain GEMM round the same f32 sums, taken in another
+    order, to bf16, so isolated outputs land one ulp apart; the int8 KV
+    cache turns some of those into a flipped code (1/127 of the cache's
+    range), which the layers carry on. How far that moves the logits is the
+    model's property (at some positions of the anchor's data several tokens
+    are about equally likely, and bf16 rounding alone moves the logits by
+    much of their scale there), so the yardstick is measured, not assumed: a
+    third engine runs the plain versions on f32 activations. Each engine's
+    distance from it is taken per prompt and step (largest logit difference
+    as a share of the f32 logits' largest magnitude); the median of the
+    kernel engine's 64 distances may be at most twice the median of the plain
+    bf16 engine's. That catches what the projection check cannot: a scale,
+    a layer or a layout wired wrongly into the engine. The kernel engine is
+    also held against the plain bf16 engine directly, activation quantizers
+    on: the median of their 64 distances may be at most 1e-2 of the logits'
+    scale (two bf16 ulps of the largest logit, and twice the largest median a
+    right kernel reads here), and wherever their argmax differs, the kernel's
+    token must lie within 1e-2 of the scale of the plain engine's best
+    logit: a near tie, not another answer. W4A8, whose GEMM is bit-exact with
+    its plain version, is held to equal tokens in free-running generation
+    as before."""
     from tensorrt_model_optimizer_tpu_torch.models import hf_loader
-    from tensorrt_model_optimizer_tpu_torch.quant import compress, ptq
     from tensorrt_model_optimizer_tpu_torch.serve.engine import PLAIN_ALL
 
     cfg, params = hf_loader.load_hf_checkpoint(ANCHOR, device=dev)
-    cm = compress.compress(ptq.quantize(cfg, params, "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", device=dev))
     g = torch.Generator(device=dev).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (4, 32), generator=g, device=dev)
-    toks = _engine(torch, cm, 64, dev).generate(prompts, 16)
-    ref = _engine(torch, cm, 64, dev, PLAIN_ALL).generate(prompts, 16)
-    same = bool(torch.equal(toks, ref))
-    log(json.dumps({"phase": "anchor", "prompts": list(prompts.shape), "new_tokens": 16,
-                    "tokens_equal_plain": same, "tokens_row0": toks[0].tolist()}))
-    if not same:
-        raise AssertionError(f"anchor: kernel-path tokens differ from plain\n{toks}\n{ref}")
+    for path in FULL_PATHS:
+        cm = _compressed(torch, path, cfg, params, dev, seed=3)
+        layouts = dict(path.layouts)
+        worst_proj = _anchor_projections(torch, dev, path, cm, g)
+        cm32 = dataclasses.replace(cm, model_cfg=dataclasses.replace(cm.model_cfg, dtype=torch.float32))
+        engines = (_engine(torch, cm, 64, dev, **layouts), _engine(torch, cm, 64, dev, PLAIN_ALL, **layouts),
+                   _engine(torch, cm32, 64, dev, PLAIN_ALL, **layouts))
+        _counts(reset=True)
+        caches = [e.init_cache(4) for e in engines]
+        logits, ref, truth = (e.prefill(prompts, c) for e, c in zip(engines, caches))
+        gaps_kernel, gaps_plain, gaps_kp, flips = [], [], [], []
+        for step in range(16):
+            scale = truth.abs().max(dim=-1).values
+            gaps_kernel += ((logits - truth).abs().max(dim=-1).values / scale).tolist()
+            gaps_plain += ((ref - truth).abs().max(dim=-1).values / scale).tolist()
+            gaps_kp += ((logits - ref).abs().max(dim=-1).values / scale).tolist()
+            tok = torch.argmax(logits, dim=-1)
+            margin = (ref.max(dim=-1).values - ref.gather(1, tok[:, None])[:, 0]) / scale
+            flips += [(step, float(m)) for m in margin[tok != torch.argmax(ref, dim=-1)]]
+            tok = tok.to(torch.int32)[:, None]
+            logits, ref, truth = (e.decode_step(tok, c)[1] for e, c in zip(engines, caches))
+        launched = _counts()[path.gemm]
+        gap_kernel, gap_plain = statistics.median(gaps_kernel), statistics.median(gaps_plain)
+        free = engines[0].generate(prompts, 16)
+        same = bool(torch.equal(free, engines[1].generate(prompts, 16)))
+        log(json.dumps({"phase": "anchor", "path": path.label, "prompts": list(prompts.shape),
+                        "new_tokens": 16, "projections_worst_err_over_limit": worst_proj,
+                        "median_logits_gap_kernel_vs_f32": gap_kernel, "median_logits_gap_plain_vs_f32": gap_plain,
+                        "worst_logits_gap_kernel_vs_f32": max(gaps_kernel), "worst_logits_gap_plain_vs_f32": max(gaps_plain),
+                        "median_logits_gap_kernel_vs_plain": statistics.median(gaps_kp),
+                        "worst_logits_gap_kernel_vs_plain": max(gaps_kp), "argmax_flips_vs_plain": flips, "free_running_tokens_equal_plain": same,
+                        "gemm_launches": launched, "tokens_row0": free[0].tolist()}))
+        if not gap_kernel <= 2 * gap_plain:
+            raise AssertionError(f"anchor {path.label}: the kernel engine's logits lie {gap_kernel} of their scale "
+                                 f"(median) from the f32 plain engine's, the bf16 plain engine's {gap_plain}")
+        gap_kp = statistics.median(gaps_kp)
+        if not gap_kp <= 1e-2:
+            raise AssertionError(f"anchor {path.label}: the kernel engine's logits lie {gap_kp} of their scale "
+                                 f"(median) from the plain engine's, the limit is 1e-2")
+        far = [(step, m) for step, m in flips if not m <= 1e-2]
+        if far:
+            raise AssertionError(f"anchor {path.label}: the kernel engine's token differs from the plain engine's "
+                                 f"away from a near tie (step, plain-logit margin as a share of the scale): {far}")
+        if path.gemm == "qmm_w4a8" and not same:
+            raise AssertionError("anchor w4a8: kernel-path tokens differ from plain")
+        if launched <= 0:
+            raise AssertionError(f"anchor {path.label}: {path.gemm} never launched")
 
 
 def _profile(torch, label: str, fn, calls: int, wall_ms_unprofiled: float) -> None:
@@ -255,37 +565,49 @@ def _profile(torch, label: str, fn, calls: int, wall_ms_unprofiled: float) -> No
                     "top": [{"kernel": k[:70], "ms": ms, "count": n} for k, ms, n in by_kernel[:10]]}))
 
 
-def phase_full(torch, dev, sz: Sizes, profile: bool = False):
+def phase_full(torch, dev, sz: Sizes, profile: bool = False) -> dict:
+    """Every path of FULL_PATHS at full width; returns each kernel's launch
+    count in the run of the first path that has it."""
     from tensorrt_model_optimizer_tpu_torch.models import llama
-    from tensorrt_model_optimizer_tpu_torch.ops.cuda import flash_gqa, kv_attention, qmm
-    from tensorrt_model_optimizer_tpu_torch.quant import compress, ptq
-    from tensorrt_model_optimizer_tpu_torch.serve.engine import PLAIN_ALL
 
-    sync = torch.cuda.synchronize
     cfg = llama.LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
     params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    qm = ptq.quantize(cfg, params, "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", device=dev)
-    cm = compress.compress(qm)
-    del params, qm
-    eng = _engine(torch, cm, sz.max_seq, dev)
-    del cm
+    torch.cuda.synchronize()
+    log(json.dumps({"phase": "full", "model": "llama3_8b", "init_params_s": time.perf_counter() - t0}))
+    g = torch.Generator(device=dev).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (sz.batch, sz.prompt), generator=g, device=dev)
+    launches: dict = {}
+    for path in FULL_PATHS:
+        for name, n in _full_path(torch, dev, sz, path, cfg, params, prompt, profile).items():
+            if n > 0:
+                launches.setdefault(name, n)
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _full_path(torch, dev, sz: Sizes, path: Path, cfg, params, prompt, profile: bool) -> dict:
+    from tensorrt_model_optimizer_tpu_torch.serve.engine import PLAIN_ALL
+
+    sync = torch.cuda.synchronize
+    layouts = dict(path.layouts)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, num_hidden_layers=path.depth)
+    sub = {**params, "layers": {k: v[:path.depth] for k, v in params["layers"].items()}}
+    eng = _engine(torch, _compressed(torch, path, cfg, sub, dev, seed=4), sz.max_seq, dev, **layouts)
     torch.cuda.empty_cache()
     sync()
     setup_s = time.perf_counter() - t0
-    g = torch.Generator(device=dev).manual_seed(2)
-    prompt = torch.randint(0, cfg.vocab_size, (sz.batch, sz.prompt), generator=g, device=dev)
     torch.cuda.reset_peak_memory_stats()
 
-    counters = (qmm, kv_attention, flash_gqa)
-    for m in counters:
-        m.launches = 0
+    _counts(reset=True)
     cache = eng.init_cache(sz.batch)
     sync()
     t0 = time.perf_counter()
     logits = eng.prefill(prompt, cache)
     sync()
     ttft_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = _counts()
     tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     step_ms = []
     for _ in range(sz.decode_steps):
@@ -293,57 +615,82 @@ def phase_full(torch, dev, sz: Sizes, profile: bool = False):
         tok, step_logits = eng.decode_step(tok, cache)
         sync()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"qmm_w4a8": qmm.launches, "kv_decode_attention": kv_attention.launches,
-                "flash_gqa": flash_gqa.launches}
+    launches = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finite = bool(torch.isfinite(logits).all() and torch.isfinite(step_logits).all())
+    del cache
 
-    log(json.dumps({"phase": "full", "model": "llama3_8b",
-                    "layers": cfg.num_hidden_layers, "batch": sz.batch, "prompt": sz.prompt,
+    log(json.dumps({"phase": "full", "path": path.label, "model": "llama3_8b", "kinds": sorted(set(eng.cm.kinds.values())),
+                    "layers": path.depth, "batch": sz.batch, "prompt": sz.prompt,
                     "decode_steps": sz.decode_steps, "setup_s": setup_s, "ttft_ms": ttft_ms,
                     "decode_ms_per_step_median": statistics.median(step_ms),
                     "decode_ms_per_step_mean": statistics.mean(step_ms),
                     "decode_tok_per_s": sz.batch * 1e3 / statistics.median(step_ms),
-                    "peak_mem_gb": peak_gb, "launches": launches, "logits_finite": finite,
-                    "packed_weight_gb": eng.cm.packed_bytes / 1e9}))
+                    "peak_mem_gb": peak_gb, "launches": launches, "prefill_launches": prefill_launches,
+                    "logits_finite": finite, "packed_weight_gb": eng.cm.packed_bytes / 1e9}))
     if not finite:
-        raise AssertionError("full: non-finite logits")
-    if profile:
-        _profile(torch, "prefill", lambda: eng.prefill(prompt, eng.init_cache(sz.batch)), 1, ttft_ms)
+        raise AssertionError(f"full {path.label}: non-finite logits")
+    want = {path.gemm, "kv_decode_attention", "flash_gqa"}
+    if {k for k, n in launches.items() if n > 0} != want:
+        raise AssertionError(f"full {path.label}: launched {launches}, the path's kernels are {sorted(want)}")
+    if profile and path.depth == params["layers"]["input_layernorm"].shape[0]:
+        _profile(torch, f"{path.label} prefill", lambda: eng.prefill(prompt, eng.init_cache(sz.batch)), 1, ttft_ms)
         pc = eng.init_cache(sz.batch)
         eng.prefill(prompt, pc)
         t = torch.zeros((sz.batch, 1), dtype=torch.int32, device=dev)
-        _profile(torch, "decode step", lambda: [eng.decode_step(t, pc) for _ in range(4)], 4,
+        _profile(torch, f"{path.label} decode step", lambda: [eng.decode_step(t, pc) for _ in range(4)], 4,
                  statistics.median(step_ms))
         del pc
 
-    # The prefill logits against the same engine on the plain versions, by
-    # depth, and against an engine that runs only flash on its plain version
-    # ("flash plain"; prefill runs no KV decode attention). The W4A8 kernel
-    # is bit-exact with its plain version, so the flash-plain engine must
-    # equal the all-plain one exactly at every depth: that shows the whole
-    # kernel-vs-plain gap comes from flash. Flash may round an output one
-    # bf16 ulp apart; with per-token int8 activations such an ulp can move a
-    # code across a rounding boundary, and random (untrained) layers amplify
-    # each flipped code with depth. That gap is held at depth 2 (full
-    # width); deeper rows are reported.
-    for depth in sorted({d for d in (1, 2, 4, 8) if d < cfg.num_hidden_layers} | {cfg.num_hidden_layers}):
-        sub = _truncate(eng.cm, depth)
-        out, flash_plain, ref = (_engine(torch, sub, sz.max_seq, dev, plain).prefill(prompt, _cache(eng, depth, sz))
-                                 for plain in ((), ("flash",), PLAIN_ALL))
+    # The prefill logits against the same engine with this path's GEMM on
+    # its plain version, at depths 1 and 2 (the plain versions are slow; W4A8
+    # keeps its depths 1, 2, 4, 8 and 32). The logits are bf16 values, so one
+    # ulp is 2^-8 (0.4%) of the largest. Held to 5e-2 of the logits' scale at
+    # depth 2, for every path:
+    # - The weight-only GEMMs write bf16; kernel and plain version round the
+    #   same f32 sum, taken in another order, so a few outputs in a thousand
+    #   land one bf16 ulp apart. Each layer re-quantizes k and v to int8
+    #   codes, where such an ulp can move a code across a rounding boundary
+    #   (a step of 1/127 of the range), and random (untrained) layers
+    #   amplify each flipped code with depth.
+    # - W4A8 is bit-exact with its plain version, so its engine is held
+    #   against the all-plain one, and an engine that runs only flash on its
+    #   plain version must equal the all-plain one exactly: that shows the
+    #   whole gap comes from flash, whose outputs may round one bf16 ulp
+    #   apart and flip codes of the per-token int8 activations the same way.
+    # - A path whose preset fake-quantizes the activations (FP8_DEFAULT_CFG:
+    #   e4m3, a step of up to 2^-3 of the value; NVFP4_DEFAULT_CFG: e2m1, a
+    #   step of up to a third of the value) is held with those input
+    #   quantizers switched off, which is the check of its GEMM; the reading
+    #   with them on is reported beside it, not held: there one flipped
+    #   activation code moves a value by 12.5% or more.
+    w4a8 = path.gemm == "qmm_w4a8"
+    for depth in ((1, 2, 4, 8, path.depth) if w4a8 else (1, 2)):
+        subcm = _truncate(eng.cm, depth)
+        plain_gemm = PLAIN_ALL if w4a8 else (PLAIN_NAME[path.gemm],)
+
+        def run(plain, cm=subcm):
+            return _engine(torch, cm, sz.max_seq, dev, plain, **layouts).prefill(prompt, _cache(eng, depth, sz))
+
+        row = {"phase": "full_vs_plain", "path": path.label, "depth": depth}
+        if path.calib:
+            row["with_input_quantizers_rel_err"] = _rel(run(()), run(plain_gemm))
+            subcm = _without_input_quantizers(subcm)
+        out, ref = run((), subcm), run(plain_gemm, subcm)
         rel = _rel(out, ref)
-        agree = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
-        exact = bool(torch.equal(flash_plain, ref))
-        log(json.dumps({"phase": "full_vs_plain", "depth": depth, "prefill_logits_rel_err": rel,
-                        "argmax_agree": agree, "flash_plain_equals_plain": exact,
-                        "flash_plain_rel_err": _rel(flash_plain, ref)}))
-        if not exact:
-            raise AssertionError(f"full: depth {depth}: with only flash plain, the logits differ from plain")
+        row.update(prefill_logits_rel_err=rel,
+                   argmax_agree=float((out.argmax(-1) == ref.argmax(-1)).float().mean()))
+        if w4a8:
+            flash_plain = run(("flash",))
+            row.update(flash_plain_equals_plain=bool(torch.equal(flash_plain, ref)),
+                       flash_plain_rel_err=_rel(flash_plain, ref))
+            del flash_plain
+        log(json.dumps(row))
+        if w4a8 and not row["flash_plain_equals_plain"]:
+            raise AssertionError(f"full w4a8: depth {depth}: with only flash plain, the logits differ from plain")
         if depth == 2 and not rel <= 5e-2:
-            raise AssertionError(f"full: depth-2 prefill logits rel err {rel} vs plain > 5e-2")
-        del out, flash_plain, ref, sub
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"full: a kernel of the path never launched: {launches}")
+            raise AssertionError(f"full {path.label}: depth-2 prefill logits rel err {rel} vs plain > 5e-2")
+        del out, ref, subcm
     return launches
 
 
@@ -353,6 +700,15 @@ def _truncate(cm, depth: int):
                   if isinstance(v, dict) else v[:depth]) for k, v in cm.params["layers"].items()}
     return dataclasses.replace(cm, model_cfg=dataclasses.replace(cm.model_cfg, num_hidden_layers=depth),
                                params={**cm.params, "layers": layers})
+
+
+def _without_input_quantizers(cm):
+    """The same compressed model with every `.input` site disabled."""
+    from tensorrt_model_optimizer_tpu_torch.models.llama import QuantLayout
+    from tensorrt_model_optimizer_tpu_torch.quant.quantizer import DISABLED
+
+    sites = tuple((k, DISABLED if k.endswith(".input") else v) for k, v in cm.layout.sites)
+    return dataclasses.replace(cm, layout=QuantLayout(sites=sites))
 
 
 def _cache(eng, depth: int, sz: Sizes) -> dict:
@@ -375,6 +731,15 @@ KERNELS = {
                             "tensorrt_model_optimizer_tpu/ops/pallas/kv_attention.py:220"),
     "flash_gqa": ("tensorrt_model_optimizer_tpu_torch/csrc/flash_gqa.cu",
                   "tensorrt_model_optimizer_tpu/ops/pallas/flash_gqa.py:80"),
+    # one kernel for one function that the TPU package wrote in several layouts
+    "qmm_int4_wo": ("tensorrt_model_optimizer_tpu_torch/csrc/qmm_int4_wo.cu",
+                    "tensorrt_model_optimizer_tpu/ops/pallas/qmm.py:1184 (qmm_int4_bd2), :189 (qmm_int4), "
+                    ":751 (qmm_int4_word), :871 (qmm_int4_word2)"),
+    "qmm_fp4_wo": ("tensorrt_model_optimizer_tpu_torch/csrc/qmm_fp4_wo.cu",
+                   "tensorrt_model_optimizer_tpu/ops/pallas/qmm.py:997 (qmm_nvfp4_word2), :289 (qmm_nvfp4), "
+                   ":434 (qmm_nvfp4_perm), :651 (qmm_nvfp4_word), :1625 (qmm_nvfp4_bd4)"),
+    "qmm_byte_wo": ("tensorrt_model_optimizer_tpu_torch/csrc/qmm_byte_wo.cu",
+                    "tensorrt_model_optimizer_tpu/ops/pallas/qmm.py:80 (qmm_int8), :122 (qmm_fp8)"),
 }
 
 
@@ -406,6 +771,9 @@ def main(argv=None) -> int:
         phase_anchor(torch, dev, sz)
     if "full" in phases:
         launches = phase_full(torch, dev, sz, "profile" in phases)
+        never = [name for name in KERNELS if not launches.get(name)]
+        if never:
+            raise AssertionError(f"full: kernels that no path launched: {never}")
     out = []
     for name, (src, replaces) in KERNELS.items():
         r = rows.get(name, {})

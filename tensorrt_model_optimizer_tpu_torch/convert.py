@@ -7,9 +7,10 @@ e.g. `jax.tree.map(np.asarray, params)`) into the port's tensors;
 compute the same function. Objects are read by their fields: this module
 imports neither JAX nor the JAX package.
 
-bf16 and fp8 arrays reach numpy as `ml_dtypes` types, which
-`torch.from_numpy` rejects; they cross as a same-width integer view and are
-viewed back as the torch dtype, bit for bit.
+bf16 and fp8 arrays (NVFP4's e4m3 block scales among them) reach numpy as
+`ml_dtypes` types, which `torch.from_numpy` rejects; they cross as a
+same-width integer view and are viewed back as the torch dtype, bit for bit.
+MXFP4's int8 exponents and the f32 global scales cross as they are.
 """
 
 from __future__ import annotations
@@ -104,8 +105,10 @@ def compressed_from_jax(cm, device="cpu") -> CompressedModel:
     if getattr(cm, "adapters", None):
         raise NotImplementedError("SVDQuant adapters come with the calibration-algorithms slice")
     for name, kind in cm.kinds.items():
-        if kind not in ("int4", "int8", "fp8", "bf16"):
-            raise NotImplementedError(f"{name}: JAX kind {kind!r} is not a canonical pack of this slice")
+        if kind not in ("int4", "nvfp4", "mxfp4", "int8", "fp8", "bf16"):
+            raise NotImplementedError(
+                f"{name}: JAX kind {kind!r} is a TPU serving layout; pass the model as "
+                "`quant.compress.compress` returns it (canonical packs)")
     return CompressedModel(
         model_cfg=llama_cfg_from_jax(cm.model_cfg),
         params=params_from_jax(cm.params, device),

@@ -6,8 +6,9 @@ library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/cuda_kernels/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and flags, so an edited
-source rebuilds and an unchanged one is reused. `build_all` starts one
+The library name carries a hash of the source, of the `csrc/*.cuh` headers
+that sources share, and of the flags, so an edited source rebuilds and an
+unchanged one is reused. `build_all` starts one
 `nvcc` per source, all at once. Entry points take every pointer and the
 stream as `void*` and return `cudaGetLastError()` as an int; `check`
 raises when it is not 0. Kernels allocate nothing: wrappers allocate with
@@ -48,8 +49,11 @@ def sources() -> list[str]:
 
 def _target(name: str) -> tuple[str, list[str]]:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    for path in [src] + sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     out = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
     cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-Xptxas", "-v", "-o", out + ".tmp", src]
     return out, cmd

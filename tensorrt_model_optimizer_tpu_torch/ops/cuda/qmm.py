@@ -13,7 +13,8 @@ the blocks in another order (and folds an offset-binary side term), which is
 why the tests hold the two at a 1e-3 relative tolerance.
 
 Layout "int4a8", this port's own (`int4_a8_pack`), chosen for the kernel
-and matched to JAX's "int4w48" by value:
+and matched to JAX's "int4w48" by value (`int4_rows_pack` makes the bytes,
+which the weight-only layout "int4wo" of `ops/cuda/qmm_wo.py` shares):
 
   packed [O, Kp/2] uint8, Kp = K rounded up to the 128-wide block. Each row
       is contiguous in K, so a thread reads 32 codes of one row with one
@@ -41,25 +42,29 @@ A8_BLOCK = 128  # the kernel's K block (one bf16 scale per 128 codes)
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 
 
-def int4_a8_pack(packed: torch.Tensor, scale_lo: torch.Tensor, scale_hi: torch.Tensor) -> dict:
+def int4_rows_pack(packed: torch.Tensor, scale_lo: torch.Tensor, scale_hi: torch.Tensor):
     """Plane-packed int4 [O/2, K] (`quant/compress.py` "int4") + f32 plane
-    block scales [O/2, nblk] -> the "int4a8" arrays (see the docstring)."""
+    block scales [O/2, nblk] -> (row bytes [O, Kp/2] uint8 in the order the
+    docstring gives, f32 scales [nblk, O], K). The last block may be short
+    (K = 704, or one block over K < 128): its tail holds code 0."""
     O2, K = packed.shape
     nblk = scale_lo.shape[-1]
-    ragged = K % nblk != 0 and -(-K // A8_BLOCK) == nblk
-    if K != nblk * A8_BLOCK and not ragged:
+    if -(-K // A8_BLOCK) != nblk:
         raise NotImplementedError(
-            f"W4A8 serving takes 128-wide K blocks, got {nblk} blocks over K={K}; "
-            "other block sizes fall back to weight-only layouts, which come with "
-            "the int4 weight-only slice")
+            f"the int4 kernels take 128-wide K blocks, got {nblk} blocks over K={K}")
     nib = packed.to(torch.int32)
     codes = torch.cat([nib & 0xF, (nib >> 4) & 0xF], dim=0)  # [O, K] two's complement nibbles
     Kp = nblk * A8_BLOCK
     c = torch.nn.functional.pad(codes, (0, Kp - K)).reshape(2 * O2, Kp // 8, 2, 4)
     byte = (c[:, :, 0, :] | (c[:, :, 1, :] << 4)).to(torch.uint8)
-    scales = torch.cat([scale_lo, scale_hi], dim=0).float().to(torch.bfloat16)
-    return {"packed": byte.reshape(2 * O2, Kp // 2).contiguous(),
-            "scales": scales.t().contiguous(), "in_features": K}
+    scales = torch.cat([scale_lo, scale_hi], dim=0).float()
+    return byte.reshape(2 * O2, Kp // 2).contiguous(), scales.t().contiguous(), K
+
+
+def int4_a8_pack(packed: torch.Tensor, scale_lo: torch.Tensor, scale_hi: torch.Tensor) -> dict:
+    """Plane-packed int4 -> the "int4a8" arrays (see the docstring)."""
+    byte, scales, K = int4_rows_pack(packed, scale_lo, scale_hi)
+    return {"packed": byte, "scales": scales.to(torch.bfloat16), "in_features": K}
 
 
 def int4_a8_codes(packed: torch.Tensor) -> torch.Tensor:

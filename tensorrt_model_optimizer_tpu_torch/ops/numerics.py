@@ -1,9 +1,12 @@
 """Quantization numerics on tensors (port of `ops/numerics.py`).
 
-Bit-exact with the JAX reference for the formats this slice serves: the
-integer grids (round half to even, as `torch.round` and `jnp.round` both do),
-the saturating E4M3/E5M2 casts, per-block amax and its expansion, and the
-signed int4 nibble pack. NVFP4, MX and NF4 come with their own slices.
+Bit-exact with the JAX reference: the integer grids (round half to even, as
+`torch.round` and `jnp.round` both do), the saturating E4M3/E5M2 casts, the
+arithmetic mini-float rounding (`fp_round`, `fp4_round`), NVFP4's two-level
+scales, the MX formats' shared E8M0 scale, per-block amax and its expansion,
+and the nibble packs. Exponents and powers of two go through the f32 bit
+pattern (`_floor_log2`, `_exp2i`), so they are exact on every device. NF4
+comes with its own slice.
 """
 
 from __future__ import annotations
@@ -12,7 +15,60 @@ from typing import Optional, Sequence
 
 import torch
 
-from .formats import fp_max_representable, int_max_bound, int_min_bound
+from .formats import fp_emax, fp_max_representable, int_max_bound, int_min_bound
+
+_F32_TINY = 1.1754943508222875e-38  # smallest normal f32, 2^-126
+
+
+def _floor_log2(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2(x)) as int32 for normal positive f32 `x` (the biased
+    exponent field; what `frexp(x)[1] - 1` gives)."""
+    return ((x.view(torch.int32) >> 23) & 0xFF) - 127
+
+
+def _exp2i(e: torch.Tensor) -> torch.Tensor:
+    """Exact f32 2^e for int32 `e` in [-149, 127] (what `ldexp(1.0, e)`
+    gives), built from the bit pattern: subnormal below -126."""
+    e = e.to(torch.int32)
+    normal = (e + 127) << 23
+    sub = torch.ones_like(e) << torch.clamp(e + 149, 0, 22)
+    return torch.where(e >= -126, normal, sub).view(torch.float32)
+
+
+def fp_round(x: torch.Tensor, ebits: int, mbits: int, saturate: bool = True) -> torch.Tensor:
+    """Round `x` to the nearest (E, M) mini-float value, ties to even;
+    normals and subnormals. With `saturate`, magnitudes beyond the largest
+    representable clamp to it."""
+    x = x.float()
+    maxval = fp_max_representable(ebits, mbits)
+    bias = 2 ** (ebits - 1) - 1
+    absx = torch.abs(x)
+    e = _floor_log2(torch.clamp_min(absx, _F32_TINY))
+    # subnormals round on the fixed 2^(1-bias-mbits) grid
+    e = torch.clamp_min(e, 1 - bias)
+    quantum = _exp2i(e - mbits)
+    q = torch.round(x / quantum) * quantum
+    if saturate:
+        q = torch.clamp(q, -maxval, maxval)
+    return torch.where(absx == 0.0, torch.zeros_like(q), q)
+
+
+# E2M1 representable magnitudes, and the midpoints between neighbours
+E2M1_VALUES = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0)
+_E2M1_MIDPOINTS = (0.25, 0.75, 1.25, 1.75, 2.5, 3.5, 5.0)
+
+
+def fp4_round(x: torch.Tensor) -> torch.Tensor:
+    """E2M1 rounding with the reference's decision boundaries: <= 0.25 -> 0,
+    < 0.75 -> 0.5, <= 1.25 -> 1, < 1.75 -> 1.5, <= 2.5 -> 2, < 3.5 -> 3,
+    <= 5 -> 4, else 6 (ties to the even mantissa)."""
+    x = x.float()
+    m = torch.abs(x)
+    mag = torch.full_like(m, 6.0)
+    for le, bound, val in ((True, 5.0, 4.0), (False, 3.5, 3.0), (True, 2.5, 2.0), (False, 1.75, 1.5),
+                           (True, 1.25, 1.0), (False, 0.75, 0.5), (True, 0.25, 0.0)):
+        mag = torch.where(m <= bound if le else m < bound, val, mag)
+    return torch.sign(x) * mag
 
 
 def cast_e4m3(x: torch.Tensor) -> torch.Tensor:
@@ -31,8 +87,19 @@ def fp_cast(x: torch.Tensor, ebits: int, mbits: int) -> torch.Tensor:
         return cast_e4m3(x)
     if (ebits, mbits) == (5, 2):
         return cast_e5m2(x)
-    raise NotImplementedError(
-        f"E{ebits}M{mbits} rounding comes with the NVFP4/MX slice")
+    if (ebits, mbits) == (2, 1):
+        return fp4_round(x)
+    return fp_round(x, ebits, mbits)
+
+
+def e8m0_scale(amax: torch.Tensor, elem_emax: int) -> torch.Tensor:
+    """OCP MX shared scale: 2^(floor(log2(amax)) - emax_elem), clamped to
+    E8M0's [-127, 127]; a zero amax gives 1. A subnormal amax counts as
+    zero, as it does under XLA, which flushes subnormals."""
+    amax = torch.abs(amax.float())
+    e = torch.clamp(_floor_log2(torch.clamp_min(amax, _F32_TINY)) - elem_emax, -127, 127)
+    scale = _exp2i(e)
+    return torch.where(amax < _F32_TINY, torch.ones_like(scale), scale)
 
 
 # --------------------------------------------------------------------------
@@ -156,7 +223,72 @@ def expand_block_scale(scale: torch.Tensor, x_shape, sizes) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# INT4 nibble pack / unpack (two's complement, even index in the low nibble)
+# NVFP4 (E2M1 values, E4M3 block scales, f32 global scale) and MX formats
+# --------------------------------------------------------------------------
+
+NVFP4_GLOBAL_DIV = 6.0 * 448.0
+
+
+def nvfp4_global_scale(global_amax: torch.Tensor) -> torch.Tensor:
+    ga = torch.abs(torch.as_tensor(global_amax).float())
+    s = ga / NVFP4_GLOBAL_DIV
+    return torch.where(ga == 0.0, torch.ones_like(s), s)
+
+
+def nvfp4_block_scale(block_amax: torch.Tensor, global_scale: torch.Tensor) -> torch.Tensor:
+    """Two-level scale: e4m3(block_amax / (6 gs)) * gs, saturated at 448; a
+    block scale that rounds to zero becomes 1."""
+    gs = global_scale.float()
+    s8 = cast_e4m3(block_amax.float() / (6.0 * gs))
+    s8 = torch.where(s8 <= 0.0, torch.ones_like(s8), s8)
+    return s8 * gs
+
+
+def fake_quant_nvfp4(x: torch.Tensor, block_size: int = 16,
+                     global_amax: Optional[torch.Tensor] = None, axis: int = -1) -> torch.Tensor:
+    """NVFP4 fake quant along `axis` with dynamic per-block scales under a
+    global amax (computed from `x` when None)."""
+    dtype = x.dtype
+    x32 = x.float()
+    if global_amax is None:
+        global_amax = torch.amax(torch.abs(x32))
+    gs = nvfp4_global_scale(global_amax)
+    sizes = ((axis % x.ndim, block_size),)
+    sb = nvfp4_block_scale(block_amax_compact(x32, sizes), gs)
+    sb_full = expand_block_scale(sb, x32.shape, sizes)
+    return (fp4_round(x32 / sb_full) * sb_full).to(dtype)
+
+
+def fp4_to_codes(q: torch.Tensor) -> torch.Tensor:
+    """E2M1 values -> 4-bit codes (sign bit | index of the nearest
+    magnitude, the lower index on a tie)."""
+    m = torch.abs(q.float())
+    mids = torch.tensor(_E2M1_MIDPOINTS, dtype=torch.float32, device=m.device)
+    idx = torch.bucketize(m, mids)  # number of midpoints strictly below m
+    sign = (q < 0).to(torch.uint8) << 3
+    return idx.to(torch.uint8) | sign
+
+
+def codes_to_fp4(codes: torch.Tensor) -> torch.Tensor:
+    mags = torch.tensor(E2M1_VALUES, dtype=torch.float32, device=codes.device)
+    c = codes.to(torch.int64)
+    sign = torch.where((c & 0x8) != 0, -1.0, 1.0)
+    return sign * mags[c & 0x7]
+
+
+def fake_quant_mx(x: torch.Tensor, ebits: int, mbits: int, block_size: int = 32,
+                  axis: int = -1) -> torch.Tensor:
+    """MXFP4/6/8 fake quant: per-block E8M0 scale, elements cast to (E, M)."""
+    dtype = x.dtype
+    x32 = x.float()
+    sizes = ((axis % x.ndim, block_size),)
+    scale = e8m0_scale(block_amax_compact(x32, sizes), fp_emax(ebits, mbits))
+    s_full = expand_block_scale(scale, x32.shape, sizes)
+    return (fp_cast(x32 / s_full, ebits, mbits) * s_full).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Nibble pack / unpack (even index in the low nibble); INT4 is two's complement
 # --------------------------------------------------------------------------
 
 

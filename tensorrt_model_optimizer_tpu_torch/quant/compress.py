@@ -3,13 +3,16 @@
 
 `compress_weight` produces the JAX package's canonical packs bit for bit:
 "int4" (plane-packed nibbles, byte[o, k] = nib(w[o + O/2, k]) << 4 |
-nib(w[o, k]), f32 block scales split per plane), "int8" (per-channel),
-"fp8" (per-tensor) and "bf16". NVFP4 and MX packs come with the NVFP4 slice.
+nib(w[o, k]), f32 block scales split per plane), "nvfp4" (E2M1 code planes,
+E4M3 block scales, f32 global scale), "mxfp4" (E2M1 code planes, int8 E8M0
+exponents), "int8" (per-channel), "fp8" (per-tensor) and "bf16".
 
-The serving layout for W4A8 is this port's own, "int4a8": its packer
-`int4_a8_pack` and its decoder live beside the kernel that reads it
-(`ops/cuda/qmm.py`), which says what the bytes hold. `convert_int4_a8`
-turns every "int4" site into it.
+The serving layouts are this port's own, one for each format whatever TPU
+layout name the engine is given: "int4a8" (W4A8), "int4wo", "nvfp4wo" and
+"mxfp4wo" (weight-only). Their packers and decoders live beside the kernels
+that read them (`ops/cuda/qmm.py`, `ops/cuda/qmm_wo.py`), which say what the
+bytes hold. `convert_packed_layouts` turns every 4-bit site into its serving
+layout; "int8" and "fp8" are served as they are.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import torch
 
 from ..models import llama
 from ..ops import numerics
-from ..ops.cuda.qmm import A8_BLOCK, int4_a8_codes, int4_a8_pack
+from ..ops.cuda import qmm_wo
+from ..ops.cuda.qmm import A8_BLOCK, int4_a8_codes, int4_a8_pack, int4_rows_pack
 from . import quantizer as Q
 from .ptq import QuantizedModel
 
@@ -54,8 +58,41 @@ def compress_weight(w: torch.Tensor, cfg: Q.QuantizerConfig,
     base = cfg.sequential[0] if cfg.sequential else cfg
     if not cfg.enable:
         return "bf16", {"w": w.to(torch.bfloat16)}
-    if base.is_fp and (base.num_bits == (2, 1) or (base.block is not None and base.block.scale_bits)):
-        raise NotImplementedError("NVFP4/MX weight packs come with the NVFP4 slice")
+    sbits = base.block.scale_bits if base.block is not None else None
+    if base.is_fp and base.num_bits == (2, 1) and sbits == (4, 3):
+        bsz = min(dict(base.block.sizes).get(-1, 16), w.shape[-1])
+        g_amax = state.amax if state is not None and state.amax is not None else torch.amax(torch.abs(w))
+        gs = numerics.nvfp4_global_scale(g_amax)
+        w32 = w.float()
+        s_val = numerics.cast_e4m3(numerics.block_amax_compact(w32, ((-1, bsz),)) / (6.0 * gs))
+        s_val = torch.where(s_val <= 0.0, torch.ones_like(s_val), s_val)
+        sb_full = numerics.expand_block_scale(s_val * gs, w.shape, ((-1, bsz),))
+        packed = plane_pack(numerics.fp4_to_codes(numerics.fp4_round(w32 / sb_full)))
+        O = w.shape[-2]
+        return "nvfp4", {
+            "packed": packed,
+            "scale_lo": s_val[..., : O // 2, :].to(torch.float8_e4m3fn).contiguous(),
+            "scale_hi": s_val[..., O // 2:, :].to(torch.float8_e4m3fn).contiguous(),
+            "global_scale": gs.float(),
+        }
+    if base.is_fp and sbits == (8, 0):
+        e, m = base.num_bits
+        bsz = min(dict(base.block.sizes).get(-1, 32), w.shape[-1])
+        w32 = w.float()
+        if (e, m) != (2, 1) or w.shape[-1] % bsz or w.shape[-2] % 2:
+            # MXFP6/MXFP8 and ragged shapes: the fake-quantized weight in
+            # bf16 (its values are the MX grid points)
+            return "bf16", {"w": numerics.fake_quant_mx(w32, e, m, bsz).to(torch.bfloat16)}
+        scale = numerics.e8m0_scale(numerics.block_amax_compact(w32, ((-1, bsz),)), numerics.fp_emax(2, 1))
+        s_full = numerics.expand_block_scale(scale, w32.shape, ((-1, bsz),))
+        packed = plane_pack(numerics.fp4_to_codes(numerics.fp4_round(w32 / s_full)))
+        # scale = 2^exp exactly; the clamp is torch's stand-in for XLA's
+        # saturating int8 convert (the exponent lies in [-127, 127] anyway)
+        exp = torch.clamp(numerics._floor_log2(scale), -128, 127).to(torch.int8)
+        O = w.shape[-2]
+        return "mxfp4", {"packed": packed,
+                         "exp_lo": exp[..., : O // 2, :].contiguous(),
+                         "exp_hi": exp[..., O // 2:, :].contiguous()}
     if base.is_fp and base.num_bits == (4, 3):
         amax = state.amax if state is not None else None
         if cfg.sequential and isinstance(amax, tuple):
@@ -128,11 +165,34 @@ def decompress_weight(kind: str, arrays: dict, out_dtype=torch.bfloat16) -> torc
         lo_f = lo.float() * ex(arrays["scale_lo"], lo)
         hi_f = hi.float() * ex(arrays["scale_hi"], hi)
         return torch.cat([lo_f, hi_f], dim=-2).to(out_dtype)
-    if kind == "int4a8":
+    if kind in ("nvfp4", "mxfp4"):
+        p = arrays["packed"]
+        lo = numerics.codes_to_fp4(p & 0xF)
+        hi = numerics.codes_to_fp4((p >> 4) & 0xF)
+        if kind == "nvfp4":
+            gs = arrays["global_scale"]
+            gsb = gs[..., None, None] if gs.ndim else gs
+            s_lo = arrays["scale_lo"].float() * gsb
+            s_hi = arrays["scale_hi"].float() * gsb
+        else:
+            s_lo = numerics._exp2i(arrays["exp_lo"].to(torch.int32))
+            s_hi = numerics._exp2i(arrays["exp_hi"].to(torch.int32))
+        bsz = p.shape[-1] // s_lo.shape[-1]
+        lo_f = lo * numerics.expand_block_scale(s_lo, lo.shape, ((-1, bsz),))
+        hi_f = hi * numerics.expand_block_scale(s_hi, hi.shape, ((-1, bsz),))
+        return torch.cat([lo_f, hi_f], dim=-2).to(out_dtype)
+    if kind in ("int4a8", "int4wo"):
         codes = int4_a8_codes(arrays["packed"]).float()
         sc = numerics.expand_block_scale(arrays["scales"].float().t(), codes.shape,
                                          ((-1, A8_BLOCK),))
         return (codes * sc)[:, : arrays["in_features"]].to(out_dtype)
+    if kind in ("nvfp4wo", "mxfp4wo"):
+        vals = qmm_wo.fp4_rows_values(arrays["packed"])
+        sc = qmm_wo.fp4_rows_scales(arrays["scales"])
+        if kind == "nvfp4wo":
+            sc = sc * arrays["global_scale"]
+        sc = numerics.expand_block_scale(sc, vals.shape, ((-1, qmm_wo.fp4_block(arrays["scales"])),))
+        return (vals * sc)[:, : arrays["in_features"]].to(out_dtype)
     raise NotImplementedError(f"kind {kind!r} is not ported yet")
 
 
@@ -186,20 +246,65 @@ def compress(model: QuantizedModel) -> CompressedModel:
     return CompressedModel(model.model_cfg, params, kinds, model.layout, model.qstate)
 
 
+# TPU layout names the engine accepts, per canonical kind. Every weight-only
+# name maps to the one port layout of its format; the name still decides
+# where the JAX pack rounds the int4 block scales to bf16.
+INT4_LAYOUTS = ("bd2", "word", "word2", "blockdot", "a8")
+FP4_LAYOUTS = ("word2", "word", "perm", "blockdot", "bd4")
+
+
+def word_convert_site(kind: str, arr: dict, layout: str) -> tuple[str, dict]:
+    """Convert ONE packed site ([O/2, K] planes of one layer) to its serving
+    layout: int4 -> "int4a8" (layout "a8") or "int4wo", nvfp4 -> "nvfp4wo",
+    mxfp4 -> "mxfp4wo". Other kinds pass through unchanged."""
+    if kind == "int4":
+        if layout == "xla":
+            raise NotImplementedError(
+                "int4_layout 'xla' (XLA-native s4 storage, no Pallas kernel) comes with the "
+                "remaining-formats slice")
+        if layout not in INT4_LAYOUTS:
+            raise ValueError(f"int4_layout {layout!r}: choices {INT4_LAYOUTS}")
+        if layout == "a8":
+            return "int4a8", int4_a8_pack(arr["packed"], arr["scale_lo"], arr["scale_hi"])
+        byte, scales, K = int4_rows_pack(arr["packed"], arr["scale_lo"], arr["scale_hi"])
+        if layout != "blockdot":  # JAX's bd2 / word / word2 packs round the scales to bf16
+            scales = scales.to(torch.bfloat16).float()
+        return "int4wo", {"packed": byte, "scales": scales, "in_features": K}
+    if kind in ("nvfp4", "mxfp4"):
+        if layout == "i8":
+            raise NotImplementedError(
+                "nvfp4_layout 'i8' (W8A8 serving of an NVFP4 checkpoint) comes with the W8A8 slice")
+        if layout not in FP4_LAYOUTS:
+            raise ValueError(f"nvfp4_layout {layout!r}: choices {FP4_LAYOUTS}")
+        if kind == "nvfp4":
+            byte, scales, K = qmm_wo.fp4_rows_pack(arr["packed"], arr["scale_lo"], arr["scale_hi"], 16)
+            return "nvfp4wo", {"packed": byte, "scales": scales,
+                               "global_scale": arr["global_scale"], "in_features": K}
+        block = arr["packed"].shape[-1] // arr["exp_lo"].shape[-1]
+        byte, scales, K = qmm_wo.fp4_rows_pack(arr["packed"], arr["exp_lo"], arr["exp_hi"], block)
+        if block != qmm_wo.fp4_block(scales):
+            raise NotImplementedError(f"MXFP4 serving takes 32-wide blocks, got {block}")
+        return "mxfp4wo", {"packed": byte, "scales": scales, "in_features": K}
+    return kind, arr
+
+
 @torch.no_grad()
-def convert_int4_a8(cm: CompressedModel) -> CompressedModel:
-    """One-time serving-layout conversion: every "int4" site -> "int4a8"."""
+def convert_packed_layouts(cm: CompressedModel, nvfp4: str = "word2", int4: str = "bd2",
+                           mxfp4: str = "word2") -> CompressedModel:
+    """One-time serving-layout conversion of every packed 4-bit site, one
+    layer at a time. Layout names per format follow
+    `EngineConfig.{nvfp4,int4}_layout`."""
+    want = {"nvfp4": nvfp4, "int4": int4, "mxfp4": mxfp4}
     new_layers = dict(cm.params["layers"])
     kinds = dict(cm.kinds)
     L = cm.model_cfg.num_hidden_layers
     for name, kind in cm.kinds.items():
-        if kind != "int4":
+        if kind not in want:
             continue
-        arr = cm.params["layers"][name]
-        new_layers[name] = _stack_arrays([
-            int4_a8_pack(arr["packed"][i], arr["scale_lo"][i], arr["scale_hi"][i])
-            for i in range(L)])
-        kinds[name] = "int4a8"
+        outs = [word_convert_site(kind, layer_arrays(cm.params["layers"][name], i), want[kind])
+                for i in range(L)]
+        kinds[name] = outs[0][0]
+        new_layers[name] = _stack_arrays([a for _, a in outs])
     params = dict(cm.params)
     params["layers"] = new_layers
     return dataclasses.replace(cm, params=params, kinds=kinds)

@@ -3,8 +3,8 @@
 
 A `QuantizeConfig` maps wildcard patterns over quantizer-site names to
 `QuantizerConfig`s, last matching rule winning, plus a calibration algorithm.
-The presets of the int and fp8 formats keep their JAX names. A preset whose
-format this port does not have yet raises `NotImplementedError` naming the
+The presets of the int, fp8, NVFP4 and MXFP4 formats keep their JAX names. A
+preset whose format or algorithm this port does not have yet raises `NotImplementedError` naming the
 slice that brings it, both through `get_preset` and as a module attribute.
 """
 
@@ -75,7 +75,7 @@ def make_config(quant_cfg: Mapping[str, Any], algorithm: AlgorithmSpec = "max") 
     )
 
 
-# Numerics units (the int and fp8 ones; the JAX package's names)
+# Numerics units (the JAX package's names)
 INT8_PER_CHANNEL = QuantizerConfig(num_bits=8, axis=(0,))
 INT8_PER_TENSOR = QuantizerConfig(num_bits=8)
 INT8_PER_TOKEN_DYNAMIC = QuantizerConfig(num_bits=8, dynamic=True, per_token=True)
@@ -86,6 +86,10 @@ FP8_PER_TOKEN_DYNAMIC = QuantizerConfig(num_bits=(4, 3), dynamic=True, per_token
 FP8_2D_BLOCKWISE_128 = QuantizerConfig(num_bits=(4, 3), block=BlockSpec(sizes=((-2, 128), (-1, 128))))
 FP8_KV = QuantizerConfig(num_bits=(4, 3))
 FP8_KV_CAST = QuantizerConfig(num_bits=(4, 3), constant_amax=448.0)
+NVFP4_BLOCK16 = QuantizerConfig(
+    num_bits=(2, 1), block=BlockSpec(sizes=((-1, 16),), scale_bits=(4, 3), dynamic=True))
+MXFP4_BLOCK32 = QuantizerConfig(
+    num_bits=(2, 1), block=BlockSpec(sizes=((-1, 32),), scale_bits=(8, 0), dynamic=True))
 
 # Sites disabled in every preset (`units/default_disabled_quantizers.yaml`)
 _DEFAULT_DISABLED = {
@@ -118,6 +122,11 @@ FP8_DEFAULT_CFG = _preset(FP8_PER_TENSOR, FP8_PER_TENSOR, "max")
 FP8_PER_CHANNEL_PER_TOKEN_CFG = _preset(FP8_PER_CHANNEL, FP8_PER_TOKEN_DYNAMIC, "max")
 FP8_2D_BLOCKWISE_WEIGHT_ONLY_CFG = _preset(FP8_2D_BLOCKWISE_128, None, "max")
 INT4_BLOCKWISE_WEIGHT_ONLY_CFG = _preset(INT4_PER_BLOCK_128, None, "max")
+NVFP4_DEFAULT_CFG = _preset(NVFP4_BLOCK16, NVFP4_BLOCK16, "max")
+NVFP4_WEIGHT_ONLY_CFG = _preset(NVFP4_BLOCK16, None, "max")
+W4A16_NVFP4_CFG = NVFP4_WEIGHT_ONLY_CFG
+MXFP4_DEFAULT_CFG = _preset(MXFP4_BLOCK32, MXFP4_BLOCK32, "max")
+MXFP4_WEIGHT_ONLY_CFG = _preset(MXFP4_BLOCK32, None, "max")
 
 KV_FP8_RULES = {"*k_bmm_quantizer": FP8_KV, "*v_bmm_quantizer": FP8_KV}
 KV_FP8_CAST_RULES = {"*k_bmm_quantizer": FP8_KV_CAST, "*v_bmm_quantizer": FP8_KV_CAST}
@@ -131,6 +140,11 @@ PRESETS: dict[str, QuantizeConfig] = {
     "FP8_2D_BLOCKWISE_WEIGHT_ONLY_CFG": FP8_2D_BLOCKWISE_WEIGHT_ONLY_CFG,
     "INT4_BLOCKWISE_WEIGHT_ONLY_CFG": INT4_BLOCKWISE_WEIGHT_ONLY_CFG,
     "FP8_KV_CFG": FP8_KV_CFG,
+    "NVFP4_DEFAULT_CFG": NVFP4_DEFAULT_CFG,
+    "NVFP4_WEIGHT_ONLY_CFG": NVFP4_WEIGHT_ONLY_CFG,
+    "W4A16_NVFP4_CFG": W4A16_NVFP4_CFG,
+    "MXFP4_DEFAULT_CFG": MXFP4_DEFAULT_CFG,
+    "MXFP4_WEIGHT_ONLY_CFG": MXFP4_WEIGHT_ONLY_CFG,
 }
 
 # JAX presets whose format or calibration algorithm is not ported yet, with
@@ -144,18 +158,13 @@ UNPORTED_PRESETS: dict[str, str] = {
     "INT4_AWQ_KV_FP8_CFG": "the calibration-algorithms slice (AWQ)",
     "W4A8_AWQ_BETA_CFG": "the calibration-algorithms slice (AWQ)",
     "FP8_KV_AFFINE_CFG": "the calibration-algorithms slice (affine KV bias)",
-    "NVFP4_DEFAULT_CFG": "the NVFP4 slice",
-    "NVFP4_WEIGHT_ONLY_CFG": "the NVFP4 slice",
-    "W4A16_NVFP4_CFG": "the NVFP4 slice",
-    "NVFP4_AWQ_LITE_CFG": "the NVFP4 slice",
-    "NVFP4_ACT_HEADROOM_CFG": "the NVFP4 slice",
-    "NVFP4_KV_CFG": "the NVFP4 slice",
-    "NVFP4_SVDQUANT_CFG": "the NVFP4 slice",
-    "MXFP4_DEFAULT_CFG": "the NVFP4 slice (MXFP4 shares its kernel)",
-    "MXFP4_WEIGHT_ONLY_CFG": "the NVFP4 slice (MXFP4 shares its kernel)",
-    "MXFP6_DEFAULT_CFG": "the NVFP4 slice (MX formats)",
-    "MXFP8_DEFAULT_CFG": "the NVFP4 slice (MX formats)",
-    "NF4_WEIGHT_ONLY_CFG": "the NVFP4 slice (NF4)",
+    "NVFP4_AWQ_LITE_CFG": "the calibration-algorithms slice (AWQ)",
+    "NVFP4_ACT_HEADROOM_CFG": "the calibration-algorithms slice (NVFP4 activation headroom)",
+    "NVFP4_KV_CFG": "the NVFP4-KV slice",
+    "NVFP4_SVDQUANT_CFG": "the calibration-algorithms slice (SVDQuant)",
+    "MXFP6_DEFAULT_CFG": "the remaining-formats slice (MXFP6 packs)",
+    "MXFP8_DEFAULT_CFG": "the remaining-formats slice (MXFP8 packs)",
+    "NF4_WEIGHT_ONLY_CFG": "the remaining-formats slice (NF4)",
 }
 
 

@@ -4,11 +4,12 @@
 `QuantizerConfig` is the same frozen, hashable description of one
 quantization site; `QuantizerState` holds its calibrated tensors. The
 functions are pure: `collect` returns a new state, `quantize` a new tensor.
-This slice covers the int and fp8 formats (static, dynamic per-token or
-per-tensor, and generic dynamic blocks); NVFP4, MX, Hadamard rotation and
-custom backends raise `NotImplementedError` naming the slice that brings them.
-No gradients flow here: QAT's straight-through estimators come with the
-training slice.
+Covered: the int and fp8 formats (static, dynamic per-token or per-tensor,
+and generic dynamic blocks), NVFP4 (dynamic E4M3 block scales under a
+calibrated global amax) and the MX float formats (E8M0 block scales). NF4,
+MXINT, Hadamard rotation and custom backends raise `NotImplementedError`
+naming the slice that brings them. No gradients flow here: QAT's
+straight-through estimators come with the training slice.
 """
 
 from __future__ import annotations
@@ -87,10 +88,12 @@ def _check_ported(cfg: QuantizerConfig) -> None:
         raise NotImplementedError("Hadamard rotation comes with the calibration-algorithms slice")
     if cfg.backend is not None:
         raise NotImplementedError("custom quant backends are not ported")
-    if cfg.block is not None and cfg.block.scale_bits is not None:
+    sb = cfg.block.scale_bits if cfg.block is not None else None
+    nvfp4 = sb == (4, 3) and cfg.num_bits == (2, 1)
+    if sb is not None and not (nvfp4 or (sb == (8, 0) and cfg.is_fp)):
         raise NotImplementedError(
-            "block formats with their own scale format (NVFP4, MX, NF4) come "
-            "with the NVFP4/MX slice")
+            f"block scale format {sb} on num_bits {cfg.num_bits}: NF4 and MXINT come "
+            "with the remaining-formats slice")
 
 
 def _resolve_axes(axis: tuple[int, ...], ndim: int) -> tuple[int, ...]:
@@ -238,6 +241,12 @@ def _dispatch(x, cfg: QuantizerConfig, state: QuantizerState):
     _check_ported(cfg)
     blk = cfg.block
     if blk is not None and _block_dynamic(cfg) and blk.sizes:
+        ax, bsz = blk.sizes[0]
+        if blk.scale_bits == (4, 3):
+            return numerics.fake_quant_nvfp4(x, bsz, state.amax, ax)
+        if blk.scale_bits == (8, 0):
+            e, m = cfg.num_bits
+            return numerics.fake_quant_mx(x, e, m, bsz, ax)
         return _fake_quant(x, cfg, numerics.block_reduce_amax(x.float(), blk.sizes))
     if cfg.dynamic:
         return _fake_quant(x, cfg, _dynamic_amax(x, cfg))

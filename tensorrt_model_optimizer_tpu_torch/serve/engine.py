@@ -2,8 +2,11 @@
 `serve/engine.py`).
 
 Ported path (the JAX engine's `kv_attention_kernel=True` branch):
- - projections: W4A8 ("int4a8": per-token int8 activations x int4 block
-   weights, `ops/cuda/qmm.py`) and bf16;
+ - projections: weight-only INT4 block-128, NVFP4, MXFP4, INT8 per-channel
+   and FP8 per-tensor under bf16 activations (`ops/cuda/qmm_wo.py`; the
+   site's input quantizer, where the preset has one, fake-quantizes the
+   activations first), W4A8 ("int4a8": per-token int8 activations x int4
+   block weights, `ops/cuda/qmm.py`) and bf16;
  - KV cache kv-head-major `[L, B, n_kv, S, hd]` in stored form (bf16, int8
    codes with scale amax/127, or fp8 e4m3 with scale amax/448; an
    uncalibrated amax is 448);
@@ -17,8 +20,13 @@ and the KV cache is updated in place. A decode step writes each layer's new
 cache row right after that layer's attention has read the old rows (JAX
 batches the same writes after its layer scan); the values are the same.
 
-Not in this slice (each raises `NotImplementedError` naming its slice):
-other `int4_layout`s, `kv_attention_kernel=False`, NVFP4 KV, the paged,
+Every TPU layout name of a format maps to the one port layout of that format
+(`quant/compress.py` `word_convert_site`): `bd2_supported`'s quiet fall back
+from bd2 to word2 has no counterpart, because both names are one kernel here.
+
+Not ported (each raises `NotImplementedError` naming its slice):
+`int4_layout="xla"`, `nvfp4_layout="i8"` and W8A8 (int8 weights under an int
+input quantizer), `kv_attention_kernel=False`, NVFP4 KV, the paged,
 tensor-parallel, MoE, sparsity and speculative paths.
 """
 
@@ -34,12 +42,13 @@ from .. import resolve_device
 from ..models import llama
 from ..ops.cuda import flash_gqa as flash_mod
 from ..ops.cuda import kv_attention as kva
-from ..ops.cuda import qmm
+from ..ops.cuda import qmm, qmm_wo
 from ..quant import quantizer as Q
-from ..quant.compress import CompressedModel, convert_int4_a8, layer_arrays
+from ..quant.compress import CompressedModel, convert_packed_layouts, layer_arrays
 from .sampling import SamplingConfig, sample
 
 _KV_DTYPES = (None, torch.bfloat16, torch.int8, torch.float8_e4m3fn)
+_SERVED_KINDS = ("int4a8", "int4wo", "nvfp4wo", "mxfp4wo", "int8", "fp8", "bf16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,29 +56,41 @@ class EngineConfig:
     max_seq_len: int = 2048
     # None = model dtype; torch.int8 / torch.float8_e4m3fn / torch.bfloat16
     kv_dtype: Any = None
-    # INT4 serving layout; this slice serves "a8" (W4A8 on the port's own
-    # Hopper layout, `quant/compress.py` "int4a8")
+    # INT4 serving layout, by its TPU name: "bd2" | "word" | "word2" |
+    # "blockdot" are weight-only (one port layout, "int4wo"; "blockdot" keeps
+    # the f32 block scales, the others round them to bf16 as JAX's packs do),
+    # "a8" is W4A8 ("int4a8")
     int4_layout: str = "bd2"
+    # NVFP4 serving layout, by its TPU name: "word2" | "word" | "perm" |
+    # "blockdot" | "bd4", all one port layout ("nvfp4wo"); MXFP4 follows it
+    nvfp4_layout: str = "word2"
     # the stored-form kv-head-major cache with the attention kernels
     kv_attention_kernel: bool = False
-    # kernels ("w4a8", "kv_attention", "flash") whose plain PyTorch versions
-    # run instead, on any device, to hold the kernel path against them
+    # kernels (names of `PLAIN_ALL`) whose plain PyTorch versions run
+    # instead, on any device, to hold the kernel path against them
     plain_ops: tuple = ()
 
 
-PLAIN_ALL = ("w4a8", "kv_attention", "flash")
+_KERNELS = {  # plain_ops name -> (kernel wrapper, plain version)
+    "w4a8": (qmm.w4a8_matmul, qmm.w4a8_matmul_plain),
+    "kv_attention": (kva.kv_decode_attention, kva.kv_decode_attention_plain),
+    "flash": (flash_mod.flash_attention_gqa, flash_mod.flash_attention_gqa_plain),
+    "int4_wo": (qmm_wo.int4_wo_matmul, qmm_wo.int4_wo_matmul_plain),
+    "fp4_wo": (qmm_wo.fp4_wo_matmul, qmm_wo.fp4_wo_matmul_plain),
+    "byte_wo": (qmm_wo.byte_wo_matmul, qmm_wo.byte_wo_matmul_plain),
+}
+PLAIN_ALL = tuple(_KERNELS)
 
 
-def _ops(plain: tuple):
-    """(w4a8, kv decode attention, flash) callables for this engine."""
+def _ops(plain: tuple) -> dict:
+    """name -> callable for this engine: the kernel's wrapper, or its plain
+    version for the names in `plain`."""
     if set(plain) - set(PLAIN_ALL):
         raise ValueError(f"plain_ops: unknown kernels {sorted(set(plain) - set(PLAIN_ALL))}")
-    return (qmm.w4a8_matmul_plain if "w4a8" in plain else qmm.w4a8_matmul,
-            kva.kv_decode_attention_plain if "kv_attention" in plain else kva.kv_decode_attention,
-            flash_mod.flash_attention_gqa_plain if "flash" in plain else flash_mod.flash_attention_gqa)
+    return {name: pair[name in plain] for name, pair in _KERNELS.items()}
 
 
-def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, w4a8):
+def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, ops):
     """y = q_act(x) @ dequant(W)^T for x [N, K] (2-D)."""
     if kind == "int4a8":
         # per-token dynamic int8 activations, clipped to +-127
@@ -79,12 +100,18 @@ def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, w4a8):
         a_amax = torch.amax(torch.abs(x32), dim=-1, keepdim=True)
         a_scale = torch.where(a_amax == 0, torch.ones_like(a_amax), a_amax / 127.0)
         x8 = torch.clamp(torch.round(x32 / a_scale), -127, 127).to(torch.int8)
-        y = w4a8(x8, arrays["packed"], arrays["scales"])
+        y = ops["w4a8"](x8, arrays["packed"], arrays["scales"])
         return (y * a_scale).to(x.dtype)
+    icfg = cm.layout.get(f"{name}.input")
+    if icfg.enable or (ist is not None and ist.pre_quant_scale is not None):
+        x = Q.quantize(x, icfg, ist)
+    if kind == "int4wo":
+        return ops["int4_wo"](x, arrays["packed"], arrays["scales"])
+    if kind in ("nvfp4wo", "mxfp4wo"):
+        return ops["fp4_wo"](x, arrays["packed"], arrays["scales"], arrays.get("global_scale"))
+    if kind in ("int8", "fp8"):
+        return ops["byte_wo"](x, arrays["q"], arrays["scale"])
     if kind == "bf16":
-        icfg = cm.layout.get(f"{name}.input")
-        if icfg.enable or (ist is not None and ist.pre_quant_scale is not None):
-            x = Q.quantize(x, icfg, ist)
         return x @ arrays["w"].to(x.dtype).t()
     raise NotImplementedError(f"weight kind {kind!r} is served by a later slice")
 
@@ -145,13 +172,13 @@ def _kv_amax_from(qstate, which: str) -> Optional[torch.Tensor]:
 def _layer_forward(cfg, ecfg, cm, x, lp, lstate, kinds, positions, ck, cv, pos, ka, va, ops):
     """One decoder layer on packed weights; ck/cv are this layer's
     [B, n_kv, S, hd] cache, written in place."""
-    w4a8, kv_attn, flash = ops
+    kv_attn, flash = ops["kv_attention"], ops["flash"]
     B, T, H = x.shape
     hd, nH, nKV = cfg.hd, cfg.num_attention_heads, cfg.num_key_value_heads
 
     def lin(inp, name):
         ist = (lstate or {}).get(name, {}).get("input")
-        return _qlinear(inp, name, kinds[name], lp[name], cm, ist, w4a8)
+        return _qlinear(inp, name, kinds[name], lp[name], cm, ist, ops)
 
     h2 = llama.norm(cfg, x, lp["input_layernorm"]).reshape(B * T, H)
     q = llama.rope(lin(h2, "self_attn.q_proj").reshape(B, T, nH, hd), positions,
@@ -204,15 +231,16 @@ class Engine:
                 "paged-serving slice")
         if config.kv_dtype not in _KV_DTYPES:
             raise NotImplementedError(f"kv_dtype {config.kv_dtype!r}: NVFP4 KV comes with the NVFP4-KV slice")
-        if "int4" in cm.kinds.values():
-            if config.int4_layout != "a8":
-                raise NotImplementedError(
-                    f"int4_layout {config.int4_layout!r}: int4 weight-only layouts come with "
-                    "the int4 weight-only slice (qmm_int4_bd2)")
-            cm = convert_int4_a8(cm)
+        cm = convert_packed_layouts(cm, nvfp4=config.nvfp4_layout, int4=config.int4_layout,
+                                    mxfp4=config.nvfp4_layout)
         for name, kind in cm.kinds.items():
-            if kind not in ("int4a8", "bf16"):
+            if kind not in _SERVED_KINDS:
                 raise NotImplementedError(f"{name}: weight kind {kind!r} is served by a later slice")
+            icfg = cm.layout.get(f"{name}.input")
+            if kind == "int8" and icfg.enable and not icfg.is_fp:
+                raise NotImplementedError(
+                    f"{name}: int8 weights under an int input quantizer are W8A8 (int8 x int8 "
+                    "products), which comes with the W8A8 slice; weight-only int8 is served")
         self.cm = cm
         self.cfg = cm.model_cfg
         self.ecfg = config

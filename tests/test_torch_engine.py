@@ -1,6 +1,7 @@
-"""The port's W4A8 + int8-KV + kernel-attention engine against the JAX
-engine (Pallas kernels in interpret mode) on a tiny Llama wide enough that
-every projection takes JAX's w48 layout (K >= 128)."""
+"""The port's int8-KV + kernel-attention engine against the JAX engine
+(Pallas kernels in interpret mode) on a tiny Llama wide enough that every
+projection takes JAX's w48 / bd2 layouts (K >= 128): W4A8, and the
+weight-only formats under the default layout names."""
 
 import jax
 import jax.numpy as jnp
@@ -11,11 +12,13 @@ import torch
 from _torch_parity import llama_params_np, rel_err, tree_map
 from tensorrt_model_optimizer_tpu.models import llama as jllama
 from tensorrt_model_optimizer_tpu.quant import compress as jcompress
+from tensorrt_model_optimizer_tpu.quant import config as jconfig
 from tensorrt_model_optimizer_tpu.quant import ptq as jptq
 from tensorrt_model_optimizer_tpu.serve import engine as jengine
 from tensorrt_model_optimizer_tpu_torch import convert
 from tensorrt_model_optimizer_tpu_torch.models import llama as tllama
 from tensorrt_model_optimizer_tpu_torch.quant import compress as tcompress
+from tensorrt_model_optimizer_tpu_torch.quant import config as tconfig
 from tensorrt_model_optimizer_tpu_torch.quant import ptq as tptq
 from tensorrt_model_optimizer_tpu_torch.serve import engine as tengine
 
@@ -70,13 +73,69 @@ def test_compressed_from_jax_matches_jax_engine(setup):
 
 
 def test_engine_refuses_unported_paths(setup):
-    _, _, _, jcm, _, _ = setup
+    _, pnp, _, jcm, _, _ = setup
     cm = convert.compressed_from_jax(jcm)
-    for bad in (dict(int4_layout="bd2", kv_attention_kernel=True),
+    for bad in (dict(int4_layout="xla", kv_attention_kernel=True),
                 dict(int4_layout="a8", kv_attention_kernel=False),
                 dict(int4_layout="a8", kv_attention_kernel=True, kv_dtype="nvfp4")):
         with pytest.raises(NotImplementedError):
             tengine.Engine(cm, tengine.EngineConfig(**bad), device="cpu")
+    with pytest.raises(ValueError):
+        tengine.Engine(cm, tengine.EngineConfig(int4_layout="bd4", kv_attention_kernel=True), device="cpu")
+    tcfg = tllama.LlamaConfig.tiny(**DIMS)
+    params = tree_map(torch.from_numpy, pnp)
+    kernel_path = tengine.EngineConfig(kv_attention_kernel=True)
+    nv = tcompress.compress(tptq.quantize(tcfg, params, "NVFP4_WEIGHT_ONLY_CFG", device="cpu"))
+    with pytest.raises(NotImplementedError, match="W8A8"):
+        tengine.Engine(nv, tengine.EngineConfig(nvfp4_layout="i8", kv_attention_kernel=True), device="cpu")
+    # INT8_DEFAULT_CFG is W8A8 in the JAX engine (int8 x int8 products): not this slice
+    calib = [torch.from_numpy(np.random.default_rng(2).integers(0, 256, size=(2, 16)))]
+    w8a8 = tcompress.compress(tptq.quantize(tcfg, params, "INT8_DEFAULT_CFG", calib, device="cpu"))
+    with pytest.raises(NotImplementedError, match="W8A8"):
+        tengine.Engine(w8a8, kernel_path, device="cpu")
+
+
+INT8_WEIGHT_ONLY = {"*input_quantizer": {"enable": False}}
+FORMATS = {  # label -> (preset or weight-only INT8 rules, calibrate, JAX serving kind, port kind)
+    "int4_bd2": ("INT4_BLOCKWISE_WEIGHT_ONLY_CFG", False, "int4b2", "int4wo"),
+    "nvfp4_word2": ("NVFP4_DEFAULT_CFG", True, "nvfp4w2", "nvfp4wo"),
+    "mxfp4": ("MXFP4_DEFAULT_CFG", True, "mxfp4w2", "mxfp4wo"),
+    "fp8": ("FP8_DEFAULT_CFG", True, "fp8", "fp8"),
+    "int8_weight_only": (None, False, "int8", "int8"),
+}
+
+
+@pytest.mark.parametrize("fmt", list(FORMATS))
+def test_weight_only_formats_match_jax_engine(setup, fmt):
+    """`EngineConfig()`'s default layouts (int4 "bd2", nvfp4 "word2"): greedy
+    tokens equal to the JAX engine's, from the port's own PTQ and compress
+    and from the JAX model carried across. The presets with input quantizers
+    (NVFP4, MXFP4: dynamic blocks under a calibrated global amax; FP8: static
+    per tensor) are calibrated on the same batch and fake-quantize the
+    activations before the GEMM in both engines."""
+    jcfg, pnp, prompt, _, _, _ = setup
+    preset, need_calib, jkind, tkind = FORMATS[fmt]
+    jq = preset or jconfig.INT8_DEFAULT_CFG.with_rules(INT8_WEIGHT_ONLY)
+    tq = preset or tconfig.INT8_DEFAULT_CFG.with_rules(INT8_WEIGHT_ONLY)
+    calib = np.random.default_rng(2).integers(0, jcfg.vocab_size, size=(2, 16)).astype(np.int32)
+    jm = jptq.quantize(jcfg, tree_map(jnp.asarray, pnp), jq, [jnp.asarray(calib)] if need_calib else None)
+    jcm = jcompress.compress(jm)
+    jeng = jengine.Engine(jcm, jengine.EngineConfig(max_seq_len=32, backend="pallas", kv_dtype=jnp.int8,
+                                                    kv_attention_kernel=True))
+    assert set(jeng.cm.kinds.values()) == {jkind}
+    jlogits, _ = jeng.prefill(jnp.asarray(prompt), jeng.init_cache(2))
+    jtoks = np.asarray(jeng.generate(jnp.asarray(prompt), 8))
+
+    tm = tptq.quantize(tllama.LlamaConfig.tiny(**DIMS), tree_map(torch.from_numpy, pnp), tq,
+                       [torch.from_numpy(calib)] if need_calib else None, device="cpu")
+    if need_calib:  # the calibrated activation amax, from the port's own calibration forward
+        np.testing.assert_allclose(tm.qstate["mlp.down_proj"]["input"].amax.numpy(),
+                                   np.asarray(jm.qstate["mlp.down_proj"]["input"].amax), rtol=1e-5)
+    for cm in (tcompress.compress(tm), convert.compressed_from_jax(jcm)):
+        eng = tengine.Engine(cm, tengine.EngineConfig(max_seq_len=32, kv_dtype=torch.int8,
+                                                      kv_attention_kernel=True), device="cpu")
+        assert set(eng.cm.kinds.values()) == {tkind}
+        _check(eng, prompt, np.asarray(jlogits), jtoks)
 
 
 def test_prefill_needs_empty_cache(setup):
@@ -88,15 +147,18 @@ def test_prefill_needs_empty_cache(setup):
         eng.prefill(torch.from_numpy(prompt), cache)
 
 
-@pytest.mark.parametrize("plain", [(), ("flash",), tengine.PLAIN_ALL])
+@pytest.mark.parametrize("plain", [(), ("flash",), ("int4_wo", "byte_wo"), tengine.PLAIN_ALL])
 def test_plain_ops_picks_each_kernel(plain):
     """`plain_ops` swaps exactly the named kernels for their plain versions."""
-    from tensorrt_model_optimizer_tpu_torch.ops.cuda import flash_gqa, kv_attention, qmm
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import flash_gqa, kv_attention, qmm, qmm_wo
 
-    kernels = (qmm.w4a8_matmul, kv_attention.kv_decode_attention, flash_gqa.flash_attention_gqa)
+    assert tengine.PLAIN_ALL == ("w4a8", "kv_attention", "flash", "int4_wo", "fp4_wo", "byte_wo")
+    kernels = (qmm.w4a8_matmul, kv_attention.kv_decode_attention, flash_gqa.flash_attention_gqa,
+               qmm_wo.int4_wo_matmul, qmm_wo.fp4_wo_matmul, qmm_wo.byte_wo_matmul)
     plains = (qmm.w4a8_matmul_plain, kv_attention.kv_decode_attention_plain,
-              flash_gqa.flash_attention_gqa_plain)
-    want = tuple(p if name in plain else k for name, k, p in zip(tengine.PLAIN_ALL, kernels, plains))
+              flash_gqa.flash_attention_gqa_plain, qmm_wo.int4_wo_matmul_plain,
+              qmm_wo.fp4_wo_matmul_plain, qmm_wo.byte_wo_matmul_plain)
+    want = {name: (p if name in plain else k) for name, k, p in zip(tengine.PLAIN_ALL, kernels, plains)}
     assert tengine._ops(plain) == want
 
 

@@ -1,0 +1,37 @@
+#!/bin/bash
+# Mutation checks of chip_smoke.py's checks of the port's weight-only GEMM
+# kernels (tensorrt_model_optimizer_tpu_torch/csrc/qmm_*_wo.cu). Each case
+# plants one fault in a copy of the tree in a fresh `mktemp -d` directory
+# (under $TMPDIR, removed on exit) and runs `chip_smoke.py --phases
+# build,kernels` there; every case must exit non-zero.
+# Needs one CUDA card and nvcc. Run from the root of the repo:
+#
+#     bash tools/torch_kernel_mutation_check.sh
+#
+# Prints one "MUTATION <name>: exit <code>" line per case with the assertion
+# that caught it; the logs go to build/mutation_logs/mut_<name>.log. Exits 1 if a
+# planted fault went unnoticed.
+set -u
+logs=build/mutation_logs
+mkdir -p "$logs"
+work=$(mktemp -d) || exit 1
+trap 'rm -rf "$work"' EXIT
+missed=0
+run() {  # name, file under csrc/, sed expression
+  rm -rf "$work/tree" && mkdir "$work/tree" && cp -r chip_smoke.py tensorrt_model_optimizer_tpu_torch artifacts "$work/tree/"
+  sed -i "$3" "$work/tree/tensorrt_model_optimizer_tpu_torch/csrc/$2"
+  if diff -q "tensorrt_model_optimizer_tpu_torch/csrc/$2" "$work/tree/tensorrt_model_optimizer_tpu_torch/csrc/$2" >/dev/null; then
+    echo "MUTATION $1: the edit changed nothing (the source moved on: update this script)"; missed=1; return; fi
+  (cd "$work/tree" && python3 chip_smoke.py --phases build,kernels) > "$logs/mut_$1.log" 2>&1; rc=$?
+  echo "MUTATION $1: exit $rc"; grep -E "AssertionError|Error" "$logs/mut_$1.log" | tail -1
+  [ "$rc" -ne 0 ] || missed=1
+}
+# int4: the odd column of each pair takes the even column's block scale
+run int4_scale_col qmm_wo_common.cuh 's/__fmul_rn(part\[i\]\[j\]\[1\], s1)/__fmul_rn(part[i][j][1], s0)/'
+# fp4: the second 16-block of a chunk takes the first block's scale
+run fp4_second_block qmm_fp4_wo.cu 's/const float sc = j < 2 ? s0 : s1;/const float sc = s0;/'
+# main loop: the last 16 k of every K tile are skipped
+run skip_last_k16 qmm_wo_common.cuh 's/for (int kk = 0; kk < BK; kk += 16) {/for (int kk = 0; kk < BK - 16; kk += 16) {/'
+# int4: nibble sign extension dropped (codes 8..15 read as +8..+15)
+run int4_sign qmm_int4_wo.cu 's/__vsub4((v\[j\] \& 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u)/(v[j] \& 0x0F0F0F0Fu)/'
+exit $missed
