@@ -10,14 +10,19 @@ Phases (any failure raises, and the script exits non-zero):
   kernels  each kernel against its plain PyTorch version on the card, at the
            Llama-3.1-8B shapes of the served path, with CUDA-event timings,
            the bound (bytes or operations) and, where PyTorch has one call for
-           the same function (flash, int4 and int8 weight-only), its time.
+           the same function (flash, int4 and int8 weight-only, and SDPA for
+           the bf16 format of the three KV attention kernels), its time.
   anchor   the in-repo trained checkpoint `artifacts/anchor-llama` through
            load -> PTQ -> compress -> int8-KV engine, once for each served
            path (W4A8; INT4, NVFP4, MXFP4, INT8 weight-only; FP8 and NVFP4 with
            their activation quantizers), the
            kernels against the plain versions: each projection's GEMM at the
            checkpoint's shapes, the logits at every greedy step against an
-           f32 yardstick, and for W4A8 equal tokens.
+           f32 yardstick, and for W4A8 equal tokens. Then `Engine.serve` over
+           int8 pages and over packed NVFP4 pages (NVFP4_KV_CFG): page 8, 2
+           slots, 4 requests behind a shared prefix, prefix cache, unroll 1 and
+           4; the paged kernels against their plain versions in lock step, and
+           every served token against the dense-cache engine.
   full     Llama-3.1-8B at full width (seeded random bf16 weights on the
            card, made once): for each path of `FULL_PATHS`, PTQ -> compress ->
            engine, batch 8 x 2048-token prompts then 32 decode steps. W4A8,
@@ -26,7 +31,12 @@ Phases (any failure raises, and the script exits non-zero):
            and read after it; the prefill logits are held against the plain
            version of that path's GEMM at depths 1 and 2, and for W4A8 at
            depths 1, 2, 4, 8 and 32 against the all-plain engine and an engine
-           that runs only flash attention on its plain version.
+           that runs only flash attention on its plain version. The INT4 path
+           then serves 12 requests (1024-token prompts behind a 256-token
+           shared prefix) through `Engine.serve` over int8 pages: 8 slots,
+           page 16, prefix cache, unroll 4, all 32 layers; and on 4 layers
+           NVFP4_KV_CFG serves packed NVFP4 pages and generates over the dense
+           NVFP4 KV cache at batch 8 x 2048.
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -60,6 +70,8 @@ class Sizes:
     qmm_rows: tuple = (8, 16384)
     kv: tuple = (8, 8, 4, 128, 2560, 2048)  # B, n_kv, rep, hd, S, pos
     flash: tuple = (8, 32, 8, 2048, 128)  # B, H, Hkv, T, d
+    page: int = 16      # rows of a KV page
+    chunk: int = 64     # tokens of a paged prefill chunk (`Engine.prefill_chunked`)
     batch: int = 8
     prompt: int = 2048
     decode_steps: int = 32
@@ -120,7 +132,7 @@ def _rel(a, b) -> float:
 
 
 def phase_kernels(torch, dev, sz: Sizes, timer: Timer, rows: dict):
-    from tensorrt_model_optimizer_tpu_torch.ops.cuda import flash_gqa, kv_attention, qmm
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import flash_gqa, qmm
 
     g = torch.Generator(device=dev).manual_seed(0)
     # --- W4A8 GEMM: the kernel is bit-exact with its plain version by design
@@ -152,35 +164,7 @@ def phase_kernels(torch, dev, sz: Sizes, timer: Timer, rows: dict):
 
     _phase_kernels_wo(torch, dev, sz, timer, rows, g)
 
-    # --- KV decode attention: f32 online softmax vs torch.softmax; 1e-5 of
-    # the output's scale (f32 rounding of sums taken in another order).
-    B, n_kv, rep, hd, S, pos = sz.kv
-    shapes = []
-    for fmt, dtype in (("int8", torch.int8), ("bf16", torch.bfloat16), ("fp8", torch.float8_e4m3fn)):
-        q = torch.randn((B, n_kv * rep, hd), generator=g, device=dev) / math.sqrt(hd)
-        if fmt == "int8":
-            kc, vc = (torch.randint(-128, 128, (B, n_kv, S, hd), generator=g, device=dev,
-                                    dtype=torch.int32).to(dtype) for _ in range(2))
-            q = q / 40.0
-        else:
-            kc, vc = ((torch.randn((B, n_kv, S, hd), generator=g, device=dev) * 2).to(dtype) for _ in range(2))
-        kn, vn = (torch.randn((B, n_kv, 1, hd), generator=g, device=dev) for _ in range(2))
-        out = kv_attention.kv_decode_attention(q, kc, vc, kn, vn, pos, fmt)
-        ref = kv_attention.kv_decode_attention_plain(q, kc, vc, kn, vn, pos, fmt)
-        rel = _rel(out, ref)
-        if not rel <= 1e-5:
-            raise AssertionError(f"kv_decode_attention {fmt}: rel err {rel} > 1e-5")
-        ms = timer(lambda: kv_attention.kv_decode_attention(q, kc, vc, kn, vn, pos, fmt), sz.reps)
-        plain_ms = timer(lambda: kv_attention.kv_decode_attention_plain(q, kc, vc, kn, vn, pos, fmt),
-                         max(2, sz.reps // 4))
-        item = kc.element_size()
-        nbytes = 2 * B * n_kv * pos * hd * item + 2 * B * n_kv * hd * 4 + 2 * q.numel() * 4
-        b_ms, b_by = bound(nbytes, 4.0 * B * n_kv * rep * (pos + 1) * hd, "bf16")
-        shapes.append({"shape": f"{fmt} B={B} n_kv={n_kv} rep={rep} S={S} pos={pos}",
-                       "max_abs_err": float((out - ref).abs().max()), "rel_err": rel, "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-        log(json.dumps({"kernel": "kv_decode_attention", **shapes[-1]}))
-    rows["kv_decode_attention"] = dict(shapes[0], shapes=shapes)
+    _phase_kernels_kv(torch, dev, sz, timer, rows, g)
 
     # --- flash GQA: bf16 out. Each element is held against the plain
     # version's f32 result (bf16 inputs, f32 softmax, before the bf16 cast):
@@ -216,6 +200,222 @@ def phase_kernels(torch, dev, sz: Sizes, timer: Timer, rows: dict):
              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
     log(json.dumps({"kernel": "flash_gqa", **shape}))
     rows["flash_gqa"] = dict(shape, shapes=[shape])
+
+
+def _stored_rows(torch, dev, g, shape, fmt):
+    """Seeded random K or V rows [..., hd] in stored form: (rows, NVFP4
+    block-scale bytes or None, a factor that brings q.k to a few units)."""
+    if fmt == "int8":
+        return torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int32).to(torch.int8), None, 1 / 40.0
+    if fmt == "nvfp4":
+        *lead, hd = shape
+        planes = torch.randint(0, 256, (*lead, hd // 2), generator=g, device=dev, dtype=torch.int32).to(torch.uint8)
+        # e4m3 block scales 2^-3 .. 2^2 with random mantissas
+        scales = (torch.randint(0, 48, (*lead, hd // 16), generator=g, device=dev, dtype=torch.int32) + 0x20).to(torch.uint8)
+        return planes, scales, 1 / 4.0
+    dtype = torch.bfloat16 if fmt == "bf16" else torch.float8_e4m3fn
+    return (torch.randn(shape, generator=g, device=dev) * 2).to(dtype), None, 1.0
+
+
+def _kv_row_bytes(fmt: str, hd: int) -> float:
+    """Stored bytes of one K or V row (NVFP4: planes and block scales)."""
+    return {"bf16": 2 * hd, "int8": hd, "fp8": hd, "nvfp4": hd // 2 + hd // 16}[fmt]
+
+
+KV_FORMATS = ("int8", "bf16", "fp8", "nvfp4")
+
+
+def _phase_kernels_kv(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
+    """The three KV-cache attention kernels against their plain versions at
+    the 8B shapes (32 heads over 8 kv heads of 128, pages of 16 rows), in
+    every stored form, and the NVFP4 decoder on every code."""
+    from tensorrt_model_optimizer_tpu_torch.ops import numerics
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import kv_attention, paged_attention
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, n_kv, rep, hd, S, pos = sz.kv
+    nH, page = n_kv * rep, sz.page
+
+    # --- the NVFP4 decoder, exactly: V rows that hold all 16 E2M1 codes under
+    # every non-negative finite E4M3 scale byte (0x00 .. 0x7e; 0x7f, NaN, never
+    # occurs) go through each kernel as the only live row, where softmax gives
+    # it the weight 1 (the dense kernel's current token scores -1e4, and
+    # exp(-1e4) is 0), so the output is the decoded row bit for bit.
+    nrow = 2 * n_kv
+    planes = (torch.arange(hd // 2, device=dev) % 16 * 0x11).to(torch.uint8).expand(nrow, hd // 2)
+    sbytes = torch.arange(nrow * hd // 16, device=dev).reshape(nrow, hd // 16)
+    sbytes = torch.where(sbytes > 0x7E, torch.zeros_like(sbytes), sbytes).to(torch.uint8)
+    want = numerics.nvfp4_planes_code_load(planes, sbytes).reshape(2, n_kv, 1, hd).expand(2, n_kv, rep, hd)
+    want = want.reshape(2, nH, hd)
+    q = torch.zeros((2, nH, hd), device=dev)
+    q[..., 0] = 1.0
+    dense = lambda t, last: t.reshape(2, n_kv, 1, last).expand(2, n_kv, 4, last).contiguous()  # noqa: E731
+    kn = torch.zeros((2, n_kv, 1, hd), device=dev)
+    kn[..., 0] = -1e4
+    pool = lambda t, last: torch.cat([torch.zeros((1, n_kv, page, last), dtype=torch.uint8, device=dev),  # noqa: E731
+                                      t.reshape(2, n_kv, 1, last).expand(2, n_kv, page, last)]).contiguous()
+    one = torch.ones(2, dtype=torch.int32, device=dev)
+    table = torch.tensor([[1], [2]], dtype=torch.int32, device=dev)
+    chunk = lambda t, last: t.reshape(2, 1, n_kv, last).contiguous()  # noqa: E731
+    got = {
+        "kv_decode_attention": kv_attention.kv_decode_attention(
+            q, dense(planes, hd // 2), dense(planes, hd // 2), kn, torch.zeros_like(kn), 1, "nvfp4",
+            dense(sbytes, hd // 16), dense(sbytes, hd // 16)),
+        "paged_attention_decode": paged_attention.paged_attention_decode(
+            q, pool(planes, hd // 2), pool(planes, hd // 2), table, one, "nvfp4",
+            pool(sbytes, hd // 16), pool(sbytes, hd // 16)),
+        "paged_attention_prefill": paged_attention.paged_attention_prefill(
+            q[:, None], pool(planes, hd // 2), pool(planes, hd // 2), table, torch.zeros_like(one),
+            chunk(planes, hd // 2), chunk(planes, hd // 2), "nvfp4", pool(sbytes, hd // 16), pool(sbytes, hd // 16),
+            chunk(sbytes, hd // 16), chunk(sbytes, hd // 16))[:, 0],
+    }
+    torch.cuda.synchronize()
+    for name, y in got.items():
+        if not torch.equal(y, want):
+            bad = torch.nonzero(y != want)
+            raise AssertionError(f"{name}: NVFP4 decode differs from nvfp4_planes_code_load at {len(bad)} of "
+                                 f"{want.numel()} values, first (row, head, dim) {bad[0].tolist()}")
+    log(json.dumps({"kernel": "kv_decode_attention, paged_attention_decode, paged_attention_prefill",
+                    "check": "NVFP4 decode: 16 E2M1 codes x 127 E4M3 scale bytes exact"}))
+
+    # --- dense decode attention: f32 online softmax vs torch.softmax; 1e-5 of
+    # the output's scale (f32 rounding of sums taken in another order). The
+    # bf16 format has a library call: SDPA over the valid rows and the current
+    # token, concatenated outside the timed call; it takes q, the current token
+    # and the output in bf16, so it is held to 1e-2 of the output's scale.
+    shapes = []
+    for fmt in KV_FORMATS:
+        kc, ks, qf = _stored_rows(torch, dev, g, (B, n_kv, S, hd), fmt)
+        vc, vs, _ = _stored_rows(torch, dev, g, (B, n_kv, S, hd), fmt)
+        q = torch.randn((B, nH, hd), generator=g, device=dev) / math.sqrt(hd) * qf
+        kn, vn = (torch.randn((B, n_kv, 1, hd), generator=g, device=dev) for _ in range(2))
+        args = (q, kc, vc, kn, vn, pos, fmt, ks, vs)
+        out = kv_attention.kv_decode_attention(*args)
+        ref = kv_attention.kv_decode_attention_plain(*args)
+        rel = _rel(out, ref)
+        if not rel <= 1e-5:
+            raise AssertionError(f"kv_decode_attention {fmt}: rel err {rel} > 1e-5")
+        ms = timer(lambda: kv_attention.kv_decode_attention(*args), sz.reps)
+        plain_ms = timer(lambda: kv_attention.kv_decode_attention_plain(*args), max(2, sz.reps // 4))
+        lib_ms = lib_rel = None
+        if fmt == "bf16":
+            qb = q.to(torch.bfloat16)[:, :, None]
+            kk = torch.cat([kc[:, :, :pos], kn.to(torch.bfloat16)], dim=2)
+            vv = torch.cat([vc[:, :, :pos], vn.to(torch.bfloat16)], dim=2)
+            lib = lambda: sdpa(qb, kk, vv, scale=1.0, enable_gqa=True)  # noqa: E731
+            lib_rel = _rel(lib()[:, :, 0].float(), ref)
+            if not lib_rel <= 1e-2:
+                raise AssertionError(f"kv_decode_attention bf16: SDPA is {lib_rel} of the output's scale from the "
+                                     "plain version: not the same function")
+            lib_ms = timer(lib, sz.reps)
+        nbytes = 2 * B * n_kv * pos * _kv_row_bytes(fmt, hd) + 2 * B * n_kv * hd * 4 + 2 * q.numel() * 4
+        b_ms, b_by = bound(nbytes, 4.0 * B * nH * (pos + 1) * hd, "bf16")
+        shapes.append({"shape": f"{fmt} B={B} n_kv={n_kv} rep={rep} S={S} pos={pos}",
+                       "max_abs_err": float((out - ref).abs().max()), "rel_err": rel, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                       "library_rel_err": lib_rel})
+        log(json.dumps({"kernel": "kv_decode_attention", **shapes[-1]}))
+        del kc, vc, ks, vs
+    rows["kv_decode_attention"] = dict(shapes[0], shapes=shapes)
+
+    # --- the paged kernels: bf16 queries and outputs as the engine gives and
+    # takes them, held per element against the plain version's f32 result
+    # (`_held`: the bf16 rounding of the output plus the f32 sums' order).
+    # Pages come from a shuffled pool; table entries past a sequence's live
+    # pages are -1. The bf16 format's library call is SDPA over K/V gathered
+    # outside the timed call, with the lengths as a mask; it rounds its
+    # probabilities to bf16, so it is held to 1e-2 of the output's scale (rows
+    # of a sequence with no live row apart: SDPA gives NaN there, the kernels 0).
+    def paged_pool(fmt, lens, max_pages):
+        n_pages = 1 + B * max_pages
+        kp, ksp, qf = _stored_rows(torch, dev, g, (n_pages, n_kv, page, hd), fmt)
+        vp, vsp, _ = _stored_rows(torch, dev, g, (n_pages, n_kv, page, hd), fmt)
+        perm = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1).to(torch.int32).reshape(B, max_pages)
+        live = torch.arange(max_pages, device=dev)[None] * page < torch.tensor(lens, device=dev)[:, None]
+        table = torch.where(live, perm, torch.full_like(perm, -1))
+        return kp, vp, ksp, vsp, qf, table, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def gathered(pages, table):
+        return pages[table.clamp_min(0).long()].permute(0, 2, 1, 3, 4).reshape(B, n_kv, -1, hd)
+
+    shapes = []
+    for fmt in KV_FORMATS:
+        for what, lens in (("uniform", [2048] * B), ("ragged", [2048, 1153, 1024, 513, 17, 16, 1, 0][:B])):
+            kp, vp, ksp, vsp, qf, table, tl = paged_pool(fmt, lens, 2048 // page + 2)
+            q = (torch.randn((B, nH, hd), generator=g, device=dev) * qf).to(torch.bfloat16)
+            kind = "nvfp4" if fmt == "nvfp4" else "raw"
+            args = (q, kp, vp, table, tl, kind, ksp, vsp)
+            out = paged_attention.paged_attention_decode(*args)
+            ref32 = paged_attention.paged_attention_decode_plain(*args, out_dtype=torch.float32)
+            worst, err = _held(out, ref32)
+            if not worst <= 1.0:
+                raise AssertionError(f"paged_attention_decode {fmt} {what}: worst err/limit {worst} > 1 "
+                                     f"(2^-8|ref| + 1e-3 rms(ref)), max abs err {err}")
+            ms = timer(lambda: paged_attention.paged_attention_decode(*args), sz.reps)
+            plain_ms = timer(lambda: paged_attention.paged_attention_decode_plain(*args), max(2, sz.reps // 4))
+            lib_ms = lib_rel = None
+            if fmt == "bf16":
+                kk, vv = gathered(kp, table), gathered(vp, table)
+                mask = (torch.arange(kk.shape[2], device=dev)[None] < tl[:, None])[:, None, None, :]
+                lib = lambda: sdpa(q[:, :, None], kk, vv, attn_mask=mask, enable_gqa=True)  # noqa: E731
+                some = tl > 0
+                lib_rel = _rel(lib()[:, :, 0].float()[some], ref32[some])
+                if not lib_rel <= 1e-2:
+                    raise AssertionError(f"paged_attention_decode bf16 {what}: SDPA is {lib_rel} of the output's "
+                                         "scale from the plain version: not the same function")
+                lib_ms = timer(lib, sz.reps)
+                del kk, vv
+            nbytes = 2 * n_kv * sum(lens) * _kv_row_bytes(fmt, hd) + 2 * q.numel() * 2 + table.numel() * 4
+            b_ms, b_by = bound(nbytes, 4.0 * nH * sum(lens) * hd, "bf16")
+            shapes.append({"shape": f"{fmt} {what} B={B} n_kv={n_kv} rep={rep} page={page} lens={lens}",
+                           "max_abs_err": err, "worst_err_over_limit": worst, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "library_rel_err": lib_rel})
+            log(json.dumps({"kernel": "paged_attention_decode", **shapes[-1]}))
+            del kp, vp, ksp, vsp, ref32
+    rows["paged_attention_decode"] = dict(shapes[0], shapes=shapes)
+
+    shapes = []
+    cases = [(fmt, sz.chunk, [1024, 960, 256, 70, 64, 1, 0, 0][:B]) for fmt in KV_FORMATS]
+    cases += [(fmt, 5, [1024, 37, 256, 70, 64, 1, 0, 0][:B]) for fmt in ("int8", "nvfp4")]  # T not a multiple of 8
+    for fmt, T, ctx in cases:
+        kp, vp, ksp, vsp, qf, table, tl = paged_pool(fmt, ctx, 1024 // page + 2)
+        ck, cks, _ = _stored_rows(torch, dev, g, (B, T, n_kv, hd), fmt)
+        cv, cvs, _ = _stored_rows(torch, dev, g, (B, T, n_kv, hd), fmt)
+        q = (torch.randn((B, T, nH, hd), generator=g, device=dev) * qf).to(torch.bfloat16)
+        kind = "nvfp4" if fmt == "nvfp4" else "raw"
+        args = (q, kp, vp, table, tl, ck, cv, kind, ksp, vsp, cks, cvs)
+        out = paged_attention.paged_attention_prefill(*args)
+        ref32 = paged_attention.paged_attention_prefill_plain(*args, out_dtype=torch.float32)
+        worst, err = _held(out, ref32)
+        if not worst <= 1.0:
+            raise AssertionError(f"paged_attention_prefill {fmt} T={T}: worst err/limit {worst} > 1 "
+                                 f"(2^-8|ref| + 1e-3 rms(ref)), max abs err {err}")
+        ms = timer(lambda: paged_attention.paged_attention_prefill(*args), sz.reps)
+        plain_ms = timer(lambda: paged_attention.paged_attention_prefill_plain(*args), max(2, sz.reps // 4))
+        lib_ms = lib_rel = None
+        if fmt == "bf16":
+            kk = torch.cat([gathered(kp, table), ck.transpose(1, 2)], dim=2)
+            vv = torch.cat([gathered(vp, table), cv.transpose(1, 2)], dim=2)
+            Sc = kk.shape[2] - T
+            t = torch.arange(T, device=dev)
+            mask = torch.cat([(torch.arange(Sc, device=dev)[None] < tl[:, None])[:, None, :].expand(B, T, Sc),
+                              (t[None, :] <= t[:, None])[None].expand(B, T, T)], dim=-1)[:, None]
+            lib = lambda: sdpa(q.transpose(1, 2), kk, vv, attn_mask=mask, enable_gqa=True)  # noqa: E731
+            lib_rel = _rel(lib().transpose(1, 2).float(), ref32)
+            if not lib_rel <= 1e-2:
+                raise AssertionError(f"paged_attention_prefill bf16: SDPA is {lib_rel} of the output's scale from "
+                                     "the plain version: not the same function")
+            lib_ms = timer(lib, sz.reps)
+            del kk, vv, mask
+        rows_read = sum(ctx) + B * T
+        nbytes = 2 * n_kv * rows_read * _kv_row_bytes(fmt, hd) + 2 * q.numel() * 2 + table.numel() * 4
+        b_ms, b_by = bound(nbytes, 4.0 * nH * T * hd * sum(c + T for c in ctx), "bf16")
+        shapes.append({"shape": f"{fmt} B={B} T={T} n_kv={n_kv} rep={rep} page={page} ctx={ctx}",
+                       "max_abs_err": err, "worst_err_over_limit": worst, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "library_rel_err": lib_rel})
+        log(json.dumps({"kernel": "paged_attention_prefill", **shapes[-1]}))
+        del kp, vp, ksp, vsp, ref32
+    rows["paged_attention_prefill"] = dict(shapes[0], shapes=shapes)
 
 
 def _held(out, ref32) -> tuple[float, float]:
@@ -351,11 +551,14 @@ def _phase_kernels_wo(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
         rows[name] = dict(sh[0], shapes=sh)
 
 
-def _engine(torch, cm, max_seq: int, dev, plain: tuple = (), **layouts):
+def _engine(torch, cm, max_seq: int, dev, plain: tuple = (), kv="int8", **fields):
+    """The kernel-attention engine; `kv` "int8" or None (the model's dtype,
+    or packed NVFP4 where the preset quantizes the k_bmm site so); `fields`
+    are further EngineConfig fields (layouts, paged_attention_kernel)."""
     from tensorrt_model_optimizer_tpu_torch.serve.engine import Engine, EngineConfig
 
-    return Engine(cm, EngineConfig(max_seq_len=max_seq, kv_dtype=torch.int8, kv_attention_kernel=True,
-                                   plain_ops=plain, **layouts), device=dev)
+    return Engine(cm, EngineConfig(max_seq_len=max_seq, kv_dtype=torch.int8 if kv == "int8" else kv,
+                                   kv_attention_kernel=True, plain_ops=plain, **fields), device=dev)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -396,19 +599,22 @@ FULL_PATHS = (
 
 # kernel name (KERNELS) -> the engine's `plain_ops` name
 PLAIN_NAME = {"qmm_w4a8": "w4a8", "kv_decode_attention": "kv_attention", "flash_gqa": "flash",
-              "qmm_int4_wo": "int4_wo", "qmm_fp4_wo": "fp4_wo", "qmm_byte_wo": "byte_wo"}
+              "qmm_int4_wo": "int4_wo", "qmm_fp4_wo": "fp4_wo", "qmm_byte_wo": "byte_wo",
+              "paged_attention_decode": "paged_decode", "paged_attention_prefill": "paged_prefill"}
+PAGED_PLAIN = ("paged_decode", "paged_prefill")
 
 
 def _counts(reset: bool = False) -> dict:
     """Launch counts of every kernel's wrapper; `reset` sets them to 0."""
-    from tensorrt_model_optimizer_tpu_torch.ops.cuda import flash_gqa, kv_attention, qmm, qmm_wo
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import flash_gqa, kv_attention, paged_attention, qmm, qmm_wo
 
     if reset:
         qmm.launches = kv_attention.launches = flash_gqa.launches = 0
-        for k in qmm_wo.launches:
-            qmm_wo.launches[k] = 0
+        for counts in (qmm_wo.launches, paged_attention.launches):
+            for k in counts:
+                counts[k] = 0
     return {"qmm_w4a8": qmm.launches, "kv_decode_attention": kv_attention.launches,
-            "flash_gqa": flash_gqa.launches, **qmm_wo.launches}
+            "flash_gqa": flash_gqa.launches, **qmm_wo.launches, **paged_attention.launches}
 
 
 def _compressed(torch, path: Path, cfg, params, dev, seed: int):
@@ -540,6 +746,156 @@ def phase_anchor(torch, dev, sz: Sizes):
             raise AssertionError("anchor w4a8: kernel-path tokens differ from plain")
         if launched <= 0:
             raise AssertionError(f"anchor {path.label}: {path.gemm} never launched")
+    for path, kv in PAGED_PATHS:
+        _anchor_paged(torch, dev, cfg, params, path, kv)
+
+
+PAGED_ANCHOR = dict(n_pages=64, page_size=8, max_slots=2, max_pages_per_seq=16)
+PAGED_PATHS = (  # (path, EngineConfig.kv_dtype): int8 pages, and the packed NVFP4 pool NVFP4_KV_CFG selects
+    (Path("int4 + int8 pages", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_int4_wo"), "int8"),
+    (Path("nvfp4_kv (packed NVFP4 pages)", "NVFP4_KV_CFG", "qmm_fp4_wo", depth=4, calib=True), None),
+)
+
+
+def _gaps(logits, ref) -> tuple[list, list]:
+    """Per row: the largest logit difference as a share of the reference's
+    largest magnitude; and, where the argmax differs, how far below its best
+    logit the reference holds the other's token (as a share of that scale)."""
+    scale = ref.abs().max(dim=-1).values
+    gaps = ((logits - ref).abs().max(dim=-1).values / scale).tolist()
+    tok = logits.argmax(dim=-1)
+    margin = (ref.max(dim=-1).values - ref.gather(1, tok[:, None])[:, 0]) / scale
+    return gaps, [float(m) for m in margin[tok != ref.argmax(dim=-1)]]
+
+
+def _dense_margins(torch, eng, prompt, served: list) -> list:
+    """The dense-cache engine fed a request's served tokens: at every step,
+    how far below its best logit it holds the served token (a share of the
+    logits' scale; 0 where it is the engine's own greedy token)."""
+    cache = eng.init_cache(1)
+    logits = eng.prefill(prompt[None], cache)
+    margins = []
+    for t in served:
+        margins.append(float((logits.max() - logits[0, t]) / logits.abs().max()))
+        logits = eng.decode_step(torch.tensor([[t]], dtype=torch.int32, device=prompt.device), cache)[1]
+    return margins
+
+
+def _anchor_paged(torch, dev, cfg, params, path: Path, kv) -> None:
+    """`Engine.serve` on the trained checkpoint over pages of 8 rows and 2
+    slots, kernel engine against plain versions.
+
+    In lock step: two engines (the paged and the dense decode attention on
+    their kernels, or on their plain versions) fill the same slots. Slot 0
+    prefills 40 tokens densely; slot 1 shares slot 0's two full prefix pages
+    and streams its 72-token tail through `prefill_chunked` (one chunk of 64
+    through the prefill kernel, 8 single tokens through the decode kernel);
+    then 12 decode steps run both slots on the kernel engine's tokens. The
+    logits are held as the weight-only GEMMs are above: kernel and plain
+    version round the same f32 sums to bf16 one ulp apart now and then, the
+    quantized pages turn some of those into a flipped code, so the median gap
+    may be at most 1e-2 of the logits' scale and every argmax flip must lie at
+    a plain-logit margin <= 1e-2.
+
+    Then `serve` itself, with the prefix cache, unroll 1 and 4: 4 requests of
+    unequal length behind a 16-token prefix. Request 0 outlives the others and
+    keeps the prefix pages published, so requests 2 and 3 share them and
+    prefill only their tails (72 tokens: through the prefill kernel). Every
+    output has its length, the pool is whole again at the end, both prefill
+    routes were taken and both paged kernels launched.
+
+    Against `Engine.generate`: the dense-cache engine is fed each request's
+    served tokens, and how far below its own best logit it holds each of them
+    is the margin. In bf16 the margins are reported, not held: the paged path
+    rounds q and the context to bf16 where the dense path keeps f32, and on
+    this checkpoint bf16 rounding alone moves near-tied positions by much of
+    the logits' scale. They are held on f32 activations, where the two paths
+    differ only by f32 rounding and the codes it flips: a third engine runs
+    the GEMMs and flash on their plain versions in f32 and the three KV
+    attention kernels as kernels, and every token it serves must lie within
+    1e-2 of the logits' scale of what it gives over its dense cache."""
+    from tensorrt_model_optimizer_tpu_torch.serve.scheduler import Request
+
+    cm = _compressed(torch, path, cfg, params, dev, seed=3)
+    ek = _engine(torch, cm, 128, dev, kv=kv, paged_attention_kernel=True)
+    ep = _engine(torch, cm, 128, dev, PAGED_PLAIN + ("kv_attention",), kv=kv, paged_attention_kernel=True)
+    g = torch.Generator(device=dev).manual_seed(5)
+    shared = torch.randint(0, cfg.vocab_size, (16,), generator=g, device=dev)
+    prompts = [torch.cat([shared, torch.randint(0, cfg.vocab_size, (n,), generator=g, device=dev)])
+               for n in (24, 40, 72, 9)]
+
+    _counts(reset=True)
+    table = torch.full((2, 16), -1, dtype=torch.int32, device=dev)
+    table[0, :8] = torch.arange(1, 9)
+    table[1, :2] = table[0, :2]
+    table[1, 2:14] = torch.arange(20, 32)
+    caches = [e.init_paged_cache(**PAGED_ANCHOR) for e in (ek, ep)]
+    pairs = []
+    for c in caches:
+        c.block_table = table.clone()
+    pairs.append([e.prefill_into_slot(c, 0, prompts[0][None]) for e, c in zip((ek, ep), caches)])
+    for c in caches:
+        c.seq_lens[1] = 16
+    pairs.append([e.prefill_chunked(c, 1, prompts[2][None, 16:])[None] for e, c in zip((ek, ep), caches)])
+    tok = torch.stack([pairs[0][0][0].argmax(), pairs[1][0][0].argmax()]).to(torch.int32)[:, None]
+    active = torch.ones(2, dtype=torch.bool, device=dev)
+    for _ in range(12):
+        pairs.append([e.paged_step(tok, c, active) for e, c in zip((ek, ep), caches)])
+        tok = pairs[-1][0].argmax(dim=-1).to(torch.int32)[:, None]
+    gaps, flips = [], []
+    for logits, ref in pairs:
+        gp, fl = _gaps(logits, ref)
+        gaps += gp
+        flips += fl
+    lock = _counts()
+    packed = caches[0].packed_nvfp4
+    if packed != (ek.ecfg.kv_dtype == "nvfp4"):
+        raise AssertionError(f"anchor paged {path.label}: kv_dtype {ek.ecfg.kv_dtype!r}, packed pool {packed}")
+
+    def requests():
+        return [Request(rid=i, prompt=p.cpu().numpy(), max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(prompts, (24, 6, 8, 8)))]
+
+    cm32 = dataclasses.replace(cm, model_cfg=dataclasses.replace(cm.model_cfg, dtype=torch.float32))
+    e32 = _engine(torch, cm32, 128, dev, ("w4a8", "flash", "int4_wo", "fp4_wo", "byte_wo"), kv=kv,
+                  paged_attention_kernel=True)
+    served = {}
+    for unroll in (1, 4):
+        _counts(reset=True)
+        reqs = requests()
+        outs, m = ek.serve(reqs, prefix_cache=True, unroll=unroll, collect_metrics=True, **PAGED_ANCHOR)
+        n = _counts()
+        margins = [_dense_margins(torch, ek, p, outs[i]) for i, p in enumerate(prompts)]
+        outs32 = e32.serve(requests(), prefix_cache=True, unroll=unroll, **PAGED_ANCHOR)
+        margins32 = [_dense_margins(torch, e32, p, outs32[i]) for i, p in enumerate(prompts)]
+        served[unroll] = dict(outs=outs, metrics=m, launches=n, margins=margins, margins32=margins32)
+        if [len(outs[r.rid]) for r in reqs] != [r.max_new_tokens for r in reqs]:
+            raise AssertionError(f"anchor paged {path.label}: output lengths {[len(v) for v in outs.values()]}")
+        if not (m["dense_prefills"] and m["chunked_prefills"] and m["free_pages"] == PAGED_ANCHOR["n_pages"] - 1):
+            raise AssertionError(f"anchor paged {path.label} unroll {unroll}: prefill routes or free pages: {m}")
+        if not (n["paged_attention_decode"] and n["paged_attention_prefill"]):
+            raise AssertionError(f"anchor paged {path.label} unroll {unroll}: paged kernels not launched: {n}")
+    worst = max(max(mg) for sv in served.values() for mg in sv["margins32"])
+    log(json.dumps({
+        "phase": "anchor", "path": f"serve: {path.label}", "packed_nvfp4_pages": bool(packed),
+        "lockstep_rows": len(gaps), "median_logits_gap_kernel_vs_plain": statistics.median(gaps),
+        "worst_logits_gap_kernel_vs_plain": max(gaps), "argmax_flips_vs_plain": flips, "lockstep_launches": lock,
+        "serve": {u: {"metrics": sv["metrics"], "launches": {k: v for k, v in sv["launches"].items() if v},
+                      "tokens_off_the_dense_engines_greedy": sum(m > 0 for mg in sv["margins"] for m in mg),
+                      "worst_margin": max(max(mg) for mg in sv["margins"]),
+                      "f32_tokens_off_the_dense_engines_greedy": sum(m > 0 for mg in sv["margins32"] for m in mg),
+                      "f32_worst_margin": max(max(mg) for mg in sv["margins32"])} for u, sv in served.items()},
+        "unroll_4_tokens_equal_unroll_1": served[4]["outs"] == served[1]["outs"],
+        "tokens_request0": served[1]["outs"][0]}))
+    if not statistics.median(gaps) <= 1e-2:
+        raise AssertionError(f"anchor paged {path.label}: kernel engine's logits lie {statistics.median(gaps)} of "
+                             "their scale (median) from the plain engine's, the limit is 1e-2")
+    if any(not m <= 1e-2 for m in flips):
+        raise AssertionError(f"anchor paged {path.label}: argmax differs from the plain engine's away from a near "
+                             f"tie (plain-logit margins {flips})")
+    if not worst <= 1e-2:
+        raise AssertionError(f"anchor paged {path.label}: on f32 activations a served token lies {worst} of the "
+                             "logits' scale below the dense-cache engine's best")
 
 
 def _profile(torch, label: str, fn, calls: int, wall_ms_unprofiled: float) -> None:
@@ -558,11 +914,15 @@ def _profile(torch, label: str, fn, calls: int, wall_ms_unprofiled: float) -> No
                         if e.device_type == DeviceType.CUDA and not e.key.startswith("Command Buffer")),
                        key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in by_kernel)
+    # where the host spends its time (with the profiler on, so inflated: a ranking, not a cost)
+    by_op = sorted(((e.key, e.self_cpu_time_total / 1e3 / calls, e.count // calls) for e in prof.key_averages()
+                    if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
     log(json.dumps({"phase": "profile", "what": label, "per_call_device_busy_ms": busy_ms,
                     "per_call_kernel_launches": sum(n for _, _, n in by_kernel),
                     "per_call_wall_ms_unprofiled": wall_ms_unprofiled,
                     "device_idle_share": 1.0 - busy_ms / wall_ms_unprofiled,
-                    "top": [{"kernel": k[:70], "ms": ms, "count": n} for k, ms, n in by_kernel[:10]]}))
+                    "top": [{"kernel": k[:70], "ms": ms, "count": n} for k, ms, n in by_kernel[:10]],
+                    "host_top": [{"op": k[:40], "self_cpu_ms": ms, "count": n} for k, ms, n in by_op[:8]]}))
 
 
 def phase_full(torch, dev, sz: Sizes, profile: bool = False) -> dict:
@@ -583,6 +943,7 @@ def phase_full(torch, dev, sz: Sizes, profile: bool = False) -> dict:
             if n > 0:
                 launches.setdefault(name, n)
         torch.cuda.empty_cache()
+    _full_nvfp4_kv(torch, dev, sz, cfg, params, profile)
     return launches
 
 
@@ -691,7 +1052,250 @@ def _full_path(torch, dev, sz: Sizes, path: Path, cfg, params, prompt, profile: 
         if depth == 2 and not rel <= 5e-2:
             raise AssertionError(f"full {path.label}: depth-2 prefill logits rel err {rel} vs plain > 5e-2")
         del out, ref, subcm
+    if path.label == "int4":
+        # the INT4 model again, served through `Engine.serve` over int8 pages, all layers
+        for name, n in _full_paged(torch, dev, sz, eng.cm, PAGED_PATHS[0][0].label, "int8", PagedRun(), profile).items():
+            launches[name] = launches[name] or n
     return launches
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedRun:
+    """A request list for `Engine.serve` and its pool: `requests` prompts of
+    `prompt` tokens that share their first `shared`; `new_tokens` each, but
+    `short_new` for requests 1 .. `short`: those retire early, and the
+    requests admitted into their slots find request 0's prefix pages still
+    published, share them and prefill only their tails (`prefill_chunked`).
+    With equal lengths all slots retire in one step, the prefix pages are
+    freed before the next admissions, and no request ever shares a page."""
+
+    requests: int = 12
+    prompt: int = 1024
+    shared: int = 256
+    new_tokens: int = 32
+    short: int = 4
+    short_new: int = 16
+    slots: int = 8
+    unroll: int = 4
+
+    def geometry(self, page: int) -> dict:
+        need = (self.prompt + self.new_tokens) // page + 2
+        return dict(n_pages=self.slots * need + 8, page_size=page, max_slots=self.slots, max_pages_per_seq=need + 1)
+
+    def make(self, torch, dev, vocab: int, seed: int):
+        from tensorrt_model_optimizer_tpu_torch.serve.scheduler import Request
+
+        g = torch.Generator(device=dev).manual_seed(seed)
+        shared = torch.randint(0, vocab, (self.shared,), generator=g, device=dev)
+        prompts = [torch.cat([shared, torch.randint(0, vocab, (self.prompt - self.shared,), generator=g, device=dev)])
+                   for _ in range(self.requests)]
+        new = [self.short_new if 1 <= i <= self.short else self.new_tokens for i in range(self.requests)]
+        return prompts, lambda: [Request(rid=i, prompt=p.cpu().numpy(), max_new_tokens=n)
+                                 for i, (p, n) in enumerate(zip(prompts, new))]
+
+
+def _scheduler_replay(reqs, geom: dict, unroll: int) -> dict:
+    """What the scheduler's bookkeeping alone gives for a request list: the
+    loop of `Engine.serve` with made-up tokens and no model (no request has an
+    EOS token, so the tokens' values decide nothing)."""
+    import numpy as np
+
+    from tensorrt_model_optimizer_tpu_torch.serve.paged_cache import init_paged
+    from tensorrt_model_optimizer_tpu_torch.serve.scheduler import Scheduler
+
+    sched = Scheduler(geom["max_slots"], geom["n_pages"], geom["page_size"], geom["max_pages_per_seq"],
+                      prefix_cache=True)
+    cache = init_paged(0, geom["n_pages"], geom["page_size"], 1, 16, geom["max_slots"], geom["max_pages_per_seq"])
+    for r in reqs:
+        sched.submit(r)
+    out = dict(dense_prefills=0, chunked_prefills=0, decode_dispatches=0)
+    while sched.has_work:
+        cache, admissions = sched.admit(cache)
+        for slot, req in admissions:
+            out["chunked_prefills" if int(cache.seq_lens[slot]) > 0 else "dense_prefills"] += 1
+            sched.register_prefix(slot)
+            req.output.append(0)
+            req.done = len(req.output) >= req.max_new_tokens
+        if sched.active_mask().any():
+            sched.record_token_block(np.zeros((geom["max_slots"], unroll), np.int64))
+            out["decode_dispatches"] += 1
+        sched.retire(cache)
+    return dict(out, free_pages=len(sched.free_pages))
+
+
+def _paged_probe(torch, eng, geom: dict, prompts: list, shared: int, tok=None):
+    """Fill one slot per prompt by hand: all but the last prefill densely
+    (`prefill_into_slot`); the last shares slot 0's `shared` prefix rows and
+    streams its tail through `prefill_chunked`; then one decode step over all
+    slots. Returns the pool, [slot 0's prefill logits, the chunked prefill's
+    logits, the decode step's logits], and the step's tokens and mask."""
+    dev, n, per = prompts[0].device, len(prompts), geom["max_pages_per_seq"] - 1
+    cache = eng.init_paged_cache(**geom)
+    table = torch.full((geom["max_slots"], per + 1), -1, dtype=torch.int32, device=dev)
+    table[:n, :per] = (1 + torch.arange(n * per, device=dev)).reshape(n, per)
+    table[n - 1, :shared // geom["page_size"]] = table[0, :shared // geom["page_size"]]
+    cache.block_table = table
+    logits = [eng.prefill_into_slot(cache, b, p[None]) for b, p in enumerate(prompts[:-1])][:1]
+    cache.seq_lens[n - 1] = shared
+    logits.append(eng.prefill_chunked(cache, n - 1, prompts[-1][None, shared:])[None])
+    active = torch.zeros(geom["max_slots"], dtype=torch.bool, device=dev)
+    active[:n] = True
+    if tok is None:
+        tok = torch.zeros((geom["max_slots"], 1), dtype=torch.int32, device=dev)
+        tok[0], tok[n - 1] = logits[0][0].argmax(), logits[1][0].argmax()
+    logits.append(eng.paged_step(tok, cache, active))
+    return cache, logits, tok, active
+
+
+def _full_paged(torch, dev, sz: Sizes, cm, label: str, kv, run: PagedRun, profile: bool,
+                act_quantizers: bool = False) -> dict:
+    """`Engine.serve` at full width over the paged pool: the request list of
+    `run` through the kernel engine, its metrics held against the scheduler's
+    own bookkeeping; then the paths of the run by hand (`_paged_probe`), at
+    full depth for finite logits and step times, and on the first 2 layers
+    against the engine that runs the paged kernels' plain versions."""
+    sync = torch.cuda.synchronize
+    cfg = cm.model_cfg
+    geom = run.geometry(sz.page)
+    max_seq = run.prompt + run.new_tokens + 16
+    fields = dict(kv=kv, paged_attention_kernel=True)
+    eng = _engine(torch, cm, max_seq, dev, **fields)
+    prompts, requests = run.make(torch, dev, cfg.vocab_size, seed=6)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _counts(reset=True)
+    reqs = requests()
+    outs, m = eng.serve(reqs, prefix_cache=True, unroll=run.unroll, collect_metrics=True, **geom)
+    sync()
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = _scheduler_replay(requests(), geom, run.unroll)
+    lengths_ok = all(len(outs[r.rid]) == r.max_new_tokens for r in reqs)
+    tokens_ok = all(0 <= t < cfg.vocab_size for v in outs.values() for t in v)
+
+    # the run's paths by hand, every slot filled as in the run's first wave
+    cache, logits, tok, active = _paged_probe(torch, eng, geom, prompts[:run.slots], run.shared)
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    chunk_toks = torch.zeros((run.slots, sz.chunk), dtype=torch.int64, device=dev)
+    idle = ~active  # a chunk step as `prefill_chunked` runs it: all slots computed, none of the live ones writes
+    dense = eng.init_cache(run.slots, max_seq)
+    eng.prefill(torch.stack(prompts[:run.slots]), dense)
+
+    def dense_step():  # the dense-cache step over the same rows, for what the paged step adds
+        dense["pos"] = run.prompt
+        eng.decode_step(tok, dense)
+
+    # the host's cost of a step depends on what the process ran before it, so
+    # the decode step is read before and after the chunk steps
+    steps = {"decode step": lambda: eng.paged_step(tok, cache, idle), "dense decode step": dense_step,
+             "chunk step": lambda: eng.paged_step(chunk_toks, cache, idle),
+             "decode step after chunk steps": lambda: eng.paged_step(tok, cache, idle)}
+    wall = {}
+    for what, fn in steps.items():
+        fn()
+        sync()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        wall[what] = statistics.median(times)
+    del dense
+    log(json.dumps({"phase": "full", "path": f"serve: {label}", "model": "llama3_8b", "layers": cfg.num_hidden_layers,
+                    "kv_dtype": str(eng.ecfg.kv_dtype), "packed_nvfp4_pages": cache.packed_nvfp4,
+                    "requests": run.requests, "prompt": run.prompt, "shared_prefix": run.shared,
+                    "new_tokens": [r.max_new_tokens for r in reqs], **geom, "prefix_cache": True,
+                    "metrics": m, "scheduler_replay": want, "launches": {k: v for k, v in launches.items() if v},
+                    "peak_mem_gb": peak_gb, "output_lengths_ok": lengths_ok, "tokens_in_vocab": tokens_ok,
+                    "probe_logits_finite": finite, "step_wall_ms": wall,
+                    "page_pool_gb": sum(t.numel() * t.element_size() for t in (
+                        cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales) if t is not None) / 1e9}))
+    if not (lengths_ok and tokens_ok and finite):
+        raise AssertionError(f"full serve {label}: output lengths, token range or finite logits failed")
+    if not (m["dense_prefills"] and m["chunked_prefills"]):
+        raise AssertionError(f"full serve {label}: a prefill route was never taken: {m}")
+    if {k: m[k] for k in want} != want:
+        raise AssertionError(f"full serve {label}: the run's metrics {m} differ from the scheduler's bookkeeping {want}")
+    if not (launches["paged_attention_decode"] and launches["paged_attention_prefill"] and launches["flash_gqa"]):
+        raise AssertionError(f"full serve {label}: kernels of the path never launched: {launches}")
+    if cache.packed_nvfp4 != (eng.ecfg.kv_dtype == "nvfp4"):
+        raise AssertionError(f"full serve {label}: kv_dtype {eng.ecfg.kv_dtype!r}, packed pool {cache.packed_nvfp4}")
+    if profile:
+        for what in ("chunk step", "decode step"):
+            _profile(torch, f"serve: {label} paged {what}", lambda fn=steps[what]: [fn() for _ in range(2)], 2,
+                     wall[what])
+    del cache, logits
+
+    # First 2 layers, kernel engine against the engine with the two paged
+    # kernels on their plain versions: slot 0's dense prefill (the same
+    # kernels in both, so equal), the chunked prefill over shared prefix
+    # pages (the prefill kernel, and the decode kernel for the tail's
+    # remainder) and a decode step (the decode kernel), each held to the 5e-2
+    # of the logits' scale that the dense paths above are held to: kernel and
+    # plain version round the same f32 result to bf16, an ulp apart now and
+    # then, and quantized pages and random layers amplify that. A preset that
+    # fake-quantizes the activations (`act_quantizers`: NVFP4_KV_CFG's e2m1
+    # input quantizers, a step of up to a third of a value, the first of them
+    # on the attention's own output) is held with those quantizers off, as the
+    # dense paths above are; the reading with them on is reported beside it.
+    def depth2(sub):
+        _, got, tok2, _ = _paged_probe(torch, _engine(torch, sub, max_seq, dev, **fields), geom, prompts[:2],
+                                       run.shared)
+        _, ref, _, _ = _paged_probe(torch, _engine(torch, sub, max_seq, dev, PAGED_PLAIN, **fields), geom,
+                                    prompts[:2], run.shared, tok2)
+        return {what: _rel(a, b) for what, a, b in zip(("dense_prefill", "chunked_prefill", "decode_step"), got, ref)}
+
+    sub = _truncate(cm, 2)
+    row = {"phase": "full_vs_plain", "path": f"serve: {label}", "depth": 2}
+    if act_quantizers:
+        row["with_input_quantizers"] = depth2(sub)
+        sub = _without_input_quantizers(sub)
+    rels = depth2(sub)
+    log(json.dumps({**row, **rels}))
+    if not all(r <= 5e-2 for r in rels.values()):
+        raise AssertionError(f"full serve {label}: depth-2 logits rel err vs the plain paged versions {rels} > 5e-2")
+    return launches
+
+
+def _full_nvfp4_kv(torch, dev, sz: Sizes, cfg, params, profile: bool) -> None:
+    """NVFP4_KV_CFG on the first 4 layers at full width: a shorter paged run
+    over the packed NVFP4 pool, and generation over the dense NVFP4 KV cache
+    at batch 8 x 2048 (the `nvfp4` format of all three attention kernels)."""
+    path = PAGED_PATHS[1][0]
+    cfg = dataclasses.replace(cfg, num_hidden_layers=path.depth)
+    sub = {**params, "layers": {k: v[:path.depth] for k, v in params["layers"].items()}}
+    cm = _compressed(torch, path, cfg, sub, dev, seed=4)
+    _full_paged(torch, dev, sz, cm, path.label, None,
+                PagedRun(requests=6, prompt=512, shared=256, new_tokens=16, short=2, short_new=8, slots=4), profile,
+                act_quantizers=True)
+    eng = _engine(torch, cm, sz.max_seq, dev, kv=None)
+    g = torch.Generator(device=dev).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (sz.batch, sz.prompt), generator=g, device=dev)
+    _counts(reset=True)
+    torch.cuda.reset_peak_memory_stats()
+    cache = eng.init_cache(sz.batch)
+    t0 = time.perf_counter()
+    logits = eng.prefill(prompt, cache)
+    torch.cuda.synchronize()
+    ttft_ms = (time.perf_counter() - t0) * 1e3
+    tok = logits.argmax(dim=-1).to(torch.int32)[:, None]
+    step_ms = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        tok, step_logits = eng.decode_step(tok, cache)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    dense = _counts()
+    finite = bool(torch.isfinite(logits).all() and torch.isfinite(step_logits).all())
+    log(json.dumps({"phase": "full", "path": "dense NVFP4 KV cache (NVFP4_KV_CFG)", "layers": path.depth,
+                    "batch": sz.batch, "prompt": sz.prompt, "decode_steps": 8, "kv_dtype": str(eng.ecfg.kv_dtype),
+                    "cache_bytes_per_row": cache["k"].shape[-1] + cache["ks"].shape[-1], "ttft_ms": ttft_ms,
+                    "decode_ms_per_step_median": statistics.median(step_ms),
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": {k: v for k, v in dense.items() if v}, "logits_finite": finite}))
+    if not (finite and eng.ecfg.kv_dtype == "nvfp4" and dense["kv_decode_attention"] == 8 * path.depth):
+        raise AssertionError(f"full dense NVFP4 KV: finite {finite}, kv_dtype {eng.ecfg.kv_dtype}, launches {dense}")
 
 
 def _truncate(cm, depth: int):
@@ -740,6 +1344,10 @@ KERNELS = {
                    ":434 (qmm_nvfp4_perm), :651 (qmm_nvfp4_word), :1625 (qmm_nvfp4_bd4)"),
     "qmm_byte_wo": ("tensorrt_model_optimizer_tpu_torch/csrc/qmm_byte_wo.cu",
                     "tensorrt_model_optimizer_tpu/ops/pallas/qmm.py:80 (qmm_int8), :122 (qmm_fp8)"),
+    "paged_attention_decode": ("tensorrt_model_optimizer_tpu_torch/csrc/paged_attention_decode.cu",
+                               "tensorrt_model_optimizer_tpu/ops/pallas/paged_attention.py:108"),
+    "paged_attention_prefill": ("tensorrt_model_optimizer_tpu_torch/csrc/paged_attention_prefill.cu",
+                                "tensorrt_model_optimizer_tpu/ops/pallas/paged_attention.py:246"),
 }
 
 

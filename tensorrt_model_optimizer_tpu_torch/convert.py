@@ -4,8 +4,10 @@
 e.g. `jax.tree.map(np.asarray, params)`) into the port's tensors;
 `compressed_from_jax` turns a JAX `CompressedModel` (canonical kinds, as
 `quant.compress.compress` returns them) into the port's, so both packages
-compute the same function. Objects are read by their fields: this module
-imports neither JAX nor the JAX package.
+compute the same function (the quantizer state comes along, the `k_bmm` /
+`v_bmm` amax of a KV preset included); `cache_from_jax` and `paged_from_jax`
+do the same for a dense kernel cache and a `PagedKV` pool. Objects are read
+by their fields: this module imports neither JAX nor the JAX package.
 
 bf16 and fp8 arrays (NVFP4's e4m3 block scales among them) reach numpy as
 `ml_dtypes` types, which `torch.from_numpy` rejects; they cross as a
@@ -116,3 +118,19 @@ def compressed_from_jax(cm, device="cpu") -> CompressedModel:
         layout=layout_from_jax(cm.layout),
         qstate=params_from_jax(cm.qstate, device),
     )
+
+
+def cache_from_jax(cache, device="cpu") -> dict:
+    """A JAX dense kernel cache (`Engine.init_cache` with
+    `kv_attention_kernel=True`: "k", "v", "pos" and, for NVFP4, "ks", "vs")
+    -> the port's."""
+    return {k: (int(v) if k == "pos" else tensor_from_array(v, device)) for k, v in cache.items()}
+
+
+def paged_from_jax(cache, device="cpu"):
+    """A JAX `PagedKV` -> the port's, on `device`."""
+    from .serve.paged_cache import PagedKV
+
+    return PagedKV(**{f.name: (None if getattr(cache, f.name) is None
+                               else tensor_from_array(getattr(cache, f.name), device))
+                      for f in dataclasses.fields(PagedKV)})

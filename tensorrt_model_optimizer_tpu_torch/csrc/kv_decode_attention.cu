@@ -1,11 +1,13 @@
 // One-token GQA decode attention over a stored-form, kv-head-major KV cache
-// (bf16, int8 or fp8 e4m3 codes), for Hopper (sm_90a).
+// (bf16, int8 or fp8 e4m3 codes, or plane-packed NVFP4), for Hopper (sm_90a).
 //
 // Replaces: tensorrt_model_optimizer_tpu/ops/pallas/kv_attention.py
-// kv_decode_attention (_decode_kernel), formats bf16 / int8 / fp8.
+// kv_decode_attention (_decode_kernel), formats bf16 / int8 / fp8 / nvfp4.
 //
 //   q    [B, n_kv*rep, hd] f32, pre-scaled (k's global scale / sqrt(hd))
-//   k, v [B, n_kv, S, hd] stored codes; rows < pos are valid
+//   k, v [B, n_kv, S, hd] stored codes; rows < pos are valid. NVFP4:
+//        [B, n_kv, S, hd/2] plane-packed bytes with ks, vs [B, n_kv, S, hd/16]
+//        E4M3 block-scale bytes (layout and decode: kv_common.cuh)
 //   kn, vn [B, n_kv, hd] f32, the current token's code-domain k/v, folded last
 //   out  [B, n_kv*rep, hd] f32 code-domain context (caller applies v's scale)
 // with hd in {32, 64, 128} and rep in {1, 2, 4, 8}.
@@ -21,124 +23,58 @@
 // reads); each warp takes rows in turn with 4-row unrolled loads, a lane
 // holding hd/32 dims, so a row is one coalesced read of the warp;
 // warps keep private online-softmax state and merge in shared memory.
+// NVFP4 rows are 72 bytes where int8 rows are 128: the decode (two integer
+// ops and a multiply per element) then weighs more than the bytes.
 // Known limit: B * n_kv = 64 blocks leave half of the 132 SMs idle; a split
 // over S (flash-decoding) is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_fp8.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "kv_common.cuh"
 
 namespace {
 
-constexpr int NW = 8;  // warps per block
-constexpr int UNROLL = 4;
-
-// E consecutive stored elements -> f32 (E = head_dim / 32 per lane)
-template <int E>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* f) {
-  if constexpr (E % 2 == 0) {
-#pragma unroll
-    for (int e = 0; e < E; e += 2) {
-      const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + e));
-      f[e] = t.x;
-      f[e + 1] = t.y;
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < E; ++e) f[e] = __bfloat162float(p[e]);
-  }
-}
-template <int E>
-__device__ __forceinline__ void load_row(const int8_t* p, float* f) {
-  if constexpr (E == 4) {
-    const char4 c = *reinterpret_cast<const char4*>(p);
-    f[0] = c.x; f[1] = c.y; f[2] = c.z; f[3] = c.w;
-  } else {
-#pragma unroll
-    for (int e = 0; e < E; ++e) f[e] = (float)p[e];
-  }
-}
-template <int E>
-__device__ __forceinline__ void load_row(const __nv_fp8_e4m3* p, float* f) {
-#pragma unroll
-  for (int e = 0; e < E; ++e) f[e] = float(p[e]);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+using kvc::NW;
+using kvc::UNROLL;
 
 template <typename T, int HD, int REP>
-__global__ void __launch_bounds__(NW * 32) kv_decode_kernel(const float* __restrict__ q,
-                                                            const T* __restrict__ kc,
-                                                            const T* __restrict__ vc,
-                                                            const float* __restrict__ kn,
-                                                            const float* __restrict__ vn,
-                                                            float* __restrict__ out, int n_kv,
-                                                            int S, int pos) {
+__global__ void __launch_bounds__(NW * 32) kv_decode_kernel(
+    const float* __restrict__ q, const void* __restrict__ kc, const void* __restrict__ vc,
+    const void* __restrict__ ks, const void* __restrict__ vs, const float* __restrict__ kn,
+    const float* __restrict__ vn, float* __restrict__ out, int n_kv, int S, int pos) {
   constexpr int E = HD / 32;  // dims per lane
-  __shared__ float sm_m[NW][REP], sm_l[NW][REP];
-  __shared__ float sm_acc[NW][REP][HD];
+  __shared__ kvc::Merge<REP, HD> sm;
   const int g = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t head = (size_t)b * n_kv + g;
   const float* qb = q + head * REP * HD + lane * E;
-  const T* kb = kc + head * S * HD + lane * E;
-  const T* vb = vc + head * S * HD + lane * E;
+  const kvc::Rows<T, HD> K(kc, ks, lane), V(vc, vs, lane);
+  const size_t row0 = head * S;
 
-  float qr[REP][E], acc[REP][E], m[REP], l[REP];
+  float qr[REP][E];
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      qr[r][e] = qb[r * HD + e];
-      acc[r][e] = 0.f;
-    }
-    m[r] = -1e30f;
-    l[r] = 0.f;
+    for (int e = 0; e < E; ++e) qr[r][e] = qb[r * HD + e];
   }
+  kvc::Softmax<REP, E> st;
+  st.init();
 
   for (int base = warp * UNROLL; base < pos; base += NW * UNROLL) {
     float kr[UNROLL][E], vr[UNROLL][E];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       if (base + u < pos) {
-        load_row<E>(kb + (size_t)(base + u) * HD, kr[u]);
-        load_row<E>(vb + (size_t)(base + u) * HD, vr[u]);
+        K.load(row0 + base + u, kr[u]);
+        V.load(row0 + base + u, vr[u]);
       }
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       if (base + u >= pos) break;
-#pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        float d = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) d += qr[r][e] * kr[u][e];
-        const float s = warp_sum(d);
-        const float m_new = fmaxf(m[r], s);
-        const float corr = expf(m[r] - m_new);
-        const float p = expf(s - m_new);
-        l[r] = l[r] * corr + p;
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[r][e] = acc[r][e] * corr + p * vr[u][e];
-        m[r] = m_new;
-      }
+      st.fold(qr, kr[u], vr[u], 1.f);
     }
   }
 
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    if (lane == 0) {
-      sm_m[warp][r] = m[r];
-      sm_l[warp][r] = l[r];
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) sm_acc[warp][r][lane * E + e] = acc[r][e];
-  }
+  sm.put(st, warp, lane);
   __syncthreads();
   if (warp != 0) return;
 
@@ -150,24 +86,13 @@ __global__ void __launch_bounds__(NW * 32) kv_decode_kernel(const float* __restr
   }
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
-    float M = -1e30f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, sm_m[w][r]);
-    float L = 0.f, A[E];
-#pragma unroll
-    for (int e = 0; e < E; ++e) A[e] = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float c = expf(sm_m[w][r] - M);
-      L += sm_l[w][r] * c;
-#pragma unroll
-      for (int e = 0; e < E; ++e) A[e] += sm_acc[w][r][lane * E + e] * c;
-    }
+    float M, L, A[E];
+    sm.get(r, lane, M, L, A);
     // the current token, folded in last
     float d = 0.f;
 #pragma unroll
     for (int e = 0; e < E; ++e) d += qr[r][e] * knr[e];
-    const float s = warp_sum(d);
+    const float s = kvc::warp_sum(d);
     const float m2 = fmaxf(M, s);
     const float corr = expf(M - m2);
     const float p = expf(s - m2);
@@ -178,59 +103,28 @@ __global__ void __launch_bounds__(NW * 32) kv_decode_kernel(const float* __restr
   }
 }
 
-template <typename T, int HD>
-int launch(int rep, const void* q, const void* k, const void* v, const void* kn, const void* vn,
-           void* out, int B, int n_kv, int S, int pos, cudaStream_t st) {
-  dim3 grid(n_kv, B);
-#define KV_CASE(R)                                                                          \
-  case R:                                                                                   \
-    kv_decode_kernel<T, HD, R><<<grid, NW * 32, 0, st>>>(                                   \
-        static_cast<const float*>(q), static_cast<const T*>(k), static_cast<const T*>(v),   \
-        static_cast<const float*>(kn), static_cast<const float*>(vn),                       \
-        static_cast<float*>(out), n_kv, S, pos);                                            \
-    break;
-  switch (rep) {
-    KV_CASE(1)
-    KV_CASE(2)
-    KV_CASE(4)
-    KV_CASE(8)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef KV_CASE
-  return (int)cudaGetLastError();
-}
+struct Launch {
+  const void *q, *k, *v, *ks, *vs, *kn, *vn;
+  void* out;
+  int B, n_kv, S, pos;
+  cudaStream_t st;
 
-template <typename T>
-int launch_hd(int hd, int rep, const void* q, const void* k, const void* v, const void* kn,
-              const void* vn, void* out, int B, int n_kv, int S, int pos, cudaStream_t st) {
-  switch (hd) {
-    case 32:
-      return launch<T, 32>(rep, q, k, v, kn, vn, out, B, n_kv, S, pos, st);
-    case 64:
-      return launch<T, 64>(rep, q, k, v, kn, vn, out, B, n_kv, S, pos, st);
-    case 128:
-      return launch<T, 128>(rep, q, k, v, kn, vn, out, B, n_kv, S, pos, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+  template <typename T, int HD, int REP>
+  int run() const {
+    kv_decode_kernel<T, HD, REP><<<dim3(n_kv, B), NW * 32, 0, st>>>(
+        static_cast<const float*>(q), k, v, ks, vs, static_cast<const float*>(kn),
+        static_cast<const float*>(vn), static_cast<float*>(out), n_kv, S, pos);
+    return (int)cudaGetLastError();
   }
-}
+};
 
 }  // namespace
 
-// fmt: 0 = bf16, 1 = int8, 2 = fp8 e4m3.
+// fmt: 0 = bf16, 1 = int8, 2 = fp8 e4m3, 3 = NVFP4 (ks, vs: the block-scale bytes; else unused).
 extern "C" int kv_decode_attention(int fmt, int hd, int rep, const void* q, const void* k,
-                                   const void* v, const void* kn, const void* vn, void* out, int B,
-                                   int n_kv, int S, int pos, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (fmt) {
-    case 0:
-      return launch_hd<__nv_bfloat16>(hd, rep, q, k, v, kn, vn, out, B, n_kv, S, pos, st);
-    case 1:
-      return launch_hd<int8_t>(hd, rep, q, k, v, kn, vn, out, B, n_kv, S, pos, st);
-    case 2:
-      return launch_hd<__nv_fp8_e4m3>(hd, rep, q, k, v, kn, vn, out, B, n_kv, S, pos, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                                   const void* v, const void* ks, const void* vs, const void* kn,
+                                   const void* vn, void* out, int B, int n_kv, int S, int pos,
+                                   void* stream) {
+  return kvc::dispatch(fmt, hd, rep, Launch{q, k, v, ks, vs, kn, vn, out, B, n_kv, S, pos,
+                                            static_cast<cudaStream_t>(stream)});
 }

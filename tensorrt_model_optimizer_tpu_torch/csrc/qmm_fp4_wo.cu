@@ -50,12 +50,7 @@ struct Fp4Dec {
     return r;
   }
 
-  static __device__ __forceinline__ float e2m1(uint32_t c) {
-    const uint32_t idx = c & 7u;
-    // f32 bits are affine in the index from 1.0 up: (idx + 252) << 22; 0.5 and 0 below
-    const uint32_t mag = idx >= 2u ? (idx + 252u) << 22 : idx * 0x3F000000u;
-    return __uint_as_float(mag | ((c & 8u) << 28));
-  }
+  static __device__ __forceinline__ float e2m1(uint32_t c) { return fpdec::e2m1_to_float(c); }
 
   static __device__ __forceinline__ void store(const Raw& r, wo::bf16* dst) {
     float s0, s1;

@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fp_decode.cuh"
+
 namespace wo {
 
 using bf16 = __nv_bfloat16;
@@ -39,18 +41,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// OFP8 e4m3 ("fn": no inf, 0x7f / 0xff are NaN) -> f32, all 256 codes.
-__device__ __forceinline__ float e4m3_to_float(uint32_t b) {
-  const uint32_t mag = b & 0x7Fu;
-  const uint32_t sign = (b & 0x80u) << 24;
-  uint32_t bits;
-  if (mag >= 8u)
-    bits = (mag << 20) + (120u << 23);  // exponent field e + 120, mantissa m << 20
-  else
-    bits = __float_as_uint((float)mag * 0.001953125f);  // subnormal: m * 2^-9
-  if (mag == 0x7Fu) bits = 0x7FC00000u;
-  return __uint_as_float(bits | sign);
-}
+using fpdec::e4m3_to_float;  // all 256 codes, exactly
 
 __device__ __forceinline__ void mma_m16n8k16(float (&c)[4], const uint32_t (&a)[4],
                                              const uint32_t (&b)[2]) {

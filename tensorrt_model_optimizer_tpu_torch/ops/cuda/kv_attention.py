@@ -1,57 +1,87 @@
 """One-token GQA decode attention over the stored-form, kv-head-major KV
 cache (port of `ops/pallas/kv_attention.py` `kv_decode_attention`).
 
-Kernel: `csrc/kv_decode_attention.cu`, formats bf16 / int8 / fp8 (NVFP4
-planes come with the NVFP4-KV slice). On a CUDA tensor the wrapper launches
-the kernel or raises; only CPU tensors take the plain PyTorch version.
+Kernel: `csrc/kv_decode_attention.cu`, formats bf16 / int8 / fp8 / nvfp4. On
+a CUDA tensor the wrapper launches the kernel or raises; only CPU tensors
+take the plain PyTorch version.
 
 Semantics (split attention): the cache rows `< pos` are valid, row `pos`
 and above are not read, and the current token's code-domain k/v arrive
 separately and join the softmax. The caller folds the per-layer global
 scales: k's into q (with 1/sqrt(hd)), v's into the returned context.
+
+Stored forms: bf16 values, int8 codes and fp8 e4m3 values are `[B, n_kv, S,
+hd]`. NVFP4 is `[B, n_kv, S, hd/2]` plane-packed bytes (byte j = code[j] |
+code[j + hd/2] << 4) with `k_scales` / `v_scales` `[B, n_kv, S, hd/16]`, the
+E4M3 block scales' bytes; the kernel decodes E2M1 x E4M3 in registers, as
+`numerics.nvfp4_planes_code_load` does, and the f32 global scale stays with
+the caller.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import numerics
 from . import _build
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 
-_FMT = {"bf16": (0, torch.bfloat16), "int8": (1, torch.int8), "fp8": (2, torch.float8_e4m3fn)}
+# format -> (kernel's code, stored dtype)
+FORMATS = {"bf16": (0, torch.bfloat16), "int8": (1, torch.int8), "fp8": (2, torch.float8_e4m3fn),
+           "nvfp4": (3, torch.uint8)}
 
 
-def kv_decode_attention_plain(q, k_cache, v_cache, k_new, v_new, pos: int, fmt: str) -> torch.Tensor:
+def decode_rows(rows: torch.Tensor, scales, fmt: str) -> torch.Tensor:
+    """Stored rows [..., C] -> f32 code-domain values [..., hd]."""
+    if fmt == "nvfp4":
+        return numerics.nvfp4_planes_code_load(rows, scales, torch.float32)
+    return rows.float()
+
+
+def kv_decode_attention_plain(q, k_cache, v_cache, k_new, v_new, pos: int, fmt: str,
+                              k_scales=None, v_scales=None) -> torch.Tensor:
     """Plain PyTorch version: softmax over the valid rows plus the new token."""
     B, HR, hd = q.shape
     n_kv = k_cache.shape[1]
     rep = HR // n_kv
     q3 = q.float().reshape(B, n_kv, rep, hd)
-    kk = torch.cat([k_cache[:, :, :pos].float(), k_new.float().reshape(B, n_kv, 1, hd)], dim=2)
-    vv = torch.cat([v_cache[:, :, :pos].float(), v_new.float().reshape(B, n_kv, 1, hd)], dim=2)
+
+    def rows(cache, scales, new):
+        old = decode_rows(cache[:, :, :pos], None if scales is None else scales[:, :, :pos], fmt)
+        return torch.cat([old, new.float().reshape(B, n_kv, 1, hd)], dim=2)
+
+    kk, vv = rows(k_cache, k_scales, k_new), rows(v_cache, v_scales, v_new)
     p = torch.softmax(torch.einsum("bgrd,bgsd->bgrs", q3, kk), dim=-1)
     return torch.einsum("bgrs,bgsd->bgrd", p, vv).reshape(B, HR, hd)
 
 
 def kv_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                        k_new: torch.Tensor, v_new: torch.Tensor, pos: int, fmt: str) -> torch.Tensor:
-    """q [B, n_kv*rep, hd] f32 pre-scaled; caches [B, n_kv, S, hd] stored
-    form; k_new/v_new [B, n_kv, 1, hd] code domain; pos = valid rows.
-    Returns the code-domain context [B, n_kv*rep, hd] f32."""
+                        k_new: torch.Tensor, v_new: torch.Tensor, pos: int, fmt: str,
+                        k_scales=None, v_scales=None) -> torch.Tensor:
+    """q [B, n_kv*rep, hd] f32 pre-scaled; caches [B, n_kv, S, C] stored
+    form (with `k_scales` / `v_scales` for nvfp4); k_new/v_new [B, n_kv, 1,
+    hd] code domain; pos = valid rows. Returns the code-domain context
+    [B, n_kv*rep, hd] f32."""
     pos = int(pos)
     B, HR, hd = q.shape
     _, n_kv, S, C = k_cache.shape
-    if fmt not in _FMT:
-        raise NotImplementedError(f"kv format {fmt!r}: nvfp4 comes with the NVFP4-KV slice")
-    if C != hd or HR % n_kv or v_cache.shape != k_cache.shape or not 0 <= pos <= S:
-        raise ValueError(f"kv_attention: q {tuple(q.shape)} cache {tuple(k_cache.shape)} pos {pos}")
+    if fmt not in FORMATS:
+        raise NotImplementedError(f"kv format {fmt!r}: the stored forms are {sorted(FORMATS)}")
+    nvfp4 = fmt == "nvfp4"
+    if C != (hd // 2 if nvfp4 else hd) or HR % n_kv or v_cache.shape != k_cache.shape or not 0 <= pos <= S:
+        raise ValueError(f"kv_attention: q {tuple(q.shape)} cache {tuple(k_cache.shape)} pos {pos} fmt {fmt}")
+    if nvfp4 and (k_scales is None or v_scales is None or k_scales.shape != (B, n_kv, S, hd // 16)
+                  or v_scales.shape != k_scales.shape):
+        raise ValueError("kv_attention: nvfp4 needs k_scales / v_scales [B, n_kv, S, hd/16]")
     if q.device.type == "cpu":
-        return kv_decode_attention_plain(q, k_cache, v_cache, k_new, v_new, pos, fmt)
-    code, dtype = _FMT[fmt]
+        return kv_decode_attention_plain(q, k_cache, v_cache, k_new, v_new, pos, fmt, k_scales, v_scales)
+    code, dtype = FORMATS[fmt]
     rep = HR // n_kv
     if k_cache.dtype != dtype or v_cache.dtype != dtype:
         raise TypeError(f"kv_attention: fmt {fmt} needs {dtype} caches, got {k_cache.dtype}")
+    if nvfp4 and (k_scales.dtype != torch.uint8 or v_scales.dtype != torch.uint8):
+        raise TypeError(f"kv_attention: nvfp4 scales are uint8 bytes, got {k_scales.dtype}")
     if hd not in (32, 64, 128) or rep not in (1, 2, 4, 8):
         raise ValueError(f"kv_attention kernel: head_dim {hd} / rep {rep} unsupported")
     global launches
@@ -59,11 +89,14 @@ def kv_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.T
     kn = k_new.float().reshape(B, n_kv, hd).contiguous()
     vn = v_new.float().reshape(B, n_kv, hd).contiguous()
     k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
+    if nvfp4:
+        k_scales, v_scales = k_scales.contiguous(), v_scales.contiguous()
+    ks, vs = (_build.ptr(k_scales), _build.ptr(v_scales)) if nvfp4 else (None, None)
     out = torch.empty((B, HR, hd), dtype=torch.float32, device=q.device)
     fn = _build.function("kv_decode_attention", "kv_decode_attention",
-                         [_build.c_int] * 3 + [_build.c_void_p] * 6 + [_build.c_int] * 4
+                         [_build.c_int] * 3 + [_build.c_void_p] * 8 + [_build.c_int] * 4
                          + [_build.c_void_p])
-    _build.check(fn(code, hd, rep, _build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
+    _build.check(fn(code, hd, rep, _build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache), ks, vs,
                     _build.ptr(kn), _build.ptr(vn), _build.ptr(out), B, n_kv, S, pos,
                     _build.stream()), "kv_decode_attention")
     launches += 1

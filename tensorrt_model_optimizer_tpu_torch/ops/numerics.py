@@ -4,7 +4,8 @@ Bit-exact with the JAX reference: the integer grids (round half to even, as
 `torch.round` and `jnp.round` both do), the saturating E4M3/E5M2 casts, the
 arithmetic mini-float rounding (`fp_round`, `fp4_round`), NVFP4's two-level
 scales, the MX formats' shared E8M0 scale, per-block amax and its expansion,
-and the nibble packs. Exponents and powers of two go through the f32 bit
+the nibble packs, and NVFP4's two packed forms (interleaved nibbles for
+weights, planes for the KV cache). Exponents and powers of two go through the f32 bit
 pattern (`_floor_log2`, `_exp2i`), so they are exact on every device. NF4
 comes with its own slice.
 """
@@ -259,12 +260,62 @@ def fake_quant_nvfp4(x: torch.Tensor, block_size: int = 16,
     return (fp4_round(x32 / sb_full) * sb_full).to(dtype)
 
 
+def _nvfp4_codes(x: torch.Tensor, block_size: int, global_amax: Optional[torch.Tensor]):
+    """E2M1 codes of `x` along the last axis, the E4M3 block scales as stored
+    (non-positive scales replaced by 1, saturated at 448) and the f32 global
+    scale: the shared arithmetic of the two packed forms."""
+    x32 = x.float()
+    if global_amax is None:
+        global_amax = torch.amax(torch.abs(x32))
+    gs = nvfp4_global_scale(global_amax)
+    sizes = ((x32.ndim - 1, block_size),)
+    s8_val = cast_e4m3(block_amax_compact(x32, sizes) / (6.0 * gs))
+    s8_val = torch.where(s8_val <= 0.0, torch.ones_like(s8_val), s8_val)
+    s8 = torch.clamp(s8_val, -448.0, 448.0).to(torch.float8_e4m3fn)
+    sb_full = expand_block_scale(s8_val * gs, x32.shape, sizes)
+    return fp4_to_codes(fp4_round(x32 / sb_full)), s8, gs
+
+
+def real_quant_nvfp4(x: torch.Tensor, block_size: int = 16,
+                     global_amax: Optional[torch.Tensor] = None):
+    """Packed NVFP4 along the last axis: (uint8 nibbles [..., N/2] with the
+    even index in the low nibble, block scales as float8_e4m3fn
+    [..., N/block], f32 global scale). Decoded block scale = e4m3 value x
+    global scale."""
+    codes, s8, gs = _nvfp4_codes(x, block_size, global_amax)
+    return pack_nibbles(codes), s8, gs
+
+
+def real_quant_nvfp4_planes(x: torch.Tensor, block_size: int = 16,
+                            global_amax: Optional[torch.Tensor] = None):
+    """Plane-packed NVFP4 along the last axis (the serving KV-cache layout):
+    byte j holds the codes of elements j (low nibble) and j + N/2 (high
+    nibble). The arithmetic is `real_quant_nvfp4`'s; only the byte order
+    differs. Returns (planes uint8 [..., N/2], the E4M3 block scales' bit
+    patterns as uint8 [..., N/block], f32 global scale)."""
+    codes, s8, gs = _nvfp4_codes(x, block_size, global_amax)
+    h = x.shape[-1] // 2
+    return codes[..., :h] | (codes[..., h:] << 4), s8.view(torch.uint8), gs
+
+
+def nvfp4_planes_code_load(planes: torch.Tensor, scale_bits: torch.Tensor,
+                           out_dtype=torch.float32) -> torch.Tensor:
+    """Plane-packed NVFP4 -> code-domain values (E2M1 value x E4M3 block
+    scale, no global scale): what the attention kernels decode in registers."""
+    codes = torch.cat([planes & 0xF, (planes >> 4) & 0xF], dim=-1)
+    vals = codes_to_fp4(codes)
+    s = scale_bits.view(torch.float8_e4m3fn).float()
+    block = vals.shape[-1] // s.shape[-1]
+    sexp = expand_block_scale(s, vals.shape, ((vals.ndim - 1, block),))
+    return (vals * sexp).to(out_dtype)
+
+
 def fp4_to_codes(q: torch.Tensor) -> torch.Tensor:
     """E2M1 values -> 4-bit codes (sign bit | index of the nearest
     magnitude, the lower index on a tie)."""
     m = torch.abs(q.float())
     mids = torch.tensor(_E2M1_MIDPOINTS, dtype=torch.float32, device=m.device)
-    idx = torch.bucketize(m, mids)  # number of midpoints strictly below m
+    idx = torch.bucketize(m.contiguous(), mids)  # number of midpoints strictly below m
     sign = (q < 0).to(torch.uint8) << 3
     return idx.to(torch.uint8) | sign
 

@@ -130,8 +130,10 @@ MXFP4_WEIGHT_ONLY_CFG = _preset(MXFP4_BLOCK32, None, "max")
 
 KV_FP8_RULES = {"*k_bmm_quantizer": FP8_KV, "*v_bmm_quantizer": FP8_KV}
 KV_FP8_CAST_RULES = {"*k_bmm_quantizer": FP8_KV_CAST, "*v_bmm_quantizer": FP8_KV_CAST}
+KV_NVFP4_RULES = {"*k_bmm_quantizer": NVFP4_BLOCK16, "*v_bmm_quantizer": NVFP4_BLOCK16}
 KV_INT8_RULES = {"*k_bmm_quantizer": INT8_PER_TENSOR, "*v_bmm_quantizer": INT8_PER_TENSOR}
 FP8_KV_CFG = FP8_DEFAULT_CFG.with_rules(KV_FP8_RULES)
+NVFP4_KV_CFG = NVFP4_DEFAULT_CFG.with_rules(KV_NVFP4_RULES)
 
 PRESETS: dict[str, QuantizeConfig] = {
     "INT8_DEFAULT_CFG": INT8_DEFAULT_CFG,
@@ -142,6 +144,7 @@ PRESETS: dict[str, QuantizeConfig] = {
     "FP8_KV_CFG": FP8_KV_CFG,
     "NVFP4_DEFAULT_CFG": NVFP4_DEFAULT_CFG,
     "NVFP4_WEIGHT_ONLY_CFG": NVFP4_WEIGHT_ONLY_CFG,
+    "NVFP4_KV_CFG": NVFP4_KV_CFG,
     "W4A16_NVFP4_CFG": W4A16_NVFP4_CFG,
     "MXFP4_DEFAULT_CFG": MXFP4_DEFAULT_CFG,
     "MXFP4_WEIGHT_ONLY_CFG": MXFP4_WEIGHT_ONLY_CFG,
@@ -160,7 +163,6 @@ UNPORTED_PRESETS: dict[str, str] = {
     "FP8_KV_AFFINE_CFG": "the calibration-algorithms slice (affine KV bias)",
     "NVFP4_AWQ_LITE_CFG": "the calibration-algorithms slice (AWQ)",
     "NVFP4_ACT_HEADROOM_CFG": "the calibration-algorithms slice (NVFP4 activation headroom)",
-    "NVFP4_KV_CFG": "the NVFP4-KV slice",
     "NVFP4_SVDQUANT_CFG": "the calibration-algorithms slice (SVDQuant)",
     "MXFP6_DEFAULT_CFG": "the remaining-formats slice (MXFP6 packs)",
     "MXFP8_DEFAULT_CFG": "the remaining-formats slice (MXFP8 packs)",

@@ -1,7 +1,8 @@
 """Quantized serving engine: prefill + decode over packed weights (port of
 `serve/engine.py`).
 
-Ported path (the JAX engine's `kv_attention_kernel=True` branch):
+Ported paths (the JAX engine's `kv_attention_kernel=True` branch, dense cache
+and paged serving):
  - projections: weight-only INT4 block-128, NVFP4, MXFP4, INT8 per-channel
    and FP8 per-tensor under bf16 activations (`ops/cuda/qmm_wo.py`; the
    site's input quantizer, where the preset has one, fake-quantizes the
@@ -9,16 +10,32 @@ Ported path (the JAX engine's `kv_attention_kernel=True` branch):
    block weights, `ops/cuda/qmm.py`) and bf16;
  - KV cache kv-head-major `[L, B, n_kv, S, hd]` in stored form (bf16, int8
    codes with scale amax/127, or fp8 e4m3 with scale amax/448; an
-   uncalibrated amax is 448);
+   uncalibrated amax is 448), or packed NVFP4: plane-packed E2M1 bytes
+   `[.., hd/2]` in "k"/"v" with the E4M3 block scales' bytes `[.., hd/16]`
+   in "ks"/"vs" (`kv_dtype="nvfp4"`, chosen by an NVFP4 `k_bmm` site when the
+   caller names no dtype); "nvfp4_fake" stores the fake-quantized values;
  - prefill: causal GQA flash attention over the fresh tokens' QDQ'd k/v
    (`ops/cuda/flash_gqa.py`); the cache must be empty (pos == 0);
  - decode: split attention over the cached rows < pos plus the current
-   token's code-domain k/v (`ops/cuda/kv_attention.py`).
+   token's code-domain k/v (`ops/cuda/kv_attention.py`);
+ - paged serving (`Engine.serve`): continuous batching over a page pool
+   (`serve/paged_cache.py`, `serve/scheduler.py`). A fresh request prefills
+   densely and its cache rows are copied into its pages
+   (`prefill_into_slot`); a request that shares cached prefix pages streams
+   its tail through `prefill_chunked`; decode steps run all slots at once.
+   With `paged_attention_kernel=True` attention reads the pages through the
+   two kernels of `ops/cuda/paged_attention.py`; without it, it gathers each
+   sequence's pages and runs plain PyTorch (the JAX engine's gather path).
+   The paged path folds k's scale into q and casts back to the activation
+   dtype, and casts the context again after v's scale: two roundings the
+   dense path (f32 q, f32 context) does not have. Both are ported as written.
 
 There is no jit, scan or buffer donation: layers and steps are Python loops,
-and the KV cache is updated in place. A decode step writes each layer's new
-cache row right after that layer's attention has read the old rows (JAX
-batches the same writes after its layer scan); the values are the same.
+and the KV cache and the page pool are updated in place (the paged entry
+points return logits or tokens, not a new cache). A decode step writes each
+layer's new cache row right after that layer's attention has read the old
+rows (JAX batches the same writes after its layer scan); the values are the
+same.
 
 Every TPU layout name of a format maps to the one port layout of that format
 (`quant/compress.py` `word_convert_site`): `bd2_supported`'s quiet fall back
@@ -26,35 +43,43 @@ from bd2 to word2 has no counterpart, because both names are one kernel here.
 
 Not ported (each raises `NotImplementedError` naming its slice):
 `int4_layout="xla"`, `nvfp4_layout="i8"` and W8A8 (int8 weights under an int
-input quantizer), `kv_attention_kernel=False`, NVFP4 KV, the paged,
-tensor-parallel, MoE, sparsity and speculative paths.
+input quantizer), `kv_attention_kernel=False` (the dense-cache einsum
+engine), the tensor-parallel, MoE, sparsity and speculative paths.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 from ..models import llama
 from ..ops.cuda import flash_gqa as flash_mod
+from ..ops import numerics
 from ..ops.cuda import kv_attention as kva
+from ..ops.cuda import paged_attention as pa
 from ..ops.cuda import qmm, qmm_wo
 from ..quant import quantizer as Q
 from ..quant.compress import CompressedModel, convert_packed_layouts, layer_arrays
+from . import paged_cache as pc
 from .sampling import SamplingConfig, sample
+from .scheduler import Scheduler
 
-_KV_DTYPES = (None, torch.bfloat16, torch.int8, torch.float8_e4m3fn)
+_KV_DTYPES = (None, torch.bfloat16, torch.int8, torch.float8_e4m3fn, "nvfp4", "nvfp4_fake")
 _SERVED_KINDS = ("int4a8", "int4wo", "nvfp4wo", "mxfp4wo", "int8", "fp8", "bf16")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     max_seq_len: int = 2048
-    # None = model dtype; torch.int8 / torch.float8_e4m3fn / torch.bfloat16
+    # None = model dtype (an NVFP4 k_bmm site then selects "nvfp4");
+    # torch.int8 / torch.float8_e4m3fn / torch.bfloat16; "nvfp4" (packed
+    # planes + E4M3 block scales) / "nvfp4_fake" (fake-quantized values)
     kv_dtype: Any = None
     # INT4 serving layout, by its TPU name: "bd2" | "word" | "word2" |
     # "blockdot" are weight-only (one port layout, "int4wo"; "blockdot" keeps
@@ -66,6 +91,9 @@ class EngineConfig:
     nvfp4_layout: str = "word2"
     # the stored-form kv-head-major cache with the attention kernels
     kv_attention_kernel: bool = False
+    # paged serving attends through the paged-attention kernels (False: the
+    # gather path, plain PyTorch over each sequence's gathered pages)
+    paged_attention_kernel: bool = False
     # kernels (names of `PLAIN_ALL`) whose plain PyTorch versions run
     # instead, on any device, to hold the kernel path against them
     plain_ops: tuple = ()
@@ -78,6 +106,8 @@ _KERNELS = {  # plain_ops name -> (kernel wrapper, plain version)
     "int4_wo": (qmm_wo.int4_wo_matmul, qmm_wo.int4_wo_matmul_plain),
     "fp4_wo": (qmm_wo.fp4_wo_matmul, qmm_wo.fp4_wo_matmul_plain),
     "byte_wo": (qmm_wo.byte_wo_matmul, qmm_wo.byte_wo_matmul_plain),
+    "paged_decode": (pa.paged_attention_decode, pa.paged_attention_decode_plain),
+    "paged_prefill": (pa.paged_attention_prefill, pa.paged_attention_prefill_plain),
 }
 PLAIN_ALL = tuple(_KERNELS)
 
@@ -117,7 +147,10 @@ def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, ops):
 
 
 def _kv_store(v: torch.Tensor, dtype, amax: torch.Tensor) -> torch.Tensor:
-    """Quantize k/v for cache storage (stored form)."""
+    """Quantize k/v for cache storage (stored form). Packed "nvfp4" goes
+    through `_kv_store_kvh` / `numerics.real_quant_nvfp4_planes` instead."""
+    if dtype == "nvfp4_fake":  # E2M1 block-quantized values in the model dtype
+        return numerics.fake_quant_nvfp4(v, 16, amax, axis=-1)
     if dtype is None or v.dtype == dtype:
         return v
     if dtype == torch.int8:
@@ -129,19 +162,43 @@ def _kv_store(v: torch.Tensor, dtype, amax: torch.Tensor) -> torch.Tensor:
     return v.to(dtype)
 
 
-def _kv_globals(kv_dtype, k_amax, v_amax):
-    """Per-layer global dequant scales (k's fold into q, v's into ctx)."""
+def _kv_load(stored: torch.Tensor, out_dtype, kv_dtype, amax: torch.Tensor) -> torch.Tensor:
+    """Stored form -> dequantized values (the gather path's pages)."""
+    if kv_dtype == torch.int8 and stored.dtype != out_dtype:
+        return (stored.float() * (amax / 127.0)).to(out_dtype)
+    if kv_dtype == torch.float8_e4m3fn and stored.dtype != out_dtype:
+        return (stored.float() * (torch.clamp_min(amax.float(), 1e-12) / 448.0)).to(out_dtype)
+    return stored.to(out_dtype)
+
+
+def _kv_scales(kv_dtype, k_amax, v_amax):
+    """Per-layer global dequant scales (k's folds into q, v's into the
+    context; NVFP4's block scales stay with the kernels), or (None, None)
+    for a cache of plain values."""
     def one(amax):
         if kv_dtype == torch.int8:
             return amax / 127.0
         if kv_dtype == torch.float8_e4m3fn:
             return torch.clamp_min(amax.float(), 1e-12) / 448.0
-        return torch.ones((), dtype=torch.float32, device=amax.device)
+        if kv_dtype == "nvfp4":
+            return numerics.nvfp4_global_scale(amax)
+        return None
 
     return one(k_amax), one(v_amax)
 
 
+def _kv_globals(kv_dtype, k_amax, v_amax):
+    """`_kv_scales` for the dense kernel path: 1 where there is no scale."""
+    one = torch.ones((), dtype=torch.float32, device=k_amax.device)
+    kg, vg = _kv_scales(kv_dtype, k_amax, v_amax)
+    return (one if kg is None else kg), (one if vg is None else vg)
+
+
 def _kv_fmt(kv_dtype) -> str:
+    """EngineConfig.kv_dtype -> the dense attention kernel's format; None,
+    the model dtype and "nvfp4_fake" are plain values."""
+    if kv_dtype == "nvfp4":
+        return "nvfp4"
     if kv_dtype == torch.int8:
         return "int8"
     if kv_dtype == torch.float8_e4m3fn:
@@ -149,13 +206,20 @@ def _kv_fmt(kv_dtype) -> str:
     return "bf16"
 
 
-def _kv_store_kvh(v: torch.Tensor, kv_dtype, amax) -> torch.Tensor:
-    """k/v [B, T, n_kv, hd] -> stored kv-head-major [B, n_kv, T, hd]."""
-    return _kv_store(v.transpose(1, 2), kv_dtype, amax)
+def _kv_store_kvh(v: torch.Tensor, kv_dtype, amax):
+    """k/v [B, T, n_kv, hd] -> the kv-head-major kernel cache form: (stored
+    [B, n_kv, T, C], block-scale bytes [B, n_kv, T, hd/16] or None)."""
+    vt = v.transpose(1, 2)
+    if kv_dtype == "nvfp4":
+        planes, sbits, _ = numerics.real_quant_nvfp4_planes(vt, 16, amax)
+        return planes, sbits
+    return _kv_store(vt, kv_dtype, amax), None
 
 
-def _kv_code_new(stored: torch.Tensor, kv_dtype, out_dtype) -> torch.Tensor:
+def _kv_code_new(stored: torch.Tensor, scales, kv_dtype, out_dtype) -> torch.Tensor:
     """Stored form -> code-domain values (global scale not applied)."""
+    if kv_dtype == "nvfp4":
+        return numerics.nvfp4_planes_code_load(stored, scales, out_dtype)
     if kv_dtype in (torch.int8, torch.float8_e4m3fn):
         return stored.float().to(out_dtype)
     return stored.to(out_dtype)
@@ -169,10 +233,10 @@ def _kv_amax_from(qstate, which: str) -> Optional[torch.Tensor]:
     return a.reshape(a.shape[0], -1).amax(dim=-1)  # [L]
 
 
-def _layer_forward(cfg, ecfg, cm, x, lp, lstate, kinds, positions, ck, cv, pos, ka, va, ops):
-    """One decoder layer on packed weights; ck/cv are this layer's
-    [B, n_kv, S, hd] cache, written in place."""
-    kv_attn, flash = ops["kv_attention"], ops["flash"]
+def _layer(cfg, cm, x, lp, lstate, kinds, positions, ops, attend):
+    """One decoder layer on packed weights: projections and rope, then
+    `attend(q [B, T, nH, hd], k, v [B, T, nKV, hd]) -> ctx [B*T, nH*hd]`,
+    then the output projection and the MLP."""
     B, T, H = x.shape
     hd, nH, nKV = cfg.hd, cfg.num_attention_heads, cfg.num_key_value_heads
 
@@ -186,35 +250,120 @@ def _layer_forward(cfg, ecfg, cm, x, lp, lstate, kinds, positions, ck, cv, pos, 
     k = llama.rope(lin(h2, "self_attn.k_proj").reshape(B, T, nKV, hd), positions,
                    cfg.rope_theta, cfg.rope_scaling)
     v = lin(h2, "self_attn.v_proj").reshape(B, T, nKV, hd)
-
-    kv_dtype = ecfg.kv_dtype
-    kg, vg = _kv_globals(kv_dtype, ka, va)
-    k_st = _kv_store_kvh(k, kv_dtype, ka)
-    v_st = _kv_store_kvh(v, kv_dtype, va)
-    if T == 1:
-        kn = _kv_code_new(k_st, kv_dtype, cfg.dtype)
-        vn = _kv_code_new(v_st, kv_dtype, cfg.dtype)
-        q_eff = q.reshape(B, nH, hd).float() * (kg.float() / math.sqrt(hd))
-        ctx = kv_attn(q_eff, ck, cv, kn, vn, pos, _kv_fmt(kv_dtype))
-        ctx = (ctx * vg).to(x.dtype).reshape(B * T, nH * hd)
-        # the new row lands after attention has read rows < pos
-        ck[:, :, pos] = k_st[:, :, 0].to(ck.dtype)
-        cv[:, :, pos] = v_st[:, :, 0].to(cv.dtype)
-    else:
-        if pos != 0:
-            raise ValueError(f"prefill needs an empty cache (pos == 0), got pos {pos}")
-        ck[:, :, :T] = k_st.to(ck.dtype)
-        cv[:, :, :T] = v_st.to(cv.dtype)
-        kq = (_kv_code_new(k_st, kv_dtype, torch.float32) * kg).to(cfg.dtype)
-        vq = (_kv_code_new(v_st, kv_dtype, torch.float32) * vg).to(cfg.dtype)
-        ctx = flash(q.transpose(1, 2), kq, vq, True)
-        ctx = ctx.transpose(1, 2).reshape(B * T, nH * hd).to(x.dtype)
+    ctx = attend(q, k, v)
     x = x + lin(ctx, "self_attn.o_proj").reshape(B, T, H)
     h2 = llama.norm(cfg, x, lp["post_attention_layernorm"]).reshape(B * T, H)
     g = lin(h2, "mlp.gate_proj")
     u = lin(h2, "mlp.up_proj")
     y = (torch.nn.functional.silu(g.float()) * u.float()).to(h2.dtype)
     return x + lin(y, "mlp.down_proj").reshape(B, T, H)
+
+
+def _dense_attn(cfg, ecfg, q, k, v, ck, cv, cks, cvs, pos, ka, va, ops):
+    """Attention of one layer over its dense cache ck/cv [B, n_kv, S, C]
+    (cks/cvs: NVFP4's block-scale bytes, else None), written in place."""
+    B, T, nH, hd = q.shape
+    kv_dtype = ecfg.kv_dtype
+    kg, vg = _kv_globals(kv_dtype, ka, va)
+    k_st, k_sc = _kv_store_kvh(k, kv_dtype, ka)
+    v_st, v_sc = _kv_store_kvh(v, kv_dtype, va)
+    if T == 1:
+        kn = _kv_code_new(k_st, k_sc, kv_dtype, cfg.dtype)
+        vn = _kv_code_new(v_st, v_sc, kv_dtype, cfg.dtype)
+        q_eff = q.reshape(B, nH, hd).float() * (kg.float() / math.sqrt(hd))
+        ctx = ops["kv_attention"](q_eff, ck, cv, kn, vn, pos, _kv_fmt(kv_dtype), cks, cvs)
+        ctx = (ctx * vg).to(cfg.dtype).reshape(B * T, nH * hd)
+        # the new row lands after attention has read rows < pos
+        rows = slice(pos, pos + 1)
+    else:
+        if pos != 0:
+            raise ValueError(f"prefill needs an empty cache (pos == 0), got pos {pos}")
+        kq = (_kv_code_new(k_st, k_sc, kv_dtype, torch.float32) * kg).to(cfg.dtype)
+        vq = (_kv_code_new(v_st, v_sc, kv_dtype, torch.float32) * vg).to(cfg.dtype)
+        ctx = ops["flash"](q.transpose(1, 2), kq, vq, True)
+        ctx = ctx.transpose(1, 2).reshape(B * T, nH * hd).to(cfg.dtype)
+        rows = slice(0, T)
+    ck[:, :, rows] = k_st.to(ck.dtype)
+    cv[:, :, rows] = v_st.to(cv.dtype)
+    if cks is not None:
+        cks[:, :, rows] = k_sc
+        cvs[:, :, rows] = v_sc
+    return ctx
+
+
+def _paged_layer_attn(cfg, ecfg, q, k_new, v_new, kp, vp, ksc, vsc, cache, ka, va, write_mask, ops):
+    """Paged attention of one layer, T tokens per slot (T = 1 decode, T > 1
+    chunked prefill): writes the tokens' k/v into this layer's pages kp/vp
+    [n_pages, n_kv, page, C] (ksc/vsc: the NVFP4 scale pools, else None) in
+    place at positions seq_lens .. seq_lens + T - 1, then attends. Slots whose
+    `write_mask` is False write to the scratch page 0 (several of them to
+    the same rows, in no order: nothing reads those rows as live).
+    Returns ctx [B*T, nH*hd]."""
+    B, T, nH, hd = q.shape
+    nKV = cfg.num_key_value_heads
+    page = kp.shape[2]
+    packed4 = ksc is not None
+    kv_dtype = ecfg.kv_dtype
+    if kv_dtype == "nvfp4" and not packed4:
+        kv_dtype = "nvfp4_fake"
+    pos = cache.seq_lens
+    tok_pos = pos.long()[:, None] + torch.arange(T, device=q.device)[None, :]  # [B, T]
+    pidx = (tok_pos // page).clamp_max(cache.block_table.shape[1] - 1)
+    page_ids = torch.gather(cache.block_table, 1, pidx).clamp_min(0).long()
+    page_ids = torch.where(write_mask[:, None], page_ids, torch.zeros_like(page_ids))
+    ids, offs = page_ids.reshape(-1), (tok_pos % page).reshape(-1)
+    if packed4:
+        ks, ks_sc, _ = numerics.real_quant_nvfp4_planes(k_new, 16, ka)
+        vs, vs_sc, _ = numerics.real_quant_nvfp4_planes(v_new, 16, va)
+        ksc[ids, :, offs] = ks_sc.reshape(B * T, nKV, hd // 16)
+        vsc[ids, :, offs] = vs_sc.reshape(B * T, nKV, hd // 16)
+    else:
+        ks = _kv_store(k_new, kv_dtype, ka).to(kp.dtype)
+        vs = _kv_store(v_new, kv_dtype, va).to(vp.dtype)
+        ks_sc = vs_sc = None
+    Cw = kp.shape[-1]
+    kp[ids, :, offs] = ks.reshape(B * T, nKV, Cw)
+    vp[ids, :, offs] = vs.reshape(B * T, nKV, Cw)
+    fmt = "nvfp4" if packed4 else "raw"
+    k_sc, v_sc = _kv_scales("nvfp4" if packed4 else kv_dtype, ka, va)
+
+    if ecfg.paged_attention_kernel:
+        # the scales fold exactly: k's into q (scores are linear in k), v's
+        # into the context; each fold rounds to the activation dtype
+        qk = q if k_sc is None else (q.float() * k_sc).to(q.dtype)
+        if T > 1:
+            # the chunk's kv goes in stored form, so one fold of k's scale
+            # covers the context's and the chunk's scores
+            ctx = ops["paged_prefill"](qk, kp, vp, cache.block_table, pos, ks, vs, fmt, ksc, vsc, ks_sc, vs_sc)
+        else:
+            ctx = ops["paged_decode"](qk[:, 0], kp, vp, cache.block_table, pos + T, fmt, ksc, vsc)
+        if v_sc is not None:
+            ctx = (ctx.float() * v_sc).to(q.dtype)
+        return ctx.reshape(B * T, nH * hd).to(q.dtype)
+
+    # gather path: every table column's pages, dequantized, masked by position
+    bt = cache.block_table.clamp_min(0).long()
+
+    def gathered(pages, last):
+        return pages[bt].transpose(2, 3).reshape(B, -1, nKV, last)
+
+    if packed4:
+        k_all = (numerics.nvfp4_planes_code_load(gathered(kp, hd // 2), gathered(ksc, hd // 16),
+                                                 torch.float32) * k_sc).to(cfg.dtype)
+        v_all = (numerics.nvfp4_planes_code_load(gathered(vp, hd // 2), gathered(vsc, hd // 16),
+                                                 torch.float32) * v_sc).to(cfg.dtype)
+    else:
+        k_all = _kv_load(gathered(kp, hd), cfg.dtype, kv_dtype, ka)
+        v_all = _kv_load(gathered(vp, hd), cfg.dtype, kv_dtype, va)
+    S = k_all.shape[1]
+    # query t (global position pos + t) sees keys at positions <= pos + t
+    mask = torch.where(torch.arange(S, device=q.device)[None, None, :] <= tok_pos[:, :, None], 0.0, -1e9)
+    rep = nH // nKV
+    scores = torch.einsum("btgrd,bsgd->bgrts", q.reshape(B, T, nKV, rep, hd).float(), k_all.float())
+    scores = scores.reshape(B, nH, T, S) / math.sqrt(hd) + mask[:, None].float()
+    probs = torch.softmax(scores, dim=-1).to(q.dtype).reshape(B, nKV, rep, T, S)
+    ctx = torch.einsum("bgrts,bsgd->btgrd", probs.float(), v_all.float()).to(q.dtype)
+    return ctx.reshape(B * T, nH * hd)
 
 
 class Engine:
@@ -227,10 +376,16 @@ class Engine:
             raise ValueError(f"model lives on {cm.params['embed_tokens'].device}, engine on {self.device}")
         if not config.kv_attention_kernel:
             raise NotImplementedError(
-                "kv_attention_kernel=False (the dense-cache einsum path) comes with the "
-                "paged-serving slice")
+                "kv_attention_kernel=False (the dense-cache einsum engine) is not ported yet")
         if config.kv_dtype not in _KV_DTYPES:
-            raise NotImplementedError(f"kv_dtype {config.kv_dtype!r}: NVFP4 KV comes with the NVFP4-KV slice")
+            raise ValueError(f"kv_dtype {config.kv_dtype!r}: one of {_KV_DTYPES}")
+        # an NVFP4 KV preset selects the packed NVFP4 cache when the caller
+        # picked no storage dtype
+        kcfg = cm.layout.get("self_attn.k_bmm")
+        if config.kv_dtype is None and kcfg.enable and kcfg.is_fp and kcfg.num_bits == (2, 1):
+            config = dataclasses.replace(config, kv_dtype="nvfp4")
+        if config.kv_dtype in ("nvfp4", "nvfp4_fake") and cm.model_cfg.hd % 16:
+            raise ValueError(f"NVFP4 KV needs head_dim % 16 == 0, got {cm.model_cfg.hd}")
         cm = convert_packed_layouts(cm, nvfp4=config.nvfp4_layout, int4=config.int4_layout,
                                     mxfp4=config.nvfp4_layout)
         for name, kind in cm.kinds.items():
@@ -254,35 +409,61 @@ class Engine:
                            if isinstance(sub, dict) and "input" in sub}
 
     def init_cache(self, batch: int, max_len: Optional[int] = None) -> dict:
+        """The kv-head-major stored-form cache [L, B, n_kv, S, C]; NVFP4 keeps
+        its nibble planes in "k"/"v" and its block-scale bytes in "ks"/"vs"."""
         cfg = self.cfg
         max_len = max_len or self.ecfg.max_seq_len
-        dtype = self.ecfg.kv_dtype or cfg.dtype
-        shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.hd)
-        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device),
-                "pos": 0}
+        dtype, last = self.ecfg.kv_dtype or cfg.dtype, cfg.hd
+        if dtype == "nvfp4":
+            dtype, last = torch.uint8, cfg.hd // 2
+        elif dtype == "nvfp4_fake":
+            dtype = cfg.dtype
+
+        def rows(width, dt):
+            return torch.zeros((cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, width),
+                               dtype=dt, device=self.device)
+
+        cache = {"k": rows(last, dtype), "v": rows(last, dtype), "pos": 0}
+        if self.ecfg.kv_dtype == "nvfp4":
+            cache["ks"], cache["vs"] = rows(cfg.hd // 16, torch.uint8), rows(cfg.hd // 16, torch.uint8)
+        return cache
+
+    def _layers(self, x, positions, attend_of):
+        """Every layer in turn; `attend_of(i)` gives layer i's attention."""
+        layers = self.cm.params["layers"]
+        for i in range(self.cfg.num_hidden_layers):
+            lp = {k: (layer_arrays(v, i) if isinstance(v, dict) else v[i]) for k, v in layers.items()}
+            x = _layer(self.cfg, self.cm, x, lp, llama.slice_state(self._act_state, i), self.cm.kinds,
+                       positions, self._ops, attend_of(i))
+        return x
+
+    def _last_logits(self, x: torch.Tensor) -> torch.Tensor:
+        params = self.cm.params
+        x = llama.norm(self.cfg, x, params["norm"])
+        head_w = params.get("lm_head", params["embed_tokens"])
+        return (x[:, -1, :] @ head_w.t().to(x.dtype)).float()
 
     @torch.inference_mode()
     def _model_step(self, tokens: torch.Tensor, cache: dict) -> torch.Tensor:
         """Forward over packed weights; updates `cache` in place. Returns the
         last position's logits [B, V] f32."""
-        cfg, params = self.cfg, self.cm.params
+        cfg = self.cfg
         B, T = tokens.shape
         pos = cache["pos"]
         if pos + T > cache["k"].shape[3]:
             raise ValueError(f"cache holds {cache['k'].shape[3]} rows, step needs {pos + T}")
-        x = params["embed_tokens"][tokens].to(cfg.dtype)
+        x = self.cm.params["embed_tokens"][tokens].to(cfg.dtype)
         positions = (pos + torch.arange(T, device=self.device, dtype=torch.int32))[None].expand(B, T)
-        layers = params["layers"]
-        for i in range(cfg.num_hidden_layers):
-            lp = {k: (layer_arrays(v, i) if isinstance(v, dict) else v[i]) for k, v in layers.items()}
-            lstate = llama.slice_state(self._act_state, i)
-            x = _layer_forward(cfg, self.ecfg, self.cm, x, lp, lstate, self.cm.kinds, positions,
-                               cache["k"][i], cache["v"][i], pos, self._ka[i], self._va[i], self._ops)
-        x = llama.norm(cfg, x, params["norm"])
-        head_w = params.get("lm_head", params["embed_tokens"])
+        packed4 = "ks" in cache
+
+        def attend_of(i):
+            cks, cvs = (cache["ks"][i], cache["vs"][i]) if packed4 else (None, None)
+            return lambda q, k, v: _dense_attn(cfg, self.ecfg, q, k, v, cache["k"][i], cache["v"][i], cks, cvs,
+                                               pos, self._ka[i], self._va[i], self._ops)
+
+        x = self._layers(x, positions, attend_of)
         cache["pos"] = pos + T
-        return (x[:, -1, :] @ head_w.t().to(x.dtype)).float()
+        return self._last_logits(x)
 
     def prefill(self, tokens: torch.Tensor, cache: dict) -> torch.Tensor:
         """Prefill an empty cache with tokens [B, T]; returns logits [B, V]."""
@@ -317,3 +498,179 @@ class Engine:
         first = sample(logits, sampling or SamplingConfig(), generator)[:, None]
         toks = self.decode(first, cache, max_new_tokens - 1, sampling, generator)
         return torch.cat([first, toks], dim=1)
+
+    # ---------------- paged KV + continuous batching ----------------
+
+    def init_paged_cache(self, n_pages: int, page_size: int, max_slots: int,
+                         max_pages_per_seq: int) -> pc.PagedKV:
+        cfg = self.cfg
+        dtype = self.ecfg.kv_dtype or cfg.dtype
+        packed4 = dtype == "nvfp4"  # nibble planes + E4M3 scale pools
+        if dtype in ("nvfp4", "nvfp4_fake"):
+            dtype = cfg.dtype
+        return pc.init_paged(cfg.num_hidden_layers, n_pages, page_size, cfg.num_key_value_heads, cfg.hd,
+                             max_slots, max_pages_per_seq, dtype, packed_nvfp4=packed4, device=self.device)
+
+    @torch.inference_mode()
+    def prefill_into_slot(self, cache: pc.PagedKV, slot: int, tokens: torch.Tensor) -> torch.Tensor:
+        """Prefill one sequence [1, T] densely (flash attention over the
+        fresh tokens) and copy its stored-form cache rows into the slot's
+        pages; the slot's length becomes T. Returns the logits [1, V]."""
+        T = tokens.shape[1]
+        dense = self.init_cache(1, max_len=T)
+        logits = self.prefill(tokens.to(self.device), dense)
+        page = cache.page_size
+        pos = torch.arange(T, device=self.device)
+        page_ids = cache.block_table[slot].clamp_min(0).long()[pos // page]
+        poff = pos % page
+        # the dense kernel cache is the pages' stored form, [L, n_kv, T, C];
+        # the advanced indices (pages axis 1, offsets axis 3) put T first
+        pools = [(cache.k_pages, dense["k"]), (cache.v_pages, dense["v"])]
+        if cache.packed_nvfp4:
+            pools += [(cache.k_scales, dense["ks"]), (cache.v_scales, dense["vs"])]
+        for pool, rows in pools:
+            pool[:, page_ids, :, poff] = rows[:, 0].permute(2, 0, 1, 3).to(pool.dtype)
+        cache.seq_lens[slot] = T
+        return logits
+
+    @torch.inference_mode()
+    def paged_step(self, tokens: torch.Tensor, cache: pc.PagedKV, active: torch.Tensor) -> torch.Tensor:
+        """One continuous-batching step over all slots: tokens [B, T] (T = 1
+        decode; T > 1 a prefill chunk) land at positions seq_lens ..
+        seq_lens + T - 1 of the slots named by `active` [B] bool, whose
+        lengths advance by T; the other slots are computed too, write to the
+        scratch page and keep their length. Returns the last position's
+        logits [B, V] f32; the pool is updated in place."""
+        if "self_attn.sinks" in self.cm.params["layers"]:
+            raise NotImplementedError("paged serving does not support attention sinks / sliding windows")
+        cfg = self.cfg
+        B, T = tokens.shape
+        tokens, active = tokens.to(self.device), active.to(self.device)
+        x = self.cm.params["embed_tokens"][tokens].to(cfg.dtype)
+        positions = cache.seq_lens[:, None] + torch.arange(T, device=self.device, dtype=torch.int32)[None, :]
+        packed4 = cache.packed_nvfp4
+
+        def attend_of(i):
+            ksc, vsc = (cache.k_scales[i], cache.v_scales[i]) if packed4 else (None, None)
+            return lambda q, k, v: _paged_layer_attn(cfg, self.ecfg, q, k, v, cache.k_pages[i], cache.v_pages[i],
+                                                     ksc, vsc, cache, self._ka[i], self._va[i], active, self._ops)
+
+        x = self._layers(x, positions, attend_of)
+        cache.seq_lens += T * active.to(torch.int32)
+        return self._last_logits(x)
+
+    def paged_decode_step(self, tok: torch.Tensor, cache: pc.PagedKV, active: torch.Tensor,
+                          unroll: int = 1, return_all: bool = False) -> torch.Tensor:
+        """`unroll` chained greedy paged steps: each step's argmax stays on
+        the device and feeds the next, with no host sync between them. The
+        caller guarantees every active slot page capacity through seq_len +
+        unroll. Returns the block [B, unroll] int32 with `return_all`, else
+        its last column [B, 1]."""
+        toks = []
+        for _ in range(unroll):
+            tok = torch.argmax(self.paged_step(tok, cache, active), dim=-1).to(torch.int32)[:, None]
+            toks.append(tok)
+        return torch.cat(toks, dim=1) if return_all else tok
+
+    def prefill_chunked(self, cache: pc.PagedKV, slot: int, tokens: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+        """Paged chunked prefill: stream the prompt [1, T] into the slot's
+        pages in chunks of `chunk` tokens, then single-token steps for the
+        remainder; positions continue at the slot's length, so the tokens
+        attend to whatever its pages already hold (a shared prefix). All
+        slots are computed, only `slot` writes. Returns the last logits [V]."""
+        B = cache.block_table.shape[0]
+        T = tokens.shape[1]
+        tokens = tokens.to(self.device)
+        onehot = torch.zeros((B,), dtype=torch.bool, device=self.device)
+        onehot[slot] = True
+        logits, done = None, 0
+        while done < T:
+            step_t = chunk if T - done >= chunk else 1
+            toks = torch.zeros((B, step_t), dtype=tokens.dtype, device=self.device)
+            toks[slot] = tokens[0, done:done + step_t]
+            logits = self.paged_step(toks, cache, onehot)
+            done += step_t
+        return logits[slot]
+
+    def serve(self, requests, n_pages=64, page_size=16, max_slots=4, max_pages_per_seq=16,
+              prefix_cache=False, unroll=1, collect_metrics=False):
+        """Continuous batching over a request list. Returns {rid: tokens}
+        (or (outs, metrics) with `collect_metrics`).
+
+        `prefix_cache=True` shares full prompt-prefix pages across requests
+        (an admission with a cached prefix prefills only its tail, through
+        `prefill_chunked`). `unroll > 1` is multi-step scheduling: one call
+        emits an `unroll`-token block per slot with no host sync inside
+        (overshoot past EOS is dropped; needs unroll <= page_size so the
+        admit-time page reservation absorbs the cache overshoot). Metrics:
+        per-request TTFT from the start of `serve` (queueing included) as
+        p50 / p95, total tok/s, slot utilization (active-slot-steps over
+        slots x steps), the number of decode dispatches and of each prefill
+        route, and the scheduler's free pages at the end."""
+        if unroll > page_size:
+            raise ValueError(f"unroll {unroll} > page_size {page_size}")
+        sched = Scheduler(max_slots, n_pages, page_size, max_pages_per_seq, prefix_cache=prefix_cache)
+        for r in requests:
+            sched.submit(r)
+        cache = self.init_paged_cache(n_pages, page_size, max_slots, max_pages_per_seq)
+        last_tok = np.zeros((max_slots, 1), np.int32)
+        t0 = time.time()
+        ttft = {}
+        steps = active_slot_steps = dense_prefills = chunked_prefills = 0
+        while sched.has_work:
+            cache, admissions = sched.admit(cache)
+            for slot, req in admissions:
+                skip = int(cache.seq_lens[slot])  # cached prefix
+                prompt = torch.from_numpy(np.asarray(req.prompt))[None]
+                if skip > 0:
+                    # the tail attends to the shared prefix pages
+                    logits = self.prefill_chunked(cache, slot, prompt[:, skip:])
+                    chunked_prefills += 1
+                else:
+                    logits = self.prefill_into_slot(cache, slot, prompt)[0]
+                    dense_prefills += 1
+                sched.register_prefix(slot)
+                first = int(torch.argmax(logits))
+                ttft[req.rid] = time.time() - t0
+                req.output.append(first)
+                last_tok[slot, 0] = first
+                if len(req.output) >= req.max_new_tokens or (req.eos_token is not None and first == req.eos_token):
+                    req.done = True
+            active = sched.active_mask()
+            if not active.any():
+                cache = sched.retire(cache)
+                continue
+            tok, act = torch.from_numpy(last_tok).to(self.device), torch.from_numpy(active).to(self.device)
+            if unroll > 1:
+                blk = self.paged_decode_step(tok, cache, act, unroll=unroll, return_all=True).cpu().numpy()
+                sched.record_token_block(blk)
+                nxt = blk[:, -1]
+            else:
+                nxt = torch.argmax(self.paged_step(tok, cache, act), dim=-1).cpu().numpy()
+                sched.record_tokens(nxt)
+            steps += 1
+            active_slot_steps += int(active.sum())
+            last_tok[active, 0] = nxt[active]
+            cache = sched.retire(cache)
+        outs = {r.rid: r.output for r in requests}
+        if not collect_metrics:
+            return outs
+        wall = time.time() - t0
+        tt = sorted(ttft.values())
+
+        def pct(q):
+            return tt[min(len(tt) - 1, int(q * len(tt)))] if tt else 0.0
+
+        total_new = sum(len(v) for v in outs.values())
+        return outs, {
+            "wall_s": wall,
+            "tok_s": total_new / wall if wall else 0.0,
+            "ttft_p50_s": pct(0.50),
+            "ttft_p95_s": pct(0.95),
+            "slot_utilization": active_slot_steps / (steps * max_slots) if steps else 0.0,
+            "decode_dispatches": steps,
+            "unroll": unroll,
+            "dense_prefills": dense_prefills,
+            "chunked_prefills": chunked_prefills,
+            "free_pages": len(sched.free_pages),
+        }

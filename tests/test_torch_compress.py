@@ -175,8 +175,9 @@ def test_ptq_weights_only_amax_equal(preset):
 
 
 def test_unported_presets_raise():
-    with pytest.raises(NotImplementedError, match="NVFP4-KV"):
-        tconfig.get_preset("NVFP4_KV_CFG")
+    with pytest.raises(NotImplementedError, match="remaining-formats"):
+        tconfig.get_preset("NF4_WEIGHT_ONLY_CFG")
+    assert tconfig.get_preset("NVFP4_KV_CFG") is tconfig.NVFP4_KV_CFG  # ported with the NVFP4 KV cache
     with pytest.raises(NotImplementedError, match="remaining-formats"):
         tconfig.MXFP6_DEFAULT_CFG  # noqa: B018
     with pytest.raises(NotImplementedError, match="calibration-algorithms"):

@@ -77,11 +77,12 @@ def test_engine_refuses_unported_paths(setup):
     cm = convert.compressed_from_jax(jcm)
     for bad in (dict(int4_layout="xla", kv_attention_kernel=True),
                 dict(int4_layout="a8", kv_attention_kernel=False),
-                dict(int4_layout="a8", kv_attention_kernel=True, kv_dtype="nvfp4")):
+                dict(int4_layout="a8", kv_attention_kernel=False, paged_attention_kernel=True)):
         with pytest.raises(NotImplementedError):
             tengine.Engine(cm, tengine.EngineConfig(**bad), device="cpu")
-    with pytest.raises(ValueError):
-        tengine.Engine(cm, tengine.EngineConfig(int4_layout="bd4", kv_attention_kernel=True), device="cpu")
+    for bad in (dict(int4_layout="bd4"), dict(int4_layout="a8", kv_dtype="nf4")):
+        with pytest.raises(ValueError):
+            tengine.Engine(cm, tengine.EngineConfig(kv_attention_kernel=True, **bad), device="cpu")
     tcfg = tllama.LlamaConfig.tiny(**DIMS)
     params = tree_map(torch.from_numpy, pnp)
     kernel_path = tengine.EngineConfig(kv_attention_kernel=True)
@@ -150,14 +151,17 @@ def test_prefill_needs_empty_cache(setup):
 @pytest.mark.parametrize("plain", [(), ("flash",), ("int4_wo", "byte_wo"), tengine.PLAIN_ALL])
 def test_plain_ops_picks_each_kernel(plain):
     """`plain_ops` swaps exactly the named kernels for their plain versions."""
-    from tensorrt_model_optimizer_tpu_torch.ops.cuda import flash_gqa, kv_attention, qmm, qmm_wo
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import flash_gqa, kv_attention, paged_attention, qmm, qmm_wo
 
-    assert tengine.PLAIN_ALL == ("w4a8", "kv_attention", "flash", "int4_wo", "fp4_wo", "byte_wo")
+    assert tengine.PLAIN_ALL == ("w4a8", "kv_attention", "flash", "int4_wo", "fp4_wo", "byte_wo",
+                                 "paged_decode", "paged_prefill")
     kernels = (qmm.w4a8_matmul, kv_attention.kv_decode_attention, flash_gqa.flash_attention_gqa,
-               qmm_wo.int4_wo_matmul, qmm_wo.fp4_wo_matmul, qmm_wo.byte_wo_matmul)
+               qmm_wo.int4_wo_matmul, qmm_wo.fp4_wo_matmul, qmm_wo.byte_wo_matmul,
+               paged_attention.paged_attention_decode, paged_attention.paged_attention_prefill)
     plains = (qmm.w4a8_matmul_plain, kv_attention.kv_decode_attention_plain,
               flash_gqa.flash_attention_gqa_plain, qmm_wo.int4_wo_matmul_plain,
-              qmm_wo.fp4_wo_matmul_plain, qmm_wo.byte_wo_matmul_plain)
+              qmm_wo.fp4_wo_matmul_plain, qmm_wo.byte_wo_matmul_plain,
+              paged_attention.paged_attention_decode_plain, paged_attention.paged_attention_prefill_plain)
     want = {name: (p if name in plain else k) for name, k, p in zip(tengine.PLAIN_ALL, kernels, plains)}
     assert tengine._ops(plain) == want
 

@@ -1,6 +1,6 @@
 """The port's KV decode attention (plain version here; the CUDA kernel on a
 card) against JAX's `kv_decode_attention` Pallas kernel in interpret mode,
-for the bf16, int8 and fp8 stored forms, including pos = 0 (only the
+for the bf16, int8 and fp8 stored forms (NVFP4: test_torch_nvfp4_kv.py), including pos = 0 (only the
 current token). f32 throughout; the tolerance is 1e-5 of the output's
 scale, f32 rounding of sums taken in another order."""
 
@@ -62,6 +62,8 @@ def test_unported_format_raises():
     q, kc, vc, kn, vn = _inputs("int8", seed=1)
     t = [convert.tensor_from_array(a) for a in (q, kc, vc, kn, vn)]
     with pytest.raises(NotImplementedError):
+        tkva.kv_decode_attention(*t, 3, "nf4")
+    with pytest.raises(ValueError):  # nvfp4 rows are hd/2 bytes with block-scale arrays
         tkva.kv_decode_attention(*t, 3, "nvfp4")
 
 

@@ -1,6 +1,7 @@
 #!/bin/bash
 # Mutation checks of chip_smoke.py's checks of the port's weight-only GEMM
-# kernels (tensorrt_model_optimizer_tpu_torch/csrc/qmm_*_wo.cu). Each case
+# kernels (tensorrt_model_optimizer_tpu_torch/csrc/qmm_*_wo.cu) and KV-cache
+# attention kernels (kv_decode_attention.cu, paged_attention_*.cu). Each case
 # plants one fault in a copy of the tree in a fresh `mktemp -d` directory
 # (under $TMPDIR, removed on exit) and runs `chip_smoke.py --phases
 # build,kernels` there; every case must exit non-zero.
@@ -34,4 +35,10 @@ run fp4_second_block qmm_fp4_wo.cu 's/const float sc = j < 2 ? s0 : s1;/const fl
 run skip_last_k16 qmm_wo_common.cuh 's/for (int kk = 0; kk < BK; kk += 16) {/for (int kk = 0; kk < BK - 16; kk += 16) {/'
 # int4: nibble sign extension dropped (codes 8..15 read as +8..+15)
 run int4_sign qmm_int4_wo.cu 's/__vsub4((v\[j\] \& 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u)/(v[j] \& 0x0F0F0F0Fu)/'
+# paged decode: the last live row of every sequence is masked out
+run paged_decode_last_row paged_attention_decode.cu 's/const int len = min(lens\[b\], max_pages \* page);/const int len = min(lens[b] - 1, max_pages * page);/'
+# paged prefill: the causal mask takes < for <= (a token no longer sees itself)
+run paged_prefill_causal paged_attention_prefill.cu 's/if (j <= t) {/if (j < t) {/; s/if (base + u > t) break;/if (base + u >= t) break;/'
+# NVFP4 rows: the high plane takes the low plane's block-scale bytes
+run nvfp4_high_plane_scale kv_common.cuh 's|s(static_cast<const uint8_t\*>(scales) + lane \* E / 16)|s(static_cast<const uint8_t*>(scales) + (lane \& 15) * E / 16)|'
 exit $missed
