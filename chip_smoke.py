@@ -10,8 +10,11 @@ Phases (any failure raises, and the script exits non-zero):
   kernels  each kernel against its plain PyTorch version on the card, at the
            Llama-3.1-8B shapes of the served path, with CUDA-event timings,
            the bound (bytes or operations) and, where PyTorch has one call for
-           the same function (flash, int4 and int8 weight-only, and SDPA for
-           the bf16 format of the three KV attention kernels), its time.
+           the same function (flash, int4 and int8 weight-only, SDPA for the
+           bf16 format of the three KV attention kernels and for skip-softmax
+           at threshold 1e-30), its time. Skip-softmax also runs on spiked
+           inputs, at a calibrated threshold, at the RULER anchor's shape and
+           at ragged tile sizes.
   anchor   the in-repo trained checkpoint `artifacts/anchor-llama` through
            load -> PTQ -> compress -> int8-KV engine, once for each served
            path (W4A8; INT4, NVFP4, MXFP4, INT8 weight-only; FP8 and NVFP4 with
@@ -22,7 +25,11 @@ Phases (any failure raises, and the script exits non-zero):
            int8 pages and over packed NVFP4 pages (NVFP4_KV_CFG): page 8, 2
            slots, 4 requests behind a shared prefix, prefix cache, unroll 1 and
            4; the paged kernels against their plain versions in lock step, and
-           every served token against the dense-cache engine.
+           every served token against the dense-cache engine. Then the einsum
+           engine (kv_attention_kernel=False) with int8 and packed NVFP4
+           caches, dense and sparse prefill and decode, kernel against plain;
+           and the RULER threshold curve on `artifacts/anchor-ruler` through
+           the skip-softmax kernel and its plain version.
   full     Llama-3.1-8B at full width (seeded random bf16 weights on the
            card, made once): for each path of `FULL_PATHS`, PTQ -> compress ->
            engine, batch 8 x 2048-token prompts then 32 decode steps. W4A8,
@@ -34,9 +41,11 @@ Phases (any failure raises, and the script exits non-zero):
            that runs only flash attention on its plain version. The INT4 path
            then serves 12 requests (1024-token prompts behind a 256-token
            shared prefix) through `Engine.serve` over int8 pages: 8 slots,
-           page 16, prefix cache, unroll 4, all 32 layers; and on 4 layers
-           NVFP4_KV_CFG serves packed NVFP4 pages and generates over the dense
-           NVFP4 KV cache at batch 8 x 2048.
+           page 16, prefix cache, unroll 4, all 32 layers; runs the einsum
+           engine on all 32 layers with dense and sparse prefill of 8 x 2048
+           tokens and 32 decode steps; and on 4 layers NVFP4_KV_CFG serves
+           packed NVFP4 pages and generates over the dense NVFP4 KV cache at
+           batch 8 x 2048.
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -58,8 +67,10 @@ if HERE not in sys.path:
     sys.path.insert(0, HERE)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}  # dense tensor-core peaks
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}  # dense tensor-core peaks; f32 off the tensor cores
 ANCHOR = os.path.join(HERE, "artifacts", "anchor-llama")
+ANCHOR_RULER = os.path.join(HERE, "artifacts", "anchor-ruler")
+RULER_CURVE = os.path.join(HERE, "artifacts", "ruler_curve.json")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +81,7 @@ class Sizes:
     qmm_rows: tuple = (8, 16384)
     kv: tuple = (8, 8, 4, 128, 2560, 2048)  # B, n_kv, rep, hd, S, pos
     flash: tuple = (8, 32, 8, 2048, 128)  # B, H, Hkv, T, d
+    skip: tuple = (256, 2048, 128, 128)  # BH (8 sequences x 32 heads), S, d, tile
     page: int = 16      # rows of a KV page
     chunk: int = 64     # tokens of a paged prefill chunk (`Engine.prefill_chunked`)
     batch: int = 8
@@ -200,6 +212,94 @@ def phase_kernels(torch, dev, sz: Sizes, timer: Timer, rows: dict):
              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
     log(json.dumps({"kernel": "flash_gqa", **shape}))
     rows["flash_gqa"] = dict(shape, shapes=[shape])
+    del q, k, v, out
+
+    _phase_kernels_skip(torch, dev, sz, timer, rows, g)
+
+SKIP_MARGIN = 1e-4  # |tile max - (running max + log threshold)|, in scaled-score units, where a keep may flip
+
+
+def _phase_kernels_skip(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
+    """skip_softmax_flash against its plain version: the 8B prefill shape
+    (BH 256, S 2048, d 128, bf16, causal 128-tiles) at threshold 1e-30 (only
+    the causal tiles skipped), on spiked inputs at 1e-2 (most tiles skipped)
+    and at the threshold `calibrate_threshold` gives for a 0.4 block
+    sparsity; the RULER anchor's shape (f32, d 32, S 448, 64-tiles, BH 64 x
+    8 heads); ragged S = 131 (tiles of 1) and S = 200 (tiles of 8).
+
+    Keep maps are held equal, except tiles whose decision lies within
+    SKIP_MARGIN of its limit in the plain version (the kernel's f32 dot sums
+    in another order), which are counted and printed; the outputs of the q
+    tiles whose keep rows agree are held per element to 2^-8 |ref| + 1e-3
+    rms(ref) against the plain version's f32 result. SDPA causal, timed at
+    threshold 1e-30 where it computes the same function, is the library
+    call."""
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import sparse_attention as ssa
+    from tensorrt_model_optimizer_tpu_torch.sparsity.attention_sparsity import calibrate_threshold
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    BH, S, d, blk = sz.skip
+
+    def inputs(bh, s, dd, dtype, spike=False):
+        q, k, v = (torch.randn((bh, s, dd), generator=g, device=dev) for _ in range(3))
+        if spike:  # attention concentrated on the first 16 keys
+            q[:, :, 0] = 8.0
+            k[:, :16, 0] = 8.0
+        return tuple(t.to(dtype) for t in (q, k, v))
+
+    q8, k8, v8 = inputs(BH, S, d, torch.bfloat16)
+    x = q8[0, :512].float()[None, :, None, :]  # as tools/bench_sparse_prefill.py: q = k = v
+    calibrated = calibrate_threshold(x, x, x, 0.4)
+    cases = [("8B", (q8, k8, v8), 1e-30, blk), ("8B spike", inputs(BH, S, d, torch.bfloat16, True), 1e-2, blk),
+             ("8B calibrated 0.4", (q8, k8, v8), calibrated, blk),
+             ("anchor-ruler", inputs(512, 448, 32, torch.float32), 1e-2, 64),
+             ("ragged S=131", inputs(32, 131, d, torch.bfloat16), 1e-2, blk),
+             ("ragged S=200", inputs(32, 200, d, torch.bfloat16), 0.5, blk)]
+    shapes = []
+    for label, (q, k, v), th, b in cases:
+        bh, s, dd = q.shape
+        bq, bk = ssa.tile_sizes(s, b, b)
+        out, keep = ssa.skip_softmax_flash(q, k, v, th, b, b, True)
+        torch.cuda.synchronize()
+        ref32, rkeep = ssa.skip_softmax_flash_plain(q.float(), k.float(), v.float(), th, b, b, True)
+        _, margin = ssa.tile_decisions(ssa.block_max(q, k, bq, bk, True), ssa.log_threshold(th), bq, bk, True)
+        flips = keep != rkeep
+        far = flips & (margin.abs() > SKIP_MARGIN)
+        if bool(far.any()):
+            raise AssertionError(f"skip_softmax_flash {label}: {int(far.sum())} keep decisions differ from the plain "
+                                 f"version away from the decision limit (margins {margin[far][:8].tolist()})")
+        agree = ~flips.any(dim=-1)  # [bh, nq]: q tiles whose whole keep row agrees
+        rows_ok = agree[:, :, None].expand(bh, s // bq, bq).reshape(bh, s)
+        diff = (out.float() - ref32).abs()[rows_ok]
+        tol = (2.0 ** -8 * ref32.abs() + 1e-3 * float(ref32.square().mean().sqrt()))[rows_ok]
+        worst = float((diff / tol).max()) if diff.numel() else 0.0
+        err = float(diff.max()) if diff.numel() else 0.0
+        if not worst <= 1.0:
+            raise AssertionError(f"skip_softmax_flash {label}: worst err/limit {worst} > 1 (2^-8|ref| + 1e-3 "
+                                 f"rms(ref)), max abs err {err}")
+        kept = float(keep.float().mean())
+        ms = timer(lambda: ssa.skip_softmax_flash(q, k, v, th, b, b, True), sz.reps)
+        plain_ms = timer(lambda: ssa.skip_softmax_flash_plain(q, k, v, th, b, b, True), 2)
+        lib_ms = lib_rel = None
+        if th == 1e-30:
+            lib = lambda: sdpa(q[None], k[None], v[None], is_causal=True)[0]  # noqa: E731
+            lib_rel = _rel(lib().float(), ref32)
+            if not lib_rel <= 1e-2:
+                raise AssertionError(f"skip_softmax_flash {label}: SDPA is {lib_rel} of the output's scale from the "
+                                     "plain version: not the same function")
+            lib_ms = timer(lib, sz.reps)
+        # operations: q.k and p.v over the tiles this run kept (2 x 2 bh s^2 d
+        # x their share); bytes: q, k and v read, out written
+        b_ms, b_by = bound(4 * q.numel() * q.element_size(), 4.0 * bh * s * s * dd * kept,
+                           "bf16" if q.dtype == torch.bfloat16 else "f32")
+        shapes.append({"shape": f"{label} BH={bh} S={s} d={dd} {str(q.dtype)[6:]} tiles={bq}x{bk} causal",
+                       "threshold": th, "kept_share": kept, "keep_flips": int(flips.sum()),
+                       "q_tiles_excluded": int((~agree).sum()), "max_abs_err": err, "worst_err_over_limit": worst,
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                       "library_rel_err": lib_rel})
+        log(json.dumps({"kernel": "skip_softmax_flash", **shapes[-1]}))
+        del out, keep, ref32, rkeep, margin, diff, tol
+    rows["skip_softmax_flash"] = dict(shapes[0], shapes=shapes)
 
 
 def _stored_rows(torch, dev, g, shape, fmt):
@@ -552,13 +652,16 @@ def _phase_kernels_wo(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
 
 
 def _engine(torch, cm, max_seq: int, dev, plain: tuple = (), kv="int8", **fields):
-    """The kernel-attention engine; `kv` "int8" or None (the model's dtype,
-    or packed NVFP4 where the preset quantizes the k_bmm site so); `fields`
-    are further EngineConfig fields (layouts, paged_attention_kernel)."""
+    """The kernel-attention engine unless `fields` sets kv_attention_kernel=
+    False (the einsum engine); `kv` "int8", "nvfp4" or None (the model's
+    dtype, or packed NVFP4 where the preset quantizes the k_bmm site so);
+    `fields` are further EngineConfig fields (layouts, paged_attention_kernel,
+    attn_sparsity)."""
     from tensorrt_model_optimizer_tpu_torch.serve.engine import Engine, EngineConfig
 
+    fields = {"kv_attention_kernel": True, **fields}
     return Engine(cm, EngineConfig(max_seq_len=max_seq, kv_dtype=torch.int8 if kv == "int8" else kv,
-                                   kv_attention_kernel=True, plain_ops=plain, **fields), device=dev)
+                                   plain_ops=plain, **fields), device=dev)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -600,21 +703,24 @@ FULL_PATHS = (
 # kernel name (KERNELS) -> the engine's `plain_ops` name
 PLAIN_NAME = {"qmm_w4a8": "w4a8", "kv_decode_attention": "kv_attention", "flash_gqa": "flash",
               "qmm_int4_wo": "int4_wo", "qmm_fp4_wo": "fp4_wo", "qmm_byte_wo": "byte_wo",
-              "paged_attention_decode": "paged_decode", "paged_attention_prefill": "paged_prefill"}
+              "paged_attention_decode": "paged_decode", "paged_attention_prefill": "paged_prefill",
+              "skip_softmax_flash": "skip_softmax"}
 PAGED_PLAIN = ("paged_decode", "paged_prefill")
 
 
 def _counts(reset: bool = False) -> dict:
     """Launch counts of every kernel's wrapper; `reset` sets them to 0."""
     from tensorrt_model_optimizer_tpu_torch.ops.cuda import flash_gqa, kv_attention, paged_attention, qmm, qmm_wo
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import sparse_attention
 
     if reset:
-        qmm.launches = kv_attention.launches = flash_gqa.launches = 0
+        qmm.launches = kv_attention.launches = flash_gqa.launches = sparse_attention.launches = 0
         for counts in (qmm_wo.launches, paged_attention.launches):
             for k in counts:
                 counts[k] = 0
     return {"qmm_w4a8": qmm.launches, "kv_decode_attention": kv_attention.launches,
-            "flash_gqa": flash_gqa.launches, **qmm_wo.launches, **paged_attention.launches}
+            "flash_gqa": flash_gqa.launches, **qmm_wo.launches, **paged_attention.launches,
+            "skip_softmax_flash": sparse_attention.launches}
 
 
 def _compressed(torch, path: Path, cfg, params, dev, seed: int):
@@ -748,6 +854,134 @@ def phase_anchor(torch, dev, sz: Sizes):
             raise AssertionError(f"anchor {path.label}: {path.gemm} never launched")
     for path, kv in PAGED_PATHS:
         _anchor_paged(torch, dev, cfg, params, path, kv)
+    _anchor_einsum(torch, dev, cfg, params)
+    _anchor_ruler(torch, dev)
+
+
+def _anchor_einsum(torch, dev, cfg, params) -> None:
+    """The einsum engine (kv_attention_kernel=False) on the trained
+    checkpoint, INT4 weights, int8 and packed NVFP4 caches: 4 prompts of 256
+    tokens, dense prefill and sparse prefill (64-tiles, threshold 1e-2),
+    then 8 greedy decode steps in lock step on the kernel engine's tokens,
+    the kernel engine against the all-plain one.
+
+    In bf16 the median logits gap is held to 1e-2 of the scale, and the
+    dense prefill's argmax flips to a plain-logit margin <= 1e-2, as the
+    other anchor paths. The sparse prefill's attention rounds its output to
+    bf16 one ulp apart now and then, as flash does, and this checkpoint
+    moves near-tied tokens by much of the logits' scale on that (an H100 run
+    read a flip at a plain-logit margin of 0.028): there the flips are reported,
+    and held on f32 activations, where the GEMMs run their plain versions
+    in both engines and the skip-softmax kernel is the only difference:
+    median gap <= 1e-3, every flip at a margin <= 1e-2. The keep fractions
+    agree within 1e-3 (the projections' outputs may move a tile max across
+    its limit); one skip-softmax launch a layer."""
+    from tensorrt_model_optimizer_tpu_torch.serve.engine import PLAIN_ALL
+
+    cm = _compressed(torch, FULL_PATHS[1], cfg, params, dev, seed=3)
+    cm32 = dataclasses.replace(cm, model_cfg=dataclasses.replace(cm.model_cfg, dtype=torch.float32))
+    g = torch.Generator(device=dev).manual_seed(7)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 256), generator=g, device=dev)
+    L = cfg.num_hidden_layers
+    gemms_plain = tuple(n for n in PLAIN_ALL if n != "skip_softmax")
+
+    def lockstep(ek, ep):
+        ck, cp = ek.init_cache(4), ep.init_cache(4)
+        _counts(reset=True)
+        lk = ek.prefill(prompts, ck)
+        launched = _counts()
+        lp = ep.prefill(prompts, cp)
+        gaps, flips = _gaps(lk, lp)
+        tok = lk.argmax(dim=-1).to(torch.int32)[:, None]
+        for _ in range(8):
+            lk, lp = ek.decode_step(tok, ck)[1], ep.decode_step(tok, cp)[1]
+            gp, fl = _gaps(lk, lp)
+            gaps, flips = gaps + gp, flips + fl
+            tok = lk.argmax(dim=-1).to(torch.int32)[:, None]
+        keep = None if ek.last_prefill_keep_frac is None else [ek.last_prefill_keep_frac.tolist(),
+                                                               ep.last_prefill_keep_frac.tolist()]
+        return statistics.median(gaps), max(gaps), flips, keep, launched, ck["k"].shape[-1]
+
+    for kv in ("int8", "nvfp4"):
+        for th in (None, 1e-2):
+            fields = dict(kv=kv, kv_attention_kernel=False, attn_sparsity=th, attn_sparsity_blocks=(64, 64))
+            med, worst, flips, keep, launched, row_bytes = lockstep(
+                _engine(torch, cm, 272, dev, **fields), _engine(torch, cm, 272, dev, PLAIN_ALL, **fields))
+            row = {"phase": "anchor", "path": f"einsum engine, int4, {kv} cache, "
+                   + ("dense prefill" if th is None else f"sparse prefill {th}"), "cache_row_bytes": row_bytes,
+                   "prompts": [4, 256], "median_logits_gap_kernel_vs_plain": med,
+                   "worst_logits_gap_kernel_vs_plain": worst, "argmax_flips_vs_plain": flips,
+                   "keep_frac_kernel_plain": keep, "prefill_launches": {k: v for k, v in launched.items() if v}}
+            keeps = [keep]
+            if th is not None:  # f32 activations: the skip-softmax kernel is the only difference
+                med32, worst32, flips32, keep32, launched32, _ = lockstep(
+                    _engine(torch, cm32, 272, dev, gemms_plain, **fields),
+                    _engine(torch, cm32, 272, dev, PLAIN_ALL, **fields))
+                row.update(f32_median_logits_gap_kernel_vs_plain=med32, f32_worst_logits_gap=worst32,
+                           f32_argmax_flips_vs_plain=flips32, f32_keep_frac_kernel_plain=keep32)
+                keeps.append(keep32)
+                if not (med32 <= 1e-3 and all(m <= 1e-2 for m in flips32)
+                        and launched32["skip_softmax_flash"] == L):
+                    raise AssertionError(f"anchor einsum {kv} {th} f32: median gap {med32}, flips {flips32}, "
+                                         f"launches {launched32}")
+            log(json.dumps(row))
+            if not med <= 1e-2 or (th is None and any(not m <= 1e-2 for m in flips)):
+                raise AssertionError(f"anchor einsum {kv} {th}: median gap {med}, flips {flips}")
+            if not (launched["qmm_int4_wo"] and launched["skip_softmax_flash"] == (0 if th is None else L)):
+                raise AssertionError(f"anchor einsum {kv} {th}: prefill launches {launched}")
+            for kp in keeps:
+                if kp and max(abs(a - b) for a, b in zip(*kp)) > 1e-3:
+                    raise AssertionError(f"anchor einsum {kv} {th}: keep fractions kernel / plain {kp}")
+
+
+RULER = dict(thresholds=(1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 3e-1), n=64, ctx_tokens=448, blocks=(64, 64),
+             max_acc_drop=0.02, min_dense_acc=0.8, max_dppl=0.05)  # tools/ruler_curve.py's settings
+
+
+def _anchor_ruler(torch, dev) -> None:
+    """The RULER threshold curve on `artifacts/anchor-ruler` (f32, as
+    tools/ruler_curve.py loads it) at that tool's settings, through the
+    skip-softmax kernel and through its plain version: rows held to agree
+    (keep fractions within 1e-3, accuracies within 1/64), and printed beside
+    `artifacts/ruler_curve.json`, which the JAX package made (accuracy, not
+    speed)."""
+    from tensorrt_model_optimizer_tpu_torch.models import hf_loader
+    from tensorrt_model_optimizer_tpu_torch.quant.compress import compress_bf16
+    from tensorrt_model_optimizer_tpu_torch.serve.engine import EngineConfig
+    from tensorrt_model_optimizer_tpu_torch.sparsity import ruler
+    from tensorrt_model_optimizer_tpu_torch.utils import synthlang
+
+    lang = synthlang.SynthLang(0)
+    cfg, params = hf_loader.load_hf_checkpoint(ANCHOR_RULER, dtype=torch.float32, device=dev)
+    cm = compress_bf16(cfg, params)
+    ev = list(lang.eval_batches(2, 8, RULER["ctx_tokens"], seed=991))
+    out = {}
+    for which, plain in (("kernel", ()), ("plain", ("skip_softmax",))):
+        _counts(reset=True)
+        t0 = time.perf_counter()
+        th, rows = ruler.calibrate_threshold_ruler(cm, EngineConfig(max_seq_len=RULER["ctx_tokens"] + 16,
+                                                                    plain_ops=plain),
+                                                   lang, ppl_batches=ev, device=dev, **RULER)
+        out[which] = dict(threshold=th, rows=rows, seconds=time.perf_counter() - t0,
+                          launches=_counts()["skip_softmax_flash"])
+    with open(RULER_CURVE) as f:
+        artifact = json.load(f)
+    jax_rows = artifact["curve"]
+    keys = ("threshold", "keep_frac", "acc_override", "acc_multikey", "acc_memory", "dppl")
+    table = [{"kernel": {k: rk.get(k) for k in keys}, "plain": {k: rp.get(k) for k in keys},
+              "jax_artifact": {k: rj.get(k) for k in keys}}
+             for rk, rp, rj in zip(out["kernel"]["rows"], out["plain"]["rows"], jax_rows)]
+    log(json.dumps({"phase": "anchor", "path": "RULER curve, anchor-ruler", **{k: v for k, v in RULER.items()},
+                    "calibrated_threshold": {w: o["threshold"] for w, o in out.items()},
+                    "jax_artifact_threshold": artifact["calibrated_threshold"], "seconds": {w: o["seconds"] for w, o in out.items()},
+                    "skip_softmax_launches": out["kernel"]["launches"], "rows": table}))
+    for row in table[1:]:
+        a, b = row["kernel"], row["plain"]
+        if abs(a["keep_frac"] - b["keep_frac"]) > 1e-3 or any(
+                abs(a[f"acc_{k}"] - b[f"acc_{k}"]) > 1 / 64 + 1e-9 for k in ("override", "multikey", "memory")):
+            raise AssertionError(f"anchor RULER: kernel and plain rows disagree at threshold {a['threshold']}: {row}")
+    if not out["kernel"]["launches"]:
+        raise AssertionError("anchor RULER: skip_softmax_flash never launched")
 
 
 PAGED_ANCHOR = dict(n_pages=64, page_size=8, max_slots=2, max_pages_per_seq=16)
@@ -1053,9 +1287,103 @@ def _full_path(torch, dev, sz: Sizes, path: Path, cfg, params, prompt, profile: 
             raise AssertionError(f"full {path.label}: depth-2 prefill logits rel err {rel} vs plain > 5e-2")
         del out, ref, subcm
     if path.label == "int4":
-        # the INT4 model again, served through `Engine.serve` over int8 pages, all layers
+        # the INT4 model again, served through `Engine.serve` over int8 pages,
+        # and by the einsum engine with dense and sparse prefill; all layers
         for name, n in _full_paged(torch, dev, sz, eng.cm, PAGED_PATHS[0][0].label, "int8", PagedRun(), profile).items():
             launches[name] = launches[name] or n
+        for name, n in _full_einsum(torch, dev, sz, eng.cm, prompt, profile).items():
+            launches[name] = launches[name] or n
+    return launches
+
+
+def _full_einsum(torch, dev, sz: Sizes, cm, prompt, profile: bool) -> dict:
+    """The einsum engine (kv_attention_kernel=False) on the INT4 model at full
+    width and depth, int8 cache of prompt + decode rows: batch 8 x 2048
+    prefill dense, sparse at the threshold `calibrate_threshold` gives for a
+    0.4 block sparsity on the prompt's embeddings (as
+    tools/bench_sparse_prefill.py does) and at 0.999999; each layer's keep
+    fraction, the logits against dense, 32 greedy decode steps on the einsum
+    cache, peak memory and launches. At depth 2 the kernel engine is held
+    against the plain one (the GEMM and the skip-softmax kernel on their plain
+    versions): logits within 5e-2 of their scale, as the other paths."""
+    from tensorrt_model_optimizer_tpu_torch.sparsity.attention_sparsity import calibrate_threshold
+
+    sync = torch.cuda.synchronize
+    L = cm.model_cfg.num_hidden_layers
+    max_seq = sz.prompt + sz.decode_steps
+    x = cm.params["embed_tokens"][prompt[:1, :512]].float()[:, :, None, :]
+    calibrated = calibrate_threshold(x, x, x, 0.4)
+    del x
+    runs, launches, dense_logits = [], {}, None
+    for th in (None, calibrated, 0.999999):
+        eng = _engine(torch, cm, max_seq, dev, kv_attention_kernel=False, attn_sparsity=th)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cache = eng.init_cache(sz.batch)
+        _counts(reset=True)
+        sync()
+        t0 = time.perf_counter()
+        logits = eng.prefill(prompt, cache)
+        sync()
+        ttft_ms = (time.perf_counter() - t0) * 1e3
+        n = _counts()
+        for name, c in n.items():
+            if c:
+                launches.setdefault(name, c)
+        row = {"phase": "full", "path": "einsum engine, int4, int8 cache",
+               "prefill": "dense" if th is None else "sparse", "threshold": th, "layers": L, "batch": sz.batch,
+               "prompt": sz.prompt, "ttft_ms": ttft_ms, "prefill_launches": {k: v for k, v in n.items() if v},
+               "logits_finite": bool(torch.isfinite(logits).all())}
+        if th is None:
+            dense_logits = logits
+            tok = logits.argmax(dim=-1).to(torch.int32)[:, None]
+            step_ms = []
+            for _ in range(sz.decode_steps):
+                t0 = time.perf_counter()
+                tok, step_logits = eng.decode_step(tok, cache)
+                sync()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            row.update(decode_steps=sz.decode_steps, decode_ms_per_step_median=statistics.median(step_ms),
+                       decode_steps_finite=bool(torch.isfinite(step_logits).all()))
+        else:
+            a, b = logits.double().flatten(), dense_logits.double().flatten()
+            row.update(keep_frac_per_layer=eng.last_prefill_keep_frac.tolist(),
+                       logits_corr_vs_dense=float(torch.corrcoef(torch.stack([a, b]))[0, 1]),
+                       logits_largest_gap_vs_dense=_rel(logits, dense_logits),
+                       argmax_agree_vs_dense=float((logits.argmax(-1) == dense_logits.argmax(-1)).float().mean()))
+        row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(json.dumps(row))
+        runs.append(row)
+        if not (row["logits_finite"] and row.get("decode_steps_finite", True)):
+            raise AssertionError(f"full einsum {th}: non-finite logits")
+        if n["skip_softmax_flash"] != (0 if th is None else L) or not n["qmm_int4_wo"]:
+            raise AssertionError(f"full einsum {th}: prefill launches {n}")
+        if profile:
+            _profile(torch, f"einsum {'dense' if th is None else 'sparse'} prefill {th}",
+                     lambda e=eng: e.prefill(prompt, e.init_cache(sz.batch)), 1, ttft_ms)
+            if th is None:
+                pc = eng.init_cache(sz.batch)
+                eng.prefill(prompt, pc)
+                _profile(torch, "einsum decode step", lambda e=eng: [e.decode_step(tok, pc) for _ in range(2)],
+                         2, statistics.median(step_ms))
+                del pc
+        del eng, cache, logits
+
+    # depth 2: kernel engine against its plain versions, dense and sparse prefill
+    sub = _truncate(cm, 2)
+    for th in (None, calibrated):
+        fields = dict(kv_attention_kernel=False, attn_sparsity=th)
+        out = _engine(torch, sub, max_seq, dev, **fields)
+        ref = _engine(torch, sub, max_seq, dev, ("int4_wo", "skip_softmax"), **fields)
+        lo, lr = out.prefill(prompt, out.init_cache(sz.batch)), ref.prefill(prompt, ref.init_cache(sz.batch))
+        rel = _rel(lo, lr)
+        keep = None if th is None else [out.last_prefill_keep_frac.tolist(), ref.last_prefill_keep_frac.tolist()]
+        log(json.dumps({"phase": "full_vs_plain", "path": "einsum engine, int4, int8 cache", "depth": 2,
+                        "threshold": th, "prefill_logits_rel_err": rel, "keep_frac_kernel_plain": keep,
+                        "argmax_agree": float((lo.argmax(-1) == lr.argmax(-1)).float().mean())}))
+        if not rel <= 5e-2:
+            raise AssertionError(f"full einsum: depth-2 prefill logits rel err {rel} vs plain > 5e-2 (threshold {th})")
+        del out, ref, lo, lr
     return launches
 
 
@@ -1348,6 +1676,8 @@ KERNELS = {
                                "tensorrt_model_optimizer_tpu/ops/pallas/paged_attention.py:108"),
     "paged_attention_prefill": ("tensorrt_model_optimizer_tpu_torch/csrc/paged_attention_prefill.cu",
                                 "tensorrt_model_optimizer_tpu/ops/pallas/paged_attention.py:246"),
+    "skip_softmax_flash": ("tensorrt_model_optimizer_tpu_torch/csrc/skip_softmax_flash.cu",
+                           "tensorrt_model_optimizer_tpu/ops/pallas/sparse_attention.py:138"),
 }
 
 
@@ -1371,17 +1701,27 @@ def main(argv=None) -> int:
     timer = Timer(torch, dev)
     rows: dict = {}
     launches = None
+    seconds = {}
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        result = fn(*a)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return result
+
     if "build" in phases:
-        phase_build()
+        timed("build", phase_build)
     if "kernels" in phases:
-        phase_kernels(torch, dev, sz, timer, rows)
+        timed("kernels", phase_kernels, torch, dev, sz, timer, rows)
     if "anchor" in phases:
-        phase_anchor(torch, dev, sz)
+        timed("anchor", phase_anchor, torch, dev, sz)
     if "full" in phases:
-        launches = phase_full(torch, dev, sz, "profile" in phases)
+        launches = timed("full", phase_full, torch, dev, sz, "profile" in phases)
         never = [name for name in KERNELS if not launches.get(name)]
         if never:
             raise AssertionError(f"full: kernels that no path launched: {never}")
+    log(json.dumps({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t_start, 1)}))
     out = []
     for name, (src, replaces) in KERNELS.items():
         r = rows.get(name, {})

@@ -6,7 +6,7 @@ e.g. `jax.tree.map(np.asarray, params)`) into the port's tensors;
 `quant.compress.compress` returns them) into the port's, so both packages
 compute the same function (the quantizer state comes along, the `k_bmm` /
 `v_bmm` amax of a KV preset included); `cache_from_jax` and `paged_from_jax`
-do the same for a dense kernel cache and a `PagedKV` pool. Objects are read
+do the same for a dense cache (either engine's layout) and a `PagedKV` pool. Objects are read
 by their fields: this module imports neither JAX nor the JAX package.
 
 bf16 and fp8 arrays (NVFP4's e4m3 block scales among them) reach numpy as
@@ -121,9 +121,10 @@ def compressed_from_jax(cm, device="cpu") -> CompressedModel:
 
 
 def cache_from_jax(cache, device="cpu") -> dict:
-    """A JAX dense kernel cache (`Engine.init_cache` with
-    `kv_attention_kernel=True`: "k", "v", "pos" and, for NVFP4, "ks", "vs")
-    -> the port's."""
+    """A JAX dense cache -> the port's: the einsum engine's ("k", "v" [L, B,
+    S, n_kv, C], packed NVFP4 as one uint8 row of 9 hd/16 bytes) or the kernel
+    engine's ("k", "v" [L, B, n_kv, S, C] and, for NVFP4, "ks", "vs"), and
+    "pos". fp8 rows cross as integer views, bit for bit."""
     return {k: (int(v) if k == "pos" else tensor_from_array(v, device)) for k, v in cache.items()}
 
 

@@ -246,6 +246,19 @@ def compress(model: QuantizedModel) -> CompressedModel:
     return CompressedModel(model.model_cfg, params, kinds, model.layout, model.qstate)
 
 
+def compress_bf16(cfg, params) -> CompressedModel:
+    """Raw (unquantized) params as a bf16-kind CompressedModel, the weights
+    as they are, so the engine serves dense models (the RULER calibration of
+    `sparsity/ruler.py`, dense baselines)."""
+    layers = dict(params["layers"])
+    kinds = {}
+    for name in llama.PROJ_NAMES:
+        if name in layers and not isinstance(layers[name], dict):
+            layers[name] = {"w": layers[name]}
+            kinds[name] = "bf16"
+    return CompressedModel(cfg, {**params, "layers": layers}, kinds, llama.QuantLayout(sites=()), {})
+
+
 # TPU layout names the engine accepts, per canonical kind. Every weight-only
 # name maps to the one port layout of its format; the name still decides
 # where the JAX pack rounds the int4 block scales to bf16.

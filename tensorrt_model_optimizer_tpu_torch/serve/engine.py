@@ -1,30 +1,46 @@
 """Quantized serving engine: prefill + decode over packed weights (port of
 `serve/engine.py`).
 
-Ported paths (the JAX engine's `kv_attention_kernel=True` branch, dense cache
-and paged serving):
+Ported paths:
  - projections: weight-only INT4 block-128, NVFP4, MXFP4, INT8 per-channel
    and FP8 per-tensor under bf16 activations (`ops/cuda/qmm_wo.py`; the
    site's input quantizer, where the preset has one, fake-quantizes the
    activations first), W4A8 ("int4a8": per-token int8 activations x int4
-   block weights, `ops/cuda/qmm.py`) and bf16;
- - KV cache kv-head-major `[L, B, n_kv, S, hd]` in stored form (bf16, int8
-   codes with scale amax/127, or fp8 e4m3 with scale amax/448; an
-   uncalibrated amax is 448), or packed NVFP4: plane-packed E2M1 bytes
-   `[.., hd/2]` in "k"/"v" with the E4M3 block scales' bytes `[.., hd/16]`
-   in "ks"/"vs" (`kv_dtype="nvfp4"`, chosen by an NVFP4 `k_bmm` site when the
-   caller names no dtype); "nvfp4_fake" stores the fake-quantized values;
- - prefill: causal GQA flash attention over the fresh tokens' QDQ'd k/v
-   (`ops/cuda/flash_gqa.py`); the cache must be empty (pos == 0);
- - decode: split attention over the cached rows < pos plus the current
-   token's code-domain k/v (`ops/cuda/kv_attention.py`);
+   block weights, `ops/cuda/qmm.py`) and bf16 (`quant.compress.compress_bf16`
+   wraps a raw model so);
+ - the dense-cache einsum engine (`kv_attention_kernel=False`, the default):
+   cache `[L, B, S, n_kv, C]` of stored rows (bf16, int8 codes with scale
+   amax/127, fp8 e4m3 with scale amax/448, "nvfp4_fake" grid values, or
+   packed NVFP4 as ONE uint8 row of 9 hd/16 bytes: the E2M1 nibbles, even
+   index low, then the E4M3 block-scale bytes). Prefill writes the stored
+   rows at `pos` and attends over the whole cache, dequantized, with the
+   causal mask -1e9 and the probabilities rounded to the activation dtype
+   before P.V; decode (T = 1) is split attention: scores over the old cache
+   with slot `pos` patched with the current token's QDQ'd k, that weight
+   taken out of the probabilities and added back with its QDQ'd v. With
+   `attn_sparsity` set, a prefill of T > 1 tokens attends through the
+   skip-softmax kernel (`ops/cuda/sparse_attention.py`) over the fresh
+   tokens' pre-store k/v, and `Engine.last_prefill_keep_frac` holds each
+   layer's kept share of all tiles (the causally skipped ones count);
+ - the kernel-attention engine (`kv_attention_kernel=True`): cache
+   kv-head-major `[L, B, n_kv, S, hd]` in stored form (bf16, int8 codes, fp8
+   e4m3; an uncalibrated amax is 448), or packed NVFP4: plane-packed E2M1
+   bytes `[.., hd/2]` in "k"/"v" with the E4M3 block scales' bytes
+   `[.., hd/16]` in "ks"/"vs" (`kv_dtype="nvfp4"`, chosen by an NVFP4 `k_bmm`
+   site when the caller names no dtype); "nvfp4_fake" stores the
+   fake-quantized values. Prefill is causal GQA flash attention over the fresh
+   tokens' QDQ'd k/v (`ops/cuda/flash_gqa.py`) into an empty cache (pos ==
+   0); decode is split attention over the cached rows < pos plus the current
+   token's code-domain k/v (`ops/cuda/kv_attention.py`). It refuses
+   `attn_sparsity`, as JAX's does;
  - paged serving (`Engine.serve`): continuous batching over a page pool
    (`serve/paged_cache.py`, `serve/scheduler.py`). A fresh request prefills
-   densely and its cache rows are copied into its pages
-   (`prefill_into_slot`); a request that shares cached prefix pages streams
-   its tail through `prefill_chunked`; decode steps run all slots at once.
-   With `paged_attention_kernel=True` attention reads the pages through the
-   two kernels of `ops/cuda/paged_attention.py`; without it, it gathers each
+   densely (on either dense engine, sparsely where a threshold is set) and
+   its cache rows are copied into its pages (`prefill_into_slot`); a request
+   that shares cached prefix pages streams its tail through
+   `prefill_chunked`; decode steps run all slots at once. With
+   `paged_attention_kernel=True` attention reads the pages through the two
+   kernels of `ops/cuda/paged_attention.py`; without it, it gathers each
    sequence's pages and runs plain PyTorch (the JAX engine's gather path).
    The paged path folds k's scale into q and casts back to the activation
    dtype, and casts the context again after v's scale: two roundings the
@@ -43,8 +59,7 @@ from bd2 to word2 has no counterpart, because both names are one kernel here.
 
 Not ported (each raises `NotImplementedError` naming its slice):
 `int4_layout="xla"`, `nvfp4_layout="i8"` and W8A8 (int8 weights under an int
-input quantizer), `kv_attention_kernel=False` (the dense-cache einsum
-engine), the tensor-parallel, MoE, sparsity and speculative paths.
+input quantizer), the tensor-parallel, MoE and speculative paths.
 """
 
 from __future__ import annotations
@@ -64,6 +79,7 @@ from ..ops import numerics
 from ..ops.cuda import kv_attention as kva
 from ..ops.cuda import paged_attention as pa
 from ..ops.cuda import qmm, qmm_wo
+from ..ops.cuda import sparse_attention as ssa
 from ..quant import quantizer as Q
 from ..quant.compress import CompressedModel, convert_packed_layouts, layer_arrays
 from . import paged_cache as pc
@@ -89,7 +105,8 @@ class EngineConfig:
     # NVFP4 serving layout, by its TPU name: "word2" | "word" | "perm" |
     # "blockdot" | "bd4", all one port layout ("nvfp4wo"); MXFP4 follows it
     nvfp4_layout: str = "word2"
-    # the stored-form kv-head-major cache with the attention kernels
+    # the stored-form kv-head-major cache with the attention kernels; False:
+    # the dense-cache einsum engine
     kv_attention_kernel: bool = False
     # paged serving attends through the paged-attention kernels (False: the
     # gather path, plain PyTorch over each sequence's gathered pages)
@@ -97,6 +114,13 @@ class EngineConfig:
     # kernels (names of `PLAIN_ALL`) whose plain PyTorch versions run
     # instead, on any device, to hold the kernel path against them
     plain_ops: tuple = ()
+    # prefill skip-softmax attention sparsity (einsum engine, T > 1): score
+    # tiles of `attn_sparsity_blocks` rows whose max lies more than
+    # log(threshold) below the running max of the kept tiles are skipped.
+    # None = dense. Calibrate with `sparsity.attention_sparsity.
+    # calibrate_threshold` or `sparsity.ruler.calibrate_threshold_ruler`.
+    attn_sparsity: Optional[float] = None
+    attn_sparsity_blocks: tuple = (128, 128)
 
 
 _KERNELS = {  # plain_ops name -> (kernel wrapper, plain version)
@@ -108,6 +132,7 @@ _KERNELS = {  # plain_ops name -> (kernel wrapper, plain version)
     "byte_wo": (qmm_wo.byte_wo_matmul, qmm_wo.byte_wo_matmul_plain),
     "paged_decode": (pa.paged_attention_decode, pa.paged_attention_decode_plain),
     "paged_prefill": (pa.paged_attention_prefill, pa.paged_attention_prefill_plain),
+    "skip_softmax": (ssa.skip_softmax_flash, ssa.skip_softmax_flash_plain),
 }
 PLAIN_ALL = tuple(_KERNELS)
 
@@ -146,9 +171,19 @@ def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, ops):
     raise NotImplementedError(f"weight kind {kind!r} is served by a later slice")
 
 
+def _kv_pack_width(hd: int) -> int:
+    """Bytes of one packed NVFP4 row of the einsum cache: hd/2 nibble bytes
+    and hd/16 E4M3 block-scale bytes."""
+    return hd * 9 // 16
+
+
 def _kv_store(v: torch.Tensor, dtype, amax: torch.Tensor) -> torch.Tensor:
-    """Quantize k/v for cache storage (stored form). Packed "nvfp4" goes
-    through `_kv_store_kvh` / `numerics.real_quant_nvfp4_planes` instead."""
+    """Quantize k/v for cache storage (stored form). Packed "nvfp4" is the
+    einsum cache's one-row form; the kernel cache's planes come from
+    `_kv_store_kvh`."""
+    if dtype == "nvfp4":  # nibbles (even index low) then the block-scale bytes
+        packed, s8, _ = numerics.real_quant_nvfp4(v, 16, amax)
+        return torch.cat([packed, s8.view(torch.uint8)], dim=-1)
     if dtype == "nvfp4_fake":  # E2M1 block-quantized values in the model dtype
         return numerics.fake_quant_nvfp4(v, 16, amax, axis=-1)
     if dtype is None or v.dtype == dtype:
@@ -163,7 +198,14 @@ def _kv_store(v: torch.Tensor, dtype, amax: torch.Tensor) -> torch.Tensor:
 
 
 def _kv_load(stored: torch.Tensor, out_dtype, kv_dtype, amax: torch.Tensor) -> torch.Tensor:
-    """Stored form -> dequantized values (the gather path's pages)."""
+    """Stored form -> dequantized values (the einsum cache, the gather path's
+    pages). `amax` broadcasts against the rows' leading axes."""
+    if kv_dtype == "nvfp4":  # one-row packed NVFP4 (see `_kv_store`)
+        p = stored.shape[-1] * 16 // 9 // 2
+        vals = numerics.codes_to_fp4(numerics.unpack_nibbles(stored[..., :p]))
+        s8 = stored[..., p:].contiguous().view(torch.float8_e4m3fn).float()
+        sb = torch.where(s8 <= 0.0, torch.ones_like(s8), s8) * numerics.nvfp4_global_scale(amax)
+        return (vals * torch.repeat_interleave(sb, 16, dim=-1)).to(out_dtype)
     if kv_dtype == torch.int8 and stored.dtype != out_dtype:
         return (stored.float() * (amax / 127.0)).to(out_dtype)
     if kv_dtype == torch.float8_e4m3fn and stored.dtype != out_dtype:
@@ -291,6 +333,55 @@ def _dense_attn(cfg, ecfg, q, k, v, ck, cv, cks, cvs, pos, ka, va, ops):
     return ctx
 
 
+def _einsum_attn(cfg, ecfg, q, k, v, ck, cv, pos, ka, va, ops, keep_fracs):
+    """Attention of one layer of the einsum engine over its dense cache ck/cv
+    [B, S, n_kv, C], written in place. `keep_fracs` is a list for a sparse
+    prefill (the layer's kept share of tiles is appended), else None.
+    Returns ctx [B*T, nH*hd]."""
+    B, T, nH, hd = q.shape
+    nKV, S = cfg.num_key_value_heads, ck.shape[1]
+    rep, dt, kv_dtype = nH // nKV, cfg.dtype, ecfg.kv_dtype
+    k_st = _kv_store(k, kv_dtype, ka).to(ck.dtype)
+    v_st = _kv_store(v, kv_dtype, va).to(cv.dtype)
+    qg = q.reshape(B, T, nKV, rep, hd).float()
+    mask = torch.where(torch.arange(S, device=q.device)[None, :]
+                       <= pos + torch.arange(T, device=q.device)[:, None], 0.0, -1e9)
+
+    def probs_of(scores):  # [B, nKV, rep, T, S] f32 -> probabilities in the activation dtype
+        scores = scores.reshape(B, nH, T, S).div_(math.sqrt(hd)).add_(mask)
+        return torch.softmax(scores, dim=-1).to(dt).reshape(B, nKV, rep, T, S)
+
+    if T == 1:
+        # split attention: the old cache with slot pos patched with the
+        # current token's QDQ'd k; its weight comes out of the probabilities
+        # and returns with its QDQ'd v; the row lands after the read
+        k_q, v_q = _kv_load(k_st, dt, kv_dtype, ka), _kv_load(v_st, dt, kv_dtype, va)
+        scores = torch.einsum("btgrd,bsgd->bgrts", qg, _kv_load(ck, dt, kv_dtype, ka).float())
+        scores[..., pos:pos + 1] = torch.einsum("btgrd,bugd->bgrtu", qg, k_q.float())
+        probs = probs_of(scores)
+        w_new = probs[..., pos:pos + 1].clone()
+        probs[..., pos] = 0
+        ctx = torch.einsum("bgrts,bsgd->btgrd", probs.float(), _kv_load(cv, dt, kv_dtype, va).float()).to(dt)
+        ctx = ctx + torch.einsum("bgrtu,bugd->btgrd", w_new.float(), v_q.float()).to(dt)
+        ck[:, pos:pos + 1], cv[:, pos:pos + 1] = k_st, v_st
+        return ctx.reshape(B * T, nH * hd)
+    ck[:, pos:pos + T], cv[:, pos:pos + T] = k_st, v_st
+    if keep_fracs is not None:
+        # skip-softmax over the fresh tokens' pre-store k/v (an empty cache:
+        # the attention span is the prompt); heads folded into the batch
+        def fold(t):
+            return t.transpose(1, 2).reshape(B * nH, T, hd)
+
+        bq, bk = ecfg.attn_sparsity_blocks
+        ctx, keep = ops["skip_softmax"](fold(q), fold(k.repeat_interleave(rep, dim=2)),
+                                        fold(v.repeat_interleave(rep, dim=2)), ecfg.attn_sparsity, bq, bk, True)
+        keep_fracs.append(keep.float().mean())
+        return ctx.reshape(B, nH, T, hd).transpose(1, 2).reshape(B * T, nH * hd).to(dt)
+    probs = probs_of(torch.einsum("btgrd,bsgd->bgrts", qg, _kv_load(ck, dt, kv_dtype, ka).float()))
+    ctx = torch.einsum("bgrts,bsgd->btgrd", probs.float(), _kv_load(cv, dt, kv_dtype, va).float())
+    return ctx.to(dt).reshape(B * T, nH * hd)
+
+
 def _paged_layer_attn(cfg, ecfg, q, k_new, v_new, kp, vp, ksc, vsc, cache, ka, va, write_mask, ops):
     """Paged attention of one layer, T tokens per slot (T = 1 decode, T > 1
     chunked prefill): writes the tokens' k/v into this layer's pages kp/vp
@@ -374,9 +465,9 @@ class Engine:
         self.device = resolve_device(device)
         if cm.params["embed_tokens"].device.type != self.device.type:
             raise ValueError(f"model lives on {cm.params['embed_tokens'].device}, engine on {self.device}")
-        if not config.kv_attention_kernel:
+        if config.kv_attention_kernel and config.attn_sparsity is not None:
             raise NotImplementedError(
-                "kv_attention_kernel=False (the dense-cache einsum engine) is not ported yet")
+                "kv_attention_kernel: prefill attention sparsity unsupported (flash prefill path owns attention)")
         if config.kv_dtype not in _KV_DTYPES:
             raise ValueError(f"kv_dtype {config.kv_dtype!r}: one of {_KV_DTYPES}")
         # an NVFP4 KV preset selects the packed NVFP4 cache when the caller
@@ -407,24 +498,28 @@ class Engine:
         self._va = va if va is not None else default
         self._act_state = {name: {"input": sub["input"]} for name, sub in (cm.qstate or {}).items()
                            if isinstance(sub, dict) and "input" in sub}
+        self.last_prefill_keep_frac = None  # [L] after a sparse prefill
 
     def init_cache(self, batch: int, max_len: Optional[int] = None) -> dict:
-        """The kv-head-major stored-form cache [L, B, n_kv, S, C]; NVFP4 keeps
-        its nibble planes in "k"/"v" and its block-scale bytes in "ks"/"vs"."""
+        """The dense cache. Einsum engine: stored rows [L, B, S, n_kv, C]
+        (packed NVFP4: C = 9 hd/16 bytes). Kernel engine: kv-head-major
+        stored form [L, B, n_kv, S, C]; NVFP4 keeps its nibble planes in
+        "k"/"v" and its block-scale bytes in "ks"/"vs"."""
         cfg = self.cfg
         max_len = max_len or self.ecfg.max_seq_len
+        kvk = self.ecfg.kv_attention_kernel
         dtype, last = self.ecfg.kv_dtype or cfg.dtype, cfg.hd
         if dtype == "nvfp4":
-            dtype, last = torch.uint8, cfg.hd // 2
+            dtype, last = torch.uint8, (cfg.hd // 2 if kvk else _kv_pack_width(cfg.hd))
         elif dtype == "nvfp4_fake":
             dtype = cfg.dtype
 
         def rows(width, dt):
-            return torch.zeros((cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, width),
-                               dtype=dt, device=self.device)
+            lead = (cfg.num_key_value_heads, max_len) if kvk else (max_len, cfg.num_key_value_heads)
+            return torch.zeros((cfg.num_hidden_layers, batch, *lead, width), dtype=dt, device=self.device)
 
         cache = {"k": rows(last, dtype), "v": rows(last, dtype), "pos": 0}
-        if self.ecfg.kv_dtype == "nvfp4":
+        if kvk and self.ecfg.kv_dtype == "nvfp4":
             cache["ks"], cache["vs"] = rows(cfg.hd // 16, torch.uint8), rows(cfg.hd // 16, torch.uint8)
         return cache
 
@@ -437,39 +532,57 @@ class Engine:
                        positions, self._ops, attend_of(i))
         return x
 
-    def _last_logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, x: torch.Tensor, full: bool = False) -> torch.Tensor:
+        """The last position's logits [B, V] f32, or every position's [B, T, V]."""
         params = self.cm.params
         x = llama.norm(self.cfg, x, params["norm"])
         head_w = params.get("lm_head", params["embed_tokens"])
-        return (x[:, -1, :] @ head_w.t().to(x.dtype)).float()
+        return ((x if full else x[:, -1, :]) @ head_w.t().to(x.dtype)).float()
 
     @torch.inference_mode()
-    def _model_step(self, tokens: torch.Tensor, cache: dict) -> torch.Tensor:
+    def _model_step(self, tokens: torch.Tensor, cache: dict, full_logits: bool = False,
+                    keep_fracs: Optional[list] = None) -> torch.Tensor:
         """Forward over packed weights; updates `cache` in place. Returns the
-        last position's logits [B, V] f32."""
+        last position's logits [B, V] f32 (every position's with
+        `full_logits`). A list `keep_fracs` runs the einsum engine's sparse
+        prefill and receives each layer's kept share of tiles."""
         cfg = self.cfg
         B, T = tokens.shape
         pos = cache["pos"]
-        if pos + T > cache["k"].shape[3]:
-            raise ValueError(f"cache holds {cache['k'].shape[3]} rows, step needs {pos + T}")
+        kvk = self.ecfg.kv_attention_kernel
+        if kvk and keep_fracs is not None:
+            raise NotImplementedError("kv_attention_kernel does not support sparse-prefill steps")
+        rows = cache["k"].shape[3 if kvk else 2]
+        if pos + T > rows:
+            raise ValueError(f"cache holds {rows} rows, step needs {pos + T}")
         x = self.cm.params["embed_tokens"][tokens].to(cfg.dtype)
         positions = (pos + torch.arange(T, device=self.device, dtype=torch.int32))[None].expand(B, T)
         packed4 = "ks" in cache
 
         def attend_of(i):
+            if not kvk:
+                return lambda q, k, v: _einsum_attn(cfg, self.ecfg, q, k, v, cache["k"][i], cache["v"][i], pos,
+                                                    self._ka[i], self._va[i], self._ops, keep_fracs)
             cks, cvs = (cache["ks"][i], cache["vs"][i]) if packed4 else (None, None)
             return lambda q, k, v: _dense_attn(cfg, self.ecfg, q, k, v, cache["k"][i], cache["v"][i], cks, cvs,
                                                pos, self._ka[i], self._va[i], self._ops)
 
         x = self._layers(x, positions, attend_of)
         cache["pos"] = pos + T
-        return self._last_logits(x)
+        return self._logits(x, full_logits)
 
     def prefill(self, tokens: torch.Tensor, cache: dict) -> torch.Tensor:
-        """Prefill an empty cache with tokens [B, T]; returns logits [B, V]."""
+        """Prefill an empty cache with tokens [B, T]; returns logits [B, V].
+        With `attn_sparsity` set and T > 1 the einsum engine attends through
+        the skip-softmax kernel and records each layer's kept share of tiles
+        in `last_prefill_keep_frac` [L]."""
         if cache["pos"] != 0:
             raise ValueError("prefill needs an empty cache (pos == 0)")
-        return self._model_step(tokens, cache)
+        keep = [] if self.ecfg.attn_sparsity is not None and tokens.shape[1] > 1 else None
+        logits = self._model_step(tokens, cache, keep_fracs=keep)
+        if keep is not None:
+            self.last_prefill_keep_frac = torch.stack(keep)
+        return logits
 
     def decode_step(self, tok: torch.Tensor, cache: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """One greedy step: tok [B, 1] -> (next [B, 1] int32, logits [B, V])."""
@@ -513,9 +626,10 @@ class Engine:
 
     @torch.inference_mode()
     def prefill_into_slot(self, cache: pc.PagedKV, slot: int, tokens: torch.Tensor) -> torch.Tensor:
-        """Prefill one sequence [1, T] densely (flash attention over the
-        fresh tokens) and copy its stored-form cache rows into the slot's
-        pages; the slot's length becomes T. Returns the logits [1, V]."""
+        """Prefill one sequence [1, T] densely (`prefill`: flash attention, the
+        einsum engine's attention, or its sparse route) and copy its
+        stored-form cache rows into the slot's pages; the slot's length
+        becomes T. Returns the logits [1, V]."""
         T = tokens.shape[1]
         dense = self.init_cache(1, max_len=T)
         logits = self.prefill(tokens.to(self.device), dense)
@@ -523,13 +637,32 @@ class Engine:
         pos = torch.arange(T, device=self.device)
         page_ids = cache.block_table[slot].clamp_min(0).long()[pos // page]
         poff = pos % page
-        # the dense kernel cache is the pages' stored form, [L, n_kv, T, C];
-        # the advanced indices (pages axis 1, offsets axis 3) put T first
-        pools = [(cache.k_pages, dense["k"]), (cache.v_pages, dense["v"])]
-        if cache.packed_nvfp4:
-            pools += [(cache.k_scales, dense["ks"]), (cache.v_scales, dense["vs"])]
+        # the advanced indices (pages axis 1, offsets axis 3) put T first:
+        # every source goes in as [T, L, n_kv, C]
+        if self.ecfg.kv_attention_kernel:  # [L, n_kv, T, C], the pages' stored form
+            pools = [(cache.k_pages, dense["k"]), (cache.v_pages, dense["v"])]
+            if cache.packed_nvfp4:
+                pools += [(cache.k_scales, dense["ks"]), (cache.v_scales, dense["vs"])]
+            pools = [(pool, rows[:, 0].permute(2, 0, 1, 3)) for pool, rows in pools]
+        else:  # [L, T, n_kv, C]
+            k, v = dense["k"][:, 0].transpose(0, 1), dense["v"][:, 0].transpose(0, 1)
+            hd = self.cfg.hd
+            if cache.packed_nvfp4:
+                # the one-row NVFP4 form -> nibble planes and E4M3 scale bytes
+                def planes(stored):
+                    codes = numerics.unpack_nibbles(stored[..., :hd // 2])
+                    return codes[..., :hd // 2] | (codes[..., hd // 2:] << 4), stored[..., hd // 2:]
+
+                (kpl, ksc), (vpl, vsc) = planes(k), planes(v)
+                pools = [(cache.k_pages, kpl), (cache.v_pages, vpl), (cache.k_scales, ksc), (cache.v_scales, vsc)]
+            else:
+                if self.ecfg.kv_dtype == "nvfp4":  # unpacked pages hold the grid values
+                    L = self.cfg.num_hidden_layers
+                    k = _kv_load(k, self.cfg.dtype, "nvfp4", self._ka.reshape(1, L, 1, 1))
+                    v = _kv_load(v, self.cfg.dtype, "nvfp4", self._va.reshape(1, L, 1, 1))
+                pools = [(cache.k_pages, k), (cache.v_pages, v)]
         for pool, rows in pools:
-            pool[:, page_ids, :, poff] = rows[:, 0].permute(2, 0, 1, 3).to(pool.dtype)
+            pool[:, page_ids, :, poff] = rows.to(pool.dtype)
         cache.seq_lens[slot] = T
         return logits
 
@@ -557,7 +690,7 @@ class Engine:
 
         x = self._layers(x, positions, attend_of)
         cache.seq_lens += T * active.to(torch.int32)
-        return self._last_logits(x)
+        return self._logits(x)
 
     def paged_decode_step(self, tok: torch.Tensor, cache: pc.PagedKV, active: torch.Tensor,
                           unroll: int = 1, return_all: bool = False) -> torch.Tensor:

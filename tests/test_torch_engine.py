@@ -76,8 +76,8 @@ def test_engine_refuses_unported_paths(setup):
     _, pnp, _, jcm, _, _ = setup
     cm = convert.compressed_from_jax(jcm)
     for bad in (dict(int4_layout="xla", kv_attention_kernel=True),
-                dict(int4_layout="a8", kv_attention_kernel=False),
-                dict(int4_layout="a8", kv_attention_kernel=False, paged_attention_kernel=True)):
+                dict(int4_layout="a8", kv_attention_kernel=True, attn_sparsity=1e-3),
+                dict(int4_layout="xla", kv_attention_kernel=False, paged_attention_kernel=True)):
         with pytest.raises(NotImplementedError):
             tengine.Engine(cm, tengine.EngineConfig(**bad), device="cpu")
     for bad in (dict(int4_layout="bd4"), dict(int4_layout="a8", kv_dtype="nf4")):
@@ -153,15 +153,19 @@ def test_plain_ops_picks_each_kernel(plain):
     """`plain_ops` swaps exactly the named kernels for their plain versions."""
     from tensorrt_model_optimizer_tpu_torch.ops.cuda import flash_gqa, kv_attention, paged_attention, qmm, qmm_wo
 
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import sparse_attention
+
     assert tengine.PLAIN_ALL == ("w4a8", "kv_attention", "flash", "int4_wo", "fp4_wo", "byte_wo",
-                                 "paged_decode", "paged_prefill")
+                                 "paged_decode", "paged_prefill", "skip_softmax")
     kernels = (qmm.w4a8_matmul, kv_attention.kv_decode_attention, flash_gqa.flash_attention_gqa,
                qmm_wo.int4_wo_matmul, qmm_wo.fp4_wo_matmul, qmm_wo.byte_wo_matmul,
-               paged_attention.paged_attention_decode, paged_attention.paged_attention_prefill)
+               paged_attention.paged_attention_decode, paged_attention.paged_attention_prefill,
+               sparse_attention.skip_softmax_flash)
     plains = (qmm.w4a8_matmul_plain, kv_attention.kv_decode_attention_plain,
               flash_gqa.flash_attention_gqa_plain, qmm_wo.int4_wo_matmul_plain,
               qmm_wo.fp4_wo_matmul_plain, qmm_wo.byte_wo_matmul_plain,
-              paged_attention.paged_attention_decode_plain, paged_attention.paged_attention_prefill_plain)
+              paged_attention.paged_attention_decode_plain, paged_attention.paged_attention_prefill_plain,
+              sparse_attention.skip_softmax_flash_plain)
     want = {name: (p if name in plain else k) for name, k, p in zip(tengine.PLAIN_ALL, kernels, plains)}
     assert tengine._ops(plain) == want
 

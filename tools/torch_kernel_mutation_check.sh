@@ -1,13 +1,15 @@
 #!/bin/bash
 # Mutation checks of chip_smoke.py's checks of the port's weight-only GEMM
-# kernels (tensorrt_model_optimizer_tpu_torch/csrc/qmm_*_wo.cu) and KV-cache
-# attention kernels (kv_decode_attention.cu, paged_attention_*.cu). Each case
+# kernels (tensorrt_model_optimizer_tpu_torch/csrc/qmm_*_wo.cu), KV-cache
+# attention kernels (kv_decode_attention.cu, paged_attention_*.cu) and the
+# skip-softmax kernel (skip_softmax_flash.cu). Each case
 # plants one fault in a copy of the tree in a fresh `mktemp -d` directory
 # (under $TMPDIR, removed on exit) and runs `chip_smoke.py --phases
 # build,kernels` there; every case must exit non-zero.
 # Needs one CUDA card and nvcc. Run from the root of the repo:
 #
-#     bash tools/torch_kernel_mutation_check.sh
+#     bash tools/torch_kernel_mutation_check.sh            # every case
+#     bash tools/torch_kernel_mutation_check.sh skip_running_max   # the named cases only
 #
 # Prints one "MUTATION <name>: exit <code>" line per case with the assertion
 # that caught it; the logs go to build/mutation_logs/mut_<name>.log. Exits 1 if a
@@ -18,7 +20,9 @@ mkdir -p "$logs"
 work=$(mktemp -d) || exit 1
 trap 'rm -rf "$work"' EXIT
 missed=0
+only=" $* "
 run() {  # name, file under csrc/, sed expression
+  [ "$only" = "  " ] || [[ "$only" == *" $1 "* ]] || return 0
   rm -rf "$work/tree" && mkdir "$work/tree" && cp -r chip_smoke.py tensorrt_model_optimizer_tpu_torch artifacts "$work/tree/"
   sed -i "$3" "$work/tree/tensorrt_model_optimizer_tpu_torch/csrc/$2"
   if diff -q "tensorrt_model_optimizer_tpu_torch/csrc/$2" "$work/tree/tensorrt_model_optimizer_tpu_torch/csrc/$2" >/dev/null; then
@@ -41,4 +45,7 @@ run paged_decode_last_row paged_attention_decode.cu 's/const int len = min(lens\
 run paged_prefill_causal paged_attention_prefill.cu 's/if (j <= t) {/if (j < t) {/; s/if (base + u > t) break;/if (base + u >= t) break;/'
 # NVFP4 rows: the high plane takes the low plane's block-scale bytes
 run nvfp4_high_plane_scale kv_common.cuh 's|s(static_cast<const uint8_t\*>(scales) + lane \* E / 16)|s(static_cast<const uint8_t*>(scales) + (lane \& 15) * E / 16)|'
+# skip-softmax: the decision limit follows the last kept tile's max, not the
+# running max over the kept tiles
+run skip_running_max skip_softmax_flash.cu 's/run = fmaxf(run, bm);/run = bm;/'
 exit $missed
