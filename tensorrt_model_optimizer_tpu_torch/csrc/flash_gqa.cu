@@ -1,219 +1,163 @@
-// Causal GQA flash attention for Hopper (sm_90a): bf16 in and out, f32
-// accumulators, head_dim 32, 64 or 128, any T (no padding needed).
+// Causal GQA flash attention for Hopper (sm_90a) on the tensor cores: bf16
+// in and out, f32 accumulators, head_dim 32, 64 or 128, any T (no padding
+// needed), causal or not.
 //
 // Replaces: tensorrt_model_optimizer_tpu/ops/pallas/flash_gqa.py
 // flash_attention_gqa (_kernel).
 //
-//   q [B, H, T, D], k/v [B, Hkv, T, D] bf16 (H % Hkv == 0, kv head h / rep)
+//   q [B, H, T, D] with any row / head / batch strides, k/v [B, Hkv, T, D]
+//   contiguous (H % Hkv == 0, kv head h / rep), out strided like q:
 //   out[b, h, t] = softmax_{s <= t}(q . k_s * sm_scale) @ v        (bf16)
 //
-// Online softmax as in the reference: running max starts at -1e30, masked
-// scores are -1e30 and contribute p = 0, the denominator clamps at 1e-30.
+// Online softmax as in the reference: s = (q . k) * scale as an f32
+// multiply, masked scores are -1e30 and contribute p = 0, the running max
+// starts at -1e30, the denominator clamps at 1e-30.
 //
 // What bounds it on an H100: operations. At Llama-3.1-8B prefill (8 x 32 x
 // 2048 x 128, causal) 2.75e11 FLOP per layer, >= 0.28 ms at the 989 TFLOP/s
-// bf16 tensor-core peak. What this design does about it: one block per
-// (b, h, 64-row q tile) keeps q (as f32), one 64-row k/v tile of kv head
-// h / rep (as bf16, rows padded to 130 for conflict-free reads) and the
-// 64 x 64 probabilities in shared memory (81 KB at D = 128); k/v tiles above the
-// diagonal are never loaded. The dots run on the CUDA cores in f32 (each
-// thread owns a 4 x 4 score tile and a 4 x D/16 output tile), far below the
-// tensor-core peak: mma/wgmma bf16 with TMA is later work.
+// bf16 tensor-core peak; q / k / v / out are 0.27 GB (0.08 ms at 3.35 TB/s).
+// What this design does about it (step A of the redesign: `mma.sync`, not
+// `wgmma`): one block of 4 warps per (b, h, 128-row q tile), each warp two
+// 16-row m-tiles, so one K / V fragment from shared memory feeds two
+// products. K / V come in 64-row tiles of kv head h / rep through a
+// two-stage `cp.async` ring (tile j + 1 loads while tile j computes, one
+// barrier per tile) into swizzled shared rows; tiles above the diagonal are
+// never loaded, and a warp whose rows all lie above a tile's first key skips
+// that tile (its update would be exact identity). S = Q K^T and O += P V run
+// on the tensor cores (attn_tc.cuh), P split into two bf16 terms, which
+// costs 1.5x the bound's tensor-core work; the softmax takes one FFMA and
+// one ex2 a score. The q tiles are launched heaviest first (reverse order on
+// the grid's fast axis), so the causal triangle's light tiles make the tail.
+// 96 KB of shared memory at D = 128. One block per (b, h): the query heads
+// of a kv head read its K / V through L2 (1 MB a kv head at the 8B shape);
+// a block over all `rep` heads of a kv head was not built. Measured (H100
+// 80GB HBM3, 700 W, chip_smoke.py's kernels phase): 1.30-1.32 ms at the 8B
+// shape in three runs, 21% of the bound, 2.7x SDPA; PERF.md's kernel table,
+// row 3.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_tc.cuh"
+
 namespace {
 
-constexpr int BQ = 64, BK = 64;
-constexpr int NT = 256;
+using namespace attn_tc;
+
+// 128 q rows a block as 4 warps of two 16-row m-tiles, 64-key k tiles. On
+// an H100 80GB HBM3 at the 8B shape this measured 1.31 ms against 1.40 (8
+// warps of one m-tile), 1.56 (32-key tiles), 1.35-1.47 (registers capped for
+// two to four blocks an SM) and 1.37-2.29 (a three-stage ring with the next
+// tile's S issued before this tile's softmax).
+constexpr int BQ = 128, BK = 64, MT = 2, NW = BQ / (16 * MT), NT = NW * 32;
 
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * BQ * D + 2 * sizeof(__nv_bfloat16) * BK * (D + 2) + sizeof(float) * BQ * BK;
+  return sizeof(__nv_bfloat16) * D * (BQ + 4 * BK);
 }
 
 template <int D>
-__global__ void __launch_bounds__(NT) flash_kernel(const __nv_bfloat16* __restrict__ q,
-                                                   const __nv_bfloat16* __restrict__ k,
-                                                   const __nv_bfloat16* __restrict__ v,
-                                                   __nv_bfloat16* __restrict__ out, int H,
-                                                   int Hkv, int T, float scale, int causal) {
-  constexpr int KST = D + 2;  // bf16 row stride of the k/v tiles
-  constexpr int JO = D / 32;   // output column pairs per thread
+__global__ void __launch_bounds__(NT)
+    flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int H, int Hkv, int T,
+                 float scale, int causal, long long sqb, long long sqh, long long sqt, long long sob,
+                 long long soh, long long sot) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(q_s + BQ * D);
-  __nv_bfloat16* v_s = k_s + BK * KST;
-  float* p_s = reinterpret_cast<float*>(v_s + BK * KST);
+  const uint32_t q_s = smem_addr(smem);
+  const uint32_t kv_s = q_s + BQ * D * 2;  // stage st: K at kv_s + 2 st BK D 2, V BK D 2 bytes after
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int i0 = qt * BQ;
-  const __nv_bfloat16* qb = q + ((size_t)b * H + h) * T * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int i0 = qt * BQ, r0 = 16 * MT * warp, w0 = i0 + r0;  // first row of the block, of this warp
   const __nv_bfloat16* kb = k + ((size_t)b * Hkv + hk) * T * D;
   const __nv_bfloat16* vb = v + ((size_t)b * Hkv + hk) * T * D;
 
-  // q tile -> f32 (rows past T are zeros and never written out)
-  for (int c = tid; c < BQ * D / 8; c += NT) {
-    const int r = c / (D / 8), col = (c % (D / 8)) * 8;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (i0 + r < T) {
-      const uint4 u = *reinterpret_cast<const uint4*>(qb + (size_t)(i0 + r) * D + col);
-      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-        f[2 * j] = t.x;
-        f[2 * j + 1] = t.y;
-      }
-    }
-    float4* dst = reinterpret_cast<float4*>(q_s + r * D + col);
-    dst[0] = make_float4(f[0], f[1], f[2], f[3]);
-    dst[1] = make_float4(f[4], f[5], f[6], f[7]);
-  }
-
-  float m[4], l[4], acc[4][2 * JO];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -1e30f;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 2 * JO; ++j) acc[i][j] = 0.f;
-  }
-
+  const float c = scale * LOG2E;
   const int n_kt = (T + BK - 1) / BK;
   const int last = causal ? min(n_kt - 1, (i0 + BQ - 1) / BK) : n_kt - 1;
+  load_tile<BQ, D, NT>(q_s, q + b * sqb + h * sqh + i0 * sqt, sqt, T - i0);
+  load_tile<BK, D, NT>(kv_s, kb, D, T);
+  load_tile<BK, D, NT>(kv_s + BK * D * 2, vb, D, T);
+  cp_async_commit();
+
+  float m[MT][2], l[MT][2], o[MT][D / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = MASKED;
+    l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
+  }
+
   for (int jt = 0; jt <= last; ++jt) {
     const int j0 = jt * BK;
-    for (int c = tid; c < BK * D / 8; c += NT) {
-      const int r = c / (D / 8), col = (c % (D / 8)) * 8;
-      uint4 uk = make_uint4(0, 0, 0, 0), uv = make_uint4(0, 0, 0, 0);
-      if (j0 + r < T) {
-        uk = *reinterpret_cast<const uint4*>(kb + (size_t)(j0 + r) * D + col);
-        uv = *reinterpret_cast<const uint4*>(vb + (size_t)(j0 + r) * D + col);
-      }
-      uint32_t* dk = reinterpret_cast<uint32_t*>(k_s + r * KST + col);
-      uint32_t* dv = reinterpret_cast<uint32_t*>(v_s + r * KST + col);
-      dk[0] = uk.x; dk[1] = uk.y; dk[2] = uk.z; dk[3] = uk.w;
-      dv[0] = uv.x; dv[1] = uv.y; dv[2] = uv.z; dv[3] = uv.w;
+    const uint32_t k_s = kv_s + (jt & 1) * 2 * BK * D * 2, v_s = k_s + BK * D * 2;
+    cp_async_wait_all();
+    __syncthreads();  // tile jt in place; every thread is done with tile jt - 1's buffers
+    if (jt < last) {
+      const uint32_t nk_s = kv_s + ((jt + 1) & 1) * 2 * BK * D * 2;
+      load_tile<BK, D, NT>(nk_s, kb + (size_t)(j0 + BK) * D, D, T - j0 - BK);
+      load_tile<BK, D, NT>(nk_s + BK * D * 2, vb + (size_t)(j0 + BK) * D, D, T - j0 - BK);
+      cp_async_commit();
     }
-    __syncthreads();
+    if (causal && j0 > w0 + 16 * MT - 1) continue;  // every score of this warp's rows is masked
 
-    // scores: rows ty + 16 i, cols tx + 16 j
-    float s[4][4];
+    float s[MT][BK / 8][4];
+    qk<D, BK, MT>(s, q_s, r0, k_s);
+    if (j0 + BK > T || (causal && j0 + BK - 1 > w0)) {  // a tile on the diagonal or past T
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 2) {
-      float2 qv[4], kv[4];
+        for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float2*>(q_s + (ty + 16 * i) * D + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(k_s + (tx + 16 * j) * KST + d));
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += qv[i].x * kv[j].x + qv[i].y * kv[j].y;
+          for (int e = 0; e < 4; ++e) {
+            const int row = w0 + 16 * mt + g + 8 * (e >> 1), col = j0 + 8 * n + 2 * t + (e & 1);
+            const bool masked = col >= T || (causal && col > row);
+            if (masked) s[mt][n][e] = MASKED;
+          }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = i0 + ty + 16 * i;
-      float mx = -1e30f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = j0 + tx + 16 * j;
-        const bool masked = col >= T || (causal && col > row);
-        s[i][j] = masked ? -1e30f : s[i][j] * scale;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = s[i][j] > -1e29f ? expf(s[i][j] - m_new) : 0.f;
-        p_s[(ty + 16 * i) * BK + tx + 16 * j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 2 * JO; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-
-    // acc[i] over d columns 2 tx + 32 jj (+1)
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = p_s[(ty + 16 * i) * BK + c];
-#pragma unroll
-      for (int jj = 0; jj < JO; ++jj) {
-        const float2 vv =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(v_s + c * KST + 2 * tx + 32 * jj));
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][2 * jj] += p[i] * vv.x;
-          acc[i][2 * jj + 1] += p[i] * vv.y;
-        }
-      }
-    }
-    __syncthreads();
+    for (int mt = 0; mt < MT; ++mt) softmax_update<BK, D / 8>(s[mt], m[mt], l[mt], o[mt], c);
+    pv<D, BK, MT>(o, s, v_s);
   }
-
-  __nv_bfloat16* ob = out + ((size_t)b * H + h) * T * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = i0 + ty + 16 * i;
-    if (row >= T) continue;
-    const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int jj = 0; jj < JO; ++jj) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * D + 2 * tx + 32 * jj) =
-          __floats2bfloat162_rn(acc[i][2 * jj] * inv_l, acc[i][2 * jj + 1] * inv_l);
-    }
-  }
+  for (int mt = 0; mt < MT; ++mt)
+    store_rows<D>(out + b * sob + h * soh + (w0 + 16 * mt) * sot, sot, T - w0 - 16 * mt, o[mt], l[mt]);
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv, int T,
-           float scale, int causal, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv, int T, float scale,
+           int causal, const long long* sq, const long long* so, cudaStream_t st) {
   constexpr size_t SMEM = smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  cudaError_t e = cudaFuncSetAttribute(flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((T + BQ - 1) / BQ, H, B);
   flash_kernel<D><<<grid, NT, SMEM, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), H, Hkv, T, scale,
-      causal);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), H, Hkv, T, scale, causal, sq[0],
+      sq[1], sq[2], so[0], so[1], so[2]);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q [B, H, T, D], k/v [B, Hkv, T, D], out [B, H, T, D]; bf16, contiguous; D in {32, 64, 128}.
-extern "C" int flash_gqa(const void* q, const void* k, const void* v, void* out, int B, int H,
-                         int Hkv, int T, int D, float scale, int causal, void* stream) {
+// q [B, H, T, D] with element strides (sqb, sqh, sqt), k/v [B, Hkv, T, D]
+// contiguous, out [B, H, T, D] with strides (sob, soh, sot); bf16, last
+// dimension contiguous, rows 16-byte aligned; D in {32, 64, 128}.
+extern "C" int flash_gqa(const void* q, const void* k, const void* v, void* out, int B, int H, int Hkv, int T,
+                         int D, float scale, int causal, long long sqb, long long sqh, long long sqt,
+                         long long sob, long long soh, long long sot, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long sq[3] = {sqb, sqh, sqt}, so[3] = {sob, soh, sot};
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, out, B, H, Hkv, T, scale, causal, st);
+      return launch<32>(q, k, v, out, B, H, Hkv, T, scale, causal, sq, so, st);
     case 64:
-      return launch<64>(q, k, v, out, B, H, Hkv, T, scale, causal, st);
+      return launch<64>(q, k, v, out, B, H, Hkv, T, scale, causal, sq, so, st);
     case 128:
-      return launch<128>(q, k, v, out, B, H, Hkv, T, scale, causal, st);
+      return launch<128>(q, k, v, out, B, H, Hkv, T, scale, causal, sq, so, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

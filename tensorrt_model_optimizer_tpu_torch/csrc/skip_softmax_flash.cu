@@ -1,6 +1,13 @@
-// Skip-softmax sparse flash attention for Hopper (sm_90a): f32 or bf16 in,
-// the same type out, f32 accumulators, head_dim 16, 32, 64 or 128, tiles of
-// up to 128 x 128 rows whose sizes are read at run time.
+// Skip-softmax sparse flash attention for Hopper (sm_90a), two routes:
+//   - tensor cores (`skip_softmax_flash_tc`): bf16, head_dim 32, 64 or 128,
+//     tiles of 64 or 128 rows (bq, bk in {64, 128}): the 8B sparse prefill
+//     (128-tiles) and the anchor einsum engine's (64-tiles);
+//   - CUDA cores (`skip_softmax_flash`): f32 or bf16, head_dim 16, 32, 64 or
+//     128, tiles of up to 128 x 128 rows whose sizes are read at run time:
+//     f32 (the RULER anchor), d = 16 and the halving rule's odd tiles, which
+//     have no tensor-core form that keeps their numbers.
+// The wrapper (ops/cuda/sparse_attention.py `route`) picks the route from
+// dtype, d, bq and bk alone.
 //
 // Replaces: tensorrt_model_optimizer_tpu/ops/pallas/sparse_attention.py
 // skip_softmax_flash (_kernel).
@@ -21,23 +28,43 @@
 // to 2.9e11 FLOP per layer (>= 0.29 ms at the 989 TFLOP/s bf16 tensor-core
 // peak) against 0.54 GB of q/k/v/out (0.16 ms at 3.35 TB/s).
 //
-// What this design does about it: the decisions depend on the visit order
-// (run changes only on kept tiles), so one block owns one (bh, q tile) and
-// walks its row of k tiles in order, stopping at the causal edge and writing
-// 0 for the tiles beyond it. q's tile and one k/v tile (k first; v only when
-// the tile is kept, into the same buffer) sit in shared memory in the input
-// type, the f32 scores / probabilities beside them (198 KB at f32, d 128;
-// 130 KB at bf16). 256 threads as 16 x 16: a thread owns score rows
-// ty + 16 i and columns tx + 16 j (i, j < 8), and the output columns
-// tx + 16 c of the same rows, so each row's softmax state lives in the 16
-// lanes of a half warp. The tile max is a block-wide reduction (warp
-// shuffles, then 8 values in shared memory), and every thread takes the same
-// decision from it. The dots run on the CUDA cores in f32: mma / wgmma with
-// TMA is later work.
+// Both routes: the decisions depend on the visit order (run changes only on
+// kept tiles), so one block owns one (bh, q tile) and walks its row of k
+// tiles in order, stopping at the causal edge and writing 0 for the tiles
+// beyond it. The tile max is a block-wide reduction (warp shuffles, one
+// value per warp in shared memory, one barrier), and every thread takes the
+// same decision from it, so the skip branch never diverges around a barrier.
+//
+// Tensor-core route (step A: `mma.sync`, the tile primitives of
+// attn_tc.cuh, shared with flash_gqa.cu): bq / 16 warps of one 16-row m-tile
+// each; K and V in a two-stage `cp.async` ring of swizzled shared tiles
+// (160 KB at 128-tiles, d 128). K and V of tile j + 1 are prefetched while
+// tile j computes and decides: V speculatively, since its bytes are not
+// what binds (0.16 ms of bytes against 0.29 ms of operations) and a V
+// loaded after the decision would stall every kept tile on a load. S by
+// mma, the causal mask, the block-wide tile max of the raw scores times the
+// scale (exactly the largest scaled score: scaling is monotone) and the
+// decision; only a kept tile runs the softmax update and P V (P split into
+// two bf16 terms). A warp whose 16 rows all lie above the tile's first key
+// contributes -1e30 to the max and skips the tile's work (exact: its update
+// would be identity). The q tiles are launched heaviest first on the grid's
+// fast axis. Measured (H100 80GB HBM3, 700 W, chip_smoke.py's kernels
+// phase) at the 8B shape: 1.56 ms at threshold 1e-30 (kept 0.531), 19% of
+// the bound, 3.2x SDPA causal; PERF.md's kernel table, row 17.
+//
+// CUDA-core route: q's tile and one k/v tile (k first; v
+// only when the tile is kept, into the same buffer) sit in shared memory in
+// the input type, the f32 scores / probabilities beside them (198 KB at f32,
+// d 128). 256 threads as 16 x 16: a thread owns score rows ty + 16 i and
+// columns tx + 16 j (i, j < 8), and the output columns tx + 16 c of the
+// same rows, so each row's softmax state lives in the 16 lanes of a half
+// warp. The dots run on the CUDA cores in f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attn_tc.cuh"
 
 namespace {
 
@@ -255,10 +282,140 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int* keep, 
   }
 }
 
+// ---- tensor-core route -----------------------------------------------------
+
+// one 16-row m-tile a warp: S of a 128-key tile is 64 floats a thread, held
+// whole until the block's decision; two m-tiles a warp spill (measured 2x
+// slower on an H100 80GB HBM3)
+constexpr int TC_MT = 1;
+
+template <int D, int BQ, int BK>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(__nv_bfloat16) * D * (BQ + 4 * BK) + sizeof(float) * 2 * (BQ / 16);
+}
+
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(BQ * 2 / TC_MT)
+    skip_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int* __restrict__ keep,
+                   int S, float scale, float log_thresh, int causal) {
+  using namespace attn_tc;
+  constexpr int MT = TC_MT, NW = BQ / (16 * MT), NTC = NW * 32;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const uint32_t q_s = smem_addr(tc_smem);
+  const uint32_t kv_s = q_s + BQ * D * 2;  // stage st: K at kv_s + 2 st BK D 2, V BK D 2 bytes after
+  float* red = reinterpret_cast<float*>(tc_smem + (BQ + 4 * BK) * D * 2);  // [2][NW] warp maxima
+
+  const int nq = S / BQ, nk = S / BK;
+  const int qi = nq - 1 - blockIdx.x, bh = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int i0 = qi * BQ, r0 = 16 * MT * warp, w0 = i0 + r0;
+  const size_t base = (size_t)bh * S * D;
+  const __nv_bfloat16* kb = k + base;
+  const __nv_bfloat16* vb = v + base;
+  int* keep_row = keep + ((size_t)bh * nq + qi) * nk;
+
+  // tiles past the causal edge are structurally skipped: never visited
+  const int last = causal ? min(nk - 1, (i0 + BQ - 1) / BK) : nk - 1;
+  for (int j = last + 1 + threadIdx.x; j < nk; j += NTC) keep_row[j] = 0;
+  attn_tc::load_tile<BQ, D, NTC>(q_s, q + base + (size_t)i0 * D, D, BQ);
+  attn_tc::load_tile<BK, D, NTC>(kv_s, kb, D, BK);
+  attn_tc::load_tile<BK, D, NTC>(kv_s + BK * D * 2, vb, D, BK);
+  cp_async_commit();
+
+  float m[MT][2], l[MT][2], o[MT][D / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = MASKED;
+    l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
+  }
+  float run = -1e30f;
+  const float c = scale * LOG2E;
+
+  for (int jt = 0; jt <= last; ++jt) {
+    const int j0 = jt * BK, buf = jt & 1;
+    const uint32_t k_s = kv_s + buf * 2 * BK * D * 2, v_s = k_s + BK * D * 2;
+    cp_async_wait_all();
+    __syncthreads();  // tile jt in place; every thread is done with tile jt - 1's buffers
+    if (jt < last) {  // K and (speculatively) V of the next tile
+      const uint32_t nk_s = kv_s + (buf ^ 1) * 2 * BK * D * 2;
+      attn_tc::load_tile<BK, D, NTC>(nk_s, kb + (size_t)(j0 + BK) * D, D, BK);
+      attn_tc::load_tile<BK, D, NTC>(nk_s + BK * D * 2, vb + (size_t)(j0 + BK) * D, D, BK);
+      cp_async_commit();
+    }
+    // a warp whose rows all lie above the tile's first key sees only -1e30
+    const bool live = !(causal && j0 > w0 + 16 * MT - 1);
+    float s[MT][BK / 8][4];
+    float tmax = MASKED;
+    if (live) {
+      qk<D, BK, MT>(s, q_s, r0, k_s);
+      const bool edge = causal && j0 + BK - 1 > w0;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = w0 + 16 * mt + g + 8 * (e >> 1), col = j0 + 8 * n + 2 * t + (e & 1);
+            if (edge && col > row) s[mt][n][e] = MASKED;
+            tmax = fmaxf(tmax, s[mt][n][e]);
+          }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+    if (lane == 0) red[buf * NW + warp] = tmax;
+    __syncthreads();
+    float bm = red[buf * NW];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) bm = fmaxf(bm, red[buf * NW + w]);
+    // the tile max of s = q.k * scale: scaling is monotone and every visited
+    // tile has an unmasked score (key j0 <= its last row), so this is the
+    // largest scaled score exactly
+    bm *= scale;
+    const bool kept = bm >= run + log_thresh;
+    if (threadIdx.x == 0) keep_row[jt] = kept ? 1 : 0;
+    if (!kept) continue;  // uniform across the block
+    run = fmaxf(run, bm);
+    if (!live) continue;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) softmax_update<BK, D / 8>(s[mt], m[mt], l[mt], o[mt], c);
+    pv<D, BK, MT>(o, s, v_s);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) store_rows<D>(out + base + (size_t)(w0 + 16 * mt) * D, D, 16, o[mt], l[mt]);
+}
+
+template <int D, int BQ, int BK>
+int tc_launch(const void* q, const void* k, const void* v, void* out, int* keep, int BH, int S, float scale,
+              float log_thresh, int causal, cudaStream_t st) {
+  constexpr size_t SMEM = tc_smem_bytes<D, BQ, BK>();
+  cudaError_t e = cudaFuncSetAttribute(skip_tc_kernel<D, BQ, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(S / BQ, BH);
+  skip_tc_kernel<D, BQ, BK><<<grid, BQ * 2 / TC_MT, SMEM, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), keep, S, scale, log_thresh, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int tc_tiles(const void* q, const void* k, const void* v, void* out, int* keep, int BH, int S, int bq, int bk,
+             float scale, float log_thresh, int causal, cudaStream_t st) {
+  if (bq == 128 && bk == 128) return tc_launch<D, 128, 128>(q, k, v, out, keep, BH, S, scale, log_thresh, causal, st);
+  if (bq == 128 && bk == 64) return tc_launch<D, 128, 64>(q, k, v, out, keep, BH, S, scale, log_thresh, causal, st);
+  if (bq == 64 && bk == 128) return tc_launch<D, 64, 128>(q, k, v, out, keep, BH, S, scale, log_thresh, causal, st);
+  if (bq == 64 && bk == 64) return tc_launch<D, 64, 64>(q, k, v, out, keep, BH, S, scale, log_thresh, causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// q, k, v, out [BH, S, D] contiguous (dtype 0 = f32, 1 = bf16), keep [BH, S/bq, S/bk] int32;
-// D in {16, 32, 64, 128}; 1 <= bq, bk <= 128 dividing S.
+// The CUDA-core route. q, k, v, out [BH, S, D] contiguous (dtype 0 = f32,
+// 1 = bf16), keep [BH, S/bq, S/bk] int32; D in {16, 32, 64, 128};
+// 1 <= bq, bk <= 128 dividing S.
 extern "C" int skip_softmax_flash(const void* q, const void* k, const void* v, void* out, void* keep,
                                   int BH, int S, int D, int bq, int bk, int dtype, float scale,
                                   float log_thresh, int causal, void* stream) {
@@ -269,4 +426,25 @@ extern "C" int skip_softmax_flash(const void* q, const void* k, const void* v, v
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, out, kp, BH, S, D, bq, bk, scale, log_thresh, causal, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core route. q, k, v, out [BH, S, D] bf16 contiguous, 16-byte
+// aligned, keep [BH, S/bq, S/bk] int32; D in {32, 64, 128}; bq, bk in
+// {64, 128} dividing S.
+extern "C" int skip_softmax_flash_tc(const void* q, const void* k, const void* v, void* out, void* keep, int BH,
+                                     int S, int D, int bq, int bk, float scale, float log_thresh, int causal,
+                                     void* stream) {
+  if (S % bq || S % bk) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* kp = static_cast<int*>(keep);
+  switch (D) {
+    case 32:
+      return tc_tiles<32>(q, k, v, out, kp, BH, S, bq, bk, scale, log_thresh, causal, st);
+    case 64:
+      return tc_tiles<64>(q, k, v, out, kp, BH, S, bq, bk, scale, log_thresh, causal, st);
+    case 128:
+      return tc_tiles<128>(q, k, v, out, kp, BH, S, bq, bk, scale, log_thresh, causal, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

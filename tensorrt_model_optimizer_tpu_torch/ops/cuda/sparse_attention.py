@@ -1,9 +1,12 @@
 """Skip-softmax sparse flash attention (port of
 `ops/pallas/sparse_attention.py` `skip_softmax_flash`).
 
-Kernel: `csrc/skip_softmax_flash.cu` (f32 or bf16, head_dim 16/32/64/128,
-tiles up to 128 x 128). On a CUDA tensor the wrapper launches the kernel or
-raises; only CPU tensors take the plain PyTorch version.
+Kernel: `csrc/skip_softmax_flash.cu`, two routes that `route` picks from
+dtype, head_dim and tile sizes alone: the tensor cores for bf16, head_dim
+32/64/128 and tiles of 64 or 128 rows (the 8B sparse prefill); the CUDA
+cores for the rest (f32, head_dim 16, the halving rule's odd tiles; tiles up
+to 128 x 128). On a CUDA tensor the wrapper launches the chosen route's
+kernel or raises; only CPU tensors take the plain PyTorch version.
 
 A [bq x bk] score tile whose max sits more than log(threshold) below the
 running max of the tiles already kept for its q tile carries less than
@@ -24,7 +27,8 @@ import torch
 
 from . import _build
 
-launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+launches = 0  # kernel launches since the last reset, both routes (chip_smoke reads it)
+route_launches = {"tensor_core": 0, "cuda_core": 0}  # the same, per route
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PLAIN_CHUNK = 1 << 28  # score elements per slice of the plain version (1 GiB of f32)
@@ -39,6 +43,14 @@ def tile_sizes(S: int, block_q: int, block_k: int) -> tuple[int, int]:
     while S % bk:
         bk //= 2
     return bq, bk
+
+
+def route(dtype: torch.dtype, d: int, bq: int, bk: int) -> str:
+    """The kernel a CUDA tensor goes to: "tensor_core" for bf16, head_dim 32,
+    64 or 128 and tiles of 64 or 128 rows, else "cuda_core"."""
+    if dtype == torch.bfloat16 and d in (32, 64, 128) and bq in (64, 128) and bk in (64, 128):
+        return "tensor_core"
+    return "cuda_core"
 
 
 def log_threshold(threshold: float) -> float:
@@ -129,11 +141,21 @@ def skip_softmax_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, thresh
         q, k, v = q.clone(), k.clone(), v.clone()
     out = torch.empty_like(q)
     keep = torch.empty((BH, S // bq, S // bk), dtype=torch.int32, device=q.device)
-    fn = _build.function("skip_softmax_flash", "skip_softmax_flash",
-                         [_build.c_void_p] * 5 + [_build.c_int] * 6 + [_build.c_float] * 2
-                         + [_build.c_int, _build.c_void_p])
-    _build.check(fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out), _build.ptr(keep), BH, S, d,
-                    bq, bk, _DTYPES[q.dtype], 1.0 / math.sqrt(d), log_threshold(threshold), int(causal),
-                    _build.stream()), "skip_softmax_flash")
+    ptrs = [_build.ptr(t) for t in (q, k, v, out, keep)]
+    which = route(q.dtype, d, bq, bk)
+    if which == "tensor_core":
+        fn = _build.function("skip_softmax_flash", "skip_softmax_flash_tc",
+                             [_build.c_void_p] * 5 + [_build.c_int] * 5 + [_build.c_float] * 2
+                             + [_build.c_int, _build.c_void_p])
+        err = fn(*ptrs, BH, S, d, bq, bk, 1.0 / math.sqrt(d), log_threshold(threshold), int(causal),
+                 _build.stream())
+    else:
+        fn = _build.function("skip_softmax_flash", "skip_softmax_flash",
+                             [_build.c_void_p] * 5 + [_build.c_int] * 6 + [_build.c_float] * 2
+                             + [_build.c_int, _build.c_void_p])
+        err = fn(*ptrs, BH, S, d, bq, bk, _DTYPES[q.dtype], 1.0 / math.sqrt(d), log_threshold(threshold),
+                 int(causal), _build.stream())
+    _build.check(err, f"skip_softmax_flash ({which} route)")
     launches += 1
+    route_launches[which] += 1
     return out, keep

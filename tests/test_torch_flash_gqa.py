@@ -44,13 +44,31 @@ def test_causal_rows_ignore_later_keys():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("view", [False, True], ids=["contiguous", "transposed_view"])
+@pytest.mark.parametrize("t", [T, 1, 63, 130, 1000])
 @pytest.mark.parametrize("rep,d", [(1, 64), (4, 128), (2, 32)])
-def test_kernel_matches_plain(cuda_device, rep, d):
-    rng = np.random.default_rng(rep)
+def test_kernel_matches_plain(cuda_device, rep, d, t, view):
+    """The tensor-core kernel against its plain version on the card, causal
+    and not, at ragged T (none a multiple of the 128-row q tile but 1000's
+    k tiles) and with q as the engine passes it (`view`: a [B, T, H, d]
+    tensor seen as [B, H, T, d], read in place; the output keeps q's
+    layout). Held per element to 2^-8 |ref| + 1e-3 rms(ref) of the plain
+    version's f32 result (the output's bf16 rounding and f32 sums in
+    another order), and to the bf16 plain version within 2e-2."""
+    rng = np.random.default_rng(rep + t)
+    shape_q = (B, t, HKV * rep, d) if view else (B, HKV * rep, t, d)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda_device, torch.bfloat16)
-               for s in ((B, HKV * rep, T, d), (B, HKV, T, d), (B, HKV, T, d)))
-    out = tflash.flash_attention_gqa(q, k, v)
-    torch.cuda.synchronize()
-    ref = tflash.flash_attention_gqa_plain(q, k, v)
-    # bf16 output: one bf16 ulp of |out| <= ~4
-    assert (out.float() - ref.float()).abs().max().item() < 2e-2
+               for s in (shape_q, (B, HKV, t, d), (B, HKV, t, d)))
+    if view:
+        q = q.transpose(1, 2)
+    for causal in (True, False):
+        n0 = tflash.launches
+        out = tflash.flash_attention_gqa(q, k, v, causal)
+        torch.cuda.synchronize()
+        assert tflash.launches == n0 + 1 and out.stride() == q.stride()
+        ref = tflash.flash_attention_gqa_plain(q, k, v, causal)
+        # bf16 output: one bf16 ulp of |out| <= ~4
+        assert (out.float() - ref.float()).abs().max().item() < 2e-2
+        ref32 = tflash.flash_attention_gqa_plain(q.float(), k.float(), v.float(), causal)
+        assert bool(((out.float() - ref32).abs() <= 2.0 ** -8 * ref32.abs()
+                     + 1e-3 * ref32.square().mean().sqrt()).all())

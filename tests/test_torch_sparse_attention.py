@@ -113,6 +113,22 @@ def test_tile_sizes_halving_rule():
     assert tsa.tile_sizes(2048, 128, 64) == (128, 64)
 
 
+def test_route_from_dtype_head_dim_and_tiles():
+    """The tensor cores take bf16, head_dim 32/64/128 and tiles of 64 or 128
+    rows (the 8B sparse prefill's 128-tiles, the anchor's 64-tiles); f32, d 16
+    and the halving rule's odd tiles go to the CUDA cores."""
+    for d in (32, 64, 128):
+        for bq in (64, 128):
+            for bk in (64, 128):
+                assert tsa.route(torch.bfloat16, d, bq, bk) == "tensor_core"
+    assert tsa.route(torch.float32, 32, 64, 64) == "cuda_core"      # the RULER anchor
+    assert tsa.route(torch.float32, 128, 128, 128) == "cuda_core"
+    assert tsa.route(torch.bfloat16, 16, 64, 64) == "cuda_core"
+    for S in (131, 200, 5, 48):                                     # tiles of 1, 8, 5, 16
+        assert tsa.route(torch.bfloat16, 128, *tsa.tile_sizes(S, 128, 128)) == "cuda_core"
+    assert tsa.route(torch.bfloat16, 128, 128, 32) == "cuda_core"
+
+
 def test_keep_frac_counts_structural_tiles():
     """16 tokens in 8-tiles, causal, nothing skipped by the threshold: 3 of
     the 4 tiles are kept (the keep fraction is over ALL tiles)."""
@@ -141,19 +157,27 @@ def test_wrapper_rejects_shapes():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,d,blocks", [(5, 16, (16, 16)), (131, 32, (128, 128)), (200, 64, (8, 16)),
-                                        (256, 128, (128, 128)), (448, 32, (64, 64))])
+                                        (256, 128, (128, 128)), (448, 32, (64, 64)), (256, 64, (64, 64)),
+                                        (512, 128, (128, 64)), (512, 32, (64, 128)), (512, 64, (128, 128))])
 def test_kernel_matches_plain(cuda_device, S, d, blocks, dtype):
-    """The CUDA kernel against its plain version on the card: keep maps
-    equal, outputs within 1e-5 (f32) or 2^-8 of the f32 result plus 1e-3 of
-    its rms (bf16: the output's rounding)."""
+    """The CUDA kernel against its plain version on the card, through the
+    route `route` picks (bf16 at 64- and 128-tiles: the tensor cores), on
+    random and on spiked inputs (attention concentrated on the first 16
+    keys): keep maps equal, outputs within 1e-5 (f32) or 2^-8 of the f32
+    result plus 1e-3 of its rms (bf16: the output's rounding)."""
     g = torch.Generator(device=cuda_device).manual_seed(S)
+    which = tsa.route(dtype, d, *tsa.tile_sizes(S, *blocks))
     for causal in (True, False):
-        for th in (1e-30, 1e-2, 0.999999):
-            q, k, v = (torch.randn((3, S, d), generator=g, device=cuda_device).to(dtype) for _ in range(3))
-            n0 = tsa.launches
+        for th, spike in ((1e-30, False), (1e-2, False), (0.999999, False), (1e-2, True)):
+            q, k, v = (torch.randn((3, S, d), generator=g, device=cuda_device) for _ in range(3))
+            if spike:
+                q[:, :, 0] = 8.0
+                k[:, :16, 0] = 8.0
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            n0, r0 = tsa.launches, tsa.route_launches[which]
             out, keep = tsa.skip_softmax_flash(q, k, v, th, blocks[0], blocks[1], causal)
             torch.cuda.synchronize()
-            assert tsa.launches == n0 + 1
+            assert tsa.launches == n0 + 1 and tsa.route_launches[which] == r0 + 1
             ref, rkeep = tsa.skip_softmax_flash_plain(q.float(), k.float(), v.float(), th, blocks[0], blocks[1],
                                                       causal)
             assert torch.equal(keep, rkeep)

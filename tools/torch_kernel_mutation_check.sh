@@ -1,8 +1,10 @@
 #!/bin/bash
 # Mutation checks of chip_smoke.py's checks of the port's weight-only GEMM
 # kernels (tensorrt_model_optimizer_tpu_torch/csrc/qmm_*_wo.cu), KV-cache
-# attention kernels (kv_decode_attention.cu, paged_attention_*.cu) and the
-# skip-softmax kernel (skip_softmax_flash.cu). Each case
+# attention kernels (kv_decode_attention.cu, paged_attention_*.cu), the
+# tensor-core flash kernel (flash_gqa.cu on the tile primitives of
+# attn_tc.cuh) and the skip-softmax kernel (skip_softmax_flash.cu, both
+# routes). Each case
 # plants one fault in a copy of the tree in a fresh `mktemp -d` directory
 # (under $TMPDIR, removed on exit) and runs `chip_smoke.py --phases
 # build,kernels` there; every case must exit non-zero.
@@ -45,7 +47,12 @@ run paged_decode_last_row paged_attention_decode.cu 's/const int len = min(lens\
 run paged_prefill_causal paged_attention_prefill.cu 's/if (j <= t) {/if (j < t) {/; s/if (base + u > t) break;/if (base + u >= t) break;/'
 # NVFP4 rows: the high plane takes the low plane's block-scale bytes
 run nvfp4_high_plane_scale kv_common.cuh 's|s(static_cast<const uint8_t\*>(scales) + lane \* E / 16)|s(static_cast<const uint8_t*>(scales) + (lane \& 15) * E / 16)|'
-# skip-softmax: the decision limit follows the last kept tile's max, not the
-# running max over the kept tiles
+# skip-softmax, both routes (the tensor-core one first in the kernels phase):
+# the decision limit follows the last kept tile's max, not the running max
+# over the kept tiles
 run skip_running_max skip_softmax_flash.cu 's/run = fmaxf(run, bm);/run = bm;/'
+# flash: the diagonal tile masked one column late (a row sees the next key)
+run flash_diag_late flash_gqa.cu 's/(causal \&\& col > row);/(causal \&\& col > row + 1);/'
+# P.V without the p_lo term (one bf16 P): the per-element limit needs the split
+run pv_drop_lo attn_tc.cuh '/mma16816(o\[mt\]\[2 \* dp[^]]*\], alo\[mt\], /d'
 exit $missed
