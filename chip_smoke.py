@@ -17,8 +17,11 @@ Phases (any failure raises, and the script exits non-zero):
            Skip-softmax runs through both routes: the tensor cores at the 8B
            shape (128- and 64-tiles), on spiked inputs and at a calibrated
            threshold; the CUDA cores at the RULER anchor's shape (f32) and at
-           ragged tile sizes. The two attention kernels' rows also carry the
-           time of the CUDA-core kernels they replaced (`cuda_core_ms`).
+           ragged tile sizes. Both report the share of bf16 outputs one ulp
+           from the plain version's; flash holds it to ULP_OFF_MAX at the
+           anchor's prefill shape. Their phase rows also carry the time of
+           the CUDA-core kernels they replaced (`cuda_core_ms`, a constant,
+           not printed in the kernels line).
   anchor   the in-repo trained checkpoint `artifacts/anchor-llama` through
            load -> PTQ -> compress -> int8-KV engine, once for each served
            path (W4A8; INT4, NVFP4, MXFP4, INT8 weight-only; FP8 and NVFP4 with
@@ -189,9 +192,24 @@ def phase_kernels(torch, dev, sz: Sizes, timer: Timer, rows: dict):
 # The times of the CUDA-core kernels that flash and skip-softmax ran before
 # their tensor-core redesign, at the shapes both were measured at (PERF.md's
 # kernel table, rows 3 and 17; H100 80GB HBM3, 700.00 W), printed beside
-# this run's as `cuda_core_ms`: constants, not re-measured.
+# this run's in the phase rows as `cuda_core_ms`: constants, not re-measured.
 CUDA_CORE_MS = {"flash 8B": 10.72, "skip 8B": 12.34, "skip 8B spike": 10.82, "skip anchor-ruler": 1.713,
-          "skip ragged S=131": 55.00, "skip ragged S=200": 2.193}
+                "skip ragged S=131": 55.00, "skip ragged S=200": 2.193}
+# The largest share of flash's outputs at the anchor's prefill shape that
+# may round to another bf16 than the plain version's f32 result. P split
+# exactly into three bf16 terms reads 2.1e-4 there on an H100; two terms
+# (~16 bits of p) read 4.4e-3, and such an ulp, carried through int8
+# activation codes, gave a W4A8 token on the anchor other than the plain
+# engine's. Over 2048 keys the share is ~2e-3 with P exact as well (the
+# mma's own f32 accumulation, it seems: PERF.md section 7), so it is
+# reported there, not held.
+ULP_OFF_MAX = 1e-3
+ANCHOR_FLASH = (4, 8, 4, 32, 32)  # artifacts/anchor-llama's prefill: B, H, Hkv, T, d
+
+
+def _ulp_off(torch, out, ref32) -> float:
+    """The share of bf16 outputs that differ from ref32 rounded to bf16."""
+    return float((out != ref32.to(torch.bfloat16)).float().mean())
 
 
 def _phase_kernels_flash(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
@@ -204,19 +222,21 @@ def _phase_kernels_flash(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
     (bf16 inputs, f32 softmax, before the bf16 cast): rounding to bf16
     moves a value by at most half an ulp, 2^-8 of itself, and the two f32
     results differ by ~1e-6 of the row's sum of |p.v| (f32 sums in another
-    order; the kernel's P is split into two bf16 terms, which keep ~16 bits
-    of p), covered by 1e-3 of the output's rms. The limit is per element,
+    order; the kernel's P is split exactly into three bf16 terms), covered
+    by 1e-3 of the output's rms. The limit is per element,
     so a late row (|out| ~ 0.03) is held to ~1e-4, not to the largest
     output's scale. A value just above a power of two rounds by up to 2^-8
     of itself, so the worst err/limit of a right kernel comes near 1; the
-    rms term is its headroom for the f32 gap."""
+    rms term is its headroom for the f32 gap. At the anchor's prefill shape
+    at most ULP_OFF_MAX of the outputs may round to another bf16 than the
+    plain version's."""
     from tensorrt_model_optimizer_tpu_torch.ops.cuda import flash_gqa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     B, H, Hkv, T, d = sz.flash
     cases = [("8B", (B, H, Hkv, T, d), False), ("8B, q as the engine's [B, T, H, d] view", (B, H, Hkv, T, d), True),
              ("ragged T=1000", (B, H, Hkv, 1000, d), False), ("d=64", (B, H, Hkv, T, 64), False),
-             ("d=32", (B, H, Hkv, T, 32), False)]
+             ("d=32", (B, H, Hkv, T, 32), False), ("anchor prefill", ANCHOR_FLASH, False)]
     shapes = []
     for label, (b, h, hkv, t, dd), view in cases:
         q = torch.randn((b, t, h, dd) if view else (b, h, t, dd), generator=g, device=dev).to(torch.bfloat16)
@@ -233,18 +253,23 @@ def _phase_kernels_flash(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
         tol = 2.0 ** -8 * ref32.abs() + 1e-3 * float(ref32.square().mean().sqrt())
         worst = float((diff / tol).max())
         err = float(diff.max())
+        ulp_off = _ulp_off(torch, out, ref32)
         if not worst <= 1.0:
             bad = int((diff > tol).sum())
             raise AssertionError(f"flash_gqa {label}: {bad} elements beyond 2^-8|ref| + 1e-3 rms(ref); "
                                  f"worst err/limit {worst}, max abs err {err}, "
                                  f"max |ref| {float(ref32.abs().max())}")
+        if (b, h, hkv, t, dd) == ANCHOR_FLASH and not ulp_off <= ULP_OFF_MAX:
+            raise AssertionError(f"flash_gqa {label}: {ulp_off} of the outputs round to another bf16 than the plain "
+                                 f"version's, the limit is {ULP_OFF_MAX}")
         del ref32, diff, tol
         ms = timer(lambda: flash_gqa.flash_attention_gqa(q, k, v), sz.reps)
         plain_ms = timer(lambda: flash_gqa.flash_attention_gqa_plain(q, k, v), max(2, sz.reps // 8))
         lib_ms = timer(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), sz.reps)
         b_ms, b_by = bound(2 * (2 * q.numel() + 2 * k.numel()), 4.0 * b * h * dd * t * (t + 1) / 2, "bf16")
         shapes.append({"shape": f"{label} B={b} H={h} Hkv={hkv} T={t} d={dd}", "route": "tensor_core",
-                       "max_abs_err": err, "worst_err_over_limit": worst, "ms": ms, "cuda_core_ms": CUDA_CORE_MS.get(f"flash {label}"),
+                       "max_abs_err": err, "worst_err_over_limit": worst, "ulp_off_share": ulp_off, "ms": ms,
+                       "cuda_core_ms": CUDA_CORE_MS.get(f"flash {label}"),
                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
                        "library_ms": lib_ms, "x_library": ms / lib_ms})
         log(json.dumps({"kernel": "flash_gqa", **shapes[-1]}))
@@ -270,7 +295,8 @@ def _phase_kernels_skip(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
     SKIP_MARGIN of its limit in the plain version (the kernel's f32 dot sums
     in another order), which are counted and printed; the outputs of the q
     tiles whose keep rows agree are held per element to 2^-8 |ref| + 1e-3
-    rms(ref) against the plain version's f32 result. SDPA causal, timed at
+    rms(ref) against the plain version's f32 result; in bf16 the share
+    that rounds to another bf16 is reported. SDPA causal, timed at
     threshold 1e-30 where it computes the same function, is the library
     call."""
     from tensorrt_model_optimizer_tpu_torch.ops.cuda import sparse_attention as ssa
@@ -323,6 +349,7 @@ def _phase_kernels_skip(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
         if not worst <= 1.0:
             raise AssertionError(f"skip_softmax_flash {label}: worst err/limit {worst} > 1 (2^-8|ref| + 1e-3 "
                                  f"rms(ref)), max abs err {err}")
+        ulp_off = _ulp_off(torch, out[rows_ok], ref32[rows_ok]) if q.dtype == torch.bfloat16 else None
         kept = float(keep.float().mean())
         ms = timer(lambda: ssa.skip_softmax_flash(q, k, v, th, b, b, True), sz.reps)
         plain_ms = timer(lambda: ssa.skip_softmax_flash_plain(q, k, v, th, b, b, True), 2)
@@ -334,20 +361,31 @@ def _phase_kernels_skip(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
                 raise AssertionError(f"skip_softmax_flash {label}: SDPA is {lib_rel} of the output's scale from the "
                                      "plain version: not the same function")
             lib_ms = timer(lib, sz.reps)
-        # operations: q.k and p.v over the tiles this run kept (2 x 2 bh s^2 d
-        # x their share); bytes: q, k and v read, out written
-        b_ms, b_by = bound(4 * q.numel() * q.element_size(), 4.0 * bh * s * s * dd * kept,
+        # operations: q.k and p.v (2 x 2 d) for each score the kept tiles need:
+        # in a tile the causal edge cuts, only the keys at or below each row;
+        # bytes: q, k and v read, out written
+        b_ms, b_by = bound(4 * q.numel() * q.element_size(), 4.0 * dd * _live_scores(torch, keep, s, bq, bk),
                            "bf16" if q.dtype == torch.bfloat16 else "f32")
         shapes[want].append({
             "shape": f"{label} BH={bh} S={s} d={dd} {str(q.dtype)[6:]} tiles={bq}x{bk} causal", "route": want,
             "threshold": th, "kept_share": kept, "keep_flips": int(flips.sum()), "q_tiles_excluded": int((~agree).sum()),
-            "max_abs_err": err, "worst_err_over_limit": worst, "ms": ms, "cuda_core_ms": CUDA_CORE_MS.get(f"skip {label}"),
+            "max_abs_err": err, "worst_err_over_limit": worst, "ulp_off_share": ulp_off, "ms": ms,
+            "cuda_core_ms": CUDA_CORE_MS.get(f"skip {label}"),
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms, "library_ms": lib_ms,
             "x_library": None if lib_ms is None else ms / lib_ms, "library_rel_err": lib_rel})
         log(json.dumps({"kernel": "skip_softmax_flash", **shapes[want][-1]}))
         del out, keep, ref32, rkeep, margin, diff, tol
     for which, sh in shapes.items():
         rows[SKIP_KERNELS[which]] = dict(sh[0], shapes=sh)
+
+
+def _live_scores(torch, keep, s: int, bq: int, bk: int) -> float:
+    """The causal scores the kept tiles of `keep` [bh, s / bq, s / bk] hold:
+    row r of a q tile sees the keys c <= r of each k tile."""
+    rows = torch.arange(s, device=keep.device, dtype=torch.float64)
+    starts = torch.arange(0, s, bk, device=keep.device, dtype=torch.float64)
+    live = (rows[:, None] - starts[None, :] + 1).clamp(0, bk).reshape(s // bq, bq, -1).sum(1)  # [nq, nk]
+    return float((keep.double() * live).sum())
 
 
 def _stored_rows(torch, dev, g, shape, fmt):
@@ -842,23 +880,17 @@ def phase_anchor(torch, dev, sz: Sizes) -> dict:
     also held against the plain bf16 engine directly, activation quantizers
     on: the median of their 64 distances may be at most 1e-2 of the logits'
     scale (two bf16 ulps of the largest logit, and twice the largest median a
-    right kernel reads here).
-
-    Flash attention (tensor cores, P split into two bf16 terms: ~16 bits of
-    p) rounds its bf16 outputs one ulp apart from the plain version's in
-    ~0.2% of the elements, and the anchor carries such an ulp through int8
-    activation or cache codes into a token flip away from a near tie (an
-    H100 run read a W4A8 flip at a plain-logit margin of 0.069, where the
-    bf16 plain engine lies up to 0.55 of the scale from the f32 one). Flash
-    has no f32 form to hold it on, so a fourth engine runs the plain versions
-    of every kernel but flash: against it, the median distance is held to
-    1e-2 as well, wherever the argmax differs the kernel's token must lie
-    within 1e-2 of the scale of that engine's best logit (a near tie, not
-    another answer), and W4A8, whose GEMM is bit-exact with its plain
-    version, is held to equal tokens in free-running generation. The flips
-    against the all-plain engine are reported. Flash itself is held per
-    element in the kernels phase and, at full width, by the W4A8 path's
-    flash-plain engine (`full_vs_plain`)."""
+    right kernel reads here), and wherever their argmax differs, the kernel's
+    token must lie within 1e-2 of the scale of the plain engine's best
+    logit: a near tie, not another answer. W4A8, whose GEMM is bit-exact with
+    its plain version, is held to equal tokens in free-running generation
+    as before. Flash splits P exactly into three bf16 terms, so at this
+    prefill's shape its outputs round like the plain version's up to f32
+    summation order (the kernels phase holds the share an ulp apart to
+    ULP_OFF_MAX): with two terms, an H100 run read an ulp carried through
+    int8 codes into a W4A8 token that differed at a plain-logit margin of
+    0.069.
+    Returns the RULER curve's launch count of skip-softmax's CUDA-core route."""
     from tensorrt_model_optimizer_tpu_torch.models import hf_loader
     from tensorrt_model_optimizer_tpu_torch.serve.engine import PLAIN_ALL
 
@@ -871,53 +903,45 @@ def phase_anchor(torch, dev, sz: Sizes) -> dict:
         worst_proj = _anchor_projections(torch, dev, path, cm, g)
         cm32 = dataclasses.replace(cm, model_cfg=dataclasses.replace(cm.model_cfg, dtype=torch.float32))
         engines = (_engine(torch, cm, 64, dev, **layouts), _engine(torch, cm, 64, dev, PLAIN_ALL, **layouts),
-                   _engine(torch, cm32, 64, dev, PLAIN_ALL, **layouts),
-                   _engine(torch, cm, 64, dev, tuple(n for n in PLAIN_ALL if n != "flash"), **layouts))
+                   _engine(torch, cm32, 64, dev, PLAIN_ALL, **layouts))
         _counts(reset=True)
         caches = [e.init_cache(4) for e in engines]
-        logits, ref, truth, ref_f = (e.prefill(prompts, c) for e, c in zip(engines, caches))
-        gaps_kernel, gaps_plain, gaps_kp, gaps_kf, flips, flips_all = [], [], [], [], [], []
+        logits, ref, truth = (e.prefill(prompts, c) for e, c in zip(engines, caches))
+        gaps_kernel, gaps_plain, gaps_kp, flips = [], [], [], []
         for step in range(16):
             scale = truth.abs().max(dim=-1).values
             gaps_kernel += ((logits - truth).abs().max(dim=-1).values / scale).tolist()
             gaps_plain += ((ref - truth).abs().max(dim=-1).values / scale).tolist()
             gaps_kp += ((logits - ref).abs().max(dim=-1).values / scale).tolist()
-            gaps_kf += ((logits - ref_f).abs().max(dim=-1).values / scale).tolist()
             tok = torch.argmax(logits, dim=-1)
-            for r, fl in ((ref_f, flips), (ref, flips_all)):
-                margin = (r.max(dim=-1).values - r.gather(1, tok[:, None])[:, 0]) / scale
-                fl += [(step, float(m)) for m in margin[tok != torch.argmax(r, dim=-1)]]
+            margin = (ref.max(dim=-1).values - ref.gather(1, tok[:, None])[:, 0]) / scale
+            flips += [(step, float(m)) for m in margin[tok != torch.argmax(ref, dim=-1)]]
             tok = tok.to(torch.int32)[:, None]
-            logits, ref, truth, ref_f = (e.decode_step(tok, c)[1] for e, c in zip(engines, caches))
+            logits, ref, truth = (e.decode_step(tok, c)[1] for e, c in zip(engines, caches))
         launched = _counts()[path.gemm]
         gap_kernel, gap_plain = statistics.median(gaps_kernel), statistics.median(gaps_plain)
         free = engines[0].generate(prompts, 16)
-        same = bool(torch.equal(free, engines[3].generate(prompts, 16)))
+        same = bool(torch.equal(free, engines[1].generate(prompts, 16)))
         log(json.dumps({"phase": "anchor", "path": path.label, "prompts": list(prompts.shape),
                         "new_tokens": 16, "projections_worst_err_over_limit": worst_proj,
                         "median_logits_gap_kernel_vs_f32": gap_kernel, "median_logits_gap_plain_vs_f32": gap_plain,
                         "worst_logits_gap_kernel_vs_f32": max(gaps_kernel), "worst_logits_gap_plain_vs_f32": max(gaps_plain),
                         "median_logits_gap_kernel_vs_plain": statistics.median(gaps_kp),
-                        "worst_logits_gap_kernel_vs_plain": max(gaps_kp),
-                        "median_logits_gap_kernel_vs_plain_but_flash": statistics.median(gaps_kf),
-                        "worst_logits_gap_kernel_vs_plain_but_flash": max(gaps_kf),
-                        "argmax_flips_vs_plain_but_flash": flips, "argmax_flips_vs_plain": flips_all,
-                        "free_running_tokens_equal_plain_but_flash": same,
+                        "worst_logits_gap_kernel_vs_plain": max(gaps_kp), "argmax_flips_vs_plain": flips, "free_running_tokens_equal_plain": same,
                         "gemm_launches": launched, "tokens_row0": free[0].tolist()}))
         if not gap_kernel <= 2 * gap_plain:
             raise AssertionError(f"anchor {path.label}: the kernel engine's logits lie {gap_kernel} of their scale "
                                  f"(median) from the f32 plain engine's, the bf16 plain engine's {gap_plain}")
-        for what, gaps in (("plain", gaps_kp), ("plain-but-flash", gaps_kf)):
-            if not statistics.median(gaps) <= 1e-2:
-                raise AssertionError(f"anchor {path.label}: the kernel engine's logits lie {statistics.median(gaps)} "
-                                     f"of their scale (median) from the {what} engine's, the limit is 1e-2")
+        gap_kp = statistics.median(gaps_kp)
+        if not gap_kp <= 1e-2:
+            raise AssertionError(f"anchor {path.label}: the kernel engine's logits lie {gap_kp} of their scale "
+                                 f"(median) from the plain engine's, the limit is 1e-2")
         far = [(step, m) for step, m in flips if not m <= 1e-2]
         if far:
-            raise AssertionError(f"anchor {path.label}: the kernel engine's token differs from the plain-but-flash "
-                                 f"engine's away from a near tie (step, plain-logit margin as a share of the scale): "
-                                 f"{far}")
+            raise AssertionError(f"anchor {path.label}: the kernel engine's token differs from the plain engine's "
+                                 f"away from a near tie (step, plain-logit margin as a share of the scale): {far}")
         if path.gemm == "qmm_w4a8" and not same:
-            raise AssertionError("anchor w4a8: kernel-path tokens differ from the plain-but-flash engine's")
+            raise AssertionError("anchor w4a8: kernel-path tokens differ from plain")
         if launched <= 0:
             raise AssertionError(f"anchor {path.label}: {path.gemm} never launched")
     for path, kv in PAGED_PATHS:
@@ -1371,6 +1395,77 @@ def _full_path(torch, dev, sz: Sizes, path: Path, cfg, params, prompt, profile: 
     return launches
 
 
+def _recording(op, keeps: list):
+    """The kernel engine's skip-softmax op, also appending each call's (one a
+    layer) keep map [bh, nq, nk]."""
+    def call(q, k, v, th, block_q, block_k, causal):
+        out, keep = op(q, k, v, th, block_q, block_k, causal)
+        keeps.append(keep)
+        return out, keep
+
+    return call
+
+
+def _pinned_plain(torch, keeps: list, decided: list):
+    """The plain engine's skip-softmax op at depth 2: the plain version's
+    arithmetic (f32 scores, softmax over the kept entries, the result in the
+    input dtype) on the keep map the kernel engine took in the same layer,
+    `keeps[i]` at the i-th call. It appends the decisions the plain version
+    takes on its own inputs, with each tile's scaled max and margin from its
+    limit."""
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import sparse_attention as ssa
+
+    def call(q, k, v, th, block_q, block_k, causal):
+        keep = keeps[len(decided)]
+        BH, S, d = q.shape
+        bq, bk = ssa.tile_sizes(S, block_q, block_k)
+        bm = ssa.block_max(q, k, bq, bk, causal)
+        own, margin = ssa.tile_decisions(bm, ssa.log_threshold(th), bq, bk, causal)
+        decided.append((own, bm, margin))
+        scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32, device=q.device)
+        above = torch.arange(S, device=q.device)[None, :] > torch.arange(S, device=q.device)[:, None]
+        out = torch.empty_like(q)
+        for b in range(0, BH, 16):
+            s = torch.einsum("bqd,bkd->bqk", q[b:b + 16].float(), k[b:b + 16].float()) * scale
+            kf = keep[b:b + 16, :, None, :, None].bool().expand(-1, S // bq, bq, S // bk, bk).reshape(s.shape)
+            s = torch.where(kf & ~above if causal else kf, s, torch.full_like(s, -1e30))
+            pr = torch.softmax(s, dim=-1)
+            pr = torch.where(s > -1e29, pr, torch.zeros_like(pr))
+            out[b:b + 16] = torch.einsum("bqk,bkd->bqd", pr, v[b:b + 16].float()).to(q.dtype)
+        return out, keep
+
+    return call
+
+
+APART_MARGIN_MAX = 2.0 ** -5  # of the tile max: how near its limit a tile decided apart must lie
+
+
+def _decided_apart(keeps: list, decided: list, exact: bool) -> dict:
+    """Tiles the kernel engine decided otherwise than the plain version does
+    on the plain engine's own inputs, per layer. From layer 2 on (and in
+    layer 1 through the GEMM) the two engines' inputs differ by bf16 ulps, so
+    a tile whose max lies that close to its limit (log 0.98 = -0.02 below
+    the running max at the calibrated threshold: many on random weights)
+    may be decided apart; each must lie within APART_MARGIN_MAX of its tile
+    max from the limit. `exact` (threshold 1e-30, every causal tile kept):
+    none may."""
+    counts, apart_margins = [], []
+    for layer, (keep, (own, bm, margin)) in enumerate(zip(keeps, decided)):
+        apart = keep.bool() != own
+        counts.append(int(apart.sum()))
+        apart_margins += [(layer, m, t) for m, t in zip(margin[apart].tolist(), bm[apart].tolist())]
+    facts = {"tiles_apart_per_layer": counts, "apart_margin_over_tile_max_max":
+             max((abs(m) / max(abs(t), 1e-30) for _, m, t in apart_margins), default=0.0),
+             "apart_margins": apart_margins[:8]}
+    if exact and sum(counts):
+        raise AssertionError(f"full einsum: depth-2 keep maps at threshold 1e-30 differ: {facts}")
+    far = [m for m in apart_margins if not abs(m[1]) <= APART_MARGIN_MAX * abs(m[2])]
+    if far:
+        raise AssertionError(f"full einsum: depth-2 tiles decided apart away from their limit (layer, margin, tile "
+                             f"max): {far[:8]} ({facts})")
+    return facts
+
+
 def _full_einsum(torch, dev, sz: Sizes, cm, prompt, profile: bool) -> dict:
     """The einsum engine (kv_attention_kernel=False) on the INT4 model at full
     width and depth, int8 cache of prompt + decode rows: batch 8 x 2048
@@ -1380,9 +1475,12 @@ def _full_einsum(torch, dev, sz: Sizes, cm, prompt, profile: bool) -> dict:
     fraction, the logits against dense, 32 greedy decode steps on the einsum
     cache, peak memory and launches. At depth 2 the kernel engine is held
     against the plain one (the GEMM and the skip-softmax kernel on their plain
-    versions): logits within 5e-2 of their scale, as the other paths, dense,
-    sparse at 1e-30, and sparse at the calibrated threshold where the two
-    engines' keep fractions agree."""
+    versions): logits within 5e-2 of their scale, as the other paths, dense
+    and sparse at 1e-30 and at the calibrated threshold. Sparse, the plain
+    engine's skip-softmax takes the kernel engine's keep map of each layer
+    (`_pinned_plain`), so both compute one function, and the kernel's
+    decisions are held against the plain version's on the plain engine's
+    inputs (`_decided_apart`)."""
     from tensorrt_model_optimizer_tpu_torch.sparsity.attention_sparsity import calibrate_threshold
 
     sync = torch.cuda.synchronize
@@ -1448,31 +1546,27 @@ def _full_einsum(torch, dev, sz: Sizes, cm, prompt, profile: bool) -> dict:
         del eng, cache, logits
 
     # depth 2: kernel engine against its plain versions, dense and sparse
-    # prefill. Sparse at 1e-30 (every causal tile kept, through the kernel's
-    # decisions) is held like dense. At the calibrated threshold layer 2's
-    # inputs differ by the GEMM's and the kernel's bf16 ulps, and a tile max
-    # within that of its limit (log 0.98 = -0.02 below the running max: many
-    # on random weights) can be kept by one engine and skipped by the other,
-    # which on random weights replaces that q tile's output (a 0.058 gap read
-    # on an H100 with one tile of layer 2's 34816 flipped): held where the
-    # two engines' keep fractions agree in every layer, reported otherwise.
+    # prefill; sparse, the kernel engine's keep maps pin the plain engine's
     sub = _truncate(cm, 2)
     for th in (None, 1e-30, calibrated):
         fields = dict(kv_attention_kernel=False, attn_sparsity=th)
         out = _engine(torch, sub, max_seq, dev, **fields)
         ref = _engine(torch, sub, max_seq, dev, ("int4_wo", "skip_softmax"), **fields)
-        lo, lr = out.prefill(prompt, out.init_cache(sz.batch)), ref.prefill(prompt, ref.init_cache(sz.batch))
+        keeps, decided = [], []
+        if th is not None:
+            out._ops["skip_softmax"] = _recording(out._ops["skip_softmax"], keeps)
+            ref._ops["skip_softmax"] = _pinned_plain(torch, keeps, decided)
+        lo = out.prefill(prompt, out.init_cache(sz.batch))
+        lr = ref.prefill(prompt, ref.init_cache(sz.batch))
         rel = _rel(lo, lr)
-        keep = None if th is None else [out.last_prefill_keep_frac.tolist(), ref.last_prefill_keep_frac.tolist()]
-        held = keep is None or keep[0] == keep[1]
-        log(json.dumps({"phase": "full_vs_plain", "path": "einsum engine, int4, int8 cache", "depth": 2,
-                        "threshold": th, "prefill_logits_rel_err": rel, "keep_frac_kernel_plain": keep, "held": held,
-                        "argmax_agree": float((lo.argmax(-1) == lr.argmax(-1)).float().mean())}))
-        if held and not rel <= 5e-2:
+        row = {"phase": "full_vs_plain", "path": "einsum engine, int4, int8 cache", "depth": 2, "threshold": th,
+               "prefill_logits_rel_err": rel, "argmax_agree": float((lo.argmax(-1) == lr.argmax(-1)).float().mean())}
+        if th is not None:
+            row.update(_decided_apart(keeps, decided, exact=th == 1e-30))
+        log(json.dumps(row))
+        if not rel <= 5e-2:
             raise AssertionError(f"full einsum: depth-2 prefill logits rel err {rel} vs plain > 5e-2 (threshold {th})")
-        if th == 1e-30 and not held:
-            raise AssertionError(f"full einsum: depth-2 keep fractions at threshold 1e-30 differ: {keep}")
-        del out, ref, lo, lr
+        del out, ref, lo, lr, keeps, decided
     return launches
 
 
@@ -1823,7 +1917,7 @@ def main(argv=None) -> int:
                     "launches": (launches or {}).get(name), "max_abs_err": r.get("max_abs_err"),
                     "ms": r.get("ms"), "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
                     "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),
-                    "cuda_core_ms": r.get("cuda_core_ms"), "shape": r.get("shape")})
+                    "shape": r.get("shape")})
     log(json.dumps({"kernels": out}))
     log(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

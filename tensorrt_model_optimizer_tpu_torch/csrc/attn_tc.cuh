@@ -23,12 +23,20 @@
 //     per thread and over the quad at the end;
 //   - O += P V by the same mma: the C fragment of an m16n8 product is the A
 //     fragment of the next m16k16, so P never goes through shared memory. P
-//     is split into p_hi = bf16(p) and p_lo = bf16(p - p_hi), two products
-//     into one f32 accumulator, which keeps about 16 bits of p. One bf16 P
-//     would add an error of ~2^-9 / sqrt(3) of rms(out) per element, which
-//     over the 8B prefill's 67M outputs breaks the per-element limit the
-//     kernels are held to (2^-8 |ref| + 1e-3 rms(ref)). V comes in through
-//     `ldmatrix.trans`.
+//     is split exactly into three bf16 terms, p = p_hi + p_mid + p_lo (p's
+//     24 significant bits, 8 a term, cut by masks, not rounded), three
+//     products into one f32 accumulator: P V is then the f32 product in
+//     another summation order. One bf16 P would add an error of ~2^-9 /
+//     sqrt(3) of rms(out) per element, which over the 8B prefill's 67M
+//     outputs breaks the per-element limit the kernels are held to (2^-8
+//     |ref| + 1e-3 rms(ref)). Two terms (~16 bits of p) keep that limit, but
+//     at a short prefill (the anchor's: 32 keys, d 32) they round 0.44% of
+//     the bf16 outputs one ulp from the plain version's against 0.02% for
+//     three (an H100), and an ulp in an attention output can become another
+//     int8 activation code and another token; the kernels phase holds that
+//     share to 1e-3 there. Over 2048 keys ~0.2% round apart either way (the
+//     mma's own f32 accumulation, it seems). The third term costs ~20% of
+//     the kernel's time. V comes in through `ldmatrix.trans`.
 
 #pragma once
 
@@ -93,14 +101,24 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) { return *reinterpret_cast<uint32_t*>(&h); }
+// the high halves of x and y as one bf16 pair (x in the low half)
+__device__ __forceinline__ uint32_t high_halves(float x, float y) {
+  return __byte_perm(__float_as_uint(x), __float_as_uint(y), 0x7632);
+}
+// x with the low 16 bits of its pattern cleared: its top 8 significant bits
+__device__ __forceinline__ float cut_bf16(float x) { return __uint_as_float(__float_as_uint(x) & 0xffff0000u); }
 
-// (x, y) -> bf16 pairs hi = bf16(x, y) and lo = bf16 of what hi misses
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+// (x, y) -> bf16 pairs hi + mid + lo == (x, y) exactly: hi holds each
+// value's top 8 significant bits, mid the next 8, lo the last 8. Every
+// difference is exact in f32 (x - cut(x) is x's low 16 significand bits),
+// and what is left after two cuts has at most 8 significant bits, so lo
+// takes it whole. (Below |x| = 2^-118 the differences go subnormal and lo
+// loses bits: an error under 2^-141, where every p here sums to l >= 1.)
+__device__ __forceinline__ void split3_bf16(float x, float y, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  const float rx = x - cut_bf16(x), ry = y - cut_bf16(y);
+  hi = high_halves(x, y);
+  mid = high_halves(rx, ry);
+  lo = high_halves(rx - cut_bf16(rx), ry - cut_bf16(ry));
 }
 
 // s = Q K^T for this warp's MT m-tiles of 16 rows (rows row0 + 16 mt ..
@@ -187,21 +205,21 @@ __device__ __forceinline__ void softmax_update(float (&s)[BK / 8][4], float (&m)
 }
 
 // o += P V for this warp's MT m-tiles: P from the f32 probabilities p (the
-// layout of `qk`'s s), split into p_hi + p_lo; V the BK x D tile at v_s.
-// One V fragment serves all MT m-tiles.
+// layout of `qk`'s s), split exactly into p_hi + p_mid + p_lo; V the BK x D
+// tile at v_s. One V fragment serves all MT m-tiles.
 template <int D, int BK, int MT>
 __device__ __forceinline__ void pv(float (&o)[MT][D / 8][4], const float (&p)[MT][BK / 8][4], uint32_t v_s) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
-    uint32_t ahi[MT][4], alo[MT][4];
+    uint32_t ahi[MT][4], amid[MT][4], alo[MT][4];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      split_bf16(p[mt][2 * kk][0], p[mt][2 * kk][1], ahi[mt][0], alo[mt][0]);
-      split_bf16(p[mt][2 * kk][2], p[mt][2 * kk][3], ahi[mt][1], alo[mt][1]);
-      split_bf16(p[mt][2 * kk + 1][0], p[mt][2 * kk + 1][1], ahi[mt][2], alo[mt][2]);
-      split_bf16(p[mt][2 * kk + 1][2], p[mt][2 * kk + 1][3], ahi[mt][3], alo[mt][3]);
-    }
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // A register r: row g + 8 (r & 1), keys 8 (r >> 1) + 2t, + 1
+        const float(&f)[4] = p[mt][2 * kk + (r >> 1)];
+        split3_bf16(f[2 * (r & 1)], f[2 * (r & 1) + 1], ahi[mt][r], amid[mt][r], alo[mt][r]);
+      }
 #pragma unroll
     for (int dp = 0; dp < D / 16; ++dp) {
       uint32_t b[4];
@@ -210,6 +228,8 @@ __device__ __forceinline__ void pv(float (&o)[MT][D / 8][4], const float (&p)[MT
       for (int mt = 0; mt < MT; ++mt) {
         mma16816(o[mt][2 * dp], ahi[mt], b[0], b[1]);
         mma16816(o[mt][2 * dp + 1], ahi[mt], b[2], b[3]);
+        mma16816(o[mt][2 * dp], amid[mt], b[0], b[1]);
+        mma16816(o[mt][2 * dp + 1], amid[mt], b[2], b[3]);
         mma16816(o[mt][2 * dp], alo[mt], b[0], b[1]);
         mma16816(o[mt][2 * dp + 1], alo[mt], b[2], b[3]);
       }

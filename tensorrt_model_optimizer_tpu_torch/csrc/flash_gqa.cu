@@ -24,16 +24,16 @@
 // barrier per tile) into swizzled shared rows; tiles above the diagonal are
 // never loaded, and a warp whose rows all lie above a tile's first key skips
 // that tile (its update would be exact identity). S = Q K^T and O += P V run
-// on the tensor cores (attn_tc.cuh), P split into two bf16 terms, which
-// costs 1.5x the bound's tensor-core work; the softmax takes one FFMA and
+// on the tensor cores (attn_tc.cuh), P split exactly into three bf16 terms,
+// which costs 2x the bound's tensor-core work; the softmax takes one FFMA and
 // one ex2 a score. The q tiles are launched heaviest first (reverse order on
 // the grid's fast axis), so the causal triangle's light tiles make the tail.
 // 96 KB of shared memory at D = 128. One block per (b, h): the query heads
 // of a kv head read its K / V through L2 (1 MB a kv head at the 8B shape);
 // a block over all `rep` heads of a kv head was not built. Measured (H100
-// 80GB HBM3, 700 W, chip_smoke.py's kernels phase): 1.30-1.32 ms at the 8B
-// shape in three runs, 21% of the bound, 2.7x SDPA; PERF.md's kernel table,
-// row 3.
+// 80GB HBM3, 700 W, chip_smoke.py's kernels phase): 1.55-1.57 ms at the 8B
+// shape, 18% of the bound, 3.2x SDPA (two bf16 terms of P: 1.30-1.32 ms);
+// PERF.md's kernel table, row 3.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -24,9 +24,10 @@
 //   decision (1 / 0).
 //
 // What bounds it on an H100: operations. At Llama-3.1-8B prefill (BH 256 =
-// 8 x 32 heads, S 2048, d 128, bf16, causal 128-tiles) the kept tiles need up
-// to 2.9e11 FLOP per layer (>= 0.29 ms at the 989 TFLOP/s bf16 tensor-core
-// peak) against 0.54 GB of q/k/v/out (0.16 ms at 3.35 TB/s).
+// 8 x 32 heads, S 2048, d 128, bf16, causal 128-tiles) the causal scores of
+// the kept tiles need up to 2.75e11 FLOP per layer (>= 0.28 ms at the 989
+// TFLOP/s bf16 tensor-core peak) against 0.54 GB of q/k/v/out (0.16 ms at
+// 3.35 TB/s).
 //
 // Both routes: the decisions depend on the visit order (run changes only on
 // kept tiles), so one block owns one (bh, q tile) and walks its row of k
@@ -40,17 +41,18 @@
 // each; K and V in a two-stage `cp.async` ring of swizzled shared tiles
 // (160 KB at 128-tiles, d 128). K and V of tile j + 1 are prefetched while
 // tile j computes and decides: V speculatively, since its bytes are not
-// what binds (0.16 ms of bytes against 0.29 ms of operations) and a V
+// what binds (0.16 ms of bytes against 0.28 ms of operations) and a V
 // loaded after the decision would stall every kept tile on a load. S by
 // mma, the causal mask, the block-wide tile max of the raw scores times the
 // scale (exactly the largest scaled score: scaling is monotone) and the
-// decision; only a kept tile runs the softmax update and P V (P split into
-// two bf16 terms). A warp whose 16 rows all lie above the tile's first key
-// contributes -1e30 to the max and skips the tile's work (exact: its update
-// would be identity). The q tiles are launched heaviest first on the grid's
-// fast axis. Measured (H100 80GB HBM3, 700 W, chip_smoke.py's kernels
-// phase) at the 8B shape: 1.56 ms at threshold 1e-30 (kept 0.531), 19% of
-// the bound, 3.2x SDPA causal; PERF.md's kernel table, row 17.
+// decision; only a kept tile runs the softmax update and P V (P split
+// exactly into three bf16 terms). A warp whose 16 rows all lie above the
+// tile's first key contributes -1e30 to the max and skips the tile's work
+// (exact: its update would be identity). The q tiles are launched heaviest
+// first on the grid's fast axis. Measured (H100 80GB HBM3, 700 W,
+// chip_smoke.py's kernels phase) at the 8B shape: 1.80-1.82 ms at threshold
+// 1e-30 (kept 0.531), 15% of the bound, 3.7x SDPA causal (two bf16 terms of
+// P: 1.56 ms); PERF.md's kernel table, row 17.
 //
 // CUDA-core route: q's tile and one k/v tile (k first; v
 // only when the tile is kept, into the same buffer) sit in shared memory in

@@ -53,6 +53,9 @@ run nvfp4_high_plane_scale kv_common.cuh 's|s(static_cast<const uint8_t\*>(scale
 run skip_running_max skip_softmax_flash.cu 's/run = fmaxf(run, bm);/run = bm;/'
 # flash: the diagonal tile masked one column late (a row sees the next key)
 run flash_diag_late flash_gqa.cu 's/(causal \&\& col > row);/(causal \&\& col > row + 1);/'
-# P.V without the p_lo term (one bf16 P): the per-element limit needs the split
+# P.V without the p_lo term (p in two bf16 terms, ~16 bits): within the
+# per-element limit, but more outputs than ULP_OFF_MAX an ulp from plain
 run pv_drop_lo attn_tc.cuh '/mma16816(o\[mt\]\[2 \* dp[^]]*\], alo\[mt\], /d'
+# P.V on p_hi alone (one bf16 P): the per-element limit needs the split
+run pv_hi_only attn_tc.cuh '/mma16816(o\[mt\]\[2 \* dp[^]]*\], a\(mid\|lo\)\[mt\], /d'
 exit $missed
