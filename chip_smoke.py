@@ -14,6 +14,10 @@ Phases (any failure raises, and the script exits non-zero):
            bf16 format of the three KV attention kernels and for skip-softmax
            at threshold 1e-30), its time. Flash (tensor cores) also runs with
            q as the engine passes it, at a ragged T and at head_dim 64 and 32.
+           Paged prefill runs through both routes: the tensor cores (bf16 q)
+           in every stored form at T = 64 and T = 5, the CUDA cores (f32 q)
+           at T = 64; KV decode (split over the cache) at the 8B pos and at
+           pos 0, 1 and one past its first split.
            Skip-softmax runs through both routes: the tensor cores at the 8B
            shape (128- and 64-tiles), on spiked inputs and at a calibrated
            threshold; the CUDA cores at the RULER anchor's shape (f32) and at
@@ -111,7 +115,16 @@ def bound(bytes_moved: float, ops: float, op_type: str) -> tuple[float, str]:
 class Timer:
     """Median CUDA-event time of `fn` over `reps` launches after warm-up,
     with the 50 MB L2 flushed before each launch (the served path meets
-    every layer's weights and cache cold)."""
+    every layer's weights and cache cold).
+
+    The device is held back by a spin kernel while the host enqueues all
+    the timed launches: without it a launch shorter than its wrapper's host
+    time (the KV kernels' 20-70 us against ~0.1 ms of Python) is timed from
+    an event the idle device stamped before the launch arrived, so its
+    reading is the host's enqueue time (on an H100 the same kv decode read
+    0.035 and 0.066 ms in two runs of this script before the spin)."""
+
+    CLOCK_HZ = 2.0e9  # at least the card's clock: the spin lasts at least as long as asked
 
     def __init__(self, torch, device):
         self.torch = torch
@@ -121,6 +134,12 @@ class Timer:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.flush_buf.add_(1)
+        fn()
+        host_s = time.perf_counter() - t0  # one rep's enqueue on the host
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(min(2.0 * reps * host_s + 1e-3, 0.2) * self.CLOCK_HZ))
         pairs = []
         for _ in range(reps):
             self.flush_buf.add_(1)
@@ -409,6 +428,8 @@ def _kv_row_bytes(fmt: str, hd: int) -> float:
 
 
 KV_FORMATS = ("int8", "bf16", "fp8", "nvfp4")
+# route -> KERNELS
+PAGED_PREFILL_KERNELS = {"tensor_core": "paged_attention_prefill_tc", "cuda_core": "paged_attention_prefill_cuda_core"}
 
 
 def _phase_kernels_kv(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
@@ -450,31 +471,42 @@ def _phase_kernels_kv(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
         "paged_attention_decode": paged_attention.paged_attention_decode(
             q, pool(planes, hd // 2), pool(planes, hd // 2), table, one, "nvfp4",
             pool(sbytes, hd // 16), pool(sbytes, hd // 16)),
-        "paged_attention_prefill": paged_attention.paged_attention_prefill(
-            q[:, None], pool(planes, hd // 2), pool(planes, hd // 2), table, torch.zeros_like(one),
-            chunk(planes, hd // 2), chunk(planes, hd // 2), "nvfp4", pool(sbytes, hd // 16), pool(sbytes, hd // 16),
-            chunk(sbytes, hd // 16), chunk(sbytes, hd // 16))[:, 0],
     }
+    for route, qd in (("cuda cores", torch.float32), ("tensor cores", torch.bfloat16)):
+        # f32 q takes the CUDA-core route, bf16 q the tensor cores, whose bf16
+        # output holds the decoded values exactly (at most 6 significant bits)
+        got[f"paged_attention_prefill ({route})"] = paged_attention.paged_attention_prefill(
+            q[:, None].to(qd), pool(planes, hd // 2), pool(planes, hd // 2), table, torch.zeros_like(one),
+            chunk(planes, hd // 2), chunk(planes, hd // 2), "nvfp4", pool(sbytes, hd // 16), pool(sbytes, hd // 16),
+            chunk(sbytes, hd // 16), chunk(sbytes, hd // 16))[:, 0].float()
     torch.cuda.synchronize()
     for name, y in got.items():
         if not torch.equal(y, want):
             bad = torch.nonzero(y != want)
             raise AssertionError(f"{name}: NVFP4 decode differs from nvfp4_planes_code_load at {len(bad)} of "
                                  f"{want.numel()} values, first (row, head, dim) {bad[0].tolist()}")
-    log(json.dumps({"kernel": "kv_decode_attention, paged_attention_decode, paged_attention_prefill",
+    log(json.dumps({"kernel": "kv_decode_attention, paged_attention_decode, paged_attention_prefill (both routes)",
                     "check": "NVFP4 decode: 16 E2M1 codes x 127 E4M3 scale bytes exact"}))
 
-    # --- dense decode attention: f32 online softmax vs torch.softmax; 1e-5 of
-    # the output's scale (f32 rounding of sums taken in another order). The
-    # bf16 format has a library call: SDPA over the valid rows and the current
-    # token, concatenated outside the timed call; it takes q, the current token
-    # and the output in bf16, so it is held to 1e-2 of the output's scale.
+    # --- dense decode attention (split over the cache, then merged): f32 vs
+    # torch.softmax; 1e-5 of the output's scale (f32 rounding of sums taken
+    # in another order), at the 8B pos and at pos 0 (the current token
+    # alone), 1 and one past the first split. The bf16 format has a library
+    # call: SDPA over the valid rows and the current token, concatenated
+    # outside the timed call; it takes q, the current token and the output in
+    # bf16, so it is held to 1e-2 of the output's scale.
     shapes = []
     for fmt in KV_FORMATS:
         kc, ks, qf = _stored_rows(torch, dev, g, (B, n_kv, S, hd), fmt)
         vc, vs, _ = _stored_rows(torch, dev, g, (B, n_kv, S, hd), fmt)
         q = torch.randn((B, nH, hd), generator=g, device=dev) / math.sqrt(hd) * qf
         kn, vn = (torch.randn((B, n_kv, 1, hd), generator=g, device=dev) for _ in range(2))
+        edges = {}
+        for p_ in (0, 1, kv_attention.SPLIT_ROWS + 1):
+            e_args = (q, kc, vc, kn, vn, p_, fmt, ks, vs)
+            edges[p_] = _rel(kv_attention.kv_decode_attention(*e_args), kv_attention.kv_decode_attention_plain(*e_args))
+            if not edges[p_] <= 1e-5:
+                raise AssertionError(f"kv_decode_attention {fmt} pos {p_}: rel err {edges[p_]} > 1e-5")
         args = (q, kc, vc, kn, vn, pos, fmt, ks, vs)
         out = kv_attention.kv_decode_attention(*args)
         ref = kv_attention.kv_decode_attention_plain(*args)
@@ -497,9 +529,10 @@ def _phase_kernels_kv(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
         nbytes = 2 * B * n_kv * pos * _kv_row_bytes(fmt, hd) + 2 * B * n_kv * hd * 4 + 2 * q.numel() * 4
         b_ms, b_by = bound(nbytes, 4.0 * B * nH * (pos + 1) * hd, "bf16")
         shapes.append({"shape": f"{fmt} B={B} n_kv={n_kv} rep={rep} S={S} pos={pos}",
-                       "max_abs_err": float((out - ref).abs().max()), "rel_err": rel, "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                       "library_rel_err": lib_rel})
+                       "splits": kv_attention.n_splits(pos), "max_abs_err": float((out - ref).abs().max()),
+                       "rel_err": rel, "rel_err_at_pos": edges, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "bound_share": b_ms / ms, "library_ms": lib_ms,
+                       "x_library": None if lib_ms is None else ms / lib_ms, "library_rel_err": lib_rel})
         log(json.dumps({"kernel": "kv_decode_attention", **shapes[-1]}))
         del kc, vc, ks, vs
     rows["kv_decode_attention"] = dict(shapes[0], shapes=shapes)
@@ -560,26 +593,48 @@ def _phase_kernels_kv(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
             del kp, vp, ksp, vsp, ref32
     rows["paged_attention_decode"] = dict(shapes[0], shapes=shapes)
 
-    shapes = []
-    cases = [(fmt, sz.chunk, [1024, 960, 256, 70, 64, 1, 0, 0][:B]) for fmt in KV_FORMATS]
-    cases += [(fmt, 5, [1024, 37, 256, 70, 64, 1, 0, 0][:B]) for fmt in ("int8", "nvfp4")]  # T not a multiple of 8
-    for fmt, T, ctx in cases:
+    # paged prefill through both routes. The tensor cores (bf16 q, the engine's
+    # activations): every format at the chunk's T = 64 and at T = 5 (a q tile
+    # mostly padding), held per element by `_held`, with the share of bf16
+    # outputs that round to another bf16 than the plain version's f32 result
+    # reported. The CUDA cores (f32 q, the anchor's f32 engine): every format
+    # at T = 64, f32 out, held to 1e-5 of the output's scale.
+    shapes = {"tensor_core": [], "cuda_core": []}
+    full_ctx, short_ctx = [1024, 960, 256, 70, 64, 1, 0, 0][:B], [1024, 37, 256, 70, 64, 1, 0, 0][:B]
+    cases = [("tensor_core", fmt, sz.chunk, full_ctx) for fmt in KV_FORMATS]
+    cases += [("tensor_core", fmt, 5, short_ctx) for fmt in KV_FORMATS]  # T not a multiple of 8
+    cases += [("cuda_core", fmt, sz.chunk, full_ctx) for fmt in KV_FORMATS]
+    for want, fmt, T, ctx in cases:
         kp, vp, ksp, vsp, qf, table, tl = paged_pool(fmt, ctx, 1024 // page + 2)
         ck, cks, _ = _stored_rows(torch, dev, g, (B, T, n_kv, hd), fmt)
         cv, cvs, _ = _stored_rows(torch, dev, g, (B, T, n_kv, hd), fmt)
-        q = (torch.randn((B, T, nH, hd), generator=g, device=dev) * qf).to(torch.bfloat16)
+        qdt = torch.bfloat16 if want == "tensor_core" else torch.float32
+        q = (torch.randn((B, T, nH, hd), generator=g, device=dev) * qf).to(qdt)
         kind = "nvfp4" if fmt == "nvfp4" else "raw"
         args = (q, kp, vp, table, tl, ck, cv, kind, ksp, vsp, cks, cvs)
+        n0 = paged_attention.prefill_route_launches[want]
         out = paged_attention.paged_attention_prefill(*args)
+        torch.cuda.synchronize()
+        if paged_attention.prefill_route(q.dtype, hd, rep) != want or \
+                paged_attention.prefill_route_launches[want] != n0 + 1:
+            raise AssertionError(f"paged_attention_prefill {fmt} T={T}: the {want} route did not launch "
+                                 f"({paged_attention.prefill_route_launches})")
         ref32 = paged_attention.paged_attention_prefill_plain(*args, out_dtype=torch.float32)
-        worst, err = _held(out, ref32)
-        if not worst <= 1.0:
-            raise AssertionError(f"paged_attention_prefill {fmt} T={T}: worst err/limit {worst} > 1 "
-                                 f"(2^-8|ref| + 1e-3 rms(ref)), max abs err {err}")
+        ulp_off = None
+        if want == "tensor_core":
+            worst, err = _held(out, ref32)
+            ulp_off = _ulp_off(torch, out, ref32)
+            if not worst <= 1.0:
+                raise AssertionError(f"paged_attention_prefill {fmt} T={T}: worst err/limit {worst} > 1 "
+                                     f"(2^-8|ref| + 1e-3 rms(ref)), max abs err {err}")
+        else:
+            worst, err = _rel(out, ref32), float((out - ref32).abs().max())
+            if not worst <= 1e-5:
+                raise AssertionError(f"paged_attention_prefill f32 {fmt} T={T}: rel err {worst} > 1e-5")
         ms = timer(lambda: paged_attention.paged_attention_prefill(*args), sz.reps)
         plain_ms = timer(lambda: paged_attention.paged_attention_prefill_plain(*args), max(2, sz.reps // 4))
         lib_ms = lib_rel = None
-        if fmt == "bf16":
+        if fmt == "bf16" and want == "tensor_core" and T == sz.chunk:
             kk = torch.cat([gathered(kp, table), ck.transpose(1, 2)], dim=2)
             vv = torch.cat([gathered(vp, table), cv.transpose(1, 2)], dim=2)
             Sc = kk.shape[2] - T
@@ -594,14 +649,18 @@ def _phase_kernels_kv(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
             lib_ms = timer(lib, sz.reps)
             del kk, vv, mask
         rows_read = sum(ctx) + B * T
-        nbytes = 2 * n_kv * rows_read * _kv_row_bytes(fmt, hd) + 2 * q.numel() * 2 + table.numel() * 4
-        b_ms, b_by = bound(nbytes, 4.0 * nH * T * hd * sum(c + T for c in ctx), "bf16")
-        shapes.append({"shape": f"{fmt} B={B} T={T} n_kv={n_kv} rep={rep} page={page} ctx={ctx}",
-                       "max_abs_err": err, "worst_err_over_limit": worst, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "library_rel_err": lib_rel})
-        log(json.dumps({"kernel": "paged_attention_prefill", **shapes[-1]}))
+        nbytes = 2 * n_kv * rows_read * _kv_row_bytes(fmt, hd) + 2 * q.numel() * q.element_size() + table.numel() * 4
+        b_ms, b_by = bound(nbytes, 4.0 * nH * T * hd * sum(c + T for c in ctx), "bf16" if want == "tensor_core" else "f32")
+        shapes[want].append({
+            "shape": f"{fmt} B={B} T={T} n_kv={n_kv} rep={rep} page={page} ctx={ctx} q {str(q.dtype)[6:]}",
+            "route": want, "max_abs_err": err, "worst_err_over_limit" if want == "tensor_core" else "rel_err": worst,
+            "ulp_off_share": ulp_off, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / ms, "library_ms": lib_ms, "x_library": None if lib_ms is None else ms / lib_ms,
+            "library_rel_err": lib_rel})
+        log(json.dumps({"kernel": "paged_attention_prefill", **shapes[want][-1]}))
         del kp, vp, ksp, vsp, ref32
-    rows["paged_attention_prefill"] = dict(shapes[0], shapes=shapes)
+    for which, sh in shapes.items():
+        rows[PAGED_PREFILL_KERNELS[which]] = dict(sh[0], shapes=sh)
 
 
 def _held(out, ref32) -> tuple[float, float]:
@@ -789,7 +848,8 @@ FULL_PATHS = (
 # kernel name (KERNELS) -> the engine's `plain_ops` name
 PLAIN_NAME = {"qmm_w4a8": "w4a8", "kv_decode_attention": "kv_attention", "flash_gqa": "flash",
               "qmm_int4_wo": "int4_wo", "qmm_fp4_wo": "fp4_wo", "qmm_byte_wo": "byte_wo",
-              "paged_attention_decode": "paged_decode", "paged_attention_prefill": "paged_prefill",
+              "paged_attention_decode": "paged_decode", "paged_attention_prefill_tc": "paged_prefill",
+              "paged_attention_prefill_cuda_core": "paged_prefill",
               "skip_softmax_flash_tc": "skip_softmax", "skip_softmax_flash_cuda_core": "skip_softmax"}
 PAGED_PLAIN = ("paged_decode", "paged_prefill")
 
@@ -801,11 +861,13 @@ def _counts(reset: bool = False) -> dict:
 
     if reset:
         qmm.launches = kv_attention.launches = flash_gqa.launches = sparse_attention.launches = 0
-        for counts in (qmm_wo.launches, paged_attention.launches, sparse_attention.route_launches):
+        for counts in (qmm_wo.launches, paged_attention.launches, paged_attention.prefill_route_launches,
+                       sparse_attention.route_launches):
             for k in counts:
                 counts[k] = 0
     return {"qmm_w4a8": qmm.launches, "kv_decode_attention": kv_attention.launches,
             "flash_gqa": flash_gqa.launches, **qmm_wo.launches, **paged_attention.launches,
+            **{PAGED_PREFILL_KERNELS[r]: n for r, n in paged_attention.prefill_route_launches.items()},
             **{SKIP_KERNELS[r]: n for r, n in sparse_attention.route_launches.items()}}
 
 
@@ -890,7 +952,9 @@ def phase_anchor(torch, dev, sz: Sizes) -> dict:
     ULP_OFF_MAX): with two terms, an H100 run read an ulp carried through
     int8 codes into a W4A8 token that differed at a plain-logit margin of
     0.069.
-    Returns the RULER curve's launch count of skip-softmax's CUDA-core route."""
+    Returns the launch counts of the two CUDA-core routes it alone takes:
+    skip-softmax's in the RULER curve, the paged prefill's in the f32 serve
+    runs."""
     from tensorrt_model_optimizer_tpu_torch.models import hf_loader
     from tensorrt_model_optimizer_tpu_torch.serve.engine import PLAIN_ALL
 
@@ -944,10 +1008,9 @@ def phase_anchor(torch, dev, sz: Sizes) -> dict:
             raise AssertionError("anchor w4a8: kernel-path tokens differ from plain")
         if launched <= 0:
             raise AssertionError(f"anchor {path.label}: {path.gemm} never launched")
-    for path, kv in PAGED_PATHS:
-        _anchor_paged(torch, dev, cfg, params, path, kv)
+    f32_prefills = sum(_anchor_paged(torch, dev, cfg, params, path, kv) for path, kv in PAGED_PATHS)
     _anchor_einsum(torch, dev, cfg, params)
-    return _anchor_ruler(torch, dev)
+    return {**_anchor_ruler(torch, dev), "paged_attention_prefill_cuda_core": f32_prefills}
 
 
 def _anchor_einsum(torch, dev, cfg, params) -> None:
@@ -1189,14 +1252,16 @@ def _anchor_paged(torch, dev, cfg, params, path: Path, kv) -> None:
     cm32 = dataclasses.replace(cm, model_cfg=dataclasses.replace(cm.model_cfg, dtype=torch.float32))
     e32 = _engine(torch, cm32, 128, dev, ("w4a8", "flash", "int4_wo", "fp4_wo", "byte_wo"), kv=kv,
                   paged_attention_kernel=True)
-    served = {}
+    served, f32_prefills = {}, 0
     for unroll in (1, 4):
         _counts(reset=True)
         reqs = requests()
         outs, m = ek.serve(reqs, prefix_cache=True, unroll=unroll, collect_metrics=True, **PAGED_ANCHOR)
         n = _counts()
         margins = [_dense_margins(torch, ek, p, outs[i]) for i, p in enumerate(prompts)]
+        _counts(reset=True)
         outs32 = e32.serve(requests(), prefix_cache=True, unroll=unroll, **PAGED_ANCHOR)
+        f32_prefills += _counts()["paged_attention_prefill_cuda_core"]
         margins32 = [_dense_margins(torch, e32, p, outs32[i]) for i, p in enumerate(prompts)]
         served[unroll] = dict(outs=outs, metrics=m, launches=n, margins=margins, margins32=margins32)
         if [len(outs[r.rid]) for r in reqs] != [r.max_new_tokens for r in reqs]:
@@ -1226,6 +1291,7 @@ def _anchor_paged(torch, dev, cfg, params, path: Path, kv) -> None:
     if not worst <= 1e-2:
         raise AssertionError(f"anchor paged {path.label}: on f32 activations a served token lies {worst} of the "
                              "logits' scale below the dense-cache engine's best")
+    return f32_prefills
 
 
 def _profile(torch, label: str, fn, calls: int, wall_ms_unprofiled: float) -> None:
@@ -1730,6 +1796,9 @@ def _full_paged(torch, dev, sz: Sizes, cm, label: str, kv, run: PagedRun, profil
         raise AssertionError(f"full serve {label}: the run's metrics {m} differ from the scheduler's bookkeeping {want}")
     if not (launches["paged_attention_decode"] and launches["paged_attention_prefill"] and launches["flash_gqa"]):
         raise AssertionError(f"full serve {label}: kernels of the path never launched: {launches}")
+    if launches["paged_attention_prefill_tc"] != launches["paged_attention_prefill"]:
+        raise AssertionError(f"full serve {label}: {launches['paged_attention_prefill_cuda_core']} of its "
+                             f"{launches['paged_attention_prefill']} chunk prefills left the tensor-core route")
     if cache.packed_nvfp4 != (eng.ecfg.kv_dtype == "nvfp4"):
         raise AssertionError(f"full serve {label}: kv_dtype {eng.ecfg.kv_dtype!r}, packed pool {cache.packed_nvfp4}")
     if profile:
@@ -1857,15 +1926,20 @@ KERNELS = {
                     "tensorrt_model_optimizer_tpu/ops/pallas/qmm.py:80 (qmm_int8), :122 (qmm_fp8)"),
     "paged_attention_decode": ("tensorrt_model_optimizer_tpu_torch/csrc/paged_attention_decode.cu",
                                "tensorrt_model_optimizer_tpu/ops/pallas/paged_attention.py:108"),
-    "paged_attention_prefill": ("tensorrt_model_optimizer_tpu_torch/csrc/paged_attention_prefill.cu",
-                                "tensorrt_model_optimizer_tpu/ops/pallas/paged_attention.py:246"),
+    # one TPU kernel, two routes of one source (`paged_attention.prefill_route`)
+    "paged_attention_prefill_tc": ("tensorrt_model_optimizer_tpu_torch/csrc/paged_attention_prefill.cu",
+                                   "tensorrt_model_optimizer_tpu/ops/pallas/paged_attention.py:246"),
+    "paged_attention_prefill_cuda_core": ("tensorrt_model_optimizer_tpu_torch/csrc/paged_attention_prefill.cu",
+                                          "tensorrt_model_optimizer_tpu/ops/pallas/paged_attention.py:246"),
     # one TPU kernel, two routes of one source (`sparse_attention.route`)
     "skip_softmax_flash_tc": ("tensorrt_model_optimizer_tpu_torch/csrc/skip_softmax_flash.cu",
                               "tensorrt_model_optimizer_tpu/ops/pallas/sparse_attention.py:138"),
     "skip_softmax_flash_cuda_core": ("tensorrt_model_optimizer_tpu_torch/csrc/skip_softmax_flash.cu",
                                      "tensorrt_model_optimizer_tpu/ops/pallas/sparse_attention.py:138"),
 }
-ANCHOR_ONLY = ("skip_softmax_flash_cuda_core",)  # f32 only: the RULER curve on the anchor launches it
+# f32 only: the RULER curve on the anchor launches the first, the anchor's
+# f32 paged engine the second
+ANCHOR_ONLY = ("skip_softmax_flash_cuda_core", "paged_attention_prefill_cuda_core")
 
 
 def main(argv=None) -> int:

@@ -1,9 +1,12 @@
 """One-token GQA decode attention over the stored-form, kv-head-major KV
 cache (port of `ops/pallas/kv_attention.py` `kv_decode_attention`).
 
-Kernel: `csrc/kv_decode_attention.cu`, formats bf16 / int8 / fp8 / nvfp4. On
-a CUDA tensor the wrapper launches the kernel or raises; only CPU tensors
-take the plain PyTorch version.
+Kernel: `csrc/kv_decode_attention.cu`, formats bf16 / int8 / fp8 / nvfp4: a
+split over the cache (flash-decoding). Each of `n_splits(pos)` blocks of a
+(sequence, kv head) takes SPLIT_ROWS rows < pos and writes its softmax max,
+denominator and accumulator to scratch; a second kernel merges the splits
+and folds in the current token. On a CUDA tensor the wrapper launches the
+kernels or raises; only CPU tensors take the plain PyTorch version.
 
 Semantics (split attention): the cache rows `< pos` are valid, row `pos`
 and above are not read, and the current token's code-domain k/v arrive
@@ -25,7 +28,10 @@ import torch
 from .. import numerics
 from . import _build
 
-launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+launches = 0  # calls that launched the kernels since the last reset (chip_smoke reads it); each call
+#               launches two: the split kernel, then the merge
+
+SPLIT_ROWS = 256  # cache rows of a split (the kernel holds at most 256)
 
 # format -> (kernel's code, stored dtype)
 FORMATS = {"bf16": (0, torch.bfloat16), "int8": (1, torch.int8), "fp8": (2, torch.float8_e4m3fn),
@@ -37,6 +43,12 @@ def decode_rows(rows: torch.Tensor, scales, fmt: str) -> torch.Tensor:
     if fmt == "nvfp4":
         return numerics.nvfp4_planes_code_load(rows, scales, torch.float32)
     return rows.float()
+
+
+def n_splits(pos: int, split_rows: int = SPLIT_ROWS) -> int:
+    """Splits of the kernel over rows [0, pos): at least one, so that pos = 0
+    still folds in the current token."""
+    return max(1, -(-pos // split_rows))
 
 
 def kv_decode_attention_plain(q, k_cache, v_cache, k_new, v_new, pos: int, fmt: str,
@@ -89,15 +101,20 @@ def kv_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.T
     kn = k_new.float().reshape(B, n_kv, hd).contiguous()
     vn = v_new.float().reshape(B, n_kv, hd).contiguous()
     k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("kv_attention kernel: the caches' storage must be 16-byte aligned (16-byte row loads)")
     if nvfp4:
         k_scales, v_scales = k_scales.contiguous(), v_scales.contiguous()
     ks, vs = (_build.ptr(k_scales), _build.ptr(v_scales)) if nvfp4 else (None, None)
     out = torch.empty((B, HR, hd), dtype=torch.float32, device=q.device)
+    n_split = n_splits(pos, SPLIT_ROWS)
+    part_ml = torch.empty((B, n_kv, n_split, rep, 2), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((B, n_kv, n_split, rep, hd), dtype=torch.float32, device=q.device)
     fn = _build.function("kv_decode_attention", "kv_decode_attention",
-                         [_build.c_int] * 3 + [_build.c_void_p] * 8 + [_build.c_int] * 4
+                         [_build.c_int] * 3 + [_build.c_void_p] * 10 + [_build.c_int] * 6
                          + [_build.c_void_p])
     _build.check(fn(code, hd, rep, _build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache), ks, vs,
-                    _build.ptr(kn), _build.ptr(vn), _build.ptr(out), B, n_kv, S, pos,
-                    _build.stream()), "kv_decode_attention")
+                    _build.ptr(kn), _build.ptr(vn), _build.ptr(part_ml), _build.ptr(part_acc), _build.ptr(out),
+                    B, n_kv, S, pos, SPLIT_ROWS, n_split, _build.stream()), "kv_decode_attention")
     launches += 1
     return out

@@ -4,8 +4,11 @@ per sequence, and `paged_attention_prefill`, a chunk of T tokens per
 sequence over the paged context plus, causally, the chunk's own k/v.
 
 Kernels: `csrc/paged_attention_decode.cu` and `csrc/paged_attention_prefill.cu`.
-On a CUDA tensor a wrapper launches its kernel or raises; only CPU tensors
-take the plain PyTorch versions.
+The prefill has two routes that `prefill_route` picks from q's dtype, head_dim
+and rep alone: the tensor cores for bf16 q (the engine's activations: bf16
+out), the CUDA cores for f32 q (f32 out), which bf16 would round. On a CUDA
+tensor a wrapper launches its kernel or raises; only CPU tensors take the
+plain PyTorch versions.
 
 Pages are `[n_pages, n_kv, page, C]`, kv-head-major, in stored form: `fmt
 "raw"` is bf16 values, int8 codes or fp8 e4m3 values (C = hd; the plain
@@ -29,8 +32,19 @@ import torch
 from . import _build
 from .kv_attention import FORMATS, decode_rows
 
-# kernel launches since the last reset (chip_smoke reads them)
+# kernel launches since the last reset (chip_smoke reads them); the
+# prefill's also per route
 launches = {"paged_attention_decode": 0, "paged_attention_prefill": 0}
+prefill_route_launches = {"tensor_core": 0, "cuda_core": 0}
+TC_TILE = 64  # keys of the tensor-core route's K / V tiles (any page size: each row's page is looked up)
+
+
+def prefill_route(dtype: torch.dtype, hd: int, rep: int) -> str:
+    """The prefill kernel a CUDA tensor goes to: "tensor_core" for bf16 q,
+    head_dim 32, 64 or 128 and rep 1, 2, 4 or 8, else "cuda_core"."""
+    if dtype == torch.bfloat16 and hd in (32, 64, 128) and rep in (1, 2, 4, 8):
+        return "tensor_core"
+    return "cuda_core"
 
 
 def _gather(pages, scale_pages, bt, fmt) -> torch.Tensor:
@@ -181,14 +195,24 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor, v_pages: tor
     if fmt == "nvfp4":
         scales = (k_scale_pages, v_scale_pages, chunk_k_scales.contiguous(), chunk_v_scales.contiguous())
     code, rep = _kernel_args(what, q, k_pages, v_pages, block_table, ctx_lens, fmt, scales, (chunk_k, chunk_v))
-    qf = q.float().contiguous()
-    out = torch.empty((B, T, n_heads, hd), dtype=torch.float32, device=q.device)
+    which = prefill_route(q.dtype, hd, rep)
+    if which == "tensor_core":
+        qk = q.contiguous()
+        if qk.data_ptr() % 16:
+            raise ValueError(f"{what}: q's storage must be 16-byte aligned")
+        out = torch.empty((B, T, n_heads, hd), dtype=torch.bfloat16, device=q.device)
+        entry = "paged_attention_prefill_tc"
+    else:
+        qk = q.float().contiguous()
+        out = torch.empty((B, T, n_heads, hd), dtype=torch.float32, device=q.device)
+        entry = "paged_attention_prefill"
     ksp, vsp, cks, cvs = (_build.ptr(t) for t in scales) if scales else (None,) * 4
-    fn = _build.function("paged_attention_prefill", "paged_attention_prefill",
+    fn = _build.function("paged_attention_prefill", entry,
                          [_build.c_int] * 3 + [_build.c_void_p] * 12 + [_build.c_int] * 5 + [_build.c_void_p])
-    _build.check(fn(code, hd, rep, _build.ptr(qf), _build.ptr(k_pages), _build.ptr(v_pages), ksp, vsp,
+    _build.check(fn(code, hd, rep, _build.ptr(qk), _build.ptr(k_pages), _build.ptr(v_pages), ksp, vsp,
                     _build.ptr(block_table), _build.ptr(ctx_lens), _build.ptr(chunk_k), _build.ptr(chunk_v),
                     cks, cvs, _build.ptr(out), B, T, n_kv, page, block_table.shape[1], _build.stream()),
-                 what)
+                 f"{what} ({which} route)")
     launches["paged_attention_prefill"] += 1
+    prefill_route_launches[which] += 1
     return out.to(q.dtype)

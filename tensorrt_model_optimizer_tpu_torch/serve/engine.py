@@ -640,10 +640,21 @@ class Engine:
         # the advanced indices (pages axis 1, offsets axis 3) put T first:
         # every source goes in as [T, L, n_kv, C]
         if self.ecfg.kv_attention_kernel:  # [L, n_kv, T, C], the pages' stored form
-            pools = [(cache.k_pages, dense["k"]), (cache.v_pages, dense["v"])]
+            k, v = dense["k"][:, 0], dense["v"][:, 0]
+            if self.ecfg.kv_dtype == "nvfp4" and not cache.packed_nvfp4:
+                # unpacked pages hold the grid values: the planes decoded,
+                # times the global scale of the amax they were stored under
+                L = self.cfg.num_hidden_layers
+
+                def grid(planes, scales, amax):
+                    code = numerics.nvfp4_planes_code_load(planes, scales[:, 0], torch.float32)
+                    return (code * numerics.nvfp4_global_scale(amax).reshape(L, 1, 1, 1)).to(cache.k_pages.dtype)
+
+                k, v = grid(k, dense["ks"], self._ka), grid(v, dense["vs"], self._va)
+            pools = [(cache.k_pages, k), (cache.v_pages, v)]
             if cache.packed_nvfp4:
-                pools += [(cache.k_scales, dense["ks"]), (cache.v_scales, dense["vs"])]
-            pools = [(pool, rows[:, 0].permute(2, 0, 1, 3)) for pool, rows in pools]
+                pools += [(cache.k_scales, dense["ks"][:, 0]), (cache.v_scales, dense["vs"][:, 0])]
+            pools = [(pool, rows.permute(2, 0, 1, 3)) for pool, rows in pools]
         else:  # [L, T, n_kv, C]
             k, v = dense["k"][:, 0].transpose(0, 1), dense["v"][:, 0].transpose(0, 1)
             hd = self.cfg.hd

@@ -157,21 +157,31 @@ def test_serve_over_einsum_pages_matches_jax(setup, label):
     assert (m["dense_prefills"], m["chunked_prefills"]) == (2, 1)
 
 
-@pytest.mark.parametrize("label,packed", [("int8", False), ("fp8", False), ("nvfp4", True), ("nvfp4", False)],
-                         ids=["int8", "fp8", "nvfp4_packed_pool", "nvfp4_grid_value_pool"])
-def test_prefill_into_slot_pages_match_jax(setup, label, packed):
-    """The pages `prefill_into_slot` fills from the einsum cache, against
-    JAX's: int8 and fp8 rows copied, packed NVFP4 rows split into planes and
-    scale bytes, and an unpacked pool under an NVFP4 cache given the rows'
-    grid values. There the packages differ on purpose: with no calibrated KV
-    amax the rows were stored under the engine's default amax 448 (global
-    scale 448 / 2688), which the port decodes them with, while JAX decodes
-    them with the global scale 1 of an absent amax: its pages hold 6x the
-    values its own cache holds."""
+@pytest.mark.parametrize("label,packed,kernel", [("int8", False, False), ("fp8", False, False),
+                                                 ("nvfp4", True, False), ("nvfp4", False, False),
+                                                 ("nvfp4", False, True)],
+                         ids=["int8", "fp8", "nvfp4_packed_pool", "nvfp4_grid_value_pool",
+                              "nvfp4_grid_value_pool_kernel_engine"])
+def test_prefill_into_slot_pages_match_jax(setup, label, packed, kernel):
+    """The pages `prefill_into_slot` fills from the einsum cache (with
+    `kernel`: from the kernel engine's kv-head-major cache of NVFP4 planes),
+    against JAX's: int8 and fp8 rows copied, packed NVFP4 rows split into
+    planes and scale bytes, and an unpacked pool under an NVFP4 cache given
+    the rows' grid values. There the packages differ on purpose: with no
+    calibrated KV amax the rows were stored under the engine's default amax
+    448 (global scale 448 / 2688), which the port decodes them with, while
+    JAX decodes them with the global scale 1 of an absent amax: its pages
+    hold 6x the values its own cache holds, in both engines."""
     jcfg, _, jcm, cm, _ = setup
     jkv, tkv = KV[label]
-    je = jengine.Engine(jcm, jengine.EngineConfig(max_seq_len=64, backend="xla", kv_dtype=jkv))
-    te = tengine.Engine(cm, tengine.EngineConfig(max_seq_len=64, kv_dtype=tkv), device="cpu")
+    if kernel:
+        je = jengine.Engine(jcm, jengine.EngineConfig(max_seq_len=64, backend="pallas", kv_dtype=jkv,
+                                                      kv_attention_kernel=True))
+        te = tengine.Engine(cm, tengine.EngineConfig(max_seq_len=64, kv_dtype=tkv, kv_attention_kernel=True),
+                            device="cpu")
+    else:
+        je = jengine.Engine(jcm, jengine.EngineConfig(max_seq_len=64, backend="xla", kv_dtype=jkv))
+        te = tengine.Engine(cm, tengine.EngineConfig(max_seq_len=64, kv_dtype=tkv), device="cpu")
     prompt = np.random.default_rng(9).integers(0, 256, size=(1, 21)).astype(np.int32)
     table = np.full((2, 8), -1, np.int32)
     table[0, :3] = [4, 1, 6]

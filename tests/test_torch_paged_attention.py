@@ -230,12 +230,16 @@ def test_decode_kernel_matches_plain(cuda_device, fmt, hd, rep):
 @pytest.mark.parametrize("fmt", FORMATS)
 @pytest.mark.parametrize("hd,rep", [(32, 2), (64, 4), (128, 4)])
 def test_prefill_kernel_matches_plain(cuda_device, fmt, hd, rep):
+    """f32 q: the CUDA-core route (the tensor-core route's cases are in
+    test_torch_paged_prefill_tc.py)."""
     for T, ctx in ((4, [0, 0]), (5, [13, 5]), (19, [32, 1])):
         args, kwargs = _prefill_case(fmt, T, ctx, n_kv=2, rep=rep, hd=hd, seed=hd + T)
         t, kw = _to(cuda_device, args, kwargs)
         kind = "nvfp4" if fmt == "nvfp4" else "raw"
+        n0 = dict(tpa.prefill_route_launches)
         out = tpa.paged_attention_prefill(*t, fmt=kind, **kw)
         torch.cuda.synchronize()
+        assert tpa.prefill_route_launches == {"tensor_core": n0["tensor_core"], "cuda_core": n0["cuda_core"] + 1}
         ref = tpa.paged_attention_prefill_plain(*t, fmt=kind, **kw)
         if fmt == "nvfp4":
             _within_f32_score_limit(out, ref, _nvfp4_prefill_limit(*t, **kw))

@@ -1,7 +1,8 @@
 #!/bin/bash
 # Mutation checks of chip_smoke.py's checks of the port's weight-only GEMM
 # kernels (tensorrt_model_optimizer_tpu_torch/csrc/qmm_*_wo.cu), KV-cache
-# attention kernels (kv_decode_attention.cu, paged_attention_*.cu), the
+# attention kernels (kv_decode_attention.cu, paged_attention_*.cu, the
+# paged prefill's two routes), the
 # tensor-core flash kernel (flash_gqa.cu on the tile primitives of
 # attn_tc.cuh) and the skip-softmax kernel (skip_softmax_flash.cu, both
 # routes). Each case
@@ -43,10 +44,26 @@ run skip_last_k16 qmm_wo_common.cuh 's/for (int kk = 0; kk < BK; kk += 16) {/for
 run int4_sign qmm_int4_wo.cu 's/__vsub4((v\[j\] \& 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u)/(v[j] \& 0x0F0F0F0Fu)/'
 # paged decode: the last live row of every sequence is masked out
 run paged_decode_last_row paged_attention_decode.cu 's/const int len = min(lens\[b\], max_pages \* page);/const int len = min(lens[b] - 1, max_pages * page);/'
-# paged prefill: the causal mask takes < for <= (a token no longer sees itself)
+# paged prefill, CUDA-core route (f32 q): the causal mask takes < for <= (a
+# token no longer sees itself)
 run paged_prefill_causal paged_attention_prefill.cu 's/if (j <= t) {/if (j < t) {/; s/if (base + u > t) break;/if (base + u >= t) break;/'
-# NVFP4 rows: the high plane takes the low plane's block-scale bytes
+# paged prefill, tensor-core route: the chunk's causal mask one column late
+# (a token sees the next one)
+run paged_prefill_tc_causal_late paged_attention_prefill.cu 's/(!ctx_tile \&\& col > t);/(!ctx_tile \&\& col > t + 1);/'
+# paged prefill, tensor-core route: the tile loader skips the last page of
+# every 64-key context tile
+run paged_prefill_tc_skip_last_page paged_attention_prefill.cu 's/        if (s >= ctx) return -1;/        if (s >= ctx || r \/ page == TBK \/ page - 1) return -1;/'
+# kv decode: the merge drops the last split of the cache
+run kv_decode_merge_drop_last kv_decode_attention.cu 's/for (int sp = 0; sp < n_split; ++sp) {/for (int sp = 0; sp < n_split - 1; ++sp) {/'
+# NVFP4 rows (CUDA-core walk, `Rows<Fp4>`): the high plane takes the low
+# plane's block-scale bytes
 run nvfp4_high_plane_scale kv_common.cuh 's|s(static_cast<const uint8_t\*>(scales) + lane \* E / 16)|s(static_cast<const uint8_t*>(scales) + (lane \& 15) * E / 16)|'
+# kv decode's NVFP4 chunks (`Lane16<Fp4>`): the high dims take the low
+# block's scale byte
+run nvfp4_lane16_high_scale kv_common.cuh 's|((uint32_t)__ldg(sr + HD / 32) << 8)|((uint32_t)__ldg(sr) << 8)|'
+# the tensor-core prefill's NVFP4 tile stage (`Stage<Fp4>`): the high dims
+# take the low block's scale byte
+run nvfp4_stage_high_scale paged_attention_prefill.cu 's|s1 = s0 + HD / 32;|s1 = s0;|'
 # skip-softmax, both routes (the tensor-core one first in the kernels phase):
 # the decision limit follows the last kept tile's max, not the running max
 # over the kept tiles
