@@ -17,7 +17,13 @@ Phases (any failure raises, and the script exits non-zero):
            Paged prefill runs through both routes: the tensor cores (bf16 q)
            in every stored form at T = 64 and T = 5, the CUDA cores (f32 q)
            at T = 64; KV decode (split over the cache) at the 8B pos and at
-           pos 0, 1 and one past its first split.
+           pos 0, 1 and one past its first split; paged decode (split over
+           each sequence's rows) at 2048 rows, at ragged lengths and at
+           lengths on each side of its splits' edges. The weight-only GEMMs
+           run at gate_proj, down_proj and k_proj, N = 8 (the decode route,
+           split over K) and N = 16384. A second call of each split kernel
+           (paged decode, the weight-only GEMMs) on the same inputs must
+           give the first call's bits.
            Skip-softmax runs through both routes: the tensor cores at the 8B
            shape (128- and 64-tiles), on spiked inputs and at a calibrated
            threshold; the CUDA cores at the RULER anchor's shape (f32) and at
@@ -88,7 +94,7 @@ RULER_CURVE = os.path.join(HERE, "artifacts", "ruler_curve.json")
 class Sizes:
     """Shapes of each phase; `full` is the served configuration."""
 
-    qmm_shapes: tuple = ((14336, 4096, "gate_proj"), (4096, 14336, "down_proj"))
+    qmm_shapes: tuple = ((14336, 4096, "gate_proj"), (4096, 14336, "down_proj"), (1024, 4096, "k_proj"))
     qmm_rows: tuple = (8, 16384)
     kv: tuple = (8, 8, 4, 128, 2560, 2048)  # B, n_kv, rep, hd, S, pos
     flash: tuple = (8, 32, 8, 2048, 128)  # B, H, Hkv, T, d
@@ -427,6 +433,20 @@ def _kv_row_bytes(fmt: str, hd: int) -> float:
     return {"bf16": 2 * hd, "int8": hd, "fp8": hd, "nvfp4": hd // 2 + hd // 16}[fmt]
 
 
+def _paged_pool(torch, dev, g, sz: Sizes, fmt: str, lens: list, max_pages: int):
+    """A seeded page pool of the 8B shape (`sz.kv`, pages of `sz.page` rows):
+    (K pages, V pages, their NVFP4 scale pages or None, q's factor, a block
+    table of shuffled pages with -1 past each length, the lengths)."""
+    B, n_kv, _, hd, _, _ = sz.kv
+    n_pages = 1 + B * max_pages
+    kp, ksp, qf = _stored_rows(torch, dev, g, (n_pages, n_kv, sz.page, hd), fmt)
+    vp, vsp, _ = _stored_rows(torch, dev, g, (n_pages, n_kv, sz.page, hd), fmt)
+    perm = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1).to(torch.int32).reshape(B, max_pages)
+    live = torch.arange(max_pages, device=dev)[None] * sz.page < torch.tensor(lens, device=dev)[:, None]
+    table = torch.where(live, perm, torch.full_like(perm, -1))
+    return kp, vp, ksp, vsp, qf, table, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
 KV_FORMATS = ("int8", "bf16", "fp8", "nvfp4")
 # route -> KERNELS
 PAGED_PREFILL_KERNELS = {"tensor_core": "paged_attention_prefill_tc", "cuda_core": "paged_attention_prefill_cuda_core"}
@@ -545,22 +565,18 @@ def _phase_kernels_kv(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
     # outside the timed call, with the lengths as a mask; it rounds its
     # probabilities to bf16, so it is held to 1e-2 of the output's scale (rows
     # of a sequence with no live row apart: SDPA gives NaN there, the kernels 0).
-    def paged_pool(fmt, lens, max_pages):
-        n_pages = 1 + B * max_pages
-        kp, ksp, qf = _stored_rows(torch, dev, g, (n_pages, n_kv, page, hd), fmt)
-        vp, vsp, _ = _stored_rows(torch, dev, g, (n_pages, n_kv, page, hd), fmt)
-        perm = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1).to(torch.int32).reshape(B, max_pages)
-        live = torch.arange(max_pages, device=dev)[None] * page < torch.tensor(lens, device=dev)[:, None]
-        table = torch.where(live, perm, torch.full_like(perm, -1))
-        return kp, vp, ksp, vsp, qf, table, torch.tensor(lens, dtype=torch.int32, device=dev)
-
     def gathered(pages, table):
         return pages[table.clamp_min(0).long()].permute(0, 2, 1, 3, 4).reshape(B, n_kv, -1, hd)
 
+    # The table spans 2080 rows (130 pages): 9 splits of 256 rows, the last
+    # one past every length but in "edges", which ends on the table's last
+    # row and puts lengths on each side of the first splits' edges.
     shapes = []
+    paged_lens = (("uniform", [2048] * B), ("ragged", [2048, 1153, 1024, 513, 17, 16, 1, 0][:B]),
+                  ("edges", [0, 1, 255, 256, 257, 511, 513, 2080][:B]))
     for fmt in KV_FORMATS:
-        for what, lens in (("uniform", [2048] * B), ("ragged", [2048, 1153, 1024, 513, 17, 16, 1, 0][:B])):
-            kp, vp, ksp, vsp, qf, table, tl = paged_pool(fmt, lens, 2048 // page + 2)
+        for what, lens in paged_lens:
+            kp, vp, ksp, vsp, qf, table, tl = _paged_pool(torch, dev, g, sz, fmt, lens, 2048 // page + 2)
             q = (torch.randn((B, nH, hd), generator=g, device=dev) * qf).to(torch.bfloat16)
             kind = "nvfp4" if fmt == "nvfp4" else "raw"
             args = (q, kp, vp, table, tl, kind, ksp, vsp)
@@ -570,6 +586,8 @@ def _phase_kernels_kv(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
             if not worst <= 1.0:
                 raise AssertionError(f"paged_attention_decode {fmt} {what}: worst err/limit {worst} > 1 "
                                      f"(2^-8|ref| + 1e-3 rms(ref)), max abs err {err}")
+            _same_again(torch, f"paged_attention_decode {fmt} {what}", out,
+                        paged_attention.paged_attention_decode(*args))
             ms = timer(lambda: paged_attention.paged_attention_decode(*args), sz.reps)
             plain_ms = timer(lambda: paged_attention.paged_attention_decode_plain(*args), max(2, sz.reps // 4))
             lib_ms = lib_rel = None
@@ -587,8 +605,10 @@ def _phase_kernels_kv(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
             nbytes = 2 * n_kv * sum(lens) * _kv_row_bytes(fmt, hd) + 2 * q.numel() * 2 + table.numel() * 4
             b_ms, b_by = bound(nbytes, 4.0 * nH * sum(lens) * hd, "bf16")
             shapes.append({"shape": f"{fmt} {what} B={B} n_kv={n_kv} rep={rep} page={page} lens={lens}",
-                           "max_abs_err": err, "worst_err_over_limit": worst, "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "library_rel_err": lib_rel})
+                           "splits": paged_attention.n_splits(table.shape[1], page), "max_abs_err": err,
+                           "worst_err_over_limit": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "bound_share": b_ms / ms, "library_ms": lib_ms,
+                           "x_library": None if lib_ms is None else ms / lib_ms, "library_rel_err": lib_rel})
             log(json.dumps({"kernel": "paged_attention_decode", **shapes[-1]}))
             del kp, vp, ksp, vsp, ref32
     rows["paged_attention_decode"] = dict(shapes[0], shapes=shapes)
@@ -605,7 +625,7 @@ def _phase_kernels_kv(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
     cases += [("tensor_core", fmt, 5, short_ctx) for fmt in KV_FORMATS]  # T not a multiple of 8
     cases += [("cuda_core", fmt, sz.chunk, full_ctx) for fmt in KV_FORMATS]
     for want, fmt, T, ctx in cases:
-        kp, vp, ksp, vsp, qf, table, tl = paged_pool(fmt, ctx, 1024 // page + 2)
+        kp, vp, ksp, vsp, qf, table, tl = _paged_pool(torch, dev, g, sz, fmt, ctx, 1024 // page + 2)
         ck, cks, _ = _stored_rows(torch, dev, g, (B, T, n_kv, hd), fmt)
         cv, cvs, _ = _stored_rows(torch, dev, g, (B, T, n_kv, hd), fmt)
         qdt = torch.bfloat16 if want == "tensor_core" else torch.float32
@@ -673,6 +693,16 @@ def _held(out, ref32) -> tuple[float, float]:
     diff = (out.float() - ref32).abs()
     tol = 2.0 ** -8 * ref32.abs() + 1e-3 * float(ref32.square().mean().sqrt())
     return float((diff / tol).max()), float(diff.max())
+
+
+def _same_again(torch, what: str, first, again) -> None:
+    """A second call on the same inputs must give the first call's bits: the
+    split kernels add their partials in a fixed order, and the weight-only
+    GEMMs' fix-up leaves its arrival counters at 0 for the next call."""
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError(f"{what}: a second call on the same inputs differs from the first at "
+                             f"{int((first != again).sum())} of {first.numel()} outputs")
 
 
 def _wo_cases(torch, dev, g, O: int, K: int):
@@ -757,6 +787,39 @@ def _phase_kernels_wo(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
         raise AssertionError("qmm_byte_wo: the e4m3 NaN code does not decode to NaN")
     log(json.dumps({"kernel": "qmm_byte_wo", "check": "e4m3 decode: 254 finite codes exact, NaN code NaN"}))
 
+    # every E2M1 code under every scale through the fp4 kernel's decoder,
+    # exactly: row o of the weight holds codes 0..15 in k 0..15 and again in
+    # k 16..31 under scale o (every non-NaN e4m3 byte; MXFP4 exponents -125
+    # .. 125, whose products are finite bf16 normals: an inf weight would make
+    # the zero terms NaN), and y = I . w^T picks them,
+    # through the decode route (16 rows of I) and the prefill tiles (32)
+    k_codes = torch.arange(32, device=dev, dtype=torch.int32) % 16
+    row = (k_codes[0::2] | k_codes[1::2] << 4).to(torch.uint8)
+    eye = torch.eye(32, 64, dtype=torch.bfloat16, device=dev)
+    e4m3 = torch.arange(256, device=dev, dtype=torch.int32)
+    e4m3 = e4m3[(e4m3 & 0x7F) != 0x7F].to(torch.uint8)
+    scale_sets = {"nvfp4": e4m3.view(torch.float8_e4m3fn)[:, None].expand(-1, 4),
+                  "mxfp4": torch.arange(-125, 126, device=dev, dtype=torch.int32).to(torch.int8)[:, None].expand(-1, 2)}
+    for fmt, sc in scale_sets.items():
+        sc = sc.contiguous()
+        packed = torch.nn.functional.pad(row, (0, 16)).expand(sc.shape[0], 32).contiguous()
+        w = qmm_wo.fp4_rows_values(packed) * torch.repeat_interleave(qmm_wo.fp4_rows_scales(sc), 64 // sc.shape[1], 1)
+        for what, n in (("decode route", 16), ("prefill tiles", 32)):
+            y = qmm_wo.fp4_wo_matmul(eye[:n].contiguous(), packed, sc)
+            want = w[:, :n].t().to(torch.bfloat16)
+            torch.cuda.synchronize()
+            if not torch.equal(y, want):
+                bad = torch.nonzero(y != want)
+                raise AssertionError(f"qmm_fp4_wo {fmt} ({what}): E2M1 x scale decode differs at {len(bad)} of "
+                                     f"{want.numel()} (k, scale row) pairs, first {bad[0].tolist()}")
+    log(json.dumps({"kernel": "qmm_fp4_wo", "check": "E2M1 decode: 16 codes x 254 e4m3 scales (NVFP4) and x 251 "
+                    "exponents (MXFP4) exact, decode route and prefill tiles"}))
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def splits(N, O, K):  # the decode route's split over K (every format's rows pad K to 128 or less)
+        return qmm_wo.decode_splits(O, -(-K // 128) * 128, N, sms) if N <= 16 else None
+
     shapes: dict = {name: [] for name in qmm_wo.launches}
     for O, K, label in sz.qmm_shapes:
         for N in sz.qmm_rows:
@@ -769,6 +832,7 @@ def _phase_kernels_wo(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
                 if not worst <= 1.0:
                     raise AssertionError(f"{name} {fmt} {label} N={N}: worst err/limit {worst} > 1 "
                                          f"(2^-8|ref| + 1e-3 rms(ref)), max abs err {err}")
+                _same_again(torch, f"{name} {fmt} {label} N={N}", out, fn(x, *w))
                 ms = timer(lambda: fn(x, *w), sz.reps)
                 plain_ms = timer(lambda: plain(x, *w), 2)
                 lib_ms = lib_rel = None
@@ -786,8 +850,10 @@ def _phase_kernels_wo(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
                 del ref32
                 b_ms, b_by = bound(N * K * 2 + wbytes + N * O * 2, 2.0 * N * O * K, "bf16")
                 shapes[name].append({"shape": f"{fmt} {label} N={N} O={O} K={K}", "max_abs_err": err,
-                                     "worst_err_over_limit": worst, "ms": ms, "plain_ms": plain_ms,
-                                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                                     "worst_err_over_limit": worst, "splits": splits(N, O, K), "ms": ms,
+                                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                     "bound_share": b_ms / ms, "library_ms": lib_ms,
+                                     "x_library": None if lib_ms is None else ms / lib_ms,
                                      "library_rel_err": lib_rel})
                 log(json.dumps({"kernel": name, **shapes[name][-1]}))
                 del out, w

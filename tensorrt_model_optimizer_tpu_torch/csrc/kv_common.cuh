@@ -7,8 +7,8 @@
 // constants: the running max starts at -1e30 and the denominator is clamped
 // at 1e-30, so a sequence with no live row gives exactly 0.
 //
-// Rows<T, HD> (the paged kernels' CUDA-core walk): one warp reads one K/V
-// row at a time; a lane holds E = head_dim / 32 consecutive dims of the row
+// Rows<T, HD> (the CUDA-core walk of the f32 paged prefill): one warp reads
+// one K/V row at a time; a lane holds E = head_dim / 32 consecutive dims of the row
 // (one coalesced read of the warp), of each of the REP query heads that
 // share the row's kv head, and of their accumulators; a score is a warp-wide
 // sum. Rows<T, HD> turns a stored row into f32:
@@ -21,7 +21,7 @@
 //         share their bytes. Decoded exactly (fp_decode.cuh); the f32 global
 //         scale stays with the caller.
 //
-// Lane16<T, HD> (the split decode of kv_decode_attention.cu): a group of
+// Lane16<T, HD> (the split decodes, `split_attend` below): a group of
 // HD/16 lanes reads one row, lane li holding 16 of its dims: 16li .. 16li +
 // 15 of a bf16 row (two 16-byte loads), of an int8 or e4m3 row (one), and of
 // NVFP4 dims 8li .. 8li + 7 and HD/2 + 8li .. (8 plane bytes, two scale
@@ -257,44 +257,173 @@ struct Softmax {
   }
 };
 
-// The block's NW warp states in shared memory, merged by one warp.
+// ---- the flash-decoding split of the two decode kernels ----
+//
+// kv_decode_attention.cu (dense cache) and paged_attention_decode.cu (page
+// pool) split each (sequence, kv head)'s rows over blocks of SPLIT_MAX rows
+// and merge the splits in a second kernel. `split_attend` is one split: a
+// block of SNW warps, a group of HD/16 lanes a row (Lane16), SU rows a group
+// fetched before any is used. Pass 1 writes the split's scores of the REP
+// query heads to shared memory; each head's exact max and sum of exp(s -
+// max) follow; pass 2 reads the V rows and accumulates p v per head, reduced
+// over the warp's row groups by shuffles and over the warps in shared
+// memory. The split writes (max, denominator, accumulator) of its heads;
+// `merge_splits` rescales a head's splits to their common max and divides.
+
+constexpr int SPLIT_MAX = 256;  // rows of a split at most (the score buffer)
+constexpr int SNW = 4;          // warps of a split block
+constexpr int SNT = SNW * 32;
+constexpr int SU = 4;           // rows a lane group loads before it uses them
+
 template <int REP, int HD>
-struct Merge {
-  float m[NW][REP], l[NW][REP], acc[NW][REP][HD];
-
-  __device__ __forceinline__ void put(const Softmax<REP, HD / 32>& st, int warp, int lane) {
-    constexpr int E = HD / 32;
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      if (lane == 0) {
-        m[warp][r] = st.m[r];
-        l[warp][r] = st.l[r];
-      }
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[warp][r][lane * E + e] = st.acc[r][e];
-    }
-  }
-
-  // after __syncthreads(): head r over all warps (max M, denominator L, this
-  // lane's E dims of the accumulator A)
-  __device__ __forceinline__ void get(int r, int lane, float& M, float& L,
-                                      float (&A)[HD / 32]) const {
-    constexpr int E = HD / 32;
-    M = -1e30f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, m[w][r]);
-    L = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) A[e] = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float c = expf(m[w][r] - M);
-      L += l[w][r] * c;
-#pragma unroll
-      for (int e = 0; e < E; ++e) A[e] += acc[w][r][lane * E + e] * c;
-    }
-  }
+struct SplitSmem {
+  float sc[REP][SPLIT_MAX];  // scores, then exp(score - max)
+  float m[REP], l[REP];
+  float red[SNW][REP][HD];
 };
+
+// The split's n rows (0 < n <= SPLIT_MAX): row i is stored row `row_of(i)` of
+// K and V. qr: this lane's 16 dims (K.dim order) of each head's query, with
+// the scores' scale folded in (a score is qr . k). Writes ml[2h] = max,
+// ml[2h + 1] = denominator and acc[h * HD + d] of each head h.
+template <typename T, int HD, int REP, class RowOf>
+__device__ __forceinline__ void split_attend(const Lane16<T, HD>& K, const Lane16<T, HD>& V,
+                                             const float (&qr)[REP][16], int n, const RowOf& row_of,
+                                             float* __restrict__ ml, float* __restrict__ acc_out,
+                                             SplitSmem<REP, HD>& sm) {
+  constexpr int LPR = HD / 16, RPW = 32 / LPR;  // lanes a row, rows a warp
+  constexpr int STEP = SNW * RPW;               // rows a block reads at once
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, li = lane % LPR, grp = lane / LPR;
+
+  // pass 1: scores of the split's rows for the REP heads
+  for (int base = warp * RPW; base < n; base += STEP * SU) {  // warp-uniform: the shuffles need every lane
+    typename Lane16<T, HD>::Raw raw[SU];
+#pragma unroll
+    for (int u = 0; u < SU; ++u) {
+      const int i = base + grp + u * STEP;
+      raw[u] = i < n ? K.fetch(row_of(i)) : K.zero();
+    }
+#pragma unroll
+    for (int u = 0; u < SU; ++u) {
+      const int i = base + grp + u * STEP;
+      float kf[16];
+      K.decode(raw[u], kf);
+#pragma unroll
+      for (int h = 0; h < REP; ++h) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < 16; ++e) d = fmaf(qr[h][e], kf[e], d);
+#pragma unroll
+        for (int off = LPR / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+        if (li == 0 && i < n) sm.sc[h][i] = d;
+      }
+    }
+  }
+  __syncthreads();
+
+  // each head's max and sum of exp(s - max) over the split
+  for (int h = warp; h < REP; h += SNW) {
+    float mx = -1e30f;
+    for (int i = lane; i < n; i += 32) mx = fmaxf(mx, sm.sc[h][i]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float sum = 0.f;
+    for (int i = lane; i < n; i += 32) {
+      const float p = expf(sm.sc[h][i] - mx);
+      sm.sc[h][i] = p;
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      sm.m[h] = mx;
+      sm.l[h] = sum;
+    }
+  }
+  __syncthreads();
+
+  // pass 2: sum_i p_i v_i for the REP heads
+  float acc[REP][16];
+#pragma unroll
+  for (int h = 0; h < REP; ++h)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[h][e] = 0.f;
+  for (int base = warp * RPW + grp; base < n; base += STEP * SU) {
+    typename Lane16<T, HD>::Raw raw[SU];
+#pragma unroll
+    for (int u = 0; u < SU; ++u) {
+      const int i = base + u * STEP;
+      raw[u] = i < n ? V.fetch(row_of(i)) : V.zero();
+    }
+#pragma unroll
+    for (int u = 0; u < SU; ++u) {
+      const int i = base + u * STEP;
+      if (i >= n) break;  // no shuffle below: groups may leave early
+      float vf[16];
+      V.decode(raw[u], vf);
+#pragma unroll
+      for (int h = 0; h < REP; ++h) {
+        const float p = sm.sc[h][i];
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc[h][e] = fmaf(p, vf[e], acc[h][e]);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = LPR; off < 32; off <<= 1)
+#pragma unroll
+    for (int h = 0; h < REP; ++h)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[h][e] += __shfl_xor_sync(0xffffffffu, acc[h][e], off);
+  if (grp == 0) {
+#pragma unroll
+    for (int h = 0; h < REP; ++h)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) sm.red[warp][h][V.dim(e)] = acc[h][e];
+  }
+  __syncthreads();
+
+  for (int idx = threadIdx.x; idx < REP * HD; idx += SNT) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < SNW; ++w) a += sm.red[w][idx / HD][idx % HD];
+    acc_out[idx] = a;
+  }
+  if (threadIdx.x < REP) {
+    ml[2 * threadIdx.x] = sm.m[threadIdx.x];
+    ml[2 * threadIdx.x + 1] = sm.l[threadIdx.x];
+  }
+}
+
+// A split with no row: max -1e30, denominator 0, accumulator 0.
+template <int REP, int HD>
+__device__ __forceinline__ void split_empty(float* __restrict__ ml, float* __restrict__ acc_out) {
+  for (int idx = threadIdx.x; idx < REP * HD; idx += SNT) acc_out[idx] = 0.f;
+  if (threadIdx.x < REP) {
+    ml[2 * threadIdx.x] = -1e30f;
+    ml[2 * threadIdx.x + 1] = 0.f;
+  }
+}
+
+// Element idx = h * HD + d of a head's result from its n_split splits (ml
+// [n_split, REP, 2], acc [n_split, REP, HD]) and one more term (m0, l0,
+// a0): (a0 e^(m0 - M) + sum_sp acc_sp e^(m_sp - M)) / max(l0 e^(m0 - M) +
+// sum_sp l_sp e^(m_sp - M), 1e-30), M the largest of m0 and the splits'
+// maxima; splits taken in order.
+template <int HD, int REP>
+__device__ __forceinline__ float merge_splits(const float* __restrict__ ml, const float* __restrict__ acc,
+                                              int n_split, int idx, float m0, float l0, float a0) {
+  const int h = idx / HD;
+  float M = m0;
+  for (int sp = 0; sp < n_split; ++sp) M = fmaxf(M, ml[(sp * REP + h) * 2]);
+  const float c0 = expf(m0 - M);
+  float L = l0 * c0, A = a0 * c0;
+  for (int sp = 0; sp < n_split; ++sp) {
+    const float c = expf(ml[(sp * REP + h) * 2] - M);
+    L += ml[(sp * REP + h) * 2 + 1] * c;
+    A += acc[(size_t)sp * REP * HD + idx] * c;
+  }
+  return A / fmaxf(L, 1e-30f);
+}
 
 // f.run<T, HD, REP>() for the stored form (0 bf16, 1 int8, 2 fp8 e4m3, 3
 // NVFP4), head_dim in {32, 64, 128} and rep in {1, 2, 4, 8}.

@@ -23,15 +23,15 @@
 //     at the 8B shape 8 splits make 512 blocks, ~4 an SM. A group of hd/16
 //     lanes reads one row with 16-byte loads (Lane16, kv_common.cuh; 8 lanes
 //     a row at hd 128), so a warp covers 2-16 rows at once and a score is a
-//     3-step shuffle sum at hd 128; four rows a group are loaded before any
-//     is used. Pass 1 writes the split's scores of its `rep` query heads to
-//     shared memory; each head's max and sum of exp(s - max) follow; pass 2
-//     reads the V rows and accumulates p v per head, reduced over the warp's
-//     row groups by shuffles and over the warps in shared memory. Each split
-//     writes (max, denominator, accumulator) of its heads to a scratch
-//     tensor the wrapper allocates. Rows >= pos are never read.
+//     3-step shuffle sum at hd 128; four rows a group are loaded before
+//     any is used. The split's body, `kvc::split_attend`, is
+//     shared with the paged decode (paged_attention_decode.cu): scores to
+//     shared memory, each head's exact max and denominator, then p v. Each
+//     split writes (max, denominator, accumulator) of its heads to a
+//     scratch tensor the wrapper allocates. Rows >= pos are never read.
 //   - kv_decode_merge: one block per (sequence, kv head) rescales the splits
-//     to their common max, folds in the current token and divides.
+//     to their common max (`kvc::merge_splits`), folds in the current token
+//     and divides.
 // Each K and V byte is read once; the q . k and p v work is a few FMAs a byte.
 // Measured (H100 80GB HBM3, 700 W, chip_smoke.py's kernels phase; PERF.md's
 // kernel table, row 2) at the 8B shape: int8 0.035 ms (29% of the bound;
@@ -41,138 +41,36 @@
 
 namespace {
 
-constexpr int SPLIT_MAX = 256;  // rows of a split at most (the score buffer)
-constexpr int SNW = 4;          // warps of a split block
-constexpr int SNT = SNW * 32;
-constexpr int SU = 4;           // rows a lane group loads before it uses them
+using kvc::SNT;
+using kvc::SPLIT_MAX;
 
 template <typename T, int HD, int REP>
 __global__ void __launch_bounds__(SNT) kv_decode_split(
     const float* __restrict__ q, const void* __restrict__ kc, const void* __restrict__ vc,
     const void* __restrict__ ks, const void* __restrict__ vs, float* __restrict__ part_ml,
     float* __restrict__ part_acc, int n_kv, int S, int pos, int split_rows) {
-  constexpr int LPR = HD / 16, RPW = 32 / LPR;  // lanes a row, rows a warp
-  constexpr int STEP = SNW * RPW;               // rows a block reads at once
-  __shared__ float sc[REP][SPLIT_MAX];          // scores, then exp(score - max)
-  __shared__ float s_m[REP], s_l[REP];
-  __shared__ float red[SNW][REP][HD];
-
+  __shared__ kvc::SplitSmem<REP, HD> sm;
   const int sp = blockIdx.x, g = blockIdx.y, b = blockIdx.z, n_split = gridDim.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, li = lane % LPR, grp = lane / LPR;
-  const size_t head = (size_t)b * n_kv + g, row0 = head * S;
-  const int r0 = sp * split_rows, n = max(0, min(split_rows, pos - r0));  // this split's rows [r0, r0 + n)
+  const size_t head = (size_t)b * n_kv + g, row0 = head * S, part = head * n_split + sp;
+  const int r0 = sp * split_rows, n = min(split_rows, pos - r0);  // this split's rows [r0, r0 + n)
+  if (n <= 0) {  // pos 0: the current token alone
+    kvc::split_empty<REP, HD>(part_ml + part * REP * 2, part_acc + part * REP * HD);
+    return;
+  }
+  const int li = (threadIdx.x & 31) % (HD / 16);
   const kvc::Lane16<T, HD> K(kc, ks, li), V(vc, vs, li);
-
-  // pass 1: scores of the split's rows for the REP heads
-  {
-    float qr[REP][16];
-#pragma unroll
-    for (int h = 0; h < REP; ++h)
-#pragma unroll
-      for (int e = 0; e < 16; ++e) qr[h][e] = q[(head * REP + h) * HD + K.dim(e)];
-    for (int base = warp * RPW; base < n; base += STEP * SU) {  // warp-uniform: the shuffles need every lane
-      typename kvc::Lane16<T, HD>::Raw raw[SU];
-#pragma unroll
-      for (int u = 0; u < SU; ++u) {
-        const int i = base + grp + u * STEP;
-        raw[u] = i < n ? K.fetch(row0 + r0 + i) : K.zero();
-      }
-#pragma unroll
-      for (int u = 0; u < SU; ++u) {
-        const int i = base + grp + u * STEP;
-        float kf[16];
-        K.decode(raw[u], kf);
-#pragma unroll
-        for (int h = 0; h < REP; ++h) {
-          float d = 0.f;
-#pragma unroll
-          for (int e = 0; e < 16; ++e) d = fmaf(qr[h][e], kf[e], d);
-#pragma unroll
-          for (int off = LPR / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-          if (li == 0 && i < n) sc[h][i] = d;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // each head's max and sum of exp(s - max) over the split
-  for (int h = warp; h < REP; h += SNW) {
-    float mx = -1e30f;
-    for (int i = lane; i < n; i += 32) mx = fmaxf(mx, sc[h][i]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const float p = expf(sc[h][i] - mx);
-      sc[h][i] = p;
-      sum += p;
-    }
-    sum = kvc::warp_sum(sum);
-    if (lane == 0) {
-      s_m[h] = mx;
-      s_l[h] = sum;
-    }
-  }
-  __syncthreads();
-
-  // pass 2: sum_i p_i v_i for the REP heads
-  float acc[REP][16];
+  float qr[REP][16];
 #pragma unroll
   for (int h = 0; h < REP; ++h)
 #pragma unroll
-    for (int e = 0; e < 16; ++e) acc[h][e] = 0.f;
-  for (int base = warp * RPW + grp; base < n; base += STEP * SU) {
-    typename kvc::Lane16<T, HD>::Raw raw[SU];
-#pragma unroll
-    for (int u = 0; u < SU; ++u) {
-      const int i = base + u * STEP;
-      raw[u] = i < n ? V.fetch(row0 + r0 + i) : V.zero();
-    }
-#pragma unroll
-    for (int u = 0; u < SU; ++u) {
-      const int i = base + u * STEP;
-      if (i >= n) break;  // no shuffle below: groups may leave early
-      float vf[16];
-      V.decode(raw[u], vf);
-#pragma unroll
-      for (int h = 0; h < REP; ++h) {
-        const float p = sc[h][i];
-#pragma unroll
-        for (int e = 0; e < 16; ++e) acc[h][e] = fmaf(p, vf[e], acc[h][e]);
-      }
-    }
-  }
-#pragma unroll
-  for (int off = LPR; off < 32; off <<= 1)
-#pragma unroll
-    for (int h = 0; h < REP; ++h)
-#pragma unroll
-      for (int e = 0; e < 16; ++e) acc[h][e] += __shfl_xor_sync(0xffffffffu, acc[h][e], off);
-  if (grp == 0) {
-#pragma unroll
-    for (int h = 0; h < REP; ++h)
-#pragma unroll
-      for (int e = 0; e < 16; ++e) red[warp][h][V.dim(e)] = acc[h][e];
-  }
-  __syncthreads();
-
-  const size_t part = head * n_split + sp;
-  for (int idx = threadIdx.x; idx < REP * HD; idx += SNT) {
-    float a = 0.f;
-#pragma unroll
-    for (int w = 0; w < SNW; ++w) a += red[w][idx / HD][idx % HD];
-    part_acc[part * REP * HD + idx] = a;
-  }
-  if (threadIdx.x < REP) {
-    part_ml[(part * REP + threadIdx.x) * 2] = s_m[threadIdx.x];
-    part_ml[(part * REP + threadIdx.x) * 2 + 1] = s_l[threadIdx.x];
-  }
+    for (int e = 0; e < 16; ++e) qr[h][e] = q[(head * REP + h) * HD + K.dim(e)];
+  kvc::split_attend<T, HD, REP>(K, V, qr, n, [&](int i) { return row0 + r0 + i; }, part_ml + part * REP * 2,
+                                part_acc + part * REP * HD, sm);
 }
 
 // out = (sum_sp acc_sp e^(m_sp - M) + e^(s_new - M) v_new) / max(sum_sp l_sp
 // e^(m_sp - M) + e^(s_new - M), 1e-30), M the largest of the splits' maxima
-// and the current token's score s_new = q . k_new
+// and the current token's score s_new = q . k_new (kvc::merge_splits)
 template <int HD, int REP>
 __global__ void __launch_bounds__(SNT) kv_decode_merge(const float* __restrict__ q, const float* __restrict__ kn,
                                                        const float* __restrict__ vn,
@@ -183,7 +81,7 @@ __global__ void __launch_bounds__(SNT) kv_decode_merge(const float* __restrict__
   const int g = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t head = (size_t)b * n_kv + g;
-  for (int h = warp; h < REP; h += SNW) {
+  for (int h = warp; h < REP; h += kvc::SNW) {
     float d = 0.f;
     for (int i = lane; i < HD; i += 32) d = fmaf(q[(head * REP + h) * HD + i], kn[head * HD + i], d);
     d = kvc::warp_sum(d);
@@ -192,19 +90,9 @@ __global__ void __launch_bounds__(SNT) kv_decode_merge(const float* __restrict__
   __syncthreads();
   const float* ml = part_ml + head * n_split * REP * 2;
   const float* acc = part_acc + head * n_split * REP * HD;
-  for (int idx = threadIdx.x; idx < REP * HD; idx += SNT) {
-    const int h = idx / HD, d = idx % HD;
-    float M = s_new[h];
-    for (int sp = 0; sp < n_split; ++sp) M = fmaxf(M, ml[(sp * REP + h) * 2]);
-    const float pn = expf(s_new[h] - M);
-    float L = pn, A = pn * vn[head * HD + d];
-    for (int sp = 0; sp < n_split; ++sp) {
-      const float c = expf(ml[(sp * REP + h) * 2] - M);
-      L += ml[(sp * REP + h) * 2 + 1] * c;
-      A += acc[(size_t)sp * REP * HD + idx] * c;
-    }
-    out[head * REP * HD + idx] = A / fmaxf(L, 1e-30f);
-  }
+  for (int idx = threadIdx.x; idx < REP * HD; idx += SNT)
+    out[head * REP * HD + idx] =
+        kvc::merge_splits<HD, REP>(ml, acc, n_split, idx, s_new[idx / HD], 1.f, vn[head * HD + idx % HD]);
 }
 
 struct Launch {

@@ -7,11 +7,12 @@
 //   y[n, o] = scale[o] * sum_k x[n, k] * q[o, k]   (f32 sum over the whole K)
 //
 // Both byte formats are exact in bf16 (int8: 8 significant bits; e4m3: 4),
-// so the weights decode to bf16 in shared memory and the products run on the
-// tensor cores; e4m3 decodes by bit manipulation (wo::e4m3_to_float, all 256
-// codes). Layout: q [O, K] as `compress_weight` makes it ("int8" / "fp8"),
-// K a multiple of 16; scale [O] f32 (the wrapper broadcasts a scalar). What
-// bounds the kernel and what the main loop does about it: qmm_wo_common.cuh.
+// so the weights decode to bf16 and the products run on the tensor cores;
+// e4m3 decodes by the hardware's e4m3x2 conversion (all 256 codes), int8 by
+// a byte permute and an add. Layout: q [O, K] as `compress_weight` makes it
+// ("int8" / "fp8"), K a multiple of 16; scale [O] f32 (the wrapper
+// broadcasts a scalar). What bounds the kernel and what the main loops do
+// about it: qmm_wo_common.cuh.
 
 #include "qmm_wo_common.cuh"
 
@@ -33,38 +34,45 @@ struct ByteDec {
     return r;
   }
 
-  static __device__ __forceinline__ float value(uint32_t w, int i) {
-    if (FP8) return wo::e4m3_to_float((w >> (8 * i)) & 0xFFu);
-    return (float)(((int32_t)(w << (24 - 8 * i))) >> 24);  // signed byte i
+  // word -> its four values as two bf16 pairs, exactly: int8 by a byte
+  // permute and an add (fpdec::s8_to_float), e4m3 by the hardware's e4m3x2
+  // conversion
+  static __device__ __forceinline__ void word_pairs(uint32_t w, uint32_t* p) {
+    if (FP8) {
+      const float2 lo = fpdec::e4m3x2_to_float2(w), hi = fpdec::e4m3x2_to_float2(w >> 16);
+      p[0] = wo::pack_bf16(lo.x, lo.y);
+      p[1] = wo::pack_bf16(hi.x, hi.y);
+    } else {
+      const uint32_t f = w ^ 0x80808080u;
+      p[0] = wo::pack_bf16(fpdec::s8_to_float(f, 0), fpdec::s8_to_float(f, 1));
+      p[1] = wo::pack_bf16(fpdec::s8_to_float(f, 2), fpdec::s8_to_float(f, 3));
+    }
   }
 
-  static __device__ __forceinline__ void store(const Raw& r, wo::bf16* dst) {
-    const uint32_t v[4] = {r.v.x, r.v.y, r.v.z, r.v.w};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // words 2h, 2h + 1: k = 8h .. 8h + 7
-      uint4 out;
-      out.x = wo::pack_bf16(value(v[2 * h], 0), value(v[2 * h], 1));
-      out.y = wo::pack_bf16(value(v[2 * h], 2), value(v[2 * h], 3));
-      out.z = wo::pack_bf16(value(v[2 * h + 1], 0), value(v[2 * h + 1], 1));
-      out.w = wo::pack_bf16(value(v[2 * h + 1], 2), value(v[2 * h + 1], 3));
-      *reinterpret_cast<uint4*>(dst + 8 * h) = out;
-    }
+  // words 2q, 2q + 1: k = 8q .. 8q + 7
+  static __device__ __forceinline__ uint4 octet(const Raw& r, int q) {
+    uint32_t p[4];
+    word_pairs(q == 0 ? r.v.x : r.v.z, p);
+    word_pairs(q == 0 ? r.v.y : r.v.w, p + 2);
+    return make_uint4(p[0], p[1], p[2], p[3]);
   }
 };
 
 template <bool FP8>
-int run(const void* x, const void* w, const void* scale, void* y, int N, int K, int O, void* stream) {
+int run(const void* x, const void* w, const void* scale, void* y, int N, int K, int O, void* ws,
+        void* counters, int n_split, void* stream) {
   ByteDec<FP8> dec{static_cast<const uint8_t*>(w), K};
-  return (int)wo::launch<128, 128, 2, 4, 0, ByteDec<FP8>>(x, dec, nullptr,
-                                                          static_cast<const float*>(scale), nullptr, y,
-                                                          N, K, O, K, static_cast<cudaStream_t>(stream));
+  return (int)wo::launch<128, 128, 2, 4, 0, ByteDec<FP8>>(
+      x, dec, nullptr, static_cast<const float*>(scale), nullptr, y, N, K, O, K, static_cast<float*>(ws),
+      static_cast<int*>(counters), n_split, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace bytewo
 
-// x [N, K] bf16, w [O, K] int8 (fp8 = 0) or e4m3 (fp8 = 1) with K % 16 == 0, scale [O] f32, y [N, O] bf16.
+// x [N, K] bf16, w [O, K] int8 (fp8 = 0) or e4m3 (fp8 = 1) with K % 16 == 0, scale [O] f32, y [N, O] bf16;
+// ws, counters, n_split: the decode route's split over K (qmm_wo_common.cuh `launch`).
 extern "C" int byte_wo_gemm(const void* x, const void* w, const void* scale, void* y, int N, int K,
-                            int O, int fp8, void* stream) {
-  return fp8 ? bytewo::run<true>(x, w, scale, y, N, K, O, stream)
-             : bytewo::run<false>(x, w, scale, y, N, K, O, stream);
+                            int O, int fp8, void* ws, void* counters, int n_split, void* stream) {
+  return fp8 ? bytewo::run<true>(x, w, scale, y, N, K, O, ws, counters, n_split, stream)
+             : bytewo::run<false>(x, w, scale, y, N, K, O, ws, counters, n_split, stream);
 }

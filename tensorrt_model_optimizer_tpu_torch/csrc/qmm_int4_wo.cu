@@ -14,9 +14,11 @@
 // +128 / -136 offset and no side dot. Layout ("int4wo", ops/cuda/qmm_wo.py):
 // packed [O, Kp/2] uint8, rows contiguous in K, inside each 8-group of k
 // byte i = nib(k_i) | nib(k_{i+4}) << 4 (the byte order of "int4a8"), so a
-// 32-bit word decodes with two masks and one byte-wise subtract into the
-// codes of 8 consecutive k; scales [Kp/128, O] f32. What bounds the kernel
-// and what the main loop does about it: qmm_wo_common.cuh.
+// 32-bit word decodes by two byte permutes into the bf16 pairs of 8
+// consecutive k (`octet`); scales [Kp/128, O] f32. At decode the split over
+// K is in whole 128-blocks, so a split's partial is the sum of its blocks'
+// scaled sums, in order, and the splits add in order. What bounds the kernel
+// and what the main loops do about it: qmm_wo_common.cuh.
 
 #include "qmm_wo_common.cuh"
 
@@ -38,34 +40,31 @@ struct Int4Dec {
     return r;
   }
 
-  static __device__ __forceinline__ float byte_at(uint32_t w, int i) {
-    return (float)(((int32_t)(w << (24 - 8 * i))) >> 24);  // signed byte i
+  // bf16 with bits 0x4300 | u is 128 + u (u < 128), so a nibble u = code ^ 8
+  // placed in the mantissa and 136 subtracted gives the code, exactly: a byte
+  // permute, a shift, a mask-or and a bf16x2 subtract per two codes
+  static __device__ __forceinline__ uint32_t nib_pair(uint32_t bits) {
+    const uint32_t v = (bits & 0x000F000Fu) | 0x43004300u;
+    __nv_bfloat162 b = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v), __floats2bfloat162_rn(136.f, 136.f));
+    return *reinterpret_cast<uint32_t*>(&b);
   }
 
-  static __device__ __forceinline__ void store(const Raw& r, wo::bf16* dst) {
-    const uint32_t v[4] = {r.v.x, r.v.y, r.v.z, r.v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      // four 4-bit two's complement values in the low nibble of each byte -> int8x4
-      const uint32_t lo = __vsub4((v[j] & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);         // k = 8j + 0..3
-      const uint32_t hi = __vsub4(((v[j] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);  // k = 8j + 4..7
-      uint4 out;
-      out.x = wo::pack_bf16(byte_at(lo, 0), byte_at(lo, 1));
-      out.y = wo::pack_bf16(byte_at(lo, 2), byte_at(lo, 3));
-      out.z = wo::pack_bf16(byte_at(hi, 0), byte_at(hi, 1));
-      out.w = wo::pack_bf16(byte_at(hi, 2), byte_at(hi, 3));
-      *reinterpret_cast<uint4*>(dst + 8 * j) = out;
-    }
+  // word q: k = 8q + i in the low nibble of byte i, 8q + 4 + i in its high one
+  static __device__ __forceinline__ uint4 octet(const Raw& r, int q) {
+    const uint32_t w = (q == 0 ? r.v.x : q == 1 ? r.v.y : q == 2 ? r.v.z : r.v.w) ^ 0x88888888u;
+    const uint32_t b01 = __byte_perm(w, 0u, 0x4140), b23 = __byte_perm(w, 0u, 0x4342);  // bytes 0|1, 2|3 as halves
+    return make_uint4(nib_pair(b01), nib_pair(b23), nib_pair(b01 >> 4), nib_pair(b23 >> 4));
   }
 };
 
 }  // namespace int4wo
 
-// x [N, K] bf16 (K % 8 == 0), w [O, nblk * 64] uint8, s [nblk, O] f32, y [N, O] bf16.
+// x [N, K] bf16 (K % 8 == 0), w [O, nblk * 64] uint8, s [nblk, O] f32, y [N, O] bf16;
+// ws, counters, n_split: the decode route's split over K (qmm_wo_common.cuh `launch`).
 extern "C" int int4_wo_gemm(const void* x, const void* w, const void* s, void* y, int N, int K,
-                            int O, int nblk, void* stream) {
+                            int O, int nblk, void* ws, void* counters, int n_split, void* stream) {
   int4wo::Int4Dec dec{static_cast<const uint8_t*>(w), nblk * 64};
-  return (int)wo::launch<128, 64, 4, 2, 128, int4wo::Int4Dec>(x, dec, static_cast<const float*>(s), nullptr,
-                                                      nullptr, y, N, K, O, nblk * 128,
-                                                      static_cast<cudaStream_t>(stream));
+  return (int)wo::launch<128, 64, 4, 2, 128, int4wo::Int4Dec>(
+      x, dec, static_cast<const float*>(s), nullptr, nullptr, y, N, K, O, nblk * 128, static_cast<float*>(ws),
+      static_cast<int*>(counters), n_split, static_cast<cudaStream_t>(stream));
 }

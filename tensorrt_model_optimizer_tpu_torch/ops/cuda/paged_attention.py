@@ -4,11 +4,14 @@ per sequence, and `paged_attention_prefill`, a chunk of T tokens per
 sequence over the paged context plus, causally, the chunk's own k/v.
 
 Kernels: `csrc/paged_attention_decode.cu` and `csrc/paged_attention_prefill.cu`.
-The prefill has two routes that `prefill_route` picks from q's dtype, head_dim
-and rep alone: the tensor cores for bf16 q (the engine's activations: bf16
-out), the CUDA cores for f32 q (f32 out), which bf16 would round. On a CUDA
-tensor a wrapper launches its kernel or raises; only CPU tensors take the
-plain PyTorch versions.
+The decode splits each sequence's rows over blocks of SPLIT_ROWS (flash-
+decoding, as the dense KV decode does) and merges them in a second kernel,
+which writes q's dtype; `n_splits` sizes its grid from the block table's
+width. The prefill has two routes that `prefill_route` picks from q's
+dtype, head_dim and rep alone: the tensor cores for bf16 q (the engine's
+activations: bf16 out), the CUDA cores for f32 q (f32 out), which bf16
+would round. On a CUDA tensor a wrapper launches its kernel or raises; only
+CPU tensors take the plain PyTorch versions.
 
 Pages are `[n_pages, n_kv, page, C]`, kv-head-major, in stored form: `fmt
 "raw"` is bf16 values, int8 codes or fp8 e4m3 values (C = hd; the plain
@@ -30,9 +33,10 @@ import math
 import torch
 
 from . import _build
-from .kv_attention import FORMATS, decode_rows
+from .kv_attention import FORMATS, SPLIT_ROWS, decode_rows
 
-# kernel launches since the last reset (chip_smoke reads them); the
+# kernel wrapper calls that launched since the last reset (chip_smoke reads
+# them; a decode call launches the split and the merge kernel); the
 # prefill's also per route
 launches = {"paged_attention_decode": 0, "paged_attention_prefill": 0}
 prefill_route_launches = {"tensor_core": 0, "cuda_core": 0}
@@ -139,6 +143,15 @@ def _kernel_args(what, q, k_pages, v_pages, block_table, lens, fmt, scale_tensor
     return FORMATS[stored][0], rep
 
 
+def n_splits(max_pages: int, page: int, split_rows: int = SPLIT_ROWS) -> int:
+    """Splits of the decode kernel's grid: enough `split_rows`-row splits to
+    cover the block table's width, max_pages * page rows. Derived from the
+    table's shape alone, never from the lengths, so the host reads nothing
+    back from the card (a graph-captured step can replay it); splits past a
+    sequence's length write an empty state."""
+    return max(1, -(-max_pages * page // split_rows))
+
+
 def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                            block_table: torch.Tensor, seq_lens: torch.Tensor, fmt: str = "raw",
                            k_scale_pages=None, v_scale_pages=None) -> torch.Tensor:
@@ -152,18 +165,27 @@ def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
         return paged_attention_decode_plain(q, k_pages, v_pages, block_table, seq_lens, fmt,
                                             k_scale_pages, v_scale_pages)
     scales = (k_scale_pages, v_scale_pages) if fmt == "nvfp4" else ()
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"paged_attention_decode: the kernel takes bf16 or f32 q, got {q.dtype}")
+    q = q.contiguous()
     code, rep = _kernel_args("paged_attention_decode", q, k_pages, v_pages, block_table, seq_lens, fmt, scales)
-    _, n_kv, page, _ = k_pages.shape
-    qf = q.float().contiguous()
-    out = torch.empty((B, n_heads, hd), dtype=torch.float32, device=q.device)
+    n_pages, n_kv, page, _ = k_pages.shape
+    if n_pages * n_kv * page >= 2 ** 32:
+        raise ValueError("paged_attention_decode: the kernel indexes pool rows with 32 bits")
+    max_pages = block_table.shape[1]
+    n_split = n_splits(max_pages, page)
+    part_ml = torch.empty((B, n_kv, n_split, rep, 2), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((B, n_kv, n_split, rep, hd), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, n_heads, hd), dtype=q.dtype, device=q.device)
     ksp, vsp = (_build.ptr(t) for t in scales) if scales else (None, None)
     fn = _build.function("paged_attention_decode", "paged_attention_decode",
-                         [_build.c_int] * 3 + [_build.c_void_p] * 8 + [_build.c_int] * 4 + [_build.c_void_p])
-    _build.check(fn(code, hd, rep, _build.ptr(qf), _build.ptr(k_pages), _build.ptr(v_pages), ksp, vsp,
-                    _build.ptr(block_table), _build.ptr(seq_lens), _build.ptr(out), B, n_kv, page,
-                    block_table.shape[1], _build.stream()), "paged_attention_decode")
+                         [_build.c_int] * 3 + [_build.c_void_p] * 10 + [_build.c_int] * 6 + [_build.c_void_p])
+    _build.check(fn(code, hd, rep, _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages), ksp, vsp,
+                    _build.ptr(block_table), _build.ptr(seq_lens), _build.ptr(part_ml), _build.ptr(part_acc),
+                    _build.ptr(out), int(q.dtype == torch.bfloat16), B, n_kv, page, max_pages, n_split,
+                    _build.stream()), "paged_attention_decode")
     launches["paged_attention_decode"] += 1
-    return out.to(q.dtype)
+    return out
 
 
 def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,

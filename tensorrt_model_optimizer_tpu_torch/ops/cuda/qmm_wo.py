@@ -28,6 +28,17 @@ rounding of the sums and to the bf16 rounding of the output, not bit for
 bit. On a CUDA tensor a wrapper launches its kernel or raises; only CPU
 tensors take the plain version.
 
+At decode (N <= 16) the kernels split K over the grid in whole 128-wide
+blocks (`decode_splits`: as many splits as one wave of blocks holds) and sum
+the splits' f32 partials in split order inside the same launch, so a call
+is one launch and its result does not change from run to run. The int4
+partial of a split is its blocks' scaled sums in order, so only the order
+of the f32 additions differs from the plain version's. The partials and the
+per-tile arrival counters live in a workspace allocated once per (device,
+stream) and reused (`_workspace`): the kernel leaves every counter at 0, no
+call allocates it again once it is large enough, and two calls on one
+stream never overlap (the engine runs one stream).
+
 Layouts (this port's own; `quant/compress.py` `word_convert_site` makes them):
 
   "int4wo"   packed [O, Kp/2] uint8, the byte order of "int4a8"
@@ -63,6 +74,50 @@ FP4_PAD = 64  # fp4 rows pad to the kernel's K tile
 
 # kernel launches since the last reset (chip_smoke reads and resets them)
 launches = {"qmm_int4_wo": 0, "qmm_fp4_wo": 0, "qmm_byte_wo": 0}
+
+# the decode route (csrc/qmm_wo_common.cuh `decode_kernel`)
+SPLIT_K = 128              # K blocks a split is made of (int4's scale block)
+DECODE_ROWS = 64           # output rows of a block: 2 warps of 32
+TILE_ROWS = 32             # output rows of a warp, the fix-up's tile
+TILE_FLOATS = 512          # f32 partials of a tile: 32 rows x 16 tokens
+DECODE_WAVE = (6, 4)       # blocks an SM holds at N <= 8 / N <= 16 (the kernel's launch bounds)
+MIN_SPLIT_BLOCKS = 4       # K blocks a split holds at least, where K has them
+
+
+def decode_splits(O: int, Kp: int, N: int, sms: int) -> int:
+    """Splits of the decode route's K: the ceil(Kp / 128) whole K blocks
+    shared out over as many splits as one wave of blocks (DECODE_WAVE per
+    SM) holds beside the ceil(O / DECODE_ROWS) row tiles, but no split of
+    fewer than MIN_SPLIT_BLOCKS blocks where K has that many. One wave: a
+    second, part-filled one would double the time; a few blocks a split:
+    each split costs its tile a partial's write, a fence, an atomic and the
+    fix-up's read, which outlast one block's loads."""
+    nkb = -(-Kp // SPLIT_K)
+    tiles = -(-O // DECODE_ROWS)
+    return max(1, min(-(-nkb // MIN_SPLIT_BLOCKS), DECODE_WAVE[N > 8] * sms // tiles))
+
+
+_workspace: dict = {}  # (device index, stream) -> (f32 partials, int32 arrival counters)
+
+
+def _decode_split(device: torch.device, N: int, O: int, Kp: int):
+    """(workspace, counters, n_split) for a launch on the current stream: no
+    workspace at N > 16 (the prefill route) or at one split."""
+    if N > 16:
+        return _build.c_void_p(None), _build.c_void_p(None), 1
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    n_split = decode_splits(O, Kp, N, torch.cuda.get_device_properties(idx).multi_processor_count)
+    if n_split == 1:
+        return _build.c_void_p(None), _build.c_void_p(None), 1
+    tiles = -(-O // DECODE_ROWS) * (DECODE_ROWS // TILE_ROWS)
+    key = (idx, torch.cuda.current_stream(device).cuda_stream)
+    ws, counters = _workspace.get(key, (None, None))
+    if ws is None or ws.numel() < tiles * n_split * TILE_FLOATS:
+        ws = torch.empty(tiles * n_split * TILE_FLOATS, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(tiles, dtype=torch.int32, device=device)  # the kernel leaves them at 0
+    _workspace[key] = (ws, counters)
+    return _build.ptr(ws), _build.ptr(counters), n_split
 
 
 # --------------------------------------------------------------------------
@@ -194,10 +249,12 @@ def int4_wo_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) 
     x = _check_x(x, "int4_wo", packed, scales)
     packed, scales = _ready(packed), _ready(scales)
     y = torch.empty((N, O), dtype=torch.bfloat16, device=x.device)
+    ws, counters, n_split = _decode_split(x.device, N, O, nblk * A8_BLOCK)
     fn = _build.function("qmm_int4_wo", "int4_wo_gemm",
-                         [_build.c_void_p] * 4 + [_build.c_int] * 4 + [_build.c_void_p])
+                         [_build.c_void_p] * 4 + [_build.c_int] * 4 + [_build.c_void_p] * 2 + [_build.c_int]
+                         + [_build.c_void_p])
     _build.check(fn(_build.ptr(x), _build.ptr(packed), _build.ptr(scales), _build.ptr(y),
-                    N, K, O, nblk, _build.stream()), "int4_wo_gemm")
+                    N, K, O, nblk, ws, counters, n_split, _build.stream()), "int4_wo_gemm")
     launches["qmm_int4_wo"] += 1
     return y
 
@@ -223,10 +280,12 @@ def fp4_wo_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     packed, scales = _ready(packed), _ready(scales)
     gs = _build.c_void_p(None) if global_scale is None else _build.ptr(global_scale.contiguous())
     y = torch.empty((N, O), dtype=torch.bfloat16, device=x.device)
+    ws, counters, n_split = _decode_split(x.device, N, O, Kp)
     fn = _build.function("qmm_fp4_wo", "fp4_wo_gemm",
-                         [_build.c_void_p] * 5 + [_build.c_int] * 5 + [_build.c_void_p])
+                         [_build.c_void_p] * 5 + [_build.c_int] * 5 + [_build.c_void_p] * 2 + [_build.c_int]
+                         + [_build.c_void_p])
     _build.check(fn(_build.ptr(x), _build.ptr(packed), _build.ptr(scales), gs, _build.ptr(y),
-                    N, K, O, Kp, int(block == 32), _build.stream()), "fp4_wo_gemm")
+                    N, K, O, Kp, int(block == 32), ws, counters, n_split, _build.stream()), "fp4_wo_gemm")
     launches["qmm_fp4_wo"] += 1
     return y
 
@@ -248,9 +307,12 @@ def byte_wo_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> tor
     q = _ready(q)
     col = scale.float().reshape(-1).expand(O).contiguous()
     y = torch.empty((N, O), dtype=torch.bfloat16, device=x.device)
+    ws, counters, n_split = _decode_split(x.device, N, O, K)
     fn = _build.function("qmm_byte_wo", "byte_wo_gemm",
-                         [_build.c_void_p] * 4 + [_build.c_int] * 4 + [_build.c_void_p])
+                         [_build.c_void_p] * 4 + [_build.c_int] * 4 + [_build.c_void_p] * 2 + [_build.c_int]
+                         + [_build.c_void_p])
     _build.check(fn(_build.ptr(x), _build.ptr(q), _build.ptr(col), _build.ptr(y),
-                    N, K, O, int(q.dtype == torch.float8_e4m3fn), _build.stream()), "byte_wo_gemm")
+                    N, K, O, int(q.dtype == torch.float8_e4m3fn), ws, counters, n_split, _build.stream()),
+                 "byte_wo_gemm")
     launches["qmm_byte_wo"] += 1
     return y

@@ -253,3 +253,149 @@ def test_kernels_raise_on_cuda_tensors_they_do_not_take(cuda_device):
     t, _ = _to(cuda_device, args, kwargs)
     with pytest.raises(TypeError):  # f32 pages have no kernel: no quiet fall back to the plain version
         tpa.paged_attention_decode(t[0], t[1].float(), t[2].float(), t[3], t[4])
+
+
+# ---- the decode kernel's split over each sequence's rows (flash-decoding) ----
+
+
+def _split_merge(q, k_pages, v_pages, block_table, seq_lens, fmt, split_rows, k_scale_pages=None,
+                 v_scale_pages=None):
+    """The kernel's algorithm in plain PyTorch: `tpa.n_splits` splits of
+    `split_rows` rows from the table's width; split sp of a sequence takes
+    rows [sp * split_rows, min((sp + 1) * split_rows, len)), each row from
+    page table[s // page] (-1 as page 0), and keeps its max m, denominator l
+    = sum exp(s - m) and accumulator sum exp(s - m) v (a split past the
+    length: -1e30, 0, 0); the merge rescales the splits to their largest
+    max and divides by max(L, 1e-30). f32, scores q.k / sqrt(hd)."""
+    B, nH, hd = q.shape
+    n_pages, n_kv, page, _ = k_pages.shape
+    rep = nH // n_kv
+    max_pages = block_table.shape[1]
+    q4 = q.float().reshape(B, n_kv, rep, hd)
+    out = torch.zeros((B, n_kv, rep, hd))
+    for b in range(B):
+        n = min(int(seq_lens[b]), max_pages * page)
+        parts = []
+        for sp in range(tpa.n_splits(max_pages, page, split_rows)):
+            rows = torch.arange(sp * split_rows, max(sp * split_rows, min((sp + 1) * split_rows, n)))
+            if len(rows) == 0:
+                parts.append((torch.full((n_kv, rep), -1e30), torch.zeros((n_kv, rep)), torch.zeros((n_kv, rep, hd))))
+                continue
+            pid = block_table[b, rows // page].clamp_min(0).long()
+            at = rows % page
+
+            def stored(pages, scales):
+                rr = pages[pid, :, at]  # [rows, n_kv, C]
+                return decode_rows(rr, None if scales is None else scales[pid, :, at], fmt).transpose(0, 1)
+
+            k, v = stored(k_pages, k_scale_pages), stored(v_pages, v_scale_pages)  # [n_kv, rows, hd]
+            s = torch.einsum("grd,gsd->grs", q4[b], k) / np.sqrt(hd)
+            m = s.amax(dim=-1)
+            p = torch.exp(s - m[..., None])
+            parts.append((m, p.sum(dim=-1), torch.einsum("grs,gsd->grd", p, v)))
+        M = torch.stack([torch.full((n_kv, rep), -1e30)] + [m for m, _, _ in parts]).amax(dim=0)
+        L, A = torch.zeros((n_kv, rep)), torch.zeros((n_kv, rep, hd))
+        for m, l, acc in parts:
+            c = torch.exp(m - M)
+            L = L + l * c
+            A = A + acc * c[..., None]
+        out[b] = A / L.clamp_min(1e-30)[..., None]
+    return out.reshape(B, nH, hd)
+
+
+SPLIT_LENS = {"last_row": [0, 1, 15, 16, 17, 48], "wide_table": [0, 1, 15, 16, 17, 20]}
+
+
+def _split_case(fmt, page, lens, seed):
+    """Six sequences over a shuffled pool; the table spans 48 rows (6 pages
+    of 8 or 4 of 12), so 16-row splits make three of them: "last_row" fills
+    the table, "wide_table" leaves its last split empty for every sequence."""
+    n_kv, rep, hd, B = 2, 2, 32, len(lens)
+    max_pages = 48 // page
+    rng = np.random.default_rng(seed)
+    n_pages = 1 + B * max_pages
+    k, ks = _stored(rng, (n_pages, n_kv, page, hd), fmt)
+    v, vs = _stored(rng, (n_pages, n_kv, page, hd), fmt)
+    perm = (rng.permutation(n_pages - 1) + 1).reshape(B, max_pages)
+    live = np.arange(max_pages)[None] * page < np.asarray(lens)[:, None]
+    table = np.where(live, perm, -1).astype(np.int32)
+    q = (rng.standard_normal((B, n_kv * rep, hd)) / (40.0 if fmt == "int8" else 1.0)).astype(np.float32)
+    kwargs = {} if ks is None else {"k_scale_pages": ks, "v_scale_pages": vs}
+    return (q, k, v, table, np.asarray(lens, np.int32)), kwargs
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("page", [8, 12])
+@pytest.mark.parametrize("lens", list(SPLIT_LENS), ids=str)
+def test_split_merge_matches_plain_and_pallas(fmt, page, lens):
+    """16-row splits here (the kernel's are SPLIT_ROWS): lengths 0, 1, each
+    side of the first boundary, and either the table's last row or a table
+    wider than the longest sequence needs."""
+    args, kwargs = _split_case(fmt, page, SPLIT_LENS[lens], seed=page + len(lens))
+    assert tpa.n_splits(args[3].shape[1], page, 16) == 3
+    out, ref = _both(jpa.paged_attention_decode, tpa.paged_attention_decode, args, kwargs, fmt)
+    t = [convert.tensor_from_array(a) for a in args]
+    kw = {key: convert.tensor_from_array(val) for key, val in kwargs.items()}
+    split = _split_merge(*t, "nvfp4" if fmt == "nvfp4" else "raw", 16, **kw)
+    assert rel_err(split.numpy(), out.numpy()) < 1e-5
+    assert rel_err(split.numpy(), ref) < 1e-5
+    assert not split[0].any()  # length 0: exactly 0
+
+
+def test_split_count_comes_from_the_table_width():
+    """The decode kernel's grid: ceil(max_pages * page / SPLIT_ROWS) splits,
+    at least one; the lengths are not an argument, so the host never reads
+    them back from the card. The kernels phase's 130-page table of 16 rows
+    makes 9 splits, the full serve run's 69-page table 5."""
+    import inspect
+
+    assert tpa.SPLIT_ROWS == 256
+    assert list(inspect.signature(tpa.n_splits).parameters) == ["max_pages", "page", "split_rows"]
+    assert tpa.n_splits(130, 16) == 9 and tpa.n_splits(69, 16) == 5
+    assert tpa.n_splits(16, 16) == 1 and tpa.n_splits(17, 16) == 2 and tpa.n_splits(1, 1) == 1
+    for max_pages, page in ((1, 8), (7, 12), (32, 8), (43, 12), (3, 128)):
+        n = tpa.n_splits(max_pages, page)
+        assert (n - 1) * 256 < max_pages * page <= n * 256
+
+
+EDGE_LENS = [0, 1, 255, 256, 257, 511, 512, 513, 600]  # each side of the kernel's 256-row split edges
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("page", [12, 16, 128])
+def test_decode_kernel_at_split_edges(cuda_device, fmt, page):
+    """The split kernel and its merge (one call each: `launches` + 1) with
+    lengths on each side of the 256-row split edges, bf16 and f32 q, against
+    the plain version's f32 result. f32 q: 1e-5 of the output's scale;
+    bf16 q: the output rounds once to bf16, 2^-8 |ref| more. NVFP4 adds
+    the f32 score limit above."""
+    B, n_kv, rep, hd = len(EDGE_LENS), 2, 4, 64
+    max_pages = -(-max(EDGE_LENS) // page) + 1
+    rng = np.random.default_rng(page)
+    n_pages = 1 + B * max_pages
+    k, ks = _stored(rng, (n_pages, n_kv, page, hd), fmt)
+    v, vs = _stored(rng, (n_pages, n_kv, page, hd), fmt)
+    perm = (rng.permutation(n_pages - 1) + 1).reshape(B, max_pages)
+    live = np.arange(max_pages)[None] * page < np.asarray(EDGE_LENS)[:, None]
+    table = np.where(live, perm, -1).astype(np.int32)
+    q = (rng.standard_normal((B, n_kv * rep, hd)) / (40.0 if fmt == "int8" else 1.0)).astype(np.float32)
+    kwargs = {} if ks is None else {"k_scale_pages": ks, "v_scale_pages": vs}
+    t, kw = _to(cuda_device, (q, k, v, table, np.asarray(EDGE_LENS, np.int32)), kwargs)
+    kind = "nvfp4" if fmt == "nvfp4" else "raw"
+    for qdt in (torch.float32, torch.bfloat16):
+        args = [t[0].to(qdt), *t[1:]]
+        n0 = tpa.launches["paged_attention_decode"]
+        out = tpa.paged_attention_decode(*args, fmt=kind, **kw)
+        torch.cuda.synchronize()
+        assert tpa.launches["paged_attention_decode"] == n0 + 1 and out.dtype == qdt
+        ref = tpa.paged_attention_decode_plain(*args, fmt=kind, out_dtype=torch.float32, **kw)
+        assert not out[0].any()  # length 0
+        if fmt == "nvfp4":
+            limit = _nvfp4_decode_limit(*args, **kw) + (2.0 ** -8 * ref.abs() if qdt == torch.bfloat16 else 0)
+            _within_f32_score_limit(out, ref, limit)
+        elif qdt == torch.float32:
+            assert rel_err(out.cpu().numpy(), ref.cpu().numpy()) < 1e-5
+        else:
+            err = (out.float() - ref).abs()
+            assert bool((err <= 2.0 ** -8 * ref.abs() + 1e-5 * ref.abs().max()).all())

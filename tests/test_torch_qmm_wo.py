@@ -213,3 +213,142 @@ def test_byte_kernel_odd_output_width(cuda_device):
         torch.cuda.synchronize()
         ref = (tx.double() @ q.double().t()) * scale.double().reshape(1, -1)
         _held(out.float().cpu().numpy(), ref.numpy())
+
+
+# ---- the decode route's split over K (csrc/qmm_wo_common.cuh decode_kernel) ----
+
+
+def _split_bounds(nkb, n_split):
+    """The K blocks [b0, b1) of each split, as the kernel cuts them
+    (`decode_kernel`: kb0 = sp * nkb / n_split)."""
+    return [(sp * nkb // n_split, (sp + 1) * nkb // n_split) for sp in range(n_split)]
+
+
+def _int4_split_k(x, packed, scales, n_split):
+    """The kernel's int4 order at decode: K blocks of 128 shared out by
+    `_split_bounds`; a split's partial is the sum over its blocks, in
+    order, of s[b, o] times the block's f32 sum (each product and sum
+    rounded to f32, as __fmul_rn / __fadd_rn); the splits' partials add in
+    split order 0, 1, ... (the fix-up)."""
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda.qmm import int4_a8_codes
+
+    nblk, O = scales.shape
+    codes = int4_a8_codes(packed).float()
+    xp = torch.nn.functional.pad(x.float(), (0, nblk * 128 - x.shape[1]))
+    total = None
+    for b0, b1 in _split_bounds(nblk, n_split):
+        acc = torch.zeros((x.shape[0], O))
+        for b in range(b0, b1):
+            blk = slice(b * 128, (b + 1) * 128)
+            acc = acc + (xp[:, blk] @ codes[:, blk].t()) * scales[b]
+        total = acc if total is None else total + acc
+    return total
+
+
+@pytest.mark.parametrize("k,n_split", [(2048, 3), (2048, 16), (2048, 1), (704, 4), (704, 6)])
+def test_split_k_order_matches_plain(k, n_split):
+    """Whole 128-blocks, splits summed in order: against the plain version
+    (blocks in order over all of K) to f32 rounding, and, at K = 2048,
+    against JAX's qmm_int4_bd2 (Pallas, interpret mode) to the bf16
+    tolerance of this file. 16 blocks in 3 splits (5, 5, 6) leave a split
+    the others do not divide; K = 704 is 6 blocks, the last one ragged (JAX's
+    bd2 cannot take it: ROADMAP queue 3), held against an f64 dense product."""
+    _, _, tk, ta = _packs("INT4_BLOCKWISE_WEIGHT_ONLY_CFG", o=96, k=k, seed=k + n_split)
+    tk2, ta2 = tc.word_convert_site(tk, ta, "bd2")
+    jx, tx = _x(8, k=k)
+    bounds = _split_bounds(ta2["scales"].shape[0], n_split)
+    assert bounds[0][0] == 0 and bounds[-1][1] == ta2["scales"].shape[0]
+    assert all(b0 < b1 for b0, b1 in bounds) and all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    split = _int4_split_k(tx, ta2["packed"], ta2["scales"], n_split)
+    plain = qmm_wo.int4_wo_matmul_plain(tx, ta2["packed"], ta2["scales"], out_dtype=torch.float32)
+    assert float((split - plain).abs().max()) <= 1e-5 * float(plain.abs().max())
+    if n_split == 1:
+        assert torch.equal(split, plain)
+    _held(split.to(torch.bfloat16).float().numpy(),
+          (tx.double() @ tc.decompress_weight(tk2, ta2, torch.float32).double().t()).numpy())
+    if k == 2048:
+        jk, ja, _, _ = _packs("INT4_BLOCKWISE_WEIGHT_ONLY_CFG", o=96, k=k, seed=k + n_split)
+        jk2, ja2 = jc.word_convert_site(jk, ja, "bd2")
+        _held(split.to(torch.bfloat16).float().numpy(), jqmm.quantized_matmul(jx, jk2, ja2).astype(jnp.float32))
+
+
+# Llama-3.1-8B's projections: (O, K)
+PROJ_8B = {"q_proj/o_proj": (4096, 4096), "k_proj/v_proj": (1024, 4096), "gate_proj/up_proj": (14336, 4096),
+           "down_proj": (4096, 14336)}
+
+
+@pytest.mark.parametrize("proj", list(PROJ_8B))
+@pytest.mark.parametrize("n", [8, 16])
+def test_decode_split_count_at_8b_shapes(proj, n):
+    """On an H100 (132 SMs), every 8B projection's decode grid: whole
+    128-blocks in each split, MIN_SPLIT_BLOCKS or more in every split; no
+    more blocks than one wave holds (DECODE_WAVE a SM); at least 4 row tiles
+    of the fix-up (32 output rows, a warp) per SM over all splits, unless the
+    splits are as many as MIN_SPLIT_BLOCKS allows. N = 8: down_proj 12
+    splits of 9-10 blocks (768 blocks of 64 rows), gate_proj 3 (672),
+    q_proj 8 (512), k_proj 8 (128: its 2 MB of weights take one round trip)."""
+    O, K = PROJ_8B[proj]
+    splits = qmm_wo.decode_splits(O, K, n, 132)
+    nkb = K // 128
+    bounds = _split_bounds(nkb, splits)
+    assert sum(b1 - b0 for b0, b1 in bounds) == nkb
+    assert min(b1 - b0 for b0, b1 in bounds) >= qmm_wo.MIN_SPLIT_BLOCKS
+    blocks = -(-O // qmm_wo.DECODE_ROWS) * splits
+    assert blocks <= qmm_wo.DECODE_WAVE[n > 8] * 132
+    assert -(-O // qmm_wo.TILE_ROWS) * splits >= 4 * 132 or splits == nkb // qmm_wo.MIN_SPLIT_BLOCKS
+    if n == 8:
+        assert splits == {"down_proj": 12, "gate_proj/up_proj": 3, "q_proj/o_proj": 8, "k_proj/v_proj": 8}[proj]
+    assert qmm_wo.decode_splits(O, 64, n, 132) == 1
+
+WO_FORMATS = [("INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "bd2"), ("NVFP4_DEFAULT_CFG", "word2"),
+              ("MXFP4_DEFAULT_CFG", "word2"), ("INT8_DEFAULT_CFG", None), ("FP8_DEFAULT_CFG", None)]
+
+
+def _on_card(dev, preset, layout, o, k, seed):
+    _, _, tk, ta = _packs(preset, o=o, k=k, seed=seed)
+    if layout is not None:
+        tk, ta = tc.word_convert_site(tk, ta, layout)
+    arr = {key: (v.to(dev) if isinstance(v, torch.Tensor) else v) for key, v in ta.items()}
+    return tk, ta, arr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,layout", WO_FORMATS)
+def test_decode_route_every_n(cuda_device, preset, layout):
+    """The decode route at N = 1 .. 16 (one n8 tile of tokens up to 8, two
+    above) at ragged O and K, against an f64 dense product: O = 200 and K =
+    704 (6 K blocks, the last ragged, in 2 splits), O = 66 and K = 2432 (19
+    blocks in 5 splits of 3 and 4), O = 40 and K = 8192 (16 splits: the
+    fix-up reads them in two batches) and O = 130 at K = 128 (one split, no
+    fix-up)."""
+    for o, k in ((200, 704), (66, 2432), (40, 8192), (130, 128)):
+        tk, ta, arr = _on_card(cuda_device, preset, layout, o, k, seed=o + k)
+        ref_w = tc.decompress_weight(tk, ta, torch.float32).double()
+        for n in range(1, 17):
+            tx = _x(n, k=k, seed=n)[1]
+            out = _port_matmul(tx.to(cuda_device), tk, arr)
+            torch.cuda.synchronize()
+            assert out.shape == (n, o)
+            _held(out.float().cpu().numpy(), (tx.double() @ ref_w.t()).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,layout", WO_FORMATS)
+def test_decode_route_reuses_its_workspace(cuda_device, preset, layout):
+    """k_proj's shape (O 1024, K 4096: 8 splits of 4 K blocks): two calls
+    with different activations on the one workspace, each within the
+    kernel's limit of the plain version, then the first activations again:
+    bit-identical to the first call (the splits add in a fixed order, and
+    the last arrival set every counter back to 0)."""
+    tk, _, arr = _on_card(cuda_device, preset, layout, 1024, 4096, seed=3)
+    assert qmm_wo.decode_splits(1024, 4096, 8, torch.cuda.get_device_properties(cuda_device).multi_processor_count) > 1
+    plain = {"int4wo": qmm_wo.int4_wo_matmul_plain, "nvfp4wo": qmm_wo.fp4_wo_matmul_plain,
+             "mxfp4wo": qmm_wo.fp4_wo_matmul_plain}.get(tk, qmm_wo.byte_wo_matmul_plain)
+    args = [arr[k] for k in (("packed", "scales", "global_scale") if "packed" in arr else ("q", "scale")) if k in arr]
+    x1, x2 = (_x(8, k=4096, seed=s)[1].to(cuda_device) for s in (11, 12))
+    y1, y2, y1_again = (_port_matmul(x, tk, arr) for x in (x1, x2, x1))
+    torch.cuda.synchronize()
+    for y, x in ((y1, x1), (y2, x2)):
+        ref = plain(x, *args, out_dtype=torch.float32)
+        assert bool(((y.float() - ref).abs() <= 2.0 ** -8 * ref.abs() + 1e-3 * ref.square().mean().sqrt()).all())
+    assert torch.equal(y1, y1_again)

@@ -1,6 +1,7 @@
 #!/bin/bash
 # Mutation checks of chip_smoke.py's checks of the port's weight-only GEMM
-# kernels (tensorrt_model_optimizer_tpu_torch/csrc/qmm_*_wo.cu), KV-cache
+# kernels (tensorrt_model_optimizer_tpu_torch/csrc/qmm_*_wo.cu, both routes
+# of qmm_wo_common.cuh: the prefill tiles and the split-K decode), KV-cache
 # attention kernels (kv_decode_attention.cu, paged_attention_*.cu, the
 # paged prefill's two routes), the
 # tensor-core flash kernel (flash_gqa.cu on the tile primitives of
@@ -37,13 +38,20 @@ run() {  # name, file under csrc/, sed expression
 # int4: the odd column of each pair takes the even column's block scale
 run int4_scale_col qmm_wo_common.cuh 's/__fmul_rn(part\[i\]\[j\]\[1\], s1)/__fmul_rn(part[i][j][1], s0)/'
 # fp4: the second 16-block of a chunk takes the first block's scale
-run fp4_second_block qmm_fp4_wo.cu 's/const float sc = j < 2 ? s0 : s1;/const float sc = s0;/'
+run fp4_second_block qmm_fp4_wo.cu 's/sc = wo::e4m3_to_float(q < 2 ? r.s \& 0xFFu : (r.s >> 8) \& 0xFFu);/sc = wo::e4m3_to_float(r.s \& 0xFFu);/'
 # main loop: the last 16 k of every K tile are skipped
 run skip_last_k16 qmm_wo_common.cuh 's/for (int kk = 0; kk < BK; kk += 16) {/for (int kk = 0; kk < BK - 16; kk += 16) {/'
-# int4: nibble sign extension dropped (codes 8..15 read as +8..+15)
-run int4_sign qmm_int4_wo.cu 's/__vsub4((v\[j\] \& 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u)/(v[j] \& 0x0F0F0F0Fu)/'
+# int4: the sign flip of the nibbles dropped (each code read as its nibble - 8)
+run int4_sign qmm_int4_wo.cu 's/r.v.z : r.v.w) ^ 0x88888888u;/r.v.z : r.v.w);/'
+# weight-only decode route: the fix-up skips the last split
+run wo_splitk_drop_last qmm_wo_common.cuh 's/s + q < n_split/s + q < n_split - 1/g'
+# weight-only decode route: the fix-up leaves its tile's arrival counter set,
+# so no later call on the workspace finds itself last
+run wo_splitk_no_reset qmm_wo_common.cuh '/counters\[wt\] = 0;/d'
 # paged decode: the last live row of every sequence is masked out
 run paged_decode_last_row paged_attention_decode.cu 's/const int len = min(lens\[b\], max_pages \* page);/const int len = min(lens[b] - 1, max_pages * page);/'
+# paged decode: the merge skips the last split of the table
+run paged_decode_merge_drop_last paged_attention_decode.cu 's/merge_splits<HD, REP>(ml, acc, n_split, idx, -1e30f/merge_splits<HD, REP>(ml, acc, n_split - 1, idx, -1e30f/'
 # paged prefill, CUDA-core route (f32 q): the causal mask takes < for <= (a
 # token no longer sees itself)
 run paged_prefill_causal paged_attention_prefill.cu 's/if (j <= t) {/if (j < t) {/; s/if (base + u > t) break;/if (base + u >= t) break;/'
@@ -54,7 +62,7 @@ run paged_prefill_tc_causal_late paged_attention_prefill.cu 's/(!ctx_tile \&\& c
 # every 64-key context tile
 run paged_prefill_tc_skip_last_page paged_attention_prefill.cu 's/        if (s >= ctx) return -1;/        if (s >= ctx || r \/ page == TBK \/ page - 1) return -1;/'
 # kv decode: the merge drops the last split of the cache
-run kv_decode_merge_drop_last kv_decode_attention.cu 's/for (int sp = 0; sp < n_split; ++sp) {/for (int sp = 0; sp < n_split - 1; ++sp) {/'
+run kv_decode_merge_drop_last kv_decode_attention.cu 's/merge_splits<HD, REP>(ml, acc, n_split, idx, s_new/merge_splits<HD, REP>(ml, acc, n_split - 1, idx, s_new/'
 # NVFP4 rows (CUDA-core walk, `Rows<Fp4>`): the high plane takes the low
 # plane's block-scale bytes
 run nvfp4_high_plane_scale kv_common.cuh 's|s(static_cast<const uint8_t\*>(scales) + lane \* E / 16)|s(static_cast<const uint8_t*>(scales) + (lane \& 15) * E / 16)|'

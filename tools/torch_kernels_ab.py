@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's KV decode and paged prefill kernels in two trees of the
-repo on one CUDA card, the same way and on the same inputs.
+"""Time the port's attention and weight-only GEMM kernels in two trees of
+the repo on one CUDA card, the same way and on the same inputs.
 
-    python3 tools/torch_kv_kernels_ab.py --base OLD_TREE --change NEW_TREE
+    python3 tools/torch_kernels_ab.py --base OLD_TREE --change NEW_TREE [--groups kv,paged_prefill,paged_decode,wo]
 
 Both trees hold the package `tensorrt_model_optimizer_tpu_torch`, so each
 timing run is a process of its own that imports one tree's package (and
@@ -10,11 +10,17 @@ builds its kernels from that tree's `csrc/`). The runs go base, change,
 change, base, so that a drift of the card's clock over the call shows. The
 Timer (cold L2, the card held by a spin while the host enqueues), the seeded
 inputs and the shapes come from THIS checkout's `chip_smoke.py`, whatever
-the trees' own scripts do: `kv_decode_attention` at B 8, n_kv 8, rep 4, hd
-128, pos 2048 in every stored form, and `paged_attention_prefill` with bf16
-q (the engine's chunk step) at T = 64 and T = 5 over ragged contexts, pages
-of 16. Each output is held against its own tree's plain version (rel err
-printed, not a gate: this script measures and does not judge).
+the trees' own scripts do. Groups (all by default):
+  kv             `kv_decode_attention` at B 8, n_kv 8, rep 4, hd 128, pos 2048,
+                 every stored form;
+  paged_prefill  `paged_attention_prefill` with bf16 q (the engine's chunk
+                 step) at T = 64 and T = 5 over ragged contexts, pages of 16;
+  paged_decode   `paged_attention_decode` with bf16 q, 8 sequences of 2048
+                 rows and ragged lengths, a 130-page table of 16 rows;
+  wo             the weight-only GEMMs (INT4, NVFP4, MXFP4, INT8, FP8) at
+                 chip_smoke's projection shapes, N = 8 and N = 16384.
+Each output is held against its own tree's plain version (rel err printed,
+not a gate: this script measures and does not judge).
 
 Prints one JSON line per run and, last, {"median_ms": {case: {tree: ms}}}
 with the median over each tree's two runs. Exits non-zero if a run fails.
@@ -31,7 +37,9 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = ["kv_decode_attention", "paged_attention_prefill"]
+GROUPS = ("kv", "paged_prefill", "paged_decode", "wo")
+SOURCES = {"kv": ["kv_decode_attention"], "paged_prefill": ["paged_attention_prefill"],
+           "paged_decode": ["paged_attention_decode"], "wo": ["qmm_int4_wo", "qmm_fp4_wo", "qmm_byte_wo"]}
 
 
 def _smoke():
@@ -52,12 +60,12 @@ def _import_tree(tree: str):
     return _build, kv_attention, paged_attention
 
 
-def build(tree: str) -> None:
+def build(tree: str, groups: list) -> None:
     _build, _, _ = _import_tree(tree)
-    _build.build_all(SOURCES)
+    _build.build_all([src for grp in groups for src in SOURCES[grp]])
 
 
-def run(tree: str) -> dict:
+def run(tree: str, groups: list) -> dict:
     _, kv_attention, paged_attention = _import_tree(tree)  # before chip_smoke puts HERE on sys.path
     import torch
 
@@ -69,7 +77,7 @@ def run(tree: str) -> dict:
     B, n_kv, rep, hd, S, pos = sz.kv
     nH, page = n_kv * rep, sz.page
     out = {}
-    for fmt in smoke.KV_FORMATS:
+    for fmt in smoke.KV_FORMATS if "kv" in groups else ():
         kc, ks, qf = smoke._stored_rows(torch, dev, g, (B, n_kv, S, hd), fmt)
         vc, vs, _ = smoke._stored_rows(torch, dev, g, (B, n_kv, S, hd), fmt)
         q = torch.randn((B, nH, hd), generator=g, device=dev) / hd ** 0.5 * qf
@@ -79,16 +87,10 @@ def run(tree: str) -> dict:
         out[f"kv_decode_attention {fmt} pos={pos}"] = {
             "ms": timer(lambda: kv_attention.kv_decode_attention(*args), sz.reps), "rel_err": rel}
         del kc, vc, ks, vs
-    for T, ctx in ((sz.chunk, [1024, 960, 256, 70, 64, 1, 0, 0][:B]), (5, [1024, 37, 256, 70, 64, 1, 0, 0][:B])):
+    prefill = ((sz.chunk, [1024, 960, 256, 70, 64, 1, 0, 0][:B]), (5, [1024, 37, 256, 70, 64, 1, 0, 0][:B]))
+    for T, ctx in prefill if "paged_prefill" in groups else ():
         for fmt in smoke.KV_FORMATS:
-            max_pages = 1024 // page + 2
-            n_pages = 1 + B * max_pages
-            kp, ksp, qf = smoke._stored_rows(torch, dev, g, (n_pages, n_kv, page, hd), fmt)
-            vp, vsp, _ = smoke._stored_rows(torch, dev, g, (n_pages, n_kv, page, hd), fmt)
-            perm = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1).to(torch.int32).reshape(B, max_pages)
-            live = torch.arange(max_pages, device=dev)[None] * page < torch.tensor(ctx, device=dev)[:, None]
-            table = torch.where(live, perm, torch.full_like(perm, -1))
-            tl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+            kp, vp, ksp, vsp, qf, table, tl = smoke._paged_pool(torch, dev, g, sz, fmt, ctx, 1024 // page + 2)
             ck, cks, _ = smoke._stored_rows(torch, dev, g, (B, T, n_kv, hd), fmt)
             cv, cvs, _ = smoke._stored_rows(torch, dev, g, (B, T, n_kv, hd), fmt)
             q = (torch.randn((B, T, nH, hd), generator=g, device=dev) * qf).to(torch.bfloat16)
@@ -98,6 +100,25 @@ def run(tree: str) -> dict:
             out[f"paged_attention_prefill {fmt} T={T} bf16 q"] = {
                 "ms": timer(lambda: paged_attention.paged_attention_prefill(*args), sz.reps), "rel_err": rel}
             del kp, vp, ksp, vsp
+    for what, lens in (("uniform", [2048] * B), ("ragged", [2048, 1153, 1024, 513, 17, 16, 1, 0][:B])) \
+            if "paged_decode" in groups else ():
+        for fmt in smoke.KV_FORMATS:
+            kp, vp, ksp, vsp, qf, table, tl = smoke._paged_pool(torch, dev, g, sz, fmt, lens, 2048 // page + 2)
+            q = (torch.randn((B, nH, hd), generator=g, device=dev) * qf).to(torch.bfloat16)
+            args = (q, kp, vp, table, tl, "nvfp4" if fmt == "nvfp4" else "raw", ksp, vsp)
+            rel = smoke._rel(paged_attention.paged_attention_decode(*args).float(),
+                             paged_attention.paged_attention_decode_plain(*args, out_dtype=torch.float32))
+            out[f"paged_attention_decode {fmt} {what} bf16 q"] = {
+                "ms": timer(lambda: paged_attention.paged_attention_decode(*args), sz.reps), "rel_err": rel}
+            del kp, vp, ksp, vsp
+    for O, K, label in sz.qmm_shapes if "wo" in groups else ():
+        for N in sz.qmm_rows:
+            x = torch.randn((N, K), generator=g, device=dev).to(torch.bfloat16)
+            for name, fmt, fn, plain, w, _, _ in smoke._wo_cases(torch, dev, g, O, K):
+                rel = smoke._rel(fn(x, *w).float(), plain(x, *w, out_dtype=torch.float32))
+                out[f"{name} {fmt} {label} N={N}"] = {"ms": timer(lambda: fn(x, *w), sz.reps), "rel_err": rel}
+                del w
+            del x
     return out
 
 
@@ -105,25 +126,30 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--base", help="the tree measured first and last")
     ap.add_argument("--change", help="the tree measured second and third")
+    ap.add_argument("--groups", default=",".join(GROUPS), help=f"comma-separated, of {', '.join(GROUPS)}")
     ap.add_argument("--worker", nargs=2, metavar=("MODE", "TREE"), help=argparse.SUPPRESS)
     a = ap.parse_args()
+    groups = a.groups.split(",")
+    if set(groups) - set(GROUPS):
+        ap.error(f"--groups: unknown {sorted(set(groups) - set(GROUPS))}")
     if a.worker:
         mode, tree = a.worker
         if mode == "build":
-            build(tree)
+            build(tree, groups)
         else:
-            print(json.dumps(run(tree)), flush=True)
+            print(json.dumps(run(tree, groups)), flush=True)
         return 0
     if not (a.base and a.change):
         ap.error("--base and --change are required")
     trees = {"base": a.base, "change": a.change}
     me = os.path.abspath(__file__)
-    builds = [subprocess.Popen([sys.executable, me, "--worker", "build", t]) for t in trees.values()]
+    worker = [sys.executable, me, "--groups", a.groups, "--worker"]
+    builds = [subprocess.Popen(worker + ["build", t]) for t in trees.values()]
     if any(p.wait() != 0 for p in builds):
         return 1
     runs: dict[str, list[dict]] = {"base": [], "change": []}
     for name in ("base", "change", "change", "base"):
-        r = subprocess.run([sys.executable, me, "--worker", "run", trees[name]], capture_output=True, text=True)
+        r = subprocess.run(worker + ["run", trees[name]], capture_output=True, text=True)
         if r.returncode != 0:
             print(r.stdout + r.stderr, file=sys.stderr)
             return 1
