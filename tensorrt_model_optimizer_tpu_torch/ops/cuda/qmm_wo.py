@@ -29,15 +29,16 @@ bit. On a CUDA tensor a wrapper launches its kernel or raises; only CPU
 tensors take the plain version.
 
 At decode (N <= 16) the kernels split K over the grid in whole 128-wide
-blocks (`decode_splits`: as many splits as one wave of blocks holds) and sum
-the splits' f32 partials in split order inside the same launch, so a call
-is one launch and its result does not change from run to run. The int4
-partial of a split is its blocks' scaled sums in order, so only the order
-of the f32 additions differs from the plain version's. The partials and the
-per-tile arrival counters live in a workspace allocated once per (device,
-stream) and reused (`_workspace`): the kernel leaves every counter at 0, no
-call allocates it again once it is large enough, and two calls on one
-stream never overlap (the engine runs one stream).
+blocks (`qmm.decode_splits`: as many splits as one wave of blocks holds)
+and sum the splits' f32 partials in split order inside the same launch, so
+a call is one launch and its result does not change from run to run. The
+int4 partial of a split is its blocks' scaled sums in order, so only the
+order of the f32 additions differs from the plain version's. The partials
+and the per-tile arrival counters live in a workspace allocated once per
+(device, stream) and reused (`qmm._workspace`, shared with the W4A8 decode
+route): the kernels leave every counter at 0, no call allocates it again
+once it is large enough, and two calls on one stream never overlap (the
+engine runs one stream).
 
 Layouts (this port's own; `quant/compress.py` `word_convert_site` makes them):
 
@@ -68,57 +69,12 @@ import torch
 
 from ...ops import numerics
 from . import _build
-from .qmm import A8_BLOCK, int4_a8_codes
+from .qmm import A8_BLOCK, _decode_split, int4_a8_codes
 
 FP4_PAD = 64  # fp4 rows pad to the kernel's K tile
 
 # kernel launches since the last reset (chip_smoke reads and resets them)
 launches = {"qmm_int4_wo": 0, "qmm_fp4_wo": 0, "qmm_byte_wo": 0}
-
-# the decode route (csrc/qmm_wo_common.cuh `decode_kernel`)
-SPLIT_K = 128              # K blocks a split is made of (int4's scale block)
-DECODE_ROWS = 64           # output rows of a block: 2 warps of 32
-TILE_ROWS = 32             # output rows of a warp, the fix-up's tile
-TILE_FLOATS = 512          # f32 partials of a tile: 32 rows x 16 tokens
-DECODE_WAVE = (6, 4)       # blocks an SM holds at N <= 8 / N <= 16 (the kernel's launch bounds)
-MIN_SPLIT_BLOCKS = 4       # K blocks a split holds at least, where K has them
-
-
-def decode_splits(O: int, Kp: int, N: int, sms: int) -> int:
-    """Splits of the decode route's K: the ceil(Kp / 128) whole K blocks
-    shared out over as many splits as one wave of blocks (DECODE_WAVE per
-    SM) holds beside the ceil(O / DECODE_ROWS) row tiles, but no split of
-    fewer than MIN_SPLIT_BLOCKS blocks where K has that many. One wave: a
-    second, part-filled one would double the time; a few blocks a split:
-    each split costs its tile a partial's write, a fence, an atomic and the
-    fix-up's read, which outlast one block's loads."""
-    nkb = -(-Kp // SPLIT_K)
-    tiles = -(-O // DECODE_ROWS)
-    return max(1, min(-(-nkb // MIN_SPLIT_BLOCKS), DECODE_WAVE[N > 8] * sms // tiles))
-
-
-_workspace: dict = {}  # (device index, stream) -> (f32 partials, int32 arrival counters)
-
-
-def _decode_split(device: torch.device, N: int, O: int, Kp: int):
-    """(workspace, counters, n_split) for a launch on the current stream: no
-    workspace at N > 16 (the prefill route) or at one split."""
-    if N > 16:
-        return _build.c_void_p(None), _build.c_void_p(None), 1
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    n_split = decode_splits(O, Kp, N, torch.cuda.get_device_properties(idx).multi_processor_count)
-    if n_split == 1:
-        return _build.c_void_p(None), _build.c_void_p(None), 1
-    tiles = -(-O // DECODE_ROWS) * (DECODE_ROWS // TILE_ROWS)
-    key = (idx, torch.cuda.current_stream(device).cuda_stream)
-    ws, counters = _workspace.get(key, (None, None))
-    if ws is None or ws.numel() < tiles * n_split * TILE_FLOATS:
-        ws = torch.empty(tiles * n_split * TILE_FLOATS, dtype=torch.float32, device=device)
-    if counters is None or counters.numel() < tiles:
-        counters = torch.zeros(tiles, dtype=torch.int32, device=device)  # the kernel leaves them at 0
-    _workspace[key] = (ws, counters)
-    return _build.ptr(ws), _build.ptr(counters), n_split
-
 
 # --------------------------------------------------------------------------
 # fp4 layout: packer and decoders

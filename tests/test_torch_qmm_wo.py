@@ -22,6 +22,7 @@ from tensorrt_model_optimizer_tpu.ops.pallas import qmm as jqmm
 from tensorrt_model_optimizer_tpu.quant import compress as jc
 from tensorrt_model_optimizer_tpu.quant import config as jconfig
 from tensorrt_model_optimizer_tpu_torch import convert
+from tensorrt_model_optimizer_tpu_torch.ops.cuda import qmm as tqmm
 from tensorrt_model_optimizer_tpu_torch.ops.cuda import qmm_wo
 from tensorrt_model_optimizer_tpu_torch.quant import compress as tc
 from tensorrt_model_optimizer_tpu_torch.quant import config as tconfig
@@ -288,17 +289,17 @@ def test_decode_split_count_at_8b_shapes(proj, n):
     splits of 9-10 blocks (768 blocks of 64 rows), gate_proj 3 (672),
     q_proj 8 (512), k_proj 8 (128: its 2 MB of weights take one round trip)."""
     O, K = PROJ_8B[proj]
-    splits = qmm_wo.decode_splits(O, K, n, 132)
+    splits = tqmm.decode_splits(O, K, n, 132)
     nkb = K // 128
     bounds = _split_bounds(nkb, splits)
     assert sum(b1 - b0 for b0, b1 in bounds) == nkb
-    assert min(b1 - b0 for b0, b1 in bounds) >= qmm_wo.MIN_SPLIT_BLOCKS
-    blocks = -(-O // qmm_wo.DECODE_ROWS) * splits
-    assert blocks <= qmm_wo.DECODE_WAVE[n > 8] * 132
-    assert -(-O // qmm_wo.TILE_ROWS) * splits >= 4 * 132 or splits == nkb // qmm_wo.MIN_SPLIT_BLOCKS
+    assert min(b1 - b0 for b0, b1 in bounds) >= tqmm.MIN_SPLIT_BLOCKS
+    blocks = -(-O // tqmm.DECODE_ROWS) * splits
+    assert blocks <= tqmm.DECODE_WAVE[n > 8] * 132
+    assert -(-O // tqmm.TILE_ROWS) * splits >= 4 * 132 or splits == nkb // tqmm.MIN_SPLIT_BLOCKS
     if n == 8:
         assert splits == {"down_proj": 12, "gate_proj/up_proj": 3, "q_proj/o_proj": 8, "k_proj/v_proj": 8}[proj]
-    assert qmm_wo.decode_splits(O, 64, n, 132) == 1
+    assert tqmm.decode_splits(O, 64, n, 132) == 1
 
 WO_FORMATS = [("INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "bd2"), ("NVFP4_DEFAULT_CFG", "word2"),
               ("MXFP4_DEFAULT_CFG", "word2"), ("INT8_DEFAULT_CFG", None), ("FP8_DEFAULT_CFG", None)]
@@ -341,7 +342,7 @@ def test_decode_route_reuses_its_workspace(cuda_device, preset, layout):
     bit-identical to the first call (the splits add in a fixed order, and
     the last arrival set every counter back to 0)."""
     tk, _, arr = _on_card(cuda_device, preset, layout, 1024, 4096, seed=3)
-    assert qmm_wo.decode_splits(1024, 4096, 8, torch.cuda.get_device_properties(cuda_device).multi_processor_count) > 1
+    assert tqmm.decode_splits(1024, 4096, 8, torch.cuda.get_device_properties(cuda_device).multi_processor_count) > 1
     plain = {"int4wo": qmm_wo.int4_wo_matmul_plain, "nvfp4wo": qmm_wo.fp4_wo_matmul_plain,
              "mxfp4wo": qmm_wo.fp4_wo_matmul_plain}.get(tk, qmm_wo.byte_wo_matmul_plain)
     args = [arr[k] for k in (("packed", "scales", "global_scale") if "packed" in arr else ("q", "scale")) if k in arr]

@@ -1,7 +1,8 @@
 #!/bin/bash
-# Mutation checks of chip_smoke.py's checks of the port's weight-only GEMM
-# kernels (tensorrt_model_optimizer_tpu_torch/csrc/qmm_*_wo.cu, both routes
-# of qmm_wo_common.cuh: the prefill tiles and the split-K decode), KV-cache
+# Mutation checks of chip_smoke.py's checks of the port's GEMM kernels
+# (tensorrt_model_optimizer_tpu_torch/csrc/qmm_*_wo.cu, both routes of
+# qmm_wo_common.cuh: the prefill tiles and the split-K decode; qmm_w4a8.cu,
+# both routes: the TMA-fed wgmma prefill and the split-K decode), KV-cache
 # attention kernels (kv_decode_attention.cu, paged_attention_*.cu, the
 # paged prefill's two routes), the
 # tensor-core flash kernel (flash_gqa.cu on the tile primitives of
@@ -48,6 +49,18 @@ run wo_splitk_drop_last qmm_wo_common.cuh 's/s + q < n_split/s + q < n_split - 1
 # weight-only decode route: the fix-up leaves its tile's arrival counter set,
 # so no later call on the workspace finds itself last
 run wo_splitk_no_reset qmm_wo_common.cuh '/counters\[wt\] = 0;/d'
+# W4A8 prefill route: every block but the last folds with the next block's scales
+run w4a8_prefill_next_scale qmm_w4a8.cu 's/__ldg(s + (size_t)kb \* O + orow + 8 \* h)/__ldg(s + (size_t)min(kb + 1, nblk - 1) * O + orow + 8 * h)/'
+# W4A8 prefill route: the last k32 step (wgmma) of every 128-block is skipped
+run w4a8_prefill_skip_last_k32 qmm_w4a8.cu 's/for (int step = 0; step < 4; ++step) wgmma_m64n128k32(/for (int step = 0; step < 3; ++step) wgmma_m64n128k32(/'
+# W4A8 decode route: the last k32 step of every 128-block is skipped
+run w4a8_decode_skip_last_k32 qmm_w4a8.cu 's/for (int step = 0; step < 4; ++step) {/for (int step = 0; step < 3; ++step) {/'
+# W4A8 decode route: the fix-up skips the last split
+run w4a8_splitk_drop_last qmm_w4a8.cu 's/s0 + q < n_split/s0 + q < n_split - 1/g'
+# W4A8 decode route: the fix-up leaves its tile's arrival counter set
+run w4a8_splitk_no_reset qmm_w4a8.cu '/counters\[wt\] = 0;/d'
+# W4A8, both routes: the codes' sign dropped (16q decoded without its top bit)
+run w4a8_no_sign_extension qmm_w4a8.cu 's/0xF0F0F0F0u/0x70707070u/g'
 # paged decode: the last live row of every sequence is masked out
 run paged_decode_last_row paged_attention_decode.cu 's/const int len = min(lens\[b\], max_pages \* page);/const int len = min(lens[b] - 1, max_pages * page);/'
 # paged decode: the merge skips the last split of the table

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's attention and weight-only GEMM kernels in two trees of
-the repo on one CUDA card, the same way and on the same inputs.
+"""Time the port's attention and GEMM kernels in two trees of the repo on
+one CUDA card, the same way and on the same inputs.
 
-    python3 tools/torch_kernels_ab.py --base OLD_TREE --change NEW_TREE [--groups kv,paged_prefill,paged_decode,wo]
+    python3 tools/torch_kernels_ab.py --base OLD_TREE --change NEW_TREE [--groups kv,paged_prefill,paged_decode,wo,w4a8]
 
 Both trees hold the package `tensorrt_model_optimizer_tpu_torch`, so each
 timing run is a process of its own that imports one tree's package (and
@@ -18,9 +18,11 @@ the trees' own scripts do. Groups (all by default):
   paged_decode   `paged_attention_decode` with bf16 q, 8 sequences of 2048
                  rows and ragged lengths, a 130-page table of 16 rows;
   wo             the weight-only GEMMs (INT4, NVFP4, MXFP4, INT8, FP8) at
-                 chip_smoke's projection shapes, N = 8 and N = 16384.
-Each output is held against its own tree's plain version (rel err printed,
-not a gate: this script measures and does not judge).
+                 chip_smoke's projection shapes, N = 8 and N = 16384;
+  w4a8           the W4A8 GEMM at the same shapes and N.
+Each output is held against its own tree's plain version (rel err and, for
+W4A8, bit equality printed; not a gate: this script measures and does not
+judge).
 
 Prints one JSON line per run and, last, {"median_ms": {case: {tree: ms}}}
 with the median over each tree's two runs. Exits non-zero if a run fails.
@@ -37,9 +39,9 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GROUPS = ("kv", "paged_prefill", "paged_decode", "wo")
+GROUPS = ("kv", "paged_prefill", "paged_decode", "wo", "w4a8")
 SOURCES = {"kv": ["kv_decode_attention"], "paged_prefill": ["paged_attention_prefill"],
-           "paged_decode": ["paged_attention_decode"], "wo": ["qmm_int4_wo", "qmm_fp4_wo", "qmm_byte_wo"]}
+           "paged_decode": ["paged_attention_decode"], "wo": ["qmm_int4_wo", "qmm_fp4_wo", "qmm_byte_wo"], "w4a8": ["qmm_w4a8"]}
 
 
 def _smoke():
@@ -53,20 +55,20 @@ def _smoke():
 
 def _import_tree(tree: str):
     sys.path.insert(0, os.path.abspath(tree))
-    from tensorrt_model_optimizer_tpu_torch.ops.cuda import _build, kv_attention, paged_attention
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import _build, kv_attention, paged_attention, qmm
 
     if not os.path.abspath(_build.PKG_DIR).startswith(os.path.abspath(tree)):
         raise RuntimeError(f"imported {_build.PKG_DIR}, not the package of {tree}")
-    return _build, kv_attention, paged_attention
+    return _build, kv_attention, paged_attention, qmm
 
 
 def build(tree: str, groups: list) -> None:
-    _build, _, _ = _import_tree(tree)
+    _build = _import_tree(tree)[0]
     _build.build_all([src for grp in groups for src in SOURCES[grp]])
 
 
 def run(tree: str, groups: list) -> dict:
-    _, kv_attention, paged_attention = _import_tree(tree)  # before chip_smoke puts HERE on sys.path
+    _, kv_attention, paged_attention, qmm = _import_tree(tree)  # before chip_smoke puts HERE on sys.path
     import torch
 
     smoke = _smoke()
@@ -119,6 +121,16 @@ def run(tree: str, groups: list) -> dict:
                 out[f"{name} {fmt} {label} N={N}"] = {"ms": timer(lambda: fn(x, *w), sz.reps), "rel_err": rel}
                 del w
             del x
+    for O, K, label in sz.qmm_shapes if "w4a8" in groups else ():
+        packed = torch.randint(0, 256, (O, K // 2), generator=g, device=dev, dtype=torch.int32).to(torch.uint8)
+        scales = (torch.rand((K // 128, O), generator=g, device=dev) * 1.5 + 0.5).to(torch.bfloat16)
+        for N in sz.qmm_rows:
+            x8 = torch.randint(-127, 128, (N, K), generator=g, device=dev, dtype=torch.int32).to(torch.int8)
+            y, ref = qmm.w4a8_matmul(x8, packed, scales), qmm.w4a8_matmul_plain(x8, packed, scales)
+            out[f"qmm_w4a8 {label} N={N}"] = {"ms": timer(lambda: qmm.w4a8_matmul(x8, packed, scales), sz.reps),
+                                              "rel_err": smoke._rel(y, ref), "bit_exact": bool(torch.equal(y, ref))}
+            del x8, y, ref
+        del packed, scales
     return out
 
 
