@@ -16,8 +16,9 @@ Phases (any failure raises, and the script exits non-zero):
            q as the engine passes it, at a ragged T and at head_dim 64 and 32.
            Paged prefill runs through both routes: the tensor cores (bf16 q)
            in every stored form at T = 64 and T = 5, the CUDA cores (f32 q)
-           at T = 64; KV decode (split over the cache) at the 8B pos and at
-           pos 0, 1 and one past its first split; paged decode (split over
+           at T = 64; KV decode (split over the cache, pos a device tensor,
+           the grid sized from the cache's 2080 rows) at the 8B pos 2048 and
+           at pos 0, 1, 255, 256 and 257; paged decode (split over
            each sequence's rows) at 2048 rows, at ragged lengths and at
            lengths on each side of its splits' edges. The W4A8 and the
            weight-only GEMMs run at gate_proj, down_proj and k_proj, N = 8
@@ -64,7 +65,26 @@ Phases (any failure raises, and the script exits non-zero):
            engine on all 32 layers with dense and sparse prefill of 8 x 2048
            tokens and 32 decode steps; and on 4 layers NVFP4_KV_CFG serves
            packed NVFP4 pages and generates over the dense NVFP4 KV cache at
-           batch 8 x 2048.
+           batch 8 x 2048. Every path of FULL_PATHS also runs its 32 decode
+           steps through the fused `decode_step` (one CUDA-graph replay a
+           call) at unroll 1 and 8 from the state the eager steps started
+           from; its tokens and final cache must equal the eager steps' bit
+           for bit; each way's wall per token step, device time, idle share
+           and launches are printed ("full_graphs"). The serve runs are
+           repeated with the steps launched eagerly: the served tokens must be equal.
+  deploy   the deploy loop at full width on 4 layers, for W4A8 (INT4 weights,
+           int8 KV, kernel attention) and NVFP4 weight-only: PTQ -> unified
+           HF export (1 GiB shards, into a temporary directory removed after
+           each path) -> `load_quantized_checkpoint` -> engine, 8 x 2048
+           prefill and 32 steps through `decode_step(unroll=8)`. The loaded
+           packs are held against `compress`'s (equal, or the differences
+           `_deploy_packs` names) and the loaded model against `compress`'s
+           as the checkpoint stores it (moved scales, fp16 storage; equal),
+           the loaded engine's logits against the engines over the export's
+           tensors held in memory and over that `compress` model (median
+           gap <= DEPLOY_GAP_MAX of the logits' scale); the gap to
+           `compress`'s own engine and its fp16 controls, and export, load
+           and serve seconds are printed.
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -98,7 +118,7 @@ class Sizes:
 
     qmm_shapes: tuple = ((14336, 4096, "gate_proj"), (4096, 14336, "down_proj"), (1024, 4096, "k_proj"))
     qmm_rows: tuple = (8, 16384)
-    kv: tuple = (8, 8, 4, 128, 2560, 2048)  # B, n_kv, rep, hd, S, pos
+    kv: tuple = (8, 8, 4, 128, 2080, 2048)  # B, n_kv, rep, hd, S (the 8 x 2048 prompt + 32 steps), pos
     flash: tuple = (8, 32, 8, 2048, 128)  # B, H, Hkv, T, d
     skip: tuple = (256, 2048, 128, 128)  # BH (8 sequences x 32 heads), S, d, tile
     page: int = 16      # rows of a KV page
@@ -530,8 +550,9 @@ def _phase_kernels_kv(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
 
     # --- dense decode attention (split over the cache, then merged): f32 vs
     # torch.softmax; 1e-5 of the output's scale (f32 rounding of sums taken
-    # in another order), at the 8B pos and at pos 0 (the current token
-    # alone), 1 and one past the first split. The bf16 format has a library
+    # in another order), pos a 0-d int32 tensor on the card (the grid is
+    # sized from S alone), at pos 0 (the current token alone), 1, each side
+    # of the first split's edge and the 8B pos. The bf16 format has a library
     # call: SDPA over the valid rows and the current token, concatenated
     # outside the timed call; it takes q, the current token and the output in
     # bf16, so it is held to 1e-2 of the output's scale.
@@ -542,12 +563,12 @@ def _phase_kernels_kv(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
         q = torch.randn((B, nH, hd), generator=g, device=dev) / math.sqrt(hd) * qf
         kn, vn = (torch.randn((B, n_kv, 1, hd), generator=g, device=dev) for _ in range(2))
         edges = {}
-        for p_ in (0, 1, kv_attention.SPLIT_ROWS + 1):
-            e_args = (q, kc, vc, kn, vn, p_, fmt, ks, vs)
+        for p_ in (0, 1, 255, 256, 257):
+            e_args = (q, kc, vc, kn, vn, torch.tensor(p_, dtype=torch.int32, device=dev), fmt, ks, vs)
             edges[p_] = _rel(kv_attention.kv_decode_attention(*e_args), kv_attention.kv_decode_attention_plain(*e_args))
             if not edges[p_] <= 1e-5:
                 raise AssertionError(f"kv_decode_attention {fmt} pos {p_}: rel err {edges[p_]} > 1e-5")
-        args = (q, kc, vc, kn, vn, pos, fmt, ks, vs)
+        args = (q, kc, vc, kn, vn, torch.tensor(pos, dtype=torch.int32, device=dev), fmt, ks, vs)
         out = kv_attention.kv_decode_attention(*args)
         ref = kv_attention.kv_decode_attention_plain(*args)
         rel = _rel(out, ref)
@@ -569,7 +590,7 @@ def _phase_kernels_kv(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
         nbytes = 2 * B * n_kv * pos * _kv_row_bytes(fmt, hd) + 2 * B * n_kv * hd * 4 + 2 * q.numel() * 4
         b_ms, b_by = bound(nbytes, 4.0 * B * nH * (pos + 1) * hd, "bf16")
         shapes.append({"shape": f"{fmt} B={B} n_kv={n_kv} rep={rep} S={S} pos={pos}",
-                       "splits": kv_attention.n_splits(pos), "max_abs_err": float((out - ref).abs().max()),
+                       "splits": kv_attention.n_splits(S), "max_abs_err": float((out - ref).abs().max()),
                        "rel_err": rel, "rel_err_at_pos": edges, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                        "bound_by": b_by, "bound_share": b_ms / ms, "library_ms": lib_ms,
                        "x_library": None if lib_ms is None else ms / lib_ms, "library_rel_err": lib_rel})
@@ -1067,7 +1088,7 @@ def phase_anchor(torch, dev, sz: Sizes) -> dict:
             margin = (ref.max(dim=-1).values - ref.gather(1, tok[:, None])[:, 0]) / scale
             flips += [(step, float(m)) for m in margin[tok != torch.argmax(ref, dim=-1)]]
             tok = tok.to(torch.int32)[:, None]
-            logits, ref, truth = (e.decode_step(tok, c)[1] for e, c in zip(engines, caches))
+            logits, ref, truth = (e._model_step(tok, c) for e, c in zip(engines, caches))
         launched = _counts()[path.gemm]
         gap_kernel, gap_plain = statistics.median(gaps_kernel), statistics.median(gaps_plain)
         free = engines[0].generate(prompts, 16)
@@ -1135,7 +1156,7 @@ def _anchor_einsum(torch, dev, cfg, params) -> None:
         gaps, flips = _gaps(lk, lp)
         tok = lk.argmax(dim=-1).to(torch.int32)[:, None]
         for _ in range(8):
-            lk, lp = ek.decode_step(tok, ck)[1], ep.decode_step(tok, cp)[1]
+            lk, lp = ek._model_step(tok, ck), ep._model_step(tok, cp)
             gp, fl = _gaps(lk, lp)
             gaps, flips = gaps + gp, flips + fl
             tok = lk.argmax(dim=-1).to(torch.int32)[:, None]
@@ -1256,7 +1277,7 @@ def _dense_margins(torch, eng, prompt, served: list) -> list:
     margins = []
     for t in served:
         margins.append(float((logits.max() - logits[0, t]) / logits.abs().max()))
-        logits = eng.decode_step(torch.tensor([[t]], dtype=torch.int32, device=prompt.device), cache)[1]
+        logits = eng._model_step(torch.tensor([[t]], dtype=torch.int32, device=prompt.device), cache)
     return margins
 
 
@@ -1380,10 +1401,11 @@ def _anchor_paged(torch, dev, cfg, params, path: Path, kv) -> None:
     return f32_prefills
 
 
-def _profile(torch, label: str, fn, calls: int, wall_ms_unprofiled: float) -> None:
+def _profile(torch, label: str, fn, calls: int, wall_ms_unprofiled: float) -> dict:
     """Device time by kernel over `calls` calls of the served path, and the
     device's idle share against the same calls' wall time measured without
-    the profiler (its own host cost would inflate the idle share)."""
+    the profiler (its own host cost would inflate the idle share). Logs the
+    row and returns it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1399,12 +1421,102 @@ def _profile(torch, label: str, fn, calls: int, wall_ms_unprofiled: float) -> No
     # where the host spends its time (with the profiler on, so inflated: a ranking, not a cost)
     by_op = sorted(((e.key, e.self_cpu_time_total / 1e3 / calls, e.count // calls) for e in prof.key_averages()
                     if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
-    log(json.dumps({"phase": "profile", "what": label, "per_call_device_busy_ms": busy_ms,
-                    "per_call_kernel_launches": sum(n for _, _, n in by_kernel),
-                    "per_call_wall_ms_unprofiled": wall_ms_unprofiled,
-                    "device_idle_share": 1.0 - busy_ms / wall_ms_unprofiled,
-                    "top": [{"kernel": k[:70], "ms": ms, "count": n} for k, ms, n in by_kernel[:10]],
-                    "host_top": [{"op": k[:40], "self_cpu_ms": ms, "count": n} for k, ms, n in by_op[:8]]}))
+    row = {"phase": "profile", "what": label, "per_call_device_busy_ms": busy_ms,
+           "per_call_kernel_launches": sum(n for _, _, n in by_kernel),
+           "per_call_wall_ms_unprofiled": wall_ms_unprofiled,
+           "device_idle_share": 1.0 - busy_ms / wall_ms_unprofiled,
+           "top": [{"kernel": k[:70], "ms": ms, "count": n} for k, ms, n in by_kernel[:10]],
+           "host_top": [{"op": k[:40], "self_cpu_ms": ms, "count": n} for k, ms, n in by_op[:8]]}
+    log(json.dumps(row))
+    return row
+
+
+def _eager_step(torch, eng, tok, cache):
+    """One greedy decode step launched kernel by kernel from the host (no
+    graph): (next token [B, 1] int32, logits [B, V])."""
+    logits = eng._model_step(tok, cache)
+    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], logits
+
+
+def _clone_cache(cache: dict) -> dict:
+    return {k: v.clone() for k, v in cache.items()}
+
+
+def _same_cache(torch, a: dict, b: dict) -> bool:
+    """Bit equality of two dense caches (one-byte forms compared as bytes)."""
+    def bits(t):
+        return t.view(torch.uint8) if t.element_size() == 1 else t
+    return set(a) == set(b) and all(torch.equal(bits(a[k]), bits(b[k])) for k in a)
+
+
+GRAPH_UNROLLS = (1, 8)  # decode_step(unroll=...) as timed beside the eager step; 8 is bench.py's BENCH_UNROLL
+
+
+def _graphed_decode(torch, eng, label: str, tok0, start: dict, eager_toks: list, eager_cache: dict,
+                    eager_ms: float) -> dict:
+    """The fused decode step against the eager one, from the cache state the
+    eager loop started from: `decode_step(unroll=u)` for u in GRAPH_UNROLLS
+    over the same len(eager_toks) steps, one CUDA-graph replay a call after
+    the first (the capture). Raises unless the tokens it returns and the cache
+    it leaves equal the eager loop's bit for bit. Each unroll's wall is read
+    twice: with a sync after each call, and over the same number of calls
+    back to back with one sync at the end (the host queues the next replay
+    while the card runs one). Then the eager step and each
+    unroll under the profiler: device time, idle share and kernels a token
+    step, beside the host launches a token step (eager: every kernel; a
+    replay: the token's copy-in, the replay and the output's copy)."""
+    sync = torch.cuda.synchronize
+    steps = len(eager_toks)
+    out = {}
+    c = _clone_cache(start)
+    prof = _profile(torch, f"{label} decode step, eager", lambda: [_eager_step(torch, eng, tok0, c) for _ in range(2)],
+                    2, eager_ms)
+    del c
+    kernels = prof["per_call_kernel_launches"]
+    out["eager"] = {"wall_ms_per_token_step": eager_ms, "device_ms_per_token_step": prof["per_call_device_busy_ms"],
+                    "device_idle_share": prof["device_idle_share"], "kernels_per_token_step": kernels,
+                    "host_launches_per_token_step": kernels}
+    for u in GRAPH_UNROLLS:
+        cache, tok, walls, got = _clone_cache(start), tok0, [], []
+        for _ in range(steps // u):
+            t0 = time.perf_counter()
+            tok, cache2 = eng.decode_step(tok, cache, unroll=u)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            got.append(tok)
+        want = torch.cat(eager_toks, dim=1)[:, u - 1::u]
+        if cache2 is not cache or not torch.equal(torch.cat(got, dim=1), want):
+            raise AssertionError(f"{label}: decode_step(unroll={u}) tokens differ from the eager steps'")
+        if not _same_cache(torch, cache, eager_cache):
+            raise AssertionError(f"{label}: decode_step(unroll={u}) left another cache than the eager steps")
+        wall = statistics.median(walls[1:]) / u
+        ev = []
+        for _ in range(3):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            tok, _ = eng.decode_step(tok, cache, unroll=u)
+            e.record()
+            ev.append((s, e))
+        sync()
+        t0 = time.perf_counter()  # the same calls back to back, one sync at the end
+        for _ in range(steps // u):
+            tok, _ = eng.decode_step(tok, cache, unroll=u)
+        sync()
+        pipelined = (time.perf_counter() - t0) * 1e3 / (steps // u * u)
+        calls = 2 if u == 1 else 1
+        prof = _profile(torch, f"{label} decode step, graph unroll {u}",
+                        lambda: [eng.decode_step(tok, cache, unroll=u) for _ in range(calls)], calls, wall * u)
+        out[f"unroll {u}"] = {
+            "capture_call_ms": walls[0], "wall_ms_per_token_step": wall,
+            "pipelined_wall_ms_per_token_step": pipelined,
+            "device_ms_per_token_step": prof["per_call_device_busy_ms"] / u,
+            "event_ms_per_token_step": statistics.median(s.elapsed_time(e) for s, e in ev) / u,
+            "device_idle_share": prof["device_idle_share"],
+            "kernels_per_token_step": prof["per_call_kernel_launches"] / u, "host_launches_per_token_step": 3 / u,
+            "tokens_equal_eager": True, "cache_equal_eager": True}
+        del cache
+    log(json.dumps({"phase": "full_graphs", "path": label, "steps": steps, **out}))
+    return out
 
 
 def phase_full(torch, dev, sz: Sizes, profile: bool = False) -> dict:
@@ -1451,17 +1563,21 @@ def _full_path(torch, dev, sz: Sizes, path: Path, cfg, params, prompt, profile: 
     sync()
     ttft_ms = (time.perf_counter() - t0) * 1e3
     prefill_launches = _counts()
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-    step_ms = []
+    tok0 = tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    start = _clone_cache(cache)
+    step_ms, toks = [], []
     for _ in range(sz.decode_steps):
         t0 = time.perf_counter()
-        tok, step_logits = eng.decode_step(tok, cache)
+        tok, step_logits = _eager_step(torch, eng, tok, cache)
         sync()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = _counts()
+        toks.append(tok)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    graphs = _graphed_decode(torch, eng, f"full {path.label}", tok0, start, toks, cache, statistics.median(step_ms))
+    launches = _counts()
     finite = bool(torch.isfinite(logits).all() and torch.isfinite(step_logits).all())
-    del cache
+    eng.release_graphs()
+    del cache, start
 
     log(json.dumps({"phase": "full", "path": path.label, "model": "llama3_8b", "kinds": sorted(set(eng.cm.kinds.values())),
                     "layers": path.depth, "batch": sz.batch, "prompt": sz.prompt,
@@ -1470,7 +1586,8 @@ def _full_path(torch, dev, sz: Sizes, path: Path, cfg, params, prompt, profile: 
                     "decode_ms_per_step_mean": statistics.mean(step_ms),
                     "decode_tok_per_s": sz.batch * 1e3 / statistics.median(step_ms),
                     "peak_mem_gb": peak_gb, "launches": launches, "prefill_launches": prefill_launches,
-                    "logits_finite": finite, "packed_weight_gb": eng.cm.packed_bytes / 1e9}))
+                    "logits_finite": finite, "packed_weight_gb": eng.cm.packed_bytes / 1e9,
+                    "graph_wall_ms_per_token_step": {k: v["wall_ms_per_token_step"] for k, v in graphs.items()}}))
     if not finite:
         raise AssertionError(f"full {path.label}: non-finite logits")
     want = {path.gemm, "kv_decode_attention", "flash_gqa"}
@@ -1484,7 +1601,7 @@ def _full_path(torch, dev, sz: Sizes, path: Path, cfg, params, prompt, profile: 
         pc = eng.init_cache(sz.batch)
         eng.prefill(prompt, pc)
         t = torch.zeros((sz.batch, 1), dtype=torch.int32, device=dev)
-        _profile(torch, f"{path.label} decode step", lambda: [eng.decode_step(t, pc) for _ in range(4)], 4,
+        _profile(torch, f"{path.label} decode step", lambda: [eng._model_step(t, pc) for _ in range(4)], 4,
                  statistics.median(step_ms))
         del pc
 
@@ -1667,7 +1784,7 @@ def _full_einsum(torch, dev, sz: Sizes, cm, prompt, profile: bool) -> dict:
             step_ms = []
             for _ in range(sz.decode_steps):
                 t0 = time.perf_counter()
-                tok, step_logits = eng.decode_step(tok, cache)
+                tok, step_logits = _eager_step(torch, eng, tok, cache)
                 sync()
                 step_ms.append((time.perf_counter() - t0) * 1e3)
             row.update(decode_steps=sz.decode_steps, decode_ms_per_step_median=statistics.median(step_ms),
@@ -1692,7 +1809,7 @@ def _full_einsum(torch, dev, sz: Sizes, cm, prompt, profile: bool) -> dict:
             if th is None:
                 pc = eng.init_cache(sz.batch)
                 eng.prefill(prompt, pc)
-                _profile(torch, "einsum decode step", lambda e=eng: [e.decode_step(tok, pc) for _ in range(2)],
+                _profile(torch, "einsum decode step", lambda e=eng: [e._model_step(tok, pc) for _ in range(2)],
                          2, statistics.median(step_ms))
                 del pc
         del eng, cache, logits
@@ -1832,6 +1949,16 @@ def _full_paged(torch, dev, sz: Sizes, cm, label: str, kv, run: PagedRun, profil
     sync()
     launches = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    eng.release_graphs()
+    # the same requests with every decode step launched eagerly: the graphed
+    # serve (one replay per unroll block) must serve the same tokens
+    eager = _engine(torch, cm, max_seq, dev, **fields)
+    eager._eager = True
+    outs_eager, m_eager = eager.serve(requests(), prefix_cache=True, unroll=run.unroll, collect_metrics=True, **geom)
+    sync()
+    del eager
+    if outs != outs_eager:
+        raise AssertionError(f"full serve {label}: the graphed serve's tokens differ from the eager serve's")
     want = _scheduler_replay(requests(), geom, run.unroll)
     lengths_ok = all(len(outs[r.rid]) == r.max_new_tokens for r in reqs)
     tokens_ok = all(0 <= t < cfg.vocab_size for v in outs.values() for t in v)
@@ -1845,8 +1972,8 @@ def _full_paged(torch, dev, sz: Sizes, cm, label: str, kv, run: PagedRun, profil
     eng.prefill(torch.stack(prompts[:run.slots]), dense)
 
     def dense_step():  # the dense-cache step over the same rows, for what the paged step adds
-        dense["pos"] = run.prompt
-        eng.decode_step(tok, dense)
+        dense["pos"].fill_(run.prompt)
+        eng._model_step(tok, dense)
 
     # the host's cost of a step depends on what the process ran before it, so
     # the decode step is read before and after the chunk steps
@@ -1869,7 +1996,8 @@ def _full_paged(torch, dev, sz: Sizes, cm, label: str, kv, run: PagedRun, profil
                     "kv_dtype": str(eng.ecfg.kv_dtype), "packed_nvfp4_pages": cache.packed_nvfp4,
                     "requests": run.requests, "prompt": run.prompt, "shared_prefix": run.shared,
                     "new_tokens": [r.max_new_tokens for r in reqs], **geom, "prefix_cache": True,
-                    "metrics": m, "scheduler_replay": want, "launches": {k: v for k, v in launches.items() if v},
+                    "metrics": m, "metrics_eager_steps": m_eager, "served_tokens_equal_eager": True,
+                    "scheduler_replay": want, "launches": {k: v for k, v in launches.items() if v},
                     "peak_mem_gb": peak_gb, "output_lengths_ok": lengths_ok, "tokens_in_vocab": tokens_ok,
                     "probe_logits_finite": finite, "step_wall_ms": wall,
                     "page_pool_gb": sum(t.numel() * t.element_size() for t in (
@@ -1949,7 +2077,7 @@ def _full_nvfp4_kv(torch, dev, sz: Sizes, cfg, params, profile: bool) -> None:
     step_ms = []
     for _ in range(8):
         t0 = time.perf_counter()
-        tok, step_logits = eng.decode_step(tok, cache)
+        tok, step_logits = _eager_step(torch, eng, tok, cache)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     dense = _counts()
@@ -1983,7 +2111,246 @@ def _without_input_quantizers(cm):
 
 def _cache(eng, depth: int, sz: Sizes) -> dict:
     c = eng.init_cache(sz.batch)
-    return {"k": c["k"][:depth], "v": c["v"][:depth], "pos": 0}
+    return {"k": c["k"][:depth], "v": c["v"][:depth], "pos": c["pos"]}
+
+
+# The deploy loop at full width: the headline W4A8 configuration (INT4 weights
+# served as W4A8, int8 KV, kernel attention) and NVFP4 weight-only, on the
+# first 4 layers (every tensor shape of the 32-layer model; ~2.6 GB written
+# and read in each run against ~5.6 GB at 32)
+DEPLOY_PATHS = (FULL_PATHS[0], FULL_PATHS[2])
+DEPLOY_DEPTH = 4
+DEPLOY_SHARD_BYTES = 1 << 30
+DEPLOY_GAP_MAX = 1e-2  # median logits gap, loaded against in-memory engine, as a share of the logits' scale
+
+
+def _int4_codes(torch, packed):
+    """Plane-packed int4 [L, O/2, K] -> signed codes [L, O, K]."""
+    c = torch.cat([packed & 0xF, (packed >> 4) & 0xF], dim=-2).to(torch.int16)
+    return torch.where(c >= 8, c - 16, c)
+
+
+def _deploy_packs(torch, cm, loaded) -> dict:
+    """The loaded canonical packs against `compress`'s, per projection
+    array: "equal", or the named difference. A scale the export computes
+    another way than `compress` may lie one f32 ulp apart, and then a value
+    on a rounding tie under one of the two scales quantizes one step apart:
+    INT4's block scale is amax * f32(1/7) in the export (XLA's rewrite of
+    the reference's amax / 7) where `compress` divides (on the CPU; a CUDA
+    division by a scalar multiplies by its reciprocal too); NVFP4's global
+    scale is amax / 2688 taken in f64 on the host in the export, in f32 by
+    `compress` (on the card: times f32(1/2688)), and a moved global scale
+    can move the layer's E4M3 block scales and codes. The embeddings, norms
+    and lm_head went through fp16 (the checkpoint's storage). Raises on any
+    other difference."""
+    def bits(t):
+        return t.view(torch.uint8) if t.element_size() == 1 else t
+
+    out = {}
+    for name, arrays in cm.params["layers"].items():
+        if not isinstance(arrays, dict):
+            continue
+        got_arrays = loaded.params["layers"][name]
+        if cm.kinds[name] == "int4":
+            s_want = torch.cat([arrays["scale_lo"], arrays["scale_hi"]], dim=-2)
+            s_got = torch.cat([got_arrays["scale_lo"], got_arrays["scale_hi"]], dim=-2)
+            moved = s_got != s_want
+            if not torch.equal(torch.nextafter(s_want, s_got), s_got):
+                raise AssertionError(f"deploy: loaded {name} INT4 scales differ by more than one f32 ulp")
+            c_want, c_got = _int4_codes(torch, arrays["packed"]), _int4_codes(torch, got_arrays["packed"])
+            step = (c_got - c_want).abs()
+            block = moved.repeat_interleave(c_want.shape[-1] // moved.shape[-1], dim=-1)
+            if int(step.max()) > 1 or bool((step.bool() & ~block).any()):
+                raise AssertionError(f"deploy: loaded {name} INT4 codes differ outside the blocks whose scale moved")
+            out[name] = {"scales_one_ulp_apart": int(moved.sum()), "scales": moved.numel(),
+                         "codes_one_step_apart": int(step.bool().sum()), "codes": step.numel()}
+            continue
+        if cm.kinds[name] == "nvfp4":
+            g_want, g_got = arrays["global_scale"], got_arrays["global_scale"]
+            if not torch.equal(torch.nextafter(g_want, g_got), g_got):
+                raise AssertionError(f"deploy: loaded {name} NVFP4 global scales differ by more than one f32 ulp")
+            moved = g_got != g_want  # [L]
+            row = {"global_scales_one_ulp_apart": int(moved.sum()), "layers": moved.numel()}
+            for k in ("packed", "scale_lo", "scale_hi"):
+                diff = bits(got_arrays[k]) != bits(arrays[k])
+                if bool(diff[~moved].any()):
+                    raise AssertionError(f"deploy: loaded {name}.{k} differs in a layer whose global scale is equal")
+                row[f"{k}_bytes_apart"] = int(diff.sum())
+            out[name] = row if bool(moved.any()) else "equal"
+            continue
+        for k, want in arrays.items():
+            if not torch.equal(bits(got_arrays[k]).reshape(want.shape), bits(want)):
+                raise AssertionError(f"deploy: loaded {name}.{k} differs from compress's")
+            out[f"{name}.{k}"] = "equal"
+    for name in ("embed_tokens", "norm", "lm_head"):
+        a, b = loaded.params[name].float(), cm.params[name].float()
+        out[name] = {"fp16_storage_elements_changed": int((a != b).sum()),
+                     "max_rel": float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())}
+    return out
+
+
+def _packs_equal(packs: dict) -> bool:
+    """`_deploy_packs`'s reading: every projection array equal (an INT4
+    site with no scale moved has no code moved either)."""
+    return all(v == "equal" or (isinstance(v, dict) and v.get("scales_one_ulp_apart") == 0)
+               for k, v in packs.items() if k not in ("embed_tokens", "norm", "lm_head"))
+
+
+def _as_exported(torch, qm, cm, loaded):
+    """`compress`'s output as the checkpoint stores it, made without the
+    export's packers or the loader: (model, model with only (2)). (1) Every
+    layer whose scales the export moved (`_deploy_packs`: INT4 block scales
+    and NVFP4 global scales an f32 ulp apart) packed again by
+    `compress.compress_weight` under the loaded scales; (2) the unpacked
+    tensors (embeddings, norms, lm_head) rounded through fp16 as the export
+    stores them (bf16 -> f32 -> fp16, the reference's `to_np16`)."""
+    from tensorrt_model_optimizer_tpu_torch.models import llama
+    from tensorrt_model_optimizer_tpu_torch.quant import compress
+
+    def fp16(t):
+        return t.float().to(torch.float16).to(t.dtype)
+
+    def rounded(tree):
+        return {k: fp16(v) if isinstance(v, torch.Tensor) else v for k, v in tree.items()}
+
+    fp16_only = dataclasses.replace(cm, params={**rounded(cm.params), "layers": rounded(cm.params["layers"])})
+    layers = dict(fp16_only.params["layers"])
+    for name, kind in cm.kinds.items():
+        if kind not in ("int4", "nvfp4"):
+            continue
+        want, got = cm.params["layers"][name], loaded.params["layers"][name]
+        if kind == "int4":
+            scales = torch.cat([got["scale_lo"], got["scale_hi"]], dim=-2)
+            moved = (scales != torch.cat([want["scale_lo"], want["scale_hi"]], dim=-2)).flatten(1).any(1)
+        else:
+            scales = got["global_scale"]
+            moved = scales != want["global_scale"]
+        if not bool(moved.any()):
+            continue
+        per_layer = [compress.layer_arrays(want, i) for i in range(moved.numel())]
+        wcfg, st = qm.layout.get(f"{name}.weight"), qm.qstate.get(name, {}).get("weight")
+        for i in moved.nonzero().flatten().tolist():
+            per_layer[i] = compress.compress_weight(qm.params["layers"][name][i], wcfg, llama.slice_state(st, i),
+                                                    scales=scales[i])[1]
+        layers[name] = compress._stack_arrays(per_layer)
+    if all(layers[k] is v for k, v in fp16_only.params["layers"].items()):
+        return fp16_only, fp16_only
+    return dataclasses.replace(fp16_only, params={**fp16_only.params, "layers": layers}), fp16_only
+
+
+def phase_deploy(torch, dev, sz: Sizes) -> dict:
+    """Quantize -> export (sharded, into a temporary directory removed when
+    the path is done) -> `load_quantized_checkpoint` -> engine -> 8 x 2048
+    prefill and 32 steps through `decode_step(unroll=8)`, for each path of
+    DEPLOY_PATHS at full width and DEPLOY_DEPTH layers. Raises unless the
+    loaded packs equal `compress`'s (or differ as named), the loaded model
+    equals byte for byte `compress`'s output as the checkpoint stores it
+    (`_as_exported`: moved scales, fp16 storage), and the loaded engine's
+    logits lie within DEPLOY_GAP_MAX (median) of two in-memory engines':
+    the engine over the export's own tensors (the same conversion, no disk:
+    the round trip) and the engine over `_as_exported`'s model. Reported:
+    the gap to `compress`'s own output, and its controls: the fp16 storage
+    alone, under the int8 KV cache and under bf16 KV (the int8 cache at its
+    uncalibrated amax, 448, a step of 3.5, turns the small changes of bf16
+    activations into changed codes; W4A8's int8 activations absorb most).
+    Returns the launch counts of its runs."""
+    import tempfile
+
+    from tensorrt_model_optimizer_tpu_torch.export import hf_export
+    from tensorrt_model_optimizer_tpu_torch.models import llama
+    from tensorrt_model_optimizer_tpu_torch.quant import compress, ptq
+    from tensorrt_model_optimizer_tpu_torch.serve import loader
+
+    sync = torch.cuda.synchronize
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_hidden_layers=DEPLOY_DEPTH)
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (sz.batch, sz.prompt), generator=g, device=dev)
+    launches: dict = {}
+    for path in DEPLOY_PATHS:
+        layouts = dict(path.layouts)
+        qm = ptq.quantize(cfg, params, path.quant_cfg(), None, device=dev)
+        cm = compress.compress(qm)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_deploy_") as d:
+            sync()
+            t0 = time.perf_counter()
+            qc = hf_export.export_hf_checkpoint(qm, d, max_shard_bytes=DEPLOY_SHARD_BYTES)
+            export_s = time.perf_counter() - t0
+            files = sorted(os.listdir(d))
+            disk_gb = sum(os.path.getsize(os.path.join(d, f)) for f in files) / 1e9
+            with open(os.path.join(d, "config.json")) as f:
+                hf_cfg = json.load(f)
+            t0 = time.perf_counter()
+            loaded = loader.load_quantized_checkpoint(d, device=dev)
+            sync()
+            load_s = time.perf_counter() - t0
+        packs = _deploy_packs(torch, cm, loaded)
+        packs_equal = _packs_equal(packs)
+        streamed = loader.compressed_from_export(hf_cfg, qc["quantization"],
+                                                 dict(hf_export._iter_export_tensors(qm)), dev)
+        as_exported, fp16_only = _as_exported(torch, qm, cm, loaded)
+        repacked = _deploy_packs(torch, as_exported, loaded)
+        if not _packs_equal(repacked) or any(repacked[k]["fp16_storage_elements_changed"]
+                                             for k in ("embed_tokens", "norm", "lm_head")):
+            raise AssertionError(f"deploy {path.label}: the loaded model differs from compress's as the "
+                                 f"checkpoint stores it: {repacked}")
+        del qm
+        dep = _engine(torch, loaded, sz.max_seq, dev, **layouts)
+        _counts(reset=True)
+        sync()
+        t0 = time.perf_counter()
+        cache = dep.init_cache(sz.batch)
+        logits = dep.prefill(prompt, cache)
+        sync()
+        ttft_ms = (time.perf_counter() - t0) * 1e3
+        tok, walls = torch.argmax(logits, dim=-1).to(torch.int32)[:, None], []
+        for _ in range(sz.decode_steps // 8):
+            t0 = time.perf_counter()
+            tok, cache = dep.decode_step(tok, cache, unroll=8)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        for name, n in _counts().items():
+            launches[name] = launches.get(name, 0) + n
+
+        def served(model, kv="int8"):  # prefill logits and the last of 32 greedy tokens
+            mem = _engine(torch, model, sz.max_seq, dev, kv=kv, **layouts)
+            mcache = mem.init_cache(sz.batch)
+            ref = mem.prefill(prompt, mcache)
+            mtok = torch.argmax(ref, dim=-1).to(torch.int32)[:, None]
+            for _ in range(sz.decode_steps // 8):
+                mtok, mcache = mem.decode_step(mtok, mcache, unroll=8)
+            return ref, mtok
+
+        def vs(a, b):
+            gaps, flips = _gaps(a[0], b[0])
+            return {"median_logits_gap": statistics.median(gaps), "worst_logits_gap": max(gaps),
+                    "argmax_flip_margins": flips, "logits_equal": bool(torch.equal(a[0], b[0])),
+                    "last_tokens_equal": bool(torch.equal(a[1], b[1]))}
+
+        held_refs = ("in_memory_export", "compress_as_exported")
+        out, comp = (logits, tok), served(cm)
+        held = {"in_memory_export": vs(out, served(streamed)), "compress_as_exported": vs(out, served(as_exported)),
+                "in_memory_compress": vs(out, comp), "control_fp16_storage_only": vs(served(fp16_only), comp),
+                "control_fp16_storage_only_bf16_kv": vs(served(fp16_only, None), served(cm, None))}
+        row = {"phase": "deploy", "path": path.label, "model": "llama3_8b", "layers": DEPLOY_DEPTH,
+               "quant_algo": qc["quantization"]["quant_algo"], "kinds_served": sorted(set(dep.cm.kinds.values())),
+               "files": files, "disk_gb": disk_gb, "export_s": export_s, "load_s": load_s,
+               "batch": sz.batch, "prompt": sz.prompt, "ttft_ms": ttft_ms, "decode_steps": sz.decode_steps,
+               "unroll": 8, "wall_ms_per_token_step": statistics.median(walls[1:]) / 8,
+               "capture_call_ms": walls[0], "serve_s": (ttft_ms + sum(walls)) / 1e3,
+               "vs": held, "logits_finite": bool(torch.isfinite(logits).all()), "packs_vs_compress": packs,
+               "packs_equal": packs_equal}
+        log(json.dumps(row))
+        for what in held_refs:
+            gap = held[what]["median_logits_gap"]
+            if not row["logits_finite"] or not gap <= DEPLOY_GAP_MAX:
+                raise AssertionError(f"deploy {path.label}: the loaded engine's logits lie {gap} (median) of their "
+                                     f"scale from the {what} engine's, the limit is {DEPLOY_GAP_MAX}")
+        if len([f for f in files if f.startswith("model-")]) < 2 or "model.safetensors.index.json" not in files:
+            raise AssertionError(f"deploy {path.label}: the sharded export wrote {files}")
+        del dep, cache, loaded, cm, streamed, as_exported, fp16_only
+        torch.cuda.empty_cache()
+    return launches
 
 
 def nvidia_smi() -> str:
@@ -2030,7 +2397,7 @@ ANCHOR_ONLY = ("skip_softmax_flash_cuda_core", "paged_attention_prefill_cuda_cor
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,anchor,full",
+    ap.add_argument("--phases", default="build,kernels,anchor,full,deploy",
                     help="comma-separated; add 'profile' for device time by kernel in the full run")
     args = ap.parse_args(argv)
     import torch
@@ -2069,6 +2436,11 @@ def main(argv=None) -> int:
         never = [name for name in KERNELS if not launches.get(name) and (name not in ANCHOR_ONLY or anchor_launches)]
         if never:
             raise AssertionError(f"full: kernels that no path launched: {never}")
+    if "deploy" in phases:
+        deployed = timed("deploy", phase_deploy, torch, dev, sz)
+        want = {"qmm_w4a8", "qmm_fp4_wo", "flash_gqa", "kv_decode_attention"}
+        if {k for k, n in deployed.items() if n} != want:
+            raise AssertionError(f"deploy: launched {deployed}, its kernels are {sorted(want)}")
     log(json.dumps({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t_start, 1)}))
     out = []
     for name, (src, replaces) in KERNELS.items():

@@ -7,9 +7,9 @@ ported path becomes a CUDA C++ kernel for `sm_90a` under `csrc/`, built with
 `nvcc` at first use and bound with `ctypes` (`ops/cuda/_build.py`).
 
 Device policy: entry points (`Engine`, `ptq.quantize`,
-`hf_loader.load_hf_checkpoint`, `llama.init_params`) run on `cuda` unless the
-caller passes `device="cpu"`. A missing card raises; nothing moves to the CPU
-on its own.
+`hf_loader.load_hf_checkpoint`, `loader.load_quantized_checkpoint`,
+`llama.init_params`) run on `cuda` unless the caller passes `device="cpu"`.
+A missing card raises; nothing moves to the CPU on its own.
 """
 
 from __future__ import annotations

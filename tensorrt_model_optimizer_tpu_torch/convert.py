@@ -2,7 +2,8 @@
 
 `params_from_jax` turns a parameter tree (arrays anywhere numpy can read,
 e.g. `jax.tree.map(np.asarray, params)`) into the port's tensors;
-`compressed_from_jax` turns a JAX `CompressedModel` (canonical kinds, as
+`quantized_from_jax` turns a JAX `QuantizedModel` (`ptq.quantize`'s output)
+into the port's; `compressed_from_jax` turns a JAX `CompressedModel` (canonical kinds, as
 `quant.compress.compress` returns them) into the port's, so both packages
 compute the same function (the quantizer state comes along, the `k_bmm` /
 `v_bmm` amax of a KV preset included); `cache_from_jax` and `paged_from_jax`
@@ -102,6 +103,23 @@ def llama_cfg_from_jax(cfg) -> LlamaConfig:
     return LlamaConfig(rope_scaling=rs, dtype=torch_dtype(cfg.dtype), **kw)
 
 
+def quantized_from_jax(qm, device="cpu"):
+    """A JAX `QuantizedModel` (`quant.ptq.quantize`'s output: raw weights,
+    layout, calibrated state, the config) -> the port's, on `device`."""
+    from .quant.config import QuantizeConfig
+    from .quant.ptq import QuantizedModel
+
+    qc = qm.quant_cfg
+    return QuantizedModel(
+        model_cfg=llama_cfg_from_jax(qm.model_cfg),
+        params=params_from_jax(qm.params, device),
+        layout=layout_from_jax(qm.layout),
+        qstate=params_from_jax(qm.qstate, device),
+        quant_cfg=QuantizeConfig(rules=tuple((p, quantizer_cfg_from_jax(c)) for p, c in qc.rules),
+                                 algorithm=qc.algorithm),
+    )
+
+
 def compressed_from_jax(cm, device="cpu") -> CompressedModel:
     """A JAX `CompressedModel` -> the port's, on `device`."""
     if getattr(cm, "adapters", None):
@@ -124,8 +142,10 @@ def cache_from_jax(cache, device="cpu") -> dict:
     """A JAX dense cache -> the port's: the einsum engine's ("k", "v" [L, B,
     S, n_kv, C], packed NVFP4 as one uint8 row of 9 hd/16 bytes) or the kernel
     engine's ("k", "v" [L, B, n_kv, S, C] and, for NVFP4, "ks", "vs"), and
-    "pos". fp8 rows cross as integer views, bit for bit."""
-    return {k: (int(v) if k == "pos" else tensor_from_array(v, device)) for k, v in cache.items()}
+    "pos", a 0-d int32 tensor on `device` as JAX's is. fp8 rows cross as
+    integer views, bit for bit."""
+    return {k: (torch.tensor(int(v), dtype=torch.int32, device=device) if k == "pos"
+                else tensor_from_array(v, device)) for k, v in cache.items()}
 
 
 def paged_from_jax(cache, device="cpu"):

@@ -5,6 +5,9 @@
 // kv_decode_attention (_decode_kernel), formats bf16 / int8 / fp8 / nvfp4.
 //
 //   q    [B, n_kv*rep, hd] f32, pre-scaled (k's global scale / sqrt(hd))
+//   pos  one int32 in device memory: rows < pos are valid (read by the
+//        kernels, as the Pallas kernel takes it by scalar prefetch, so a
+//        captured CUDA graph replays at every pos; clamped to [0, S])
 //   k, v [B, n_kv, S, hd] stored codes; rows < pos are valid. NVFP4:
 //        [B, n_kv, S, hd/2] plane-packed bytes with ks, vs [B, n_kv, S, hd/16]
 //        E4M3 block-scale bytes (layout and decode: kv_common.cuh)
@@ -18,9 +21,12 @@
 // What bounds it on an H100: the cache bytes. At Llama-3.1-8B, batch 8,
 // pos 2048, int8: 8 x 8 x 2048 x 128 x 2 = 33.5 MB per layer, >= 10 us at
 // 3.35 TB/s. What this design does about it, a flash-decoding split:
-//   - kv_decode_split: the grid is (splits, n_kv, B); a block of 4 warps
-//     owns `split_rows` (<= 256) rows < pos of one (sequence, kv head), so
-//     at the 8B shape 8 splits make 512 blocks, ~4 an SM. A group of hd/16
+//   - kv_decode_split: the grid is (splits, n_kv, B), the splits covering
+//     all S rows of the cache (never sized from pos, which only the device
+//     reads); a block of 4 warps owns `split_rows` (<= 256) rows of one
+//     (sequence, kv head), of which it reads those < pos; a split wholly
+//     past pos writes the empty state (-1e30, 0, 0). At the 8B shape (S
+//     2080) 9 splits make 576 blocks, ~4 an SM. A group of hd/16
 //     lanes reads one row with 16-byte loads (Lane16, kv_common.cuh; 8 lanes
 //     a row at hd 128), so a warp covers 2-16 rows at once and a score is a
 //     3-step shuffle sum at hd 128; four rows a group are loaded before
@@ -48,12 +54,13 @@ template <typename T, int HD, int REP>
 __global__ void __launch_bounds__(SNT) kv_decode_split(
     const float* __restrict__ q, const void* __restrict__ kc, const void* __restrict__ vc,
     const void* __restrict__ ks, const void* __restrict__ vs, float* __restrict__ part_ml,
-    float* __restrict__ part_acc, int n_kv, int S, int pos, int split_rows) {
+    float* __restrict__ part_acc, const int* __restrict__ pos_p, int n_kv, int S, int split_rows) {
   __shared__ kvc::SplitSmem<REP, HD> sm;
   const int sp = blockIdx.x, g = blockIdx.y, b = blockIdx.z, n_split = gridDim.x;
   const size_t head = (size_t)b * n_kv + g, row0 = head * S, part = head * n_split + sp;
+  const int pos = min(max(__ldg(pos_p), 0), S);
   const int r0 = sp * split_rows, n = min(split_rows, pos - r0);  // this split's rows [r0, r0 + n)
-  if (n <= 0) {  // pos 0: the current token alone
+  if (n <= 0) {  // past pos (at pos 0 every split: the current token alone)
     kvc::split_empty<REP, HD>(part_ml + part * REP * 2, part_acc + part * REP * HD);
     return;
   }
@@ -96,16 +103,16 @@ __global__ void __launch_bounds__(SNT) kv_decode_merge(const float* __restrict__
 }
 
 struct Launch {
-  const void *q, *k, *v, *ks, *vs, *kn, *vn;
+  const void *q, *k, *v, *ks, *vs, *kn, *vn, *pos;
   void *part_ml, *part_acc, *out;
-  int B, n_kv, S, pos, split_rows, n_split;
+  int B, n_kv, S, split_rows, n_split;
   cudaStream_t st;
 
   template <typename T, int HD, int REP>
   int run() const {
     kv_decode_split<T, HD, REP><<<dim3(n_split, n_kv, B), SNT, 0, st>>>(
         static_cast<const float*>(q), k, v, ks, vs, static_cast<float*>(part_ml), static_cast<float*>(part_acc),
-        n_kv, S, pos, split_rows);
+        static_cast<const int*>(pos), n_kv, S, split_rows);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     kv_decode_merge<HD, REP><<<dim3(n_kv, B), SNT, 0, st>>>(
@@ -119,14 +126,16 @@ struct Launch {
 }  // namespace
 
 // fmt: 0 = bf16, 1 = int8, 2 = fp8 e4m3, 3 = NVFP4 (ks, vs: the block-scale bytes; else unused).
-// part_ml [B, n_kv, n_split, rep, 2] and part_acc [B, n_kv, n_split, rep, hd]
-// f32 scratch; n_split = max(1, ceil(pos / split_rows)), split_rows <= 256.
+// pos: one int32 in device memory. part_ml [B, n_kv, n_split, rep, 2] and
+// part_acc [B, n_kv, n_split, rep, hd] f32 scratch; n_split = max(1,
+// ceil(S / split_rows)), split_rows <= 256.
 extern "C" int kv_decode_attention(int fmt, int hd, int rep, const void* q, const void* k,
                                    const void* v, const void* ks, const void* vs, const void* kn,
-                                   const void* vn, void* part_ml, void* part_acc, void* out, int B,
-                                   int n_kv, int S, int pos, int split_rows, int n_split, void* stream) {
-  if (split_rows <= 0 || split_rows > SPLIT_MAX || n_split < 1 || (long long)n_split * split_rows < pos)
+                                   const void* vn, const void* pos, void* part_ml, void* part_acc, void* out,
+                                   int B, int n_kv, int S, int split_rows, int n_split, void* stream) {
+  if (split_rows <= 0 || split_rows > SPLIT_MAX || n_split < 1 || (long long)n_split * split_rows < S ||
+      pos == nullptr)
     return (int)cudaErrorInvalidValue;
-  return kvc::dispatch(fmt, hd, rep, Launch{q, k, v, ks, vs, kn, vn, part_ml, part_acc, out, B, n_kv, S, pos,
+  return kvc::dispatch(fmt, hd, rep, Launch{q, k, v, ks, vs, kn, vn, pos, part_ml, part_acc, out, B, n_kv, S,
                                             split_rows, n_split, static_cast<cudaStream_t>(stream)});
 }

@@ -1,10 +1,16 @@
-"""HF checkpoint loading for dense Llama (port of `models/hf_loader.py`).
+"""HF checkpoint loading and saving for dense Llama (port of
+`models/hf_loader.py`).
 
 Reads `config.json` and every `*.safetensors` file of a directory into the
-stacked-layer params dict. The safetensors format is parsed here (an 8-byte
-little-endian header length, a JSON header, then raw little-endian bytes)
-so the port needs no `safetensors` package; BF16 arrives as a `uint16` view
-and becomes `torch.bfloat16` bit for bit.
+stacked-layer params dict, and writes one back (`save_hf_checkpoint`). The
+safetensors format is parsed and written here (an 8-byte little-endian
+header length, a JSON header padded with spaces to a multiple of 8, then
+raw little-endian bytes) so the port needs no `safetensors` package; BF16
+and the fp8 types arrive as integer views and become the torch dtype bit for
+bit. `save_safetensors` lays a file out as `safetensors.torch.save_file`
+0.8.0 does (tensors by dtype, widest first in its enum's order, then by
+name; compact header JSON), so a file it writes is byte-equal to that
+library's.
 """
 
 from __future__ import annotations
@@ -24,8 +30,37 @@ from .llama import LlamaConfig, RopeScaling
 _NP_DTYPES = {
     "F64": np.float64, "F32": np.float32, "F16": np.float16, "BF16": np.uint16,
     "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
-    "U8": np.uint8, "BOOL": np.bool_,
+    "U8": np.uint8, "BOOL": np.bool_, "F8_E4M3": np.uint8, "F8_E5M2": np.uint8,
 }
+_VIEWED = {"BF16": torch.bfloat16, "F8_E4M3": torch.float8_e4m3fn, "F8_E5M2": torch.float8_e5m2}
+
+# safetensors' Dtype enum, in its order: a file lists its tensors by dtype,
+# the last of these first
+_ST_ORDER = ("BOOL", "F4", "F6_E2M3", "F6_E3M2", "U8", "I8", "F8_E5M2", "F8_E4M3", "F8_E8M0", "I16", "U16",
+             "F16", "BF16", "I32", "U32", "F32", "C64", "F64", "I64", "U64")
+_ST_NAMES = {torch.bool: "BOOL", torch.uint8: "U8", torch.int8: "I8", torch.float8_e5m2: "F8_E5M2",
+             torch.float8_e4m3fn: "F8_E4M3", torch.int16: "I16", torch.float16: "F16", torch.bfloat16: "BF16",
+             torch.int32: "I32", torch.float32: "F32", torch.float64: "F64", torch.int64: "I64"}
+
+
+def save_safetensors(tensors: dict, path: str) -> None:
+    """Write {name: tensor} (any device) as one safetensors file, laid out
+    byte for byte as `safetensors.torch.save_file(tensors, path)` 0.8.0
+    lays it out. Each tensor comes to the host once, as it is written."""
+    rank = {name: i for i, name in enumerate(_ST_ORDER)}
+    items = sorted(tensors.items(), key=lambda kv: (-rank[_ST_NAMES[kv[1].dtype]], kv[0]))
+    header, off = {}, 0
+    for name, t in items:
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header, separators=(",", ":"), ensure_ascii=False).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for _, t in items:
+            f.write(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().data)
 
 
 def _rope_scaling_from_hf(d: dict) -> Optional[RopeScaling]:
@@ -93,9 +128,82 @@ class SafetensorsDir:
         lo, hi = meta["data_offsets"]
         arr = np.frombuffer(data[lo:hi], dtype=np.dtype(_NP_DTYPES[meta["dtype"]]).newbyteorder("<"))
         t = torch.from_numpy(arr.astype(arr.dtype.newbyteorder("="), copy=True).reshape(meta["shape"]))
-        if meta["dtype"] == "BF16":
-            t = t.view(torch.bfloat16)
+        if meta["dtype"] in _VIEWED:
+            t = t.view(_VIEWED[meta["dtype"]])
         return t
+
+    def keys(self):
+        return self._entries.keys()
+
+    def __iter__(self):
+        return iter(self._entries)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+def config_to_hf(cfg: LlamaConfig) -> dict:
+    """config.json's fields for a dense Llama, in the JAX package's order
+    (its `config_to_hf`), so the JSON files are byte-equal."""
+    out: dict[str, Any] = {}
+    if cfg.rope_scaling is not None:
+        rs = cfg.rope_scaling
+        out["rope_scaling"] = {
+            "rope_type": rs.rope_type,
+            "factor": rs.factor,
+            "low_freq_factor": rs.low_freq_factor,
+            "high_freq_factor": rs.high_freq_factor,
+            "original_max_position_embeddings": rs.original_max_position_embeddings,
+        }
+    return out | {
+        "architectures": ["LlamaForCausalLM"],
+        "model_type": "llama",
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_hidden_layers,
+        "num_attention_heads": cfg.num_attention_heads,
+        "num_key_value_heads": cfg.num_key_value_heads,
+        "head_dim": cfg.hd,
+        "rope_theta": cfg.rope_theta,
+        "rms_norm_eps": cfg.rms_norm_eps,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "torch_dtype": "bfloat16",
+    }
+
+
+HF_NAMES = {  # stacked-layer params -> per-layer HF tensor names
+    "input_layernorm": "model.layers.{i}.input_layernorm.weight",
+    "post_attention_layernorm": "model.layers.{i}.post_attention_layernorm.weight",
+    "self_attn.q_proj": "model.layers.{i}.self_attn.q_proj.weight",
+    "self_attn.k_proj": "model.layers.{i}.self_attn.k_proj.weight",
+    "self_attn.v_proj": "model.layers.{i}.self_attn.v_proj.weight",
+    "self_attn.o_proj": "model.layers.{i}.self_attn.o_proj.weight",
+    "mlp.gate_proj": "model.layers.{i}.mlp.gate_proj.weight",
+    "mlp.up_proj": "model.layers.{i}.mlp.up_proj.weight",
+    "mlp.down_proj": "model.layers.{i}.mlp.down_proj.weight",
+}
+
+
+def save_hf_checkpoint(cfg: LlamaConfig, params: dict, path: str) -> None:
+    """Inverse of `load_hf_checkpoint`: config.json (indent 1) and one
+    model.safetensors of f32 tensors under the HF names, as the JAX
+    package's `save_hf_checkpoint` writes them (byte-equal files)."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config_to_hf(cfg), f, indent=1)
+    flat = {"model.embed_tokens.weight": params["embed_tokens"], "model.norm.weight": params["norm"]}
+    if not cfg.tie_word_embeddings:
+        flat["lm_head.weight"] = params.get("lm_head", params["embed_tokens"])
+    layers = params["layers"]
+    extra = sorted(set(layers) - set(HF_NAMES))
+    if extra:
+        raise NotImplementedError(f"save_hf_checkpoint: layer leaves {extra} come with a later slice")
+    for ours, fmt in HF_NAMES.items():
+        for i in range(cfg.num_hidden_layers):
+            flat[fmt.format(i=i)] = layers[ours][i]
+    save_safetensors({k: v.float() for k, v in flat.items()}, os.path.join(path, "model.safetensors"))
 
 
 def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None) -> tuple[LlamaConfig, dict]:

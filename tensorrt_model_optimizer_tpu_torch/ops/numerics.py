@@ -310,18 +310,32 @@ def nvfp4_planes_code_load(planes: torch.Tensor, scale_bits: torch.Tensor,
     return (vals * sexp).to(out_dtype)
 
 
+_TABLES: dict = {}
+
+
+def _table(values: tuple, device: torch.device) -> torch.Tensor:
+    """`values` as an f32 tensor on `device`, made once per device: a host
+    copy would break a CUDA-graph capture, and the decode steps' eager first
+    run makes every table it needs before its capture."""
+    key = (values, device)
+    t = _TABLES.get(key)
+    if t is None:
+        t = _TABLES[key] = torch.tensor(values, dtype=torch.float32, device=device)
+    return t
+
+
 def fp4_to_codes(q: torch.Tensor) -> torch.Tensor:
     """E2M1 values -> 4-bit codes (sign bit | index of the nearest
     magnitude, the lower index on a tie)."""
     m = torch.abs(q.float())
-    mids = torch.tensor(_E2M1_MIDPOINTS, dtype=torch.float32, device=m.device)
+    mids = _table(_E2M1_MIDPOINTS, m.device)
     idx = torch.bucketize(m.contiguous(), mids)  # number of midpoints strictly below m
     sign = (q < 0).to(torch.uint8) << 3
     return idx.to(torch.uint8) | sign
 
 
 def codes_to_fp4(codes: torch.Tensor) -> torch.Tensor:
-    mags = torch.tensor(E2M1_VALUES, dtype=torch.float32, device=codes.device)
+    mags = _table(E2M1_VALUES, codes.device)
     c = codes.to(torch.int64)
     sign = torch.where((c & 0x8) != 0, -1.0, 1.0)
     return sign * mags[c & 0x7]

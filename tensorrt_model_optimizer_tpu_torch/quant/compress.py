@@ -53,16 +53,24 @@ def plane_unpack_int4(packed: torch.Tensor):
 
 
 def compress_weight(w: torch.Tensor, cfg: Q.QuantizerConfig,
-                    state: Optional[Q.QuantizerState]) -> tuple[str, dict]:
-    """Pack one [O, K] (or stacked [L, O, K]) weight per its quantizer config."""
+                    state: Optional[Q.QuantizerState], scales: Optional[torch.Tensor] = None) -> tuple[str, dict]:
+    """Pack one [O, K] (or stacked [L, O, K]) weight per its quantizer config.
+    `scales` quantizes under these scales instead of those the amax gives
+    (to repack at another packer's, an exported checkpoint's): NVFP4's
+    global scale or INT4's block scales [..., O, nblk]; no other format
+    takes them."""
     base = cfg.sequential[0] if cfg.sequential else cfg
     if not cfg.enable:
         return "bf16", {"w": w.to(torch.bfloat16)}
     sbits = base.block.scale_bits if base.block is not None else None
-    if base.is_fp and base.num_bits == (2, 1) and sbits == (4, 3):
+    nvfp4 = base.is_fp and base.num_bits == (2, 1) and sbits == (4, 3)
+    int4 = not base.is_fp and base.num_bits == 4
+    if scales is not None and not (nvfp4 or int4):
+        raise ValueError("compress_weight: only NVFP4 and INT4 take given scales")
+    if nvfp4:
         bsz = min(dict(base.block.sizes).get(-1, 16), w.shape[-1])
         g_amax = state.amax if state is not None and state.amax is not None else torch.amax(torch.abs(w))
-        gs = numerics.nvfp4_global_scale(g_amax)
+        gs = numerics.nvfp4_global_scale(g_amax) if scales is None else scales.float()
         w32 = w.float()
         s_val = numerics.cast_e4m3(numerics.block_amax_compact(w32, ((-1, bsz),)) / (6.0 * gs))
         s_val = torch.where(s_val <= 0.0, torch.ones_like(s_val), s_val)
@@ -103,7 +111,7 @@ def compress_weight(w: torch.Tensor, cfg: Q.QuantizerConfig,
         sc = scale[..., None, None] if scale.ndim == w.ndim - 2 else scale
         qw = torch.clamp(w.float() / sc, -448.0, 448.0).to(torch.float8_e4m3fn)
         return "fp8", {"q": qw, "scale": scale.float()}
-    if not base.is_fp and base.num_bits == 4:
+    if int4:
         amax = state.amax if state is not None else None
         if cfg.sequential and isinstance(amax, tuple):
             amax = amax[0]
@@ -112,7 +120,7 @@ def compress_weight(w: torch.Tensor, cfg: Q.QuantizerConfig,
         if amax is None:
             amax = numerics.block_amax_compact(w.float(), ((-1, bsz),))
         scale = amax.float() / 7.0
-        scale = torch.where(amax == 0.0, torch.ones_like(scale), scale)
+        scale = torch.where(amax == 0.0, torch.ones_like(scale), scale) if scales is None else scales.float()
         s_full = numerics.expand_block_scale(scale, w.shape, ((-1, bsz),))
         q = torch.clamp(torch.round(w.float() / s_full), -8, 7)
         packed = plane_pack(_int4_nibbles(q))

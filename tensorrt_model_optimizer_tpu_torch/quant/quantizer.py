@@ -252,7 +252,7 @@ def _dispatch(x, cfg: QuantizerConfig, state: QuantizerState):
         return _fake_quant(x, cfg, _dynamic_amax(x, cfg))
     amax = state.amax
     if amax is None and cfg.constant_amax is not None:
-        amax = torch.tensor(cfg.constant_amax, dtype=torch.float32, device=x.device)
+        amax = torch.full((), cfg.constant_amax, dtype=torch.float32, device=x.device)  # no host copy
     if amax is None:
         raise ValueError(f"static quantizer used before calibration (amax is None); cfg={cfg}")
     if blk is not None and blk.sizes:

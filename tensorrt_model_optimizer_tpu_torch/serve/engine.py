@@ -48,10 +48,22 @@ Ported paths:
 
 There is no jit, scan or buffer donation: layers and steps are Python loops,
 and the KV cache and the page pool are updated in place (the paged entry
-points return logits or tokens, not a new cache). A decode step writes each
-layer's new cache row right after that layer's attention has read the old
-rows (JAX batches the same writes after its layer scan); the values are the
-same.
+points return logits or tokens, not a new cache; `decode_step` returns the
+cache it was given). A decode step writes each layer's new cache row right
+after that layer's attention has read the old rows (JAX batches the same
+writes after its layer scan); the values are the same. The dense cache's
+`pos` is a 0-d int32 tensor on the engine's device, as JAX's is, read only
+there (rope positions, the row writes, the attention masks, the kv-decode
+kernel) and advanced in place. The host keeps its own copy of pos for each
+cache, set by every public call, to check the room without waiting for the
+card; it reads the card only for a cache whose pos changed in another way.
+
+On the card the fused decode steps (`decode_step(tok, cache, unroll)` and
+`paged_decode_step`) are CUDA graphs (`serve/step_graph.py`): the first
+call for a cache, batch and `unroll` runs the steps eagerly and captures
+them, every later call is one replay. A cache's graphs, and their memory
+pools, are dropped with the cache. The greedy `decode`, `generate_host` and
+`serve` decode through them; sampled decoding stays eager.
 
 Every TPU layout name of a format maps to the one port layout of that format
 (`quant/compress.py` `word_convert_site`): `bd2_supported`'s quiet fall back
@@ -67,6 +79,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import weakref
 from typing import Any, Optional
 
 import numpy as np
@@ -83,6 +96,7 @@ from ..ops.cuda import sparse_attention as ssa
 from ..quant import quantizer as Q
 from ..quant.compress import CompressedModel, convert_packed_layouts, layer_arrays
 from . import paged_cache as pc
+from . import step_graph
 from .sampling import SamplingConfig, sample
 from .scheduler import Scheduler
 
@@ -303,7 +317,9 @@ def _layer(cfg, cm, x, lp, lstate, kinds, positions, ops, attend):
 
 def _dense_attn(cfg, ecfg, q, k, v, ck, cv, cks, cvs, pos, ka, va, ops):
     """Attention of one layer over its dense cache ck/cv [B, n_kv, S, C]
-    (cks/cvs: NVFP4's block-scale bytes, else None), written in place."""
+    (cks/cvs: NVFP4's block-scale bytes, else None), written in place at
+    rows pos .. pos + T - 1 (pos: the cache's 0-d int32 tensor; a prefill
+    needs pos == 0, which the public entry points check)."""
     B, T, nH, hd = q.shape
     kv_dtype = ecfg.kv_dtype
     kg, vg = _kv_globals(kv_dtype, ka, va)
@@ -315,29 +331,41 @@ def _dense_attn(cfg, ecfg, q, k, v, ck, cv, cks, cvs, pos, ka, va, ops):
         q_eff = q.reshape(B, nH, hd).float() * (kg.float() / math.sqrt(hd))
         ctx = ops["kv_attention"](q_eff, ck, cv, kn, vn, pos, _kv_fmt(kv_dtype), cks, cvs)
         ctx = (ctx * vg).to(cfg.dtype).reshape(B * T, nH * hd)
-        # the new row lands after attention has read rows < pos
-        rows = slice(pos, pos + 1)
     else:
-        if pos != 0:
-            raise ValueError(f"prefill needs an empty cache (pos == 0), got pos {pos}")
         kq = (_kv_code_new(k_st, k_sc, kv_dtype, torch.float32) * kg).to(cfg.dtype)
         vq = (_kv_code_new(v_st, v_sc, kv_dtype, torch.float32) * vg).to(cfg.dtype)
         ctx = ops["flash"](q.transpose(1, 2), kq, vq, True)
         ctx = ctx.transpose(1, 2).reshape(B * T, nH * hd).to(cfg.dtype)
-        rows = slice(0, T)
-    ck[:, :, rows] = k_st.to(ck.dtype)
-    cv[:, :, rows] = v_st.to(cv.dtype)
+    # the new rows land after attention has read rows < pos
+    rows = _rows_at(pos, T)
+    _write_rows(ck, 2, rows, k_st)
+    _write_rows(cv, 2, rows, v_st)
     if cks is not None:
-        cks[:, :, rows] = k_sc
-        cvs[:, :, rows] = v_sc
+        _write_rows(cks, 2, rows, k_sc)
+        _write_rows(cvs, 2, rows, v_sc)
     return ctx
+
+
+def _rows_at(pos: torch.Tensor, T: int) -> torch.Tensor:
+    """The cache rows pos .. pos + T - 1 as an index tensor, on pos's device."""
+    return pos.long() + torch.arange(T, device=pos.device)
+
+
+def _write_rows(cache: torch.Tensor, dim: int, rows: torch.Tensor, src: torch.Tensor) -> None:
+    """cache[rows] = src along `dim`, in place (one-byte forms as bytes:
+    index_copy_ has no fp8 kernel)."""
+    src = src.to(cache.dtype)
+    if cache.element_size() == 1:
+        cache, src = cache.view(torch.uint8), src.view(torch.uint8)
+    cache.index_copy_(dim, rows, src)
 
 
 def _einsum_attn(cfg, ecfg, q, k, v, ck, cv, pos, ka, va, ops, keep_fracs):
     """Attention of one layer of the einsum engine over its dense cache ck/cv
-    [B, S, n_kv, C], written in place. `keep_fracs` is a list for a sparse
-    prefill (the layer's kept share of tiles is appended), else None.
-    Returns ctx [B*T, nH*hd]."""
+    [B, S, n_kv, C], written in place at rows pos .. pos + T - 1 (pos: the
+    cache's 0-d int32 tensor). `keep_fracs` is a list for a sparse prefill
+    (the layer's kept share of tiles is appended), else None. Returns ctx
+    [B*T, nH*hd]."""
     B, T, nH, hd = q.shape
     nKV, S = cfg.num_key_value_heads, ck.shape[1]
     rep, dt, kv_dtype = nH // nKV, cfg.dtype, ecfg.kv_dtype
@@ -351,21 +379,27 @@ def _einsum_attn(cfg, ecfg, q, k, v, ck, cv, pos, ka, va, ops, keep_fracs):
         scores = scores.reshape(B, nH, T, S).div_(math.sqrt(hd)).add_(mask)
         return torch.softmax(scores, dim=-1).to(dt).reshape(B, nKV, rep, T, S)
 
+    rows = _rows_at(pos, T)
     if T == 1:
         # split attention: the old cache with slot pos patched with the
         # current token's QDQ'd k; its weight comes out of the probabilities
-        # and returns with its QDQ'd v; the row lands after the read
+        # and returns with its QDQ'd v; the row lands after the read. The
+        # patch and the weight's removal select slot pos on the device
+        # (where / gather: the same values as a slice at pos)
         k_q, v_q = _kv_load(k_st, dt, kv_dtype, ka), _kv_load(v_st, dt, kv_dtype, va)
+        at_pos = torch.arange(S, device=q.device) == pos
         scores = torch.einsum("btgrd,bsgd->bgrts", qg, _kv_load(ck, dt, kv_dtype, ka).float())
-        scores[..., pos:pos + 1] = torch.einsum("btgrd,bugd->bgrtu", qg, k_q.float())
+        scores = torch.where(at_pos, torch.einsum("btgrd,bugd->bgrtu", qg, k_q.float()), scores)
         probs = probs_of(scores)
-        w_new = probs[..., pos:pos + 1].clone()
-        probs[..., pos] = 0
+        w_new = probs.gather(-1, rows.expand(*probs.shape[:-1], 1))
+        probs = probs.masked_fill(at_pos, 0)
         ctx = torch.einsum("bgrts,bsgd->btgrd", probs.float(), _kv_load(cv, dt, kv_dtype, va).float()).to(dt)
         ctx = ctx + torch.einsum("bgrtu,bugd->btgrd", w_new.float(), v_q.float()).to(dt)
-        ck[:, pos:pos + 1], cv[:, pos:pos + 1] = k_st, v_st
+        _write_rows(ck, 1, rows, k_st)
+        _write_rows(cv, 1, rows, v_st)
         return ctx.reshape(B * T, nH * hd)
-    ck[:, pos:pos + T], cv[:, pos:pos + T] = k_st, v_st
+    _write_rows(ck, 1, rows, k_st)
+    _write_rows(cv, 1, rows, v_st)
     if keep_fracs is not None:
         # skip-softmax over the fresh tokens' pre-store k/v (an empty cache:
         # the attention span is the prompt); heads folded into the batch
@@ -457,6 +491,31 @@ def _paged_layer_attn(cfg, ecfg, q, k_new, v_new, kp, vp, ksc, vsc, cache, ka, v
     return ctx.reshape(B * T, nH * hd)
 
 
+class _CacheState:
+    """What an engine keeps about one cache: the dense cache's pos as the
+    host last set it (None: not known) and the tensor's version then, and
+    the cache's captured decode steps (step_graph.StepGraph) by tensors,
+    batch and unroll."""
+
+    def __init__(self):
+        self.pos: Optional[int] = None
+        self.version: Optional[int] = None
+        self.graphs: dict = {}
+
+
+def _version(t: torch.Tensor) -> Optional[int]:
+    """t's in-place write count (None for an inference tensor, which keeps
+    none)."""
+    return None if t.is_inference() else t._version
+
+
+def _forget_cache(engine_ref, key: int) -> None:
+    """A cache's owner tensor is gone: drop what its engine kept about it."""
+    eng = engine_ref()
+    if eng is not None:
+        eng._caches.pop(key, None)
+
+
 class Engine:
     """Generation engine over a compressed model, on `device` (cuda unless
     the caller passes device="cpu"); the model must already live there."""
@@ -499,6 +558,36 @@ class Engine:
         self._act_state = {name: {"input": sub["input"]} for name, sub in (cm.qstate or {}).items()
                            if isinstance(sub, dict) and "input" in sub}
         self.last_prefill_keep_frac = None  # [L] after a sparse prefill
+        self._caches: dict = {}  # id(a cache's owner tensor) -> _CacheState, dropped with the owner
+        self._graph_stream = None  # the side stream the decode steps are captured on
+        self._eager = False  # True: the decode steps launch eagerly on the card too (the graphs' reference)
+
+    def _state(self, owner: torch.Tensor) -> "_CacheState":
+        """What the engine keeps about the cache `owner` stands for (the
+        dense cache's pos, the pool's seq_lens): dropped when `owner` is."""
+        st = self._caches.get(id(owner))
+        if st is None:
+            st = self._caches[id(owner)] = _CacheState()
+            weakref.finalize(owner, _forget_cache, weakref.ref(self), id(owner))
+        return st
+
+    def release_graphs(self) -> None:
+        """Drop every captured decode-step graph (and its memory pool)."""
+        for st in self._caches.values():
+            st.graphs.clear()
+
+    def _replay(self, owner: torch.Tensor, key: tuple, fn, *inputs) -> torch.Tensor:
+        """fn(*inputs) on the card as one replay of the graph captured for
+        `key` of the cache `owner` stands for (captured on the first call,
+        whose eager run is its result)."""
+        graphs = self._state(owner).graphs
+        g = graphs.get(key)
+        if g is None:
+            if self._graph_stream is None:
+                self._graph_stream = torch.cuda.Stream(device=self.device)
+            g = graphs[key] = step_graph.StepGraph(fn, inputs, self._graph_stream)
+            return g.first
+        return g(*inputs)
 
     def init_cache(self, batch: int, max_len: Optional[int] = None) -> dict:
         """The dense cache. Einsum engine: stored rows [L, B, S, n_kv, C]
@@ -518,9 +607,11 @@ class Engine:
             lead = (cfg.num_key_value_heads, max_len) if kvk else (max_len, cfg.num_key_value_heads)
             return torch.zeros((cfg.num_hidden_layers, batch, *lead, width), dtype=dt, device=self.device)
 
-        cache = {"k": rows(last, dtype), "v": rows(last, dtype), "pos": 0}
+        cache = {"k": rows(last, dtype), "v": rows(last, dtype),
+                 "pos": torch.zeros((), dtype=torch.int32, device=self.device)}
         if kvk and self.ecfg.kv_dtype == "nvfp4":
             cache["ks"], cache["vs"] = rows(cfg.hd // 16, torch.uint8), rows(cfg.hd // 16, torch.uint8)
+        self._set_pos(cache, 0)
         return cache
 
     def _layers(self, x, positions, attend_of):
@@ -539,22 +630,44 @@ class Engine:
         head_w = params.get("lm_head", params["embed_tokens"])
         return ((x if full else x[:, -1, :]) @ head_w.t().to(x.dtype)).float()
 
+    def _set_pos(self, cache: dict, pos: int) -> None:
+        """Record the dense cache's pos as a public call left it."""
+        st = self._state(cache["pos"])
+        st.pos, st.version = pos, _version(cache["pos"])
+
+    def _room(self, cache: dict, T: int, empty: bool = False) -> int:
+        """The host's check of a dense cache before a public call writes T
+        rows, never inside a decode step; returns pos. Pos comes from the
+        host's record (`_set_pos`); the card is read only for a cache the
+        engine has not recorded, or whose pos tensor was written since (its
+        version moved: a fill, a direct `_model_step`)."""
+        p = cache["pos"]
+        st = self._state(p)
+        if st.pos is None or st.version is None or st.version != _version(p):
+            self._set_pos(cache, int(p))
+        pos = st.pos
+        rows = cache["k"].shape[3 if self.ecfg.kv_attention_kernel else 2]
+        if empty and pos != 0:
+            raise ValueError(f"prefill needs an empty cache (pos == 0), got pos {pos}")
+        if pos + T > rows:
+            raise ValueError(f"cache holds {rows} rows, step needs {pos + T}")
+        return pos
+
     @torch.inference_mode()
     def _model_step(self, tokens: torch.Tensor, cache: dict, full_logits: bool = False,
                     keep_fracs: Optional[list] = None) -> torch.Tensor:
-        """Forward over packed weights; updates `cache` in place. Returns the
-        last position's logits [B, V] f32 (every position's with
-        `full_logits`). A list `keep_fracs` runs the einsum engine's sparse
-        prefill and receives each layer's kept share of tiles."""
+        """Forward over packed weights; updates `cache` in place, its pos
+        included. Returns the last position's logits [B, V] f32 (every
+        position's with `full_logits`). A list `keep_fracs` runs the einsum
+        engine's sparse prefill and receives each layer's kept share of
+        tiles. Reads nothing back to the host: the caller checks the room
+        (`_room`)."""
         cfg = self.cfg
         B, T = tokens.shape
         pos = cache["pos"]
         kvk = self.ecfg.kv_attention_kernel
         if kvk and keep_fracs is not None:
             raise NotImplementedError("kv_attention_kernel does not support sparse-prefill steps")
-        rows = cache["k"].shape[3 if kvk else 2]
-        if pos + T > rows:
-            raise ValueError(f"cache holds {rows} rows, step needs {pos + T}")
         x = self.cm.params["embed_tokens"][tokens].to(cfg.dtype)
         positions = (pos + torch.arange(T, device=self.device, dtype=torch.int32))[None].expand(B, T)
         packed4 = "ks" in cache
@@ -568,7 +681,7 @@ class Engine:
                                                pos, self._ka[i], self._va[i], self._ops)
 
         x = self._layers(x, positions, attend_of)
-        cache["pos"] = pos + T
+        pos.add_(T)
         return self._logits(x, full_logits)
 
     def prefill(self, tokens: torch.Tensor, cache: dict) -> torch.Tensor:
@@ -576,28 +689,57 @@ class Engine:
         With `attn_sparsity` set and T > 1 the einsum engine attends through
         the skip-softmax kernel and records each layer's kept share of tiles
         in `last_prefill_keep_frac` [L]."""
-        if cache["pos"] != 0:
-            raise ValueError("prefill needs an empty cache (pos == 0)")
+        self._room(cache, tokens.shape[1], empty=True)
         keep = [] if self.ecfg.attn_sparsity is not None and tokens.shape[1] > 1 else None
         logits = self._model_step(tokens, cache, keep_fracs=keep)
+        self._set_pos(cache, tokens.shape[1])
         if keep is not None:
             self.last_prefill_keep_frac = torch.stack(keep)
         return logits
 
-    def decode_step(self, tok: torch.Tensor, cache: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """One greedy step: tok [B, 1] -> (next [B, 1] int32, logits [B, V])."""
-        logits = self._model_step(tok, cache)
-        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], logits
+    def _greedy_steps(self, tok: torch.Tensor, cache: dict, unroll: int) -> torch.Tensor:
+        """`unroll` chained greedy steps, the argmax on the device."""
+        for _ in range(unroll):
+            tok = torch.argmax(self._model_step(tok, cache), dim=-1).to(torch.int32)[:, None]
+        return tok
+
+    @torch.inference_mode()
+    def decode_step(self, tok: torch.Tensor, cache: dict, unroll: int = 1) -> tuple[torch.Tensor, dict]:
+        """Fused greedy decode: (tok [B, 1], cache) -> (next [B, 1] int32,
+        cache), JAX's `decode_step`. Runs `unroll` chained greedy steps, the
+        argmax on the device and each step's token feeding the next, and
+        returns the last token; the cache is updated in place (JAX donates
+        it) and returned. On the card one call is one CUDA-graph replay (see
+        the module docstring); on the CPU the steps run eagerly."""
+        if unroll < 1:
+            raise ValueError(f"unroll {unroll} < 1")
+        pos = self._room(cache, unroll)
+        tok = tok.to(device=self.device, dtype=torch.int32)
+        if self.device.type != "cuda" or self._eager:
+            tok = self._greedy_steps(tok, cache, unroll)
+        else:
+            key = ("dense", step_graph.tensor_key(*(cache[k] for k in sorted(cache))), tok.shape, unroll)
+            tok = self._replay(cache["pos"], key, lambda t: self._greedy_steps(t, cache, unroll), tok)
+        self._set_pos(cache, pos + unroll)
+        return tok, cache
 
     def decode(self, first_token: torch.Tensor, cache: dict, steps: int,
                sampling: Optional[SamplingConfig] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Decode `steps` tokens after `first_token` [B, 1] -> [B, steps]."""
+        """Decode `steps` tokens after `first_token` [B, 1] -> [B, steps]:
+        greedy through `decode_step` (one replay a step on the card),
+        sampled eagerly."""
+        sampling = sampling or SamplingConfig()
+        greedy = sampling.temperature <= 0.0
         tok, out = first_token, []
+        pos = self._room(cache, steps)
         for _ in range(steps):
-            logits = self._model_step(tok, cache)
-            tok = sample(logits, sampling or SamplingConfig(), generator)[:, None]
+            if greedy:
+                tok, cache = self.decode_step(tok, cache)
+            else:
+                tok = sample(self._model_step(tok, cache), sampling, generator)[:, None]
             out.append(tok)
+        self._set_pos(cache, pos + steps)
         if not out:
             return first_token[:, :0]
         return torch.cat(out, dim=1)
@@ -611,6 +753,19 @@ class Engine:
         first = sample(logits, sampling or SamplingConfig(), generator)[:, None]
         toks = self.decode(first, cache, max_new_tokens - 1, sampling, generator)
         return torch.cat([first, toks], dim=1)
+
+    def generate_host(self, prompt: torch.Tensor, max_new_tokens: int = 32) -> torch.Tensor:
+        """Greedy generation stepped from the host through the fused
+        `decode_step` (JAX's `generate_host`): prompt [B, T] ->
+        [B, max_new_tokens]."""
+        cache = self.init_cache(prompt.shape[0])
+        logits = self.prefill(prompt.to(self.device), cache)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        out = [tok]
+        for _ in range(max_new_tokens - 1):
+            tok, cache = self.decode_step(tok, cache)
+            out.append(tok)
+        return torch.cat(out, dim=1)
 
     # ---------------- paged KV + continuous batching ----------------
 
@@ -703,18 +858,32 @@ class Engine:
         cache.seq_lens += T * active.to(torch.int32)
         return self._logits(x)
 
+    def _paged_greedy_steps(self, tok, cache: pc.PagedKV, active, unroll: int, return_all: bool):
+        toks = []
+        for _ in range(unroll):
+            tok = torch.argmax(self.paged_step(tok, cache, active), dim=-1).to(torch.int32)[:, None]
+            toks.append(tok)
+        return torch.cat(toks, dim=1) if return_all else tok
+
+    @torch.inference_mode()
     def paged_decode_step(self, tok: torch.Tensor, cache: pc.PagedKV, active: torch.Tensor,
                           unroll: int = 1, return_all: bool = False) -> torch.Tensor:
         """`unroll` chained greedy paged steps: each step's argmax stays on
         the device and feeds the next, with no host sync between them. The
         caller guarantees every active slot page capacity through seq_len +
         unroll. Returns the block [B, unroll] int32 with `return_all`, else
-        its last column [B, 1]."""
-        toks = []
-        for _ in range(unroll):
-            tok = torch.argmax(self.paged_step(tok, cache, active), dim=-1).to(torch.int32)[:, None]
-            toks.append(tok)
-        return torch.cat(toks, dim=1) if return_all else tok
+        its last column [B, 1]. On the card one call is one CUDA-graph
+        replay, keyed by the pool's and the tables' tensors, B, `unroll` and
+        `return_all`: the scheduler updates the block table and the lengths
+        in place, so the graph reads what it wrote there."""
+        tok = tok.to(device=self.device, dtype=torch.int32)
+        active = active.to(self.device)
+        if self.device.type != "cuda" or self._eager:
+            return self._paged_greedy_steps(tok, cache, active, unroll, return_all)
+        key = ("paged", step_graph.tensor_key(cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales,
+                                              cache.block_table), tok.shape, unroll, return_all)
+        return self._replay(cache.seq_lens, key,
+                            lambda t, a: self._paged_greedy_steps(t, cache, a, unroll, return_all), tok, active)
 
     def prefill_chunked(self, cache: pc.PagedKV, slot: int, tokens: torch.Tensor, chunk: int = 64) -> torch.Tensor:
         """Paged chunked prefill: stream the prompt [1, T] into the slot's
@@ -785,13 +954,12 @@ class Engine:
                 cache = sched.retire(cache)
                 continue
             tok, act = torch.from_numpy(last_tok).to(self.device), torch.from_numpy(active).to(self.device)
+            blk = self.paged_decode_step(tok, cache, act, unroll=unroll, return_all=True).cpu().numpy()
             if unroll > 1:
-                blk = self.paged_decode_step(tok, cache, act, unroll=unroll, return_all=True).cpu().numpy()
                 sched.record_token_block(blk)
-                nxt = blk[:, -1]
             else:
-                nxt = torch.argmax(self.paged_step(tok, cache, act), dim=-1).cpu().numpy()
-                sched.record_tokens(nxt)
+                sched.record_tokens(blk[:, 0])
+            nxt = blk[:, -1]
             steps += 1
             active_slot_steps += int(active.sum())
             last_tok[active, 0] = nxt[active]

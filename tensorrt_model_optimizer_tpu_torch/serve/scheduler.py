@@ -126,9 +126,9 @@ class Scheduler:
 
     @staticmethod
     def _set_tables(cache: paged_cache.PagedKV, bt: np.ndarray, lens: np.ndarray):
-        dev = cache.block_table.device
-        cache.block_table = torch.from_numpy(bt).to(dev)
-        cache.seq_lens = torch.from_numpy(lens).to(dev)
+        # in place: a captured paged decode step reads these tensors
+        cache.block_table.copy_(torch.from_numpy(bt))
+        cache.seq_lens.copy_(torch.from_numpy(lens))
 
     def admit(self, cache: paged_cache.PagedKV):
         """Place pending requests into free slots; returns the cache (its

@@ -83,16 +83,18 @@ def test_kernel_matches_plain(cuda_device, fmt):
 
 
 def _split_merge(q, k_cache, v_cache, k_new, v_new, pos, fmt, split_rows, k_scales=None, v_scales=None):
-    """The kernel's algorithm: each split of `split_rows` rows < pos keeps its
-    max m, denominator l = sum exp(s - m) and accumulator sum exp(s - m) v
-    (an empty split: -1e30, 0, 0); the merge rescales them to the largest of
+    """The kernel's algorithm: the grid's splits of `split_rows` rows cover
+    the cache's S rows (the grid is sized from S, never from pos); each
+    split keeps, over its rows < pos, its max m, denominator l = sum exp(s -
+    m) and accumulator sum exp(s - m) v (a split wholly past pos, or empty:
+    -1e30, 0, 0); the merge rescales them to the largest of
     the maxima and the current token's score, folds the token in and
     divides by max(L, 1e-30)."""
     B, HR, hd = q.shape
     n_kv = k_cache.shape[1]
     q3 = q.float().reshape(B, n_kv, HR // n_kv, hd)
     parts = []
-    for r0 in range(0, tkva.n_splits(pos, split_rows) * split_rows, split_rows):
+    for r0 in range(0, tkva.n_splits(k_cache.shape[2], split_rows) * split_rows, split_rows):
         r1 = min(r0 + split_rows, pos)
         if r1 <= r0:
             parts.append((torch.full(q3.shape[:3], -1e30), torch.zeros(q3.shape[:3]), torch.zeros(q3.shape)))
@@ -123,7 +125,7 @@ def test_split_merge_matches_plain(fmt, pos):
     holds four: pos 15, 16, 17 sit at the first boundary."""
     q, kc, vc, kn, vn = _inputs(fmt, seed=100 + pos)
     t = [convert.tensor_from_array(a) for a in (q, kc, vc, kn, vn)]
-    assert tkva.n_splits(pos, 16) == max(1, -(-pos // 16))
+    assert tkva.n_splits(S, 16) == S // 16 and tkva.n_splits(0, 16) == 1
     out = _split_merge(*t, pos, fmt, 16)
     assert rel_err(out.numpy(), tkva.kv_decode_attention_plain(*t, pos, fmt).numpy()) < 1e-6
 

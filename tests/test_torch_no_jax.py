@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: no module of it imports JAX or the JAX
-package, neither in its sources nor when it is imported."""
+package, neither in its sources nor when it is imported. Nor does it import
+`safetensors` (the card's machine lacks it): the port reads and writes the
+format itself (`models/hf_loader.py`)."""
 
 import ast
 import os
@@ -10,7 +12,7 @@ import pytest
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PKG = os.path.join(ROOT, "tensorrt_model_optimizer_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "tensorrt_model_optimizer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "tensorrt_model_optimizer_tpu", "safetensors")
 
 
 def _sources():
@@ -44,6 +46,12 @@ def test_the_walk_covers_the_paged_serving_modules():
     walked = {os.path.relpath(p, PKG) for p in _sources()}
     assert {"serve/paged_cache.py", "serve/scheduler.py", "ops/cuda/paged_attention.py",
             "ops/cuda/kv_attention.py", "serve/engine.py"} <= walked
+
+
+def test_the_walk_covers_the_deploy_modules():
+    walked = {os.path.relpath(p, PKG) for p in _sources()}
+    assert {"export/hf_export.py", "serve/loader.py", "serve/step_graph.py", "serve/profiling.py",
+            "models/hf_loader.py"} <= walked
 
 
 def test_importing_the_port_loads_no_jax():

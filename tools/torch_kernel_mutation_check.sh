@@ -7,10 +7,11 @@
 # paged prefill's two routes), the
 # tensor-core flash kernel (flash_gqa.cu on the tile primitives of
 # attn_tc.cuh) and the skip-softmax kernel (skip_softmax_flash.cu, both
-# routes). Each case
-# plants one fault in a copy of the tree in a fresh `mktemp -d` directory
-# (under $TMPDIR, removed on exit) and runs `chip_smoke.py --phases
-# build,kernels` there; every case must exit non-zero.
+# routes), and of the engine's CUDA-graph decode step (serve/step_graph.py).
+# Each case plants one fault in a copy of the tree in a fresh `mktemp -d`
+# directory (under $TMPDIR, removed on exit) and runs `chip_smoke.py --phases
+# build,kernels` there (a case may name other phases); every case must exit
+# non-zero.
 # Needs one CUDA card and nvcc. Run from the root of the repo:
 #
 #     bash tools/torch_kernel_mutation_check.sh            # every case
@@ -26,13 +27,15 @@ work=$(mktemp -d) || exit 1
 trap 'rm -rf "$work"' EXIT
 missed=0
 only=" $* "
-run() {  # name, file under csrc/, sed expression
+run() {  # name, file under csrc/ (or a path under the package, with a /), sed expression[, phases]
   [ "$only" = "  " ] || [[ "$only" == *" $1 "* ]] || return 0
+  local f="csrc/$2"
+  [[ "$2" == */* ]] && f="$2"
   rm -rf "$work/tree" && mkdir "$work/tree" && cp -r chip_smoke.py tensorrt_model_optimizer_tpu_torch artifacts "$work/tree/"
-  sed -i "$3" "$work/tree/tensorrt_model_optimizer_tpu_torch/csrc/$2"
-  if diff -q "tensorrt_model_optimizer_tpu_torch/csrc/$2" "$work/tree/tensorrt_model_optimizer_tpu_torch/csrc/$2" >/dev/null; then
+  sed -i "$3" "$work/tree/tensorrt_model_optimizer_tpu_torch/$f"
+  if diff -q "tensorrt_model_optimizer_tpu_torch/$f" "$work/tree/tensorrt_model_optimizer_tpu_torch/$f" >/dev/null; then
     echo "MUTATION $1: the edit changed nothing (the source moved on: update this script)"; missed=1; return; fi
-  (cd "$work/tree" && python3 chip_smoke.py --phases build,kernels) > "$logs/mut_$1.log" 2>&1; rc=$?
+  (cd "$work/tree" && python3 chip_smoke.py --phases "${4:-build,kernels}") > "$logs/mut_$1.log" 2>&1; rc=$?
   echo "MUTATION $1: exit $rc"; grep -E "AssertionError|Error" "$logs/mut_$1.log" | tail -1
   [ "$rc" -ne 0 ] || missed=1
 }
@@ -76,6 +79,13 @@ run paged_prefill_tc_causal_late paged_attention_prefill.cu 's/(!ctx_tile \&\& c
 run paged_prefill_tc_skip_last_page paged_attention_prefill.cu 's/        if (s >= ctx) return -1;/        if (s >= ctx || r \/ page == TBK \/ page - 1) return -1;/'
 # kv decode: the merge drops the last split of the cache
 run kv_decode_merge_drop_last kv_decode_attention.cu 's/merge_splits<HD, REP>(ml, acc, n_split, idx, s_new/merge_splits<HD, REP>(ml, acc, n_split - 1, idx, s_new/'
+# kv decode: the split kernel reads pos + 1 from the device (a row past the
+# valid ones joins the softmax)
+run kv_decode_pos_plus_one kv_decode_attention.cu 's/const int pos = min(max(__ldg(pos_p), 0), S);/const int pos = min(max(__ldg(pos_p) + 1, 0), S);/'
+# the graphed decode step replays without copying the caller's token in
+# (every replay decodes the token it was captured with); the full phase
+# holds the graphed tokens against the eager steps'
+run replay_skips_token_copy serve/step_graph.py 's/            buf.copy_(t)/            pass/' build,full
 # NVFP4 rows (CUDA-core walk, `Rows<Fp4>`): the high plane takes the low
 # plane's block-scale bytes
 run nvfp4_high_plane_scale kv_common.cuh 's|s(static_cast<const uint8_t\*>(scales) + lane \* E / 16)|s(static_cast<const uint8_t*>(scales) + (lane \& 15) * E / 16)|'

@@ -11,8 +11,8 @@ change, base, so that a drift of the card's clock over the call shows. The
 Timer (cold L2, the card held by a spin while the host enqueues), the seeded
 inputs and the shapes come from THIS checkout's `chip_smoke.py`, whatever
 the trees' own scripts do. Groups (all by default):
-  kv             `kv_decode_attention` at B 8, n_kv 8, rep 4, hd 128, pos 2048,
-                 every stored form;
+  kv             `kv_decode_attention` at B 8, n_kv 8, rep 4, hd 128, pos 2048
+                 (of chip_smoke's S rows), every stored form;
   paged_prefill  `paged_attention_prefill` with bf16 q (the engine's chunk
                  step) at T = 64 and T = 5 over ragged contexts, pages of 16;
   paged_decode   `paged_attention_decode` with bf16 q, 8 sequences of 2048
@@ -84,7 +84,10 @@ def run(tree: str, groups: list) -> dict:
         vc, vs, _ = smoke._stored_rows(torch, dev, g, (B, n_kv, S, hd), fmt)
         q = torch.randn((B, nH, hd), generator=g, device=dev) / hd ** 0.5 * qf
         kn, vn = (torch.randn((B, n_kv, 1, hd), generator=g, device=dev) for _ in range(2))
-        args = (q, kc, vc, kn, vn, pos, fmt, ks, vs)
+        # a tree whose kernel reads pos on the device takes it as a tensor
+        # there (an int would add a host copy to every timed launch)
+        p = torch.tensor(pos, dtype=torch.int32, device=dev) if hasattr(kv_attention, "_pos_tensor") else pos
+        args = (q, kc, vc, kn, vn, p, fmt, ks, vs)
         rel = smoke._rel(kv_attention.kv_decode_attention(*args), kv_attention.kv_decode_attention_plain(*args))
         out[f"kv_decode_attention {fmt} pos={pos}"] = {
             "ms": timer(lambda: kv_attention.kv_decode_attention(*args), sz.reps), "rel_err": rel}
