@@ -72,6 +72,30 @@ Phases (any failure raises, and the script exits non-zero):
            for bit; each way's wall per token step, device time, idle share
            and launches are printed ("full_graphs"). The serve runs are
            repeated with the steps launched eagerly: the served tokens must be equal.
+  calib    the calibration algorithms at full width (`CALIB_PATHS`): each
+           preset this slice unlocks calibrated on the card on 4 seeded
+           batches of [2, 512] tokens (seconds and peak memory printed),
+           compressed and served by the kernel engine (int8 KV, fp8 where the
+           preset quantizes the KV cache so): 8 x 2048 prefill (TTFT), 32 steps
+           through decode_step(unroll=8) (wall per token step), the graphed
+           tokens and cache equal to the eager steps' bit for bit, the prefill
+           logits against the all-plain engine's at 2 layers (relative error
+           <= CALIB_PLAIN_REL_MAX, input quantizers off, as the full phase
+           holds its paths), and their error against the unquantized engine
+           beside the max-calibrated counterpart's (informational).
+           INT4_AWQ_CFG and INT4_BLOCKWISE_WEIGHT_ONLY_CFG run all 32 layers,
+           every other preset the first 4; W4A8_AWQ_BETA_CFG serves with
+           int4_layout="a8". INT4_AWQ, W4A8_AWQ_BETA, INT8_SMOOTHQUANT and
+           NVFP4_SVDQUANT also export -> load -> serve at 4 layers (loaded
+           against the export's tensors held in memory, DEPLOY_GAP_MAX). Then
+           on artifacts/anchor-llama every calibration module runs on the
+           card and on the CPU over the same f32 captures under the parity
+           rules (`card_cpu_calib_modules`; AWQ clip skips down_proj's 704,
+           no whole number of 128-blocks, as JAX raises there), and each
+           preset calibrated on the card in bf16 is served against its own
+           fake-quant forward (ENGINE_VS_FAKE_QUANT_MAX). The paths' launch
+           counts are added to the kernels line's; each of CALIB_KERNELS
+           must have launched.
   deploy   the deploy loop at full width on 4 layers, for W4A8 (INT4 weights,
            int8 KV, kernel attention) and NVFP4 weight-only: PTQ -> unified
            HF export (1 GiB shards, into a temporary directory removed after
@@ -2353,6 +2377,556 @@ def phase_deploy(torch, dev, sz: Sizes) -> dict:
     return launches
 
 
+# The calibration algorithms at full width: each preset this slice unlocks,
+# calibrated on the card on 4 seeded batches of [2, 512] tokens, compressed
+# and served by the kernel engine. INT4_AWQ_CFG (the headline) and its
+# max-calibrated counterpart on all 32 layers, every other preset on the
+# first 4 (the cut the 4-layer formats of FULL_PATHS take for time).
+@dataclasses.dataclass(frozen=True)
+class CalibPath:
+    label: str
+    preset: str
+    depth: int = 4
+    layouts: tuple = ()    # EngineConfig layout fields
+    kv: object = "int8"    # "int8", or "fp8" where the preset quantizes the KV cache to fp8
+    max_counterpart: str = "INT4_BLOCKWISE_WEIGHT_ONLY_CFG"  # the max-calibrated preset its error is read beside
+    deploy: bool = False   # export -> load -> serve at DEPLOY_DEPTH
+
+
+CALIB_PATHS = (
+    CalibPath("int4_max", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", depth=32),  # the headline's comparison (max)
+    CalibPath("int4_awq", "INT4_AWQ_CFG", depth=32, deploy=True),
+    CalibPath("w8a8_smoothquant", "INT8_SMOOTHQUANT_CFG", max_counterpart="INT8_DEFAULT_CFG", deploy=True),
+    CalibPath("int4_gptq", "INT4_GPTQ_CFG"),
+    CalibPath("int4_local_hessian", "INT4_LOCAL_HESSIAN_CFG"),
+    CalibPath("int4_svdquant", "INT4_SVDQUANT_CFG"),
+    CalibPath("nvfp4_svdquant", "NVFP4_SVDQUANT_CFG", max_counterpart="NVFP4_DEFAULT_CFG", deploy=True),
+    CalibPath("w4a8_awq", "W4A8_AWQ_BETA_CFG", layouts=(("int4_layout", "a8"),), deploy=True),
+    CalibPath("nvfp4_awq_lite", "NVFP4_AWQ_LITE_CFG", max_counterpart="NVFP4_DEFAULT_CFG"),
+    CalibPath("nvfp4_act_headroom", "NVFP4_ACT_HEADROOM_CFG", max_counterpart="NVFP4_DEFAULT_CFG"),
+    CalibPath("fp8_kv_affine", "FP8_KV_AFFINE_CFG", kv="fp8", max_counterpart="FP8_KV_CFG"),
+    CalibPath("int4_awq_kv_fp8", "INT4_AWQ_KV_FP8_CFG", kv="fp8"),
+)
+CALIB_BATCHES = (4, 2, 512)  # seeded token batches: count, B, T
+CALIB_KERNELS = ("qmm_int4_wo", "qmm_fp4_wo", "qmm_w4a8", "qmm_byte_wo", "flash_gqa", "kv_decode_attention")
+# kernel engine against the all-plain engine: the prefill logits' relative
+# error at CALIB_PLAIN_DEPTH layers, input quantizers off, as `_full_path`
+# holds each path (the bf16 GEMMs' one-ulp differences flip int8 KV and
+# activation codes, which random layers amplify with depth)
+CALIB_PLAIN_REL_MAX = 5e-2
+CALIB_PLAIN_DEPTH = 2
+ENGINE_VS_FAKE_QUANT_MAX = 0.1  # anchor: the engine against the calibrated fake-quant forward, median gap
+# W8A8's static per-tensor int8 activations turn the engine's and the
+# fake-quant forward's bf16 rounding into other codes, and deeper layers
+# carry them on: its engine check runs on the first layer
+ANCHOR_W8A8_DEPTH = 1
+CARD_CPU_FROB_MAX = 1e-3  # anchor: card against CPU calibration, relative Frobenius error of each tensor
+CARD_CPU_APART_MAX = 1e-2  # anchor: share of a tensor's elements apart beyond the elementwise rule
+
+
+def _kv_of(torch, path: CalibPath):
+    return torch.float8_e4m3fn if path.kv == "fp8" else "int8"
+
+
+def _calib_serve(torch, dev, sz: Sizes, path: CalibPath, cm, prompt) -> dict:
+    """The kernel engine over `cm`: 8 x 2048 prefill (TTFT), then 32 steps
+    through decode_step(unroll=8) (wall per token step); the launch counts of
+    that run; then the same steps launched eagerly from the prefilled cache
+    (tokens and cache must be equal bit for bit); then the prefill logits of
+    the model's first CALIB_PLAIN_DEPTH layers against the all-plain
+    engine's, with the input quantizers off where the preset has them
+    (relative error <= CALIB_PLAIN_REL_MAX; with them on, the median gap and
+    flip margins, printed), and at a 4-layer path's full depth (printed).
+    Returns (the row, the prefill logits, the failures)."""
+    from tensorrt_model_optimizer_tpu_torch.serve.engine import PLAIN_ALL
+
+    sync = torch.cuda.synchronize
+    layouts, kv = dict(path.layouts), _kv_of(torch, path)
+    eng = _engine(torch, cm, sz.max_seq, dev, kv=kv, **layouts)
+    cache = eng.init_cache(sz.batch)
+    _counts(reset=True)
+    sync()
+    t0 = time.perf_counter()
+    logits = eng.prefill(prompt, cache)
+    sync()
+    ttft_ms = (time.perf_counter() - t0) * 1e3
+    start = _clone_cache(cache)
+    tok0 = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    tok, walls, got = tok0, [], []
+    for _ in range(sz.decode_steps // 8):
+        t0 = time.perf_counter()
+        tok, cache = eng.decode_step(tok, cache, unroll=8)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        got.append(tok)
+    launches = _counts()
+    eager, t = [], tok0
+    for _ in range(sz.decode_steps):
+        t, _ = _eager_step(torch, eng, t, start)
+        eager.append(t)
+    failures = []
+    equal = torch.equal(torch.cat(got, dim=1), torch.cat(eager, dim=1)[:, 7::8]) and _same_cache(torch, cache, start)
+    if not equal:
+        failures.append(f"calib {path.label}: the graphed decode steps differ from the eager ones")
+    kinds = sorted(set(eng.cm.kinds.values()))
+    eng.release_graphs()
+    del eng, cache, start
+
+    def vs_plain(depth, model):
+        sub = _truncate(model, depth) if depth != path.depth else model
+        out = _engine(torch, sub, sz.max_seq, dev, kv=kv, **layouts)
+        out = out.prefill(prompt, out.init_cache(sz.batch)) if depth != path.depth or model is not cm else logits
+        ref = _engine(torch, sub, sz.max_seq, dev, PLAIN_ALL, kv=kv, **layouts)
+        ref = ref.prefill(prompt, ref.init_cache(sz.batch))
+        gaps, flips = _gaps(out, ref)
+        return {"prefill_logits_rel_err": _rel(out, ref), "median_logits_gap": statistics.median(gaps),
+                "worst_logits_gap": max(gaps), "argmax_flip_margins": flips}
+
+    depth = min(CALIB_PLAIN_DEPTH, path.depth)
+    acts = any(c.enable for k, c in cm.layout.sites if k.endswith(".input"))
+    held = vs_plain(depth, _without_input_quantizers(cm) if acts else cm)
+    readings = {f"depth {depth}" + (", input quantizers off" if acts else ""): held}
+    if acts:
+        readings[f"depth {depth}"] = vs_plain(depth, cm)
+    if path.depth <= 4:  # the 32-layer plain prefill takes ~20 s
+        readings[f"depth {path.depth}"] = vs_plain(path.depth, cm)
+    row = {"ttft_ms": ttft_ms, "wall_ms_per_token_step": statistics.median(walls[1:]) / 8,
+           "capture_call_ms": walls[0], "graph_tokens_equal_eager": equal, "vs_plain": readings,
+           "kinds_served": kinds, "launches": launches, "logits_finite": bool(torch.isfinite(logits).all())}
+    if not row["logits_finite"] or not held["prefill_logits_rel_err"] <= CALIB_PLAIN_REL_MAX:
+        failures.append(f"calib {path.label}: the kernel engine against the plain one: {readings}")
+    return row, logits, failures
+
+
+def _rel_frob(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+def _held_card_cpu(torch, label: str, card, cpu) -> dict:
+    """Card against CPU calibration of one f32 model: the algorithm a search
+    picked equal; every state tensor (amax, pre_quant_scale, affine bias),
+    folded or residual weight and adapter product B @ A within
+    CARD_CPU_FROB_MAX (relative Frobenius), and the share of its elements
+    more than 1e-5 of the tensor's largest magnitude apart at most
+    CARD_CPU_APART_MAX: a search's choice at a near tie (the card's and the
+    CPU's f32 sums differ in order) moves a few rows or blocks, a GPTQ code
+    at a rounding tie the columns after it. Returns the worst figures;
+    raises beyond."""
+    from tensorrt_model_optimizer_tpu_torch.quant.quantizer import QuantizerState
+
+    if card.quant_cfg.algorithm != cpu.quant_cfg.algorithm:
+        raise AssertionError(f"calib card/cpu {label}: picked {card.quant_cfg.algorithm} on the card, "
+                             f"{cpu.quant_cfg.algorithm} on the CPU")
+    pairs = []
+
+    def walk(name, a, b):
+        if a is None:
+            return
+        if isinstance(a, dict):
+            for k in a:
+                walk(f"{name}.{k}", a[k], b[k])
+        elif isinstance(a, tuple):
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(f"{name}[{i}]", x, y)
+        elif isinstance(a, QuantizerState):
+            for f in ("amax", "pre_quant_scale", "bias"):
+                walk(f"{name}.{f}", getattr(a, f), getattr(b, f))
+        else:
+            pairs.append((name, a.cpu(), b))
+
+    walk("qstate", card.qstate, cpu.qstate)
+    for name in card.params["layers"]:
+        walk(f"layers.{name}", card.params["layers"][name], cpu.params["layers"][name])
+    for name, ad in (card.adapters or {}).items():
+        pairs.append((f"adapters.{name}.B@A", torch.bmm(ad["B"].float(), ad["A"].float()).cpu(),
+                      torch.bmm(cpu.adapters[name]["B"].float(), cpu.adapters[name]["A"].float())))
+    worst_frob, worst_apart, apart_total, beyond = 0.0, 0.0, 0, []
+    for name, a, b in pairs:
+        frob = _rel_frob(a, b)
+        apart = (a.float() - b.float()).abs() > 1e-5 * b.float().abs().max().clamp_min(1e-30)
+        share = float(apart.float().mean())
+        worst_frob, worst_apart = max(worst_frob, frob), max(worst_apart, share)
+        apart_total += int(apart.sum())
+        if not frob <= CARD_CPU_FROB_MAX or not share <= CARD_CPU_APART_MAX:
+            idx = apart.flatten().nonzero()[:4, 0]
+            beyond.append({"tensor": name, "rel_frobenius": frob, "share_apart": share,
+                           "card": a.flatten()[idx].tolist(), "cpu": b.flatten()[idx].tolist()})
+    out = {"tensors": len(pairs), "worst_rel_frobenius": worst_frob, "worst_share_apart": worst_apart,
+           "elements_apart": apart_total, "beyond": beyond}
+    if beyond:
+        log(json.dumps({"phase": "calib_anchor_card_cpu_apart", "algorithm": label, **out}))
+        raise AssertionError(f"calib card/cpu {label}: {len(beyond)} tensors beyond the rule, first "
+                             f"{beyond[0]['tensor']}")
+    return out
+
+
+# card against CPU: the calibration modules on the same captured inputs
+TIE_REL = 1e-5        # a choice may differ only where the CPU's losses for the two candidates lie this close
+SCALE_ULP = 4         # f32 scales from the same choice: within this many ulp
+GPTQ_OUT_ERR_REL = 1e-2   # GPTQ: the output error ||X (Wq - W)^T||^2 within this share of the CPU's
+GPTQ_APART_MAX = 1e-2     # GPTQ: the share of weights more than 1e-3 of the largest apart (a code at a tie cascades)
+SVD_REL = 1e-4        # SVDQuant: B @ A and the residual, relative to the weight, or SVD_GAP_ULPS f32 ulps of
+SVD_GAP_ULPS = 16     # sigma_1 / (sigma_r - sigma_r+1) where the rank-r subspace is that ill-defined (Davis-Kahan)
+
+
+def card_cpu_calib_modules(torch, dev, cfg, params, batches) -> dict:
+    """Every calibration module on the CPU and on the card (`dev`) over the
+    same inputs: f32 weights `params` and the captures of `batches`, taken
+    once on the CPU. The parity rules of tests/test_torch_calib_math.py,
+    with the CPU in JAX's place: a search's choices (AWQ-lite alphas with
+    the INT4, W4A8 and NVFP4 weight quantizers, SmoothQuant auto's
+    candidates, AWQ-clip, local-Hessian and MSE ratios) equal wherever the
+    CPU's losses for the two candidates differ by more than TIE_REL, the
+    scales of an equal choice within SCALE_ULP; GPTQ's output error within
+    GPTQ_OUT_ERR_REL and at most GPTQ_APART_MAX of its weights apart;
+    SVDQuant within SVD_REL, or where the rank-16 subspace is ill-defined
+    (close singular values at the cut) within SVD_GAP_ULPS f32 ulps times
+    sigma_1 / (sigma_16 - sigma_17), how far two correct SVDs may rotate it;
+    histogram counts and amaxes equal. AWQ clip
+    skips a K that is no whole number of blocks (JAX raises there). Returns
+    the counts; raises beyond the rules."""
+    from tensorrt_model_optimizer_tpu_torch.models import llama
+    from tensorrt_model_optimizer_tpu_torch.ops import numerics
+    from tensorrt_model_optimizer_tpu_torch.quant import config, ptq
+    from tensorrt_model_optimizer_tpu_torch.quant.calib import awq, gptq, histogram, mse, smoothquant, svdquant
+
+    layout = llama.build_layout(cfg, config.INT4_BLOCKWISE_WEIGHT_ONLY_CFG)
+    absmean, amax, samples = ptq._capture_stats(cfg, params, layout, llama.init_quant_state(cfg, layout, "cpu"),
+                                                batches, 128)
+    st = {"choices": 0, "choices_apart": 0, "worst_tie_gap": 0.0, "worst_scale_ulp": 0.0,
+          "gptq_worst_out_err_rel": 0.0, "gptq_worst_share_apart": 0.0, "svd_worst_rel": 0.0}
+    failures = []
+
+    def on(t):
+        return t.to(dev)
+
+    def choices(what, lc, lg):
+        """The argmins of the CPU's and the card's losses [n, ...]; where
+        they differ, the CPU's losses for the two must be a tie."""
+        ic, ig = lc.argmin(0), lg.cpu().argmin(0)
+        apart = ic != ig
+        st["choices"] += ic.numel()
+        if bool(apart.any()):
+            a, b = lc.gather(0, ic[None])[0][apart], lc.gather(0, ig[None])[0][apart]
+            gap = float(((b - a).abs() / a.abs().clamp_min(1e-30)).max())
+            st["choices_apart"] += int(apart.sum())
+            st["worst_tie_gap"] = max(st["worst_tie_gap"], gap)
+            if gap > TIE_REL:
+                failures.append(f"{what}: {int(apart.sum())} choices apart, CPU losses {gap} apart")
+        return apart
+
+    def ulps(what, a, b):
+        a, b = a.cpu().double(), b.double()
+        u = float(((a - b).abs() / (b.abs() * 2.0 ** -23).clamp_min(1e-45)).max()) if a.numel() else 0.0
+        st["worst_scale_ulp"] = max(st["worst_scale_ulp"], u)
+        if u > SCALE_ULP:
+            failures.append(f"{what}: scales {u} ulp apart")
+
+    wq = {"int4": config.INT4_PER_BLOCK_128, "w4a8": config.W4A8_SEQUENTIAL, "nvfp4": config.NVFP4_BLOCK16}
+    for key, members in ptq.CAPTURE_GROUPS.items():
+        for i in range(cfg.num_hidden_layers):
+            x, ws, am = samples[key][i], [params["layers"][m][i] for m in members], absmean[key][i]
+            base = torch.clamp_min(am.float(), 1e-8)
+            for name, c in wq.items():  # AWQ lite
+                fns = ptq._weight_qfns([c] * len(ws))
+                alphas, lc = awq.awq_lite_losses(x, ws, fns, am)
+                _, lg = awq.awq_lite_losses(on(x), [on(w) for w in ws], fns, on(am))
+                if not bool(choices(f"awq_lite {name} {key}[{i}]", lc, lg).any()):
+                    a = alphas[lc.argmin(0)]
+                    ulps(f"awq_lite {name} {key}[{i}]", awq._normalize_scale(torch.pow(on(base), on(a))),
+                         awq._normalize_scale(torch.pow(base, a)))
+            fns = [lambda w, f=f: f(w[0])[None] for f in ptq._weight_qfns([config.INT8_PER_CHANNEL] * len(ws))]
+            sc, lc = smoothquant.smoothquant_auto_losses(x[None], amax[key][i][None], [w[None] for w in ws], fns)
+            sg, lg = smoothquant.smoothquant_auto_losses(on(x)[None], on(amax[key][i])[None],
+                                                         [on(w)[None] for w in ws], fns)
+            if not bool(choices(f"smoothquant_auto {key}[{i}]", lc, lg).any()):
+                j = int(lc.argmin(0))
+                ulps(f"smoothquant_auto {key}[{i}]", sg[j], sc[j])
+            for m, w in zip(members, ws):
+                bsz = min(128, w.shape[-1])
+
+                def q4(wx, full):
+                    return numerics.fake_quant_int(wx, full, 4)
+
+                amax0 = torch.amax(torch.abs(torch.nn.functional.pad(w, (0, -w.shape[-1] % bsz))).reshape(
+                    w.shape[0], -1, bsz), dim=-1)
+                _, lc = mse.local_hessian_losses(x, w, amax0, q4, bsz)
+                _, lg = mse.local_hessian_losses(on(x), on(w), on(amax0), q4, bsz)
+                choices(f"local_hessian {m}[{i}]", lc, lg)
+                if w.shape[-1] % bsz == 0:
+                    _, _, lc = awq.awq_clip_losses(x, w, bsz, q4)
+                    _, _, lg = awq.awq_clip_losses(on(x), on(w), bsz, q4)
+                    choices(f"awq_clip {m}[{i}]", lc, lg)
+                    expand = (lambda a, shape=tuple(w.shape): numerics.expand_block_scale(a, shape, ((-1, bsz),)))
+                    _, lc = mse.mse_amax_losses(w, amax0, q4, expand)
+                    _, lg = mse.mse_amax_losses(on(w), on(amax0), q4, expand)
+                    choices(f"mse {m}[{i}]", lc, lg)
+                A, B, r = svdquant.svd_split(w, 16)
+                Ag, Bg, rg = svdquant.svd_split(on(w), 16)
+                rel = max(float(((Bg @ Ag).cpu() - B @ A).norm() / w.norm()), float((rg.cpu() - r).norm() / w.norm()))
+                sv = torch.linalg.svdvals(w.double())
+                bound = max(SVD_REL, SVD_GAP_ULPS * 2.0 ** -23 * float(sv[0] / (sv[15] - sv[16])))
+                st["svd_worst_rel"] = max(st["svd_worst_rel"], rel)
+                st["svd_worst_share_of_bound"] = max(st.get("svd_worst_share_of_bound", 0.0), rel / bound)
+                if rel > bound:
+                    failures.append(f"svdquant {m}[{i}]: {rel} of the weight apart, the bound {bound}")
+            wcat = torch.cat(ws)  # the group's weights share the Hessian, as ptq runs them
+            wc = gptq.gptq_calibrate_weight(wcat, x, config.INT4_PER_BLOCK_128)
+            wg = gptq.gptq_calibrate_weight(on(wcat), on(x), config.INT4_PER_BLOCK_128).cpu()
+
+            def out_err(wq_):  # ||X (Wq - W)^T||^2
+                return float(((x.double() @ (wq_ - wcat).double().t()) ** 2).sum())
+
+            err_rel = abs(out_err(wg) - out_err(wc)) / out_err(wc)
+            share = float(((wg - wc).abs() > 1e-3 * wc.abs().max()).float().mean())
+            st["gptq_worst_out_err_rel"] = max(st["gptq_worst_out_err_rel"], err_rel)
+            st["gptq_worst_share_apart"] = max(st["gptq_worst_share_apart"], share)
+            if err_rel > GPTQ_OUT_ERR_REL or share > GPTQ_APART_MAX:
+                failures.append(f"gptq {key}[{i}]: output error {err_rel} apart, {share} of the weights")
+    x = samples["down_in"]
+    hc = histogram.collect_histogram(x, histogram.init_histogram(torch.amax(torch.abs(x))))
+    hg = histogram.collect_histogram(on(x), histogram.init_histogram(on(torch.amax(torch.abs(x)))))
+    if not torch.equal(hg.counts.cpu(), hc.counts) or any(
+            not torch.equal(histogram.compute_amax(hg, m).cpu(), histogram.compute_amax(hc, m))
+            for m in ("percentile", "mse", "entropy")):
+        failures.append("histogram: counts or amaxes apart")
+    if failures:
+        raise AssertionError(f"calib card/cpu: {len(failures)} beyond the rules: " + "; ".join(failures[:8]))
+    return st
+
+
+# the presets served on artifacts/anchor-llama against their own fake-quant
+# forward: (algorithm, preset, its max-calibrated counterpart)
+ANCHOR_CALIB = (
+    ("smoothquant_auto", "INT8_SMOOTHQUANT_CFG", "INT8_DEFAULT_CFG"),  # served W8A8 (ANCHOR_W8A8_DEPTH)
+    ("awq_lite", "INT4_AWQ_CFG", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG"),
+    ("awq_lite_w4a8", "W4A8_AWQ_BETA_CFG", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG"),
+    ("gptq", "INT4_GPTQ_CFG", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG"),
+    ("local_hessian", "INT4_LOCAL_HESSIAN_CFG", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG"),
+    ("svdquant", "NVFP4_SVDQUANT_CFG", "NVFP4_DEFAULT_CFG"),
+    ("nvfp4_act_headroom", "NVFP4_ACT_HEADROOM_CFG", "NVFP4_DEFAULT_CFG"),
+    ("fp8_kv_affine", "FP8_KV_AFFINE_CFG", "FP8_KV_CFG"),
+)
+# the algorithms without a search, held card against CPU through ptq.quantize
+ANCHOR_CARD_CPU_PTQ = ("NVFP4_ACT_HEADROOM_CFG", "FP8_KV_AFFINE_CFG")
+
+
+def _a8_fake_quant(qm):
+    """`qm` with every enabled input site as the W4A8 engine quantizes it:
+    per-token dynamic int8 (the pre_quant_scale stays in the state)."""
+    from tensorrt_model_optimizer_tpu_torch.models.llama import QuantLayout
+    from tensorrt_model_optimizer_tpu_torch.quant.config import INT8_PER_TOKEN_DYNAMIC
+
+    sites = tuple((k, INT8_PER_TOKEN_DYNAMIC if k.endswith(".input") and k != "lm_head.input" else v)
+                  for k, v in qm.layout.sites)
+    return dataclasses.replace(qm, layout=QuantLayout(sites=sites))
+
+
+def _calib_anchor(torch, dev) -> list:
+    """On artifacts/anchor-llama: every calibration module on the card and
+    on the CPU over the same f32 captures (`card_cpu_calib_modules`; in bf16
+    the two devices' forwards round the activations an ulp apart, and every
+    statistic after them), and the search-free algorithms through
+    `ptq.quantize` in f32 (`_held_card_cpu`); then each preset of
+    ANCHOR_CALIB calibrated on the card in bf16 and served by the kernel
+    engine against its own fake-quant forward (the KV cache as the preset
+    quantizes it; W4A8 against int8 per-token input sites): the median
+    logits gap at most ENGINE_VS_FAKE_QUANT_MAX, which holds the engine's use
+    of the calibrated state (pre_quant_scale, adapters, W8A8 scales) to the
+    forward that calibrated it; and each model's fake-quant logits error
+    against the unquantized model beside max calibration's (printed)."""
+    from tensorrt_model_optimizer_tpu_torch.models import hf_loader, llama
+    from tensorrt_model_optimizer_tpu_torch.quant import compress, config, ptq
+
+    cfg, params = hf_loader.load_hf_checkpoint(ANCHOR, device=dev)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    cpu32 = hf_loader.load_hf_checkpoint(ANCHOR, dtype=torch.float32, device="cpu")[1]
+    g = torch.Generator(device=dev).manual_seed(6)
+    batches = [torch.randint(0, cfg.vocab_size, (2, 128), generator=g, device=dev) for _ in range(4)]
+    t0 = time.perf_counter()
+    modules = card_cpu_calib_modules(torch, dev, cfg32, cpu32, [b.cpu() for b in batches])
+    log(json.dumps({"phase": "calib_anchor_modules", "seconds": time.perf_counter() - t0, **modules}))
+    for preset in ANCHOR_CARD_CPU_PTQ:
+        card = ptq.quantize(cfg32, {k: (v.to(dev) if isinstance(v, torch.Tensor) else
+                                        {n: a.to(dev) for n, a in v.items()}) for k, v in cpu32.items()},
+                            preset, batches, device=dev)
+        cpu = ptq.quantize(cfg32, cpu32, preset, [b.cpu() for b in batches], device="cpu")
+        log(json.dumps({"phase": "calib_anchor_ptq", "preset": preset, **_held_card_cpu(torch, preset, card, cpu)}))
+        del card, cpu
+    rows = []
+    for label, preset, counterpart in ANCHOR_CALIB:
+        qcfg = config.get_preset(preset)
+        t0 = time.perf_counter()
+        card = ptq.quantize(cfg, params, qcfg, batches, device=dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        prompt = torch.randint(0, cfg.vocab_size, (4, 64), generator=g, device=dev)
+        a8 = preset.startswith("W4A8")
+        kv = torch.float8_e4m3fn if qcfg.resolve("model.layers.0.self_attn.k_bmm_quantizer").enable else None
+        held_qm = card
+        if qcfg.resolve("model.layers.0.mlp.up_proj.input_quantizer").num_bits == 8 and \
+                qcfg.resolve("model.layers.0.mlp.up_proj.weight_quantizer").num_bits == 8:
+            held_qm = _truncated_qm(card, ANCHOR_W8A8_DEPTH)
+        eng = _engine(torch, compress.compress(held_qm), 128, dev, kv=kv, **({"int4_layout": "a8"} if a8 else {}))
+        served = eng.prefill(prompt, eng.init_cache(prompt.shape[0]))
+        fq = (_a8_fake_quant(held_qm) if a8 else held_qm).forward(prompt)[0][:, -1]
+        gap = statistics.median(_gaps(served, fq)[0])
+        ref = llama.forward(cfg, params, prompt)[0][:, -1]
+        mx = ptq.quantize(cfg, params, counterpart, batches, device=dev)
+        row = {"phase": "calib_anchor", "algorithm": label, "preset": preset, "card_s": card_s,
+               "engine_layers": held_qm.model_cfg.num_hidden_layers, "engine_vs_fake_quant_median_gap": gap,
+               "fake_quant_rel_err_vs_unquantized": _rel_frob(card.forward(prompt)[0][:, -1], ref),
+               "max_calibrated_rel_err_vs_unquantized": _rel_frob(mx.forward(prompt)[0][:, -1], ref)}
+        log(json.dumps(row))
+        rows.append(row)
+        if not gap <= ENGINE_VS_FAKE_QUANT_MAX:
+            raise AssertionError(f"calib anchor {label}: the engine lies {gap} (median) from the calibrated "
+                                 f"fake-quant forward, the limit is {ENGINE_VS_FAKE_QUANT_MAX}")
+        del card, mx, eng
+    return rows
+
+
+def _truncated_qm(qm, depth: int):
+    """The first `depth` layers of a QuantizedModel (views): the layers'
+    weights, their stacked states and adapters."""
+    from tensorrt_model_optimizer_tpu_torch.models import llama
+
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        if isinstance(tree, llama.QuantizerState):
+            return llama._map_state(lambda a: a[:depth], tree)
+        return tree[:depth]
+
+    qstate = {k: (v if k.startswith(llama.GLOBAL_SITES) else cut(v)) for k, v in qm.qstate.items()}
+    return dataclasses.replace(qm, model_cfg=dataclasses.replace(qm.model_cfg, num_hidden_layers=depth),
+                               params={**qm.params, "layers": cut(qm.params["layers"])}, qstate=qstate,
+                               adapters=None if qm.adapters is None else cut(qm.adapters))
+
+
+def _calib_deploy(torch, dev, sz: Sizes, path: CalibPath, qm, prompt) -> tuple:
+    """export (1 GiB shards, a temporary directory) -> load -> serve at
+    DEPLOY_DEPTH: the loaded engine's prefill logits (256 tokens) against
+    the engine over the export's own tensors held in memory (the same
+    conversion, no disk; median gap <= DEPLOY_GAP_MAX), and against the
+    engine over `compress`'s model (printed: the checkpoint's fp16 storage
+    and its scales moved an ulp, `phase_deploy`, are between them). Returns
+    (the row, the failures)."""
+    import tempfile
+
+    from tensorrt_model_optimizer_tpu_torch.export import hf_export
+    from tensorrt_model_optimizer_tpu_torch.quant import compress
+    from tensorrt_model_optimizer_tpu_torch.serve import loader
+
+    qm = _truncated_qm(qm, DEPLOY_DEPTH) if qm.model_cfg.num_hidden_layers != DEPLOY_DEPTH else qm
+    layouts, kv = dict(path.layouts), _kv_of(torch, path)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_calib_deploy_") as d:
+        t0 = time.perf_counter()
+        qc = hf_export.export_hf_checkpoint(qm, d, max_shard_bytes=DEPLOY_SHARD_BYTES)
+        export_s = time.perf_counter() - t0
+        with open(os.path.join(d, "config.json")) as f:
+            hf_cfg = json.load(f)
+        t0 = time.perf_counter()
+        loaded = loader.load_quantized_checkpoint(d, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    p = prompt[:, :256]
+
+    def served(cm):
+        eng = _engine(torch, cm, 512, dev, kv=kv, **layouts)
+        return eng.prefill(p, eng.init_cache(p.shape[0]))
+
+    def vs(a, b):
+        gaps, flips = _gaps(a, b)
+        return {"median_logits_gap": statistics.median(gaps), "worst_logits_gap": max(gaps),
+                "argmax_flip_margins": flips}
+
+    out = served(loaded)
+    held = vs(out, served(loader.compressed_from_export(hf_cfg, qc["quantization"],
+                                                        dict(hf_export._iter_export_tensors(qm)), dev)))
+    row = {"quant_algo": qc["quantization"]["quant_algo"], "lora_rank": qc["quantization"].get("lora_rank"),
+           "adapters_loaded": loaded.adapters is not None, "export_s": export_s, "load_s": load_s,
+           "layers": DEPLOY_DEPTH, "loaded_vs_in_memory_export": held,
+           "loaded_vs_compress": vs(out, served(compress.compress(qm)))}
+    failed = [] if held["median_logits_gap"] <= DEPLOY_GAP_MAX and row["adapters_loaded"] == (qm.adapters is not None) \
+        else [f"calib deploy {path.label}: {row}"]
+    return row, failed
+
+
+def phase_calib(torch, dev, sz: Sizes) -> dict:
+    """Every path of CALIB_PATHS at full width (seeded random bf16 weights,
+    32 layers made once, the 4-layer paths on the first 4): calibrate on the
+    card (seconds, peak memory), compress, serve (`_calib_serve`), the
+    prefill logits' error against the unquantized engine beside the
+    max-calibrated counterpart's (informational: the weights are random);
+    the deploy paths export, load and serve at DEPLOY_DEPTH. Then
+    `_calib_anchor`. Returns the launch counts of the served runs."""
+    from tensorrt_model_optimizer_tpu_torch.models import llama
+    from tensorrt_model_optimizer_tpu_torch.quant import compress, config, ptq
+
+    sync = torch.cuda.synchronize
+    cfg32 = llama.LlamaConfig.llama3_8b()
+    params32 = llama.init_params(cfg32, torch.Generator(device=dev).manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    prompt = torch.randint(0, cfg32.vocab_size, (sz.batch, sz.prompt), generator=g, device=dev)
+    n, b, t = CALIB_BATCHES
+    gb = torch.Generator(device=dev).manual_seed(4)
+    batches = [torch.randint(0, cfg32.vocab_size, (b, t), generator=gb, device=dev) for _ in range(n)]
+    launches: dict = {}
+    refs: dict = {}
+    max_err: dict = {}
+    failures: list = []
+    for path in CALIB_PATHS:
+        cfg = dataclasses.replace(cfg32, num_hidden_layers=path.depth)
+        params = {**params32, "layers": {k: v[:path.depth] for k, v in params32["layers"].items()}}
+        if path.depth not in refs:  # the unquantized engine's prefill logits at this depth
+            ref_eng = _engine(torch, compress.compress_bf16(cfg, params), sz.max_seq, dev, kv=None)
+            refs[path.depth] = ref_eng.prefill(prompt, ref_eng.init_cache(sz.batch))
+            del ref_eng
+        torch.cuda.empty_cache()
+        sync()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        qm = ptq.quantize(cfg, params, path.preset, batches, device=dev)
+        sync()
+        calib_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        cm = compress.compress(qm)
+        row, logits, failed = _calib_serve(torch, dev, sz, path, cm, prompt)
+        failures += failed
+        for k, v in row.pop("launches").items():
+            launches[k] = launches.get(k, 0) + v
+        err = _rel_frob(logits, refs[path.depth])
+        key = (path.depth, path.max_counterpart, path.kv, path.layouts)
+        if path.preset == path.max_counterpart:
+            max_err[key] = err
+        if key not in max_err:
+            mcm = compress.compress(ptq.quantize(cfg, params, path.max_counterpart, batches, device=dev))
+            me = _engine(torch, mcm, sz.max_seq, dev, kv=_kv_of(torch, path), **dict(path.layouts))
+            max_err[key] = _rel_frob(me.prefill(prompt, me.init_cache(sz.batch)), refs[path.depth])
+            del mcm, me
+        out = {"phase": "calib", "path": path.label, "preset": path.preset, "model": "llama3_8b",
+               "layers": path.depth, "calib_batches": list(CALIB_BATCHES), "calib_s": calib_s,
+               "calib_peak_gb": peak / 1e9, "resident_before_gb": resident / 1e9,
+               "algorithm": qm.quant_cfg.algorithm, "batch": sz.batch, "prompt": sz.prompt,
+               "decode_steps": sz.decode_steps, "unroll": 8, **row,
+               "prefill_logits_rel_err_vs_unquantized": err,
+               "max_counterpart": path.max_counterpart, "max_counterpart_rel_err": max_err[key]}
+        if path.deploy:
+            out["deploy"], failed = _calib_deploy(torch, dev, sz, path, qm, prompt)
+            failures += failed
+        log(json.dumps(out))
+        del qm, cm, logits
+    del params32, refs
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "calib_launches", **launches}))
+    _calib_anchor(torch, dev)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -2397,7 +2971,7 @@ ANCHOR_ONLY = ("skip_softmax_flash_cuda_core", "paged_attention_prefill_cuda_cor
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,anchor,full,deploy",
+    ap.add_argument("--phases", default="build,kernels,anchor,full,deploy,calib",
                     help="comma-separated; add 'profile' for device time by kernel in the full run")
     args = ap.parse_args(argv)
     import torch
@@ -2441,6 +3015,14 @@ def main(argv=None) -> int:
         want = {"qmm_w4a8", "qmm_fp4_wo", "flash_gqa", "kv_decode_attention"}
         if {k for k, n in deployed.items() if n} != want:
             raise AssertionError(f"deploy: launched {deployed}, its kernels are {sorted(want)}")
+    if "calib_anchor" in phases and "calib" not in phases:  # the anchor part of calib alone
+        timed("calib_anchor", _calib_anchor, torch, dev)
+    if "calib" in phases:
+        calibrated = timed("calib", phase_calib, torch, dev, sz)
+        never = [k for k in CALIB_KERNELS if not calibrated.get(k)]
+        if never:
+            raise AssertionError(f"calib: kernels its paths did not launch: {never}")
+        launches = {k: (launches or {}).get(k, 0) + calibrated.get(k, 0) for k in KERNELS}
     log(json.dumps({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t_start, 1)}))
     out = []
     for name, (src, replaces) in KERNELS.items():

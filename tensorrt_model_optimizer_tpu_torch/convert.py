@@ -2,8 +2,9 @@
 
 `params_from_jax` turns a parameter tree (arrays anywhere numpy can read,
 e.g. `jax.tree.map(np.asarray, params)`) into the port's tensors;
-`quantized_from_jax` turns a JAX `QuantizedModel` (`ptq.quantize`'s output)
-into the port's; `compressed_from_jax` turns a JAX `CompressedModel` (canonical kinds, as
+`quantized_from_jax` turns a JAX `QuantizedModel` (`ptq.quantize`'s output,
+any calibration algorithm's: sequential amax tuples, pre_quant_scale, the
+affine KV bias and SVDQuant's adapters come along) into the port's; `compressed_from_jax` turns a JAX `CompressedModel` (canonical kinds, as
 `quant.compress.compress` returns them) into the port's, so both packages
 compute the same function (the quantizer state comes along, the `k_bmm` /
 `v_bmm` amax of a KV preset included); `cache_from_jax` and `paged_from_jax`
@@ -117,24 +118,26 @@ def quantized_from_jax(qm, device="cpu"):
         qstate=params_from_jax(qm.qstate, device),
         quant_cfg=QuantizeConfig(rules=tuple((p, quantizer_cfg_from_jax(c)) for p, c in qc.rules),
                                  algorithm=qc.algorithm),
+        adapters=params_from_jax(qm.adapters, device),
     )
 
 
 def compressed_from_jax(cm, device="cpu") -> CompressedModel:
     """A JAX `CompressedModel` -> the port's, on `device`."""
-    if getattr(cm, "adapters", None):
-        raise NotImplementedError("SVDQuant adapters come with the calibration-algorithms slice")
     for name, kind in cm.kinds.items():
         if kind not in ("int4", "nvfp4", "mxfp4", "int8", "fp8", "bf16"):
             raise NotImplementedError(
                 f"{name}: JAX kind {kind!r} is a TPU serving layout; pass the model as "
                 "`quant.compress.compress` returns it (canonical packs)")
+    params = params_from_jax(cm.params, device)
+    params["layers"].pop("__adapters__", None)  # JAX's copy of the adapters for its layer scan
     return CompressedModel(
         model_cfg=llama_cfg_from_jax(cm.model_cfg),
-        params=params_from_jax(cm.params, device),
+        params=params,
         kinds=dict(cm.kinds),
         layout=layout_from_jax(cm.layout),
         qstate=params_from_jax(cm.qstate, device),
+        adapters=params_from_jax(cm.adapters, device),
     )
 
 

@@ -8,11 +8,17 @@ and `config.json`. The layouts are the reference's:
  - NVFP4: two adjacent input-dim elements a byte, (q[..., 1::2] << 4) |
    q[..., 0::2]; `weight_scale` the E4M3 block scales, `weight_scale_2` the
    f32 global amax / (6 * 448); `input_scale` act amax / (6 * 448).
- - INT4 (W4A16_AWQ): pairs of output channels a byte, [O/2, K], the even row
-   in the low nibble; `weight_scale` f32 [O, K/block].
+   NVFP4_SVDQUANT is NVFP4 plus the adapters (below).
+ - INT4 (W4A16_AWQ, W4A8_AWQ): pairs of output channels a byte, [O/2, K],
+   the even row in the low nibble; `weight_scale` f32 [O, K/block]; W4A8_AWQ
+   (sequential int4 -> fp8 weight quantizers) adds `weight_scale_2`, the
+   fp8 stage's amax / 448.
  - FP8: weights as float8_e4m3fn, `weight_scale` = amax / 448.
  - MXFP4 (and MXFP8): the fake-quantized weight as fp16 (grid values).
- - INT8: int8 per-channel codes, `weight_scale` = amax / 127.
+ - INT8 and W8A8_SQ_PER_CHANNEL (SmoothQuant): int8 per-channel codes,
+   `weight_scale` = amax / 127, and the `pre_quant_scale` of every input.
+ - SVDQuant adapters: `svdquant_lora_a` (A) and `svdquant_lora_b` (B times
+   the adapter scale) in fp16, `lora_rank` in the quantization config.
  - NONE, embeddings, norms and `lm_head`: fp16 (from f32, as JAX's
    `to_np16`).
 KV scales (`<proj>.k_scale` / `v_scale`): INT8 amax / 127, FP8 amax / 448
@@ -24,8 +30,7 @@ go to the host, one shard at a time, through the port's own safetensors
 writer (`models/hf_loader.py` `save_safetensors`).
 
 Not ported (each raises `NotImplementedError` naming its slice): GPT-OSS
-and VLM exports, MoE experts, SVDQuant adapters, W4A8_AWQ (sequential
-weight quantizers) and W8A8_SQ (SmoothQuant).
+and VLM exports, and MoE experts.
 """
 
 from __future__ import annotations
@@ -52,12 +57,6 @@ PROJ_TO_HF = {
 }
 
 PRODUCER = {"name": "tensorrt_model_optimizer_tpu", "version": "0.1.0"}  # the checkpoints' producer field
-
-_UNPORTED_ALGOS = {
-    "W4A8_AWQ": "the calibration-algorithms slice (AWQ with sequential int4 -> fp8 weight quantizers)",
-    "W8A8_SQ_PER_CHANNEL": "the calibration-algorithms slice (SmoothQuant)",
-    "NVFP4_SVDQUANT": "the calibration-algorithms slice (SVDQuant adapters)",
-}
 
 
 def _pack_adjacent_nibbles(codes: torch.Tensor) -> torch.Tensor:
@@ -122,7 +121,7 @@ def _quant_algo(model: QuantizedModel) -> tuple[str, Optional[int]]:
         return "NONE", None
     if base.is_fp and base.num_bits == (2, 1):
         bsz = dict(base.block.sizes).get(-1, 16) if base.block else 16
-        return "NVFP4", bsz
+        return ("NVFP4_SVDQUANT" if model.adapters else "NVFP4"), bsz
     if base.is_fp and base.num_bits == (4, 3):
         return "FP8", None
     if not base.is_fp and base.num_bits == 4:
@@ -155,6 +154,9 @@ def _export_weight(w: torch.Tensor, wcfg, wst, algo: str) -> dict:
         return {"weight": w32.to(torch.float16)}
     base = wcfg.sequential[0] if wcfg.sequential else wcfg
     amax = wst.amax if wst is not None else None
+    amax_tuple = amax if isinstance(amax, tuple) else None
+    if amax_tuple is not None:
+        amax = amax_tuple[0]
     if algo == "NVFP4":
         bsz = dict(base.block.sizes).get(-1, 16)
         g_amax = amax if amax is not None else torch.amax(torch.abs(w32))
@@ -167,11 +169,15 @@ def _export_weight(w: torch.Tensor, wcfg, wst, algo: str) -> dict:
         scale = torch.clamp_min(a.float(), 1e-12) / 448.0
         qw = torch.clamp(w32 / (scale.reshape(-1, 1) if scale.ndim else scale), -448, 448).to(torch.float8_e4m3fn)
         return {"weight": qw, "weight_scale": scale}
-    if algo == "W4A16_AWQ":
+    if algo in ("W4A16_AWQ", "W4A8_AWQ"):
         bsz = min(dict(base.block.sizes).get(-1, 128), w32.shape[-1])
         bam = amax.float() if amax is not None else torch.amax(torch.abs(_blocks(w32, bsz, "INT4")), dim=-1)
         packed, scale = _int4_quant_pack(w32, bam, bsz)
-        return {"weight": packed, "weight_scale": scale}
+        out = {"weight": packed, "weight_scale": scale}
+        if algo == "W4A8_AWQ":  # the fp8 stage's amax / 448 (the deploy kernel dequantizes int4 into fp8's range)
+            fa = amax_tuple[-1] if amax_tuple is not None else torch.amax(torch.abs(w32))
+            out["weight_scale_2"] = torch.clamp_min(fa.float().max(), 1e-12) / 448.0
+        return out
     if algo in ("MXFP4", "MXFP8"):
         # the fake-quantized weight (exact MX grid points under E8M0 block
         # scales) as fp16: no packed MX layout in the unified contract
@@ -234,8 +240,14 @@ def _iter_export_tensors(model: QuantizedModel):
             prefix = hf_fmt.format(i=i)
             site = model.qstate.get(name, {})
             wst = llama.slice_state(site.get("weight"), i)
-            for suffix, t in _export_weight(layers[name][i], model.layout.get(f"{name}.weight"), wst, algo).items():
+            weight_algo = algo.removesuffix("_SVDQUANT")
+            for suffix, t in _export_weight(layers[name][i], model.layout.get(f"{name}.weight"), wst,
+                                            weight_algo).items():
                 yield f"{prefix}.{suffix}", t
+            if model.adapters and name in model.adapters:  # the adapter scale folds into lora_b
+                ad = model.adapters[name]
+                yield f"{prefix}.svdquant_lora_a", _f16(ad["A"][i])
+                yield f"{prefix}.svdquant_lora_b", _f16(ad["B"][i].float() * ad["scale"][i])
             ist = llama.slice_state(site.get("input"), i)
             icfg = model.layout.get(f"{name}.input")
             if ist is not None:
@@ -316,8 +328,6 @@ def export_hf_checkpoint(model: QuantizedModel, export_dir: str, max_shard_bytes
         raise NotImplementedError(f"export of {type(model.model_cfg).__name__} comes with a later slice")
     os.makedirs(export_dir, exist_ok=True)
     algo, group_size = _quant_algo(model)
-    if algo in _UNPORTED_ALGOS:
-        raise NotImplementedError(f"{algo} export comes with {_UNPORTED_ALGOS[algo]}")
     kv_algo = _kv_algo(model)
     if max_shard_bytes is not None:
         _write_sharded(_iter_export_tensors(model), export_dir, max_shard_bytes)
@@ -329,6 +339,7 @@ def export_hf_checkpoint(model: QuantizedModel, export_dir: str, max_shard_bytes
             "quant_algo": algo,
             "kv_cache_quant_algo": kv_algo,
             **({"group_size": group_size} if group_size else {}),
+            **({"lora_rank": int(next(iter(model.adapters.values()))["A"].shape[1])} if model.adapters else {}),
             "exclude_modules": ["lm_head"],
         },
     }

@@ -10,9 +10,11 @@ layers is a Python loop here.
 
 Ported: the config (`tiny`, `llama3_8b`, llama-3.1 `RopeScaling`), norms,
 RoPE, the site layout, and `forward` on the einsum attention path without a
-cache (calibration and fake-quant evaluation). The cached forward, the flash
-`attn_impl`, LoRA adapters, activation capture and the Qwen/DBRX variants
-come with later slices and raise `NotImplementedError`.
+cache (calibration and fake-quant evaluation), with LoRA adapters (the
+SVDQuant low-rank branch) and activation capture for the calibration
+algorithms (`capture_tokens`). The cached forward, the flash `attn_impl` and
+the Qwen/DBRX variants come with later slices and raise
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -300,8 +302,12 @@ def _qsite(x, site_cfg: QuantizerConfig, st, calib: bool):
     return Q.quantize(x, site_cfg, st), st
 
 
-def _linear(x, w, name, layout: QuantLayout, lstate, calib):
-    """Quantized linear: y = q_in(x) @ q_w(w)^T (QuantLinear analog)."""
+def _linear(x, w, name, layout: QuantLayout, lstate, calib, adapters=None):
+    """Quantized linear: y = q_in(x) @ q_w(w)^T (QuantLinear analog).
+
+    `adapters` optionally carries this layer's LoRA factors {name: {"A" [r,
+    K], "B" [O, r], "scale" []}}: (x @ A^T) @ B^T * scale is added on the
+    input-quantized x, the branch itself unquantized."""
     wcfg = layout.get(f"{name}.weight")
     icfg = layout.get(f"{name}.input")
     sub = dict(lstate.get(name, {})) if lstate is not None else {}
@@ -316,17 +322,22 @@ def _linear(x, w, name, layout: QuantLayout, lstate, calib):
         else:
             w_eff = Q.quantize(w, wcfg, wst)
     y = x @ w_eff.t().to(x.dtype)
+    if adapters is not None and name in adapters:
+        ad = adapters[name]
+        lo = (x @ ad["A"].t().to(x.dtype)) @ ad["B"].t().to(x.dtype)
+        y = y + lo * ad["scale"].to(y.dtype)
     return y, (sub if sub else None)
 
 
-def _attention(cfg, x, lp, lstate, layout, positions, mask, calib):
+def _attention(cfg, x, lp, lstate, layout, positions, mask, calib, adapters=None):
+    """-> (out, new_state, ctx): ctx is the o_proj input."""
     nH, nKV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
     B, T, _ = x.shape
     new_state = {}
     proj = {}
     for p in ("q", "k", "v"):
         name = f"self_attn.{p}_proj"
-        proj[p], s = _linear(x, lp[name], name, layout, lstate, calib)
+        proj[p], s = _linear(x, lp[name], name, layout, lstate, calib, adapters)
         if s:
             new_state[name] = s
     q = rope(proj["q"].reshape(B, T, nH, hd), positions, cfg.rope_theta, cfg.rope_scaling)
@@ -346,37 +357,51 @@ def _attention(cfg, x, lp, lstate, layout, positions, mask, calib):
     scores = scores / math.sqrt(hd) + mask
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     ctx = torch.einsum("bnqk,bknd->bqnd", probs, v_all).reshape(B, T, nH * hd)
-    out, s = _linear(ctx, lp["self_attn.o_proj"], "self_attn.o_proj", layout, lstate, calib)
+    out, s = _linear(ctx, lp["self_attn.o_proj"], "self_attn.o_proj", layout, lstate, calib, adapters)
     if s:
         new_state["self_attn.o_proj"] = s
-    return out, new_state
+    return out, new_state, ctx
 
 
-def _mlp(x, lp, lstate, layout, calib):
+def _mlp(x, lp, lstate, layout, calib, adapters=None):
+    """-> (out, new_state, y): y is the down_proj input."""
     new_state = {}
-    g, s = _linear(x, lp["mlp.gate_proj"], "mlp.gate_proj", layout, lstate, calib)
+    g, s = _linear(x, lp["mlp.gate_proj"], "mlp.gate_proj", layout, lstate, calib, adapters)
     if s:
         new_state["mlp.gate_proj"] = s
-    u, s = _linear(x, lp["mlp.up_proj"], "mlp.up_proj", layout, lstate, calib)
+    u, s = _linear(x, lp["mlp.up_proj"], "mlp.up_proj", layout, lstate, calib, adapters)
     if s:
         new_state["mlp.up_proj"] = s
     y = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    d, s = _linear(y, lp["mlp.down_proj"], "mlp.down_proj", layout, lstate, calib)
+    d, s = _linear(y, lp["mlp.down_proj"], "mlp.down_proj", layout, lstate, calib, adapters)
     if s:
         new_state["mlp.down_proj"] = s
-    return d, new_state
+    return d, new_state, y
+
+
+def _grab(x: torch.Tensor, n_tokens: int) -> torch.Tensor:
+    """[B, T, D] -> the first n_tokens rows of its [B*T, D] flattening (the
+    activation capture of the sequential calibration algorithms)."""
+    flat = x.reshape(-1, x.shape[-1])
+    return flat[: min(n_tokens, flat.shape[0])]
 
 
 GLOBAL_SITES = ("lm_head", "embed_tokens")
+CAPTURE_KEYS = ("attn_in", "o_in", "mlp_in", "down_in")  # the capture points of a decoder layer
 
 
 def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
             layout: Optional[QuantLayout] = None, qstate: Optional[QuantState] = None,
-            calib: bool = False, cache: Optional[dict] = None):
-    """Forward pass -> (logits f32 [B, T, V], new_qstate, None).
+            calib: bool = False, cache: Optional[dict] = None, capture_tokens: int = 0,
+            adapters: Optional[dict] = None):
+    """Forward pass -> (logits f32 [B, T, V], new_qstate, None), or with
+    `capture_tokens > 0` (logits, new_qstate, None, captures): captures maps
+    "attn_in", "o_in", "mlp_in", "down_in" to stacked [L, n_tokens, d]
+    inputs of the projections.
 
     `layout=None` runs the plain model; `calib=True` runs unquantized while
-    collecting amax into the returned qstate.
+    collecting amax into the returned qstate. `adapters` {name: {"A" [L, r,
+    K], "B" [L, O, r], "scale" [L]}} adds each projection's LoRA branch.
     """
     if cache is not None:
         raise NotImplementedError(
@@ -400,16 +425,21 @@ def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
                        if not k.startswith(GLOBAL_SITES)} or None
     layers = params["layers"]
     emitted = []
+    captures: dict = {k: [] for k in CAPTURE_KEYS} if capture_tokens else {}
     for i in range(cfg.num_hidden_layers):
         lp = {k: v[i] for k, v in layers.items()}
         lstate = slice_state(per_layer_state, i)
+        ad = None if adapters is None else {n: {k: a[i] for k, a in f.items()} for n, f in adapters.items()}
         h = norm(cfg, x, lp["input_layernorm"])
-        attn, st_a = _attention(cfg, h, lp, lstate, layout, positions, mask, calib)
+        attn, st_a, o_in = _attention(cfg, h, lp, lstate, layout, positions, mask, calib, ad)
         x = x + attn
-        h = norm(cfg, x, lp["post_attention_layernorm"])
-        mlp_out, st_m = _mlp(h, lp, lstate, layout, calib)
+        h2 = norm(cfg, x, lp["post_attention_layernorm"])
+        mlp_out, st_m, down_in = _mlp(h2, lp, lstate, layout, calib, ad)
         x = x + mlp_out
         emitted.append({**st_a, **st_m})
+        if capture_tokens:
+            for k, t in zip(CAPTURE_KEYS, (h, o_in, h2, down_in)):
+                captures[k].append(_grab(t, capture_tokens))
 
     x = norm(cfg, x, params["norm"])
     head_w = params.get("lm_head", params["embed_tokens"])
@@ -428,4 +458,7 @@ def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
     elif ew_cfg.enable:
         new_qstate["embed_tokens.weight"] = ew_state
     logits = (x @ head_w.t().to(x.dtype)).float()
-    return logits, (new_qstate if (calib or qstate) else None), None
+    out_qstate = new_qstate if (calib or qstate) else None
+    if capture_tokens:
+        return logits, out_qstate, None, {k: torch.stack(v) for k, v in captures.items()}
+    return logits, out_qstate, None

@@ -207,13 +207,16 @@ def decompress_weight(kind: str, arrays: dict, out_dtype=torch.bfloat16) -> torc
 @dataclasses.dataclass
 class CompressedModel:
     """Packed-weight model: projections replaced by packed dicts.
-    `kinds` maps site name -> format kind (drives kernel dispatch)."""
+    `kinds` maps site name -> format kind (drives kernel dispatch);
+    `adapters` is SVDQuant's low-rank branch {name: {"A" [L, r, K], "B" [L,
+    O, r], "scale" [L]}}, served in high precision, or None."""
 
     model_cfg: llama.LlamaConfig
     params: dict
     kinds: dict[str, str]
     layout: llama.QuantLayout
     qstate: llama.QuantState
+    adapters: Optional[dict] = None
 
     @property
     def packed_bytes(self) -> int:
@@ -251,7 +254,7 @@ def compress(model: QuantizedModel) -> CompressedModel:
         new_layers[name] = _stack_arrays([a for _, a in outs])
     params = dict(model.params)
     params["layers"] = new_layers
-    return CompressedModel(model.model_cfg, params, kinds, model.layout, model.qstate)
+    return CompressedModel(model.model_cfg, params, kinds, model.layout, model.qstate, model.adapters)
 
 
 def compress_bf16(cfg, params) -> CompressedModel:
@@ -294,7 +297,8 @@ def word_convert_site(kind: str, arr: dict, layout: str) -> tuple[str, dict]:
     if kind in ("nvfp4", "mxfp4"):
         if layout == "i8":
             raise NotImplementedError(
-                "nvfp4_layout 'i8' (W8A8 serving of an NVFP4 checkpoint) comes with the W8A8 slice")
+                "nvfp4_layout 'i8' (W8A8 serving of an NVFP4 checkpoint, its values re-encoded as int8) comes with "
+                "the remaining-formats slice")
         if layout not in FP4_LAYOUTS:
             raise ValueError(f"nvfp4_layout {layout!r}: choices {FP4_LAYOUTS}")
         if kind == "nvfp4":

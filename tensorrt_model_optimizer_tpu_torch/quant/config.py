@@ -3,9 +3,12 @@
 
 A `QuantizeConfig` maps wildcard patterns over quantizer-site names to
 `QuantizerConfig`s, last matching rule winning, plus a calibration algorithm.
-The presets of the int, fp8, NVFP4 and MXFP4 formats keep their JAX names. A
-preset whose format or algorithm this port does not have yet raises `NotImplementedError` naming the
-slice that brings it, both through `get_preset` and as a module attribute.
+The presets keep their JAX names and fields, the calibration-algorithm
+presets (SmoothQuant, AWQ, GPTQ, local Hessian, SVDQuant, NVFP4 activation
+headroom, the affine FP8 KV cache) among them. A preset whose format this
+port does not have yet (MXFP6, MXFP8, NF4) raises `NotImplementedError`
+naming the slice that brings it, both through `get_preset` and as a module
+attribute.
 """
 
 from __future__ import annotations
@@ -86,6 +89,7 @@ FP8_PER_TOKEN_DYNAMIC = QuantizerConfig(num_bits=(4, 3), dynamic=True, per_token
 FP8_2D_BLOCKWISE_128 = QuantizerConfig(num_bits=(4, 3), block=BlockSpec(sizes=((-2, 128), (-1, 128))))
 FP8_KV = QuantizerConfig(num_bits=(4, 3))
 FP8_KV_CAST = QuantizerConfig(num_bits=(4, 3), constant_amax=448.0)
+W4A8_SEQUENTIAL = QuantizerConfig(sequential=(INT4_PER_BLOCK_128, FP8_PER_TENSOR))
 NVFP4_BLOCK16 = QuantizerConfig(
     num_bits=(2, 1), block=BlockSpec(sizes=((-1, 16),), scale_bits=(4, 3), dynamic=True))
 MXFP4_BLOCK32 = QuantizerConfig(
@@ -118,12 +122,25 @@ def _preset(weight: QuantizerConfig, act: Optional[QuantizerConfig], algorithm) 
 
 
 INT8_DEFAULT_CFG = _preset(INT8_PER_CHANNEL, INT8_PER_TENSOR, "max")
+# "auto": the SmoothQuant flavor with the least calibration KL (`quant.ptq`);
+# {"method": "smoothquant", "alpha": 1.0} is the reference's default
+INT8_SMOOTHQUANT_CFG = _preset(INT8_PER_CHANNEL.replace(), INT8_PER_TENSOR.replace(pre_quant_scale=True),
+                               {"method": "smoothquant", "alpha": "auto"})
 FP8_DEFAULT_CFG = _preset(FP8_PER_TENSOR, FP8_PER_TENSOR, "max")
 FP8_PER_CHANNEL_PER_TOKEN_CFG = _preset(FP8_PER_CHANNEL, FP8_PER_TOKEN_DYNAMIC, "max")
 FP8_2D_BLOCKWISE_WEIGHT_ONLY_CFG = _preset(FP8_2D_BLOCKWISE_128, None, "max")
 INT4_BLOCKWISE_WEIGHT_ONLY_CFG = _preset(INT4_PER_BLOCK_128, None, "max")
+INT4_AWQ_CFG = _preset(INT4_PER_BLOCK_128, None, {"method": "awq_lite", "alpha_step": 0.1})
+INT4_GPTQ_CFG = _preset(INT4_PER_BLOCK_128, None, {"method": "gptq", "block_size": 128})
+INT4_LOCAL_HESSIAN_CFG = _preset(INT4_PER_BLOCK_128, None, {"method": "local_hessian"})
+INT4_SVDQUANT_CFG = _preset(INT4_PER_BLOCK_128, None, {"method": "svdquant", "rank": 16})
+NVFP4_SVDQUANT_CFG = _preset(NVFP4_BLOCK16, NVFP4_BLOCK16, {"method": "svdquant", "rank": 32})
+W4A8_AWQ_BETA_CFG = _preset(W4A8_SEQUENTIAL, FP8_PER_TENSOR, {"method": "awq_lite", "alpha_step": 0.1})
 NVFP4_DEFAULT_CFG = _preset(NVFP4_BLOCK16, NVFP4_BLOCK16, "max")
 NVFP4_WEIGHT_ONLY_CFG = _preset(NVFP4_BLOCK16, None, "max")
+NVFP4_AWQ_LITE_CFG = _preset(NVFP4_BLOCK16, NVFP4_BLOCK16, {"method": "awq_lite", "alpha_step": 0.1})
+NVFP4_ACT_HEADROOM_CFG = _preset(NVFP4_BLOCK16, NVFP4_BLOCK16,
+                                 {"method": "nvfp4_act_headroom", "percentile": 99.0, "headroom": 1.5})
 W4A16_NVFP4_CFG = NVFP4_WEIGHT_ONLY_CFG
 MXFP4_DEFAULT_CFG = _preset(MXFP4_BLOCK32, MXFP4_BLOCK32, "max")
 MXFP4_WEIGHT_ONLY_CFG = _preset(MXFP4_BLOCK32, None, "max")
@@ -132,38 +149,43 @@ KV_FP8_RULES = {"*k_bmm_quantizer": FP8_KV, "*v_bmm_quantizer": FP8_KV}
 KV_FP8_CAST_RULES = {"*k_bmm_quantizer": FP8_KV_CAST, "*v_bmm_quantizer": FP8_KV_CAST}
 KV_NVFP4_RULES = {"*k_bmm_quantizer": NVFP4_BLOCK16, "*v_bmm_quantizer": NVFP4_BLOCK16}
 KV_INT8_RULES = {"*k_bmm_quantizer": INT8_PER_TENSOR, "*v_bmm_quantizer": INT8_PER_TENSOR}
+# affine variant: a calibrated midrange bias and the centered amax
+FP8_KV_AFFINE = dataclasses.replace(FP8_KV, bias_corr=True)
+KV_FP8_AFFINE_RULES = {"*k_bmm_quantizer": FP8_KV_AFFINE, "*v_bmm_quantizer": FP8_KV_AFFINE}
 FP8_KV_CFG = FP8_DEFAULT_CFG.with_rules(KV_FP8_RULES)
+FP8_KV_AFFINE_CFG = FP8_DEFAULT_CFG.with_rules(KV_FP8_AFFINE_RULES)
 NVFP4_KV_CFG = NVFP4_DEFAULT_CFG.with_rules(KV_NVFP4_RULES)
+INT4_AWQ_KV_FP8_CFG = INT4_AWQ_CFG.with_rules(KV_FP8_RULES)
 
 PRESETS: dict[str, QuantizeConfig] = {
     "INT8_DEFAULT_CFG": INT8_DEFAULT_CFG,
+    "INT8_SMOOTHQUANT_CFG": INT8_SMOOTHQUANT_CFG,
     "FP8_DEFAULT_CFG": FP8_DEFAULT_CFG,
     "FP8_PER_CHANNEL_PER_TOKEN_CFG": FP8_PER_CHANNEL_PER_TOKEN_CFG,
     "FP8_2D_BLOCKWISE_WEIGHT_ONLY_CFG": FP8_2D_BLOCKWISE_WEIGHT_ONLY_CFG,
     "INT4_BLOCKWISE_WEIGHT_ONLY_CFG": INT4_BLOCKWISE_WEIGHT_ONLY_CFG,
-    "FP8_KV_CFG": FP8_KV_CFG,
+    "INT4_AWQ_CFG": INT4_AWQ_CFG,
+    "INT4_GPTQ_CFG": INT4_GPTQ_CFG,
+    "INT4_LOCAL_HESSIAN_CFG": INT4_LOCAL_HESSIAN_CFG,
+    "INT4_SVDQUANT_CFG": INT4_SVDQUANT_CFG,
+    "NVFP4_SVDQUANT_CFG": NVFP4_SVDQUANT_CFG,
+    "W4A8_AWQ_BETA_CFG": W4A8_AWQ_BETA_CFG,
     "NVFP4_DEFAULT_CFG": NVFP4_DEFAULT_CFG,
     "NVFP4_WEIGHT_ONLY_CFG": NVFP4_WEIGHT_ONLY_CFG,
+    "NVFP4_AWQ_LITE_CFG": NVFP4_AWQ_LITE_CFG,
+    "NVFP4_ACT_HEADROOM_CFG": NVFP4_ACT_HEADROOM_CFG,
     "NVFP4_KV_CFG": NVFP4_KV_CFG,
     "W4A16_NVFP4_CFG": W4A16_NVFP4_CFG,
     "MXFP4_DEFAULT_CFG": MXFP4_DEFAULT_CFG,
     "MXFP4_WEIGHT_ONLY_CFG": MXFP4_WEIGHT_ONLY_CFG,
+    "FP8_KV_CFG": FP8_KV_CFG,
+    "FP8_KV_AFFINE_CFG": FP8_KV_AFFINE_CFG,
+    "INT4_AWQ_KV_FP8_CFG": INT4_AWQ_KV_FP8_CFG,
 }
 
-# JAX presets whose format or calibration algorithm is not ported yet, with
-# the slice that brings each (ROADMAP.md queue 1)
+# JAX presets whose format is not ported yet, with the slice that brings
+# each (ROADMAP.md queue 1)
 UNPORTED_PRESETS: dict[str, str] = {
-    "INT8_SMOOTHQUANT_CFG": "the calibration-algorithms slice (SmoothQuant)",
-    "INT4_AWQ_CFG": "the calibration-algorithms slice (AWQ)",
-    "INT4_GPTQ_CFG": "the calibration-algorithms slice (GPTQ)",
-    "INT4_LOCAL_HESSIAN_CFG": "the calibration-algorithms slice (local Hessian)",
-    "INT4_SVDQUANT_CFG": "the calibration-algorithms slice (SVDQuant)",
-    "INT4_AWQ_KV_FP8_CFG": "the calibration-algorithms slice (AWQ)",
-    "W4A8_AWQ_BETA_CFG": "the calibration-algorithms slice (AWQ)",
-    "FP8_KV_AFFINE_CFG": "the calibration-algorithms slice (affine KV bias)",
-    "NVFP4_AWQ_LITE_CFG": "the calibration-algorithms slice (AWQ)",
-    "NVFP4_ACT_HEADROOM_CFG": "the calibration-algorithms slice (NVFP4 activation headroom)",
-    "NVFP4_SVDQUANT_CFG": "the calibration-algorithms slice (SVDQuant)",
     "MXFP6_DEFAULT_CFG": "the remaining-formats slice (MXFP6 packs)",
     "MXFP8_DEFAULT_CFG": "the remaining-formats slice (MXFP8 packs)",
     "NF4_WEIGHT_ONLY_CFG": "the remaining-formats slice (NF4)",

@@ -85,7 +85,7 @@ def _block_dynamic(cfg: QuantizerConfig) -> bool:
 
 def _check_ported(cfg: QuantizerConfig) -> None:
     if cfg.rotate:
-        raise NotImplementedError("Hadamard rotation comes with the calibration-algorithms slice")
+        raise NotImplementedError("Hadamard rotation comes with the remaining-formats slice")
     if cfg.backend is not None:
         raise NotImplementedError("custom quant backends are not ported")
     sb = cfg.block.scale_bits if cfg.block is not None else None

@@ -6,8 +6,13 @@ Ported paths:
    and FP8 per-tensor under bf16 activations (`ops/cuda/qmm_wo.py`; the
    site's input quantizer, where the preset has one, fake-quantizes the
    activations first), W4A8 ("int4a8": per-token int8 activations x int4
-   block weights, `ops/cuda/qmm.py`) and bf16 (`quant.compress.compress_bf16`
-   wraps a raw model so);
+   block weights, `ops/cuda/qmm.py`), W8A8 (int8 weights under an int input
+   quantizer: int8 activations, per token or from the static amax, times
+   the int8 weights into int32, `int8_mm`) and bf16
+   (`quant.compress.compress_bf16` wraps a raw model so). A model with
+   SVDQuant adapters adds each projection's low-rank branch, unquantized,
+   on the x JAX's engine uses: after pre_quant_scale on the W4A8 path,
+   after the input quantizer on the others; W8A8 has none;
  - the dense-cache einsum engine (`kv_attention_kernel=False`, the default):
    cache `[L, B, S, n_kv, C]` of stored rows (bf16, int8 codes with scale
    amax/127, fp8 e4m3 with scale amax/448, "nvfp4_fake" grid values, or
@@ -70,8 +75,8 @@ Every TPU layout name of a format maps to the one port layout of that format
 from bd2 to word2 has no counterpart, because both names are one kernel here.
 
 Not ported (each raises `NotImplementedError` naming its slice):
-`int4_layout="xla"`, `nvfp4_layout="i8"` and W8A8 (int8 weights under an int
-input quantizer), the tensor-parallel, MoE and speculative paths.
+`int4_layout="xla"`, `nvfp4_layout="i8"`, the tensor-parallel, MoE and
+speculative paths.
 """
 
 from __future__ import annotations
@@ -159,30 +164,74 @@ def _ops(plain: tuple) -> dict:
     return {name: pair[name in plain] for name, pair in _KERNELS.items()}
 
 
-def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, ops):
-    """y = q_act(x) @ dequant(W)^T for x [N, K] (2-D)."""
+INT_MM_MIN_ROWS = 17  # torch._int_mm takes more than 16 rows; fewer are padded with zero rows
+
+
+def int8_mm(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """x8 [N, K] int8 times w8 [O, K] int8 transposed, accumulated in int32
+    -> [N, O]: `torch._int_mm` on the card (the JAX engine's is XLA's
+    dot_general, no Pallas kernel; N <= 16 is padded with zero rows to
+    INT_MM_MIN_ROWS, a shape known before a graph capture), an exact int32
+    product on the CPU."""
+    if x8.device.type != "cuda":
+        return x8.to(torch.int32) @ w8.to(torch.int32).t()
+    n = x8.shape[0]
+    if n < INT_MM_MIN_ROWS:
+        x8 = torch.nn.functional.pad(x8, (0, 0, 0, INT_MM_MIN_ROWS - n))
+    return torch._int_mm(x8, w8.t())[:n]
+
+
+def _int8_acts(x: torch.Tensor, a_amax: torch.Tensor, lo: int):
+    """(int8 codes of x under a_amax / 127, clipped to [lo, 127], the scale)."""
+    a_scale = torch.where(a_amax == 0, torch.ones_like(a_amax), a_amax / 127.0)
+    return torch.clamp(torch.round(x.float() / a_scale), lo, 127).to(torch.int8), a_scale
+
+
+def _lora(x, y, adapter):
+    """y plus the adapter's low-rank branch (x @ A^T) @ B^T * scale."""
+    if adapter is None:
+        return y
+    lo = (x @ adapter["A"].t().to(x.dtype)) @ adapter["B"].t().to(x.dtype)
+    return y + lo * adapter["scale"].to(y.dtype)
+
+
+def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, ops, adapter=None):
+    """y = q_act(x) @ dequant(W)^T for x [N, K] (2-D), plus the adapter's
+    low-rank branch where there is one."""
+    icfg = cm.layout.get(f"{name}.input")
     if kind == "int4a8":
         # per-token dynamic int8 activations, clipped to +-127
         if ist is not None and ist.pre_quant_scale is not None:
             x = x * ist.pre_quant_scale.to(x.dtype)
-        x32 = x.float()
-        a_amax = torch.amax(torch.abs(x32), dim=-1, keepdim=True)
-        a_scale = torch.where(a_amax == 0, torch.ones_like(a_amax), a_amax / 127.0)
-        x8 = torch.clamp(torch.round(x32 / a_scale), -127, 127).to(torch.int8)
+        x8, a_scale = _int8_acts(x, torch.amax(torch.abs(x.float()), dim=-1, keepdim=True), -127)
         y = ops["w4a8"](x8, arrays["packed"], arrays["scales"])
-        return (y * a_scale).to(x.dtype)
-    icfg = cm.layout.get(f"{name}.input")
+        return _lora(x, (y * a_scale).to(x.dtype), adapter)
+    if kind == "int8" and icfg.enable and not icfg.is_fp:
+        # W8A8: per-token int8 activations (the static amax's first element
+        # where the site is static), clipped to [-128, 127]; int32 products,
+        # then (acc * a_scale) * w_scale in f32
+        if ist is not None and ist.pre_quant_scale is not None:
+            x = x * ist.pre_quant_scale.to(x.dtype)
+        if icfg.dynamic or icfg.per_token or ist is None or ist.amax is None:
+            a_amax = torch.amax(torch.abs(x.float()), dim=-1, keepdim=True)
+        else:
+            a_amax = ist.amax.float().reshape(1, -1)[:, :1].expand(x.shape[0], 1)
+        x8, a_scale = _int8_acts(x, a_amax, -128)
+        y = int8_mm(x8, arrays["q"]).float() * a_scale * arrays["scale"].reshape(1, -1)
+        return y.to(x.dtype)
     if icfg.enable or (ist is not None and ist.pre_quant_scale is not None):
         x = Q.quantize(x, icfg, ist)
     if kind == "int4wo":
-        return ops["int4_wo"](x, arrays["packed"], arrays["scales"])
-    if kind in ("nvfp4wo", "mxfp4wo"):
-        return ops["fp4_wo"](x, arrays["packed"], arrays["scales"], arrays.get("global_scale"))
-    if kind in ("int8", "fp8"):
-        return ops["byte_wo"](x, arrays["q"], arrays["scale"])
-    if kind == "bf16":
-        return x @ arrays["w"].to(x.dtype).t()
-    raise NotImplementedError(f"weight kind {kind!r} is served by a later slice")
+        y = ops["int4_wo"](x, arrays["packed"], arrays["scales"])
+    elif kind in ("nvfp4wo", "mxfp4wo"):
+        y = ops["fp4_wo"](x, arrays["packed"], arrays["scales"], arrays.get("global_scale"))
+    elif kind in ("int8", "fp8"):
+        y = ops["byte_wo"](x, arrays["q"], arrays["scale"])
+    elif kind == "bf16":
+        y = x @ arrays["w"].to(x.dtype).t()
+    else:
+        raise NotImplementedError(f"weight kind {kind!r} is served by a later slice")
+    return _lora(x, y, adapter)
 
 
 def _kv_pack_width(hd: int) -> int:
@@ -289,16 +338,17 @@ def _kv_amax_from(qstate, which: str) -> Optional[torch.Tensor]:
     return a.reshape(a.shape[0], -1).amax(dim=-1)  # [L]
 
 
-def _layer(cfg, cm, x, lp, lstate, kinds, positions, ops, attend):
+def _layer(cfg, cm, x, lp, lstate, kinds, positions, ops, attend, adapters=None):
     """One decoder layer on packed weights: projections and rope, then
     `attend(q [B, T, nH, hd], k, v [B, T, nKV, hd]) -> ctx [B*T, nH*hd]`,
-    then the output projection and the MLP."""
+    then the output projection and the MLP. `adapters`: this layer's
+    low-rank branches by projection, or None."""
     B, T, H = x.shape
     hd, nH, nKV = cfg.hd, cfg.num_attention_heads, cfg.num_key_value_heads
 
     def lin(inp, name):
         ist = (lstate or {}).get(name, {}).get("input")
-        return _qlinear(inp, name, kinds[name], lp[name], cm, ist, ops)
+        return _qlinear(inp, name, kinds[name], lp[name], cm, ist, ops, (adapters or {}).get(name))
 
     h2 = llama.norm(cfg, x, lp["input_layernorm"]).reshape(B * T, H)
     q = llama.rope(lin(h2, "self_attn.q_proj").reshape(B, T, nH, hd), positions,
@@ -541,11 +591,6 @@ class Engine:
         for name, kind in cm.kinds.items():
             if kind not in _SERVED_KINDS:
                 raise NotImplementedError(f"{name}: weight kind {kind!r} is served by a later slice")
-            icfg = cm.layout.get(f"{name}.input")
-            if kind == "int8" and icfg.enable and not icfg.is_fp:
-                raise NotImplementedError(
-                    f"{name}: int8 weights under an int input quantizer are W8A8 (int8 x int8 "
-                    "products), which comes with the W8A8 slice; weight-only int8 is served")
         self.cm = cm
         self.cfg = cm.model_cfg
         self.ecfg = config
@@ -619,8 +664,10 @@ class Engine:
         layers = self.cm.params["layers"]
         for i in range(self.cfg.num_hidden_layers):
             lp = {k: (layer_arrays(v, i) if isinstance(v, dict) else v[i]) for k, v in layers.items()}
+            ad = None if self.cm.adapters is None else {
+                n: {k: a[i] for k, a in f.items()} for n, f in self.cm.adapters.items()}
             x = _layer(self.cfg, self.cm, x, lp, llama.slice_state(self._act_state, i), self.cm.kinds,
-                       positions, self._ops, attend_of(i))
+                       positions, self._ops, attend_of(i), ad)
         return x
 
     def _logits(self, x: torch.Tensor, full: bool = False) -> torch.Tensor:

@@ -10,19 +10,22 @@ output pairs are unpacked and re-planed (`_adjacent_to_plane`,
 `_outpair_to_plane`); each format's scales are rebuilt, and the static
 input amax from `input_scale`.
 
-The layout comes from the recorded algorithm, as the reference's: NVFP4 ->
-NVFP4_DEFAULT_CFG, W4A16_AWQ -> INT4_AWQ_CFG's quantizers (the port builds
-INT4_BLOCKWISE_WEIGHT_ONLY_CFG's, which are the same: only the calibration
-differs, and `ptq.quantize` still refuses AWQ), FP8 -> FP8_DEFAULT_CFG,
-INT8 -> INT8_DEFAULT_CFG, MXFP4 -> MXFP4_DEFAULT_CFG. One deliberate
+The layout comes from the recorded algorithm, as the reference's: NVFP4 and
+NVFP4_SVDQUANT -> NVFP4_DEFAULT_CFG, W4A16_AWQ -> INT4_AWQ_CFG, W4A8_AWQ ->
+W4A8_AWQ_BETA_CFG, FP8 -> FP8_DEFAULT_CFG, W8A8_SQ_PER_CHANNEL ->
+INT8_SMOOTHQUANT_CFG, INT8 -> INT8_DEFAULT_CFG, MXFP4 -> MXFP4_DEFAULT_CFG.
+W4A8_AWQ's weights load as INT4 (its `weight_scale_2` is the deploy
+kernel's fp8 range, which this engine's W4A8 does not use); SVDQuant's
+`svdquant_lora_{a,b}` become the model's adapters (scale 1: the export
+folded it into B), and every `pre_quant_scale` the input site's. One deliberate
 difference: an input quantizer that needs a calibrated amax stays off
 where the checkpoint has no `input_scale` for it (a weight-only export),
 where the reference enables it with no amax; for NVFP4 that serves a
 weight-only checkpoint as W4A4 with a per-call activation amax, a function
 the exported model never computed.
 
-Not ported (raise `NotImplementedError` naming the slice): MoE checkpoints,
-SVDQuant adapters, W4A8_AWQ, W8A8_SQ and MXFP8.
+Not ported (raise `NotImplementedError` naming the slice): MoE checkpoints
+and MXFP8.
 """
 
 from __future__ import annotations
@@ -42,17 +45,14 @@ from ..quant.compress import CompressedModel
 # quant_algo -> the preset whose quantizer layout the loaded model takes
 _LAYOUT_PRESET = {
     "NVFP4": "NVFP4_DEFAULT_CFG",
-    "W4A16_AWQ": "INT4_BLOCKWISE_WEIGHT_ONLY_CFG",  # INT4_AWQ_CFG's quantizers (see the module docstring)
+    "W4A16_AWQ": "INT4_AWQ_CFG",
+    "W4A8_AWQ": "W4A8_AWQ_BETA_CFG",
     "FP8": "FP8_DEFAULT_CFG",
+    "W8A8_SQ_PER_CHANNEL": "INT8_SMOOTHQUANT_CFG",
     "INT8": "INT8_DEFAULT_CFG",
     "MXFP4": "MXFP4_DEFAULT_CFG",
 }
-_UNPORTED = {
-    "W4A8_AWQ": "the calibration-algorithms slice (AWQ)",
-    "W8A8_SQ_PER_CHANNEL": "the calibration-algorithms slice (SmoothQuant)",
-    "NVFP4_SVDQUANT": "the calibration-algorithms slice (SVDQuant)",
-    "MXFP8": "the remaining-formats slice (MXFP8)",
-}
+_UNPORTED = {"MXFP8": "the remaining-formats slice (MXFP8)"}
 
 
 def _nibbles(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -95,11 +95,9 @@ def compressed_from_export(cfg_d: dict, qc: dict, tensors, device=None) -> Compr
     if cfg_d.get("model_type") in ("qwen3_moe", "mixtral"):
         raise NotImplementedError("MoE deploy loading comes with the MoE-families slice")
     cfg = hf_loader.config_from_hf(cfg_d)
-    algo = qc["quant_algo"]
+    algo = qc["quant_algo"].removesuffix("_SVDQUANT")  # SVDQuant: the base format plus the low-rank tensors
     if algo in _UNPORTED:
         raise NotImplementedError(f"loading a {algo} checkpoint comes with {_UNPORTED[algo]}")
-    if any(k.endswith(".svdquant_lora_a") for k in tensors.keys()):
-        raise NotImplementedError("SVDQuant adapters come with the calibration-algorithms slice")
     L = cfg.num_hidden_layers
 
     def stack(fmt: str, fn=lambda t: t) -> torch.Tensor:
@@ -111,6 +109,7 @@ def compressed_from_export(cfg_d: dict, qc: dict, tensors, device=None) -> Compr
     }
     kinds: dict[str, str] = {}
     qstate: dict = {}
+    adapters: dict = {}
     for name, hf_fmt in hf_export.PROJ_TO_HF.items():
         key = hf_fmt + ".{suffix}"
         if algo == "NVFP4":
@@ -121,22 +120,26 @@ def compressed_from_export(cfg_d: dict, qc: dict, tensors, device=None) -> Compr
                             "global_scale": stack(key.format(i="{i}", suffix="weight_scale_2"),
                                                   lambda t: t.reshape(()).float())}
             kinds[name] = "nvfp4"
-        elif algo == "W4A16_AWQ":
+        elif algo in ("W4A16_AWQ", "W4A8_AWQ"):
             packed = stack(key.format(i="{i}", suffix="weight"), _outpair_to_plane)
             ws = stack(key.format(i="{i}", suffix="weight_scale")).float()
             O2 = packed.shape[1]
             layers[name] = {"packed": packed, "scale_lo": ws[:, :O2].contiguous(), "scale_hi": ws[:, O2:].contiguous()}
             kinds[name] = "int4"
-        elif algo in ("FP8", "INT8"):
+        elif algo in ("FP8", "INT8", "W8A8_SQ_PER_CHANNEL"):
             per_tensor = algo == "FP8"
             layers[name] = {"q": stack(key.format(i="{i}", suffix="weight")),
                             "scale": stack(key.format(i="{i}", suffix="weight_scale"),
                                            lambda t: t.float().reshape(-1, 1)[:1] if per_tensor
                                            else t.float().reshape(-1, 1))}
-            kinds[name] = algo.lower()
+            kinds[name] = "fp8" if per_tensor else "int8"
         else:  # NONE, and MXFP4's fp16 grid values
             layers[name] = {"w": stack(key.format(i="{i}", suffix="weight")).to(cfg.dtype)}
             kinds[name] = "bf16"
+        if hf_fmt.format(i=0) + ".svdquant_lora_a" in tensors:
+            adapters[name] = {"A": stack(key.format(i="{i}", suffix="svdquant_lora_a")).to(cfg.dtype),
+                              "B": stack(key.format(i="{i}", suffix="svdquant_lora_b")).to(cfg.dtype),
+                              "scale": torch.ones((L,), dtype=torch.float32, device=dev)}
         pqs = hf_fmt.format(i=0) + ".pre_quant_scale"
         if pqs in tensors:
             qstate.setdefault(name, {})["input"] = Q.QuantizerState(
@@ -167,4 +170,4 @@ def compressed_from_export(cfg_d: dict, qc: dict, tensors, device=None) -> Compr
         sub = qstate.setdefault(name, {})
         sub["input"] = sub.get("input", Q.QuantizerState()).replace(amax=amax)
     layout = llama.QuantLayout(sites=tuple(sites.items()))
-    return CompressedModel(cfg, params, kinds, layout, qstate)
+    return CompressedModel(cfg, params, kinds, layout, qstate, adapters or None)

@@ -180,10 +180,9 @@ def test_unported_presets_raise():
     assert tconfig.get_preset("NVFP4_KV_CFG") is tconfig.NVFP4_KV_CFG  # ported with the NVFP4 KV cache
     with pytest.raises(NotImplementedError, match="remaining-formats"):
         tconfig.MXFP6_DEFAULT_CFG  # noqa: B018
-    with pytest.raises(NotImplementedError, match="calibration-algorithms"):
-        tconfig.INT4_AWQ_CFG  # noqa: B018
-    with pytest.raises(NotImplementedError):
+    assert tconfig.get_preset("INT4_AWQ_CFG") is tconfig.INT4_AWQ_CFG  # ported with the calibration algorithms
+    with pytest.raises(ValueError, match="requires calib_batches"):
         tptq.quantize(tllama.LlamaConfig.tiny(), {}, tconfig.INT4_BLOCKWISE_WEIGHT_ONLY_CFG.replace(
-            algorithm="mse"), device="cpu")
+            algorithm="gptq"), device="cpu")
     assert set(tconfig.PRESETS) | set(tconfig.UNPORTED_PRESETS) == set(jconfig.PRESETS) | {"W4A16_NVFP4_CFG"}
     assert tq.DISABLED == tconfig.PRESETS["INT8_DEFAULT_CFG"].resolve("lm_head.weight_quantizer")

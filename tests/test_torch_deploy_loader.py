@@ -198,8 +198,8 @@ def test_export_load_serve_correlates_with_fake_quant(exported, base, case):
 
 def test_unported_checkpoints_raise(base, tmp_path):
     jcfg, params, calib = base
-    jm = jptq.quantize(jcfg, params, "W4A8_AWQ_BETA_CFG", [jnp.asarray(calib)])
+    jm = jptq.quantize(jcfg, params, "MXFP8_DEFAULT_CFG", [jnp.asarray(calib)])
     jexport.export_hf_checkpoint(jm, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="AWQ"):
+    with pytest.raises(NotImplementedError, match="MXFP8"):
         tloader.load_quantized_checkpoint(str(tmp_path), device="cpu")
     assert tQ.DISABLED.enable is False

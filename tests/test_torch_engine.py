@@ -89,11 +89,11 @@ def test_engine_refuses_unported_paths(setup):
     nv = tcompress.compress(tptq.quantize(tcfg, params, "NVFP4_WEIGHT_ONLY_CFG", device="cpu"))
     with pytest.raises(NotImplementedError, match="W8A8"):
         tengine.Engine(nv, tengine.EngineConfig(nvfp4_layout="i8", kv_attention_kernel=True), device="cpu")
-    # INT8_DEFAULT_CFG is W8A8 in the JAX engine (int8 x int8 products): not this slice
+    # INT8_DEFAULT_CFG is W8A8 (int8 x int8 products), served since the
+    # calibration-algorithms slice (test_torch_calib_serve.py holds it to JAX)
     calib = [torch.from_numpy(np.random.default_rng(2).integers(0, 256, size=(2, 16)))]
     w8a8 = tcompress.compress(tptq.quantize(tcfg, params, "INT8_DEFAULT_CFG", calib, device="cpu"))
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        tengine.Engine(w8a8, kernel_path, device="cpu")
+    assert set(tengine.Engine(w8a8, kernel_path, device="cpu").cm.kinds.values()) == {"int8"}
 
 
 INT8_WEIGHT_ONLY = {"*input_quantizer": {"enable": False}}

@@ -4,7 +4,8 @@
 # qmm_wo_common.cuh: the prefill tiles and the split-K decode; qmm_w4a8.cu,
 # both routes: the TMA-fed wgmma prefill and the split-K decode), KV-cache
 # attention kernels (kv_decode_attention.cu, paged_attention_*.cu, the
-# paged prefill's two routes), the
+# paged prefill's two routes), the engine's use of a calibrated
+# pre_quant_scale (serve/engine.py), the
 # tensor-core flash kernel (flash_gqa.cu on the tile primitives of
 # attn_tc.cuh) and the skip-softmax kernel (skip_softmax_flash.cu, both
 # routes), and of the engine's CUDA-graph decode step (serve/step_graph.py).
@@ -106,4 +107,8 @@ run flash_diag_late flash_gqa.cu 's/(causal \&\& col > row);/(causal \&\& col > 
 run pv_drop_lo attn_tc.cuh '/mma16816(o\[mt\]\[2 \* dp[^]]*\], alo\[mt\], /d'
 # P.V on p_hi alone (one bf16 P): the per-element limit needs the split
 run pv_hi_only attn_tc.cuh '/mma16816(o\[mt\]\[2 \* dp[^]]*\], a\(mid\|lo\)\[mt\], /d'
+# the W4A8 path of the engine's `_qlinear` drops the input's pre_quant_scale
+# (AWQ's activation-side 1/s): the calib phase's anchor check holds the
+# engine against the calibrated fake-quant forward
+run w4a8_pre_quant_scale_dropped serve/engine.py '0,/x = x \* ist.pre_quant_scale.to(x.dtype)/s//x = x  # dropped/' build,calib_anchor
 exit $missed
