@@ -248,9 +248,12 @@ constexpr int WS_TILE = DMT * 2 * 4 * 32;  // floats of one warp's partial tile 
 constexpr int DEC_BLOCKS_N8 = 6, DEC_BLOCKS_N16 = 4;
 
 // NT8: n8 tiles of tokens (1: N <= 8, 2: N <= 16); U: K blocks in flight per
-// warp; SCALED: int4's block scales, blk_scale [nkb, O], applied to each
-// 128-block's sum (blocks in order within a split).
-template <int NT8, int U, bool SCALED, class Dec>
+// warp; SB: the width of int4's scale blocks (128 or 64; 0: none), blk_scale
+// [nkb * 128 / SB, O], applied to each scale block's sum (blocks in order
+// within a split). At SB 64 thread t takes k 16t .. 16t + 15 of each half of
+// a 128-block (Dec::load_halves, x read in the same order), so the 16 k of
+// every MMA lie in one half and the halves' sums are scaled apart.
+template <int NT8, int U, int SB, class Dec>
 __global__ void __launch_bounds__(DW * 32, NT8 == 1 ? DEC_BLOCKS_N8 : DEC_BLOCKS_N16)
     decode_kernel(const bf16* __restrict__ x, const Dec dec, const float* __restrict__ blk_scale,
                   const float* __restrict__ col_scale, const float* __restrict__ gs, bf16* __restrict__ y,
@@ -270,9 +273,12 @@ __global__ void __launch_bounds__(DW * 32, NT8 == 1 ? DEC_BLOCKS_N8 : DEC_BLOCKS
     row[i][1] = row[i][0] + 8;
   }
 
+  constexpr bool SCALED = SB > 0;
+  constexpr int NS = SB == 64 ? 2 : 1;  // scale blocks of a 128-block
+  static_assert(SB == 0 || SB == KB || (SB == 64 && CPT == 1), "scale blocks of 128, or 64 on 32-value chunks");
   Raw w[U][DMT][2][CPT];
   uint4 xv[U][NT8][4];
-  float sc[U][DMT][2];
+  float sc[U][DMT][2][NS];
   auto load = [&](int u, int kb) {
     const bool live = kb < kb1;
 #pragma unroll
@@ -281,16 +287,23 @@ __global__ void __launch_bounds__(DW * 32, NT8 == 1 ? DEC_BLOCKS_N8 : DEC_BLOCKS
       for (int h = 0; h < 2; ++h) {
         const bool ok = live && row[i][h] < O;
 #pragma unroll
-        for (int c = 0; c < CPT; ++c)
-          w[u][i][h][c] = ok ? dec.load(row[i][h], kb * (KB / Dec::EPC) + t * CPT + c) : Raw{};
-        if constexpr (SCALED) sc[u][i][h] = ok ? blk_scale[(size_t)kb * O + row[i][h]] : 0.f;
+        for (int c = 0; c < CPT; ++c) {
+          if constexpr (SB == 64)
+            w[u][i][h][c] = ok ? dec.load_halves(row[i][h], kb, t) : Raw{};
+          else
+            w[u][i][h][c] = ok ? dec.load(row[i][h], kb * (KB / Dec::EPC) + t * CPT + c) : Raw{};
+        }
+        if constexpr (SCALED) {
+#pragma unroll
+          for (int s = 0; s < NS; ++s) sc[u][i][h][s] = ok ? blk_scale[(size_t)(kb * NS + s) * O + row[i][h]] : 0.f;
+        }
       }
 #pragma unroll
     for (int j = 0; j < NT8; ++j) {
       const int n = g + 8 * j;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int k = kb * KB + 32 * t + 8 * c;
+        const int k = kb * KB + (SB == 64 ? (c >> 1) * 64 + 16 * t + 8 * (c & 1) : 32 * t + 8 * c);
         xv[u][j][c] = live && n < N && k < K ? __ldg(reinterpret_cast<const uint4*>(x + (size_t)n * K + k))
                                              : make_uint4(0u, 0u, 0u, 0u);
       }
@@ -335,14 +348,18 @@ __global__ void __launch_bounds__(DW * 32, NT8 == 1 ? DEC_BLOCKS_N8 : DEC_BLOCKS
                   mma_m16n8k16(acc[i][j], a, b);
               }
             }
-          }
-          if constexpr (SCALED) {
+            if constexpr (SCALED) {
+              if (q == 3 || (NS == 2 && q == 1)) {  // the end of a scale block: fold its sum, blocks in order
+                const int s = NS == 2 ? q >> 1 : 0;
 #pragma unroll
-            for (int j = 0; j < NT8; ++j) {
-              acc[i][j][0] = __fadd_rn(acc[i][j][0], __fmul_rn(part[j][0], sc[u][i][0]));
-              acc[i][j][1] = __fadd_rn(acc[i][j][1], __fmul_rn(part[j][1], sc[u][i][0]));
-              acc[i][j][2] = __fadd_rn(acc[i][j][2], __fmul_rn(part[j][2], sc[u][i][1]));
-              acc[i][j][3] = __fadd_rn(acc[i][j][3], __fmul_rn(part[j][3], sc[u][i][1]));
+                for (int j = 0; j < NT8; ++j) {
+                  acc[i][j][0] = __fadd_rn(acc[i][j][0], __fmul_rn(part[j][0], sc[u][i][0][s]));
+                  acc[i][j][1] = __fadd_rn(acc[i][j][1], __fmul_rn(part[j][1], sc[u][i][0][s]));
+                  acc[i][j][2] = __fadd_rn(acc[i][j][2], __fmul_rn(part[j][2], sc[u][i][1][s]));
+                  acc[i][j][3] = __fadd_rn(acc[i][j][3], __fmul_rn(part[j][3], sc[u][i][1][s]));
+                  part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.f;
+                }
+              }
             }
           }
         }
@@ -415,12 +432,12 @@ __global__ void __launch_bounds__(DW * 32, NT8 == 1 ? DEC_BLOCKS_N8 : DEC_BLOCKS
 // (1 <= n_split <= that; ws: n_tiles * n_split * WS_TILE floats and counters:
 // n_tiles ints, 0 between calls, where n_tiles = ceil(O / DROWS), both unused
 // at n_split 1). Prefill (N > 16): PM x PN tiles over 64-wide K tiles, 8 warps
-// as PWM x PWN. BLOCK is the width of a scaled K block (128 for int4) or 0.
+// as PWM x PWN. BLOCK is the width of a scaled K block (int4's 128 or 64) or 0.
 template <int PM, int PN, int PWM, int PWN, int BLOCK, class Dec>
 cudaError_t launch(const void* x, const Dec& dec, const float* blk_scale, const float* col_scale,
                    const float* gs, void* y, int N, int K, int O, int Kp, float* ws, int* counters, int n_split,
                    cudaStream_t st) {
-  static_assert(BLOCK == 0 || BLOCK == KB, "int4 blocks are the decode route's K blocks");
+  static_assert(BLOCK == 0 || BLOCK == KB || BLOCK == 64, "int4 blocks: 128 (the decode route's K block) or 64");
   const bf16* xp = static_cast<const bf16*>(x);
   bf16* yp = static_cast<bf16*>(y);
   if (N <= 0 || O <= 0) return cudaSuccess;
@@ -432,11 +449,11 @@ cudaError_t launch(const void* x, const Dec& dec, const float* blk_scale, const 
     constexpr int U = sizeof(typename Dec::Raw) <= 16 && Dec::EPC == 32 ? 3 : 2;
     dim3 grid((O + DW * DROWS - 1) / (DW * DROWS), n_split);
     if (N <= 8)
-      decode_kernel<1, U, (BLOCK > 0), Dec><<<grid, DW * 32, 0, st>>>(xp, dec, blk_scale, col_scale, gs, yp, ws,
-                                                                     counters, N, K, O, nkb);
+      decode_kernel<1, U, BLOCK, Dec><<<grid, DW * 32, 0, st>>>(xp, dec, blk_scale, col_scale, gs, yp, ws,
+                                                               counters, N, K, O, nkb);
     else
-      decode_kernel<2, U, (BLOCK > 0), Dec><<<grid, DW * 32, 0, st>>>(xp, dec, blk_scale, col_scale, gs, yp, ws,
-                                                                     counters, N, K, O, nkb);
+      decode_kernel<2, U, BLOCK, Dec><<<grid, DW * 32, 0, st>>>(xp, dec, blk_scale, col_scale, gs, yp, ws,
+                                                               counters, N, K, O, nkb);
   } else {
     constexpr int BK = 64;
     dim3 grid((O + PN - 1) / PN, (N + PM - 1) / PM);

@@ -386,6 +386,24 @@ def _grab(x: torch.Tensor, n_tokens: int) -> torch.Tensor:
     return flat[: min(n_tokens, flat.shape[0])]
 
 
+def decoder_layer(cfg: LlamaConfig, layout: QuantLayout, calib: bool, x: torch.Tensor, lp: dict, lstate,
+                  positions: torch.Tensor, mask: torch.Tensor, adapters: Optional[dict] = None):
+    """One decoder layer -> (x_out, the layer's emitted state, (h, o_in, h2,
+    down_in)): the inputs of its projections, for the captures."""
+    h = norm(cfg, x, lp["input_layernorm"])
+    attn, st_a, o_in = _attention(cfg, h, lp, lstate, layout, positions, mask, calib, adapters)
+    x = x + attn
+    h2 = norm(cfg, x, lp["post_attention_layernorm"])
+    mlp_out, st_m, down_in = _mlp(h2, lp, lstate, layout, calib, adapters)
+    return x + mlp_out, {**st_a, **st_m}, (h, o_in, h2, down_in)
+
+
+def causal_mask(T: int, device) -> torch.Tensor:
+    """[1, 1, T, T] additive causal mask (0 / -1e9, f32)."""
+    ar = torch.arange(T, device=device)
+    return torch.where(ar[None, :] <= ar[:, None], 0.0, -1e9).float()[None, None]
+
+
 GLOBAL_SITES = ("lm_head", "embed_tokens")
 CAPTURE_KEYS = ("attn_in", "o_in", "mlp_in", "down_in")  # the capture points of a decoder layer
 
@@ -418,8 +436,7 @@ def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
         emb_w = Q.quantize(emb_w, ew_cfg, ew_state)
     x = emb_w[tokens].to(cfg.dtype)
 
-    ar = torch.arange(T, device=dev)
-    mask = torch.where(ar[None, :] <= ar[:, None], 0.0, -1e9).float()[None, None]
+    mask = causal_mask(T, dev)
 
     per_layer_state = {k: v for k, v in (qstate or {}).items()
                        if not k.startswith(GLOBAL_SITES)} or None
@@ -430,15 +447,10 @@ def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
         lp = {k: v[i] for k, v in layers.items()}
         lstate = slice_state(per_layer_state, i)
         ad = None if adapters is None else {n: {k: a[i] for k, a in f.items()} for n, f in adapters.items()}
-        h = norm(cfg, x, lp["input_layernorm"])
-        attn, st_a, o_in = _attention(cfg, h, lp, lstate, layout, positions, mask, calib, ad)
-        x = x + attn
-        h2 = norm(cfg, x, lp["post_attention_layernorm"])
-        mlp_out, st_m, down_in = _mlp(h2, lp, lstate, layout, calib, ad)
-        x = x + mlp_out
-        emitted.append({**st_a, **st_m})
+        x, st, taps = decoder_layer(cfg, layout, calib, x, lp, lstate, positions, mask, ad)
+        emitted.append(st)
         if capture_tokens:
-            for k, t in zip(CAPTURE_KEYS, (h, o_in, h2, down_in)):
+            for k, t in zip(CAPTURE_KEYS, taps):
                 captures[k].append(_grab(t, capture_tokens))
 
     x = norm(cfg, x, params["norm"])

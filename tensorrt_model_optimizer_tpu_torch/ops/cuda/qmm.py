@@ -117,25 +117,36 @@ def _decode_split(device: torch.device, N: int, O: int, Kp: int):
 def int4_rows_pack(packed: torch.Tensor, scale_lo: torch.Tensor, scale_hi: torch.Tensor):
     """Plane-packed int4 [O/2, K] (`quant/compress.py` "int4") + f32 plane
     block scales [O/2, nblk] -> (row bytes [O, Kp/2] uint8 in the order the
-    docstring gives, f32 scales [nblk, O], K). The last block may be short
-    (K = 704, or one block over K < 128): its tail holds code 0."""
+    docstring gives, f32 scales [Kp/B, O], K), Kp = K rounded up to 128.
+    The blocks are B = 128 wide, or 64 (NF4's) where nblk = ceil(K / 64)
+    says so; the last block may be short (K = 704, or one block over K <
+    128): its tail holds code 0, and a padded 64-block the scale 1."""
     O2, K = packed.shape
     nblk = scale_lo.shape[-1]
-    if -(-K // A8_BLOCK) != nblk:
+    Kp = -(-K // A8_BLOCK) * A8_BLOCK
+    if nblk == Kp // A8_BLOCK:
+        block = A8_BLOCK
+    elif nblk == -(-K // 64):
+        block = 64
+    else:
         raise NotImplementedError(
-            f"the int4 kernels take 128-wide K blocks, got {nblk} blocks over K={K}")
+            f"the int4 kernels take 128- or 64-wide K blocks, got {nblk} blocks over K={K}")
     nib = packed.to(torch.int32)
     codes = torch.cat([nib & 0xF, (nib >> 4) & 0xF], dim=0)  # [O, K] two's complement nibbles
-    Kp = nblk * A8_BLOCK
     c = torch.nn.functional.pad(codes, (0, Kp - K)).reshape(2 * O2, Kp // 8, 2, 4)
     byte = (c[:, :, 0, :] | (c[:, :, 1, :] << 4)).to(torch.uint8)
     scales = torch.cat([scale_lo, scale_hi], dim=0).float()
+    scales = torch.nn.functional.pad(scales, (0, Kp // block - nblk), value=1.0)
     return byte.reshape(2 * O2, Kp // 2).contiguous(), scales.t().contiguous(), K
 
 
 def int4_a8_pack(packed: torch.Tensor, scale_lo: torch.Tensor, scale_hi: torch.Tensor) -> dict:
-    """Plane-packed int4 -> the "int4a8" arrays (see the docstring)."""
+    """Plane-packed int4 -> the "int4a8" arrays (see the docstring); W4A8
+    takes 128-wide blocks only."""
     byte, scales, K = int4_rows_pack(packed, scale_lo, scale_hi)
+    if scales.shape[0] * A8_BLOCK != byte.shape[1] * 2:
+        raise NotImplementedError("W4A8 (int4_layout 'a8') takes 128-wide int4 blocks; serve 64-wide "
+                                  "blocks (NF4_WEIGHT_ONLY_CFG) weight-only")
     return {"packed": byte, "scales": scales.to(torch.bfloat16), "in_features": K}
 
 

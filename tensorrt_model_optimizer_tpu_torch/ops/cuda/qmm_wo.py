@@ -43,8 +43,9 @@ engine runs one stream).
 Layouts (this port's own; `quant/compress.py` `word_convert_site` makes them):
 
   "int4wo"   packed [O, Kp/2] uint8, the byte order of "int4a8"
-             (`ops/cuda/qmm.py`), Kp = K rounded up to the 128-wide block;
-             scales [Kp/128, O] f32. The packer decides the rounding: the
+             (`ops/cuda/qmm.py`), Kp = K rounded up to 128; scales [Kp/B,
+             O] f32 for blocks of B = 128 or 64 (NF4_WEIGHT_ONLY_CFG's:
+             the decode route then reads each half of a 128-block apart). The packer decides the rounding: the
              layout names whose JAX pack rounds the block scales to bf16
              (bd2, word, word2) store bf16-rounded values, "blockdot" keeps
              the f32 scales, so the kernel reads f32 either way.
@@ -129,18 +130,28 @@ def fp4_rows_scales(scales: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+def int4_block(packed: torch.Tensor, scales: torch.Tensor) -> int:
+    """The K block width (128 or 64) an "int4wo" pack's shapes imply."""
+    Kp, nblk = packed.shape[1] * 2, scales.shape[0]
+    if Kp % A8_BLOCK or nblk * A8_BLOCK not in (Kp, 2 * Kp):
+        raise ValueError(f"int4_wo: packed {tuple(packed.shape)} and scales {tuple(scales.shape)} "
+                         "are not 128- or 64-wide blocks")
+    return Kp // nblk
+
+
 def int4_wo_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                          out_dtype=None) -> torch.Tensor:
     """[N, K] x "int4wo" arrays -> [N, O]: f32 block sums, times the block's
     scale, blocks in order."""
     N, K = x.shape
     nblk, O = scales.shape
+    bsz = int4_block(packed, scales)
     codes = int4_a8_codes(packed).float()  # [O, Kp]
-    xp = torch.nn.functional.pad(x.float(), (0, nblk * A8_BLOCK - K))
+    xp = torch.nn.functional.pad(x.float(), (0, nblk * bsz - K))
     s = scales.float()
     acc = torch.zeros((N, O), dtype=torch.float32, device=x.device)
     for b in range(nblk):
-        blk = slice(b * A8_BLOCK, (b + 1) * A8_BLOCK)
+        blk = slice(b * bsz, (b + 1) * bsz)
         acc = acc + (xp[:, blk] @ codes[:, blk].t()) * s[b]
     return acc.to(out_dtype or x.dtype)
 
@@ -191,26 +202,28 @@ def _ready(t: torch.Tensor) -> torch.Tensor:
 
 
 def int4_wo_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """x [N, K], packed [O, Kp/2] uint8, scales [Kp/128, O] f32 -> [N, O]
-    in x's dtype."""
+    """x [N, K], packed [O, Kp/2] uint8, scales [Kp/B, O] f32 (B = 128 or
+    64) -> [N, O] in x's dtype."""
     N, K = x.shape
     nblk, O = scales.shape
     if packed.dtype != torch.uint8 or scales.dtype != torch.float32:
         raise TypeError(f"int4_wo: want uint8 codes and f32 scales, got {packed.dtype}/{scales.dtype}")
-    if packed.shape != (O, nblk * A8_BLOCK // 2) or not (nblk - 1) * A8_BLOCK < K <= nblk * A8_BLOCK:
+    Kp = packed.shape[1] * 2
+    if packed.shape[0] != O or not Kp - A8_BLOCK < K <= Kp:
         raise ValueError(f"int4_wo: shapes x {tuple(x.shape)} packed {tuple(packed.shape)} "
                          f"scales {tuple(scales.shape)}")
+    bsz = int4_block(packed, scales)
     if x.device.type == "cpu":
         return int4_wo_matmul_plain(x, packed, scales)
     x = _check_x(x, "int4_wo", packed, scales)
     packed, scales = _ready(packed), _ready(scales)
     y = torch.empty((N, O), dtype=torch.bfloat16, device=x.device)
-    ws, counters, n_split = _decode_split(x.device, N, O, nblk * A8_BLOCK)
+    ws, counters, n_split = _decode_split(x.device, N, O, Kp)
     fn = _build.function("qmm_int4_wo", "int4_wo_gemm",
-                         [_build.c_void_p] * 4 + [_build.c_int] * 4 + [_build.c_void_p] * 2 + [_build.c_int]
+                         [_build.c_void_p] * 4 + [_build.c_int] * 5 + [_build.c_void_p] * 2 + [_build.c_int]
                          + [_build.c_void_p])
     _build.check(fn(_build.ptr(x), _build.ptr(packed), _build.ptr(scales), _build.ptr(y),
-                    N, K, O, nblk, ws, counters, n_split, _build.stream()), "int4_wo_gemm")
+                    N, K, O, Kp, bsz, ws, counters, n_split, _build.stream()), "int4_wo_gemm")
     launches["qmm_int4_wo"] += 1
     return y
 

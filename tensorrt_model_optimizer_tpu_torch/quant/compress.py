@@ -9,7 +9,12 @@ exponents), "int8" (per-channel), "fp8" (per-tensor) and "bf16".
 
 The serving layouts are this port's own, one for each format whatever TPU
 layout name the engine is given: "int4a8" (W4A8), "int4wo", "nvfp4wo" and
-"mxfp4wo" (weight-only). Their packers and decoders live beside the kernels
+"mxfp4wo" (weight-only), and the two layouts JAX serves with XLA, not
+Pallas: "int4x" (`int4_layout="xla"`: signed codes [O, Kp] int8, K padded
+to whole blocks, and merged f32 block scales [O, G], a plain dequantize and
+matmul) and "int8a8"
+(`nvfp4_layout="i8"`: NVFP4's dequantized values re-encoded as per-channel
+int8, served W8A8 by `torch._int_mm`). Their packers and decoders live beside the kernels
 that read them (`ops/cuda/qmm.py`, `ops/cuda/qmm_wo.py`), which say what the
 bytes hold. `convert_packed_layouts` turns every 4-bit site into its serving
 layout; "int8" and "fp8" are served as they are.
@@ -25,7 +30,7 @@ import torch
 from ..models import llama
 from ..ops import numerics
 from ..ops.cuda import qmm_wo
-from ..ops.cuda.qmm import A8_BLOCK, int4_a8_codes, int4_a8_pack, int4_rows_pack
+from ..ops.cuda.qmm import int4_a8_codes, int4_a8_pack, int4_rows_pack
 from . import quantizer as Q
 from .ptq import QuantizedModel
 
@@ -189,10 +194,17 @@ def decompress_weight(kind: str, arrays: dict, out_dtype=torch.bfloat16) -> torc
         lo_f = lo * numerics.expand_block_scale(s_lo, lo.shape, ((-1, bsz),))
         hi_f = hi * numerics.expand_block_scale(s_hi, hi.shape, ((-1, bsz),))
         return torch.cat([lo_f, hi_f], dim=-2).to(out_dtype)
+    if kind == "int4x":
+        q = arrays["q"].float()
+        bsz = q.shape[-1] // arrays["scale"].shape[-1]
+        w = q * numerics.expand_block_scale(arrays["scale"], q.shape, ((-1, bsz),))
+        return w[..., : arrays["in_features"]].to(out_dtype)
+    if kind == "int8a8":
+        return (arrays["q"].float() * arrays["scale"]).to(out_dtype)
     if kind in ("int4a8", "int4wo"):
         codes = int4_a8_codes(arrays["packed"]).float()
         sc = numerics.expand_block_scale(arrays["scales"].float().t(), codes.shape,
-                                         ((-1, A8_BLOCK),))
+                                         ((-1, qmm_wo.int4_block(arrays["packed"], arrays["scales"])),))
         return (codes * sc)[:, : arrays["in_features"]].to(out_dtype)
     if kind in ("nvfp4wo", "mxfp4wo"):
         vals = qmm_wo.fp4_rows_values(arrays["packed"])
@@ -279,13 +291,16 @@ FP4_LAYOUTS = ("word2", "word", "perm", "blockdot", "bd4")
 
 def word_convert_site(kind: str, arr: dict, layout: str) -> tuple[str, dict]:
     """Convert ONE packed site ([O/2, K] planes of one layer) to its serving
-    layout: int4 -> "int4a8" (layout "a8") or "int4wo", nvfp4 -> "nvfp4wo",
-    mxfp4 -> "mxfp4wo". Other kinds pass through unchanged."""
+    layout: int4 -> "int4a8" (layout "a8"), "int4x" ("xla") or "int4wo",
+    nvfp4 -> "int8a8" ("i8") or "nvfp4wo", mxfp4 -> "mxfp4wo". Other kinds
+    pass through unchanged."""
     if kind == "int4":
-        if layout == "xla":
-            raise NotImplementedError(
-                "int4_layout 'xla' (XLA-native s4 storage, no Pallas kernel) comes with the "
-                "remaining-formats slice")
+        if layout == "xla":  # a ragged K (704) pads with code 0, where JAX's reshape fails
+            lo, hi = plane_unpack_int4(arr["packed"])
+            scale = torch.cat([arr["scale_lo"], arr["scale_hi"]], dim=-2).float()
+            K = lo.shape[-1]
+            q = torch.nn.functional.pad(torch.cat([lo, hi], dim=-2), (0, scale.shape[-1] * _infer_bsz(K, scale.shape[-1]) - K))
+            return "int4x", {"q": q, "scale": scale, "in_features": K}
         if layout not in INT4_LAYOUTS:
             raise ValueError(f"int4_layout {layout!r}: choices {INT4_LAYOUTS}")
         if layout == "a8":
@@ -294,11 +309,15 @@ def word_convert_site(kind: str, arr: dict, layout: str) -> tuple[str, dict]:
         if layout != "blockdot":  # JAX's bd2 / word / word2 packs round the scales to bf16
             scales = scales.to(torch.bfloat16).float()
         return "int4wo", {"packed": byte, "scales": scales, "in_features": K}
+    if kind == "nvfp4" and layout == "i8":
+        # W8A8 serving of an NVFP4 checkpoint: the dequantized E2M1 x E4M3
+        # values re-encoded as per-channel int8 (JAX's `int8a8`); the scale
+        # is amax * f32(1/127), XLA's rewrite of JAX's amax / 127 (jitted)
+        w = decompress_weight("nvfp4", arr, out_dtype=torch.float32)
+        amax = torch.amax(torch.abs(w), dim=-1, keepdim=True)
+        scale = torch.where(amax == 0.0, torch.ones_like(amax), amax * torch.tensor(1.0 / 127.0))
+        return "int8a8", {"q": torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8), "scale": scale}
     if kind in ("nvfp4", "mxfp4"):
-        if layout == "i8":
-            raise NotImplementedError(
-                "nvfp4_layout 'i8' (W8A8 serving of an NVFP4 checkpoint, its values re-encoded as int8) comes with "
-                "the remaining-formats slice")
         if layout not in FP4_LAYOUTS:
             raise ValueError(f"nvfp4_layout {layout!r}: choices {FP4_LAYOUTS}")
         if kind == "nvfp4":
@@ -318,8 +337,9 @@ def convert_packed_layouts(cm: CompressedModel, nvfp4: str = "word2", int4: str 
                            mxfp4: str = "word2") -> CompressedModel:
     """One-time serving-layout conversion of every packed 4-bit site, one
     layer at a time. Layout names per format follow
-    `EngineConfig.{nvfp4,int4}_layout`."""
-    want = {"nvfp4": nvfp4, "int4": int4, "mxfp4": mxfp4}
+    `EngineConfig.{nvfp4,int4}_layout`; MXFP4 under "i8" serves weight-only,
+    as JAX's does."""
+    want = {"nvfp4": nvfp4, "int4": int4, "mxfp4": "word2" if mxfp4 == "i8" else mxfp4}
     new_layers = dict(cm.params["layers"])
     kinds = dict(cm.kinds)
     L = cm.model_cfg.num_hidden_layers

@@ -3,12 +3,10 @@
 
 A `QuantizeConfig` maps wildcard patterns over quantizer-site names to
 `QuantizerConfig`s, last matching rule winning, plus a calibration algorithm.
-The presets keep their JAX names and fields, the calibration-algorithm
-presets (SmoothQuant, AWQ, GPTQ, local Hessian, SVDQuant, NVFP4 activation
-headroom, the affine FP8 KV cache) among them. A preset whose format this
-port does not have yet (MXFP6, MXFP8, NF4) raises `NotImplementedError`
-naming the slice that brings it, both through `get_preset` and as a module
-attribute.
+`PRESETS` holds JAX's 25 presets under their JAX names and fields (the
+calibration-algorithm presets, MXFP6, MXFP8 and NF4 among them);
+`UNPORTED_PRESETS` names none now. `config_to_dict` / `config_from_dict`
+write and read the JSON form JAX's do (the replayable optimization state).
 """
 
 from __future__ import annotations
@@ -83,6 +81,7 @@ INT8_PER_CHANNEL = QuantizerConfig(num_bits=8, axis=(0,))
 INT8_PER_TENSOR = QuantizerConfig(num_bits=8)
 INT8_PER_TOKEN_DYNAMIC = QuantizerConfig(num_bits=8, dynamic=True, per_token=True)
 INT4_PER_BLOCK_128 = QuantizerConfig(num_bits=4, block=BlockSpec(sizes=((-1, 128),)))
+INT4_PER_BLOCK_64 = QuantizerConfig(num_bits=4, block=BlockSpec(sizes=((-1, 64),)))
 FP8_PER_TENSOR = QuantizerConfig(num_bits=(4, 3))
 FP8_PER_CHANNEL = QuantizerConfig(num_bits=(4, 3), axis=(0,))
 FP8_PER_TOKEN_DYNAMIC = QuantizerConfig(num_bits=(4, 3), dynamic=True, per_token=True)
@@ -94,6 +93,16 @@ NVFP4_BLOCK16 = QuantizerConfig(
     num_bits=(2, 1), block=BlockSpec(sizes=((-1, 16),), scale_bits=(4, 3), dynamic=True))
 MXFP4_BLOCK32 = QuantizerConfig(
     num_bits=(2, 1), block=BlockSpec(sizes=((-1, 32),), scale_bits=(8, 0), dynamic=True))
+MXFP6_E3M2_BLOCK32 = QuantizerConfig(
+    num_bits=(3, 2), block=BlockSpec(sizes=((-1, 32),), scale_bits=(8, 0), dynamic=True))
+MXFP8_E4M3_BLOCK32 = QuantizerConfig(
+    num_bits=(4, 3), block=BlockSpec(sizes=((-1, 32),), scale_bits=(8, 0), dynamic=True))
+# static int4 64-blocks; the integer scale_bits and scale blocks (QLoRA's
+# double quantization) are recorded but, as in JAX, never applied: the fake
+# quant is INT4 under the calibrated block amax and `compress` packs it as
+# INT4 (`numerics.fake_quant_nf4`'s codebook is called by no quantizer)
+NF4_BLOCK64 = QuantizerConfig(
+    num_bits=4, block=BlockSpec(sizes=((-1, 64),), scale_bits=8, scale_block_sizes=((-1, 256),)))
 
 # Sites disabled in every preset (`units/default_disabled_quantizers.yaml`)
 _DEFAULT_DISABLED = {
@@ -144,6 +153,9 @@ NVFP4_ACT_HEADROOM_CFG = _preset(NVFP4_BLOCK16, NVFP4_BLOCK16,
 W4A16_NVFP4_CFG = NVFP4_WEIGHT_ONLY_CFG
 MXFP4_DEFAULT_CFG = _preset(MXFP4_BLOCK32, MXFP4_BLOCK32, "max")
 MXFP4_WEIGHT_ONLY_CFG = _preset(MXFP4_BLOCK32, None, "max")
+MXFP6_DEFAULT_CFG = _preset(MXFP6_E3M2_BLOCK32, MXFP6_E3M2_BLOCK32, "max")
+MXFP8_DEFAULT_CFG = _preset(MXFP8_E4M3_BLOCK32, MXFP8_E4M3_BLOCK32, "max")
+NF4_WEIGHT_ONLY_CFG = _preset(NF4_BLOCK64, None, "max")
 
 KV_FP8_RULES = {"*k_bmm_quantizer": FP8_KV, "*v_bmm_quantizer": FP8_KV}
 KV_FP8_CAST_RULES = {"*k_bmm_quantizer": FP8_KV_CAST, "*v_bmm_quantizer": FP8_KV_CAST}
@@ -175,31 +187,71 @@ PRESETS: dict[str, QuantizeConfig] = {
     "NVFP4_AWQ_LITE_CFG": NVFP4_AWQ_LITE_CFG,
     "NVFP4_ACT_HEADROOM_CFG": NVFP4_ACT_HEADROOM_CFG,
     "NVFP4_KV_CFG": NVFP4_KV_CFG,
-    "W4A16_NVFP4_CFG": W4A16_NVFP4_CFG,
     "MXFP4_DEFAULT_CFG": MXFP4_DEFAULT_CFG,
     "MXFP4_WEIGHT_ONLY_CFG": MXFP4_WEIGHT_ONLY_CFG,
+    "MXFP6_DEFAULT_CFG": MXFP6_DEFAULT_CFG,
+    "MXFP8_DEFAULT_CFG": MXFP8_DEFAULT_CFG,
+    "NF4_WEIGHT_ONLY_CFG": NF4_WEIGHT_ONLY_CFG,
     "FP8_KV_CFG": FP8_KV_CFG,
     "FP8_KV_AFFINE_CFG": FP8_KV_AFFINE_CFG,
     "INT4_AWQ_KV_FP8_CFG": INT4_AWQ_KV_FP8_CFG,
 }
 
-# JAX presets whose format is not ported yet, with the slice that brings
-# each (ROADMAP.md queue 1)
-UNPORTED_PRESETS: dict[str, str] = {
-    "MXFP6_DEFAULT_CFG": "the remaining-formats slice (MXFP6 packs)",
-    "MXFP8_DEFAULT_CFG": "the remaining-formats slice (MXFP8 packs)",
-    "NF4_WEIGHT_ONLY_CFG": "the remaining-formats slice (NF4)",
-}
+# JAX presets this port refuses, with the slice that brings each: none
+UNPORTED_PRESETS: dict[str, str] = {}
 
 
-def _unported(name: str) -> NotImplementedError:
-    return NotImplementedError(f"preset {name} is not ported yet: it comes with {UNPORTED_PRESETS[name]}")
+# --------------------------------------------------------------------------
+# JSON serialization (the replayable optimization state), JAX's form
+# --------------------------------------------------------------------------
 
 
-def __getattr__(name: str):
-    if name in UNPORTED_PRESETS:
-        raise _unported(name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+def quantizer_cfg_to_dict(c: QuantizerConfig) -> dict:
+    d = dataclasses.asdict(c)
+    if c.block is not None:
+        sb = c.block.scale_bits
+        d["block"] = {
+            "sizes": [list(p) for p in c.block.sizes],
+            "scale_bits": list(sb) if isinstance(sb, tuple) else sb,
+            "scale_block_sizes": [list(p) for p in c.block.scale_block_sizes] if c.block.scale_block_sizes else None,
+            "dynamic": c.block.dynamic,
+        }
+    if c.sequential:
+        d["sequential"] = [quantizer_cfg_to_dict(s) for s in c.sequential]
+    if isinstance(c.num_bits, tuple):
+        d["num_bits"] = list(c.num_bits)
+    if c.axis is not None:
+        d["axis"] = list(c.axis)
+    return d
+
+
+def quantizer_cfg_from_dict(d: dict) -> QuantizerConfig:
+    d = dict(d)
+    if d.get("block"):
+        b = d["block"]
+        sb = b.get("scale_bits")
+        d["block"] = BlockSpec(
+            sizes=tuple(tuple(p) for p in b["sizes"]),
+            scale_bits=tuple(sb) if isinstance(sb, list) else sb,
+            scale_block_sizes=tuple(tuple(p) for p in b["scale_block_sizes"]) if b.get("scale_block_sizes") else None,
+            dynamic=b.get("dynamic", False),
+        )
+    if d.get("sequential"):
+        d["sequential"] = tuple(quantizer_cfg_from_dict(s) for s in d["sequential"])
+    if isinstance(d.get("num_bits"), list):
+        d["num_bits"] = tuple(d["num_bits"])
+    if isinstance(d.get("axis"), list):
+        d["axis"] = tuple(d["axis"])
+    return QuantizerConfig(**d)
+
+
+def config_to_dict(cfg: QuantizeConfig) -> dict:
+    return {"rules": [[p, quantizer_cfg_to_dict(c)] for p, c in cfg.rules], "algorithm": cfg.algorithm}
+
+
+def config_from_dict(d: dict) -> QuantizeConfig:
+    return QuantizeConfig(rules=tuple((p, quantizer_cfg_from_dict(c)) for p, c in d["rules"]),
+                          algorithm=d.get("algorithm", "max"))
 
 
 def choices() -> list[str]:
@@ -210,7 +262,7 @@ def get_preset(name) -> QuantizeConfig:
     if isinstance(name, QuantizeConfig):
         return name
     if name in UNPORTED_PRESETS:
-        raise _unported(name)
+        raise NotImplementedError(f"preset {name} is not ported yet: it comes with {UNPORTED_PRESETS[name]}")
     if name not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; choices: {choices()}")
     return PRESETS[name]

@@ -5,11 +5,13 @@
 quantization site; `QuantizerState` holds its calibrated tensors. The
 functions are pure: `collect` returns a new state, `quantize` a new tensor.
 Covered: the int and fp8 formats (static, dynamic per-token or per-tensor,
-and generic dynamic blocks), NVFP4 (dynamic E4M3 block scales under a
-calibrated global amax) and the MX float formats (E8M0 block scales). NF4,
-MXINT, Hadamard rotation and custom backends raise `NotImplementedError`
-naming the slice that brings them. No gradients flow here: QAT's
-straight-through estimators come with the training slice.
+static blocks, generic dynamic blocks), NVFP4 (dynamic E4M3 block scales
+under a calibrated global amax), the MX float formats and MXINT (E8M0 block
+scales) and the Hadamard rotation (`rotate`). A static block with integer
+`scale_bits` (NF4_BLOCK64) quantizes as JAX's does: an int grid under the
+calibrated per-block amax; the scale bits are not applied. Custom backends raise `NotImplementedError`. No
+gradients flow here: QAT's straight-through estimators come with the
+training slice.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Optional
 import torch
 
 from ..ops import numerics
+from ..ops.hadamard import blocked_fwht
 from ..ops.formats import BlockSpec, NumBits
 
 
@@ -83,17 +86,6 @@ def _block_dynamic(cfg: QuantizerConfig) -> bool:
     return cfg.dynamic or (cfg.block is not None and cfg.block.dynamic)
 
 
-def _check_ported(cfg: QuantizerConfig) -> None:
-    if cfg.rotate:
-        raise NotImplementedError("Hadamard rotation comes with the remaining-formats slice")
-    if cfg.backend is not None:
-        raise NotImplementedError("custom quant backends are not ported")
-    sb = cfg.block.scale_bits if cfg.block is not None else None
-    nvfp4 = sb == (4, 3) and cfg.num_bits == (2, 1)
-    if sb is not None and not (nvfp4 or (sb == (8, 0) and cfg.is_fp)):
-        raise NotImplementedError(
-            f"block scale format {sb} on num_bits {cfg.num_bits}: NF4 and MXINT come "
-            "with the remaining-formats slice")
 
 
 def _resolve_axes(axis: tuple[int, ...], ndim: int) -> tuple[int, ...]:
@@ -167,10 +159,10 @@ def collect(x: torch.Tensor, cfg: QuantizerConfig, state: QuantizerState) -> Qua
     """Max-calibrator collect: running max into state.amax."""
     if not cfg.enable or cfg.constant_amax is not None:
         return state
-    if cfg.rotate:
-        _check_ported(cfg)
     if state.pre_quant_scale is not None:
         x = x * state.pre_quant_scale.to(x.dtype)
+    if cfg.rotate:
+        x = blocked_fwht(x, -1)
     if cfg.sequential:
         old = state.amax if isinstance(state.amax, tuple) else (None,) * len(cfg.sequential)
         new = tuple(collect(x, sub, QuantizerState(amax=prev)).amax
@@ -218,11 +210,15 @@ def _fake_quant(x, cfg: QuantizerConfig, amax):
 
 def quantize(x: torch.Tensor, cfg: QuantizerConfig,
              state: Optional[QuantizerState] = None) -> torch.Tensor:
-    """Fake-quantize `x` per the config: pre_quant_scale multiply, then the
-    format's fake quant."""
+    """Fake-quantize `x` per the config: pre_quant_scale multiply, the
+    Hadamard rotation where `rotate` (exact when the paired weight site
+    rotates its input dim too: (xH)(WH)^T = xW^T), then the format's fake
+    quant."""
     state = state or QuantizerState()
     if state.pre_quant_scale is not None:
         x = x * state.pre_quant_scale.to(x.dtype)
+    if cfg.rotate:
+        x = blocked_fwht(x, -1)
     if not cfg.enable:
         return x
     if cfg.sequential:
@@ -237,14 +233,25 @@ def quantize(x: torch.Tensor, cfg: QuantizerConfig,
     return _dispatch(x, cfg, state)
 
 
+def _mxint(x: torch.Tensor, num_bits: int, ax: int, bsz: int) -> torch.Tensor:
+    """MXINT: an int grid under a power-of-two (E8M0) shared block scale."""
+    sizes = ((ax, bsz),)
+    scale = numerics.e8m0_scale(numerics.block_amax_compact(x.float(), sizes), 0)
+    amax_full = numerics.expand_block_scale(scale, x.shape, sizes) * float(2 ** (num_bits - 1) - 1)
+    return numerics.fake_quant_int(x, amax_full, num_bits)
+
+
 def _dispatch(x, cfg: QuantizerConfig, state: QuantizerState):
-    _check_ported(cfg)
+    if cfg.backend is not None:
+        raise NotImplementedError("custom quant backends are not ported")
     blk = cfg.block
     if blk is not None and _block_dynamic(cfg) and blk.sizes:
         ax, bsz = blk.sizes[0]
-        if blk.scale_bits == (4, 3):
+        if blk.scale_bits == (4, 3) and cfg.num_bits == (2, 1):
             return numerics.fake_quant_nvfp4(x, bsz, state.amax, ax)
         if blk.scale_bits == (8, 0):
+            if not cfg.is_fp:
+                return _mxint(x, cfg.num_bits, ax, bsz)
             e, m = cfg.num_bits
             return numerics.fake_quant_mx(x, e, m, bsz, ax)
         return _fake_quant(x, cfg, numerics.block_reduce_amax(x.float(), blk.sizes))

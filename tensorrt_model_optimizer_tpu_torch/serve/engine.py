@@ -74,9 +74,13 @@ Every TPU layout name of a format maps to the one port layout of that format
 (`quant/compress.py` `word_convert_site`): `bd2_supported`'s quiet fall back
 from bd2 to word2 has no counterpart, because both names are one kernel here.
 
-Not ported (each raises `NotImplementedError` naming its slice):
-`int4_layout="xla"`, `nvfp4_layout="i8"`, the tensor-parallel, MoE and
-speculative paths.
+`int4_layout="xla"` ("int4x") and `nvfp4_layout="i8"` ("int8a8") are the
+layouts JAX computes with XLA, not Pallas; here too they are plain PyTorch:
+a dequantize and matmul (`int4x_matmul`, JAX's `qmm_int4_xla` step for step)
+and `int8_mm` under per-token int8 activations.
+
+Not ported (each raises `NotImplementedError` naming its slice): the
+tensor-parallel, MoE and speculative paths.
 """
 
 from __future__ import annotations
@@ -106,7 +110,7 @@ from .sampling import SamplingConfig, sample
 from .scheduler import Scheduler
 
 _KV_DTYPES = (None, torch.bfloat16, torch.int8, torch.float8_e4m3fn, "nvfp4", "nvfp4_fake")
-_SERVED_KINDS = ("int4a8", "int4wo", "nvfp4wo", "mxfp4wo", "int8", "fp8", "bf16")
+_SERVED_KINDS = ("int4a8", "int4wo", "nvfp4wo", "mxfp4wo", "int8", "fp8", "bf16", "int4x", "int8a8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,10 +123,12 @@ class EngineConfig:
     # INT4 serving layout, by its TPU name: "bd2" | "word" | "word2" |
     # "blockdot" are weight-only (one port layout, "int4wo"; "blockdot" keeps
     # the f32 block scales, the others round them to bf16 as JAX's packs do),
-    # "a8" is W4A8 ("int4a8")
+    # "a8" is W4A8 ("int4a8"), "xla" a plain dequantize + matmul ("int4x")
     int4_layout: str = "bd2"
     # NVFP4 serving layout, by its TPU name: "word2" | "word" | "perm" |
-    # "blockdot" | "bd4", all one port layout ("nvfp4wo"); MXFP4 follows it
+    # "blockdot" | "bd4", all one port layout ("nvfp4wo"); MXFP4 follows it.
+    # "i8": W8A8 over the values re-encoded as int8 ("int8a8"; MXFP4 stays
+    # weight-only)
     nvfp4_layout: str = "word2"
     # the stored-form kv-head-major cache with the attention kernels; False:
     # the dense-cache einsum engine
@@ -181,6 +187,27 @@ def int8_mm(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(x8, w8.t())[:n]
 
 
+INT4X_DECODE_ROWS = 64  # JAX's qmm_int4_xla: more rows dequantize once, fewer take grouped sums
+
+
+def int4x_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x [N, K] times the "int4x" arrays (codes q [O, Kp] int8, K padded to
+    whole blocks; block scales [O, G] f32) -> [N, O] in x's dtype, as JAX's
+    `qmm_int4_xla` computes it: N > 64 dequantizes the weight in f32, rounds
+    it to x's dtype and runs one matmul; N <= 64 sums each block's products
+    in f32, then the blocks' sums times their scales. Plain PyTorch: JAX
+    serves it with XLA, no Pallas kernel."""
+    x = torch.nn.functional.pad(x, (0, q.shape[-1] - x.shape[-1]))
+    N, K = x.shape
+    O, G = scale.shape
+    bsz = K // G
+    if N > INT4X_DECODE_ROWS:
+        w = (q.float().reshape(O, G, bsz) * scale.float()[..., None]).reshape(O, K)
+        return x @ w.to(x.dtype).t()
+    t = torch.einsum("bgk,ogk->gbo", x.float().reshape(N, G, bsz), q.float().reshape(O, G, bsz))
+    return torch.einsum("gbo,og->bo", t, scale.float()).to(x.dtype)
+
+
 def _int8_acts(x: torch.Tensor, a_amax: torch.Tensor, lo: int):
     """(int8 codes of x under a_amax / 127, clipped to [lo, 127], the scale)."""
     a_scale = torch.where(a_amax == 0, torch.ones_like(a_amax), a_amax / 127.0)
@@ -219,6 +246,14 @@ def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, ops, adapter=None)
         x8, a_scale = _int8_acts(x, a_amax, -128)
         y = int8_mm(x8, arrays["q"]).float() * a_scale * arrays["scale"].reshape(1, -1)
         return y.to(x.dtype)
+    if kind == "int8a8":
+        # NVFP4's values as per-channel int8 under per-token int8
+        # activations clipped to +-127; the input quantizer is not applied
+        if ist is not None and ist.pre_quant_scale is not None:
+            x = x * ist.pre_quant_scale.to(x.dtype)
+        x8, a_scale = _int8_acts(x, torch.amax(torch.abs(x.float()), dim=-1, keepdim=True), -127)
+        y = int8_mm(x8, arrays["q"]).float() * a_scale * arrays["scale"].reshape(1, -1)
+        return _lora(x, y.to(x.dtype), adapter)
     if icfg.enable or (ist is not None and ist.pre_quant_scale is not None):
         x = Q.quantize(x, icfg, ist)
     if kind == "int4wo":
@@ -227,6 +262,8 @@ def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, ops, adapter=None)
         y = ops["fp4_wo"](x, arrays["packed"], arrays["scales"], arrays.get("global_scale"))
     elif kind in ("int8", "fp8"):
         y = ops["byte_wo"](x, arrays["q"], arrays["scale"])
+    elif kind == "int4x":
+        y = int4x_matmul(x, arrays["q"], arrays["scale"])
     elif kind == "bf16":
         y = x @ arrays["w"].to(x.dtype).t()
     else:

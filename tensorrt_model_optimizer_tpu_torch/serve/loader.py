@@ -13,7 +13,10 @@ input amax from `input_scale`.
 The layout comes from the recorded algorithm, as the reference's: NVFP4 and
 NVFP4_SVDQUANT -> NVFP4_DEFAULT_CFG, W4A16_AWQ -> INT4_AWQ_CFG, W4A8_AWQ ->
 W4A8_AWQ_BETA_CFG, FP8 -> FP8_DEFAULT_CFG, W8A8_SQ_PER_CHANNEL ->
-INT8_SMOOTHQUANT_CFG, INT8 -> INT8_DEFAULT_CFG, MXFP4 -> MXFP4_DEFAULT_CFG.
+INT8_SMOOTHQUANT_CFG, INT8 -> INT8_DEFAULT_CFG, MXFP4 -> MXFP4_DEFAULT_CFG,
+MXFP8 -> MXFP8_DEFAULT_CFG (MXFP4's and MXFP8's weights are their fp16
+grid values, served as bf16; NF4 exports as W4A16_AWQ at 64-blocks, MXFP6
+as NONE, as JAX's exports do).
 W4A8_AWQ's weights load as INT4 (its `weight_scale_2` is the deploy
 kernel's fp8 range, which this engine's W4A8 does not use); SVDQuant's
 `svdquant_lora_{a,b}` become the model's adapters (scale 1: the export
@@ -24,8 +27,7 @@ where the reference enables it with no amax; for NVFP4 that serves a
 weight-only checkpoint as W4A4 with a per-call activation amax, a function
 the exported model never computed.
 
-Not ported (raise `NotImplementedError` naming the slice): MoE checkpoints
-and MXFP8.
+Not ported (raises `NotImplementedError` naming the slice): MoE checkpoints.
 """
 
 from __future__ import annotations
@@ -51,8 +53,9 @@ _LAYOUT_PRESET = {
     "W8A8_SQ_PER_CHANNEL": "INT8_SMOOTHQUANT_CFG",
     "INT8": "INT8_DEFAULT_CFG",
     "MXFP4": "MXFP4_DEFAULT_CFG",
+    "MXFP8": "MXFP8_DEFAULT_CFG",
 }
-_UNPORTED = {"MXFP8": "the remaining-formats slice (MXFP8)"}
+_UNPORTED: dict[str, str] = {}  # quant_algo -> the slice that brings it: none
 
 
 def _nibbles(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -133,7 +136,7 @@ def compressed_from_export(cfg_d: dict, qc: dict, tensors, device=None) -> Compr
                                            lambda t: t.float().reshape(-1, 1)[:1] if per_tensor
                                            else t.float().reshape(-1, 1))}
             kinds[name] = "fp8" if per_tensor else "int8"
-        else:  # NONE, and MXFP4's fp16 grid values
+        else:  # NONE, and MXFP4's and MXFP8's fp16 grid values
             layers[name] = {"w": stack(key.format(i="{i}", suffix="weight")).to(cfg.dtype)}
             kinds[name] = "bf16"
         if hf_fmt.format(i=0) + ".svdquant_lora_a" in tensors:

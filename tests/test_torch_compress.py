@@ -148,13 +148,16 @@ def test_int4_wo_ragged_k_pads_with_zero_codes():
 
 
 def test_convert_refuses_unported_layouts():
+    """Every TPU layout name converts now ("xla" -> "int4x", "i8" ->
+    "int8a8", their values JAX's); names of no layout raise."""
     w = _w(64, 256)
     _, i4 = tc.compress_weight(torch.from_numpy(w), _tcfg("INT4_BLOCKWISE_WEIGHT_ONLY_CFG"), None)
     _, f4 = tc.compress_weight(torch.from_numpy(w), _tcfg("NVFP4_DEFAULT_CFG"), None)
-    with pytest.raises(NotImplementedError, match="xla"):
-        tc.word_convert_site("int4", i4, "xla")
-    with pytest.raises(NotImplementedError, match="i8"):
-        tc.word_convert_site("nvfp4", f4, "i8")
+    kind, x4 = tc.word_convert_site("int4", i4, "xla")
+    assert kind == "int4x" and x4["q"].dtype == torch.int8
+    assert torch.equal(tc.decompress_weight(kind, x4, torch.float32), tc.decompress_weight("int4", i4, torch.float32))
+    kind, a8 = tc.word_convert_site("nvfp4", f4, "i8")
+    assert kind == "int8a8" and a8["q"].dtype == torch.int8 and a8["scale"].shape == (64, 1)
     with pytest.raises(ValueError):
         tc.word_convert_site("int4", i4, "bd4")
     with pytest.raises(ValueError):
@@ -175,14 +178,17 @@ def test_ptq_weights_only_amax_equal(preset):
 
 
 def test_unported_presets_raise():
-    with pytest.raises(NotImplementedError, match="remaining-formats"):
-        tconfig.get_preset("NF4_WEIGHT_ONLY_CFG")
+    """No preset is refused since the remaining-formats slice; an unknown
+    name raises KeyError, a method without its batches ValueError."""
+    assert tconfig.UNPORTED_PRESETS == {}
+    assert tconfig.get_preset("NF4_WEIGHT_ONLY_CFG") is tconfig.NF4_WEIGHT_ONLY_CFG
     assert tconfig.get_preset("NVFP4_KV_CFG") is tconfig.NVFP4_KV_CFG  # ported with the NVFP4 KV cache
-    with pytest.raises(NotImplementedError, match="remaining-formats"):
-        tconfig.MXFP6_DEFAULT_CFG  # noqa: B018
+    assert tconfig.MXFP6_DEFAULT_CFG is tconfig.PRESETS["MXFP6_DEFAULT_CFG"]
     assert tconfig.get_preset("INT4_AWQ_CFG") is tconfig.INT4_AWQ_CFG  # ported with the calibration algorithms
+    with pytest.raises(KeyError):
+        tconfig.get_preset("NF5_CFG")
     with pytest.raises(ValueError, match="requires calib_batches"):
         tptq.quantize(tllama.LlamaConfig.tiny(), {}, tconfig.INT4_BLOCKWISE_WEIGHT_ONLY_CFG.replace(
             algorithm="gptq"), device="cpu")
-    assert set(tconfig.PRESETS) | set(tconfig.UNPORTED_PRESETS) == set(jconfig.PRESETS) | {"W4A16_NVFP4_CFG"}
+    assert set(tconfig.PRESETS) == set(jconfig.PRESETS)
     assert tq.DISABLED == tconfig.PRESETS["INT8_DEFAULT_CFG"].resolve("lm_head.weight_quantizer")

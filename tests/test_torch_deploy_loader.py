@@ -17,6 +17,8 @@ package's loader (`serve/loader.py`) on the same directories.
   (fp16-stored embeddings, norms and lm_head add their rounding).
 """
 
+import json
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -197,9 +199,18 @@ def test_export_load_serve_correlates_with_fake_quant(exported, base, case):
 
 
 def test_unported_checkpoints_raise(base, tmp_path):
+    """MXFP8 checkpoints load since the remaining-formats slice (its layout
+    and weights equal JAX's loader's: test_torch_layouts.py); a MoE
+    checkpoint still raises, naming its slice."""
     jcfg, params, calib = base
     jm = jptq.quantize(jcfg, params, "MXFP8_DEFAULT_CFG", [jnp.asarray(calib)])
     jexport.export_hf_checkpoint(jm, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="MXFP8"):
-        tloader.load_quantized_checkpoint(str(tmp_path), device="cpu")
+    assert tloader._UNPORTED == {}
+    assert set(tloader.load_quantized_checkpoint(str(tmp_path), device="cpu").kinds.values()) == {"bf16"}
+    with open(tmp_path / "config.json") as f:
+        cfg_d = json.load(f)
+    with open(tmp_path / "hf_quant_config.json") as f:
+        qc = json.load(f)["quantization"]
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tloader.compressed_from_export({**cfg_d, "model_type": "qwen3_moe"}, qc, {}, device="cpu")
     assert tQ.DISABLED.enable is False

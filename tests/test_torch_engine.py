@@ -75,11 +75,13 @@ def test_compressed_from_jax_matches_jax_engine(setup):
 def test_engine_refuses_unported_paths(setup):
     _, pnp, _, jcm, _, _ = setup
     cm = convert.compressed_from_jax(jcm)
-    for bad in (dict(int4_layout="xla", kv_attention_kernel=True),
-                dict(int4_layout="a8", kv_attention_kernel=True, attn_sparsity=1e-3),
-                dict(int4_layout="xla", kv_attention_kernel=False, paged_attention_kernel=True)):
-        with pytest.raises(NotImplementedError):
-            tengine.Engine(cm, tengine.EngineConfig(**bad), device="cpu")
+    with pytest.raises(NotImplementedError):
+        tengine.Engine(cm, tengine.EngineConfig(int4_layout="a8", kv_attention_kernel=True, attn_sparsity=1e-3),
+                       device="cpu")
+    # the layouts JAX serves with XLA are served (test_torch_layouts.py holds their tokens to JAX's)
+    for ok in (dict(int4_layout="xla", kv_attention_kernel=True),
+               dict(int4_layout="xla", kv_attention_kernel=False, paged_attention_kernel=True)):
+        assert set(tengine.Engine(cm, tengine.EngineConfig(**ok), device="cpu").cm.kinds.values()) == {"int4x"}
     for bad in (dict(int4_layout="bd4"), dict(int4_layout="a8", kv_dtype="nf4")):
         with pytest.raises(ValueError):
             tengine.Engine(cm, tengine.EngineConfig(kv_attention_kernel=True, **bad), device="cpu")
@@ -87,8 +89,8 @@ def test_engine_refuses_unported_paths(setup):
     params = tree_map(torch.from_numpy, pnp)
     kernel_path = tengine.EngineConfig(kv_attention_kernel=True)
     nv = tcompress.compress(tptq.quantize(tcfg, params, "NVFP4_WEIGHT_ONLY_CFG", device="cpu"))
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        tengine.Engine(nv, tengine.EngineConfig(nvfp4_layout="i8", kv_attention_kernel=True), device="cpu")
+    i8 = tengine.Engine(nv, tengine.EngineConfig(nvfp4_layout="i8", kv_attention_kernel=True), device="cpu")
+    assert set(i8.cm.kinds.values()) == {"int8a8"}
     # INT8_DEFAULT_CFG is W8A8 (int8 x int8 products), served since the
     # calibration-algorithms slice (test_torch_calib_serve.py holds it to JAX)
     calib = [torch.from_numpy(np.random.default_rng(2).integers(0, 256, size=(2, 16)))]

@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no module of it imports JAX or the JAX
 package, neither in its sources nor when it is imported. Nor does it import
-`safetensors` (the card's machine lacks it): the port reads and writes the
-format itself (`models/hf_loader.py`)."""
+`safetensors` or `yaml` (the card's machine lacks both): the port reads and
+writes the safetensors format itself (`models/hf_loader.py`) and reads its
+recipes' YAML subset itself (`recipes/loader.py`). The same holds for
+chip_smoke.py, the port's PTQ CLI and its accuracy-table tool."""
 
 import ast
 import os
@@ -12,7 +14,7 @@ import pytest
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PKG = os.path.join(ROOT, "tensorrt_model_optimizer_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "tensorrt_model_optimizer_tpu", "safetensors")
+FORBIDDEN = ("jax", "jaxlib", "tensorrt_model_optimizer_tpu", "safetensors", "yaml")
 
 
 def _sources():
@@ -21,6 +23,8 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "examples", "hf_ptq_torch.py")
+    yield os.path.join(ROOT, "tools", "torch_accuracy_table.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -52,6 +56,30 @@ def test_the_walk_covers_the_deploy_modules():
     walked = {os.path.relpath(p, PKG) for p in _sources()}
     assert {"export/hf_export.py", "serve/loader.py", "serve/step_graph.py", "serve/profiling.py",
             "models/hf_loader.py"} <= walked
+
+
+def test_the_walk_covers_the_accuracy_slice():
+    walked = {os.path.relpath(p, ROOT) for p in _sources()}
+    pkg = "tensorrt_model_optimizer_tpu_torch/"
+    assert {pkg + m for m in ("utils/dataset.py", "utils/evaluate.py", "utils/mmlu.py", "ops/hadamard.py",
+                              "quant/api.py", "quant/layerwise.py", "recipes/loader.py")} <= walked
+    assert {"examples/hf_ptq_torch.py", "tools/torch_accuracy_table.py"} <= walked
+
+
+def test_the_recipe_reader_never_imports_yaml():
+    """Loading every builtin recipe, with overrides, adds no `yaml` module."""
+    code = (
+        "import sys, os\n"
+        "before = set(sys.modules)\n"
+        "from tensorrt_model_optimizer_tpu_torch.recipes import loader\n"
+        "for name in sorted(os.listdir(loader.BUILTIN_ROOT)):\n"
+        "    loader.load_recipe(name, ['calib.num_batches=2', 'quant.overrides={a: {enable: false}}'])\n"
+        "new = sorted(set(sys.modules) - before)\n"
+        "assert not [m for m in new if m.split('.')[0] == 'yaml'], new\n"
+        "print(len(new))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_importing_the_port_loads_no_jax():

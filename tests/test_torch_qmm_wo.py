@@ -97,7 +97,7 @@ def test_plain_matches_pallas_byte(preset, jfn, n):
     assert np.array_equal(_port_matmul(tx, tk, carried).float().numpy(), out)
 
 
-@pytest.mark.parametrize("preset,layout", [("INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "bd2"),
+@pytest.mark.parametrize("preset,layout", [("INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "bd2"), ("NF4_WEIGHT_ONLY_CFG", "bd2"),
                                            ("NVFP4_DEFAULT_CFG", "word2"), ("MXFP4_DEFAULT_CFG", "word2"),
                                            ("INT8_DEFAULT_CFG", None), ("FP8_DEFAULT_CFG", None)])
 def test_plain_ragged_k_equals_dense(preset, layout):
@@ -152,14 +152,21 @@ def test_wrappers_reject_bad_inputs():
         qmm_wo.byte_wo_matmul(tx[:, :1024], i8["q"], i8["scale"])
     with pytest.raises(TypeError):
         qmm_wo.byte_wo_matmul(tx, i8["q"].float(), i8["scale"])
-    with pytest.raises(NotImplementedError):  # 64-wide int4 blocks over K = 256
-        tc.word_convert_site("int4", {"packed": torch.zeros((8, 256), dtype=torch.uint8),
-                                      "scale_lo": torch.ones((8, 4)), "scale_hi": torch.ones((8, 4))}, "bd2")
+    def int4_blocks(nblk):  # int4 planes over K = 256 in nblk blocks
+        return {"packed": torch.zeros((8, 256), dtype=torch.uint8), "scale_lo": torch.ones((8, nblk)),
+                "scale_hi": torch.ones((8, nblk))}
+
+    kind, b64 = tc.word_convert_site("int4", int4_blocks(4), "bd2")  # NF4's 64-wide blocks: weight-only only
+    assert kind == "int4wo" and b64["scales"].shape == (4, 16) and qmm_wo.int4_block(b64["packed"], b64["scales"]) == 64
+    with pytest.raises(NotImplementedError):  # 64-wide blocks under W4A8
+        tc.word_convert_site("int4", int4_blocks(4), "a8")
+    with pytest.raises(NotImplementedError):  # 32-wide int4 blocks
+        tc.word_convert_site("int4", int4_blocks(8), "bd2")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [8, 1024])
-@pytest.mark.parametrize("preset,layout", [("INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "bd2"),
+@pytest.mark.parametrize("preset,layout", [("INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "bd2"), ("NF4_WEIGHT_ONLY_CFG", "bd2"),
                                            ("NVFP4_DEFAULT_CFG", "word2"), ("MXFP4_DEFAULT_CFG", "word2"),
                                            ("INT8_DEFAULT_CFG", None), ("FP8_DEFAULT_CFG", None)])
 def test_kernel_matches_plain(cuda_device, preset, layout, n):
@@ -182,7 +189,7 @@ def test_kernel_matches_plain(cuda_device, preset, layout, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,o,k", [(1, 24, 128), (17, 66, 256), (100, 130, 704), (129, 64, 96), (16, 2, 64)])
-@pytest.mark.parametrize("preset,layout", [("INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "bd2"),
+@pytest.mark.parametrize("preset,layout", [("INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "bd2"), ("NF4_WEIGHT_ONLY_CFG", "bd2"),
                                            ("NVFP4_DEFAULT_CFG", "word2"), ("MXFP4_DEFAULT_CFG", "word2"),
                                            ("INT8_DEFAULT_CFG", None), ("FP8_DEFAULT_CFG", None)])
 def test_kernel_ragged_tiles(cuda_device, preset, layout, n, o, k):
@@ -301,7 +308,7 @@ def test_decode_split_count_at_8b_shapes(proj, n):
         assert splits == {"down_proj": 12, "gate_proj/up_proj": 3, "q_proj/o_proj": 8, "k_proj/v_proj": 8}[proj]
     assert tqmm.decode_splits(O, 64, n, 132) == 1
 
-WO_FORMATS = [("INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "bd2"), ("NVFP4_DEFAULT_CFG", "word2"),
+WO_FORMATS = [("INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "bd2"), ("NF4_WEIGHT_ONLY_CFG", "bd2"), ("NVFP4_DEFAULT_CFG", "word2"),
               ("MXFP4_DEFAULT_CFG", "word2"), ("INT8_DEFAULT_CFG", None), ("FP8_DEFAULT_CFG", None)]
 
 
@@ -353,3 +360,47 @@ def test_decode_route_reuses_its_workspace(cuda_device, preset, layout):
         ref = plain(x, *args, out_dtype=torch.float32)
         assert bool(((y.float() - ref).abs() <= 2.0 ** -8 * ref.abs() + 1e-3 * ref.square().mean().sqrt()).all())
     assert torch.equal(y1, y1_again)
+
+
+def _byte_perm(x: int, y: int, s: int) -> int:
+    """CUDA's __byte_perm (default mode): byte i of the result is byte
+    (nibble i of s) & 7 of the 8 bytes y:x."""
+    b = (y << 32 | x).to_bytes(8, "little")
+    return int.from_bytes(bytes(b[(s >> 4 * i) & 7] for i in range(4)), "little")
+
+
+def _fp4_octet(word: int, exp: int) -> list:
+    """`Fp4Dec<MX=true>::octet` (csrc/qmm_fp4_wo.cu) on the CPU: the 8 codes
+    of a 32-bit word (nibble i = k i) -> bf16 values. Each magnitude comes
+    from the byte-permute tables, the sign from nibble bit 3, and the pair is
+    multiplied in bf16 by the scale 2^max(e, -126) (the kernel's __hmul2)."""
+    lo0, lo1, hi0, hi1 = 0xC0800000, 0xC0804000, 0x3F3F3F00, 0x40404040
+    idx = word & 0x77777777
+    bits = []
+    for half in (idx & 0xFFFF, idx >> 16):
+        lo, hi = _byte_perm(lo0, lo1, half), _byte_perm(hi0, hi1, half)
+        p01, p23 = _byte_perm(lo, hi, 0x5140), _byte_perm(lo, hi, 0x7362)
+        bits += [p01 & 0xFFFF, p01 >> 16, p23 & 0xFFFF, p23 >> 16]
+    bits = [b | (0x8000 if (word >> (4 * i + 3)) & 1 else 0) for i, b in enumerate(bits)]
+    mags = torch.tensor(bits, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    scale = torch.tensor([2.0 ** max(exp, -126)], dtype=torch.float32).to(torch.bfloat16)  # exact: a power of two
+    return (mags * scale).float().tolist()
+
+
+def test_fp4_bf16x2_decode_exact_below_2_to_the_minus_126():
+    """The MXFP4 decode the kernel runs, emulated, against the plain
+    version's f32 values for every E2M1 code under every stored exponent
+    -126 .. 125 (the packer clamps lower ones to -126; above 125 a 6 x 2^e
+    weight overflows bf16): equal bit for bit, including -126, where
+    0.5 x 2^-126 = 2^-127 is a bf16 subnormal. The card is held to the plain
+    version at the same exponents in chip_smoke's kernels phase."""
+    words = (0x76543210, 0xFEDCBA98)  # codes 0..7 and 8..15, nibble i = k i
+    row = torch.tensor([[w >> (8 * i) & 0xFF for w in words for i in range(4)]], dtype=torch.uint8)
+    codes = qmm_wo.fp4_rows_values(row)[0]  # [16] f32
+    subnormal = 0
+    for e in range(-126, 126):
+        want = codes * qmm_wo.fp4_rows_scales(torch.tensor([[e]], dtype=torch.int8))[0, 0]
+        got = torch.tensor(_fp4_octet(words[0], e) + _fp4_octet(words[1], e))
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), e
+        subnormal += int(((want != 0) & (want.abs() < 2.0 ** -126)).sum())
+    assert subnormal == 2  # +-0.5 x 2^-126

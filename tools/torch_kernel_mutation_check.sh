@@ -8,7 +8,8 @@
 # pre_quant_scale (serve/engine.py), the
 # tensor-core flash kernel (flash_gqa.cu on the tile primitives of
 # attn_tc.cuh) and the skip-softmax kernel (skip_softmax_flash.cu, both
-# routes), and of the engine's CUDA-graph decode step (serve/step_graph.py).
+# routes), of the engine's CUDA-graph decode step (serve/step_graph.py), and
+# of compress's MX packs (quant/compress.py, the accuracy phase).
 # Each case plants one fault in a copy of the tree in a fresh `mktemp -d`
 # directory (under $TMPDIR, removed on exit) and runs `chip_smoke.py --phases
 # build,kernels` there (a case may name other phases); every case must exit
@@ -32,7 +33,7 @@ run() {  # name, file under csrc/ (or a path under the package, with a /), sed e
   [ "$only" = "  " ] || [[ "$only" == *" $1 "* ]] || return 0
   local f="csrc/$2"
   [[ "$2" == */* ]] && f="$2"
-  rm -rf "$work/tree" && mkdir "$work/tree" && cp -r chip_smoke.py tensorrt_model_optimizer_tpu_torch artifacts "$work/tree/"
+  rm -rf "$work/tree" && mkdir "$work/tree" && cp -r chip_smoke.py tensorrt_model_optimizer_tpu_torch artifacts examples "$work/tree/"
   sed -i "$3" "$work/tree/tensorrt_model_optimizer_tpu_torch/$f"
   if diff -q "tensorrt_model_optimizer_tpu_torch/$f" "$work/tree/tensorrt_model_optimizer_tpu_torch/$f" >/dev/null; then
     echo "MUTATION $1: the edit changed nothing (the source moved on: update this script)"; missed=1; return; fi
@@ -111,4 +112,11 @@ run pv_hi_only attn_tc.cuh '/mma16816(o\[mt\]\[2 \* dp[^]]*\], a\(mid\|lo\)\[mt\
 # (AWQ's activation-side 1/s): the calib phase's anchor check holds the
 # engine against the calibrated fake-quant forward
 run w4a8_pre_quant_scale_dropped serve/engine.py '0,/x = x \* ist.pre_quant_scale.to(x.dtype)/s//x = x  # dropped/' build,calib_anchor
+# int4 decode route at 64-wide blocks (NF4_WEIGHT_ONLY_CFG): the second half
+# of every 128-block folds with the first half's scale
+run int4_b64_second_half_scale qmm_wo_common.cuh 's/const int s = NS == 2 ? q >> 1 : 0;/const int s = 0;/'
+# compress: MXFP6 / MXFP8 weights stored under doubled block scales (twice
+# their grid values); the accuracy phase's anchor engines lie far from their
+# fake-quant forward
+run compress_mx_scale_doubled quant/compress.py 's|{"w": numerics.fake_quant_mx(w32, e, m, bsz).to(torch.bfloat16)}|{"w": (2 * numerics.fake_quant_mx(w32, e, m, bsz)).to(torch.bfloat16)}|' build,accuracy
 exit $missed
