@@ -34,7 +34,10 @@ Phases (any failure raises, and the script exits non-zero):
            from the plain version's; flash holds it to ULP_OFF_MAX at the
            anchor's prefill shape. Their phase rows also carry the time of
            the CUDA-core kernels they replaced (`cuda_core_ms`, a constant,
-           not printed in the kernels line).
+           not printed in the kernels line). At the MoE shapes
+           (`_phase_kernels_moe`): the W4A8, INT4 and NVFP4 GEMMs at
+           Qwen3-30B-A3B's experts (O 768 / K 2048, O 2048 / K 768) for N =
+           2048 and N = 1, flash and kv decode at 32 / 4 heads (rep 8).
   anchor   the in-repo trained checkpoint `artifacts/anchor-llama` through
            load -> PTQ -> compress -> int8-KV engine, once for each served
            path (W4A8; INT4, NVFP4, MXFP4, INT8 weight-only; FP8 and NVFP4 with
@@ -124,6 +127,23 @@ Phases (any failure raises, and the script exits non-zero):
            loaded (equal to compress's model as stored) and served; w4a8_awq
            served under "a8" (its export refuses K = 704, as JAX's does).
            Each of ACCURACY_KERNELS must have launched.
+  moe      the routed-expert families (`phase_moe`): the dispatch against
+           JAX's capacity rule (host loop) at Qwen3-30B-A3B's and
+           Mixtral-8x7B's served shapes; (a) artifacts/anchor-moe (qwen3_moe,
+           6 layers, 4 experts, top-2): `quantize_family` under INT4, NVFP4,
+           W4A8, INT4_AWQ and INT8_SMOOTHQUANT, each served by the kernel
+           engine in lock step with the all-plain engine (the anchor phase's
+           margin rule; W4A8 tokens equal), `Engine.serve` over int8 pages
+           against the dense engine (held on f32 activations), export ->
+           load -> serve for INT4 and NVFP4 (arrays, logits and tokens equal
+           to the engine over the export's tensors in memory), the
+           unquantized ppl and NVFP4's Δppl against JAX's pin; (b)
+           Qwen3-30B-A3B at full width on 16 of its 48 layers (seeded random
+           bf16), W4A8, INT4 and NVFP4: TTFT of 8 x 2048, eager and graphed
+           (unroll 1 and 8) token steps (tokens and cache equal), profiled
+           prefill and step, peak memory, launches per kernel, the depth-2
+           prefill against the all-plain engine on the kernel engine's
+           routing; (c) Mixtral-8x7B's widths on 2 layers, INT4.
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -291,6 +311,106 @@ def phase_kernels(torch, dev, sz: Sizes, timer: Timer, rows: dict):
 
     _phase_kernels_flash(torch, dev, sz, timer, rows, g)
     _phase_kernels_skip(torch, dev, sz, timer, rows, g)
+    _phase_kernels_moe(torch, dev, sz, timer, rows, g)
+
+
+# The new shapes the MoE paths give the ported kernels: Qwen3-30B-A3B's
+# experts (gate / up O 768, K 2048; down O 2048, K 768) at N = 2048 (the
+# rows a prefill expert takes: C = 2 S k / E) and N = 1 (a decode step's
+# C), and its attention at 32 query heads over 4 kv heads of 128 (rep 8).
+MOE_EXPERT_SHAPES = ((768, 2048, "expert gate"), (2048, 768, "expert down"))
+MOE_EXPERT_ROWS = (2048, 1)
+MOE_ATTN = (8, 32, 4, 128, 2080, 2048)  # B, H, Hkv, hd, S, pos (flash at T = 2048)
+
+
+def _phase_kernels_moe(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
+    """The expert GEMMs (W4A8 bit-exact; INT4 and NVFP4 weight-only under
+    `_held`) at MOE_EXPERT_SHAPES x MOE_EXPERT_ROWS, and flash and kv decode
+    at rep 8 (MOE_ATTN), each against its plain version and timed; the rows
+    join each kernel's `shapes`."""
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import flash_gqa, kv_attention, qmm
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for O, K, label in MOE_EXPERT_SHAPES:
+        nblk = K // 128
+        packed = torch.randint(0, 256, (O, K // 2), generator=g, device=dev, dtype=torch.int32).to(torch.uint8)
+        scales = (torch.rand((nblk, O), generator=g, device=dev) * 1.5 + 0.5).to(torch.bfloat16)
+        for N in MOE_EXPERT_ROWS:
+            x8 = torch.randint(-127, 128, (N, K), generator=g, device=dev, dtype=torch.int32).to(torch.int8)
+            n_split = qmm.w4a8_decode_splits(N, K, O, sms)
+            out = qmm.w4a8_matmul(x8, packed, scales)
+            ref = qmm.w4a8_matmul_plain(x8, packed, scales, n_split=n_split)
+            if not torch.equal(out, ref):
+                raise AssertionError(f"w4a8 {label} N={N}: not bit-exact with the plain version")
+            ms = timer(lambda: qmm.w4a8_matmul(x8, packed, scales), sz.reps)
+            plain_ms = timer(lambda: qmm.w4a8_matmul_plain(x8, packed, scales), max(2, sz.reps // 8))
+            b_ms, b_by = bound(N * K + O * K / 2 + nblk * O * 2 + N * O * 4, 2.0 * N * O * K, "int8")
+            row = {"shape": f"{label} N={N} O={O} K={K}", "route": "decode" if N <= 16 else "prefill",
+                   "n_split": n_split, "max_abs_err": 0.0, "bit_exact": True, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms, "library_ms": None}
+            rows["qmm_w4a8"]["shapes"].append(row)
+            log(json.dumps({"kernel": "qmm_w4a8", **row}))
+            x = torch.randn((N, K), generator=g, device=dev).to(torch.bfloat16)
+            for name, fmt, fn, plain, w, wbytes, lib in _wo_cases(torch, dev, g, O, K):
+                if fmt not in ("int4", "nvfp4"):
+                    continue
+                out = fn(x, *w)
+                worst, err = _held(out, plain(x, *w, out_dtype=torch.float32))
+                if not worst <= 1.0:
+                    raise AssertionError(f"{name} {fmt} {label} N={N}: worst err/limit {worst} > 1, max abs err {err}")
+                ms = timer(lambda: fn(x, *w), sz.reps)
+                plain_ms = timer(lambda: plain(x, *w), 2)
+                lib_ms = None
+                if lib is not None:
+                    call = lib()
+                    lib_ms = timer(lambda: call(x), sz.reps)
+                b_ms, b_by = bound(N * K * 2 + wbytes + N * O * 2, 2.0 * N * O * K, "bf16")
+                row = {"shape": f"{fmt} {label} N={N} O={O} K={K}", "max_abs_err": err, "worst_err_over_limit": worst,
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+                       "library_ms": lib_ms}
+                rows[name]["shapes"].append(row)
+                log(json.dumps({"kernel": name, **row}))
+
+    B, H, Hkv, hd, S, pos = MOE_ATTN
+    q = torch.randn((B, H, pos, hd), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((B, Hkv, pos, hd), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    out = flash_gqa.flash_attention_gqa(q, k, v)
+    ref32 = flash_gqa.flash_attention_gqa_plain(q.float(), k.float(), v.float())
+    worst, err = _held(out, ref32)
+    if not worst <= 1.0:
+        raise AssertionError(f"flash_gqa rep 8: worst err/limit {worst}, max abs err {err}")
+    del ref32
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = timer(lambda: flash_gqa.flash_attention_gqa(q, k, v), sz.reps)
+    b_ms, b_by = bound(2 * (2 * q.numel() + 2 * k.numel()), 4.0 * B * H * hd * pos * (pos + 1) / 2, "bf16")
+    row = {"shape": f"qwen3-30b-a3b rep 8 B={B} H={H} Hkv={Hkv} T={pos} d={hd}", "route": "tensor_core",
+           "max_abs_err": err, "worst_err_over_limit": worst, "ms": ms,
+           "plain_ms": timer(lambda: flash_gqa.flash_attention_gqa_plain(q, k, v), 2), "bound_ms": b_ms,
+           "bound_by": b_by, "bound_share": b_ms / ms,
+           "library_ms": timer(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), sz.reps)}
+    rows["flash_gqa"]["shapes"].append(row)
+    log(json.dumps({"kernel": "flash_gqa", **row}))
+    del q, k, v, out
+    for fmt in ("int8", "bf16"):
+        kc, ks, qf = _stored_rows(torch, dev, g, (B, Hkv, S, hd), fmt)
+        vc, vs, _ = _stored_rows(torch, dev, g, (B, Hkv, S, hd), fmt)
+        qd = torch.randn((B, H, hd), generator=g, device=dev) / math.sqrt(hd) * qf
+        kn, vn = (torch.randn((B, Hkv, 1, hd), generator=g, device=dev) for _ in range(2))
+        args = (qd, kc, vc, kn, vn, torch.tensor(pos, dtype=torch.int32, device=dev), fmt, ks, vs)
+        out, ref = kv_attention.kv_decode_attention(*args), kv_attention.kv_decode_attention_plain(*args)
+        rel = _rel(out, ref)
+        if not rel <= 1e-5:
+            raise AssertionError(f"kv_decode_attention {fmt} rep 8: rel err {rel} > 1e-5")
+        ms = timer(lambda: kv_attention.kv_decode_attention(*args), sz.reps)
+        nbytes = 2 * B * Hkv * pos * _kv_row_bytes(fmt, hd) + 2 * B * Hkv * hd * 4 + 2 * qd.numel() * 4
+        b_ms, b_by = bound(nbytes, 4.0 * B * H * (pos + 1) * hd, "bf16")
+        row = {"shape": f"{fmt} qwen3-30b-a3b rep 8 B={B} n_kv={Hkv} rep={H // Hkv} S={S} pos={pos}",
+               "max_abs_err": float((out - ref).abs().max()), "rel_err": rel, "ms": ms,
+               "plain_ms": timer(lambda: kv_attention.kv_decode_attention_plain(*args), 2), "bound_ms": b_ms,
+               "bound_by": b_by, "bound_share": b_ms / ms, "library_ms": None}
+        rows["kv_decode_attention"]["shapes"].append(row)
+        log(json.dumps({"kernel": "kv_decode_attention", **row}))
+        del kc, vc, ks, vs
 
 
 # The times of the CUDA-core kernels that flash and skip-softmax ran before
@@ -1122,43 +1242,19 @@ def phase_anchor(torch, dev, sz: Sizes) -> dict:
         engines = (_engine(torch, cm, 64, dev, **layouts), _engine(torch, cm, 64, dev, PLAIN_ALL, **layouts),
                    _engine(torch, cm32, 64, dev, PLAIN_ALL, **layouts))
         _counts(reset=True)
-        caches = [e.init_cache(4) for e in engines]
-        logits, ref, truth = (e.prefill(prompts, c) for e, c in zip(engines, caches))
-        gaps_kernel, gaps_plain, gaps_kp, flips = [], [], [], []
-        for step in range(16):
-            scale = truth.abs().max(dim=-1).values
-            gaps_kernel += ((logits - truth).abs().max(dim=-1).values / scale).tolist()
-            gaps_plain += ((ref - truth).abs().max(dim=-1).values / scale).tolist()
-            gaps_kp += ((logits - ref).abs().max(dim=-1).values / scale).tolist()
-            tok = torch.argmax(logits, dim=-1)
-            margin = (ref.max(dim=-1).values - ref.gather(1, tok[:, None])[:, 0]) / scale
-            flips += [(step, float(m)) for m in margin[tok != torch.argmax(ref, dim=-1)]]
-            tok = tok.to(torch.int32)[:, None]
-            logits, ref, truth = (e._model_step(tok, c) for e, c in zip(engines, caches))
+        steps = _lockstep(torch, engines, prompts, 16)
         launched = _counts()[path.gemm]
+        gaps_kernel = [g for logits, _, truth in steps for g in _gaps(logits, truth)[0]]
+        gaps_plain = [g for _, ref, truth in steps for g in _gaps(ref, truth)[0]]
         gap_kernel, gap_plain = statistics.median(gaps_kernel), statistics.median(gaps_plain)
-        free = engines[0].generate(prompts, 16)
-        same = bool(torch.equal(free, engines[1].generate(prompts, 16)))
-        log(json.dumps({"phase": "anchor", "path": path.label, "prompts": list(prompts.shape),
-                        "new_tokens": 16, "projections_worst_err_over_limit": worst_proj,
-                        "median_logits_gap_kernel_vs_f32": gap_kernel, "median_logits_gap_plain_vs_f32": gap_plain,
-                        "worst_logits_gap_kernel_vs_f32": max(gaps_kernel), "worst_logits_gap_plain_vs_f32": max(gaps_plain),
-                        "median_logits_gap_kernel_vs_plain": statistics.median(gaps_kp),
-                        "worst_logits_gap_kernel_vs_plain": max(gaps_kp), "argmax_flips_vs_plain": flips, "free_running_tokens_equal_plain": same,
-                        "gemm_launches": launched, "tokens_row0": free[0].tolist()}))
+        _hold_to_plain(torch, f"anchor {path.label}", engines[0], engines[1], prompts, steps, path.gemm == "qmm_w4a8",
+                       {"phase": "anchor", "path": path.label, "prompts": list(prompts.shape), "new_tokens": 16,
+                        "projections_worst_err_over_limit": worst_proj, "median_logits_gap_kernel_vs_f32": gap_kernel,
+                        "median_logits_gap_plain_vs_f32": gap_plain, "worst_logits_gap_kernel_vs_f32": max(gaps_kernel),
+                        "worst_logits_gap_plain_vs_f32": max(gaps_plain), "gemm_launches": launched})
         if not gap_kernel <= 2 * gap_plain:
             raise AssertionError(f"anchor {path.label}: the kernel engine's logits lie {gap_kernel} of their scale "
                                  f"(median) from the f32 plain engine's, the bf16 plain engine's {gap_plain}")
-        gap_kp = statistics.median(gaps_kp)
-        if not gap_kp <= 1e-2:
-            raise AssertionError(f"anchor {path.label}: the kernel engine's logits lie {gap_kp} of their scale "
-                                 f"(median) from the plain engine's, the limit is 1e-2")
-        far = [(step, m) for step, m in flips if not m <= 1e-2]
-        if far:
-            raise AssertionError(f"anchor {path.label}: the kernel engine's token differs from the plain engine's "
-                                 f"away from a near tie (step, plain-logit margin as a share of the scale): {far}")
-        if path.gemm == "qmm_w4a8" and not same:
-            raise AssertionError("anchor w4a8: kernel-path tokens differ from plain")
         if launched <= 0:
             raise AssertionError(f"anchor {path.label}: {path.gemm} never launched")
     f32_prefills = sum(_anchor_paged(torch, dev, cfg, params, path, kv) for path, kv in PAGED_PATHS)
@@ -1312,6 +1408,49 @@ def _gaps(logits, ref) -> tuple[list, list]:
     tok = logits.argmax(dim=-1)
     margin = (ref.max(dim=-1).values - ref.gather(1, tok[:, None])[:, 0]) / scale
     return gaps, [float(m) for m in margin[tok != ref.argmax(dim=-1)]]
+
+
+def _lockstep(torch, engines, prompts, steps: int) -> list:
+    """The engines in lock step on the first one's greedy tokens: the
+    prompts' prefill, then steps - 1 decode steps, every engine fed the
+    token the first one picked. Returns each step's logits, a tuple of one
+    [B, V] tensor an engine."""
+    caches = [e.init_cache(prompts.shape[0]) for e in engines]
+    out = [tuple(e.prefill(prompts, c) for e, c in zip(engines, caches))]
+    for _ in range(steps - 1):
+        tok = torch.argmax(out[-1][0], dim=-1).to(torch.int32)[:, None]
+        out.append(tuple(e._model_step(tok, c) for e, c in zip(engines, caches)))
+    return out
+
+
+def _hold_to_plain(torch, label: str, kernel, plain, prompts, steps: list, exact: bool, row: dict) -> None:
+    """The anchors' rule for a kernel engine against the all-plain one,
+    over `_lockstep`'s logits (the kernel engine's first, the plain one's
+    second): the median logits gap at most 1e-2 of their scale (two bf16
+    ulps of the largest logit), every argmax flip at a plain-logit margin
+    <= 1e-2 (a near tie, not another answer), and, where the GEMM is
+    bit-exact with its plain version (`exact`: W4A8), free-running greedy
+    tokens equal. Logs `row` with the readings before it raises."""
+    gaps, flips = [], []
+    for step, (lk, lp, *_) in enumerate(steps):
+        gp, fl = _gaps(lk, lp)
+        gaps += gp
+        flips += [(step, m) for m in fl]
+    free = kernel.generate(prompts, len(steps))
+    same = bool(torch.equal(free, plain.generate(prompts, len(steps))))
+    median = statistics.median(gaps)
+    log(json.dumps({**row, "median_logits_gap_kernel_vs_plain": median, "worst_logits_gap_kernel_vs_plain": max(gaps),
+                    "argmax_flips_vs_plain": flips, "free_running_tokens_equal_plain": same,
+                    "tokens_row0": free[0].tolist()}))
+    if not median <= 1e-2:
+        raise AssertionError(f"{label}: the kernel engine's logits lie {median} of their scale (median) from the "
+                             "plain engine's, the limit is 1e-2")
+    far = [(step, m) for step, m in flips if not m <= 1e-2]
+    if far:
+        raise AssertionError(f"{label}: the kernel engine's token differs from the plain engine's away from a near "
+                             f"tie (step, plain-logit margin as a share of the scale): {far}")
+    if exact and not same:
+        raise AssertionError(f"{label}: kernel-path tokens differ from plain")
 
 
 def _dense_margins(torch, eng, prompt, served: list) -> list:
@@ -1499,7 +1638,7 @@ GRAPH_UNROLLS = (1, 8)  # decode_step(unroll=...) as timed beside the eager step
 
 
 def _graphed_decode(torch, eng, label: str, tok0, start: dict, eager_toks: list, eager_cache: dict,
-                    eager_ms: float) -> dict:
+                    eager_ms: float, profile_unrolls: bool = True) -> dict:
     """The fused decode step against the eager one, from the cache state the
     eager loop started from: `decode_step(unroll=u)` for u in GRAPH_UNROLLS
     over the same len(eager_toks) steps, one CUDA-graph replay a call after
@@ -1507,10 +1646,12 @@ def _graphed_decode(torch, eng, label: str, tok0, start: dict, eager_toks: list,
     it leaves equal the eager loop's bit for bit. Each unroll's wall is read
     twice: with a sync after each call, and over the same number of calls
     back to back with one sync at the end (the host queues the next replay
-    while the card runs one). Then the eager step and each
-    unroll under the profiler: device time, idle share and kernels a token
-    step, beside the host launches a token step (eager: every kernel; a
-    replay: the token's copy-in, the replay and the output's copy)."""
+    while the card runs one); where the check took one call (the capture),
+    one more synced call gives the wall. Then the eager step and each
+    unroll (unless `profile_unrolls` is False) under the profiler: device
+    time, idle share and kernels a token step, beside the host launches a
+    token step (eager: every kernel; a replay: the token's copy-in, the
+    replay and the output's copy)."""
     sync = torch.cuda.synchronize
     steps = len(eager_toks)
     out = {}
@@ -1535,6 +1676,11 @@ def _graphed_decode(torch, eng, label: str, tok0, start: dict, eager_toks: list,
             raise AssertionError(f"{label}: decode_step(unroll={u}) tokens differ from the eager steps'")
         if not _same_cache(torch, cache, eager_cache):
             raise AssertionError(f"{label}: decode_step(unroll={u}) left another cache than the eager steps")
+        if len(walls) < 2:
+            t0 = time.perf_counter()
+            tok, _ = eng.decode_step(tok, cache, unroll=u)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
         wall = statistics.median(walls[1:]) / u
         ev = []
         for _ in range(3):
@@ -1549,17 +1695,18 @@ def _graphed_decode(torch, eng, label: str, tok0, start: dict, eager_toks: list,
             tok, _ = eng.decode_step(tok, cache, unroll=u)
         sync()
         pipelined = (time.perf_counter() - t0) * 1e3 / (steps // u * u)
-        calls = 2 if u == 1 else 1
-        prof = _profile(torch, f"{label} decode step, graph unroll {u}",
-                        lambda: [eng.decode_step(tok, cache, unroll=u) for _ in range(calls)], calls, wall * u)
         out[f"unroll {u}"] = {
             "capture_call_ms": walls[0], "wall_ms_per_token_step": wall,
             "pipelined_wall_ms_per_token_step": pipelined,
-            "device_ms_per_token_step": prof["per_call_device_busy_ms"] / u,
             "event_ms_per_token_step": statistics.median(s.elapsed_time(e) for s, e in ev) / u,
-            "device_idle_share": prof["device_idle_share"],
-            "kernels_per_token_step": prof["per_call_kernel_launches"] / u, "host_launches_per_token_step": 3 / u,
-            "tokens_equal_eager": True, "cache_equal_eager": True}
+            "host_launches_per_token_step": 3 / u, "tokens_equal_eager": True, "cache_equal_eager": True}
+        if profile_unrolls:
+            calls = 2 if u == 1 else 1
+            prof = _profile(torch, f"{label} decode step, graph unroll {u}",
+                            lambda: [eng.decode_step(tok, cache, unroll=u) for _ in range(calls)], calls, wall * u)
+            out[f"unroll {u}"].update(device_ms_per_token_step=prof["per_call_device_busy_ms"] / u,
+                                      device_idle_share=prof["device_idle_share"],
+                                      kernels_per_token_step=prof["per_call_kernel_launches"] / u)
         del cache
     log(json.dumps({"phase": "full_graphs", "path": label, "steps": steps, **out}))
     return out
@@ -3296,6 +3443,444 @@ def phase_accuracy(torch, dev, sz: Sizes) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# moe: the routed-expert families (models/mixtral.py) through the engine
+# ---------------------------------------------------------------------------
+
+MOE_ANCHOR = os.path.join(HERE, "artifacts", "anchor-moe")
+MOE_PPL_PIN = 3.1571           # JAX's tests/test_accuracy_anchor.py: unquantized ppl on eval_batches(4, 8, 128, 999)
+MOE_PPL_TOL = 0.05
+MOE_NVFP4_DPPL_PIN = 2 * 0.0249 + 0.005  # ... and NVFP4_DEFAULT_CFG's Δppl under calibration eval_batches(2, 8, 128, 555)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoePath:
+    """One served MoE path: a preset, the engine's layout fields, the GEMM
+    kernel its projections launch, and whether the preset's calibration
+    takes batches."""
+
+    label: str
+    preset: str
+    gemm: str
+    layouts: tuple = ()
+    calib: bool = False
+
+
+MOE_ANCHOR_PATHS = (
+    MoePath("int4", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_int4_wo"),
+    MoePath("nvfp4", "NVFP4_DEFAULT_CFG", "qmm_fp4_wo", calib=True),
+    MoePath("w4a8", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_w4a8", (("int4_layout", "a8"),)),
+    MoePath("int4_awq", "INT4_AWQ_CFG", "qmm_int4_wo", calib=True),
+    # W8A8 attention (`int8_mm`, no kernel of ours); the experts' input is
+    # quantized once for the block, so their int8 weights go through the
+    # weight-only byte GEMM, as JAX's engine serves them
+    MoePath("int8_smoothquant", "INT8_SMOOTHQUANT_CFG", "qmm_byte_wo", calib=True),
+)
+MOE_DEPLOY = ("int4", "nvfp4")  # export -> load -> serve
+# Qwen/Qwen3-30B-A3B's config.json (the public release), cut to MOE_FULL_DEPTH of its 48 layers
+QWEN3_30B_A3B = dict(vocab_size=151936, hidden_size=2048, intermediate_size=768, num_hidden_layers=48,
+                     num_attention_heads=32, num_key_value_heads=4, head_dim=128, rope_theta=1e6, rms_norm_eps=1e-6,
+                     max_position_embeddings=40960, tie_word_embeddings=False, qk_norm=True, num_experts=128,
+                     top_k=8, norm_topk_prob=True)
+MOE_FULL_DEPTH = 16
+MOE_FULL_PATHS = (
+    MoePath("w4a8", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_w4a8", (("int4_layout", "a8"),)),
+    MoePath("int4", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_int4_wo"),
+    MoePath("nvfp4", "NVFP4_WEIGHT_ONLY_CFG", "qmm_fp4_wo"),
+)
+MOE_EAGER_STEPS = 8            # eager token steps the graphed ones are held to
+MOE_PLAIN_DEPTH = 2            # kernel engine against the all-plain engine: prefill logits at this depth
+# ... held to this share of the logits' scale (the median over the batch's
+# last positions; the full phase's depth-2 limit), with the plain engine
+# routing every token to the experts the kernel engine chose
+# (`_pinned_routes`): on random weights a router's top-8 of 128 has near
+# ties everywhere, and a bf16 ulp of a GEMM or of flash that moves one sends
+# the token to another expert. Unpinned, W4A8 (bit-exact GEMM; its
+# flash-only-plain engine equals the all-plain one) read a largest gap of
+# 0.217 at depth 2 with 6.5% of the plain engine's choices apart; pinned,
+# 0.044, and a median of 0.034 both ways: flash's ulps move codes of the
+# per-token int8 activations, which random layers carry to every position.
+# Sound runs read 0.024-0.034 (INT4, NVFP4, W4A8); planted kernel faults
+# (tools/torch_kernel_mutation_check.sh, `--phases build,moe_full`) read
+# 0.668 (W4A8's last 128-block of K on the block before's scales) and 0.742
+# (the weight-only tiles' odd columns on the even columns' scales). The
+# unpinned gaps and the choices apart are reported.
+MOE_PLAIN_MEDIAN_MAX = 5e-2
+# Mixtral-8x7B's widths (mistralai/Mixtral-8x7B-v0.1 config.json), 2 of its 32 layers, INT4 only
+MIXTRAL_8X7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_hidden_layers=32,
+                    num_attention_heads=32, num_key_value_heads=8, rope_theta=1e6, rms_norm_eps=1e-5,
+                    max_position_embeddings=32768, tie_word_embeddings=False, num_experts=8, top_k=2)
+MIXTRAL_DEPTH = 2
+MOE_KERNELS = ("qmm_w4a8", "qmm_int4_wo", "qmm_fp4_wo", "qmm_byte_wo", "flash_gqa", "kv_decode_attention", "paged_attention_decode",
+               "paged_attention_prefill_tc", "paged_attention_prefill_cuda_core")
+
+
+def _dispatch_host(topi, C: int, E: int) -> list:
+    """JAX's capacity rule by a host loop: each (token, choice) pair in
+    token-major order takes the next place of its expert's queue and is kept
+    while that place is < C."""
+    used = [0] * E
+    keep = []
+    for e in topi.reshape(-1).tolist():
+        keep.append(used[e] < C)
+        used[e] += 1
+    return keep
+
+
+def _moe_dispatch_check(torch, dev, cfg) -> dict:
+    """`mixtral.dispatch_combine` against `_dispatch_host`, at the served
+    shapes: the prefill (S = 8 x 2048) and a decode step (S = 8), on routing
+    of seeded logits, first on the CPU then on the card; the kept pairs must
+    be equal."""
+    from tensorrt_model_optimizer_tpu_torch.models import mixtral
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    for S in (8, 8 * 2048):
+        topw, topi = mixtral.route(cfg, torch.randn((S, cfg.num_experts), generator=g, device=dev))
+        C = mixtral.capacity(cfg, S)
+        want = _dispatch_host(topi.cpu(), C, cfg.num_experts)
+        for where in ("cpu", dev):
+            got = mixtral.dispatch_combine(cfg, topw.to(where), topi.to(where), S, C).keep.cpu().tolist()
+            if got != want:
+                raise AssertionError(f"moe dispatch ({where}) at S = {S}, C = {C}: "
+                                     f"{sum(a != b for a, b in zip(got, want))} pairs kept or dropped otherwise than "
+                                     "JAX's capacity rule")
+        out[S] = {"C": C, "pairs": len(want), "dropped": len(want) - sum(want)}
+    return out
+
+
+def _moe_anchor(torch, dev) -> dict:
+    """(a) artifacts/anchor-moe (qwen3_moe, 6 layers, hidden 256, 4 experts,
+    top-2) on the card, bf16 as served: each path of MOE_ANCHOR_PATHS
+    calibrated by `quantize_family` (max, or its preset's algorithm on the
+    batches JAX's pin calibrates on), packed and served by the kernel engine
+    (int8 KV, kernel attention) beside the all-plain engine in lock step (4
+    prompts of 32 tokens, 16 greedy steps on the kernel engine's tokens):
+    the median logits gap at most 1e-2 of their scale and every argmax flip
+    at a plain-logit margin <= 1e-2 (the anchor phase's rule), and W4A8
+    (bit-exact GEMM) free-running tokens equal (`_hold_to_plain`). INT4
+    then serves through `Engine.serve` over int8 pages against the dense
+    engine (f32 activations, GEMMs and flash plain, the KV kernels as
+    kernels: every served token equal to the dense engine's greedy one; in
+    bf16 the paged path rounds q and the context to bf16 where the dense
+    one keeps f32, as JAX's does, so there the tokens off the dense
+    engine's and their margins are reported). INT4 and NVFP4 go export -> load -> serve: the loaded arrays
+    and the prefill logits and tokens equal the engine's over the export's
+    tensors held in memory. Last, in f32, the unquantized perplexity and
+    NVFP4_DEFAULT_CFG's Δppl against JAX's pins. Returns the launch counts."""
+    import tempfile
+
+    from tensorrt_model_optimizer_tpu_torch.export import hf_export
+    from tensorrt_model_optimizer_tpu_torch.models import hf_loader, mixtral
+    from tensorrt_model_optimizer_tpu_torch.quant import compress, ptq
+    from tensorrt_model_optimizer_tpu_torch.serve import loader
+    from tensorrt_model_optimizer_tpu_torch.serve.engine import PLAIN_ALL
+    from tensorrt_model_optimizer_tpu_torch.serve.scheduler import Request
+    from tensorrt_model_optimizer_tpu_torch.utils import evaluate, synthlang
+
+    launches: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    cfg, params = hf_loader.load_hf_moe_checkpoint(MOE_ANCHOR, device=dev)
+    lang = synthlang.SynthLang(0)
+    calib = [torch.from_numpy(b).to(dev) for b in lang.eval_batches(2, 8, 128, seed=555)]
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 32), generator=g, device=dev)
+    models = {}
+    for path in MOE_ANCHOR_PATHS:
+        qm = ptq.quantize_family("mixtral", cfg, params, path.preset, calib if path.calib else None, device=dev)
+        cm = compress.compress(qm)
+        layouts = dict(path.layouts)
+        ek, ep = _engine(torch, cm, 64, dev, **layouts), _engine(torch, cm, 64, dev, PLAIN_ALL, **layouts)
+        _counts(reset=True)
+        steps = _lockstep(torch, (ek, ep), prompts, 16)
+        n = _counts()
+        add(n)
+        _hold_to_plain(torch, f"moe anchor {path.label}", ek, ep, prompts, steps, path.gemm == "qmm_w4a8",
+                       {"phase": "moe_anchor", "path": path.label, "preset": path.preset,
+                        "kinds_served": sorted(set(ek.cm.kinds.values())), "launches": {k: v for k, v in n.items() if v}})
+        want = {"flash_gqa", "kv_decode_attention", path.gemm}
+        if {k for k, v in n.items() if v} != want:
+            raise AssertionError(f"moe anchor {path.label}: launched {n}, the path's kernels are {sorted(want)}")
+        models[path.label] = (qm, cm)
+        del ek, ep, steps
+
+    # paged serving: 4 requests behind a 16-token shared prefix, prefix cache, unroll 4
+    qm, cm = models["int4"]
+    cm32 = dataclasses.replace(cm, model_cfg=dataclasses.replace(cm.model_cfg, dtype=torch.float32))
+    shared = torch.randint(0, cfg.vocab_size, (16,), generator=g, device=dev)
+    tails = [torch.randint(0, cfg.vocab_size, (n,), generator=g, device=dev) for n in (24, 40, 72, 9)]
+    prompts_p = [torch.cat([shared, t]) for t in tails]
+    serve_rows = {}
+    for label, model, plain in (("bf16", cm, ()), ("f32", cm32, ("w4a8", "flash", "int4_wo", "fp4_wo", "byte_wo"))):
+        eng = _engine(torch, model, 128, dev, plain, paged_attention_kernel=True)
+        reqs = [Request(rid=i, prompt=p.cpu().numpy(), max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(prompts_p, (24, 6, 8, 8)))]
+        _counts(reset=True)
+        outs, m = eng.serve(reqs, prefix_cache=True, unroll=4, collect_metrics=True, **PAGED_ANCHOR)
+        n = _counts()
+        add(n)
+        margins = [_dense_margins(torch, eng, p, outs[i]) for i, p in enumerate(prompts_p)]
+        serve_rows[label] = {"metrics": m, "launches": {k: v for k, v in n.items() if v},
+                             "tokens_equal_dense_greedy": sum(x == 0 for mg in margins for x in mg),
+                             "tokens": sum(len(mg) for mg in margins), "worst_margin": max(max(mg) for mg in margins)}
+        if not (n["paged_attention_decode"] and (n["paged_attention_prefill_tc"] or n["paged_attention_prefill_cuda_core"])):
+            raise AssertionError(f"moe anchor serve ({label}): the paged kernels did not launch: {n}")
+        if [len(outs[r.rid]) for r in reqs] != [r.max_new_tokens for r in reqs]:
+            raise AssertionError(f"moe anchor serve ({label}): output lengths {[len(v) for v in outs.values()]}")
+        del eng
+    log(json.dumps({"phase": "moe_anchor", "path": "serve: int4 + int8 pages", "serve": serve_rows}))
+    f32 = serve_rows["f32"]
+    if f32["tokens_equal_dense_greedy"] != f32["tokens"]:
+        raise AssertionError(f"moe anchor serve: on f32 activations {f32['tokens'] - f32['tokens_equal_dense_greedy']} "
+                             f"of {f32['tokens']} served tokens differ from the dense engine's greedy ones (worst "
+                             f"margin {f32['worst_margin']} of the logits' scale)")
+
+    # export -> load -> serve
+    for label in MOE_DEPLOY:
+        qm, cm = models[label]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as d:
+            qc = hf_export.export_hf_checkpoint(qm, d)
+            with open(os.path.join(d, "config.json")) as f:
+                hf_cfg = json.load(f)
+            loaded = loader.load_quantized_checkpoint(d, device=dev)
+        streamed = loader.compressed_from_export(hf_cfg, qc["quantization"], dict(hf_export._iter_export_tensors(qm)), dev)
+        apart = [f"{name}.{k}" for name, arrays in loaded.params["layers"].items() if isinstance(arrays, dict)
+                 for k, a in arrays.items() if isinstance(a, torch.Tensor)
+                 and not torch.equal(a.view(torch.uint8) if a.element_size() == 1 else a,
+                                     streamed.params["layers"][name][k].view(torch.uint8)
+                                     if a.element_size() == 1 else streamed.params["layers"][name][k])]
+        outs = []
+        for model in (loaded, streamed):
+            eng = _engine(torch, model, 64, dev)
+            _counts(reset=True)
+            c = eng.init_cache(4)
+            lg = eng.prefill(prompts, c)
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+            toks = []
+            for _ in range(2):
+                tok, c = eng.decode_step(tok, c, unroll=8)
+                toks.append(tok)
+            add(_counts())
+            outs.append((lg, torch.cat(toks, dim=1)))
+            eng.release_graphs()
+            del eng
+        equal = bool(torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1]))
+        mem = _engine(torch, cm, 64, dev)  # compress's own model: the export's fp16 storage and scale ulps apart
+        log(json.dumps({"phase": "moe_anchor", "path": f"deploy: {label}", "quant_algo": qc["quantization"]["quant_algo"],
+                        "model_type": hf_cfg["model_type"], "kinds_loaded": sorted(set(loaded.kinds.values())),
+                        "arrays_apart": apart, "logits_and_tokens_equal": equal,
+                        "median_gap_to_compress": statistics.median(
+                            _gaps(outs[0][0], mem.prefill(prompts, mem.init_cache(4)))[0])}))
+        del mem
+        if apart or not equal:
+            raise AssertionError(f"moe anchor deploy {label}: loaded arrays apart {apart}, logits/tokens equal {equal}")
+    del models
+
+    # perplexity in f32 against JAX's pin
+    cfg32, p32 = hf_loader.load_hf_moe_checkpoint(MOE_ANCHOR, dtype=torch.float32, device=dev)
+    ev = [torch.from_numpy(b).to(dev) for b in lang.eval_batches(4, 8, 128, seed=999)]
+    calib32 = [torch.from_numpy(b).to(dev) for b in lang.eval_batches(2, 8, 128, seed=555)]
+    base = evaluate.perplexity(cfg32, p32, ev, forward_fn=mixtral.forward)
+    qm = ptq.quantize_family("mixtral", cfg32, p32, "NVFP4_DEFAULT_CFG", calib32, device=dev)
+    nv = evaluate.perplexity(cfg32, qm.params, ev, layout=qm.layout, qstate=qm.qstate, forward_fn=mixtral.forward)
+    log(json.dumps({"phase": "moe_anchor", "path": "ppl", "unquantized_ppl": base, "jax_pin": MOE_PPL_PIN,
+                    "nvfp4_ppl": nv, "nvfp4_d_ppl": nv - base, "nvfp4_d_ppl_pin": MOE_NVFP4_DPPL_PIN}))
+    if not abs(base - MOE_PPL_PIN) < MOE_PPL_TOL:
+        raise AssertionError(f"moe anchor: unquantized ppl {base}, JAX's pin {MOE_PPL_PIN} +- {MOE_PPL_TOL}")
+    if not nv - base < MOE_NVFP4_DPPL_PIN:
+        raise AssertionError(f"moe anchor: NVFP4 d_ppl {nv - base} over JAX's pin {MOE_NVFP4_DPPL_PIN}")
+    return launches
+
+
+class _pinned_routes:
+    """`mixtral.route` recording each call's expert choices (`record`), then
+    handing them back in the same order (`replay`) with the routing weights
+    the default route gives those experts on the replaying engine's own
+    logits (softmax, the chosen experts' probabilities, renormalised where
+    the config says so); `apart` counts the choices the replaying engine's
+    own routing would have made otherwise. Restores the route on exit."""
+
+    def __init__(self, torch):
+        from tensorrt_model_optimizer_tpu_torch.models import mixtral
+
+        self.torch, self.mixtral, self.real = torch, mixtral, mixtral.route
+        self.choices, self.apart = [], 0
+
+    def record(self):
+        def route(cfg, logits):
+            w, i = self.real(cfg, logits)
+            self.choices.append(i)
+            return w, i
+        self.mixtral.route = route
+        return self
+
+    def replay(self):
+        torch = self.torch
+
+        def route(cfg, logits):
+            if cfg.router_sigmoid_input_scaled or cfg.router_softmax_after_topk:
+                raise NotImplementedError("pinned routing: the default route only")
+            i = self.choices.pop(0)
+            self.apart += int((self.real(cfg, logits)[1] != i).sum())
+            w = torch.softmax(logits, dim=-1).gather(1, i)
+            return (w / torch.sum(w, dim=-1, keepdim=True) if cfg.norm_topk_prob else w), i
+        self.mixtral.route = route
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.mixtral.route = self.real
+
+
+def _moe_full_path(torch, dev, sz: Sizes, path: MoePath, cfg, params, prompt, model: str) -> dict:
+    """One path at full width: quantize_family (max) -> compress -> the
+    kernel engine (int8 KV, kernel attention): TTFT of the 8 x 2048 prefill,
+    MOE_EAGER_STEPS eager token steps, the graphed steps held to them
+    (`_graphed_decode`, the full phase's; the eager step profiled, the
+    replays timed, not profiled: the moe budget), one more prefill profiled
+    (device time, idle share, kernels), peak memory, the
+    launches per kernel of the prefill and of one token step,
+    and the prefill logits against the all-plain engine at MOE_PLAIN_DEPTH
+    layers on the kernel engine's routing (`_pinned_routes`; W4A8: the
+    engine with only flash on its plain version equals the all-plain one).
+    Returns the launch counts."""
+    from tensorrt_model_optimizer_tpu_torch.quant import compress, ptq
+    from tensorrt_model_optimizer_tpu_torch.serve.engine import PLAIN_ALL
+
+    sync = torch.cuda.synchronize
+    layouts = dict(path.layouts)
+    t0 = time.perf_counter()
+    cm = compress.compress(ptq.quantize_family("mixtral", cfg, params, path.preset, device=dev))
+    eng = _engine(torch, cm, sz.max_seq, dev, **layouts)
+    del cm
+    torch.cuda.empty_cache()
+    sync()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _counts(reset=True)
+    cache = eng.init_cache(sz.batch)
+    sync()
+    t0 = time.perf_counter()
+    logits = eng.prefill(prompt, cache)
+    sync()
+    ttft_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = _counts()
+    tok0 = tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    start = _clone_cache(cache)
+    step_ms, toks = [], []
+    _counts(reset=True)
+    for _ in range(MOE_EAGER_STEPS):
+        t0 = time.perf_counter()
+        tok, step_logits = _eager_step(torch, eng, tok, cache)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(tok)
+    step_launches = {k: v // MOE_EAGER_STEPS for k, v in _counts().items() if v}
+    pre = _profile(torch, f"{model} {path.label} prefill", lambda: eng.prefill(prompt, eng.init_cache(sz.batch)), 1,
+                   ttft_ms)
+    graphs = _graphed_decode(torch, eng, f"{model} {path.label}", tok0, start, toks, cache, statistics.median(step_ms),
+                             profile_unrolls=False)
+    eager = graphs.pop("eager")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: n + prefill_launches[k] for k, n in _counts().items()}
+    finite = bool(torch.isfinite(logits).all() and torch.isfinite(step_logits).all())
+    eng.release_graphs()
+    del cache, start
+    L = cfg.num_hidden_layers
+    gemm = path.gemm
+    row = {"phase": "moe_full", "model": model, "path": path.label, "kinds": sorted(set(eng.cm.kinds.values())),
+           "layers": L, "experts": cfg.num_experts, "top_k": cfg.top_k, "batch": sz.batch, "prompt": sz.prompt,
+           "setup_s": setup_s, "ttft_ms": ttft_ms, "eager_ms_per_token_step": statistics.median(step_ms),
+           "graphs": graphs, "peak_mem_gb": peak_gb, "packed_weight_gb": eng.cm.packed_bytes / 1e9,
+           "prefill_launches": {k: v for k, v in prefill_launches.items() if v}, "token_step_launches": step_launches,
+           "gemm_launches_per_layer_prefill": prefill_launches[gemm] / L,
+           "gemm_launches_per_layer_token_step": step_launches.get(gemm, 0) / L,
+           "prefill_device_ms": pre["per_call_device_busy_ms"], "prefill_idle_share": pre["device_idle_share"],
+           "eager_step_device_ms": eager["device_ms_per_token_step"], "eager_step_idle_share": eager["device_idle_share"],
+           "eager_step_kernels": eager["kernels_per_token_step"], "logits_finite": finite}
+    if not finite:
+        raise AssertionError(f"moe {model} {path.label}: non-finite logits")
+    want = {gemm, "kv_decode_attention", "flash_gqa"}
+    if {k for k, n in launches.items() if n > 0} != want:
+        raise AssertionError(f"moe {model} {path.label}: launched {launches}, the path's kernels are {sorted(want)}")
+    depth = min(MOE_PLAIN_DEPTH, L)
+    subcm = _truncate(eng.cm, depth)
+
+    def run(plain):
+        e = _engine(torch, subcm, sz.max_seq, dev, plain, **layouts)
+        return e.prefill(prompt, _cache(e, depth, sz))
+
+    with _pinned_routes(torch) as pins:
+        pins.record()
+        out = run(())
+        pins.replay()
+        pinned = run(PLAIN_ALL)
+    ref = run(PLAIN_ALL)
+    gaps, unpinned = _gaps(out, pinned)[0], _gaps(out, ref)[0]
+    row.update(depth=depth, prefill_logits_median_gap_vs_plain_pinned=statistics.median(gaps),
+               prefill_logits_worst_gap_vs_plain_pinned=max(gaps), routing_choices_apart=pins.apart,
+               prefill_logits_median_gap_vs_plain=statistics.median(unpinned),
+               prefill_logits_worst_gap_vs_plain=max(unpinned),
+               argmax_agree_vs_plain=float((out.argmax(-1) == ref.argmax(-1)).float().mean()))
+    if gemm == "qmm_w4a8":
+        row["flash_plain_equals_plain"] = bool(torch.equal(run(("flash",)), ref))
+    log(json.dumps(row))
+    if not row["prefill_logits_median_gap_vs_plain_pinned"] <= MOE_PLAIN_MEDIAN_MAX:
+        raise AssertionError(f"moe {model} {path.label}: depth-{depth} prefill logits lie "
+                             f"{row['prefill_logits_median_gap_vs_plain_pinned']} (median) of their scale from the "
+                             f"plain engine's on the same routing, the limit is {MOE_PLAIN_MEDIAN_MAX}")
+    if gemm == "qmm_w4a8" and not row["flash_plain_equals_plain"]:
+        raise AssertionError(f"moe {model} w4a8: with only flash plain, the logits differ from plain")
+    del eng, out, ref, subcm
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe(torch, dev, sz: Sizes, anchor: bool = True) -> dict:
+    """(a) `_moe_anchor`; (b) Qwen3-30B-A3B at full width on MOE_FULL_DEPTH
+    layers (seeded random bf16 weights made on the card; all 48 would take
+    61 GB in bf16 before compress doubles them): W4A8, INT4 and NVFP4 through
+    `_moe_full_path`; (c) Mixtral-8x7B's widths on MIXTRAL_DEPTH layers,
+    INT4 (8 experts, top-2: C = 8192 at the prefill; no q/k norms). The
+    dispatch is first held to JAX's capacity rule at both models' shapes
+    (`_moe_dispatch_check`). `anchor=False` (`--phases build,moe_full`)
+    leaves (a) out. Returns the launch counts of all its runs."""
+    from tensorrt_model_optimizer_tpu_torch.models import mixtral
+
+    runs = (("qwen3_30b_a3b", QWEN3_30B_A3B, MOE_FULL_DEPTH, MOE_FULL_PATHS),
+            ("mixtral_8x7b", MIXTRAL_8X7B, MIXTRAL_DEPTH, MOE_FULL_PATHS[1:2]))
+    for model, spec, depth, _ in runs:
+        cfg = mixtral.MixtralConfig(**{**spec, "num_hidden_layers": depth})
+        log(json.dumps({"phase": "moe_full", "model": model, "dispatch_vs_host_rule": _moe_dispatch_check(torch, dev, cfg)}))
+    launches = dict(_moe_anchor(torch, dev)) if anchor else {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    for model, spec, depth, paths in runs:
+        cfg = mixtral.MixtralConfig(**{**spec, "num_hidden_layers": depth})
+        t0 = time.perf_counter()
+        params = mixtral.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        log(json.dumps({"phase": "moe_full", "model": model, "layers": depth, "init_params_s": time.perf_counter() - t0,
+                        "weights_gb": sum(v.numel() * v.element_size() for v in params["layers"].values()) / 1e9}))
+        prompt = torch.randint(0, cfg.vocab_size, (sz.batch, sz.prompt), generator=g, device=dev)
+        for path in paths:
+            add(_moe_full_path(torch, dev, sz, path, cfg, params, prompt, model))
+        del params
+        torch.cuda.empty_cache()
+    return launches
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -3340,7 +3925,7 @@ ANCHOR_ONLY = ("skip_softmax_flash_cuda_core", "paged_attention_prefill_cuda_cor
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,anchor,full,deploy,calib,accuracy",
+    ap.add_argument("--phases", default="build,kernels,anchor,full,deploy,calib,accuracy,moe",
                     help="comma-separated; add 'profile' for device time by kernel in the full run")
     args = ap.parse_args(argv)
     import torch
@@ -3398,6 +3983,14 @@ def main(argv=None) -> int:
         if never:
             raise AssertionError(f"accuracy: kernels its paths did not launch: {never}")
         launches = {k: (launches or {}).get(k, 0) + accurate.get(k, 0) for k in KERNELS}
+    if "moe_full" in phases and "moe" not in phases:  # (b) and (c) of moe alone
+        timed("moe_full", phase_moe, torch, dev, sz, False)
+    if "moe" in phases:
+        moe = timed("moe", phase_moe, torch, dev, sz)
+        never = [k for k in MOE_KERNELS if not moe.get(k)]
+        if never:
+            raise AssertionError(f"moe: kernels its paths did not launch: {never}")
+        launches = {k: (launches or {}).get(k, 0) + moe.get(k, 0) for k in KERNELS}
     log(json.dumps({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t_start, 1)}))
     out = []
     for name, (src, replaces) in KERNELS.items():

@@ -2,10 +2,12 @@
 """End-to-end PTQ CLI of the PyTorch port, beside `examples/hf_ptq.py` (the
 reference's `examples/hf_ptq/hf_ptq.py`) and taking its arguments.
 
-Load an HF Llama checkpoint (or a seeded random tiny model), quantize it
-with a preset or a recipe on calibration data, report perplexity before and
-after, and export a unified quantized HF checkpoint. Runs on the card unless
-`--device cpu`.
+Load an HF checkpoint of a registered family (`models/registry.py`: Llama,
+Qwen2 / Qwen3, Mistral through `quant.ptq.quantize`; Mixtral, Qwen3-MoE and
+DBRX through `quant.ptq.quantize_family`), or a seeded random tiny model,
+quantize it with a preset or a recipe on calibration data, report
+perplexity before and after, and export a unified quantized HF checkpoint.
+Runs on the card unless `--device cpu`.
 
 Examples:
   python examples/hf_ptq_torch.py --device cpu --model tiny \\
@@ -56,9 +58,6 @@ def main(argv=None) -> dict:
     from tensorrt_model_optimizer_tpu_torch.quant import ptq
     from tensorrt_model_optimizer_tpu_torch.utils import dataset, evaluate
 
-    if args.auto_quantize_bits:
-        raise NotImplementedError("--auto_quantize_bits: AutoQuantize needs gradients through the model; it "
-                                  "comes with the training-side slice (ROADMAP queue 1 item 8)")
     if args.save_state:
         raise NotImplementedError("--save_state: the mto-style state (opt/state) comes with ROADMAP queue 1 "
                                   "item 10")
@@ -79,22 +78,32 @@ def main(argv=None) -> dict:
         print(f"[hf_ptq] recipe {args.recipe} -> preset {recipe.quant.preset}", flush=True)
 
     t0 = time.time()
+    family = None  # None: the llama family (every calibration algorithm)
     if args.model == "tiny":
         cfg = llama.LlamaConfig.tiny(num_hidden_layers=4)
         params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     else:
+        from tensorrt_model_optimizer_tpu_torch.models import registry
+
         with open(os.path.join(args.model, "config.json")) as f:
             mt = json.load(f).get("model_type", "llama")
-        if mt != "llama":
-            raise NotImplementedError(f"model_type {mt!r}: the other LLM families come with ROADMAP queue 1 "
-                                      "item 5")
-        cfg, params = hf_loader.load_hf_checkpoint(args.model, device=dev)
+        fam = registry.for_hf_model_type(mt)
+        if fam.name == "llama":
+            cfg, params = hf_loader.load_hf_checkpoint(args.model, device=dev)
+        else:
+            cfg, params = hf_loader.load_hf_moe_checkpoint(args.model, device=dev)
+            family = fam
     print(f"[hf_ptq] model loaded in {time.time() - t0:.1f}s: {cfg.num_hidden_layers}L x "
-          f"{cfg.hidden_size}h on {dev}", flush=True)
+          f"{cfg.hidden_size}h on {dev}" + (f" ({family.name})" if family else ""), flush=True)
+    fwd = family.forward if family else llama.forward
+    if args.auto_quantize_bits:
+        raise NotImplementedError(f"--auto_quantize_bits: {'auto_quantize_moe' if family else 'AutoQuantize'} "
+                                  "needs gradients through the model; it comes with the training-side slice "
+                                  "(ROADMAP queue 1 item 8)")
 
     seq = min(args.calib_seq_len, cfg.max_position_embeddings)
     if str(args.batch_size) == "auto":
-        args.batch_size = dataset.get_max_batch_size(lambda t: llama.forward(cfg, params, t)[0], seq_len=seq,
+        args.batch_size = dataset.get_max_batch_size(lambda t: fwd(cfg, params, t)[0], seq_len=seq,
                                                      vocab_size=cfg.vocab_size, start=2, cap=64, device=dev)
         print(f"[hf_ptq] auto batch_size -> {args.batch_size} (OOM-probed at seq {seq})", flush=True)
     else:
@@ -104,15 +113,19 @@ def main(argv=None) -> dict:
 
     out = {"preset": label}
     if args.eval_ppl:
-        out["ppl_before"] = evaluate.perplexity(cfg, params, batches[:4])
+        out["ppl_before"] = evaluate.perplexity(cfg, params, batches[:4], forward_fn=family and family.forward)
         print(f"[hf_ptq] bf16 ppl {out['ppl_before']:.6f}", flush=True)
 
     t0 = time.time()
-    model = ptq.quantize(cfg, params, qformat, batches, device=dev)
+    if family is None:
+        model = ptq.quantize(cfg, params, qformat, batches, device=dev)
+    else:
+        model = ptq.quantize_family(family, cfg, params, qformat, batches, device=dev)
     print(f"[hf_ptq] quantized ({args.recipe or args.qformat}) in {time.time() - t0:.1f}s", flush=True)
     if args.eval_ppl:
         out["ppl_after"] = evaluate.perplexity(cfg, model.params, batches[:4], layout=model.layout,
-                                               qstate=model.qstate, adapters=model.adapters)
+                                               qstate=model.qstate, adapters=model.adapters,
+                                               forward_fn=model.forward_fn)
         print(f"[hf_ptq] quantized ppl {out['ppl_after']:.6f} "
               f"(delta {out['ppl_after'] - out['ppl_before']:+.6f})", flush=True)
 

@@ -87,38 +87,36 @@ def layout_from_jax(layout) -> QuantLayout:
 
 
 def llama_cfg_from_jax(cfg) -> LlamaConfig:
-    for flag in ("attention_bias", "qk_norm", "clip_qkv"):
-        if getattr(cfg, flag, None):
-            raise NotImplementedError(f"LlamaConfig.{flag} comes with a later slice")
-    if getattr(cfg, "norm_type", "rmsnorm") != "rmsnorm":
-        raise NotImplementedError("layernorm blocks come with a later slice")
+    """A JAX LlamaConfig or MixtralConfig -> the port's (every field carried,
+    the dtype as the torch dtype)."""
+    from .models.mixtral import MixtralConfig
+
+    cls = MixtralConfig if hasattr(cfg, "num_experts") else LlamaConfig
     rs = cfg.rope_scaling
     if rs is not None:
-        if rs.rope_type != "llama3":
-            raise NotImplementedError(f"rope_scaling {rs.rope_type!r} comes with the MoE-families slice")
-        rs = RopeScaling(rope_type=rs.rope_type, factor=rs.factor, low_freq_factor=rs.low_freq_factor,
-                         high_freq_factor=rs.high_freq_factor,
-                         original_max_position_embeddings=rs.original_max_position_embeddings)
-    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(LlamaConfig)
-          if f.name not in ("rope_scaling", "dtype")}
-    return LlamaConfig(rope_scaling=rs, dtype=torch_dtype(cfg.dtype), **kw)
+        rs = RopeScaling(**{f.name: getattr(rs, f.name) for f in dataclasses.fields(RopeScaling)})
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cls) if f.name not in ("rope_scaling", "dtype")}
+    return cls(rope_scaling=rs, dtype=torch_dtype(cfg.dtype), **kw)
 
 
 def quantized_from_jax(qm, device="cpu"):
     """A JAX `QuantizedModel` (`quant.ptq.quantize`'s output: raw weights,
     layout, calibrated state, the config) -> the port's, on `device`."""
+    from .models import mixtral
     from .quant.config import QuantizeConfig
     from .quant.ptq import QuantizedModel
 
     qc = qm.quant_cfg
+    cfg = llama_cfg_from_jax(qm.model_cfg)
     return QuantizedModel(
-        model_cfg=llama_cfg_from_jax(qm.model_cfg),
+        model_cfg=cfg,
         params=params_from_jax(qm.params, device),
         layout=layout_from_jax(qm.layout),
         qstate=params_from_jax(qm.qstate, device),
         quant_cfg=QuantizeConfig(rules=tuple((p, quantizer_cfg_from_jax(c)) for p, c in qc.rules),
                                  algorithm=qc.algorithm),
         adapters=params_from_jax(qm.adapters, device),
+        forward_fn=mixtral.forward if isinstance(cfg, mixtral.MixtralConfig) else None,
     )
 
 

@@ -29,8 +29,17 @@ The packing runs in torch on the tensors' device; only the finished bytes
 go to the host, one shard at a time, through the port's own safetensors
 writer (`models/hf_loader.py` `save_safetensors`).
 
+MoE models (Qwen3-MoE, Mixtral) export their router in fp16 and every
+expert as its own module under the names of the model type `config.json`
+declares (qwen3_moe's `mlp.experts.{e}.{gate,up,down}_proj` for a q/k-norm
+config, mixtral's `block_sparse_moe.experts.{e}.{w1,w3,w2}` otherwise),
+each with the block's shared `input_scale`, as the reference's fused-MoE
+plugins quantize them; Qwen3's q/k norms and Qwen2's attention biases go
+out in fp16. An MoE model whose experts carry a `pre_quant_scale` (AWQ,
+SmoothQuant) raises: the expert modules have no tensor for it.
+
 Not ported (each raises `NotImplementedError` naming its slice): GPT-OSS
-and VLM exports, and MoE experts.
+and VLM exports.
 """
 
 from __future__ import annotations
@@ -106,8 +115,11 @@ def _int4_quant_pack(w32: torch.Tensor, bam: torch.Tensor, bsz: int):
 
 def _quant_algo(model: QuantizedModel) -> tuple[str, Optional[int]]:
     """(quant_algo, group_size) of the checkpoint, read off down_proj's
-    weight quantizer as the reference does."""
+    weight quantizer as the reference does (an MoE model's expert
+    down_proj where the dense one is off)."""
     wcfg = model.layout.get("mlp.down_proj.weight")
+    if not wcfg.enable and model.layout.get("moe.down_proj.weight").enable:
+        wcfg = model.layout.get("moe.down_proj.weight")
     base = wcfg.sequential[0] if wcfg.sequential else wcfg
     if not wcfg.enable:
         return "NONE", None
@@ -216,6 +228,15 @@ def _f16(t: torch.Tensor) -> torch.Tensor:
     return t.float().to(torch.float16)
 
 
+def _input_scale(ist, icfg, algo: str):
+    """An input site's `input_scale`: its amax over 6 * 448 (NVFP4), 448
+    (fp) or 127, or None where the site is off or has no amax."""
+    if ist is None or ist.amax is None or not icfg.enable:
+        return None
+    div = 6.0 * 448.0 if algo.startswith("NVFP4") else (448.0 if icfg.is_fp else 127.0)
+    return ist.amax.float().max() / div
+
+
 def _iter_export_tensors(model: QuantizedModel):
     """Yield (name, tensor) for the unified checkpoint, one layer at a time,
     in the reference's order (the shards and the index follow it)."""
@@ -223,12 +244,11 @@ def _iter_export_tensors(model: QuantizedModel):
     algo, _ = _quant_algo(model)
     kv_algo = _kv_algo(model)
     layers = model.params["layers"]
-    if "moe.gate_proj" in layers:
-        raise NotImplementedError("MoE expert export comes with the MoE-families slice")
-    unsupported = [k for k in layers if k.startswith("shared.") or k.endswith("__bias") or k == "self_attn.sinks"
-                   or k in ("self_attn.q_norm", "self_attn.k_norm")]
+    unsupported = [k for k in layers if k.startswith("shared.") or k == "self_attn.sinks"
+                   or (k.endswith("__bias") and not k.startswith("self_attn."))]
     if unsupported:
-        raise NotImplementedError(f"unified export of the leaves {unsupported} comes with a later slice")
+        raise NotImplementedError(f"unified export does not cover the leaves {unsupported} (GPT-OSS and "
+                                  "Llama4 come with ROADMAP queue 1 item 5)")
     yield "model.embed_tokens.weight", _f16(model.params["embed_tokens"])
     yield "model.norm.weight", _f16(model.params["norm"])
     if "lm_head" in model.params:
@@ -236,7 +256,14 @@ def _iter_export_tensors(model: QuantizedModel):
     for i in range(cfg.num_hidden_layers):
         yield f"model.layers.{i}.input_layernorm.weight", _f16(layers["input_layernorm"][i])
         yield f"model.layers.{i}.post_attention_layernorm.weight", _f16(layers["post_attention_layernorm"][i])
+        if "self_attn.q_norm" in layers:  # Qwen3's per-head norms
+            yield f"model.layers.{i}.self_attn.q_norm.weight", _f16(layers["self_attn.q_norm"][i])
+            yield f"model.layers.{i}.self_attn.k_norm.weight", _f16(layers["self_attn.k_norm"][i])
+        for bname in sorted(k for k in layers if k.startswith("self_attn.") and k.endswith("__bias")):
+            yield f"model.layers.{i}.{bname.removesuffix('__bias')}.bias", _f16(layers[bname][i])
         for name, hf_fmt in PROJ_TO_HF.items():
+            if name not in layers:  # an MoE model has no dense MLP
+                continue
             prefix = hf_fmt.format(i=i)
             site = model.qstate.get(name, {})
             wst = llama.slice_state(site.get("weight"), i)
@@ -249,13 +276,13 @@ def _iter_export_tensors(model: QuantizedModel):
                 yield f"{prefix}.svdquant_lora_a", _f16(ad["A"][i])
                 yield f"{prefix}.svdquant_lora_b", _f16(ad["B"][i].float() * ad["scale"][i])
             ist = llama.slice_state(site.get("input"), i)
-            icfg = model.layout.get(f"{name}.input")
-            if ist is not None:
-                if ist.amax is not None and icfg.enable:
-                    div = 6.0 * 448.0 if algo.startswith("NVFP4") else (448.0 if icfg.is_fp else 127.0)
-                    yield f"{prefix}.input_scale", ist.amax.float().max() / div
-                if ist.pre_quant_scale is not None:
-                    yield f"{prefix}.pre_quant_scale", ist.pre_quant_scale.float()
+            in_scale = _input_scale(ist, model.layout.get(f"{name}.input"), algo)
+            if in_scale is not None:
+                yield f"{prefix}.input_scale", in_scale
+            if ist is not None and ist.pre_quant_scale is not None:
+                yield f"{prefix}.pre_quant_scale", ist.pre_quant_scale.float()
+        if "moe.gate_proj" in layers:
+            yield from _iter_experts(model, algo, i)
         if kv_algo:  # `get_kv_cache_scaling_factor`, quant_utils.py:371
             for which in ("k", "v"):
                 st = model.qstate.get(f"self_attn.{which}_bmm")
@@ -270,6 +297,25 @@ def _iter_export_tensors(model: QuantizedModel):
                     scale = max(scale, 1.0)
                 yield (f"model.layers.{i}.self_attn.{which}_proj.{which}_scale",
                        torch.tensor(scale, dtype=torch.float32, device=st.amax.device))
+
+
+def _iter_experts(model: QuantizedModel, algo: str, i: int):
+    """Layer i's router and experts, under the declared model type's names;
+    every expert carries the block's shared input_scale."""
+    layers = model.params["layers"]
+    router_fmt, exp_fmt, projs = hf_loader.moe_names("qwen3_moe" if model.model_cfg.qk_norm else "mixtral")
+    yield router_fmt.format(i=i), _f16(layers["moe.router"][i])
+    in_scale = _input_scale(llama.slice_state(model.qstate.get("moe.gate_proj", {}).get("input"), i),
+                            model.layout.get("moe.gate_proj.input"), algo)
+    for name, theirs in projs.items():
+        wcfg = model.layout.get(f"{name}.weight")
+        wst = llama.slice_state(model.qstate.get(name, {}).get("weight"), i)
+        for e in range(layers[name].shape[1]):
+            prefix = exp_fmt.format(i=i, e=e, proj=theirs)
+            for suffix, t in _export_weight(layers[name][i, e], wcfg, llama.slice_state(wst, e), algo).items():
+                yield f"{prefix}.{suffix}", t
+            if in_scale is not None:
+                yield f"{prefix}.input_scale", in_scale
 
 
 def _save(tensors: dict, path: str) -> None:
@@ -324,8 +370,16 @@ def export_hf_checkpoint(model: QuantizedModel, export_dir: str, max_shard_bytes
     With `max_shard_bytes`, streams into shards (`model-XXXXX-of-NNNNN.
     safetensors` + `model.safetensors.index.json`), one shard held at a
     time; without it, one `model.safetensors` of the same tensors."""
-    if not isinstance(model.model_cfg, llama.LlamaConfig):
-        raise NotImplementedError(f"export of {type(model.model_cfg).__name__} comes with a later slice")
+    if getattr(model.model_cfg, "swiglu_limit", None) is not None or "self_attn.sinks" in model.params["layers"]:
+        return export_gpt_oss_checkpoint(model, export_dir, max_shard_bytes)
+    folded = sorted(n for n, site in model.qstate.items()
+                    if n.startswith("moe.") and getattr(site.get("input"), "pre_quant_scale", None) is not None)
+    if folded:
+        # AWQ / SmoothQuant fold s into the expert weights and keep 1/s on
+        # the block's input: the expert modules have no tensor for it, so
+        # a loaded model would serve without it
+        raise NotImplementedError(f"MoE export of {folded}' pre_quant_scale is not covered (ROADMAP queue 3, "
+                                  "'AWQ / SmoothQuant MoE checkpoints')")
     os.makedirs(export_dir, exist_ok=True)
     algo, group_size = _quant_algo(model)
     kv_algo = _kv_algo(model)
@@ -353,7 +407,7 @@ def export_hf_checkpoint(model: QuantizedModel, export_dir: str, max_shard_bytes
 
 
 def export_gpt_oss_checkpoint(model, export_dir: str, max_shard_bytes: Optional[int] = None) -> dict:
-    raise NotImplementedError("GPT-OSS export (native MXFP4 experts) comes with the MoE-families slice")
+    raise NotImplementedError("GPT-OSS export (native MXFP4 experts) comes with ROADMAP queue 1 item 5")
 
 
 def export_vlm_checkpoint(cfg, params, layout, qstate, export_dir: str, quant_cfg=None) -> dict:

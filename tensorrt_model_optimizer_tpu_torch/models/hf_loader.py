@@ -1,8 +1,12 @@
-"""HF checkpoint loading and saving for dense Llama (port of
-`models/hf_loader.py`).
+"""HF checkpoint loading and saving (port of `models/hf_loader.py`): the
+Llama family (llama, mistral, Qwen2's attention biases, Qwen3's q/k norms)
+and the Mixtral family (`load_hf_moe_checkpoint`: qwen3_moe, mixtral, dbrx).
 
 Reads `config.json` and every `*.safetensors` file of a directory into the
-stacked-layer params dict, and writes one back (`save_hf_checkpoint`). The
+stacked-layer params dict (experts stacked `[L, E, out, in]`), and writes
+one back (`save_hf_checkpoint`, MoE stacks under the qwen3_moe or mixtral
+names). GPT-OSS, Llama4 and DeepSeek checkpoints raise, naming ROADMAP
+queue 1 item 5. The
 safetensors format is parsed and written here (an 8-byte little-endian
 header length, a JSON header padded with spaces to a multiple of 8, then
 raw little-endian bytes) so the port needs no `safetensors` package; BF16
@@ -16,6 +20,7 @@ library's.
 from __future__ import annotations
 
 import json
+import math
 import os
 import struct
 from glob import glob
@@ -68,8 +73,24 @@ def _rope_scaling_from_hf(d: dict) -> Optional[RopeScaling]:
     if not rs:
         return None
     rope_type = rs.get("rope_type", rs.get("type", "llama3"))
+    if rope_type == "yarn":
+        factor = float(rs.get("factor", 1.0))
+        attention_factor = rs.get("attention_factor")
+        mscale, mscale_all = rs.get("mscale"), rs.get("mscale_all_dim")
+        if attention_factor is None and mscale and mscale_all:
+            # DeepSeek's yarn: the temperature from the mscale pair
+            def _ms(m):
+                return 0.1 * m * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+            attention_factor = _ms(mscale) / _ms(mscale_all)
+        return RopeScaling(
+            rope_type="yarn", factor=factor, attention_factor=attention_factor,
+            beta_fast=float(rs.get("beta_fast") or 32.0), beta_slow=float(rs.get("beta_slow") or 1.0),
+            truncate=bool(rs.get("truncate", True)),
+            original_max_position_embeddings=int(rs.get("original_max_position_embeddings")
+                                                 or d.get("max_position_embeddings", 4096)))
     if rope_type != "llama3":
-        raise NotImplementedError(f"rope_scaling type {rope_type!r} comes with the MoE-families slice")
+        raise NotImplementedError(f"rope_scaling type {rope_type!r} unsupported")
     return RopeScaling(
         rope_type=rope_type,
         factor=float(rs.get("factor", 8.0)),
@@ -79,12 +100,19 @@ def _rope_scaling_from_hf(d: dict) -> Optional[RopeScaling]:
     )
 
 
+# model types of JAX's loaders that the port does not have yet -> what brings them
+NOT_PORTED = {mt: "ROADMAP queue 1 item 5" for mt in
+              ("gpt_oss", "llama4", "llama4_text", "deepseek_v2", "deepseek_v3")}
+
+
 def config_from_hf(d: dict) -> LlamaConfig:
     mt = d.get("model_type")
-    if mt not in (None, "llama") or d.get("attention_bias"):
-        raise NotImplementedError(f"model_type {mt!r} comes with a later slice; this one loads dense Llama")
+    if mt in NOT_PORTED:
+        raise NotImplementedError(f"model_type {mt!r} is not ported yet: {NOT_PORTED[mt]}")
     return LlamaConfig(
         rope_scaling=_rope_scaling_from_hf(d),
+        attention_bias=d.get("attention_bias", mt == "qwen2"),
+        qk_norm=mt in ("qwen3", "qwen3_moe"),
         vocab_size=d["vocab_size"],
         hidden_size=d["hidden_size"],
         intermediate_size=d["intermediate_size"],
@@ -143,8 +171,9 @@ class SafetensorsDir:
 
 
 def config_to_hf(cfg: LlamaConfig) -> dict:
-    """config.json's fields for a dense Llama, in the JAX package's order
-    (its `config_to_hf`), so the JSON files are byte-equal."""
+    """config.json's fields, in the JAX package's order (its
+    `config_to_hf`), so the JSON files are byte-equal: llama, qwen3 (q/k
+    norms), and for a MixtralConfig qwen3_moe (q/k norms) or mixtral."""
     out: dict[str, Any] = {}
     if cfg.rope_scaling is not None:
         rs = cfg.rope_scaling
@@ -155,9 +184,18 @@ def config_to_hf(cfg: LlamaConfig) -> dict:
             "high_freq_factor": rs.high_freq_factor,
             "original_max_position_embeddings": rs.original_max_position_embeddings,
         }
+    arch = ["Qwen3ForCausalLM"] if cfg.qk_norm else ["LlamaForCausalLM"]
+    mt = "qwen3" if cfg.qk_norm else "llama"
+    if getattr(cfg, "num_experts", None):
+        mt = "qwen3_moe" if cfg.qk_norm else "mixtral"
+        arch = ["Qwen3MoeForCausalLM"] if cfg.qk_norm else ["MixtralForCausalLM"]
+        out |= {"num_experts" if cfg.qk_norm else "num_local_experts": cfg.num_experts,
+                "num_experts_per_tok": cfg.top_k, "norm_topk_prob": cfg.norm_topk_prob}
+        if cfg.qk_norm:  # qwen3_moe: the expert width is moe_intermediate_size
+            out["moe_intermediate_size"] = cfg.intermediate_size
     return out | {
-        "architectures": ["LlamaForCausalLM"],
-        "model_type": "llama",
+        "architectures": arch,
+        "model_type": mt,
         "vocab_size": cfg.vocab_size,
         "hidden_size": cfg.hidden_size,
         "intermediate_size": cfg.intermediate_size,
@@ -173,7 +211,7 @@ def config_to_hf(cfg: LlamaConfig) -> dict:
     }
 
 
-HF_NAMES = {  # stacked-layer params -> per-layer HF tensor names
+HF_NAMES = {  # stacked-layer params -> per-layer HF tensor names, in the JAX writer's order
     "input_layernorm": "model.layers.{i}.input_layernorm.weight",
     "post_attention_layernorm": "model.layers.{i}.post_attention_layernorm.weight",
     "self_attn.q_proj": "model.layers.{i}.self_attn.q_proj.weight",
@@ -183,13 +221,36 @@ HF_NAMES = {  # stacked-layer params -> per-layer HF tensor names
     "mlp.gate_proj": "model.layers.{i}.mlp.gate_proj.weight",
     "mlp.up_proj": "model.layers.{i}.mlp.up_proj.weight",
     "mlp.down_proj": "model.layers.{i}.mlp.down_proj.weight",
+    "self_attn.q_proj__bias": "model.layers.{i}.self_attn.q_proj.bias",
+    "self_attn.k_proj__bias": "model.layers.{i}.self_attn.k_proj.bias",
+    "self_attn.v_proj__bias": "model.layers.{i}.self_attn.v_proj.bias",
+    "self_attn.q_norm": "model.layers.{i}.self_attn.q_norm.weight",
+    "self_attn.k_norm": "model.layers.{i}.self_attn.k_norm.weight",
 }
+MOE_LEAVES = ("moe.router", "moe.gate_proj", "moe.up_proj", "moe.down_proj")
+
+
+def moe_names(model_type: str) -> tuple[str, str, dict]:
+    """(router name, expert name, our projection -> theirs) of an HF MoE
+    checkpoint: qwen3_moe's mlp.gate / mlp.experts.{e}.{gate,up,down}_proj,
+    or mixtral's block_sparse_moe.gate / experts.{e}.{w1,w3,w2}. The
+    formats take {i}, {e} and {proj}."""
+    if model_type == "qwen3_moe":
+        return ("model.layers.{i}.mlp.gate.weight", "model.layers.{i}.mlp.experts.{e}.{proj}",
+                {"moe.gate_proj": "gate_proj", "moe.up_proj": "up_proj", "moe.down_proj": "down_proj"})
+    if model_type == "mixtral":
+        return ("model.layers.{i}.block_sparse_moe.gate.weight",
+                "model.layers.{i}.block_sparse_moe.experts.{e}.{proj}",
+                {"moe.gate_proj": "w1", "moe.up_proj": "w3", "moe.down_proj": "w2"})
+    raise NotImplementedError(f"MoE model_type {model_type!r}")
 
 
 def save_hf_checkpoint(cfg: LlamaConfig, params: dict, path: str) -> None:
-    """Inverse of `load_hf_checkpoint`: config.json (indent 1) and one
+    """Inverse of the loaders: config.json (indent 1) and one
     model.safetensors of f32 tensors under the HF names, as the JAX
-    package's `save_hf_checkpoint` writes them (byte-equal files)."""
+    package's `save_hf_checkpoint` writes them (byte-equal files); MoE
+    stacks unstack to per-expert modules under the qwen3_moe names for a
+    q/k-norm config, the mixtral names otherwise."""
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config_to_hf(cfg), f, indent=1)
@@ -197,27 +258,43 @@ def save_hf_checkpoint(cfg: LlamaConfig, params: dict, path: str) -> None:
     if not cfg.tie_word_embeddings:
         flat["lm_head.weight"] = params.get("lm_head", params["embed_tokens"])
     layers = params["layers"]
-    extra = sorted(set(layers) - set(HF_NAMES))
+    extra = sorted(set(layers) - set(HF_NAMES) - set(MOE_LEAVES))
     if extra:
-        raise NotImplementedError(f"save_hf_checkpoint: layer leaves {extra} come with a later slice")
+        raise NotImplementedError(f"save_hf_checkpoint: layer leaves {extra} are not written by the JAX package")
     for ours, fmt in HF_NAMES.items():
+        if ours in layers:
+            for i in range(cfg.num_hidden_layers):
+                flat[fmt.format(i=i)] = layers[ours][i]
+    if "moe.gate_proj" in layers:
+        router_fmt, exp_fmt, projs = moe_names("qwen3_moe" if cfg.qk_norm else "mixtral")
         for i in range(cfg.num_hidden_layers):
-            flat[fmt.format(i=i)] = layers[ours][i]
+            flat[router_fmt.format(i=i)] = layers["moe.router"][i]
+            for ours, theirs in projs.items():
+                for e in range(layers[ours].shape[1]):
+                    flat[exp_fmt.format(i=i, e=e, proj=theirs) + ".weight"] = layers[ours][i, e]
     save_safetensors({k: v.float() for k, v in flat.items()}, os.path.join(path, "model.safetensors"))
 
 
+def _reader(path: str, dtype, dev):
+    raw = SafetensorsDir(path)
+    return raw, lambda name: raw[name].to(device=dev).to(dtype)
+
+
+def _head(params: dict, cfg, raw, get) -> dict:
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = get("lm_head.weight") if "lm_head.weight" in raw else params["embed_tokens"]
+    return params
+
+
 def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None) -> tuple[LlamaConfig, dict]:
-    """Returns (config, params) from an HF Llama checkpoint directory, with
-    every tensor cast to `dtype` on `device`."""
+    """Returns (config, params) from an HF Llama-family checkpoint
+    directory (Qwen2's biases and Qwen3's q/k norms where the config has
+    them), every tensor cast to `dtype` on `device`."""
     dev = resolve_device(device)
     with open(os.path.join(path, "config.json")) as f:
         cfg = config_from_hf(json.load(f))
     cfg = LlamaConfig(**{**cfg.__dict__, "dtype": dtype})
-    raw = SafetensorsDir(path)
-
-    def get(name):
-        return raw[name].to(device=dev).to(dtype)
-
+    raw, get = _reader(path, dtype, dev)
     L = cfg.num_hidden_layers
     stack = lambda fmt: torch.stack([get(fmt.format(i=i)) for i in range(L)])
     layers: dict[str, Any] = {
@@ -227,11 +304,94 @@ def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None) -> tuple[Ll
     for ours in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.o_proj",
                  "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj"):
         layers[ours] = stack("model.layers.{i}." + ours + ".weight")
-    params = {
-        "embed_tokens": get("model.embed_tokens.weight"),
-        "layers": layers,
-        "norm": get("model.norm.weight"),
+    if cfg.attention_bias:
+        for proj in ("q_proj", "k_proj", "v_proj"):
+            layers[f"self_attn.{proj}__bias"] = stack("model.layers.{i}.self_attn." + proj + ".bias")
+    if cfg.qk_norm:
+        layers["self_attn.q_norm"] = stack("model.layers.{i}.self_attn.q_norm.weight")
+        layers["self_attn.k_norm"] = stack("model.layers.{i}.self_attn.k_norm.weight")
+    params = {"embed_tokens": get("model.embed_tokens.weight"), "layers": layers, "norm": get("model.norm.weight")}
+    return cfg, _head(params, cfg, raw, get)
+
+
+def _load_dbrx(path: str, d: dict, dtype, dev):
+    """DBRX: the fused Wqkv (split into q, k, v), the qkv clamp, LayerNorm
+    blocks and the fused expert GLU: w1 (gate) and v1 (up) arrive as [E *
+    I, H] stacks, w2 too but applied untransposed, so our [out = H, in = I]
+    down weight is each expert's transpose."""
+    from .mixtral import MixtralConfig
+
+    attn, ffn = d.get("attn_config", {}), d.get("ffn_config", {})
+    h, nH = d["d_model"], d["n_heads"]
+    n_kv = attn.get("kv_n_heads", nH)
+    E, inter = ffn.get("moe_num_experts", 8), ffn.get("ffn_hidden_size")
+    cfg = MixtralConfig(
+        vocab_size=d["vocab_size"], hidden_size=h, intermediate_size=inter, num_hidden_layers=d["n_layers"],
+        num_attention_heads=nH, num_key_value_heads=n_kv, rope_theta=attn.get("rope_theta", 500000.0),
+        rms_norm_eps=1e-5, norm_type="layernorm", clip_qkv=attn.get("clip_qkv"),
+        tie_word_embeddings=d.get("tie_word_embeddings", False), max_position_embeddings=d.get("max_seq_len", 4096),
+        num_experts=E, top_k=ffn.get("moe_top_k", 4),
+        # moe_normalize_expert_weights: the p-norm order, 1.0 a plain renormalisation
+        norm_topk_prob=ffn.get("moe_normalize_expert_weights") is not None, dtype=dtype)
+    raw, get = _reader(path, dtype, dev)
+    L, hd = cfg.num_hidden_layers, cfg.hd
+    stack = lambda fmt: torch.stack([get(fmt.format(i=i)) for i in range(L)])
+    blk = "transformer.blocks.{i}."
+    layers = {
+        "input_layernorm": stack(blk + "norm_attn_norm.norm_1.weight"),
+        "post_attention_layernorm": stack(blk + "norm_attn_norm.norm_2.weight"),
+        "self_attn.o_proj": stack(blk + "norm_attn_norm.attn.out_proj.weight"),
+        "moe.router": stack(blk + "ffn.router.layer.weight"),
     }
-    if not cfg.tie_word_embeddings:
-        params["lm_head"] = get("lm_head.weight") if "lm_head.weight" in raw else params["embed_tokens"]
-    return cfg, params
+    qkv = stack(blk + "norm_attn_norm.attn.Wqkv.weight")  # [L, (nH + 2 kv) hd, H]
+    layers["self_attn.q_proj"] = qkv[:, : nH * hd]
+    layers["self_attn.k_proj"] = qkv[:, nH * hd: (nH + n_kv) * hd]
+    layers["self_attn.v_proj"] = qkv[:, (nH + n_kv) * hd:]
+    layers["moe.gate_proj"] = stack(blk + "ffn.experts.mlp.w1").reshape(L, E, inter, h)
+    layers["moe.up_proj"] = stack(blk + "ffn.experts.mlp.v1").reshape(L, E, inter, h)
+    layers["moe.down_proj"] = stack(blk + "ffn.experts.mlp.w2").reshape(L, E, inter, h).transpose(-1, -2)
+    params = {"embed_tokens": get("transformer.wte.weight"), "layers": layers, "norm": get("transformer.norm_f.weight")}
+    return cfg, _head(params, cfg, raw, get)
+
+
+def load_hf_moe_checkpoint(path: str, dtype=torch.bfloat16, device=None):
+    """(MixtralConfig, params) from an HF MoE checkpoint directory: qwen3_moe
+    (router mlp.gate, experts mlp.experts.{e}.{gate,up,down}_proj, per-head
+    q/k norms, expert width moe_intermediate_size), mixtral
+    (block_sparse_moe.gate, experts.{e}.{w1,w3,w2}) or dbrx; experts
+    stacked [L, E, out, in], every tensor cast to `dtype` on `device`.
+    gpt_oss, llama4 and deepseek raise, naming ROADMAP queue 1 item 5."""
+    from .mixtral import MixtralConfig
+
+    dev = resolve_device(device)
+    with open(os.path.join(path, "config.json")) as f:
+        d = json.load(f)
+    mt = d.get("model_type")
+    if mt in NOT_PORTED:
+        raise NotImplementedError(f"model_type {mt!r} is not ported yet: {NOT_PORTED[mt]}")
+    if mt == "dbrx":
+        return _load_dbrx(path, d, dtype, dev)
+    router_fmt, exp_fmt, projs = moe_names(mt)
+    inter = d["moe_intermediate_size"] if mt == "qwen3_moe" else d["intermediate_size"]
+    cfg = MixtralConfig(**{**config_from_hf(d).__dict__, "dtype": dtype, "intermediate_size": inter,
+                           "num_experts": d.get("num_experts", d.get("num_local_experts")),
+                           "top_k": d.get("num_experts_per_tok", 2),
+                           "norm_topk_prob": d.get("norm_topk_prob", True) if mt == "qwen3_moe" else True})
+    raw, get = _reader(path, dtype, dev)
+    L, E = cfg.num_hidden_layers, cfg.num_experts
+    stack = lambda fmt: torch.stack([get(fmt.format(i=i)) for i in range(L)])
+    layers: dict[str, Any] = {
+        "input_layernorm": stack("model.layers.{i}.input_layernorm.weight"),
+        "post_attention_layernorm": stack("model.layers.{i}.post_attention_layernorm.weight"),
+        "moe.router": stack(router_fmt),
+    }
+    for ours in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        layers[f"self_attn.{ours}"] = stack("model.layers.{i}.self_attn." + ours + ".weight")
+    if cfg.qk_norm:
+        layers["self_attn.q_norm"] = stack("model.layers.{i}.self_attn.q_norm.weight")
+        layers["self_attn.k_norm"] = stack("model.layers.{i}.self_attn.k_norm.weight")
+    for ours, theirs in projs.items():
+        layers[ours] = torch.stack([torch.stack([get(exp_fmt.format(i=i, e=e, proj=theirs) + ".weight")
+                                                 for e in range(E)]) for i in range(L)])
+    params = {"embed_tokens": get("model.embed_tokens.weight"), "layers": layers, "norm": get("model.norm.weight")}
+    return cfg, _head(params, cfg, raw, get)

@@ -8,13 +8,15 @@ axes carry over unchanged. Quantizer state is the same dict of
 `QuantizerState`s with stacked `[L, ...]` amaxes. The JAX `lax.scan` over
 layers is a Python loop here.
 
-Ported: the config (`tiny`, `llama3_8b`, llama-3.1 `RopeScaling`), norms,
-RoPE, the site layout, and `forward` on the einsum attention path without a
-cache (calibration and fake-quant evaluation), with LoRA adapters (the
-SVDQuant low-rank branch) and activation capture for the calibration
-algorithms (`capture_tokens`). The cached forward, the flash `attn_impl` and
-the Qwen/DBRX variants come with later slices and raise
-`NotImplementedError`.
+Ported: the config (`tiny`, `llama3_8b`, `RopeScaling` llama3 and yarn),
+the Qwen2 / Qwen3 / DBRX variants (`attention_bias`, `qk_norm`, `clip_qkv`,
+`norm_type="layernorm"`), RoPE, the site layout, `forward` (calibration,
+fake-quant evaluation, LoRA adapters, activation capture for the
+calibration algorithms, and the cached forward over `init_cache`'s dict),
+`forward_unrolled` (a layout per layer) and `attn_impl="flash"`: the
+no-cache causal attention through `ops/cuda/flash_gqa.py` (its kernel on
+the card, its plain version on the CPU), where JAX's runs `flash_gqa`
+through `ops/pallas/flash_wrapper.py`.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Any, Optional
 import torch
 
 from .. import resolve_device
+from ..ops.cuda import flash_gqa
 from ..quant import quantizer as Q
 from ..quant.config import QuantizeConfig
 from ..quant.quantizer import QuantizerConfig, QuantizerState
@@ -36,14 +39,20 @@ QuantState = dict
 
 @dataclasses.dataclass(frozen=True)
 class RopeScaling:
-    """HF `rope_scaling`: llama3 (transformers `_compute_llama3_parameters`).
-    Yarn comes with the MoE-families slice."""
+    """HF `rope_scaling`: llama3 (transformers `_compute_llama3_parameters`)
+    or yarn (`_compute_yarn_parameters`: NTK-by-parts between the beta_fast
+    and beta_slow correction dims, and the 0.1 ln(factor) + 1 temperature
+    on cos / sin)."""
 
     rope_type: str = "llama3"
     factor: float = 8.0
     low_freq_factor: float = 1.0
     high_freq_factor: float = 4.0
     original_max_position_embeddings: int = 8192
+    attention_factor: Optional[float] = None  # yarn only, as the rest below
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    truncate: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +69,13 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     tie_word_embeddings: bool = False
     max_position_embeddings: int = 4096
+    attention_bias: bool = False  # Qwen2: q/k/v biases
+    qk_norm: bool = False  # Qwen3: per-head RMSNorm of q and k before rope
+    norm_type: str = "rmsnorm"  # "rmsnorm" | "layernorm" (DBRX)
+    clip_qkv: Optional[float] = None  # DBRX: q/k/v clamped to +-clip_qkv
+    # "einsum", or "flash": the no-cache causal attention through the flash
+    # kernel (a cached forward or an explicit mask keeps the einsum)
+    attn_impl: str = "einsum"
     dtype: Any = torch.bfloat16
 
     @property
@@ -131,6 +147,12 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, device=None) -> Pa
         for i in range(L):  # one layer's f32 transient at a time
             stacked[i] = winit((o, inp), inp)
         layers[name] = stacked
+    if cfg.attention_bias:
+        for name in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"):
+            layers[name + "__bias"] = torch.zeros((L, _layer_shapes(cfg)[name][0]), dtype=cfg.dtype, device=dev)
+    if cfg.qk_norm:
+        layers["self_attn.q_norm"] = torch.ones((L, cfg.hd), dtype=cfg.dtype, device=dev)
+        layers["self_attn.k_norm"] = torch.ones((L, cfg.hd), dtype=cfg.dtype, device=dev)
     params: Params = {
         "embed_tokens": winit((cfg.vocab_size, h), h),
         "layers": layers,
@@ -139,6 +161,24 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, device=None) -> Pa
     if not cfg.tie_word_embeddings:
         params["lm_head"] = winit((cfg.vocab_size, h), h)
     return params
+
+
+def param_specs(cfg: LlamaConfig) -> dict:
+    """The JAX package's PartitionSpecs as tuples of mesh-axis names (None:
+    not sharded): megatron column / row parallel over "tensor". Tensor
+    parallelism itself comes with ROADMAP queue 1 item 7; this is the
+    layout it will shard by."""
+    col, row = (None, "tensor", None), (None, None, "tensor")
+    layers = {"input_layernorm": (None, None), "post_attention_layernorm": (None, None),
+              "self_attn.q_proj": col, "self_attn.k_proj": col, "self_attn.v_proj": col,
+              "self_attn.o_proj": row, "mlp.gate_proj": col, "mlp.up_proj": col, "mlp.down_proj": row}
+    if cfg.attention_bias:
+        for name in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"):
+            layers[name + "__bias"] = (None, "tensor")
+    if cfg.qk_norm:
+        layers["self_attn.q_norm"] = layers["self_attn.k_norm"] = (None, None)
+    return {"embed_tokens": ("tensor", None), "layers": layers, "norm": (None,),
+            **({} if cfg.tie_word_embeddings else {"lm_head": ("tensor", None)})}
 
 
 # --------------------------------------------------------------------------
@@ -255,18 +295,45 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Bias-free LayerNorm (DBRX's blocks)."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
 def norm(cfg, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Config-selected block norm (RMSNorm for Llama)."""
-    return rms_norm(x, w, cfg.rms_norm_eps)
+    """Config-selected block norm: RMSNorm, or LayerNorm for DBRX."""
+    return (layer_norm if cfg.norm_type == "layernorm" else rms_norm)(x, w, cfg.rms_norm_eps)
 
 
 def rope_freqs(hd: int, theta: float, scaling: Optional[RopeScaling] = None, device=None):
-    """Per-pair inverse frequencies and the cos/sin attention factor."""
+    """Per-pair inverse frequencies and the cos/sin attention factor, with
+    the llama3 or yarn scaling applied."""
     half = hd // 2
     freqs = torch.exp(-math.log(theta) * torch.arange(0, half, dtype=torch.float32, device=device) / half)
-    if scaling is not None:
-        if scaling.rope_type != "llama3":
-            raise NotImplementedError(f"rope_scaling {scaling.rope_type!r} comes with the MoE-families slice")
+    attn_factor = 1.0
+    if scaling is not None and scaling.rope_type not in ("llama3", "yarn"):
+        raise NotImplementedError(f"rope_scaling {scaling.rope_type!r}: llama3 and yarn are the JAX package's")
+    if scaling is not None and scaling.rope_type == "yarn":
+        orig = scaling.original_max_position_embeddings
+
+        def corr_dim(n_rot):
+            return (hd * math.log(orig / (n_rot * 2 * math.pi))) / (2 * math.log(theta))
+
+        low, high = corr_dim(scaling.beta_fast), corr_dim(scaling.beta_slow)
+        if scaling.truncate:
+            low, high = math.floor(low), math.ceil(high)
+        low, high = max(low, 0.0), min(high, hd - 1)
+        if low == high:
+            high += 0.001
+        ramp = torch.clamp((torch.arange(half, dtype=torch.float32, device=device) - low) / (high - low), 0.0, 1.0)
+        extrap_w = 1.0 - ramp
+        freqs = (freqs / scaling.factor) * (1.0 - extrap_w) + freqs * extrap_w
+        attn_factor = (scaling.attention_factor if scaling.attention_factor is not None
+                       else (0.1 * math.log(scaling.factor) + 1.0 if scaling.factor > 1 else 1.0))
+    if scaling is not None and scaling.rope_type == "llama3":
         wavelen = 2.0 * math.pi / freqs
         low_wl = scaling.original_max_position_embeddings / scaling.low_freq_factor
         high_wl = scaling.original_max_position_embeddings / scaling.high_freq_factor
@@ -275,7 +342,7 @@ def rope_freqs(hd: int, theta: float, scaling: Optional[RopeScaling] = None, dev
         interp = (1.0 - smooth) * freqs / scaling.factor + smooth * freqs
         freqs = torch.where(wavelen > low_wl, freqs / scaling.factor,
                             torch.where(wavelen < high_wl, freqs, interp))
-    return freqs, 1.0
+    return freqs, attn_factor
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
@@ -302,8 +369,8 @@ def _qsite(x, site_cfg: QuantizerConfig, st, calib: bool):
     return Q.quantize(x, site_cfg, st), st
 
 
-def _linear(x, w, name, layout: QuantLayout, lstate, calib, adapters=None):
-    """Quantized linear: y = q_in(x) @ q_w(w)^T (QuantLinear analog).
+def _linear(x, w, name, layout: QuantLayout, lstate, calib, adapters=None, bias=None):
+    """Quantized linear: y = q_in(x) @ q_w(w)^T (+ bias) (QuantLinear analog).
 
     `adapters` optionally carries this layer's LoRA factors {name: {"A" [r,
     K], "B" [O, r], "scale" []}}: (x @ A^T) @ B^T * scale is added on the
@@ -322,6 +389,8 @@ def _linear(x, w, name, layout: QuantLayout, lstate, calib, adapters=None):
         else:
             w_eff = Q.quantize(w, wcfg, wst)
     y = x @ w_eff.t().to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
     if adapters is not None and name in adapters:
         ad = adapters[name]
         lo = (x @ ad["A"].t().to(x.dtype)) @ ad["B"].t().to(x.dtype)
@@ -329,20 +398,37 @@ def _linear(x, w, name, layout: QuantLayout, lstate, calib, adapters=None):
     return y, (sub if sub else None)
 
 
-def _attention(cfg, x, lp, lstate, layout, positions, mask, calib, adapters=None):
-    """-> (out, new_state, ctx): ctx is the o_proj input."""
+def _write_at(cache: torch.Tensor, rows: torch.Tensor, pos) -> torch.Tensor:
+    """cache [B, S, ...] with rows [B, T, ...] at pos .. pos + T - 1 (a new
+    tensor: JAX's dynamic_update_slice)."""
+    out = cache.clone()
+    out[:, int(pos): int(pos) + rows.shape[1]] = rows.to(cache.dtype)
+    return out
+
+
+def _attention(cfg, x, lp, lstate, layout, positions, mask, calib, adapters=None, cache_kv=None):
+    """-> (out, new_state, ctx, new_cache): ctx is the o_proj input;
+    `cache_kv` (k [B, S, n_kv, hd], v, pos) is written at pos and attended
+    over whole (new_cache its (k, v)), else None."""
     nH, nKV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
     B, T, _ = x.shape
     new_state = {}
     proj = {}
     for p in ("q", "k", "v"):
         name = f"self_attn.{p}_proj"
-        proj[p], s = _linear(x, lp[name], name, layout, lstate, calib, adapters)
+        proj[p], s = _linear(x, lp[name], name, layout, lstate, calib, adapters, lp.get(name + "__bias"))
         if s:
             new_state[name] = s
-    q = rope(proj["q"].reshape(B, T, nH, hd), positions, cfg.rope_theta, cfg.rope_scaling)
-    k = rope(proj["k"].reshape(B, T, nKV, hd), positions, cfg.rope_theta, cfg.rope_scaling)
+    if cfg.clip_qkv is not None:  # DBRX clamps the fused qkv output; elementwise, so each split alike
+        proj = {p: torch.clamp(t, -cfg.clip_qkv, cfg.clip_qkv) for p, t in proj.items()}
+    q = proj["q"].reshape(B, T, nH, hd)
+    k = proj["k"].reshape(B, T, nKV, hd)
     v = proj["v"].reshape(B, T, nKV, hd)
+    if cfg.qk_norm:  # Qwen3: per-head RMSNorm before rope
+        q = rms_norm(q, lp["self_attn.q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, lp["self_attn.k_norm"], cfg.rms_norm_eps)
+    q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+    k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
     # KV-cache quantizer sites, post-rope
     k, kst = _qsite(k, layout.get("self_attn.k_bmm"), (lstate or {}).get("self_attn.k_bmm"), calib)
     if kst is not None:
@@ -350,17 +436,29 @@ def _attention(cfg, x, lp, lstate, layout, positions, mask, calib, adapters=None
     v, vst = _qsite(v, layout.get("self_attn.v_bmm"), (lstate or {}).get("self_attn.v_bmm"), calib)
     if vst is not None:
         new_state["self_attn.v_bmm"] = vst
-    rep = nH // nKV
-    k_all = torch.repeat_interleave(k, rep, dim=2)
-    v_all = torch.repeat_interleave(v, rep, dim=2)
-    scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k_all.float())
-    scores = scores / math.sqrt(hd) + mask
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bnqk,bknd->bqnd", probs, v_all).reshape(B, T, nH * hd)
-    out, s = _linear(ctx, lp["self_attn.o_proj"], "self_attn.o_proj", layout, lstate, calib, adapters)
+    new_cache = None
+    if cache_kv is not None:
+        ck, cv, pos = cache_kv
+        k_all, v_all = _write_at(ck, k, pos), _write_at(cv, v, pos)
+        new_cache = (k_all, v_all)
+    else:
+        k_all, v_all = k, v
+    if cache_kv is None and cfg.attn_impl == "flash":
+        ctx = flash_gqa.flash_attention_gqa(q.transpose(1, 2), k_all.transpose(1, 2), v_all.transpose(1, 2), True)
+        ctx = ctx.transpose(1, 2).reshape(B, T, nH * hd).to(x.dtype)
+    else:
+        rep = nH // nKV
+        k_all = torch.repeat_interleave(k_all, rep, dim=2)
+        v_all = torch.repeat_interleave(v_all, rep, dim=2)
+        scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k_all.float())
+        scores = scores / math.sqrt(hd) + mask
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bnqk,bknd->bqnd", probs, v_all.to(x.dtype)).reshape(B, T, nH * hd)
+    out, s = _linear(ctx, lp["self_attn.o_proj"], "self_attn.o_proj", layout, lstate, calib, adapters,
+                     lp.get("self_attn.o_proj__bias"))
     if s:
         new_state["self_attn.o_proj"] = s
-    return out, new_state, ctx
+    return out, new_state, ctx, new_cache
 
 
 def _mlp(x, lp, lstate, layout, calib, adapters=None):
@@ -386,16 +484,21 @@ def _grab(x: torch.Tensor, n_tokens: int) -> torch.Tensor:
     return flat[: min(n_tokens, flat.shape[0])]
 
 
+def _decoder_layer(cfg, layout, calib, x, lp, lstate, positions, mask, adapters=None, cache_kv=None):
+    """One decoder layer -> (x_out, emitted state, taps, new (k, v) or None)."""
+    h = norm(cfg, x, lp["input_layernorm"])
+    attn, st_a, o_in, new_cache = _attention(cfg, h, lp, lstate, layout, positions, mask, calib, adapters, cache_kv)
+    x = x + attn
+    h2 = norm(cfg, x, lp["post_attention_layernorm"])
+    mlp_out, st_m, down_in = _mlp(h2, lp, lstate, layout, calib, adapters)
+    return x + mlp_out, {**st_a, **st_m}, (h, o_in, h2, down_in), new_cache
+
+
 def decoder_layer(cfg: LlamaConfig, layout: QuantLayout, calib: bool, x: torch.Tensor, lp: dict, lstate,
                   positions: torch.Tensor, mask: torch.Tensor, adapters: Optional[dict] = None):
     """One decoder layer -> (x_out, the layer's emitted state, (h, o_in, h2,
     down_in)): the inputs of its projections, for the captures."""
-    h = norm(cfg, x, lp["input_layernorm"])
-    attn, st_a, o_in = _attention(cfg, h, lp, lstate, layout, positions, mask, calib, adapters)
-    x = x + attn
-    h2 = norm(cfg, x, lp["post_attention_layernorm"])
-    mlp_out, st_m, down_in = _mlp(h2, lp, lstate, layout, calib, adapters)
-    return x + mlp_out, {**st_a, **st_m}, (h, o_in, h2, down_in)
+    return _decoder_layer(cfg, layout, calib, x, lp, lstate, positions, mask, adapters)[:3]
 
 
 def causal_mask(T: int, device) -> torch.Tensor:
@@ -404,51 +507,81 @@ def causal_mask(T: int, device) -> torch.Tensor:
     return torch.where(ar[None, :] <= ar[:, None], 0.0, -1e9).float()[None, None]
 
 
+def cache_mask(S: int, positions: torch.Tensor) -> torch.Tensor:
+    """[1, 1, T, S] additive mask of a cached forward: query t (at
+    positions[0, t]) sees keys at positions <= its own."""
+    kpos = torch.arange(S, device=positions.device)[None, :]
+    return torch.where(kpos <= positions[0][:, None], 0.0, -1e9).float()[None, None]
+
+
 GLOBAL_SITES = ("lm_head", "embed_tokens")
 CAPTURE_KEYS = ("attn_in", "o_in", "mlp_in", "down_in")  # the capture points of a decoder layer
 
 
-def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
+def _positions(B: int, T: int, cache, device) -> torch.Tensor:
+    start = int(cache["pos"]) if cache is not None else 0
+    return (start + torch.arange(T, device=device, dtype=torch.int32))[None, :].expand(B, T)
+
+
+def forward(cfg: LlamaConfig, params: Params, tokens: Optional[torch.Tensor], *,
             layout: Optional[QuantLayout] = None, qstate: Optional[QuantState] = None,
-            calib: bool = False, cache: Optional[dict] = None, capture_tokens: int = 0,
-            adapters: Optional[dict] = None):
-    """Forward pass -> (logits f32 [B, T, V], new_qstate, None), or with
-    `capture_tokens > 0` (logits, new_qstate, None, captures): captures maps
-    "attn_in", "o_in", "mlp_in", "down_in" to stacked [L, n_tokens, d]
+            calib: bool = False, cache: Optional[dict] = None, positions: Optional[torch.Tensor] = None,
+            capture_tokens: int = 0, adapters: Optional[dict] = None, mask: Optional[torch.Tensor] = None,
+            input_embeds: Optional[torch.Tensor] = None):
+    """Forward pass -> (logits f32 [B, T, V], new_qstate, new_cache), or with
+    `capture_tokens > 0` (logits, new_qstate, new_cache, captures): captures
+    maps "attn_in", "o_in", "mlp_in", "down_in" to stacked [L, n_tokens, d]
     inputs of the projections.
 
     `layout=None` runs the plain model; `calib=True` runs unquantized while
     collecting amax into the returned qstate. `adapters` {name: {"A" [L, r,
     K], "B" [L, O, r], "scale" [L]}} adds each projection's LoRA branch.
+    `cache` ({"k", "v" [L, B, S, n_kv, hd], "pos"}, `init_cache`) runs the
+    cached forward: the tokens' k/v land at rows pos .. pos + T - 1 and each
+    query attends to the rows at or before its position; the new cache is
+    returned (the given one is not written). `mask` ([1, 1, T, S] additive)
+    overrides the causal mask (and keeps the einsum attention);
+    `input_embeds` [B, T, H] replaces the token lookup.
     """
-    if cache is not None:
-        raise NotImplementedError(
-            "the cached llama forward comes with a later slice; serving uses serve.engine")
     layout = layout or QuantLayout(sites=())
-    B, T = tokens.shape
-    dev = tokens.device
-    positions = torch.arange(T, device=dev, dtype=torch.int32)[None, :].expand(B, T)
+    B, T = input_embeds.shape[:2] if input_embeds is not None else tokens.shape
+    dev = input_embeds.device if input_embeds is not None else tokens.device
+    if positions is None:
+        positions = _positions(B, T, cache, dev)
 
     ew_cfg = layout.get("embed_tokens.weight")
     ew_state = (qstate or {}).get("embed_tokens.weight")
-    emb_w = params["embed_tokens"]
-    if ew_cfg.enable and not calib:
-        emb_w = Q.quantize(emb_w, ew_cfg, ew_state)
-    x = emb_w[tokens].to(cfg.dtype)
+    if input_embeds is not None:
+        x = input_embeds.to(cfg.dtype)
+    else:
+        emb_w = params["embed_tokens"]
+        if ew_cfg.enable and not calib:
+            emb_w = Q.quantize(emb_w, ew_cfg, ew_state)
+        x = emb_w[tokens].to(cfg.dtype)
 
-    mask = causal_mask(T, dev)
+    if mask is not None:
+        if cfg.attn_impl == "flash":  # a non-causal mask cannot take the flash path
+            cfg = dataclasses.replace(cfg, attn_impl="einsum")
+    elif cache is not None:
+        mask = cache_mask(cache["k"].shape[2], positions)
+    else:
+        mask = causal_mask(T, dev)
 
     per_layer_state = {k: v for k, v in (qstate or {}).items()
                        if not k.startswith(GLOBAL_SITES)} or None
     layers = params["layers"]
-    emitted = []
+    emitted, new_k, new_v = [], [], []
     captures: dict = {k: [] for k in CAPTURE_KEYS} if capture_tokens else {}
     for i in range(cfg.num_hidden_layers):
         lp = {k: v[i] for k, v in layers.items()}
         lstate = slice_state(per_layer_state, i)
         ad = None if adapters is None else {n: {k: a[i] for k, a in f.items()} for n, f in adapters.items()}
-        x, st, taps = decoder_layer(cfg, layout, calib, x, lp, lstate, positions, mask, ad)
+        ckv = None if cache is None else (cache["k"][i], cache["v"][i], cache["pos"])
+        x, st, taps, kv = _decoder_layer(cfg, layout, calib, x, lp, lstate, positions, mask, ad, ckv)
         emitted.append(st)
+        if kv is not None:
+            new_k.append(kv[0])
+            new_v.append(kv[1])
         if capture_tokens:
             for k, t in zip(CAPTURE_KEYS, taps):
                 captures[k].append(_grab(t, capture_tokens))
@@ -470,7 +603,55 @@ def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
     elif ew_cfg.enable:
         new_qstate["embed_tokens.weight"] = ew_state
     logits = (x @ head_w.t().to(x.dtype)).float()
+    new_cache = None
+    if cache is not None:
+        new_cache = {"k": torch.stack(new_k), "v": torch.stack(new_v), "pos": cache["pos"] + T}
     out_qstate = new_qstate if (calib or qstate) else None
     if capture_tokens:
-        return logits, out_qstate, None, {k: torch.stack(v) for k, v in captures.items()}
-    return logits, out_qstate, None
+        return logits, out_qstate, new_cache, {k: torch.stack(v) for k, v in captures.items()}
+    return logits, out_qstate, new_cache
+
+
+def slice_layer(tree, i: int):
+    """Layer `i` of a stacked [L, ...] tree of tensors."""
+    if isinstance(tree, dict):
+        return {k: slice_layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def forward_unrolled(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, layer_layouts: list,
+                     qstate_list: Optional[list] = None, calib: bool = False, cache: Optional[dict] = None):
+    """Forward with a distinct quant layout per layer (an AutoQuantize
+    result); quantizer state is a per-layer list. Returns (logits,
+    new_states), or with `cache` (`forward`'s dict) (logits, new_states,
+    new_cache)."""
+    B, T = tokens.shape
+    positions = _positions(B, T, cache, tokens.device)
+    x = params["embed_tokens"][tokens].to(cfg.dtype)
+    mask = cache_mask(cache["k"].shape[2], positions) if cache is not None else causal_mask(T, tokens.device)
+    new_states, new_k, new_v = [], [], []
+    for i in range(cfg.num_hidden_layers):
+        lp = slice_layer(params["layers"], i)
+        ckv = None if cache is None else (cache["k"][i], cache["v"][i], cache["pos"])
+        x, st, _, kv = _decoder_layer(cfg, layer_layouts[i], calib, x, lp,
+                                      qstate_list[i] if qstate_list else None, positions, mask, None, ckv)
+        new_states.append(st)
+        if kv is not None:
+            new_k.append(kv[0])
+            new_v.append(kv[1])
+    x = norm(cfg, x, params["norm"])
+    head_w = params.get("lm_head", params["embed_tokens"])
+    logits = (x @ head_w.t().to(x.dtype)).float()
+    if cache is not None:
+        return logits, new_states, {"k": torch.stack(new_k), "v": torch.stack(new_v), "pos": cache["pos"] + T}
+    return logits, new_states
+
+
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None, device=None) -> dict:
+    """The cached forward's cache: {"k", "v" [L, B, max_len, n_kv, hd]
+    zeros, "pos" a 0-d int32 tensor}."""
+    dev = resolve_device(device)
+    shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype or cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype or cfg.dtype, device=dev),
+            "pos": torch.zeros((), dtype=torch.int32, device=dev)}

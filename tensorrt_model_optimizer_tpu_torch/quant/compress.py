@@ -233,7 +233,7 @@ class CompressedModel:
     @property
     def packed_bytes(self) -> int:
         total = 0
-        for name in llama.PROJ_NAMES:
+        for name in self.kinds:
             for a in self.params["layers"][name].values():
                 if isinstance(a, torch.Tensor):
                     total += a.numel() * a.element_size()
@@ -250,18 +250,36 @@ def _stack_arrays(per_layer: list[dict]) -> dict:
                 else per_layer[0][k]) for k in per_layer[0]}
 
 
+def weight_sites(layers: dict) -> list[str]:
+    """The packed weight sites of a model's layers: llama's projections and
+    MoE expert stacks ("moe.*" / "shared.*" gate, up and down); routers,
+    norms and biases are not among them."""
+    names = [n for n in llama.PROJ_NAMES if n in layers]
+    return names + [n for n in layers if n.split(".")[0] in ("moe", "shared")
+                    and n.endswith(("gate_proj", "up_proj", "down_proj"))]
+
+
 @torch.no_grad()
 def compress(model: QuantizedModel) -> CompressedModel:
-    """Pack every projection weight per its calibrated quantizer, one layer
-    at a time (an 8B layer's f32 transients, not the whole stack's)."""
+    """Pack every weight site the layout declares (`weight_sites`) per its
+    calibrated quantizer, one layer (and expert) at a time: an 8B layer's
+    f32 transients, not the whole stack's. Expert stacks [L, E, O, K] pack
+    per expert under its own state; the packs are JAX's by value."""
     new_layers = dict(model.params["layers"])
     kinds = {}
     L = model.model_cfg.num_hidden_layers
-    for name in llama.PROJ_NAMES:
+    for name in weight_sites(model.params["layers"]):
         wcfg = model.layout.get(f"{name}.weight")
         st = model.qstate.get(name, {}).get("weight")
         w = model.params["layers"][name]
-        outs = [compress_weight(w[i], wcfg, llama.slice_state(st, i)) for i in range(L)]
+        outs = []
+        for i in range(L):
+            sti = llama.slice_state(st, i)
+            if w.ndim == 4:
+                per = [compress_weight(w[i, e], wcfg, llama.slice_state(sti, e)) for e in range(w.shape[1])]
+                outs.append((per[0][0], _stack_arrays([a for _, a in per])))
+            else:
+                outs.append(compress_weight(w[i], wcfg, sti))
         kinds[name] = outs[0][0]
         new_layers[name] = _stack_arrays([a for _, a in outs])
     params = dict(model.params)
@@ -346,8 +364,14 @@ def convert_packed_layouts(cm: CompressedModel, nvfp4: str = "word2", int4: str 
     for name, kind in cm.kinds.items():
         if kind not in want:
             continue
-        outs = [word_convert_site(kind, layer_arrays(cm.params["layers"][name], i), want[kind])
-                for i in range(L)]
+        outs = []
+        for i in range(L):
+            arr = layer_arrays(cm.params["layers"][name], i)
+            if arr["packed"].ndim == 3:  # an expert stack: each expert its own site
+                conv = [word_convert_site(kind, layer_arrays(arr, e), want[kind]) for e in range(arr["packed"].shape[0])]
+                outs.append((conv[0][0], _stack_arrays([a for _, a in conv])))
+            else:
+                outs.append(word_convert_site(kind, arr, want[kind]))
         kinds[name] = outs[0][0]
         new_layers[name] = _stack_arrays([a for _, a in outs])
     params = dict(cm.params)

@@ -65,8 +65,12 @@ class QuantizedModel:
     qstate: llama.QuantState
     quant_cfg: QuantizeConfig
     adapters: Optional[dict] = None
+    # another family's forward (`quantize_family` sets it); adapters are llama's only
+    forward_fn: Optional[object] = None
 
     def forward(self, tokens, **kw):
+        if self.forward_fn is not None:
+            return self.forward_fn(self.model_cfg, self.params, tokens, layout=self.layout, qstate=self.qstate, **kw)
         return llama.forward(self.model_cfg, self.params, tokens, layout=self.layout,
                              qstate=self.qstate, adapters=self.adapters, **kw)
 
@@ -499,6 +503,150 @@ def _mse_refine_weights(model_cfg, params, layout, qstate):
         sub["weight"] = _refined(st, best)
         qstate[name] = sub
     return qstate
+
+
+# --------------------------------------------------------------------------
+# Registry families (MoE)
+# --------------------------------------------------------------------------
+
+# A family's shared-input capture groups: every member consumes the group's
+# captured tensor; expert stacks [L, E, O, K] fold E into the rows, so a
+# layer's experts share one migration scale
+FAMILY_CAPTURE_GROUPS = {
+    "attn_in": ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
+    "moe_in": ("moe.gate_proj", "moe.up_proj", "shared.gate_proj", "shared.up_proj"),
+}
+
+
+def _family_samples(fam, model_cfg, params, layout, qstate, batches, capture_tokens):
+    """(|x| mean, |x| max, samples) per capture key of the family's forward,
+    as `_capture_stats` takes them from llama's."""
+    absmean, amax, xs, n = {}, {}, {}, 0
+    for b in batches:
+        caps = fam.forward(model_cfg, params, b, layout=layout, qstate=qstate, calib=True,
+                           capture_tokens=capture_tokens)[2]
+        for key, x in caps.items():
+            x32 = torch.abs(x.float())
+            m, a = torch.mean(x32, dim=1), torch.amax(x32, dim=1)
+            absmean[key] = m if key not in absmean else (absmean[key] * n + m) / (n + 1)
+            amax[key] = a if key not in amax else torch.maximum(amax[key], a)
+            xs.setdefault(key, [])
+            if len(xs[key]) < MAX_CAPTURES:
+                xs[key].append(x)
+        n += 1
+    return absmean, amax, {k: torch.cat(v, dim=1) for k, v in xs.items() if v}
+
+
+def _sequential_calibrate_family(fam, model_cfg, params, layout, qstate, batches, algo, capture_tokens):
+    """SmoothQuant / AWQ-lite over the family's capture groups, a layer at a
+    time (`_sequential_calibrate`'s rule); a layer's expert stack is one
+    [E * O, K] weight of the group, so its experts share the scale."""
+    method = _method_of(algo)
+    absmean, amax, samples = _family_samples(fam, model_cfg, params, layout, qstate, batches, capture_tokens)
+    new_layers = dict(params["layers"])
+    qstate = dict(qstate)
+    L = model_cfg.num_hidden_layers
+    for cap_key, group in FAMILY_CAPTURE_GROUPS.items():
+        members = [m for m in group if m in new_layers]
+        if cap_key not in samples or not members:
+            continue
+        wcfgs = [layout.get(f"{m}.weight") for m in members]
+        if not any(c.enable for c in wcfgs):
+            continue
+        qfns = _weight_qfns(wcfgs)
+        folded = [torch.empty_like(new_layers[m]) for m in members]
+        pqs = []
+        for i in range(L):
+            ws = [new_layers[m][i].reshape(-1, new_layers[m].shape[-1]) for m in members]
+            if method == "smoothquant":
+                alpha = _opt(algo, "alpha", 1.0)
+                if alpha in ("auto", "auto_layer"):
+                    fw, p, _ = sq_mod.smoothquant_auto(samples[cap_key][i:i + 1], amax[cap_key][i:i + 1],
+                                                       [w[None] for w in ws],
+                                                       [lambda w, f=f: f(w[0])[None] for f in qfns])
+                    fw, p = [w[0] for w in fw], p[0]
+                else:
+                    fw, p = sq_mod.apply_smoothquant(amax[cap_key][i], ws, alpha)
+            else:  # awq_lite / awq_full
+                _, sc = awq_mod.awq_lite_search(samples[cap_key][i], ws, qfns, absmean[cap_key][i],
+                                                _opt(algo, "alpha_step", 0.1))
+                fw, p = [(w.float() * sc[None, :]).to(w.dtype) for w in ws], 1.0 / sc
+            for dst, w in zip(folded, fw):
+                dst[i] = w.reshape(dst.shape[1:])
+            pqs.append(p)
+        for m, w in zip(members, folded):
+            new_layers[m] = w
+        _set_input_pqs(qstate, members, torch.stack(pqs))
+    return {**params, "layers": new_layers}, qstate
+
+
+def _gptq_calibrate_family(fam, model_cfg, params, layout, qstate, batches, algo, capture_tokens):
+    """GPTQ over the family's capture groups: every (layer, expert) weight
+    solved against the group's captured input, its amax pinned to the
+    original weights' grid."""
+    _, _, samples = _family_samples(fam, model_cfg, params, layout, qstate, batches, capture_tokens)
+    block = _opt(algo, "block_size", 128)
+    new_layers = dict(params["layers"])
+    qstate = dict(qstate)
+    for cap_key, group in FAMILY_CAPTURE_GROUPS.items():
+        if cap_key not in samples:
+            continue
+        X = samples[cap_key]
+        for m in group:
+            wcfg = layout.get(f"{m}.weight")
+            if m not in new_layers or not wcfg.enable:
+                continue
+            w = new_layers[m]
+            flat = w.reshape(-1, *w.shape[-2:])  # [L] or [L * E] weights
+            per_l = flat.shape[0] // w.shape[0]
+            amax = _pinned_amax(flat, wcfg)
+            sub = dict(qstate.get(m, {}))
+            amax = amax.reshape(w.shape[:-2] + amax.shape[1:])
+            sub["weight"] = sub.get("weight", Q.QuantizerState()).replace(
+                amax=(amax,) + (None,) * (len(wcfg.sequential) - 1) if wcfg.sequential else amax)
+            qstate[m] = sub
+            out = torch.empty_like(flat)
+            for j in range(flat.shape[0]):
+                out[j] = gptq_mod.gptq_calibrate_weight(flat[j], X[j // per_l], wcfg, block)
+            new_layers[m] = out.reshape(w.shape)
+    return {**params, "layers": new_layers}, qstate
+
+
+@torch.no_grad()
+def quantize_family(family, model_cfg, params, quant_cfg: QuantizeConfig | str,
+                    calib_batches: Optional[Iterable[torch.Tensor]] = None, capture_tokens: int = 128,
+                    device=None) -> QuantizedModel:
+    """PTQ for a registered model family (`models.registry`): the family's
+    layout, its calibration (max always; smoothquant, awq_lite / awq_full
+    and gptq through the shared-input capture groups), then max passes
+    through the family's forward, whose emitted state is the model's (one
+    dummy [1, 8] forward without batches, as JAX's). Other methods raise,
+    as JAX's do. The returned model's `forward` is the family's."""
+    from ..models import registry
+
+    dev = resolve_device(device)
+    fam = registry.get(family) if isinstance(family, str) else family
+    qcfg = get_preset(quant_cfg) if isinstance(quant_cfg, str) else quant_cfg
+    method = _method_of(qcfg.algorithm)
+    layout = fam.build_layout(model_cfg, qcfg)
+    qstate = fam.init_quant_state(model_cfg, layout, dev)
+    batches = [b.to(dev) for b in calib_batches] if calib_batches is not None else []
+    if method in ("smoothquant", "awq_lite", "awq_full", "gptq") and not batches:
+        raise ValueError(f"{method} calibration requires calib_batches")
+    if method in ("smoothquant", "awq_lite", "awq_full"):
+        params, qstate = _sequential_calibrate_family(fam, model_cfg, params, layout, qstate, batches,
+                                                      qcfg.algorithm, capture_tokens)
+    elif method == "gptq":
+        params, qstate = _gptq_calibrate_family(fam, model_cfg, params, layout, qstate, batches, qcfg.algorithm,
+                                                capture_tokens)
+    elif method != "max":
+        raise NotImplementedError(f"{method!r} calibration is llama-family only; family {fam.name!r} "
+                                  "supports max/smoothquant/awq_lite/gptq here")
+    for b in batches or [torch.zeros((1, 8), dtype=torch.int64, device=dev)]:
+        qstate = fam.forward(model_cfg, params, b, layout=layout, qstate=qstate, calib=True)[1]
+    for msg in _validate(qstate):
+        warnings.warn(f"quantizer validation: {msg}")
+    return QuantizedModel(model_cfg, params, layout, qstate, qcfg, forward_fn=fam.forward)
 
 
 # --------------------------------------------------------------------------

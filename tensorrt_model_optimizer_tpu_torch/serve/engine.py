@@ -79,8 +79,16 @@ layouts JAX computes with XLA, not Pallas; here too they are plain PyTorch:
 a dequantize and matmul (`int4x_matmul`, JAX's `qmm_int4_xla` step for step)
 and `int8_mm` under per-token int8 activations.
 
+MoE models (`models.mixtral`: Mixtral, Qwen3-MoE, DBRX) serve through every
+entry point: each layer's FFN routes its tokens to the experts (`_moe_ffn`),
+each expert's rows through the same GEMM kernels as the dense projections.
+At decode S is the batch (every slot under paging), so the capacity C =
+max(int(2 S k / E), 1) can be 1, and an expert then keeps only the first of
+the step's tokens that pick it, as JAX's does. Biases, DBRX's qkv clamp and
+Qwen3's per-head q/k norms apply where the model's layers carry them.
+
 Not ported (each raises `NotImplementedError` naming its slice): the
-tensor-parallel, MoE and speculative paths.
+tensor-parallel and speculative paths.
 """
 
 from __future__ import annotations
@@ -95,7 +103,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models import llama
+from ..models import llama, mixtral
 from ..ops.cuda import flash_gqa as flash_mod
 from ..ops import numerics
 from ..ops.cuda import kv_attention as kva
@@ -214,6 +222,13 @@ def _int8_acts(x: torch.Tensor, a_amax: torch.Tensor, lo: int):
     return torch.clamp(torch.round(x.float() / a_scale), lo, 127).to(torch.int8), a_scale
 
 
+def _token_int8_acts(x: torch.Tensor):
+    """W4A8's (and int8a8's) activations: per-token dynamic int8 codes of x
+    (any leading axes) under each row's amax / 127, clipped to +-127, and
+    the scale."""
+    return _int8_acts(x, torch.amax(torch.abs(x.float()), dim=-1, keepdim=True), -127)
+
+
 def _lora(x, y, adapter):
     """y plus the adapter's low-rank branch (x @ A^T) @ B^T * scale."""
     if adapter is None:
@@ -222,15 +237,19 @@ def _lora(x, y, adapter):
     return y + lo * adapter["scale"].to(y.dtype)
 
 
-def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, ops, adapter=None):
+def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, ops, adapter=None, skip_input_quant=False):
     """y = q_act(x) @ dequant(W)^T for x [N, K] (2-D), plus the adapter's
-    low-rank branch where there is one."""
+    low-rank branch where there is one. `skip_input_quant`: the caller has
+    applied the input quantizer (an expert block's one shared site), so
+    neither it nor its pre_quant_scale applies here."""
     icfg = cm.layout.get(f"{name}.input")
+    if skip_input_quant:
+        icfg, ist = Q.DISABLED, None
     if kind == "int4a8":
         # per-token dynamic int8 activations, clipped to +-127
         if ist is not None and ist.pre_quant_scale is not None:
             x = x * ist.pre_quant_scale.to(x.dtype)
-        x8, a_scale = _int8_acts(x, torch.amax(torch.abs(x.float()), dim=-1, keepdim=True), -127)
+        x8, a_scale = _token_int8_acts(x)
         y = ops["w4a8"](x8, arrays["packed"], arrays["scales"])
         return _lora(x, (y * a_scale).to(x.dtype), adapter)
     if kind == "int8" and icfg.enable and not icfg.is_fp:
@@ -251,7 +270,7 @@ def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, ops, adapter=None)
         # activations clipped to +-127; the input quantizer is not applied
         if ist is not None and ist.pre_quant_scale is not None:
             x = x * ist.pre_quant_scale.to(x.dtype)
-        x8, a_scale = _int8_acts(x, torch.amax(torch.abs(x.float()), dim=-1, keepdim=True), -127)
+        x8, a_scale = _token_int8_acts(x)
         y = int8_mm(x8, arrays["q"]).float() * a_scale * arrays["scale"].reshape(1, -1)
         return _lora(x, y.to(x.dtype), adapter)
     if icfg.enable or (ist is not None and ist.pre_quant_scale is not None):
@@ -375,31 +394,86 @@ def _kv_amax_from(qstate, which: str) -> Optional[torch.Tensor]:
     return a.reshape(a.shape[0], -1).amax(dim=-1)  # [L]
 
 
+def _expert_linear(x, name, kind, arrays, cm, ops):
+    """Every expert's projection at once: x [E, C, K] -> [E, C, O], each
+    expert's packed slice through `_qlinear` (the input quantizer already
+    applied). W4A8's per-token int8 activations and its output scale are
+    row-wise (`_token_int8_acts`, as `_qlinear` takes them), so they are
+    taken for all experts' rows in one pass and only the GEMM runs per
+    expert."""
+    E = x.shape[0]
+    if kind != "int4a8":
+        return torch.stack([_qlinear(x[e], name, kind, layer_arrays(arrays, e), cm, None, ops, skip_input_quant=True)
+                            for e in range(E)])
+    x8, a_scale = _token_int8_acts(x)
+    y = torch.stack([ops["w4a8"](x8[e], arrays["packed"][e], arrays["scales"][e]) for e in range(E)])
+    return (y * a_scale).to(x.dtype)
+
+
+def _moe_ffn(cfg, cm, h2, lp, lstate, kinds, ops):
+    """The routed-expert FFN on packed weights, h2 [S, H] -> [S, H]:
+    routing, dispatch and activation are the model's (`models.mixtral`), so
+    serving computes the calibrated forward's function; each expert's C
+    rows (C = max(int(capacity_factor S k / E), 1), JAX's) go through the
+    ported GEMMs (`_expert_linear`). Gate and up share one input quantizer,
+    applied once per expert's rows; down's input is not quantized."""
+    S, H = h2.shape
+    E, k = cfg.num_experts, cfg.top_k
+    topw, topi = mixtral.route(cfg, mixtral.router_logits(cfg, h2, lp))
+    d = mixtral.dispatch_combine(cfg, topw, topi, S, mixtral.capacity(cfg, S))
+    xe = mixtral.dispatch_tokens(d, h2, E)
+    ist = (lstate or {}).get("moe.gate_proj", {}).get("input")
+    icfg = cm.layout.get("moe.gate_proj.input")
+    if icfg.enable or (ist is not None and ist.pre_quant_scale is not None):
+        # one site for the block, quantized per expert's rows as JAX's
+        # engine does (a dynamic scale sees only that expert's rows)
+        xe = torch.stack([Q.quantize(xe[e], icfg, ist) for e in range(E)])
+
+    def lin(x, name):
+        y = _expert_linear(x, name, kinds[name], lp[name], cm, ops)
+        return y if not cfg.moe_bias else y + lp[name + "__bias"][:, None].to(y.dtype)
+
+    y = mixtral.expert_act(cfg, lin(xe, "moe.gate_proj"), lin(xe, "moe.up_proj")).to(h2.dtype)
+    return mixtral.combine_tokens(d, lin(y, "moe.down_proj"), S, k, h2.dtype)
+
+
+def _ffn(cfg, cm, h2, lp, lstate, kinds, ops, lin):
+    """The layer's FFN: routed experts where the layer has them, else the
+    dense MLP through `lin(x, name)`."""
+    if "moe.gate_proj" in lp:
+        return _moe_ffn(cfg, cm, h2, lp, lstate, kinds, ops)
+    y = (torch.nn.functional.silu(lin(h2, "mlp.gate_proj").float()) * lin(h2, "mlp.up_proj").float()).to(h2.dtype)
+    return lin(y, "mlp.down_proj")
+
+
 def _layer(cfg, cm, x, lp, lstate, kinds, positions, ops, attend, adapters=None):
-    """One decoder layer on packed weights: projections and rope, then
-    `attend(q [B, T, nH, hd], k, v [B, T, nKV, hd]) -> ctx [B*T, nH*hd]`,
-    then the output projection and the MLP. `adapters`: this layer's
-    low-rank branches by projection, or None."""
+    """One decoder layer on packed weights: projections (their biases, the
+    qkv clamp and the per-head q/k norms where the model has them) and
+    rope, then `attend(q [B, T, nH, hd], k, v [B, T, nKV, hd]) -> ctx
+    [B*T, nH*hd]`, then the output projection and the FFN. `adapters`:
+    this layer's low-rank branches by projection, or None."""
     B, T, H = x.shape
     hd, nH, nKV = cfg.hd, cfg.num_attention_heads, cfg.num_key_value_heads
 
     def lin(inp, name):
         ist = (lstate or {}).get(name, {}).get("input")
-        return _qlinear(inp, name, kinds[name], lp[name], cm, ist, ops, (adapters or {}).get(name))
+        y = _qlinear(inp, name, kinds[name], lp[name], cm, ist, ops, (adapters or {}).get(name))
+        return y if name + "__bias" not in lp else y + lp[name + "__bias"].to(y.dtype)
 
     h2 = llama.norm(cfg, x, lp["input_layernorm"]).reshape(B * T, H)
-    q = llama.rope(lin(h2, "self_attn.q_proj").reshape(B, T, nH, hd), positions,
-                   cfg.rope_theta, cfg.rope_scaling)
-    k = llama.rope(lin(h2, "self_attn.k_proj").reshape(B, T, nKV, hd), positions,
-                   cfg.rope_theta, cfg.rope_scaling)
-    v = lin(h2, "self_attn.v_proj").reshape(B, T, nKV, hd)
+    q, k, v = (lin(h2, f"self_attn.{p}_proj") for p in "qkv")
+    if cfg.clip_qkv is not None:
+        q, k, v = (torch.clamp(t, -cfg.clip_qkv, cfg.clip_qkv) for t in (q, k, v))
+    q, k, v = q.reshape(B, T, nH, hd), k.reshape(B, T, nKV, hd), v.reshape(B, T, nKV, hd)
+    if "self_attn.q_norm" in lp:
+        q = llama.rms_norm(q, lp["self_attn.q_norm"], cfg.rms_norm_eps)
+        k = llama.rms_norm(k, lp["self_attn.k_norm"], cfg.rms_norm_eps)
+    q = llama.rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+    k = llama.rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
     ctx = attend(q, k, v)
     x = x + lin(ctx, "self_attn.o_proj").reshape(B, T, H)
     h2 = llama.norm(cfg, x, lp["post_attention_layernorm"]).reshape(B * T, H)
-    g = lin(h2, "mlp.gate_proj")
-    u = lin(h2, "mlp.up_proj")
-    y = (torch.nn.functional.silu(g.float()) * u.float()).to(h2.dtype)
-    return x + lin(y, "mlp.down_proj").reshape(B, T, H)
+    return x + _ffn(cfg, cm, h2, lp, lstate, kinds, ops, lin).reshape(B, T, H)
 
 
 def _dense_attn(cfg, ecfg, q, k, v, ck, cv, cks, cvs, pos, ka, va, ops):

@@ -27,7 +27,14 @@ where the reference enables it with no amax; for NVFP4 that serves a
 weight-only checkpoint as W4A4 with a per-call activation amax, a function
 the exported model never computed.
 
-Not ported (raises `NotImplementedError` naming the slice): MoE checkpoints.
+MoE checkpoints (qwen3_moe, mixtral) load their router, Qwen3's q/k norms
+and every expert's weights into `[L, E, ...]` stacks, and the block's
+shared `input_scale` (expert 0's gate_proj) into the gate_proj input
+state, as the reference's loader does. One difference: INT4 (W4A16_AWQ,
+W4A8_AWQ) experts load here, where the reference's MoE branch raises ("not
+wired"); the conversion is the dense layers'. Qwen2's attention biases and
+Qwen3's q/k norms load wherever the checkpoint has them (the reference's
+dense branch leaves them out).
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ import torch
 
 from .. import resolve_device
 from ..export import hf_export
-from ..models import hf_loader, llama
+from ..models import hf_loader, llama, mixtral
 from ..quant import config as qconfig
 from ..quant import quantizer as Q
 from ..quant.compress import CompressedModel
@@ -88,6 +95,32 @@ def load_quantized_checkpoint(path: str, device=None) -> CompressedModel:
     return compressed_from_export(cfg_d, qc, hf_export.load_exported(path), device)
 
 
+def _site(algo: str, get) -> tuple[str, dict]:
+    """(kind, canonical arrays) of one projection's tensors of the export,
+    `get(suffix, fn)` stacking `fn` of each tensor over the leading (layer,
+    expert) dims."""
+    if algo == "NVFP4":
+        packed = get("weight", _adjacent_to_plane)
+        ws = get("weight_scale", lambda t: t)
+        O2 = packed.shape[-2]
+        return "nvfp4", {"packed": packed, "scale_lo": ws[..., :O2, :].contiguous(),
+                         "scale_hi": ws[..., O2:, :].contiguous(),
+                         "global_scale": get("weight_scale_2", lambda t: t.reshape(()).float())}
+    if algo in ("W4A16_AWQ", "W4A8_AWQ"):
+        packed = get("weight", _outpair_to_plane)
+        ws = get("weight_scale", lambda t: t.float())
+        O2 = packed.shape[-2]
+        return "int4", {"packed": packed, "scale_lo": ws[..., :O2, :].contiguous(),
+                        "scale_hi": ws[..., O2:, :].contiguous()}
+    if algo in ("FP8", "INT8", "W8A8_SQ_PER_CHANNEL"):
+        per_tensor = algo == "FP8"
+        return ("fp8" if per_tensor else "int8"), {
+            "q": get("weight", lambda t: t),
+            "scale": get("weight_scale", lambda t: t.float().reshape(-1, 1)[:1] if per_tensor
+                         else t.float().reshape(-1, 1))}
+    return "bf16", {"w": get("weight", lambda t: t)}  # NONE, and MXFP4's and MXFP8's fp16 grid values
+
+
 @torch.no_grad()
 def compressed_from_export(cfg_d: dict, qc: dict, tensors, device=None) -> CompressedModel:
     """The loader's conversion over any name -> tensor mapping of an export
@@ -95,9 +128,16 @@ def compressed_from_export(cfg_d: dict, qc: dict, tensors, device=None) -> Compr
     memory), with config.json's fields `cfg_d` and hf_quant_config's
     "quantization" `qc`."""
     dev = resolve_device(device)
-    if cfg_d.get("model_type") in ("qwen3_moe", "mixtral"):
-        raise NotImplementedError("MoE deploy loading comes with the MoE-families slice")
+    mt = cfg_d.get("model_type")
     cfg = hf_loader.config_from_hf(cfg_d)
+    is_moe = mt in ("qwen3_moe", "mixtral")
+    if is_moe:
+        cfg = mixtral.MixtralConfig(**{**cfg.__dict__,
+                                       "intermediate_size": cfg_d.get("moe_intermediate_size",
+                                                                      cfg_d["intermediate_size"]),
+                                       "num_experts": cfg_d.get("num_experts", cfg_d.get("num_local_experts")),
+                                       "top_k": cfg_d.get("num_experts_per_tok", 2),
+                                       "norm_topk_prob": cfg_d.get("norm_topk_prob", True)})
     algo = qc["quant_algo"].removesuffix("_SVDQUANT")  # SVDQuant: the base format plus the low-rank tensors
     if algo in _UNPORTED:
         raise NotImplementedError(f"loading a {algo} checkpoint comes with {_UNPORTED[algo]}")
@@ -110,35 +150,21 @@ def compressed_from_export(cfg_d: dict, qc: dict, tensors, device=None) -> Compr
         "input_layernorm": stack("model.layers.{i}.input_layernorm.weight").to(cfg.dtype),
         "post_attention_layernorm": stack("model.layers.{i}.post_attention_layernorm.weight").to(cfg.dtype),
     }
+    for ours, fmt in hf_loader.HF_NAMES.items():  # Qwen3's q/k norms, Qwen2's biases
+        if not ours.startswith(("self_attn.q_norm", "self_attn.k_norm")) and not ours.endswith("__bias"):
+            continue
+        if fmt.format(i=0) in tensors:
+            layers[ours] = stack(fmt).to(cfg.dtype)
     kinds: dict[str, str] = {}
     qstate: dict = {}
     adapters: dict = {}
     for name, hf_fmt in hf_export.PROJ_TO_HF.items():
+        if is_moe and name.startswith("mlp."):
+            continue  # an MoE checkpoint carries experts instead
         key = hf_fmt + ".{suffix}"
-        if algo == "NVFP4":
-            packed = stack(key.format(i="{i}", suffix="weight"), _adjacent_to_plane)
-            ws = stack(key.format(i="{i}", suffix="weight_scale"))
-            O2 = packed.shape[1]
-            layers[name] = {"packed": packed, "scale_lo": ws[:, :O2].contiguous(), "scale_hi": ws[:, O2:].contiguous(),
-                            "global_scale": stack(key.format(i="{i}", suffix="weight_scale_2"),
-                                                  lambda t: t.reshape(()).float())}
-            kinds[name] = "nvfp4"
-        elif algo in ("W4A16_AWQ", "W4A8_AWQ"):
-            packed = stack(key.format(i="{i}", suffix="weight"), _outpair_to_plane)
-            ws = stack(key.format(i="{i}", suffix="weight_scale")).float()
-            O2 = packed.shape[1]
-            layers[name] = {"packed": packed, "scale_lo": ws[:, :O2].contiguous(), "scale_hi": ws[:, O2:].contiguous()}
-            kinds[name] = "int4"
-        elif algo in ("FP8", "INT8", "W8A8_SQ_PER_CHANNEL"):
-            per_tensor = algo == "FP8"
-            layers[name] = {"q": stack(key.format(i="{i}", suffix="weight")),
-                            "scale": stack(key.format(i="{i}", suffix="weight_scale"),
-                                           lambda t: t.float().reshape(-1, 1)[:1] if per_tensor
-                                           else t.float().reshape(-1, 1))}
-            kinds[name] = "fp8" if per_tensor else "int8"
-        else:  # NONE, and MXFP4's and MXFP8's fp16 grid values
-            layers[name] = {"w": stack(key.format(i="{i}", suffix="weight")).to(cfg.dtype)}
-            kinds[name] = "bf16"
+        kinds[name], layers[name] = _site(algo, lambda suffix, fn: stack(key.format(i="{i}", suffix=suffix), fn))
+        if kinds[name] == "bf16":
+            layers[name]["w"] = layers[name]["w"].to(cfg.dtype)
         if hf_fmt.format(i=0) + ".svdquant_lora_a" in tensors:
             adapters[name] = {"A": stack(key.format(i="{i}", suffix="svdquant_lora_a")).to(cfg.dtype),
                               "B": stack(key.format(i="{i}", suffix="svdquant_lora_b")).to(cfg.dtype),
@@ -147,6 +173,21 @@ def compressed_from_export(cfg_d: dict, qc: dict, tensors, device=None) -> Compr
         if pqs in tensors:
             qstate.setdefault(name, {})["input"] = Q.QuantizerState(
                 pre_quant_scale=stack(key.format(i="{i}", suffix="pre_quant_scale")).float())
+    in_scale_fmts = {name: hf_fmt + ".input_scale" for name, hf_fmt in hf_export.PROJ_TO_HF.items()}
+    if is_moe:
+        router_fmt, exp_fmt, projs = hf_loader.moe_names(mt)
+        layers["moe.router"] = stack(router_fmt).to(cfg.dtype)
+        E = cfg.num_experts
+        for ours, theirs in projs.items():
+            def get(suffix, fn, theirs=theirs):
+                return torch.stack([torch.stack([fn(tensors[exp_fmt.format(i=i, e=e, proj=theirs) + "." + suffix]
+                                                    .to(dev)) for e in range(E)]) for i in range(L)])
+
+            kinds[ours], layers[ours] = _site(algo, get)
+            if kinds[ours] == "bf16":
+                layers[ours]["w"] = layers[ours]["w"].to(cfg.dtype)
+        # the experts share the block's input scale; expert 0's gate_proj carries it
+        in_scale_fmts["moe.gate_proj"] = exp_fmt.format(i="{i}", e=0, proj=projs["moe.gate_proj"]) + ".input_scale"
 
     params = {
         "embed_tokens": tensors["model.embed_tokens.weight"].to(dev).to(cfg.dtype),
@@ -157,20 +198,22 @@ def compressed_from_export(cfg_d: dict, qc: dict, tensors, device=None) -> Compr
         params["lm_head"] = tensors["lm_head.weight"].to(dev).to(cfg.dtype)
 
     preset = _LAYOUT_PRESET.get(algo)
-    layout = llama.build_layout(cfg, qconfig.get_preset(preset)) if preset else llama.QuantLayout(sites=())
+    build = mixtral.build_layout if is_moe else llama.build_layout
+    layout = build(cfg, qconfig.get_preset(preset)) if preset else llama.QuantLayout(sites=())
     # static input amax from input_scale; an input quantizer the checkpoint
     # has no scale for was off when it was exported
     sites = dict(layout.sites)
-    for name, hf_fmt in hf_export.PROJ_TO_HF.items():
+    for name, fmt in in_scale_fmts.items():
         icfg = layout.get(f"{name}.input")
-        if not icfg.enable or icfg.dynamic:
+        if not icfg.enable or icfg.dynamic or (is_moe and name.startswith("mlp.")):
             continue
-        if hf_fmt.format(i=0) + ".input_scale" not in tensors:
+        if fmt.format(i=0) not in tensors:
             sites[f"{name}.input"] = Q.DISABLED
             continue
         div = 6.0 * 448.0 if algo == "NVFP4" else (448.0 if icfg.is_fp else 127.0)
-        amax = stack(hf_fmt + ".input_scale", lambda t: t.reshape(()).float() * div)
+        amax = stack(fmt, lambda t: t.reshape(()).float() * div)
         sub = qstate.setdefault(name, {})
         sub["input"] = sub.get("input", Q.QuantizerState()).replace(amax=amax)
     layout = llama.QuantLayout(sites=tuple(sites.items()))
     return CompressedModel(cfg, params, kinds, layout, qstate, adapters or None)
+

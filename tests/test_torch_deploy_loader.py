@@ -200,8 +200,9 @@ def test_export_load_serve_correlates_with_fake_quant(exported, base, case):
 
 def test_unported_checkpoints_raise(base, tmp_path):
     """MXFP8 checkpoints load since the remaining-formats slice (its layout
-    and weights equal JAX's loader's: test_torch_layouts.py); a MoE
-    checkpoint still raises, naming its slice."""
+    and weights equal JAX's loader's: test_torch_layouts.py); MoE
+    checkpoints load since the MoE-families slice (test_torch_moe_deploy.py);
+    a GPT-OSS one still raises, naming its ROADMAP item."""
     jcfg, params, calib = base
     jm = jptq.quantize(jcfg, params, "MXFP8_DEFAULT_CFG", [jnp.asarray(calib)])
     jexport.export_hf_checkpoint(jm, str(tmp_path))
@@ -211,6 +212,61 @@ def test_unported_checkpoints_raise(base, tmp_path):
         cfg_d = json.load(f)
     with open(tmp_path / "hf_quant_config.json") as f:
         qc = json.load(f)["quantization"]
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tloader.compressed_from_export({**cfg_d, "model_type": "qwen3_moe"}, qc, {}, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tloader.compressed_from_export({**cfg_d, "model_type": "gpt_oss"}, qc, {}, device="cpu")
     assert tQ.DISABLED.enable is False
+
+
+def test_fp16_storage_moves_both_packages_logits_alike(tmp_path):
+    """The unified checkpoint stores embeddings, norms and lm_head in fp16
+    (the reference's `to_np16`): bf16 values below 2^-14 land on fp16's
+    subnormal grid. Here every embedding lies there (N(0, 1) * 1e-6: the
+    storage moves each by up to a few percent; the RMSNorm after it undoes
+    the scale, not the move) and lm_head spans 1e-8 .. 1e-1, so the loaded
+    model's logits move by ~2% of their scale, the size of the 1.5% an 8B
+    run read, and well above the 3e-3 the two packages' engines lie apart
+    on one model. Each package's loaded NVFP4 model (activation scales
+    calibrated) is held against its own in-memory `compress` model in its
+    int8-KV kernel engine (KV amax uncalibrated, 448): the loaded tensors
+    are bit-equal across the packages, and the two moves agree within a
+    tenth of the larger. So whatever the storage moves, it moves in the
+    reference too."""
+    jcfg = jllama.LlamaConfig.tiny(**{**DIMS, "num_hidden_layers": 1}, dtype=jnp.bfloat16)
+    pnp = llama_params_np(jcfg, seed=4)
+    rng = np.random.default_rng(5)
+    for name in ("embed_tokens", "lm_head"):
+        shape = pnp[name].shape
+        pnp[name] = (np.sign(rng.standard_normal(shape)) * 10.0 ** rng.uniform(-8, -1, shape)).astype(np.float32)
+    pnp["embed_tokens"] = (rng.standard_normal(pnp["embed_tokens"].shape) * 1e-6).astype(np.float32)
+    params = tree_map(lambda a: jnp.asarray(a).astype(jnp.bfloat16), pnp)
+    calib = np.random.default_rng(1).integers(0, 256, size=(2, 16)).astype(np.int32)
+    prompt = calib[:, :8]
+    jm = jptq.quantize(jcfg, params, "NVFP4_DEFAULT_CFG", [jnp.asarray(calib)])
+    jexport.export_hf_checkpoint(jm, str(tmp_path))
+    from tensorrt_model_optimizer_tpu.quant import compress as jcompress
+    from tensorrt_model_optimizer_tpu.serve import engine as jengine
+
+    def jlogits(cm):
+        eng = jengine.Engine(cm, jengine.EngineConfig(max_seq_len=16, backend="xla", kv_dtype=jnp.int8,
+                                                      kv_attention_kernel=True))
+        return np.asarray(eng.prefill(jnp.asarray(prompt), eng.init_cache(2))[0], np.float32)
+
+    def tlogits(cm):
+        eng = tengine.Engine(cm, tengine.EngineConfig(max_seq_len=16, kv_dtype=torch.int8, kv_attention_kernel=True),
+                             device="cpu")
+        return eng.prefill(torch.from_numpy(prompt), eng.init_cache(2)).numpy()
+
+    def share(a, b):
+        return float(np.median(np.abs(a - b).max(-1) / np.abs(b).max(-1)))
+
+    jl = jloader.load_quantized_checkpoint(str(tmp_path))
+    tl = tloader.load_quantized_checkpoint(str(tmp_path), device="cpu")
+    for name in ("embed_tokens", "lm_head"):
+        assert tl.params[name].dtype == torch.bfloat16
+        np.testing.assert_array_equal(tl.params[name].view(torch.uint16).numpy(),
+                                      np.asarray(jl.params[name]).view(np.uint16))
+        assert (tl.params[name] != convert.params_from_jax(jm.params)[name]).float().mean() > 0.05
+    j_move = share(jlogits(jl), jlogits(jcompress.compress(jm)))
+    t_move = share(tlogits(tl), tlogits(tcompress.compress(convert.quantized_from_jax(jm))))
+    assert j_move > 1e-2, j_move
+    assert abs(t_move - j_move) <= 0.1 * max(j_move, t_move), (j_move, t_move)

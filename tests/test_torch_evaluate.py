@@ -44,6 +44,26 @@ def anchor():
     return jcfg, jp, tcfg, tp, ev, calib
 
 
+@pytest.fixture(scope="module")
+def port_models(anchor):
+    """The port's calibrated model and its ppl per preset, and the
+    unquantized ppl, made once for both tests that read them."""
+    _, _, tcfg, tp, ev, calib = anchor
+    cache = {}
+
+    def get(preset):
+        if preset not in cache:
+            if preset is None:
+                cache[None] = (None, tev.perplexity(tcfg, tp, ev))
+            else:
+                tm = tptq.quantize(tcfg, tp, preset, [torch.from_numpy(c) for c in calib], device="cpu")
+                cache[preset] = (tm, tev.perplexity(tcfg, tm.params, ev, layout=tm.layout, qstate=tm.qstate,
+                                                    adapters=tm.adapters))
+        return cache[preset]
+
+    return get
+
+
 def test_perplexity_unquantized(anchor):
     jcfg, jp, tcfg, tp, ev, _ = anchor
     j, t = jev.perplexity(jcfg, jp, ev), tev.perplexity(tcfg, tp, ev)
@@ -60,7 +80,7 @@ def test_nll_slices_do_not_change_the_sum(monkeypatch, anchor):
 
 
 @pytest.mark.parametrize("preset", ["NVFP4_DEFAULT_CFG", "FP8_DEFAULT_CFG", *NEW_FORMATS])
-def test_perplexity_and_kl_of_quantized_presets(anchor, preset):
+def test_perplexity_and_kl_of_quantized_presets(anchor, port_models, preset):
     """ppl within 1e-3; KL within 1e-5 + 1e-2 relative, except under
     NVFP4_DEFAULT_CFG's 4-bit activations: there the calibrated input
     amaxes lie up to 4.5e-7 relative apart (the calibration forward's f32
@@ -71,9 +91,8 @@ def test_perplexity_and_kl_of_quantized_presets(anchor, preset):
     (`test_kl_function_on_equal_logits` holds the function itself)."""
     jcfg, jp, tcfg, tp, ev, calib = anchor
     jm = jptq.quantize(jcfg, jp, preset, [jnp.asarray(c) for c in calib])
-    tm = tptq.quantize(tcfg, tp, preset, [torch.from_numpy(c) for c in calib], device="cpu")
+    tm, t = port_models(preset)
     j = jev.perplexity(jcfg, jm.params, ev, layout=jm.layout, qstate=jm.qstate, adapters=jm.adapters)
-    t = tev.perplexity(tcfg, tm.params, ev, layout=tm.layout, qstate=tm.qstate, adapters=tm.adapters)
     assert abs(t - j) <= 1e-3 * j, (t, j)
     jk = jev.logit_divergence(jcfg, jm.params, ev, jm.layout, jm.qstate)
     tk = tev.logit_divergence(tcfg, tm.params, ev, tm.layout, tm.qstate)
@@ -98,10 +117,7 @@ def test_kl_function_on_equal_logits():
 
 
 @pytest.mark.parametrize("preset", [*FLAGSHIP, *NEW_FORMATS])
-def test_port_dppl_under_jax_pins(anchor, preset):
+def test_port_dppl_under_jax_pins(port_models, preset):
     """JAX's accuracy gate, run on the port: Δppl under JAX's pinned budget."""
-    _, _, tcfg, tp, ev, calib = anchor
-    base = tev.perplexity(tcfg, tp, ev)
-    tm = tptq.quantize(tcfg, tp, preset, [torch.from_numpy(c) for c in calib], device="cpu")
-    q = tev.perplexity(tcfg, tm.params, ev, layout=tm.layout, qstate=tm.qstate, adapters=tm.adapters)
+    base, q = port_models(None)[1], port_models(preset)[1]
     assert q - base < _pin(_MEASURED_DPPL[preset]), (preset, q - base)

@@ -153,11 +153,13 @@ def test_int4_export_at_a_ragged_k_raises_as_jax_does(tmp_path):
 
 def test_unported_families_raise(base, tmp_path):
     _, tm = _models(base, "int4")
-    moe = tm.__class__(**{**tm.__dict__, "params": {**tm.params,
-                                                    "layers": {**tm.params["layers"], "moe.gate_proj": None}}})
-    with pytest.raises(NotImplementedError, match="MoE"):
-        texport.export_hf_checkpoint(moe, str(tmp_path / "moe"))
-    with pytest.raises(NotImplementedError, match="MoE"):
+    # MoE experts export since the MoE-families slice (test_torch_moe_deploy.py);
+    # Llama4's shared expert and GPT-OSS's native format still raise
+    shared = tm.__class__(**{**tm.__dict__, "params": {**tm.params,
+                                                       "layers": {**tm.params["layers"], "shared.gate_proj": None}}})
+    with pytest.raises(NotImplementedError, match="item 5"):
+        texport.export_hf_checkpoint(shared, str(tmp_path / "shared"))
+    with pytest.raises(NotImplementedError, match="item 5"):
         texport.export_gpt_oss_checkpoint(tm, str(tmp_path / "oss"))
     with pytest.raises(NotImplementedError, match="VLM"):
         texport.export_vlm_checkpoint(None, None, None, None, str(tmp_path / "vlm"))

@@ -60,6 +60,29 @@ def test_cli_ppl_equals_jax_cli(recipe, algo, tokens, tmp_path, monkeypatch, cap
             assert json.load(f)["quantization"]["quant_algo"] == algo == out["quant_algo"]
 
 
+def test_cli_moe_family_equals_jax_cli(tokens, tmp_path, monkeypatch, capsys):
+    """artifacts/anchor-moe through both CLIs (the registry sends qwen3_moe
+    to the mixtral family and `quantize_family`): INT4 weight-only on the
+    anchor's language, ppl before and after within 1e-3 relative of JAX's
+    printed values, the exported quant_algo JAX's (W4A16_AWQ)."""
+    moe = os.path.join(ROOT, "artifacts", "anchor-moe")
+    args = ["--model", moe, "--qformat", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "--calib_data", tokens,
+            "--calib_batches", "2", "--calib_seq_len", "128"]
+    monkeypatch.setattr(sys, "argv", ["hf_ptq.py", *args, "--export_path", str(tmp_path / "jax")])
+    assert _load("examples/hf_ptq.py", "hf_ptq_jax").main() == 0
+    printed = capsys.readouterr().out
+    jb = float(re.search(r"bf16 ppl ([\d.]+)", printed).group(1))
+    jq = float(re.search(r"quantized ppl ([\d.]+)", printed).group(1))
+    out = _load("examples/hf_ptq_torch.py", "hf_ptq_torch").main(
+        [*args, "--device", "cpu", "--export_path", str(tmp_path / "port")])
+    assert abs(out["ppl_before"] - jb) <= 1e-3 * jb, (out["ppl_before"], jb)
+    assert abs(out["ppl_after"] - jq) <= 1e-3 * jq, (out["ppl_after"], jq)
+    assert out["quant_algo"] == "W4A16_AWQ" and out["model"].forward_fn is not None
+    with pytest.raises(NotImplementedError, match="auto_quantize_moe.*item 8"):
+        _load("examples/hf_ptq_torch.py", "hf_ptq_torch").main(["--device", "cpu", "--model", moe,
+                                                                "--auto_quantize_bits", "5"])
+
+
 @pytest.mark.parametrize("extra,item", [(["--auto_quantize_bits", "5"], "item 8"), (["--save_state", "/tmp/s"], "item 10")])
 def test_cli_unported_arguments_raise(extra, item):
     cli = _load("examples/hf_ptq_torch.py", "hf_ptq_torch")
@@ -68,7 +91,8 @@ def test_cli_unported_arguments_raise(extra, item):
 
 
 def test_cli_refuses_other_families(tmp_path):
-    (tmp_path / "config.json").write_text(json.dumps({"model_type": "mixtral"}))
+    # mixtral, qwen3_moe and dbrx run since the MoE-families slice (test_torch_moe_ptq.py)
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "gpt_oss"}))
     with pytest.raises(NotImplementedError, match="item 5"):
         _load("examples/hf_ptq_torch.py", "hf_ptq_torch").main(["--device", "cpu", "--model", str(tmp_path)])
 

@@ -25,6 +25,7 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "examples", "hf_ptq_torch.py")
     yield os.path.join(ROOT, "tools", "torch_accuracy_table.py")
+    yield os.path.join(ROOT, "tools", "torch_moe_accuracy_table.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -64,6 +65,15 @@ def test_the_walk_covers_the_accuracy_slice():
     assert {pkg + m for m in ("utils/dataset.py", "utils/evaluate.py", "utils/mmlu.py", "ops/hadamard.py",
                               "quant/api.py", "quant/layerwise.py", "recipes/loader.py")} <= walked
     assert {"examples/hf_ptq_torch.py", "tools/torch_accuracy_table.py"} <= walked
+
+
+def test_the_walk_covers_the_moe_families_slice():
+    walked = {os.path.relpath(p, ROOT) for p in _sources()}
+    pkg = "tensorrt_model_optimizer_tpu_torch/"
+    assert {pkg + m for m in ("models/mixtral.py", "models/registry.py", "models/llama.py", "quant/ptq.py",
+                              "quant/compress.py", "serve/engine.py", "serve/loader.py", "export/hf_export.py",
+                              "models/hf_loader.py")} <= walked
+    assert "tools/torch_moe_accuracy_table.py" in walked
 
 
 def test_the_recipe_reader_never_imports_yaml():

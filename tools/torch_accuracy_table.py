@@ -47,16 +47,17 @@ def log(m):
     print(f"[acc] {m}", file=sys.stderr, flush=True)
 
 
-def score(fwd, eval_batches, data_dir, ref_logits=None, mmlu_n=MMLU_N):
+def score(fwd, eval_batches, data_dir, ref_logits=None, mmlu_n=MMLU_N, eval_logits=None):
     """{"ppl", "kl"?, "mmlu", "mmlu_n", "mmlu_ci95", "mmlu_subjects",
-    "choices"} of a tokens -> logits function (JAX's tool's `evaluate`)."""
+    "choices"} of a tokens -> logits function (JAX's tool's `evaluate`);
+    `eval_logits`, where given, are fwd's logits of the eval batches."""
     import torch
 
     from tensorrt_model_optimizer_tpu_torch.utils import evaluate, mmlu, synthlang
 
     tot_nll, n_tok, kls = 0.0, 0, []
     for i, b in enumerate(eval_batches):
-        logits = fwd(b[:, :-1])
+        logits = fwd(b[:, :-1]) if eval_logits is None else eval_logits[i]
         tot_nll += float(evaluate._nll_sum(logits, b[:, 1:]))
         n_tok += b[:, 1:].numel()
         if ref_logits is not None:
@@ -99,8 +100,8 @@ def main(argv=None):
         return llama.forward(cfg, params, tokens)[0]
 
     with torch.no_grad():
-        base = score(bf16_fwd, eval_batches, data_dir)
         ref_logits = [bf16_fwd(b[:, :-1]) for b in eval_batches]
+        base = score(bf16_fwd, eval_batches, data_dir, eval_logits=ref_logits)
     log(f"bf16: ppl {base['ppl']:.4f} mmlu {base['mmlu']:.3f} +/-{base['mmlu_ci95']:.3f}")
     rows = {}
     for name in names:

@@ -119,4 +119,17 @@ run int4_b64_second_half_scale qmm_wo_common.cuh 's/const int s = NS == 2 ? q >>
 # their grid values); the accuracy phase's anchor engines lie far from their
 # fake-quant forward
 run compress_mx_scale_doubled quant/compress.py 's|{"w": numerics.fake_quant_mx(w32, e, m, bsz).to(torch.bfloat16)}|{"w": (2 * numerics.fake_quant_mx(w32, e, m, bsz)).to(torch.bfloat16)}|' build,accuracy
+# MoE dispatch: the capacity test dropped, every (token, choice) pair kept;
+# the moe phase's dispatch check against JAX's capacity rule fails at a
+# decode step of Qwen3-30B-A3B's shape (C = 1), on the CPU before the card
+run moe_dispatch_no_capacity models/mixtral.py 's/keep = pos < C/keep = pos >= 0/' build,moe
+# The moe phase's full-width check alone (`--phases build,moe_full`: the
+# kernel engine against the all-plain one at depth 2 on pinned routing,
+# MOE_PLAIN_MEDIAN_MAX), each fault where the kernels phase would catch it
+# first: W4A8 prefill route, the last 128-block of K folds with the block
+# before's scales (1 of 16 blocks at K 2048, 1 of 6 at K 768) ...
+run moe_full_w4a8_last_block_scale qmm_w4a8.cu 's/__ldg(s + (size_t)kb \* O + orow + 8 \* h)/__ldg(s + (size_t)(kb == nblk - 1 \&\& kb > 0 ? kb - 1 : kb) * O + orow + 8 * h)/' build,moe_full
+# ... and the weight-only prefill tiles, the odd column of each pair with
+# the even column's block scale (INT4 and NVFP4)
+run moe_full_int4_scale_col qmm_wo_common.cuh 's/__fmul_rn(part\[i\]\[j\]\[1\], s1)/__fmul_rn(part[i][j][1], s0)/' build,moe_full
 exit $missed
