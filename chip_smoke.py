@@ -138,12 +138,32 @@ Phases (any failure raises, and the script exits non-zero):
            load -> serve for INT4 and NVFP4 (arrays, logits and tokens equal
            to the engine over the export's tensors in memory), the
            unquantized ppl and NVFP4's Δppl against JAX's pin; (b)
-           Qwen3-30B-A3B at full width on 16 of its 48 layers (seeded random
+           Qwen3-30B-A3B at full width on 8 of its 48 layers (seeded random
            bf16), W4A8, INT4 and NVFP4: TTFT of 8 x 2048, eager and graphed
            (unroll 1 and 8) token steps (tokens and cache equal), profiled
            prefill and step, peak memory, launches per kernel, the depth-2
            prefill against the all-plain engine on the kernel engine's
            routing; (c) Mixtral-8x7B's widths on 2 layers, INT4.
+  families GPT-OSS and Llama4 on the einsum engine, the one JAX serves them
+           on (`phase_families`): (a) small bf16 configs (hidden 256, 4
+           layers, window / chunk / floor_scale 8, GPT-OSS's sinks N(0, 1)):
+           GPT-OSS under MXFP4 and NVFP4, Llama4 under NVFP4 and W4A8, each in
+           lock step with the all-plain engine (the anchor's margin rule;
+           W4A8 tokens equal), the f32 plain engine against the model's own
+           forward (FAMILY_VS_FORWARD_MAX), graphed decode equal to eager,
+           every refusal, and GPT-OSS's deploy loop (native MXFP4 export ->
+           `load_hf_moe_checkpoint` -> `quantize_family` -> serve, equal to
+           the export's tensors held in memory; alone: `--phases
+           build,families_small`); (c) Llama-4-Scout's widths on 4 of 48
+           layers, NVFP4 / W4A8, and an 8448-token prompt past position 8192
+           held against the all-plain engine on all 4 layers; (b)
+           GPT-OSS-20B at full width on all 24 layers, MXFP4 / NVFP4 / INT4
+           ((c) and (b) alone: `--phases build,families_full`): TTFT of 8 x
+           2048, eager and graphed (unroll 1 and 8) steps over 32 decode
+           steps, peak memory, launches, and the depth-2 prefill against the
+           all-plain engine on the kernel engine's routing. The kernels phase
+           gains the GEMMs at both models' shapes (`FAMILY_GEMMS`; alone:
+           `--phases build,kernels_families`).
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -312,6 +332,7 @@ def phase_kernels(torch, dev, sz: Sizes, timer: Timer, rows: dict):
     _phase_kernels_flash(torch, dev, sz, timer, rows, g)
     _phase_kernels_skip(torch, dev, sz, timer, rows, g)
     _phase_kernels_moe(torch, dev, sz, timer, rows, g)
+    _phase_kernels_families(torch, dev, sz, timer, rows, g)
 
 
 # The new shapes the MoE paths give the ported kernels: Qwen3-30B-A3B's
@@ -411,6 +432,103 @@ def _phase_kernels_moe(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
         rows["kv_decode_attention"]["shapes"].append(row)
         log(json.dumps({"kernel": "kv_decode_attention", **row}))
         del kc, vc, ks, vs
+
+
+# The shapes GPT-OSS-20B and Llama-4-Scout give the GEMMs: (model, label, O,
+# K, formats, rows). Projections at the 8 x 2048 prefill (N = 16384) and a
+# decode step (N = 8); experts at their prefill capacity C (GPT-OSS: 2 S k /
+# E = 4096, Scout: 2048) and their decode C (2 and 1); Scout's shared expert
+# takes every token. GPT-OSS's K = 2880 is 22.5 128-blocks: INT4 pads it
+# to 2944 (code 0), the fp4 rows end in a half block.
+FAMILY_GEMMS = (
+    ("gpt-oss-20b", "q_proj", 4096, 2880, ("int4", "nvfp4", "mxfp4"), (16384, 8)),
+    ("gpt-oss-20b", "k_proj", 512, 2880, ("int4", "nvfp4", "mxfp4"), (16384, 8)),
+    ("gpt-oss-20b", "o_proj", 2880, 4096, ("int4", "nvfp4", "mxfp4"), (16384, 8)),
+    ("gpt-oss-20b", "expert gate/up/down", 2880, 2880, ("int4", "nvfp4", "mxfp4"), (4096, 2)),
+    ("llama4-scout", "q_proj/o_proj", 5120, 5120, ("nvfp4", "w4a8"), (16384, 8)),
+    ("llama4-scout", "k_proj", 1024, 5120, ("nvfp4", "w4a8"), (16384, 8)),
+    ("llama4-scout", "expert gate", 8192, 5120, ("nvfp4", "w4a8"), (2048, 1)),
+    ("llama4-scout", "expert down", 5120, 8192, ("nvfp4", "w4a8"), (2048, 1)),
+    ("llama4-scout", "shared gate", 8192, 5120, ("nvfp4", "w4a8"), (16384, 8)),
+    ("llama4-scout", "shared down", 5120, 8192, ("nvfp4", "w4a8"), (16384, 8)),
+)
+FAMILY_GEMM_REPS = 5
+
+
+def _phase_kernels_families(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
+    """The GEMMs at FAMILY_GEMMS against their plain versions (W4A8 bit-exact;
+    INT4, NVFP4 and MXFP4 weight-only under `_held`), timed beside the plain
+    version, with the bound and, for INT4, `torch._weight_int4pack_mm` on
+    the same codes and scales (its K padded with zero columns to the 128
+    multiple where K is not one: the same value); the rows join each
+    kernel's `shapes`."""
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import qmm, qmm_wo
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda.qmm import int4_a8_codes
+
+    def rand_bytes(shape):
+        return torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.int32).to(torch.uint8)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    reps = FAMILY_GEMM_REPS
+    for model, label, O, K, fmts, ns in FAMILY_GEMMS:
+        Kp4, Kp64 = -(-K // 128) * 128, -(-K // 64) * 64
+        nib4, nib = rand_bytes((O, Kp4 // 2)), rand_bytes((O, Kp64 // 2))
+        s4 = (torch.rand((Kp4 // 128, O), generator=g, device=dev) * 0.02 + 0.005).to(torch.bfloat16).float()
+        cases = {
+            "int4": ("qmm_int4_wo", qmm_wo.int4_wo_matmul, qmm_wo.int4_wo_matmul_plain, (nib4, s4),
+                     nbytes(nib4) + 2 * s4.numel()),
+            "nvfp4": ("qmm_fp4_wo", qmm_wo.fp4_wo_matmul, qmm_wo.fp4_wo_matmul_plain,
+                      (nib, (rand_bytes((O, Kp64 // 16)) % 48 + 0x20).view(torch.float8_e4m3fn),
+                       torch.tensor(0.0137, dtype=torch.float32, device=dev)), None),
+            "mxfp4": ("qmm_fp4_wo", qmm_wo.fp4_wo_matmul, qmm_wo.fp4_wo_matmul_plain,
+                      (nib, (rand_bytes((O, Kp64 // 32)) % 9).to(torch.int8) - 8), None),
+        }
+        for N in ns:
+            for fmt in fmts:
+                if fmt == "w4a8":
+                    x8 = torch.randint(-127, 128, (N, K), generator=g, device=dev, dtype=torch.int32).to(torch.int8)
+                    sc = (torch.rand((K // 128, O), generator=g, device=dev) * 1.5 + 0.5).to(torch.bfloat16)
+                    n_split = qmm.w4a8_decode_splits(N, K, O, sms)
+                    out = qmm.w4a8_matmul(x8, nib4, sc)
+                    if not torch.equal(out, qmm.w4a8_matmul_plain(x8, nib4, sc, n_split=n_split)):
+                        raise AssertionError(f"w4a8 {model} {label} N={N}: not bit-exact with the plain version")
+                    ms = timer(lambda: qmm.w4a8_matmul(x8, nib4, sc), reps)
+                    b_ms, b_by = bound(N * K + O * K / 2 + (K // 128) * O * 2 + N * O * 4, 2.0 * N * O * K, "int8")
+                    row = {"shape": f"{model} {label} N={N} O={O} K={K}", "route": "decode" if N <= 16 else "prefill",
+                           "n_split": n_split, "max_abs_err": 0.0, "bit_exact": True, "ms": ms,
+                           "plain_ms": timer(lambda: qmm.w4a8_matmul_plain(x8, nib4, sc), 2), "bound_ms": b_ms,
+                           "bound_by": b_by, "bound_share": b_ms / ms, "library_ms": None}
+                    rows["qmm_w4a8"]["shapes"].append(row)
+                    log(json.dumps({"kernel": "qmm_w4a8", **row}))
+                    del x8, out
+                    continue
+                name, fn, plain, w, wbytes = cases[fmt]
+                x = torch.randn((N, K), generator=g, device=dev).to(torch.bfloat16)
+                out = fn(x, *w)
+                worst, err = _held(out, plain(x, *w, out_dtype=torch.float32))
+                if not worst <= 1.0:
+                    raise AssertionError(f"{name} {fmt} {model} {label} N={N}: worst err/limit {worst} > 1, "
+                                         f"max abs err {err}")
+                ms = timer(lambda: fn(x, *w), reps)
+                lib_ms = None
+                if fmt == "int4":
+                    u = int4_a8_codes(nib4).to(torch.int32) + 8  # codes + 8, even k in the high nibble
+                    wp = torch._convert_weight_to_int4pack((u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8), 8)
+                    szp = torch.stack([s4, torch.zeros_like(s4)], dim=-1).to(torch.bfloat16).contiguous()
+                    xp = torch.nn.functional.pad(x, (0, Kp4 - K))
+                    lib_ms = timer(lambda: torch._weight_int4pack_mm(xp, wp, 128, szp), reps)
+                    del u, wp, szp, xp
+                b_ms, b_by = bound(N * K * 2 + (wbytes or nbytes(*w)) + N * O * 2, 2.0 * N * O * K, "bf16")
+                row = {"shape": f"{fmt} {model} {label} N={N} O={O} K={K}", "max_abs_err": err,
+                       "worst_err_over_limit": worst, "ms": ms, "plain_ms": timer(lambda: plain(x, *w), 2),
+                       "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms, "library_ms": lib_ms}
+                rows[name]["shapes"].append(row)
+                log(json.dumps({"kernel": name, **row}))
+                del x, out
+        del nib4, nib, s4, cases
 
 
 # The times of the CUDA-core kernels that flash and skip-softmax ran before
@@ -1638,7 +1756,7 @@ GRAPH_UNROLLS = (1, 8)  # decode_step(unroll=...) as timed beside the eager step
 
 
 def _graphed_decode(torch, eng, label: str, tok0, start: dict, eager_toks: list, eager_cache: dict,
-                    eager_ms: float, profile_unrolls: bool = True) -> dict:
+                    eager_ms: float, profile_unrolls: bool = True, profile_eager: bool = True) -> dict:
     """The fused decode step against the eager one, from the cache state the
     eager loop started from: `decode_step(unroll=u)` for u in GRAPH_UNROLLS
     over the same len(eager_toks) steps, one CUDA-graph replay a call after
@@ -1651,18 +1769,21 @@ def _graphed_decode(torch, eng, label: str, tok0, start: dict, eager_toks: list,
     unroll (unless `profile_unrolls` is False) under the profiler: device
     time, idle share and kernels a token step, beside the host launches a
     token step (eager: every kernel; a replay: the token's copy-in, the
-    replay and the output's copy)."""
+    replay and the output's copy); `profile_eager=False` leaves the eager
+    step's profile out (its device fields None)."""
     sync = torch.cuda.synchronize
     steps = len(eager_toks)
-    out = {}
-    c = _clone_cache(start)
-    prof = _profile(torch, f"{label} decode step, eager", lambda: [_eager_step(torch, eng, tok0, c) for _ in range(2)],
-                    2, eager_ms)
-    del c
-    kernels = prof["per_call_kernel_launches"]
-    out["eager"] = {"wall_ms_per_token_step": eager_ms, "device_ms_per_token_step": prof["per_call_device_busy_ms"],
-                    "device_idle_share": prof["device_idle_share"], "kernels_per_token_step": kernels,
-                    "host_launches_per_token_step": kernels}
+    out = {"eager": {"wall_ms_per_token_step": eager_ms, "device_ms_per_token_step": None,
+                     "device_idle_share": None, "kernels_per_token_step": None}}
+    if profile_eager:
+        c = _clone_cache(start)
+        prof = _profile(torch, f"{label} decode step, eager",
+                        lambda: [_eager_step(torch, eng, tok0, c) for _ in range(2)], 2, eager_ms)
+        del c
+        kernels = prof["per_call_kernel_launches"]
+        out["eager"].update(device_ms_per_token_step=prof["per_call_device_busy_ms"],
+                            device_idle_share=prof["device_idle_share"], kernels_per_token_step=kernels,
+                            host_launches_per_token_step=kernels)
     for u in GRAPH_UNROLLS:
         cache, tok, walls, got = _clone_cache(start), tok0, [], []
         for _ in range(steps // u):
@@ -3482,7 +3603,9 @@ QWEN3_30B_A3B = dict(vocab_size=151936, hidden_size=2048, intermediate_size=768,
                      num_attention_heads=32, num_key_value_heads=4, head_dim=128, rope_theta=1e6, rms_norm_eps=1e-6,
                      max_position_embeddings=40960, tie_word_embeddings=False, qk_norm=True, num_experts=128,
                      top_k=8, norm_topk_prob=True)
-MOE_FULL_DEPTH = 16
+# 8 layers since the families phase joined the default run (16 before: its
+# graph captures and eager steps would take the run past 1000 s)
+MOE_FULL_DEPTH = 8
 MOE_FULL_PATHS = (
     MoePath("w4a8", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_w4a8", (("int4_layout", "a8"),)),
     MoePath("int4", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_int4_wo"),
@@ -3699,16 +3822,15 @@ def _moe_anchor(torch, dev) -> dict:
 
 class _pinned_routes:
     """`mixtral.route` recording each call's expert choices (`record`), then
-    handing them back in the same order (`replay`) with the routing weights
-    the default route gives those experts on the replaying engine's own
-    logits (softmax, the chosen experts' probabilities, renormalised where
-    the config says so); `apart` counts the choices the replaying engine's
+    handing them back in the same order (`replay`) with the weights
+    `mixtral.route_weights` gives those experts on the replaying engine's
+    own logits; `apart` counts the choices the replaying engine's
     own routing would have made otherwise. Restores the route on exit."""
 
-    def __init__(self, torch):
+    def __init__(self):
         from tensorrt_model_optimizer_tpu_torch.models import mixtral
 
-        self.torch, self.mixtral, self.real = torch, mixtral, mixtral.route
+        self.mixtral, self.real = mixtral, mixtral.route
         self.choices, self.apart = [], 0
 
     def record(self):
@@ -3720,15 +3842,10 @@ class _pinned_routes:
         return self
 
     def replay(self):
-        torch = self.torch
-
         def route(cfg, logits):
-            if cfg.router_sigmoid_input_scaled or cfg.router_softmax_after_topk:
-                raise NotImplementedError("pinned routing: the default route only")
             i = self.choices.pop(0)
             self.apart += int((self.real(cfg, logits)[1] != i).sum())
-            w = torch.softmax(logits, dim=-1).gather(1, i)
-            return (w / torch.sum(w, dim=-1, keepdim=True) if cfg.norm_topk_prob else w), i
+            return self.mixtral.route_weights(cfg, logits, i), i
         self.mixtral.route = route
         return self
 
@@ -3817,7 +3934,7 @@ def _moe_full_path(torch, dev, sz: Sizes, path: MoePath, cfg, params, prompt, mo
         e = _engine(torch, subcm, sz.max_seq, dev, plain, **layouts)
         return e.prefill(prompt, _cache(e, depth, sz))
 
-    with _pinned_routes(torch) as pins:
+    with _pinned_routes() as pins:
         pins.record()
         out = run(())
         pins.replay()
@@ -3881,6 +3998,497 @@ def phase_moe(torch, dev, sz: Sizes, anchor: bool = True) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# families: GPT-OSS and Llama4 (models/gpt_oss.py, models/llama4.py) on the
+# einsum engine, the one engine JAX serves them on
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FamilyPath:
+    """One served path of a family: a preset, the engine's layout fields, the
+    GEMM kernel its projections and experts launch, and whether the preset's
+    calibration takes batches."""
+
+    label: str
+    family: str          # "gpt_oss" | "llama4"
+    preset: str
+    gemm: str
+    layouts: tuple = ()
+    calib: bool = False
+
+
+# (a) the small configs of JAX's TestGptOssServing / TestLlama4Serving
+# (tests/test_compress_serve.py) at hidden 256, head_dim 64, 4 layers, in bf16
+FAMILY_SMALL = dict(vocab_size=512, hidden_size=256, intermediate_size=256, num_hidden_layers=4,
+                    num_attention_heads=4, num_key_value_heads=2, head_dim=64, num_experts=4, capacity_factor=4.0,
+                    max_position_embeddings=4096)
+FAMILY_SMALL_EXTRA = {"gpt_oss": dict(top_k=2, sliding_window=8),
+                      "llama4": dict(top_k=1, attention_chunk_size=8, floor_scale=8.0)}
+FAMILY_SMALL_PATHS = (
+    FamilyPath("gpt_oss mxfp4", "gpt_oss", "MXFP4_WEIGHT_ONLY_CFG", "qmm_fp4_wo"),
+    FamilyPath("gpt_oss nvfp4", "gpt_oss", "NVFP4_DEFAULT_CFG", "qmm_fp4_wo", calib=True),
+    FamilyPath("llama4 nvfp4", "llama4", "NVFP4_DEFAULT_CFG", "qmm_fp4_wo", calib=True),
+    FamilyPath("llama4 w4a8", "llama4", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_w4a8", (("int4_layout", "a8"),)),
+)
+FAMILY_PROMPT = (4, 32)   # (a): prompts (past the window, the chunk and floor_scale) ...
+FAMILY_STEPS = 8          # ... and greedy steps
+# (a): the f32 engine on every kernel's plain version against the quantized
+# model's own forward (f32 fake-quant, its own masks, sinks and rope): the
+# median logits gap over prefill and decode positions, as a share of the
+# logits' scale. Sums in another order give ~1e-6; the window on every
+# layer, or the sinks left out of the engine's softmax, move every row.
+FAMILY_VS_FORWARD_MAX = 1e-3
+# (b) openai/gpt-oss-20b's config.json (the public release), seeded random bf16 weights
+GPT_OSS_20B = dict(vocab_size=201088, hidden_size=2880, intermediate_size=2880, num_hidden_layers=24,
+                   num_attention_heads=64, num_key_value_heads=8, head_dim=64, rope_theta=150000.0,
+                   rms_norm_eps=1e-5, max_position_embeddings=131072, tie_word_embeddings=False, num_experts=32,
+                   top_k=4, sliding_window=128, swiglu_limit=7.0, attention_bias=True)
+GPT_OSS_YARN = dict(rope_type="yarn", factor=32.0, original_max_position_embeddings=4096, beta_fast=32.0,
+                    beta_slow=1.0, truncate=False)
+GPT_OSS_DEPTH = 24   # all its layers
+GPT_OSS_PATHS = (
+    FamilyPath("mxfp4", "gpt_oss", "MXFP4_WEIGHT_ONLY_CFG", "qmm_fp4_wo"),
+    FamilyPath("nvfp4", "gpt_oss", "NVFP4_WEIGHT_ONLY_CFG", "qmm_fp4_wo"),
+    FamilyPath("int4", "gpt_oss", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_int4_wo"),
+)
+# (c) meta-llama/Llama-4-Scout-17B-16E's text_config (the public release), 4 of its 48 layers
+LLAMA4_SCOUT = dict(vocab_size=202048, hidden_size=5120, intermediate_size=8192, num_hidden_layers=48,
+                    num_attention_heads=40, num_key_value_heads=8, head_dim=128, rope_theta=500000.0,
+                    rms_norm_eps=1e-5, max_position_embeddings=10485760, tie_word_embeddings=False, num_experts=16,
+                    top_k=1, attention_chunk_size=8192, attn_temperature_tuning=True, attn_scale=0.1,
+                    floor_scale=8192.0, use_qk_norm=True, no_rope_layer_interval=4)
+SCOUT_ROPE = dict(rope_type="llama3", factor=16.0, low_freq_factor=1.0, high_freq_factor=1.0,
+                  original_max_position_embeddings=8192)
+SCOUT_DEPTH = 4      # layer 3 is its first nope layer
+SCOUT_PATHS = (
+    FamilyPath("nvfp4", "llama4", "NVFP4_WEIGHT_ONLY_CFG", "qmm_fp4_wo"),
+    FamilyPath("w4a8", "llama4", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_w4a8", (("int4_layout", "a8"),)),
+)
+FAMILY_PLAIN_DEPTH = 2   # full width: kernel engine against the all-plain engine at this depth ...
+FAMILY_PLAIN_MEDIAN_MAX = 5e-2  # ... on pinned routing (the moe phase's rule and limit)
+# Scout: one batch-1 prompt and decode steps past position 8192, where the
+# rope layers' second chunk starts and the nope layer (layer 3) scales q by
+# its temperature, 1.069: the kernel engine against the all-plain engine on
+# pinned routing at all SCOUT_DEPTH layers, so the GEMMs after the nope
+# layer's tempered attention are held too. Both engines share the masks and
+# the temperature (plain PyTorch): the small configs hold those against the
+# model's own forward (chunk 8, floor_scale 8), the CPU tests against JAX.
+SCOUT_LONG = (8448, 4)
+# ... held to this median share of the logits' scale, 1.5 times the sound
+# NVFP4 reading as FAMILY_PLAIN_MEDIAN_MAX is of the moe phase's: NVFP4 reads
+# 0.049 at 4 layers (0.022 at 2: the gap grows with random layers), W4A8 0
+# (bit-exact GEMM). Planted faults (tools/torch_kernel_mutation_check.sh,
+# `--phases build,families_full`) read 0.655 (NVFP4's last 32-chunk of K on
+# the chunk before's scales) and 0.672 (W4A8's last 128-block on the block
+# before's).
+FAMILY_LONG_MEDIAN_MAX = 0.075
+FAMILY_KERNELS = ("qmm_fp4_wo", "qmm_int4_wo", "qmm_w4a8")
+
+
+def _graph_rows(prompt: int, steps: int) -> int:
+    """Cache rows `_graphed_decode` needs after a prompt: its checked steps,
+    then as many timed ones and 4 calls of the largest unroll."""
+    return prompt + 2 * steps + 4 * max(GRAPH_UNROLLS)
+
+
+def _family_cfg(family: str, spec: dict, dtype, **kw):
+    from tensorrt_model_optimizer_tpu_torch.models import gpt_oss, llama, llama4
+
+    spec = {**spec, **kw, "dtype": dtype}
+    rs = spec.pop("rope_scaling", None)
+    cls = gpt_oss.GptOssConfig if family == "gpt_oss" else llama4.Llama4Config
+    return cls(**spec, rope_scaling=rs and llama.RopeScaling(**rs))
+
+
+def _family_params(torch, dev, cfg, seed: int) -> dict:
+    """Seeded random weights made on the card; GPT-OSS's sinks N(0, 1) (its
+    init's zeros would leave the sink path idle)."""
+    from tensorrt_model_optimizer_tpu_torch.models import registry
+
+    fam = "gpt_oss" if hasattr(cfg, "sliding_window") else "llama4"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = registry.get(fam).init_params(cfg, g, device=dev)
+    if "self_attn.sinks" in params["layers"]:
+        s = params["layers"]["self_attn.sinks"]
+        params["layers"]["self_attn.sinks"] = torch.randn(s.shape, generator=g, device=dev).to(s.dtype)
+    return params
+
+
+def _einsum_engine(torch, cm, max_seq: int, dev, plain: tuple = (), **fields):
+    return _engine(torch, cm, max_seq, dev, plain, kv_attention_kernel=False, **fields)
+
+
+def _vs_forward(torch, dev, label: str, qm, cm, prompts, steps: int) -> dict:
+    """The engine in f32 on every kernel's plain version, over an f32 cache,
+    against the quantized model's forward (f32), both with the input
+    quantizers off, weight-only layouts and f32 weights and scales (dynamic
+    NVFP4 activations carry last-bit differences to other codes and to
+    other experts; W4A8's int8 activations are the engine's alone; a bf16
+    weight or scale rounds the fake-quantized values): the prompts'
+    prefill and `steps` decode steps on the forward's own greedy tokens,
+    every position's logits against the forward's over the whole
+    sequence."""
+    from tensorrt_model_optimizer_tpu_torch.serve.engine import PLAIN_ALL
+
+    f32 = dataclasses.replace(cm.model_cfg, dtype=torch.float32)
+    cm32 = dataclasses.replace(_without_input_quantizers(cm), model_cfg=f32)
+    # f32 weights too: the fake-quantized NVFP4 values (global scale any f32) round to the weights' dtype
+    p32 = {k: ({n: t.float() for n, t in v.items()} if k == "layers" else v.float()) for k, v in qm.params.items()}
+    qm32 = dataclasses.replace(qm, model_cfg=f32, layout=cm32.layout, params=p32)
+    seq = prompts
+    for _ in range(steps):
+        nxt = qm32.forward(seq)[0][:, -1].argmax(-1)
+        seq = torch.cat([seq, nxt[:, None]], dim=1)
+    ref = qm32.forward(seq)[0]
+    # the forward's f32 k/v; INT4's f32 block scales ("blockdot": the other names round them to bf16)
+    eng = _einsum_engine(torch, cm32, prompts.shape[1] + steps, dev, PLAIN_ALL, kv=None, int4_layout="blockdot")
+    cache = eng.init_cache(prompts.shape[0])
+    got = [eng.prefill(prompts, cache)]
+    for t in range(prompts.shape[1], seq.shape[1] - 1):
+        got.append(eng._model_step(seq[:, t:t + 1].to(torch.int32), cache))
+    gaps = []
+    for j, lg in enumerate(got):
+        gaps += _gaps(lg, ref[:, prompts.shape[1] - 1 + j])[0]
+    out = {"engine_f32_plain_vs_forward_median_gap": statistics.median(gaps), "worst": max(gaps)}
+    if not out["engine_f32_plain_vs_forward_median_gap"] <= FAMILY_VS_FORWARD_MAX:
+        raise AssertionError(f"families {label}: the f32 engine lies {statistics.median(gaps)} (median) of the "
+                             f"logits' scale from the model's forward, the limit is {FAMILY_VS_FORWARD_MAX}")
+    return out
+
+
+def _family_refusals(torch, dev, cm) -> list:
+    """Every refusal of the family: the kernel engine, a sparse prefill and
+    paged serving raise NotImplementedError. Returns what each said."""
+    said = []
+    for what, fn in (("kv_attention_kernel", lambda: _engine(torch, cm, 64, dev)),
+                     ("attn_sparsity", lambda: _einsum_engine(torch, cm, 64, dev, attn_sparsity=0.5)),
+                     ("serve", lambda: _einsum_engine(torch, cm, 64, dev).serve([], n_pages=8, page_size=8,
+                                                                                max_slots=1, max_pages_per_seq=4))):
+        try:
+            fn()
+        except NotImplementedError as e:
+            said.append(str(e)[:80])
+            continue
+        raise AssertionError(f"families: {what} did not refuse {type(cm.model_cfg).__name__}")
+    return said
+
+
+def _sink_softmax_check(torch, dev) -> float:
+    """`llama.sink_softmax` on the card against the reference's formula (the
+    sink column concatenated, softmax, the column dropped) on masked scores;
+    returns the largest difference (f32 ulps of the probabilities)."""
+    from tensorrt_model_optimizer_tpu_torch.models import llama
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    scores = torch.randn((2, 8, 33, 70), generator=g, device=dev) * 4
+    scores[..., 50:] = -1e9
+    sinks = torch.randn((8,), generator=g, device=dev)
+    col = sinks[None, :, None, None].expand(2, 8, 33, 1)
+    want = torch.softmax(torch.cat([scores, col], dim=-1), dim=-1)[..., :-1]
+    err = float((llama.sink_softmax(scores.clone(), sinks, torch.float32) - want).abs().max())
+    if not err <= 1e-6:
+        raise AssertionError(f"families: sink_softmax lies {err} from the concatenated softmax")
+    return err
+
+
+def _families_small(torch, dev) -> dict:
+    """(a) Each path of FAMILY_SMALL_PATHS on its family's small config, bf16,
+    seeded random weights (GPT-OSS's sinks N(0, 1)): `quantize_family`,
+    compress, the einsum engine (int8 KV) in lock step with the all-plain
+    engine over FAMILY_PROMPT prompts and FAMILY_STEPS steps (the anchor
+    phase's margin rule, W4A8 tokens equal), the graphed decode (unroll 1 and
+    8) bit-equal to the eager steps, the f32 plain engine against the model's
+    forward (`_vs_forward`), every refusal; GPT-OSS's deploy loop (MXFP4
+    export -> `load_hf_moe_checkpoint` -> `quantize_family` -> compress ->
+    serve: logits and tokens equal to the engine's over the export's tensors
+    held in memory, the packs equal to compress's of the in-memory model).
+    Returns the launch counts."""
+    import tempfile
+
+    from tensorrt_model_optimizer_tpu_torch.export import hf_export
+    from tensorrt_model_optimizer_tpu_torch.models import hf_loader
+    from tensorrt_model_optimizer_tpu_torch.quant import compress, ptq
+    from tensorrt_model_optimizer_tpu_torch.serve.engine import PLAIN_ALL
+
+    launches: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    log(json.dumps({"phase": "families_small", "sink_softmax_vs_concatenated_max_err": _sink_softmax_check(torch, dev)}))
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, T = FAMILY_PROMPT
+    prompts = torch.randint(0, FAMILY_SMALL["vocab_size"], (B, T), generator=g, device=dev)
+    calib = [torch.randint(0, FAMILY_SMALL["vocab_size"], (2, 64), generator=g, device=dev)]
+    models, quantized = {}, {}
+    for path in FAMILY_SMALL_PATHS:
+        t_path = time.perf_counter()
+        if path.family not in models:
+            cfg = _family_cfg(path.family, FAMILY_SMALL, torch.bfloat16, **FAMILY_SMALL_EXTRA[path.family])
+            models[path.family] = (cfg, _family_params(torch, dev, cfg, 5))
+        cfg, params = models[path.family]
+        qm = ptq.quantize_family(path.family, cfg, params, path.preset, calib if path.calib else None, device=dev)
+        cm = compress.compress(qm)
+        quantized[path.label] = (qm, cm)
+        layouts = dict(path.layouts)
+        ek = _einsum_engine(torch, cm, _graph_rows(T, FAMILY_STEPS), dev, **layouts)
+        ep = _einsum_engine(torch, cm, T + FAMILY_STEPS, dev, PLAIN_ALL, **layouts)
+        _counts(reset=True)
+        steps = _lockstep(torch, (ek, ep), prompts, FAMILY_STEPS)
+        n = _counts()
+        add(n)
+        row = {"phase": "families_small", "path": path.label, "preset": path.preset,
+               "kinds_served": sorted(set(ek.cm.kinds.values())), "launches": {k: v for k, v in n.items() if v}}
+        if {k for k, v in n.items() if v} != {path.gemm}:
+            raise AssertionError(f"families {path.label}: launched {n}, the path's kernel is {path.gemm}")
+        row.update(_vs_forward(torch, dev, path.label, qm, cm, prompts, 8))
+        row["refusals"] = _family_refusals(torch, dev, cm)
+        _hold_to_plain(torch, f"families {path.label}", ek, ep, prompts, steps, path.gemm == "qmm_w4a8", row)
+        # the graphed decode from the prefill's cache, against eager steps
+        cache = ek.init_cache(B)
+        tok0 = tok = torch.argmax(ek.prefill(prompts, cache), dim=-1).to(torch.int32)[:, None]
+        start, toks, walls = _clone_cache(cache), [], []
+        _counts(reset=True)
+        for _ in range(FAMILY_STEPS):
+            t0 = time.perf_counter()
+            tok, _ = _eager_step(torch, ek, tok, cache)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            toks.append(tok)
+        _graphed_decode(torch, ek, f"families {path.label}", tok0, start, toks, cache, statistics.median(walls),
+                        profile_unrolls=False)
+        add(_counts())
+        ek.release_graphs()
+        del ek, ep, steps, cache, start
+        log(json.dumps({"phase": "families_small", "path": path.label, "seconds": time.perf_counter() - t_path}))
+
+    # GPT-OSS's deploy loop on its native MXFP4 format
+    qm, cm = quantized["gpt_oss mxfp4"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gpt_oss_") as d:
+        t0 = time.perf_counter()
+        hf_export.export_hf_checkpoint(qm, d)
+        export_s = time.perf_counter() - t0
+        with open(os.path.join(d, "config.json")) as f:
+            cfg_d = json.load(f)
+        t0 = time.perf_counter()
+        loaded = hf_loader.load_hf_moe_checkpoint(d, device=dev)
+        load_s = time.perf_counter() - t0
+    in_memory = hf_loader.gpt_oss_from_tensors(cfg_d, dict(hf_export._iter_gpt_oss_tensors(qm)), device=dev)
+    outs, packs = [], []
+    for cfg, params in (loaded, in_memory):
+        cm2 = compress.compress(ptq.quantize_family("gpt_oss", cfg, params, "MXFP4_WEIGHT_ONLY_CFG", device=dev))
+        eng = _einsum_engine(torch, cm2, T + 16, dev)  # 2 calls of decode_step(unroll=8)
+        _counts(reset=True)
+        c = eng.init_cache(B)
+        lg = eng.prefill(prompts, c)
+        tok, toks = torch.argmax(lg, dim=-1).to(torch.int32)[:, None], []
+        for _ in range(2):
+            tok, c = eng.decode_step(tok, c, unroll=8)
+            toks.append(tok)
+        add(_counts())
+        outs.append((lg, torch.cat(toks, dim=1)))
+        packs.append(cm2)
+        eng.release_graphs()
+        del eng
+    equal = bool(torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1]))
+    apart = [f"{name}.{k}" for name in cm.kinds for k, a in cm.params["layers"][name].items()
+             if isinstance(a, torch.Tensor) and not torch.equal(_bits(torch, a), _bits(torch, packs[0].params["layers"][name][k]))]
+    mem = _einsum_engine(torch, cm, T + FAMILY_STEPS, dev)
+    log(json.dumps({"phase": "families_small", "path": "gpt_oss deploy: mxfp4", "export_s": export_s, "load_s": load_s,
+                    "model_type": cfg_d["model_type"], "logits_and_tokens_equal_in_memory_export": equal,
+                    "packs_apart_from_compress": apart, "median_gap_to_compress": statistics.median(
+                        _gaps(outs[0][0], mem.prefill(prompts, mem.init_cache(B)))[0])}))
+    if not equal or apart:
+        raise AssertionError(f"families gpt_oss deploy: logits/tokens equal {equal}, packs apart {apart}")
+    return launches
+
+
+def _bits(torch, t):
+    return t.view(torch.uint8) if t.element_size() == 1 else t
+
+
+def _pinned_pair(torch, make, prompt, steps: int, cache_of) -> dict:
+    """The kernel engine `make(())` on its greedy tokens (prefill, then
+    steps - 1 decode steps) with its expert choices recorded, then the
+    all-plain engine `make(PLAIN_ALL)` on the same tokens replaying them:
+    each step's logits gaps, the choices the plain engine's own routing
+    would have made otherwise, the kernel engine's prefill wall time and
+    whether its logits are finite."""
+    from tensorrt_model_optimizer_tpu_torch.serve.engine import PLAIN_ALL
+
+    with _pinned_routes() as pins:
+        pins.record()
+        ek = make(())
+        c = cache_of(ek)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, toks = [ek.prefill(prompt, c)], []
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(steps - 1):
+            toks.append(torch.argmax(got[-1], dim=-1).to(torch.int32)[:, None])
+            got.append(ek._model_step(toks[-1], c))
+        del ek, c
+        pins.replay()
+        ep = make(PLAIN_ALL)
+        c = cache_of(ep)
+        ref = [ep.prefill(prompt, c)] + [ep._model_step(t, c) for t in toks]
+        del ep, c
+    gaps = [x for lg, r in zip(got, ref) for x in _gaps(lg, r)[0]]
+    return {"median_gap_vs_plain_pinned": statistics.median(gaps), "worst_gap_vs_plain_pinned": max(gaps),
+            "routing_choices_apart": pins.apart, "steps": steps, "kernel_prefill_ms": prefill_ms,
+            "kernel_logits_finite": bool(all(torch.isfinite(x).all() for x in got))}
+
+
+def _family_full_path(torch, dev, sz: Sizes, path: FamilyPath, cfg, prompt, model: str, profile: bool) -> dict:
+    """One path at full width: seeded random bf16 weights made on the card,
+    `quantize_family` (max), compress (the raw weights then dropped), the
+    einsum engine (int8 KV): TTFT of the batch's prefill, sz.decode_steps
+    eager token steps, the graphed steps held to them (`_graphed_decode`,
+    unroll 1 and 8), peak memory (set-up and serving), launches per kernel
+    of the prefill and of one token step, the prefill against the all-plain
+    engine at FAMILY_PLAIN_DEPTH layers on the kernel engine's routing
+    (`_pinned_pair`), and with `profile` one prefill and two eager steps
+    under the profiler (the families phase's budget: the first path of each
+    model).
+    Scout's paths then serve SCOUT_LONG's prompt on all layers, kernel
+    against plain on pinned routing (FAMILY_LONG_MEDIAN_MAX), with the
+    kernel engine's TTFT and its logits finite. Returns the launch counts."""
+    from tensorrt_model_optimizer_tpu_torch.quant import compress, ptq
+
+    sync = torch.cuda.synchronize
+    layouts = dict(path.layouts)
+    secs, t_part = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t_part
+        sync()
+        secs[name] = round(time.perf_counter() - t_part, 1)
+        t_part = time.perf_counter()
+
+    torch.cuda.reset_peak_memory_stats()
+    params = _family_params(torch, dev, cfg, 0)
+    cm = compress.compress(ptq.quantize_family(path.family, cfg, params, path.preset, device=dev))
+    del params
+    torch.cuda.empty_cache()
+    lap("setup")
+    setup_peak = torch.cuda.max_memory_allocated() / 1e9
+    max_seq = _graph_rows(prompt.shape[1], sz.decode_steps)
+    eng = _einsum_engine(torch, cm, max_seq, dev, **layouts)
+    torch.cuda.reset_peak_memory_stats()
+    _counts(reset=True)
+    cache = eng.init_cache(prompt.shape[0])
+    sync()
+    t0 = time.perf_counter()
+    logits = eng.prefill(prompt, cache)
+    sync()
+    ttft_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = _counts()
+    tok0 = tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    start = _clone_cache(cache)
+    step_ms, toks = [], []
+    _counts(reset=True)
+    lap("prefill")
+    for _ in range(sz.decode_steps):
+        t0 = time.perf_counter()
+        tok, step_logits = _eager_step(torch, eng, tok, cache)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(tok)
+    step_launches = {k: v // sz.decode_steps for k, v in _counts().items() if v}
+    lap("eager_steps")
+    graphs = _graphed_decode(torch, eng, f"{model} {path.label}", tok0, start, toks, cache, statistics.median(step_ms),
+                             profile_unrolls=False, profile_eager=profile)
+    eager = graphs.pop("eager")
+    lap("graphs")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: n + prefill_launches[k] for k, n in _counts().items()}
+    finite = bool(torch.isfinite(logits).all() and torch.isfinite(step_logits).all())
+    eng.release_graphs()
+    del cache, start
+    L, gemm = cfg.num_hidden_layers, path.gemm
+    row = {"phase": "families_full", "model": model, "path": path.label, "kinds": sorted(set(eng.cm.kinds.values())),
+           "layers": L, "batch": prompt.shape[0], "prompt": prompt.shape[1], "setup_peak_mem_gb": setup_peak,
+           "ttft_ms": ttft_ms, "eager_ms_per_token_step": statistics.median(step_ms), "graphs": graphs,
+           "peak_mem_gb": peak_gb, "packed_weight_gb": eng.cm.packed_bytes / 1e9,
+           "prefill_launches": {k: v for k, v in prefill_launches.items() if v}, "token_step_launches": step_launches,
+           "eager_step_device_ms": eager["device_ms_per_token_step"], "eager_step_idle_share": eager["device_idle_share"],
+           "eager_step_kernels": eager["kernels_per_token_step"], "logits_finite": finite}
+    if profile:
+        pre = _profile(torch, f"{model} {path.label} prefill",
+                       lambda: eng.prefill(prompt, eng.init_cache(prompt.shape[0])), 1, ttft_ms)
+        row.update(prefill_device_ms=pre["per_call_device_busy_ms"], prefill_idle_share=pre["device_idle_share"],
+                   prefill_top_kernels=pre["top"][:6])
+        lap("profile")
+    if not finite:
+        raise AssertionError(f"families {model} {path.label}: non-finite logits")
+    if {k for k, n in launches.items() if n > 0} != {gemm}:
+        raise AssertionError(f"families {model} {path.label}: launched {launches}, the path's kernel is {gemm}")
+    depth = min(FAMILY_PLAIN_DEPTH, L)
+    served = eng.cm
+    subcm = _truncate(served, depth)
+    del eng, logits, cm
+    torch.cuda.empty_cache()
+    row.update(depth=depth, **_pinned_pair(torch, lambda plain: _einsum_engine(torch, subcm, max_seq, dev, plain, **layouts),
+                                           prompt, 1, lambda e: _cache(e, depth, sz)))
+    lap("vs_plain")
+    del subcm
+    checks = [("depth-%d prefill" % depth, row["median_gap_vs_plain_pinned"], FAMILY_PLAIN_MEDIAN_MAX)]
+    if model == "llama4_scout":  # positions past 8192: the second chunk, the nope layer's temperature 1.069
+        T, steps = SCOUT_LONG
+        long = torch.randint(0, cfg.vocab_size, (1, T), generator=torch.Generator(device=dev).manual_seed(4),
+                             device=dev)
+        held = _pinned_pair(torch, lambda plain: _einsum_engine(torch, served, T + steps, dev, plain, **layouts),
+                            long, steps, lambda e: e.init_cache(1))
+        row["long_prompt"] = {"tokens": T, "decode_steps": steps, "layers": L, "ttft_ms": held.pop("kernel_prefill_ms"),
+                              "logits_finite": held.pop("kernel_logits_finite"), **held}
+        lap("long_prompt")
+        checks.append((f"all-layer {T}-token prompt", held["median_gap_vs_plain_pinned"], FAMILY_LONG_MEDIAN_MAX))
+    row["seconds"] = secs
+    log(json.dumps(row))
+    if not row.get("long_prompt", {}).get("logits_finite", True):
+        raise AssertionError(f"families {model} {path.label}: the {SCOUT_LONG[0]}-token prompt gives non-finite logits")
+    over = [f"the {what}'s logits lie {gap} (median) of their scale from the plain engine's on the same routing, "
+            f"the limit is {limit}" for what, gap, limit in checks if not gap <= limit]
+    if over:
+        raise AssertionError(f"families {model} {path.label}: " + "; ".join(over))
+    del served
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _families_full(torch, dev, sz: Sizes) -> dict:
+    """(c) Llama-4-Scout-17B-16E's widths on SCOUT_DEPTH of its 48 layers
+    under NVFP4 and W4A8, and one batch-1 prompt past position 8192; (b)
+    GPT-OSS-20B at full width (GPT_OSS_DEPTH of its 24 layers) under MXFP4
+    (its native format), NVFP4 and INT4. Each path makes its own seeded
+    weights (the raw weights of two paths would not fit beside the served
+    one). Returns the launch counts of all its runs."""
+    launches = {}
+    g = torch.Generator(device=dev).manual_seed(2)
+    # Scout first: a planted fault of a GEMM both models run is then read
+    # by its all-layer long prompt too (tools/torch_kernel_mutation_check.sh)
+    runs = (("llama4_scout", "llama4", {**LLAMA4_SCOUT, "rope_scaling": SCOUT_ROPE}, SCOUT_DEPTH, SCOUT_PATHS),
+            ("gpt_oss_20b", "gpt_oss", {**GPT_OSS_20B, "rope_scaling": GPT_OSS_YARN}, GPT_OSS_DEPTH, GPT_OSS_PATHS))
+    for model, family, spec, depth, paths in runs:
+        cfg = _family_cfg(family, spec, torch.bfloat16, num_hidden_layers=depth)
+        prompt = torch.randint(0, cfg.vocab_size, (sz.batch, sz.prompt), generator=g, device=dev)
+        for n, path in enumerate(paths):  # the first path's prefill profiled
+            for k, c in _family_full_path(torch, dev, sz, path, cfg, prompt, model, profile=n == 0).items():
+                launches[k] = launches.get(k, 0) + c
+    return launches
+
+
+def phase_families(torch, dev, sz: Sizes) -> dict:
+    """(a) `_families_small`, then (b) and (c), `_families_full`. Returns the
+    launch counts of all its runs."""
+    launches = _families_small(torch, dev)
+    for k, c in _families_full(torch, dev, sz).items():
+        launches[k] = launches.get(k, 0) + c
+    return launches
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -3925,7 +4533,7 @@ ANCHOR_ONLY = ("skip_softmax_flash_cuda_core", "paged_attention_prefill_cuda_cor
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,anchor,full,deploy,calib,accuracy,moe",
+    ap.add_argument("--phases", default="build,kernels,anchor,full,deploy,calib,accuracy,moe,families",
                     help="comma-separated; add 'profile' for device time by kernel in the full run")
     args = ap.parse_args(argv)
     import torch
@@ -3956,6 +4564,10 @@ def main(argv=None) -> int:
         timed("build", phase_build)
     if "kernels" in phases:
         timed("kernels", phase_kernels, torch, dev, sz, timer, rows)
+    elif "kernels_families" in phases:  # the families' GEMM shapes alone
+        rows.update({k: {"shapes": []} for k in ("qmm_w4a8", "qmm_int4_wo", "qmm_fp4_wo")})
+        timed("kernels_families", _phase_kernels_families, torch, dev, sz, timer, rows,
+              torch.Generator(device=dev).manual_seed(0))
     anchor_launches = {}
     if "anchor" in phases:
         anchor_launches = timed("anchor", phase_anchor, torch, dev, sz)
@@ -3991,6 +4603,16 @@ def main(argv=None) -> int:
         if never:
             raise AssertionError(f"moe: kernels its paths did not launch: {never}")
         launches = {k: (launches or {}).get(k, 0) + moe.get(k, 0) for k in KERNELS}
+    if "families_small" in phases and "families" not in phases:  # (a) of families alone
+        timed("families_small", _families_small, torch, dev)
+    if "families_full" in phases and "families" not in phases:  # (c) and (b) of families alone
+        timed("families_full", _families_full, torch, dev, sz)
+    if "families" in phases:
+        fam = timed("families", phase_families, torch, dev, sz)
+        never = [k for k in FAMILY_KERNELS if not fam.get(k)]
+        if never:
+            raise AssertionError(f"families: kernels its paths did not launch: {never}")
+        launches = {k: (launches or {}).get(k, 0) + fam.get(k, 0) for k in KERNELS}
     log(json.dumps({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t_start, 1)}))
     out = []
     for name, (src, replaces) in KERNELS.items():

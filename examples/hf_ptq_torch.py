@@ -3,11 +3,13 @@
 reference's `examples/hf_ptq/hf_ptq.py`) and taking its arguments.
 
 Load an HF checkpoint of a registered family (`models/registry.py`: Llama,
-Qwen2 / Qwen3, Mistral through `quant.ptq.quantize`; Mixtral, Qwen3-MoE and
-DBRX through `quant.ptq.quantize_family`), or a seeded random tiny model,
-quantize it with a preset or a recipe on calibration data, report
-perplexity before and after, and export a unified quantized HF checkpoint.
-Runs on the card unless `--device cpu`.
+Qwen2 / Qwen3, Mistral through `quant.ptq.quantize`; Mixtral, Qwen3-MoE,
+DBRX, GPT-OSS and Llama4 through `quant.ptq.quantize_family`), or a seeded
+random tiny model, quantize it with a preset or a recipe on calibration
+data, report perplexity before and after, and export a unified quantized HF
+checkpoint (GPT-OSS: its native MXFP4 format, under an MXFP4 preset; a
+Llama4 model's shared expert has no name in the unified checkpoint, so its
+export raises, as JAX's does). Runs on the card unless `--device cpu`.
 
 Examples:
   python examples/hf_ptq_torch.py --device cpu --model tiny \\

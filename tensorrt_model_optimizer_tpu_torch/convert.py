@@ -4,7 +4,9 @@
 e.g. `jax.tree.map(np.asarray, params)`) into the port's tensors;
 `quantized_from_jax` turns a JAX `QuantizedModel` (`ptq.quantize`'s output,
 any calibration algorithm's: sequential amax tuples, pre_quant_scale, the
-affine KV bias and SVDQuant's adapters come along) into the port's; `compressed_from_jax` turns a JAX `CompressedModel` (canonical kinds, as
+affine KV bias and SVDQuant's adapters come along; the GPT-OSS and Llama4 leaves, sinks,
+biases and the shared expert, are layer leaves like any other) into the
+port's; `compressed_from_jax` turns a JAX `CompressedModel` (canonical kinds, as
 `quant.compress.compress` returns them) into the port's, so both packages
 compute the same function (the quantizer state comes along, the `k_bmm` /
 `v_bmm` amax of a KV preset included); `cache_from_jax` and `paged_from_jax`
@@ -87,11 +89,15 @@ def layout_from_jax(layout) -> QuantLayout:
 
 
 def llama_cfg_from_jax(cfg) -> LlamaConfig:
-    """A JAX LlamaConfig or MixtralConfig -> the port's (every field carried,
-    the dtype as the torch dtype)."""
+    """A JAX LlamaConfig, MixtralConfig, GptOssConfig or Llama4Config -> the
+    port's class of the same name (every field carried, the dtype as the
+    torch dtype)."""
+    from .models.gpt_oss import GptOssConfig
+    from .models.llama4 import Llama4Config
     from .models.mixtral import MixtralConfig
 
-    cls = MixtralConfig if hasattr(cfg, "num_experts") else LlamaConfig
+    by_name = {c.__name__: c for c in (GptOssConfig, Llama4Config)}
+    cls = by_name.get(type(cfg).__name__, MixtralConfig if hasattr(cfg, "num_experts") else LlamaConfig)
     rs = cfg.rope_scaling
     if rs is not None:
         rs = RopeScaling(**{f.name: getattr(rs, f.name) for f in dataclasses.fields(RopeScaling)})
@@ -102,12 +108,14 @@ def llama_cfg_from_jax(cfg) -> LlamaConfig:
 def quantized_from_jax(qm, device="cpu"):
     """A JAX `QuantizedModel` (`quant.ptq.quantize`'s output: raw weights,
     layout, calibrated state, the config) -> the port's, on `device`."""
-    from .models import mixtral
+    from .models import gpt_oss, llama4, mixtral
     from .quant.config import QuantizeConfig
     from .quant.ptq import QuantizedModel
 
     qc = qm.quant_cfg
     cfg = llama_cfg_from_jax(qm.model_cfg)
+    forward = {gpt_oss.GptOssConfig: gpt_oss.forward, llama4.Llama4Config: llama4.forward,
+               mixtral.MixtralConfig: mixtral.forward}.get(type(cfg))
     return QuantizedModel(
         model_cfg=cfg,
         params=params_from_jax(qm.params, device),
@@ -116,7 +124,7 @@ def quantized_from_jax(qm, device="cpu"):
         quant_cfg=QuantizeConfig(rules=tuple((p, quantizer_cfg_from_jax(c)) for p, c in qc.rules),
                                  algorithm=qc.algorithm),
         adapters=params_from_jax(qm.adapters, device),
-        forward_fn=mixtral.forward if isinstance(cfg, mixtral.MixtralConfig) else None,
+        forward_fn=forward,
     )
 
 

@@ -38,8 +38,15 @@ plugins quantize them; Qwen3's q/k norms and Qwen2's attention biases go
 out in fp16. An MoE model whose experts carry a `pre_quant_scale` (AWQ,
 SmoothQuant) raises: the expert modules have no tensor for it.
 
-Not ported (each raises `NotImplementedError` naming its slice): GPT-OSS
-and VLM exports.
+GPT-OSS exports in its native format (`export_gpt_oss_checkpoint`, which
+`export_hf_checkpoint` dispatches to): the experts' gate / up re-fused and
+interleaved, then packed as MXFP4 blocks along the contraction dim with
+E8M0 exponents (`_mxfp4_pack_hf`), everything else fp16, byte-equal to
+JAX's files; it needs an MXFP4 weight preset, as JAX's does. Llama4's
+shared expert has no name in the unified checkpoint: its model raises, as
+JAX's does.
+
+Not ported (raises `NotImplementedError` naming its slice): VLM export.
 """
 
 from __future__ import annotations
@@ -51,7 +58,7 @@ from typing import Optional
 
 import torch
 
-from ..models import hf_loader, llama
+from ..models import gpt_oss, hf_loader, llama
 from ..ops import numerics
 from ..quant.ptq import QuantizedModel
 
@@ -247,8 +254,8 @@ def _iter_export_tensors(model: QuantizedModel):
     unsupported = [k for k in layers if k.startswith("shared.") or k == "self_attn.sinks"
                    or (k.endswith("__bias") and not k.startswith("self_attn."))]
     if unsupported:
-        raise NotImplementedError(f"unified export does not cover the leaves {unsupported} (GPT-OSS and "
-                                  "Llama4 come with ROADMAP queue 1 item 5)")
+        raise NotImplementedError(f"unified export does not cover the leaves {unsupported}: they have no "
+                                  "checkpoint name in it (Llama4's shared expert), as in JAX")
     yield "model.embed_tokens.weight", _f16(model.params["embed_tokens"])
     yield "model.norm.weight", _f16(model.params["norm"])
     if "lm_head" in model.params:
@@ -370,7 +377,7 @@ def export_hf_checkpoint(model: QuantizedModel, export_dir: str, max_shard_bytes
     With `max_shard_bytes`, streams into shards (`model-XXXXX-of-NNNNN.
     safetensors` + `model.safetensors.index.json`), one shard held at a
     time; without it, one `model.safetensors` of the same tensors."""
-    if getattr(model.model_cfg, "swiglu_limit", None) is not None or "self_attn.sinks" in model.params["layers"]:
+    if isinstance(model.model_cfg, gpt_oss.GptOssConfig):  # GPT-OSS ships MXFP4 natively: that format back
         return export_gpt_oss_checkpoint(model, export_dir, max_shard_bytes)
     folded = sorted(n for n, site in model.qstate.items()
                     if n.startswith("moe.") and getattr(site.get("input"), "pre_quant_scale", None) is not None)
@@ -406,8 +413,101 @@ def export_hf_checkpoint(model: QuantizedModel, export_dir: str, max_shard_bytes
     return hf_quant_config
 
 
-def export_gpt_oss_checkpoint(model, export_dir: str, max_shard_bytes: Optional[int] = None) -> dict:
-    raise NotImplementedError("GPT-OSS export (native MXFP4 experts) comes with ROADMAP queue 1 item 5")
+def _mxfp4_pack_hf(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """w [rows, K] -> HF's native GPT-OSS MXFP4 layout: (blocks [rows, K/32,
+    16] uint8, two E2M1 codes a byte, the even element in the low nibble;
+    scales [rows, K/32] uint8, the E8M0 exponents biased by 127), the format
+    transformers' `convert_moe_packed_tensors` dequantizes."""
+    from ..ops.formats import fp_emax
+
+    rows, K = w.shape
+    w32 = w.float()
+    scale = numerics.e8m0_scale(numerics.block_amax_compact(w32, ((-1, 32),)), fp_emax(2, 1))
+    s_full = numerics.expand_block_scale(scale, w32.shape, ((-1, 32),))
+    codes = numerics.fp4_to_codes(numerics.fp4_round(w32 / s_full)).to(torch.uint8)
+    blocks = (codes[..., 0::2] | (codes[..., 1::2] << 4)).reshape(rows, K // 32, 16)
+    exps = torch.clamp(torch.frexp(scale).exponent - 1 + 127, 0, 254).to(torch.uint8)
+    return blocks, exps
+
+
+def _iter_gpt_oss_tensors(model: QuantizedModel):
+    """Yield (name, tensor) of GPT-OSS's native checkpoint, one layer at a
+    time, in the reference's order."""
+    cfg, layers = model.model_cfg, model.params["layers"]
+    E, inter, h = cfg.num_experts, cfg.intermediate_size, cfg.hidden_size
+
+    def packed(stack):  # [E, rows, K] -> (blocks [E, rows, K/32, 16], scales [E, rows, K/32])
+        pe = [_mxfp4_pack_hf(stack[e]) for e in range(E)]
+        return torch.stack([b for b, _ in pe]), torch.stack([s for _, s in pe])
+
+    yield "model.embed_tokens.weight", _f16(model.params["embed_tokens"])
+    yield "model.norm.weight", _f16(model.params["norm"])
+    if "lm_head" in model.params:
+        yield "lm_head.weight", _f16(model.params["lm_head"])
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}."
+        yield p + "input_layernorm.weight", _f16(layers["input_layernorm"][i])
+        yield p + "post_attention_layernorm.weight", _f16(layers["post_attention_layernorm"][i])
+        yield p + "self_attn.sinks", _f16(layers["self_attn.sinks"][i])
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            yield p + f"self_attn.{proj}.weight", _f16(layers[f"self_attn.{proj}"][i])
+            yield p + f"self_attn.{proj}.bias", _f16(layers[f"self_attn.{proj}__bias"][i])
+        yield p + "mlp.router.weight", _f16(layers["moe.router"][i])
+        yield p + "mlp.router.bias", _f16(layers["moe.router__bias"][i])
+        # gate / up (ours [E, I, H]) re-fused, interleaved by row: [E, 2I, H]
+        gu = torch.stack([layers["moe.gate_proj"][i].float(), layers["moe.up_proj"][i].float()], dim=-2)
+        blocks, scales = packed(gu.reshape(E, 2 * inter, h))
+        yield p + "mlp.experts.gate_up_proj_blocks", blocks
+        yield p + "mlp.experts.gate_up_proj_scales", scales
+        gub = torch.stack([layers["moe.gate_proj__bias"][i], layers["moe.up_proj__bias"][i]], dim=-1)
+        yield p + "mlp.experts.gate_up_proj_bias", _f16(gub.reshape(E, 2 * inter))
+        # HF's down_proj blocks run along its contraction dim I: the packed
+        # rows are the H outputs, our [E, H, I] as it is
+        blocks, scales = packed(layers["moe.down_proj"][i].float())
+        yield p + "mlp.experts.down_proj_blocks", blocks
+        yield p + "mlp.experts.down_proj_scales", scales
+        yield p + "mlp.experts.down_proj_bias", _f16(layers["moe.down_proj__bias"][i])
+
+
+def export_gpt_oss_checkpoint(model: QuantizedModel, export_dir: str, max_shard_bytes: Optional[int] = None) -> dict:
+    """GPT-OSS's export in the architecture's native shipped format: the
+    experts' `gate_up_proj_blocks` / `_scales` and `down_proj_blocks` /
+    `_scales` (MXFP4, blocks along the contraction dim), everything else
+    fp16 under the HF names, JAX's `config.json` and `hf_quant_config.json`;
+    the directory loads through `hf_loader.load_hf_moe_checkpoint`. Byte-
+    equal to JAX's files, single-file or sharded (`max_shard_bytes`).
+    Needs an MXFP4 weight preset, as JAX's does."""
+    cfg = model.model_cfg
+    algo, _ = _quant_algo(model)
+    if algo != "MXFP4":
+        raise NotImplementedError(f"GPT-OSS export writes the native MXFP4 format; got {algo}. "
+                                  "Quantize with MXFP4_DEFAULT_CFG / MXFP4_WEIGHT_ONLY_CFG.")
+    os.makedirs(export_dir, exist_ok=True)
+    if max_shard_bytes is not None:
+        _write_sharded(_iter_gpt_oss_tensors(model), export_dir, max_shard_bytes)
+    else:
+        _save(dict(_iter_gpt_oss_tensors(model)), os.path.join(export_dir, "model.safetensors"))
+    hf_quant_config = {"producer": dict(PRODUCER),
+                       "quantization": {"quant_algo": "MXFP4", "group_size": 32, "exclude_modules": ["lm_head"]}}
+    with open(os.path.join(export_dir, "hf_quant_config.json"), "w") as f:
+        json.dump(hf_quant_config, f, indent=2)
+    hf_cfg = {
+        "architectures": ["GptOssForCausalLM"], "model_type": "gpt_oss",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_hidden_layers, "num_attention_heads": cfg.num_attention_heads,
+        "num_key_value_heads": cfg.num_key_value_heads, "head_dim": cfg.hd, "rope_theta": cfg.rope_theta,
+        "rms_norm_eps": cfg.rms_norm_eps, "tie_word_embeddings": cfg.tie_word_embeddings,
+        "max_position_embeddings": cfg.max_position_embeddings, "num_local_experts": cfg.num_experts,
+        "num_experts_per_tok": cfg.top_k, "sliding_window": cfg.sliding_window,
+        "layer_types": list(cfg.resolved_layer_types()), "attention_bias": cfg.attention_bias,
+        "quantization_config": {"quant_method": "mxfp4", "modules_to_not_convert": []},
+        "torch_dtype": "bfloat16",
+    }
+    if cfg.rope_scaling is not None:
+        hf_cfg["rope_scaling"] = hf_loader.config_to_hf(cfg)["rope_scaling"]
+    with open(os.path.join(export_dir, "config.json"), "w") as f:
+        json.dump(hf_cfg, f, indent=2)
+    return hf_quant_config
 
 
 def export_vlm_checkpoint(cfg, params, layout, qstate, export_dir: str, quant_cfg=None) -> dict:

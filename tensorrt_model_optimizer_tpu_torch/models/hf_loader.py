@@ -1,12 +1,12 @@
 """HF checkpoint loading and saving (port of `models/hf_loader.py`): the
 Llama family (llama, mistral, Qwen2's attention biases, Qwen3's q/k norms)
-and the Mixtral family (`load_hf_moe_checkpoint`: qwen3_moe, mixtral, dbrx).
+and the MoE families (`load_hf_moe_checkpoint`: qwen3_moe, mixtral, dbrx,
+gpt_oss with its MXFP4-shipped experts, llama4 / llama4_text).
 
 Reads `config.json` and every `*.safetensors` file of a directory into the
 stacked-layer params dict (experts stacked `[L, E, out, in]`), and writes
 one back (`save_hf_checkpoint`, MoE stacks under the qwen3_moe or mixtral
-names). GPT-OSS, Llama4 and DeepSeek checkpoints raise, naming ROADMAP
-queue 1 item 5. The
+names). DeepSeek checkpoints raise, naming ROADMAP queue 1 item 5. The
 safetensors format is parsed and written here (an 8-byte little-endian
 header length, a JSON header padded with spaces to a multiple of 8, then
 raw little-endian bytes) so the port needs no `safetensors` package; BF16
@@ -101,8 +101,7 @@ def _rope_scaling_from_hf(d: dict) -> Optional[RopeScaling]:
 
 
 # model types of JAX's loaders that the port does not have yet -> what brings them
-NOT_PORTED = {mt: "ROADMAP queue 1 item 5" for mt in
-              ("gpt_oss", "llama4", "llama4_text", "deepseek_v2", "deepseek_v3")}
+NOT_PORTED = {mt: "ROADMAP queue 1 item 5" for mt in ("deepseek_v2", "deepseek_v3")}
 
 
 def config_from_hf(d: dict) -> LlamaConfig:
@@ -354,13 +353,134 @@ def _load_dbrx(path: str, d: dict, dtype, dev):
     return cfg, _head(params, cfg, raw, get)
 
 
+def mxfp4_dequant(blocks: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """GPT-OSS's shipped MXFP4 expert tensor -> f32 [..., K, rows]: `blocks`
+    [..., rows, G, 16] uint8 (two E2M1 codes a byte, the low nibble first),
+    `scales` [..., rows, G] biased-127 E8M0, 32-wide blocks along the
+    contraction dim K = 32 G; the last two axes swapped at the end, as
+    transformers' `convert_moe_packed_tensors` returns them."""
+    from ..ops import numerics
+
+    b = blocks.to(torch.int32)
+    v = torch.stack([numerics.codes_to_fp4(b & 0xF), numerics.codes_to_fp4((b >> 4) & 0xF)], dim=-1)
+    v = v.reshape(*blocks.shape[:-1], blocks.shape[-1] * 2)
+    e = scales.to(torch.int32) - 127
+    v = v * torch.ldexp(torch.ones(e.shape, device=v.device), e)[..., None]
+    return v.reshape(*v.shape[:-2], -1).transpose(-1, -2)
+
+
+def gpt_oss_from_tensors(d: dict, raw, dtype=torch.bfloat16, device=None):
+    """GPT-OSS's (config, params) from config.json's fields `d` and any name
+    -> tensor mapping `raw` (a checkpoint directory's, or `export.hf_export`'s
+    GPT-OSS tensors held in memory): the fused `mlp.experts.gate_up_proj`
+    [E, H, 2I] de-interleaved (gate the even columns, up the odd:
+    `GptOssExperts.forward`) into the stacked [E, I, H] gate / up planes,
+    `down_proj` [E, I, H] transposed; MXFP4-shipped experts (`{proj}_blocks`
+    / `_scales`) dequantized (`mxfp4_dequant`); biases, sinks, the router's
+    bias; the config's `layer_types`, `sliding_window` and yarn rope
+    (`truncate` read)."""
+    from .gpt_oss import GptOssConfig
+
+    dev = resolve_device(device)
+
+    cfg = GptOssConfig(**{**config_from_hf(d).__dict__, "dtype": dtype,
+                          "num_experts": d.get("num_local_experts", d.get("num_experts")),
+                          "top_k": d.get("num_experts_per_tok", 4), "sliding_window": d.get("sliding_window", 128),
+                          "layer_types": tuple(d["layer_types"]) if d.get("layer_types") else None,
+                          "attention_bias": d.get("attention_bias", True)})
+    get = lambda name: raw[name].to(device=dev).to(dtype)
+    L = cfg.num_hidden_layers
+    stack = lambda fmt: torch.stack([get(fmt.format(i=i)) for i in range(L)])
+
+    def expert_weight(i: int, proj: str) -> torch.Tensor:
+        base = f"model.layers.{i}.mlp.experts.{proj}"
+        if f"{base}_blocks" not in raw:
+            return get(base)
+        return mxfp4_dequant(raw[f"{base}_blocks"].to(dev), raw[f"{base}_scales"].to(dev)).to(dtype)
+
+    pre = "model.layers.{i}."
+    layers: dict[str, Any] = {
+        "input_layernorm": stack(pre + "input_layernorm.weight"),
+        "post_attention_layernorm": stack(pre + "post_attention_layernorm.weight"),
+        "self_attn.sinks": stack(pre + "self_attn.sinks"),
+        "moe.router": stack(pre + "mlp.router.weight"),
+        "moe.router__bias": stack(pre + "mlp.router.bias"),
+    }
+    for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        layers[f"self_attn.{proj}"] = stack(pre + f"self_attn.{proj}.weight")
+        layers[f"self_attn.{proj}__bias"] = stack(pre + f"self_attn.{proj}.bias")
+    gate_up = torch.stack([expert_weight(i, "gate_up_proj") for i in range(L)])  # [L, E, H, 2I]
+    gu_bias = stack(pre + "mlp.experts.gate_up_proj_bias")  # [L, E, 2I]
+    layers["moe.gate_proj"] = gate_up[..., 0::2].transpose(-1, -2).contiguous()
+    layers["moe.up_proj"] = gate_up[..., 1::2].transpose(-1, -2).contiguous()
+    del gate_up
+    layers["moe.gate_proj__bias"] = gu_bias[..., 0::2].contiguous()
+    layers["moe.up_proj__bias"] = gu_bias[..., 1::2].contiguous()
+    layers["moe.down_proj"] = torch.stack([expert_weight(i, "down_proj") for i in range(L)]).transpose(-1, -2).contiguous()
+    layers["moe.down_proj__bias"] = stack(pre + "mlp.experts.down_proj_bias")
+    params = {"embed_tokens": get("model.embed_tokens.weight"), "layers": layers, "norm": get("model.norm.weight")}
+    return cfg, _head(params, cfg, raw, get)
+
+
+def _load_llama4(path: str, d: dict, dtype, dev):
+    """Llama4's text stack (Scout-style all-MoE): the config nested under
+    `text_config` and the weights under `language_model.` in a multimodal
+    checkpoint; the fused `feed_forward.experts.gate_up_proj` [E, H, 2I] is
+    chunked (gate the first I columns, unlike GPT-OSS's interleave), the
+    shared expert comes in, and `interleave_moe_layer_step != 1` raises, as
+    in JAX."""
+    from .llama4 import Llama4Config
+
+    td = d.get("text_config", d)
+    prefix = "language_model." if "text_config" in d else ""
+    if td.get("interleave_moe_layer_step", 1) != 1:
+        raise NotImplementedError("only all-MoE Llama4 (interleave_moe_layer_step=1) is supported, as in JAX")
+    cfg = Llama4Config(
+        vocab_size=td["vocab_size"], hidden_size=td["hidden_size"], intermediate_size=td["intermediate_size"],
+        num_hidden_layers=td["num_hidden_layers"], num_attention_heads=td["num_attention_heads"],
+        num_key_value_heads=td["num_key_value_heads"], head_dim=td.get("head_dim"),
+        rope_theta=td.get("rope_theta", 500000.0), rope_scaling=_rope_scaling_from_hf(td),
+        rms_norm_eps=td.get("rms_norm_eps", 1e-5), tie_word_embeddings=td.get("tie_word_embeddings", False),
+        max_position_embeddings=td.get("max_position_embeddings", 4096),
+        num_experts=td.get("num_local_experts", 16), top_k=td.get("num_experts_per_tok", 1),
+        # HF writes the resolved per-layer flags; they win over the every-4th rule
+        no_rope_layers=tuple(td["no_rope_layers"]) if td.get("no_rope_layers") else None,
+        no_rope_layer_interval=4, attention_chunk_size=td.get("attention_chunk_size", 8192),
+        attn_temperature_tuning=bool(td.get("attn_temperature_tuning", True)), attn_scale=td.get("attn_scale", 0.1),
+        floor_scale=td.get("floor_scale", 8192.0), use_qk_norm=td.get("use_qk_norm", True), dtype=dtype)
+    raw = SafetensorsDir(path)
+    get = lambda name: raw[prefix + name].to(device=dev).to(dtype)
+    L, inter = cfg.num_hidden_layers, cfg.intermediate_size
+    stack = lambda fmt: torch.stack([get(fmt.format(i=i)) for i in range(L)])
+    pre = "model.layers.{i}."
+    layers: dict[str, Any] = {
+        "input_layernorm": stack(pre + "input_layernorm.weight"),
+        "post_attention_layernorm": stack(pre + "post_attention_layernorm.weight"),
+        "moe.router": stack(pre + "feed_forward.router.weight"),
+    }
+    for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        layers[f"self_attn.{proj}"] = stack(pre + f"self_attn.{proj}.weight")
+    gate_up = stack(pre + "feed_forward.experts.gate_up_proj")  # [L, E, H, 2I]
+    layers["moe.gate_proj"] = gate_up[..., :inter].transpose(-1, -2).contiguous()
+    layers["moe.up_proj"] = gate_up[..., inter:].transpose(-1, -2).contiguous()
+    del gate_up
+    layers["moe.down_proj"] = stack(pre + "feed_forward.experts.down_proj").transpose(-1, -2).contiguous()
+    for proj in ("gate_proj", "up_proj", "down_proj"):
+        layers[f"shared.{proj}"] = stack(pre + f"feed_forward.shared_expert.{proj}.weight")
+    params = {"embed_tokens": get("model.embed_tokens.weight"), "layers": layers, "norm": get("model.norm.weight")}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = get("lm_head.weight") if prefix + "lm_head.weight" in raw else params["embed_tokens"]
+    return cfg, params
+
+
 def load_hf_moe_checkpoint(path: str, dtype=torch.bfloat16, device=None):
-    """(MixtralConfig, params) from an HF MoE checkpoint directory: qwen3_moe
+    """(config, params) from an HF MoE checkpoint directory: qwen3_moe
     (router mlp.gate, experts mlp.experts.{e}.{gate,up,down}_proj, per-head
     q/k norms, expert width moe_intermediate_size), mixtral
-    (block_sparse_moe.gate, experts.{e}.{w1,w3,w2}) or dbrx; experts
+    (block_sparse_moe.gate, experts.{e}.{w1,w3,w2}), dbrx, gpt_oss
+    (`gpt_oss_from_tensors`) or llama4 / llama4_text (`_load_llama4`); experts
     stacked [L, E, out, in], every tensor cast to `dtype` on `device`.
-    gpt_oss, llama4 and deepseek raise, naming ROADMAP queue 1 item 5."""
+    deepseek raises, naming ROADMAP queue 1 item 5."""
     from .mixtral import MixtralConfig
 
     dev = resolve_device(device)
@@ -371,6 +491,10 @@ def load_hf_moe_checkpoint(path: str, dtype=torch.bfloat16, device=None):
         raise NotImplementedError(f"model_type {mt!r} is not ported yet: {NOT_PORTED[mt]}")
     if mt == "dbrx":
         return _load_dbrx(path, d, dtype, dev)
+    if mt == "gpt_oss":
+        return gpt_oss_from_tensors(d, SafetensorsDir(path), dtype, dev)
+    if mt in ("llama4", "llama4_text"):
+        return _load_llama4(path, d, dtype, dev)
     router_fmt, exp_fmt, projs = moe_names(mt)
     inter = d["moe_intermediate_size"] if mt == "qwen3_moe" else d["intermediate_size"]
     cfg = MixtralConfig(**{**config_from_hf(d).__dict__, "dtype": dtype, "intermediate_size": inter,

@@ -16,7 +16,10 @@ calibration algorithms, and the cached forward over `init_cache`'s dict),
 `forward_unrolled` (a layout per layer) and `attn_impl="flash"`: the
 no-cache causal attention through `ops/cuda/flash_gqa.py` (its kernel on
 the card, its plain version on the CPU), where JAX's runs `flash_gqa`
-through `ops/pallas/flash_wrapper.py`.
+through `ops/pallas/flash_wrapper.py`. The attention pieces of the GPT-OSS
+and Llama4 families live here as in JAX: `sink_softmax` (a layer with a
+`self_attn.sinks` leaf attends through it, and never through flash) and
+`rope_interleaved`.
 """
 
 from __future__ import annotations
@@ -81,6 +84,26 @@ class LlamaConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.hidden_size // self.num_attention_heads
+
+    def layer_flags(self) -> tuple:
+        """Each layer's flag, JAX's per-layer scan input: True where the
+        layer's mask keeps only `span()` besides causality."""
+        return (False,) * self.num_hidden_layers
+
+    def span(self) -> Optional[tuple]:
+        """What a flagged layer's mask keeps besides causality (`span_mask`'s
+        ("window", w) or ("chunk", c)); None where no layer is flagged."""
+        return None
+
+    def rope_qk(self, q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, lp: dict, flag: bool = False):
+        """q [B, T, nH, hd], k [B, T, nKV, hd] after the per-head RMSNorms
+        (Qwen3: `lp`'s q_norm / k_norm) and split-half rope; `flag`: the
+        layer's (`layer_flags`), unused here."""
+        if self.qk_norm:
+            q = rms_norm(q, lp["self_attn.q_norm"], self.rms_norm_eps)
+            k = rms_norm(k, lp["self_attn.k_norm"], self.rms_norm_eps)
+        return rope(q, positions, self.rope_theta, self.rope_scaling), rope(k, positions, self.rope_theta,
+                                                                            self.rope_scaling)
 
     @staticmethod
     def tiny(**kw) -> "LlamaConfig":
@@ -360,6 +383,30 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([y1.to(x.dtype), y2.to(x.dtype)], dim=-1)
 
 
+def rope_interleaved(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                     scaling: Optional[RopeScaling] = None) -> torch.Tensor:
+    """Rotary embedding on interleaved (complex) pairs (x[2i], x[2i+1]),
+    Llama4's `apply_rotary_emb`, in f32; x: [B, T, n, hd]."""
+    freqs, attn_factor = rope_freqs(x.shape[-1], theta, scaling, x.device)
+    angles = positions[..., None].float() * freqs
+    cos = (torch.cos(angles) * attn_factor)[..., None, :]
+    sin = (torch.sin(angles) * attn_factor)[..., None, :]
+    x1, x2 = x[..., 0::2].float(), x[..., 1::2].float()
+    return torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def sink_softmax(scores: torch.Tensor, sinks: torch.Tensor, out_dtype) -> torch.Tensor:
+    """GPT-OSS's attention-sink softmax over scores [B, nH, T, S] f32: a
+    learned logit per head joins the max and the denominator, and its
+    probability mass is dropped. Computed in place on `scores` (the
+    einsum engine's score tensor is the layer's largest), with no
+    concatenated sink column: the same values as JAX's softmax over it."""
+    sk = sinks.float()[None, :, None, None]
+    m = torch.maximum(torch.amax(scores, dim=-1, keepdim=True), sk)
+    e = scores.sub_(m).exp_()
+    return e.div_(e.sum(dim=-1, keepdim=True).add_(torch.exp(sk - m))).to(out_dtype)
+
+
 def _qsite(x, site_cfg: QuantizerConfig, st, calib: bool):
     """Quantize (or, calibrating, collect) at one site -> (y, new_state)."""
     if not site_cfg.enable and st is None:
@@ -424,11 +471,7 @@ def _attention(cfg, x, lp, lstate, layout, positions, mask, calib, adapters=None
     q = proj["q"].reshape(B, T, nH, hd)
     k = proj["k"].reshape(B, T, nKV, hd)
     v = proj["v"].reshape(B, T, nKV, hd)
-    if cfg.qk_norm:  # Qwen3: per-head RMSNorm before rope
-        q = rms_norm(q, lp["self_attn.q_norm"], cfg.rms_norm_eps)
-        k = rms_norm(k, lp["self_attn.k_norm"], cfg.rms_norm_eps)
-    q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
-    k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+    q, k = cfg.rope_qk(q, k, positions, lp)  # Qwen3: per-head RMSNorm before rope
     # KV-cache quantizer sites, post-rope
     k, kst = _qsite(k, layout.get("self_attn.k_bmm"), (lstate or {}).get("self_attn.k_bmm"), calib)
     if kst is not None:
@@ -443,7 +486,8 @@ def _attention(cfg, x, lp, lstate, layout, positions, mask, calib, adapters=None
         new_cache = (k_all, v_all)
     else:
         k_all, v_all = k, v
-    if cache_kv is None and cfg.attn_impl == "flash":
+    sinks = lp.get("self_attn.sinks")  # [nH] GPT-OSS's learned sink logits
+    if cache_kv is None and cfg.attn_impl == "flash" and sinks is None:
         ctx = flash_gqa.flash_attention_gqa(q.transpose(1, 2), k_all.transpose(1, 2), v_all.transpose(1, 2), True)
         ctx = ctx.transpose(1, 2).reshape(B, T, nH * hd).to(x.dtype)
     else:
@@ -452,7 +496,10 @@ def _attention(cfg, x, lp, lstate, layout, positions, mask, calib, adapters=None
         v_all = torch.repeat_interleave(v_all, rep, dim=2)
         scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k_all.float())
         scores = scores / math.sqrt(hd) + mask
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        if sinks is not None:
+            probs = sink_softmax(scores, sinks, x.dtype)
+        else:
+            probs = torch.softmax(scores, dim=-1).to(x.dtype)
         ctx = torch.einsum("bnqk,bknd->bqnd", probs, v_all.to(x.dtype)).reshape(B, T, nH * hd)
     out, s = _linear(ctx, lp["self_attn.o_proj"], "self_attn.o_proj", layout, lstate, calib, adapters,
                      lp.get("self_attn.o_proj__bias"))
@@ -505,6 +552,20 @@ def causal_mask(T: int, device) -> torch.Tensor:
     """[1, 1, T, T] additive causal mask (0 / -1e9, f32)."""
     ar = torch.arange(T, device=device)
     return torch.where(ar[None, :] <= ar[:, None], 0.0, -1e9).float()[None, None]
+
+
+def span_mask(S: int, qpos: torch.Tensor, span: Optional[tuple] = None) -> torch.Tensor:
+    """[T, S] additive mask (0 / -1e9, f32) of queries at positions qpos [T]
+    (a tensor on any device: no host read) over keys at 0 .. S - 1: causal,
+    and within `span` where given: ("window", w), the last w keys with the
+    query's own (GPT-OSS's sliding layers), or ("chunk", c), the query's
+    chunk of c positions (Llama4's rope layers)."""
+    kpos, q = torch.arange(S, device=qpos.device)[None, :], qpos[:, None]
+    keep = kpos <= q
+    if span is not None:
+        kind, n = span
+        keep = keep & ((kpos > q - n) if kind == "window" else (kpos // n == q // n))
+    return torch.where(keep, 0.0, -1e9)
 
 
 def cache_mask(S: int, positions: torch.Tensor) -> torch.Tensor:

@@ -151,19 +151,26 @@ def init_quant_state(cfg: MixtralConfig, layout: llama.QuantLayout, device=None)
 
 
 def route(cfg: MixtralConfig, logits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Routing weights shared by the calibration / fake-quant forward and
-    the engine: logits [S, E] f32 -> (topw, topi) [S, k]."""
-    k = cfg.top_k
+    """Routing shared by the calibration / fake-quant forward and the
+    engine: logits [S, E] f32 -> (topw, topi) [S, k], the top-k experts
+    (of the raw logits for Llama4 and GPT-OSS, else of their softmax) and
+    their `route_weights`."""
+    raw = cfg.router_sigmoid_input_scaled or cfg.router_softmax_after_topk
+    topi = torch.topk(logits if raw else torch.softmax(logits, dim=-1), cfg.top_k, dim=-1)[1]
+    return route_weights(cfg, logits, topi), topi
+
+
+def route_weights(cfg: MixtralConfig, logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The weights of the chosen experts idx [S, k] on logits [S, E] f32:
+    Llama4 the chosen logits' sigmoid; GPT-OSS the softmax over the chosen
+    logits; else the softmax's probabilities, renormalised where
+    `norm_topk_prob`."""
     if cfg.router_sigmoid_input_scaled:
-        topw, topi = torch.topk(logits, k, dim=-1)
-        return torch.sigmoid(topw), topi
-    if cfg.router_softmax_after_topk:  # GPT-OSS: top-k of the raw logits, softmax over the k
-        topw, topi = torch.topk(logits, k, dim=-1)
-        return torch.softmax(topw, dim=-1), topi
-    topw, topi = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
-    if cfg.norm_topk_prob:
-        topw = topw / torch.sum(topw, dim=-1, keepdim=True)
-    return topw, topi
+        return torch.sigmoid(logits.gather(-1, idx))
+    if cfg.router_softmax_after_topk:
+        return torch.softmax(logits.gather(-1, idx), dim=-1)
+    w = torch.softmax(logits, dim=-1).gather(-1, idx)
+    return w / torch.sum(w, dim=-1, keepdim=True) if cfg.norm_topk_prob else w
 
 
 def capacity(cfg: MixtralConfig, S: int) -> int:

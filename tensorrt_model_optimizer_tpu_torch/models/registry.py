@@ -2,10 +2,11 @@
 `model_type`) -> the port's model modules, so a registered family goes
 through the whole pipeline (PTQ, export, serving).
 
-`llama` (llama, qwen2, qwen3, mistral) and `mixtral` (mixtral, qwen3_moe,
-dbrx) are registered as in JAX. JAX's other families are not ported yet:
-`get` and `for_hf_model_type` raise `NotImplementedError` naming the
-ROADMAP item that brings each.
+`llama` (llama, qwen2, qwen3, mistral), `mixtral` (mixtral, qwen3_moe,
+dbrx), `llama4` (llama4, llama4_text) and `gpt_oss` are registered as in
+JAX. JAX's other families are not ported yet: `get` and
+`for_hf_model_type` raise `NotImplementedError` naming the ROADMAP item
+that brings each.
 """
 
 from __future__ import annotations
@@ -30,8 +31,6 @@ _REGISTRY: dict[str, ModelFamily] = {}
 
 # JAX's families the port does not have yet: name -> (HF model types, what brings it)
 NOT_PORTED = {
-    "llama4": (("llama4", "llama4_text"), "ROADMAP queue 1 item 5 (Llama4: chunked attention, shared expert)"),
-    "gpt_oss": (("gpt_oss",), "ROADMAP queue 1 item 5 (GPT-OSS: sinks, sliding windows)"),
     "mamba": (("nemotron_h", "mamba2"), "ROADMAP queue 1 item 10 (models/mamba.py)"),
     "dit": ((), "ROADMAP queue 1 item 10 (models/dit.py)"),
 }
@@ -67,7 +66,9 @@ def families() -> list[str]:
 
 
 def _register_builtins():
+    from . import gpt_oss as gpt_oss_mod
     from . import llama as llama_mod
+    from . import llama4 as llama4_mod
     from . import mixtral as mixtral_mod
 
     register(ModelFamily(
@@ -80,6 +81,16 @@ def _register_builtins():
         forward=mixtral_mod.forward, build_layout=mixtral_mod.build_layout,
         init_quant_state=mixtral_mod.init_quant_state, param_specs=mixtral_mod.param_specs,
         hf_model_types=("mixtral", "qwen3_moe", "dbrx")))
+    register(ModelFamily(
+        name="llama4", config_cls=llama4_mod.Llama4Config, init_params=llama4_mod.init_params,
+        forward=llama4_mod.forward, build_layout=llama4_mod.build_layout,
+        init_quant_state=llama4_mod.init_quant_state, param_specs=llama4_mod.param_specs,
+        hf_model_types=("llama4", "llama4_text")))
+    register(ModelFamily(
+        name="gpt_oss", config_cls=gpt_oss_mod.GptOssConfig, init_params=gpt_oss_mod.init_params,
+        forward=gpt_oss_mod.forward, build_layout=gpt_oss_mod.build_layout,
+        init_quant_state=gpt_oss_mod.init_quant_state, param_specs=gpt_oss_mod.param_specs,
+        hf_model_types=("gpt_oss",)))
 
 
 _register_builtins()

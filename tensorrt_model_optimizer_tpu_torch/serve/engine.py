@@ -84,8 +84,21 @@ entry point: each layer's FFN routes its tokens to the experts (`_moe_ffn`),
 each expert's rows through the same GEMM kernels as the dense projections.
 At decode S is the batch (every slot under paging), so the capacity C =
 max(int(2 S k / E), 1) can be 1, and an expert then keeps only the first of
-the step's tokens that pick it, as JAX's does. Biases, DBRX's qkv clamp and
-Qwen3's per-head q/k norms apply where the model's layers carry them.
+the step's tokens that pick it, as JAX's does. Biases and DBRX's qkv clamp
+apply where the model's layers carry them, q/k norms and rope as the
+config's `rope_qk` says.
+
+GPT-OSS and Llama4 (`models/gpt_oss.py`, `models/llama4.py`) serve on the
+einsum engine, as in JAX: each layer's flag (the config's `layer_flags()`:
+GPT-OSS's sliding layers, Llama4's rope layers) selects its mask, the
+sliding window or the chunk (the config's `span()`), built from the cache's
+device pos; GPT-OSS's sinks join the softmax of the prefill and of the split
+decode before the current token's weight is read out; Llama4's layers take
+`llama4.rope_or_temperature` in place of rope, and its shared expert adds to
+the routed output. The kernel engine refuses windows, sinks and Llama4, as
+JAX's does; paged serving refuses all three and a sparse prefill refuses
+them too: JAX's paged step runs Llama4 as if it were Llama and its sparse
+prefill drops the sinks and the masks (ROADMAP queue 3).
 
 Not ported (each raises `NotImplementedError` naming its slice): the
 tensor-parallel and speculative paths.
@@ -438,20 +451,27 @@ def _moe_ffn(cfg, cm, h2, lp, lstate, kinds, ops):
 
 
 def _ffn(cfg, cm, h2, lp, lstate, kinds, ops, lin):
-    """The layer's FFN: routed experts where the layer has them, else the
+    """The layer's FFN: routed experts where the layer has them (and
+    Llama4's shared expert added to their output, through `lin`), else the
     dense MLP through `lin(x, name)`."""
     if "moe.gate_proj" in lp:
-        return _moe_ffn(cfg, cm, h2, lp, lstate, kinds, ops)
+        y = _moe_ffn(cfg, cm, h2, lp, lstate, kinds, ops)
+        if "shared.gate_proj" in lp:
+            ys = (torch.nn.functional.silu(lin(h2, "shared.gate_proj").float())
+                  * lin(h2, "shared.up_proj").float()).to(h2.dtype)
+            y = y + lin(ys, "shared.down_proj")
+        return y
     y = (torch.nn.functional.silu(lin(h2, "mlp.gate_proj").float()) * lin(h2, "mlp.up_proj").float()).to(h2.dtype)
     return lin(y, "mlp.down_proj")
 
 
-def _layer(cfg, cm, x, lp, lstate, kinds, positions, ops, attend, adapters=None):
+def _layer(cfg, cm, x, lp, lstate, kinds, positions, ops, attend, adapters=None, flag: bool = False):
     """One decoder layer on packed weights: projections (their biases, the
     qkv clamp and the per-head q/k norms where the model has them) and
-    rope, then `attend(q [B, T, nH, hd], k, v [B, T, nKV, hd]) -> ctx
-    [B*T, nH*hd]`, then the output projection and the FFN. `adapters`:
-    this layer's low-rank branches by projection, or None."""
+    rope (the config's `rope_qk`; Llama4's by the layer's `flag`), then
+    `attend(q [B, T, nH, hd], k, v [B, T, nKV, hd]) -> ctx [B*T, nH*hd]`,
+    then the output projection and the FFN. `adapters`: this layer's
+    low-rank branches by projection, or None."""
     B, T, H = x.shape
     hd, nH, nKV = cfg.hd, cfg.num_attention_heads, cfg.num_key_value_heads
 
@@ -465,11 +485,7 @@ def _layer(cfg, cm, x, lp, lstate, kinds, positions, ops, attend, adapters=None)
     if cfg.clip_qkv is not None:
         q, k, v = (torch.clamp(t, -cfg.clip_qkv, cfg.clip_qkv) for t in (q, k, v))
     q, k, v = q.reshape(B, T, nH, hd), k.reshape(B, T, nKV, hd), v.reshape(B, T, nKV, hd)
-    if "self_attn.q_norm" in lp:
-        q = llama.rms_norm(q, lp["self_attn.q_norm"], cfg.rms_norm_eps)
-        k = llama.rms_norm(k, lp["self_attn.k_norm"], cfg.rms_norm_eps)
-    q = llama.rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
-    k = llama.rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+    q, k = cfg.rope_qk(q, k, positions, lp, flag)  # the model's own, as JAX's engine uses it
     ctx = attend(q, k, v)
     x = x + lin(ctx, "self_attn.o_proj").reshape(B, T, H)
     h2 = llama.norm(cfg, x, lp["post_attention_layernorm"]).reshape(B * T, H)
@@ -521,23 +537,26 @@ def _write_rows(cache: torch.Tensor, dim: int, rows: torch.Tensor, src: torch.Te
     cache.index_copy_(dim, rows, src)
 
 
-def _einsum_attn(cfg, ecfg, q, k, v, ck, cv, pos, ka, va, ops, keep_fracs):
+def _einsum_attn(cfg, ecfg, q, k, v, ck, cv, pos, ka, va, ops, keep_fracs, span=None, sinks=None):
     """Attention of one layer of the einsum engine over its dense cache ck/cv
     [B, S, n_kv, C], written in place at rows pos .. pos + T - 1 (pos: the
     cache's 0-d int32 tensor). `keep_fracs` is a list for a sparse prefill
-    (the layer's kept share of tiles is appended), else None. Returns ctx
-    [B*T, nH*hd]."""
+    (the layer's kept share of tiles is appended), else None. `span`: the
+    layer's window or chunk (the config's `span()`) where it is flagged, else None
+    (causal); `sinks` [nH]: GPT-OSS's sink logits, which join the softmax
+    (`llama.sink_softmax`). Returns ctx [B*T, nH*hd]."""
     B, T, nH, hd = q.shape
     nKV, S = cfg.num_key_value_heads, ck.shape[1]
     rep, dt, kv_dtype = nH // nKV, cfg.dtype, ecfg.kv_dtype
     k_st = _kv_store(k, kv_dtype, ka).to(ck.dtype)
     v_st = _kv_store(v, kv_dtype, va).to(cv.dtype)
     qg = q.reshape(B, T, nKV, rep, hd).float()
-    mask = torch.where(torch.arange(S, device=q.device)[None, :]
-                       <= pos + torch.arange(T, device=q.device)[:, None], 0.0, -1e9)
+    mask = llama.span_mask(S, pos + torch.arange(T, device=q.device), span)
 
     def probs_of(scores):  # [B, nKV, rep, T, S] f32 -> probabilities in the activation dtype
         scores = scores.reshape(B, nH, T, S).div_(math.sqrt(hd)).add_(mask)
+        if sinks is not None:
+            return llama.sink_softmax(scores, sinks, dt).reshape(B, nKV, rep, T, S)
         return torch.softmax(scores, dim=-1).to(dt).reshape(B, nKV, rep, T, S)
 
     rows = _rows_at(pos, T)
@@ -688,6 +707,21 @@ class Engine:
         if config.kv_attention_kernel and config.attn_sparsity is not None:
             raise NotImplementedError(
                 "kv_attention_kernel: prefill attention sparsity unsupported (flash prefill path owns attention)")
+        mcfg, sinks = cm.model_cfg, "self_attn.sinks" in cm.params["layers"]
+        span = mcfg.span()
+        if config.kv_attention_kernel and (span is not None or sinks):
+            # JAX refuses them too: its kernels attend causally, without sinks
+            raise NotImplementedError(
+                "kv_attention_kernel: " + ("Llama4's rope / nope chunked attention" if span and span[0] == "chunk"
+                                           else "sliding windows" if span else "attention sinks")
+                + " use the dense-cache einsum engine (kv_attention_kernel=False)")
+        if config.attn_sparsity is not None and (span is not None or sinks):
+            # JAX's sparse prefill attends causally over the fresh tokens and
+            # so drops the window, the chunk, the sinks and Llama4's
+            # temperature-tuned q (ROADMAP queue 3): the port refuses
+            raise NotImplementedError(
+                "attn_sparsity: the skip-softmax prefill attends causally, without sliding windows, Llama4's "
+                "chunks or attention sinks")
         if config.kv_dtype not in _KV_DTYPES:
             raise ValueError(f"kv_dtype {config.kv_dtype!r}: one of {_KV_DTYPES}")
         # an NVFP4 KV preset selects the packed NVFP4 cache when the caller
@@ -706,6 +740,7 @@ class Engine:
         self.cfg = cm.model_cfg
         self.ecfg = config
         self._ops = _ops(config.plain_ops)
+        self._flags = self.cfg.layer_flags()
         L = self.cfg.num_hidden_layers
         default = torch.full((L,), 448.0, dtype=torch.float32, device=self.device)
         ka, va = _kv_amax_from(cm.qstate, "k"), _kv_amax_from(cm.qstate, "v")
@@ -778,7 +813,7 @@ class Engine:
             ad = None if self.cm.adapters is None else {
                 n: {k: a[i] for k, a in f.items()} for n, f in self.cm.adapters.items()}
             x = _layer(self.cfg, self.cm, x, lp, llama.slice_state(self._act_state, i), self.cm.kinds,
-                       positions, self._ops, attend_of(i), ad)
+                       positions, self._ops, attend_of(i), ad, self._flags[i])
         return x
 
     def _logits(self, x: torch.Tensor, full: bool = False) -> torch.Tensor:
@@ -830,10 +865,14 @@ class Engine:
         positions = (pos + torch.arange(T, device=self.device, dtype=torch.int32))[None].expand(B, T)
         packed4 = "ks" in cache
 
+        sinks = self.cm.params["layers"].get("self_attn.sinks")
+
         def attend_of(i):
             if not kvk:
+                span = cfg.span() if self._flags[i] else None
                 return lambda q, k, v: _einsum_attn(cfg, self.ecfg, q, k, v, cache["k"][i], cache["v"][i], pos,
-                                                    self._ka[i], self._va[i], self._ops, keep_fracs)
+                                                    self._ka[i], self._va[i], self._ops, keep_fracs, span,
+                                                    None if sinks is None else sinks[i])
             cks, cvs = (cache["ks"][i], cache["vs"][i]) if packed4 else (None, None)
             return lambda q, k, v: _dense_attn(cfg, self.ecfg, q, k, v, cache["k"][i], cache["v"][i], cks, cvs,
                                                pos, self._ka[i], self._va[i], self._ops)
@@ -927,8 +966,19 @@ class Engine:
 
     # ---------------- paged KV + continuous batching ----------------
 
+    def _check_paged(self) -> None:
+        """Paged serving attends causally, with split-half rope and no sinks:
+        a model with sinks or a sliding window (GPT-OSS; JAX refuses sinks)
+        or a Llama4 model (JAX serves it as if it were Llama, ROADMAP queue 3)
+        raises."""
+        if "self_attn.sinks" in self.cm.params["layers"] or self.cfg.span() is not None:
+            raise NotImplementedError(
+                "paged serving does not support attention sinks, sliding windows or Llama4's rope / nope chunked "
+                "attention: serve the model on the dense-cache engine")
+
     def init_paged_cache(self, n_pages: int, page_size: int, max_slots: int,
                          max_pages_per_seq: int) -> pc.PagedKV:
+        self._check_paged()
         cfg = self.cfg
         dtype = self.ecfg.kv_dtype or cfg.dtype
         packed4 = dtype == "nvfp4"  # nibble planes + E4M3 scale pools
@@ -943,6 +993,7 @@ class Engine:
         einsum engine's attention, or its sparse route) and copy its
         stored-form cache rows into the slot's pages; the slot's length
         becomes T. Returns the logits [1, V]."""
+        self._check_paged()
         T = tokens.shape[1]
         dense = self.init_cache(1, max_len=T)
         logits = self.prefill(tokens.to(self.device), dense)
@@ -998,8 +1049,7 @@ class Engine:
         lengths advance by T; the other slots are computed too, write to the
         scratch page and keep their length. Returns the last position's
         logits [B, V] f32; the pool is updated in place."""
-        if "self_attn.sinks" in self.cm.params["layers"]:
-            raise NotImplementedError("paged serving does not support attention sinks / sliding windows")
+        self._check_paged()
         cfg = self.cfg
         B, T = tokens.shape
         tokens, active = tokens.to(self.device), active.to(self.device)

@@ -129,6 +129,12 @@ def compressed_from_export(cfg_d: dict, qc: dict, tensors, device=None) -> Compr
     "quantization" `qc`."""
     dev = resolve_device(device)
     mt = cfg_d.get("model_type")
+    if mt in ("gpt_oss", "llama4", "llama4_text"):
+        # GPT-OSS exports its native MXFP4 format, which the HF loader reads;
+        # Llama4's shared expert has no name in the unified checkpoint
+        raise NotImplementedError(f"model_type {mt!r}: the unified checkpoint loader serves dense Llama and the "
+                                  "Mixtral family; a GPT-OSS checkpoint loads through "
+                                  "models.hf_loader.load_hf_moe_checkpoint, as in JAX")
     cfg = hf_loader.config_from_hf(cfg_d)
     is_moe = mt in ("qwen3_moe", "mixtral")
     if is_moe:

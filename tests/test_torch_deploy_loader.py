@@ -202,7 +202,8 @@ def test_unported_checkpoints_raise(base, tmp_path):
     """MXFP8 checkpoints load since the remaining-formats slice (its layout
     and weights equal JAX's loader's: test_torch_layouts.py); MoE
     checkpoints load since the MoE-families slice (test_torch_moe_deploy.py);
-    a GPT-OSS one still raises, naming its ROADMAP item."""
+    a GPT-OSS one raises, naming the loader its native MXFP4 format takes
+    (`hf_loader.load_hf_moe_checkpoint`)."""
     jcfg, params, calib = base
     jm = jptq.quantize(jcfg, params, "MXFP8_DEFAULT_CFG", [jnp.asarray(calib)])
     jexport.export_hf_checkpoint(jm, str(tmp_path))
@@ -212,7 +213,7 @@ def test_unported_checkpoints_raise(base, tmp_path):
         cfg_d = json.load(f)
     with open(tmp_path / "hf_quant_config.json") as f:
         qc = json.load(f)["quantization"]
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="load_hf_moe_checkpoint"):
         tloader.compressed_from_export({**cfg_d, "model_type": "gpt_oss"}, qc, {}, device="cpu")
     assert tQ.DISABLED.enable is False
 

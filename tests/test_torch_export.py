@@ -153,13 +153,15 @@ def test_int4_export_at_a_ragged_k_raises_as_jax_does(tmp_path):
 
 def test_unported_families_raise(base, tmp_path):
     _, tm = _models(base, "int4")
-    # MoE experts export since the MoE-families slice (test_torch_moe_deploy.py);
-    # Llama4's shared expert and GPT-OSS's native format still raise
+    # MoE experts export since the MoE-families slice (test_torch_moe_deploy.py),
+    # GPT-OSS's native MXFP4 format since the GPT-OSS / Llama4 slice
+    # (test_torch_family_deploy.py): it refuses another format, as JAX's does;
+    # Llama4's shared expert has no checkpoint name, in either package
     shared = tm.__class__(**{**tm.__dict__, "params": {**tm.params,
                                                        "layers": {**tm.params["layers"], "shared.gate_proj": None}}})
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="shared expert"):
         texport.export_hf_checkpoint(shared, str(tmp_path / "shared"))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="native MXFP4"):
         texport.export_gpt_oss_checkpoint(tm, str(tmp_path / "oss"))
     with pytest.raises(NotImplementedError, match="VLM"):
         texport.export_vlm_checkpoint(None, None, None, None, str(tmp_path / "vlm"))

@@ -91,9 +91,10 @@ def test_cli_unported_arguments_raise(extra, item):
 
 
 def test_cli_refuses_other_families(tmp_path):
-    # mixtral, qwen3_moe and dbrx run since the MoE-families slice (test_torch_moe_ptq.py)
-    (tmp_path / "config.json").write_text(json.dumps({"model_type": "gpt_oss"}))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # mixtral, qwen3_moe and dbrx run since the MoE-families slice (test_torch_moe_ptq.py),
+    # gpt_oss and llama4 since the GPT-OSS / Llama4 slice; mamba is not ported
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "nemotron_h"}))
+    with pytest.raises(NotImplementedError, match="item 10"):
         _load("examples/hf_ptq_torch.py", "hf_ptq_torch").main(["--device", "cpu", "--model", str(tmp_path)])
 
 

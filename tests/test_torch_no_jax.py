@@ -76,6 +76,14 @@ def test_the_walk_covers_the_moe_families_slice():
     assert "tools/torch_moe_accuracy_table.py" in walked
 
 
+def test_the_walk_covers_the_gpt_oss_llama4_slice():
+    walked = {os.path.relpath(p, ROOT) for p in _sources()}
+    pkg = "tensorrt_model_optimizer_tpu_torch/"
+    assert {pkg + m for m in ("models/gpt_oss.py", "models/llama4.py", "models/registry.py", "models/hf_loader.py",
+                              "convert.py", "serve/engine.py", "export/hf_export.py")} <= walked
+    assert "examples/hf_ptq_torch.py" in walked
+
+
 def test_the_recipe_reader_never_imports_yaml():
     """Loading every builtin recipe, with overrides, adds no `yaml` module."""
     code = (

@@ -9,7 +9,9 @@
 # tensor-core flash kernel (flash_gqa.cu on the tile primitives of
 # attn_tc.cuh) and the skip-softmax kernel (skip_softmax_flash.cu, both
 # routes), of the engine's CUDA-graph decode step (serve/step_graph.py), and
-# of compress's MX packs (quant/compress.py, the accuracy phase).
+# of compress's MX packs (quant/compress.py, the accuracy phase), and of the
+# einsum engine's sinks and per-layer masks (serve/engine.py, the families
+# phase).
 # Each case plants one fault in a copy of the tree in a fresh `mktemp -d`
 # directory (under $TMPDIR, removed on exit) and runs `chip_smoke.py --phases
 # build,kernels` there (a case may name other phases); every case must exit
@@ -132,4 +134,26 @@ run moe_full_w4a8_last_block_scale qmm_w4a8.cu 's/__ldg(s + (size_t)kb \* O + or
 # ... and the weight-only prefill tiles, the odd column of each pair with
 # the even column's block scale (INT4 and NVFP4)
 run moe_full_int4_scale_col qmm_wo_common.cuh 's/__fmul_rn(part\[i\]\[j\]\[1\], s1)/__fmul_rn(part[i][j][1], s0)/' build,moe_full
+# The families phase's small configs alone (`--phases build,families_small`:
+# the f32 engine against the model's own forward, FAMILY_VS_FORWARD_MAX), two
+# faults of the einsum engine's plain PyTorch attention that no kernel
+# comparison sees (the kernel and the plain engine share it): the sink
+# column left out of the softmax ...
+run families_sink_dropped serve/engine.py 's/        if sinks is not None:/        if False:/' build,families_small
+# ... and the sliding window (Llama4: the chunk) applied to every layer, the full ones too
+run families_window_everywhere serve/engine.py 's/span = cfg.span() if self._flags\[i\] else None/span = cfg.span()/' build,families_small
+# The families phase's full-width checks alone (`--phases build,families_full`:
+# the kernel engine against the all-plain one on pinned routing, the 8 x 2048
+# prefill at depth 2, FAMILY_PLAIN_MEDIAN_MAX, and Scout's 8448-token prompt
+# at all 4 layers, FAMILY_LONG_MEDIAN_MAX; Scout runs first): NVFP4 (Scout's
+# first path), the last 32-chunk of K with the chunk before's block scales
+# (1 of 160 at K 5120, 1 of 256 at K 8192) ...
+run families_full_nvfp4_last_chunk_scale qmm_fp4_wo.cu 's/reinterpret_cast<const uint16_t\*>(sp + 2 \* chunk)/reinterpret_cast<const uint16_t*>(sp + 2 * (chunk > 0 \&\& (chunk + 1) * 16 >= row_bytes ? chunk - 1 : chunk))/' build,families_full
+# ... W4A8's prefill route (Scout's second path), the last 128-block of K
+# with the block before's scales (1 of 40 at K 5120) ...
+run families_full_w4a8_last_block_scale qmm_w4a8.cu 's/__ldg(s + (size_t)kb \* O + orow + 8 \* h)/__ldg(s + (size_t)(kb == nblk - 1 \&\& kb > 0 ? kb - 1 : kb) * O + orow + 8 * h)/' build,families_full
+# ... and INT4's weight-only prefill tiles (GPT-OSS-20B's third path; Scout
+# has no INT4 path), the odd column of each pair with the even column's
+# block scale
+run families_full_int4_scale_col qmm_wo_common.cuh 's/__fmul_rn(part\[i\]\[j\]\[1\], s1)/__fmul_rn(part[i][j][1], s0)/' build,families_full
 exit $missed
