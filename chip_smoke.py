@@ -65,7 +65,7 @@ Phases (any failure raises, and the script exits non-zero):
            then serves 12 requests (1024-token prompts behind a 256-token
            shared prefix) through `Engine.serve` over int8 pages: 8 slots,
            page 16, prefix cache, unroll 4, all 32 layers; runs the einsum
-           engine on all 32 layers with dense and sparse prefill of 8 x 2048
+           engine on 16 layers with dense and sparse prefill of 8 x 2048
            tokens and 32 decode steps; and on 4 layers NVFP4_KV_CFG serves
            packed NVFP4 pages and generates over the dense NVFP4 KV cache at
            batch 8 x 2048. Every path of FULL_PATHS also runs its 32 decode
@@ -157,13 +157,35 @@ Phases (any failure raises, and the script exits non-zero):
            build,families_small`); (c) Llama-4-Scout's widths on 4 of 48
            layers, NVFP4 / W4A8, and an 8448-token prompt past position 8192
            held against the all-plain engine on all 4 layers; (b)
-           GPT-OSS-20B at full width on all 24 layers, MXFP4 / NVFP4 / INT4
+           GPT-OSS-20B at full width on 8 of its 24 layers, MXFP4 / NVFP4 / INT4
            ((c) and (b) alone: `--phases build,families_full`): TTFT of 8 x
            2048, eager and graphed (unroll 1 and 8) steps over 32 decode
            steps, peak memory, launches, and the depth-2 prefill against the
            all-plain engine on the kernel engine's routing. The kernels phase
            gains the GEMMs at both models' shapes (`FAMILY_GEMMS`; alone:
            `--phases build,kernels_families`).
+  deepseek DeepSeek-V3 on its own engine over the MLA latent cache
+           (`phase_deepseek`): (a) a small bf16 config (hidden 256, 4 layers:
+           1 dense, 3 MoE; 16 experts of 128, top-4 in 2 of 4 groups, the
+           routers' bias N(0, 0.05^2)) under INT4, NVFP4 (W4A4), FP8, INT8
+           and NVFP4_KV: the routing against a host loop of the rule, the
+           absorbed form against the naive one (f32, JAX's 2e-4 / 1e-3), the
+           kernel engine against the all-plain engine on its routing
+           (MOE_PLAIN_MEDIAN_MAX), the graphed decode (unroll 1 and 8)
+           bit-equal to the eager steps, the cached latent on kv_b's input
+           quantizer's grid, the f32 plain engine against the model's
+           fake-quant forward (DEEPSEEK_VS_FORWARD_MAX; alone: `--phases
+           build,deepseek_small`); (b) DeepSeek-V3's widths (its
+           config.json: yarn factor 40, the softmax factor 1.874) on 4 of
+           its 61 layers (3 dense, 1 MoE), INT4 and NVFP4 W4A4: calibration
+           on 4 seeded [2, 512] batches, TTFT of 8 x 2048, the MLA einsums'
+           and the expert GEMMs' ms (CUDA events), eager and graphed (unroll
+           1 and 8) steps over 32 decode steps (INT4's prefill and eager step
+           profiled), peak memory, launches, and the prefill against the
+           all-plain engine on all 4 layers on the kernel engine's routing,
+           input quantizers off, and W4A4 as served on the MoE layer alone
+           (alone: `--phases build,deepseek_full`). The kernels phase gains the GEMMs at V3's
+           shapes (`DEEPSEEK_GEMMS`; alone: `--phases build,kernels_deepseek`).
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -333,6 +355,7 @@ def phase_kernels(torch, dev, sz: Sizes, timer: Timer, rows: dict):
     _phase_kernels_skip(torch, dev, sz, timer, rows, g)
     _phase_kernels_moe(torch, dev, sz, timer, rows, g)
     _phase_kernels_families(torch, dev, sz, timer, rows, g)
+    _phase_kernels_families(torch, dev, sz, timer, rows, g, DEEPSEEK_GEMMS)
 
 
 # The new shapes the MoE paths give the ported kernels: Qwen3-30B-A3B's
@@ -455,8 +478,9 @@ FAMILY_GEMMS = (
 FAMILY_GEMM_REPS = 5
 
 
-def _phase_kernels_families(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
-    """The GEMMs at FAMILY_GEMMS against their plain versions (W4A8 bit-exact;
+def _phase_kernels_families(torch, dev, sz: Sizes, timer: Timer, rows: dict, g, table=FAMILY_GEMMS):
+    """The GEMMs at `table`'s shapes (FAMILY_GEMMS, or DeepSeek-V3's
+    DEEPSEEK_GEMMS) against their plain versions (W4A8 bit-exact;
     INT4, NVFP4 and MXFP4 weight-only under `_held`), timed beside the plain
     version, with the bound and, for INT4, `torch._weight_int4pack_mm` on
     the same codes and scales (its K padded with zero columns to the 128
@@ -473,7 +497,7 @@ def _phase_kernels_families(torch, dev, sz: Sizes, timer: Timer, rows: dict, g):
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     reps = FAMILY_GEMM_REPS
-    for model, label, O, K, fmts, ns in FAMILY_GEMMS:
+    for model, label, O, K, fmts, ns in table:
         Kp4, Kp64 = -(-K // 128) * 128, -(-K // 64) * 64
         nib4, nib = rand_bytes((O, Kp4 // 2)), rand_bytes((O, Kp64 // 2))
         s4 = (torch.rand((Kp4 // 128, O), generator=g, device=dev) * 0.02 + 0.005).to(torch.bfloat16).float()
@@ -1753,6 +1777,7 @@ def _same_cache(torch, a: dict, b: dict) -> bool:
 
 
 GRAPH_UNROLLS = (1, 8)  # decode_step(unroll=...) as timed beside the eager step; 8 is bench.py's BENCH_UNROLL
+GRAPH_CHECK_STEPS = 2 * max(GRAPH_UNROLLS)  # the fewest eager steps `_graphed_decode` holds a replay of each unroll to
 
 
 def _graphed_decode(torch, eng, label: str, tok0, start: dict, eager_toks: list, eager_cache: dict,
@@ -1770,9 +1795,15 @@ def _graphed_decode(torch, eng, label: str, tok0, start: dict, eager_toks: list,
     time, idle share and kernels a token step, beside the host launches a
     token step (eager: every kernel; a replay: the token's copy-in, the
     replay and the output's copy); `profile_eager=False` leaves the eager
-    step's profile out (its device fields None)."""
+    step's profile out (its device fields None). Raises unless every unroll
+    gets at least two calls (GRAPH_CHECK_STEPS): the first call's tokens come
+    from the warm-up run that precedes the capture, so only a later call
+    holds a replay to the eager steps."""
     sync = torch.cuda.synchronize
     steps = len(eager_toks)
+    short = [u for u in GRAPH_UNROLLS if steps // u < 2]
+    if short:
+        raise ValueError(f"{label}: {steps} eager steps leave unroll {short} no replay after its capture to hold")
     out = {"eager": {"wall_ms_per_token_step": eager_ms, "device_ms_per_token_step": None,
                      "device_idle_share": None, "kernels_per_token_step": None}}
     if profile_eager:
@@ -1797,11 +1828,6 @@ def _graphed_decode(torch, eng, label: str, tok0, start: dict, eager_toks: list,
             raise AssertionError(f"{label}: decode_step(unroll={u}) tokens differ from the eager steps'")
         if not _same_cache(torch, cache, eager_cache):
             raise AssertionError(f"{label}: decode_step(unroll={u}) left another cache than the eager steps")
-        if len(walls) < 2:
-            t0 = time.perf_counter()
-            tok, _ = eng.decode_step(tok, cache, unroll=u)
-            sync()
-            walls.append((time.perf_counter() - t0) * 1e3)
         wall = statistics.median(walls[1:]) / u
         ev = []
         for _ in range(3):
@@ -1969,11 +1995,12 @@ def _full_path(torch, dev, sz: Sizes, path: Path, cfg, params, prompt, profile: 
             raise AssertionError(f"full {path.label}: depth-2 prefill logits rel err {rel} vs plain > 5e-2")
         del out, ref, subcm
     if path.label == "int4":
-        # the INT4 model again, served through `Engine.serve` over int8 pages,
-        # and by the einsum engine with dense and sparse prefill; all layers
+        # the INT4 model again, served through `Engine.serve` over int8 pages
+        # (all layers), and by the einsum engine with dense and sparse prefill
+        # (FULL_EINSUM_DEPTH layers)
         for name, n in _full_paged(torch, dev, sz, eng.cm, PAGED_PATHS[0][0].label, "int8", PagedRun(), profile).items():
             launches[name] = launches[name] or n
-        for name, n in _full_einsum(torch, dev, sz, eng.cm, prompt, profile).items():
+        for name, n in _full_einsum(torch, dev, sz, _truncate(eng.cm, FULL_EINSUM_DEPTH), prompt, profile).items():
             launches[name] = launches[name] or n
     return launches
 
@@ -2049,9 +2076,14 @@ def _decided_apart(keeps: list, decided: list, exact: bool) -> dict:
     return facts
 
 
+# the einsum engine's full-width run: 16 of the 8B's 32 layers since the
+# deepseek phase joined the default run (32 before: the run's time)
+FULL_EINSUM_DEPTH = 16
+
+
 def _full_einsum(torch, dev, sz: Sizes, cm, prompt, profile: bool) -> dict:
     """The einsum engine (kv_attention_kernel=False) on the INT4 model at full
-    width and depth, int8 cache of prompt + decode rows: batch 8 x 2048
+    width (the layers of `cm`), int8 cache of prompt + decode rows: batch 8 x 2048
     prefill dense, sparse at the threshold `calibrate_threshold` gives for a
     0.4 block sparsity on the prompt's embeddings (as
     tools/bench_sparse_prefill.py does) and at 0.999999; each layer's keep
@@ -3611,7 +3643,7 @@ MOE_FULL_PATHS = (
     MoePath("int4", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_int4_wo"),
     MoePath("nvfp4", "NVFP4_WEIGHT_ONLY_CFG", "qmm_fp4_wo"),
 )
-MOE_EAGER_STEPS = 8            # eager token steps the graphed ones are held to
+MOE_EAGER_STEPS = GRAPH_CHECK_STEPS  # eager token steps the graphed ones are held to
 MOE_PLAIN_DEPTH = 2            # kernel engine against the all-plain engine: prefill logits at this depth
 # ... held to this share of the logits' scale (the median over the batch's
 # last positions; the full phase's depth-2 limit), with the plain engine
@@ -3821,39 +3853,42 @@ def _moe_anchor(torch, dev) -> dict:
 
 
 class _pinned_routes:
-    """`mixtral.route` recording each call's expert choices (`record`), then
-    handing them back in the same order (`replay`) with the weights
-    `mixtral.route_weights` gives those experts on the replaying engine's
-    own logits; `apart` counts the choices the replaying engine's
-    own routing would have made otherwise. Restores the route on exit."""
+    """`module.route` (`models.mixtral`'s unless another model module is
+    given: `models.deepseek`'s takes the bias too) recording each call's
+    expert choices (`record`), then handing them back in the same order
+    (`replay`) with the weights the module's `route_weights` gives those
+    experts on the replaying engine's own logits; `apart` counts the
+    choices the replaying engine's own routing would have made otherwise.
+    Restores the route on exit."""
 
-    def __init__(self):
+    def __init__(self, module=None):
         from tensorrt_model_optimizer_tpu_torch.models import mixtral
 
-        self.mixtral, self.real = mixtral, mixtral.route
+        self.module = module or mixtral
+        self.real = self.module.route
         self.choices, self.apart = [], 0
 
     def record(self):
-        def route(cfg, logits):
-            w, i = self.real(cfg, logits)
+        def route(cfg, logits, *rest):
+            w, i = self.real(cfg, logits, *rest)
             self.choices.append(i)
             return w, i
-        self.mixtral.route = route
+        self.module.route = route
         return self
 
     def replay(self):
-        def route(cfg, logits):
+        def route(cfg, logits, *rest):
             i = self.choices.pop(0)
-            self.apart += int((self.real(cfg, logits)[1] != i).sum())
-            return self.mixtral.route_weights(cfg, logits, i), i
-        self.mixtral.route = route
+            self.apart += int((self.real(cfg, logits, *rest)[1] != i).sum())
+            return self.module.route_weights(cfg, logits, i), i
+        self.module.route = route
         return self
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
-        self.mixtral.route = self.real
+        self.module.route = self.real
 
 
 def _moe_full_path(torch, dev, sz: Sizes, path: MoePath, cfg, params, prompt, model: str) -> dict:
@@ -4045,7 +4080,9 @@ GPT_OSS_20B = dict(vocab_size=201088, hidden_size=2880, intermediate_size=2880, 
                    top_k=4, sliding_window=128, swiglu_limit=7.0, attention_bias=True)
 GPT_OSS_YARN = dict(rope_type="yarn", factor=32.0, original_max_position_embeddings=4096, beta_fast=32.0,
                     beta_slow=1.0, truncate=False)
-GPT_OSS_DEPTH = 24   # all its layers
+# 8 of its 24 layers since the deepseek phase joined the default run (all 24
+# before: with it the run read 1064 s on one host, ~1170 s on a slower one)
+GPT_OSS_DEPTH = 8
 GPT_OSS_PATHS = (
     FamilyPath("mxfp4", "gpt_oss", "MXFP4_WEIGHT_ONLY_CFG", "qmm_fp4_wo"),
     FamilyPath("nvfp4", "gpt_oss", "NVFP4_WEIGHT_ONLY_CFG", "qmm_fp4_wo"),
@@ -4197,7 +4234,7 @@ def _families_small(torch, dev) -> dict:
     compress, the einsum engine (int8 KV) in lock step with the all-plain
     engine over FAMILY_PROMPT prompts and FAMILY_STEPS steps (the anchor
     phase's margin rule, W4A8 tokens equal), the graphed decode (unroll 1 and
-    8) bit-equal to the eager steps, the f32 plain engine against the model's
+    8, GRAPH_CHECK_STEPS) bit-equal to the eager steps, the f32 plain engine against the model's
     forward (`_vs_forward`), every refusal; GPT-OSS's deploy loop (MXFP4
     export -> `load_hf_moe_checkpoint` -> `quantize_family` -> compress ->
     serve: logits and tokens equal to the engine's over the export's tensors
@@ -4232,7 +4269,7 @@ def _families_small(torch, dev) -> dict:
         cm = compress.compress(qm)
         quantized[path.label] = (qm, cm)
         layouts = dict(path.layouts)
-        ek = _einsum_engine(torch, cm, _graph_rows(T, FAMILY_STEPS), dev, **layouts)
+        ek = _einsum_engine(torch, cm, _graph_rows(T, GRAPH_CHECK_STEPS), dev, **layouts)
         ep = _einsum_engine(torch, cm, T + FAMILY_STEPS, dev, PLAIN_ALL, **layouts)
         _counts(reset=True)
         steps = _lockstep(torch, (ek, ep), prompts, FAMILY_STEPS)
@@ -4250,7 +4287,7 @@ def _families_small(torch, dev) -> dict:
         tok0 = tok = torch.argmax(ek.prefill(prompts, cache), dim=-1).to(torch.int32)[:, None]
         start, toks, walls = _clone_cache(cache), [], []
         _counts(reset=True)
-        for _ in range(FAMILY_STEPS):
+        for _ in range(GRAPH_CHECK_STEPS):
             t0 = time.perf_counter()
             tok, _ = _eager_step(torch, ek, tok, cache)
             torch.cuda.synchronize()
@@ -4308,16 +4345,16 @@ def _bits(torch, t):
     return t.view(torch.uint8) if t.element_size() == 1 else t
 
 
-def _pinned_pair(torch, make, prompt, steps: int, cache_of) -> dict:
+def _pinned_pair(torch, make, prompt, steps: int, cache_of, module=None) -> dict:
     """The kernel engine `make(())` on its greedy tokens (prefill, then
     steps - 1 decode steps) with its expert choices recorded, then the
-    all-plain engine `make(PLAIN_ALL)` on the same tokens replaying them:
-    each step's logits gaps, the choices the plain engine's own routing
-    would have made otherwise, the kernel engine's prefill wall time and
-    whether its logits are finite."""
+    all-plain engine `make(PLAIN_ALL)` on the same tokens replaying them
+    (`_pinned_routes(module)`): each step's logits gaps, the choices the
+    plain engine's own routing would have made otherwise, the kernel
+    engine's prefill wall time and whether its logits are finite."""
     from tensorrt_model_optimizer_tpu_torch.serve.engine import PLAIN_ALL
 
-    with _pinned_routes() as pins:
+    with _pinned_routes(module) as pins:
         pins.record()
         ek = make(())
         c = cache_of(ek)
@@ -4489,6 +4526,522 @@ def phase_families(torch, dev, sz: Sizes) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# deepseek: DeepSeek-V3 (models/deepseek.py, serve/deepseek_engine.py) on its
+# own engine over the MLA latent cache
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DeepseekPath:
+    """One served DeepSeek path: a preset and the GEMM kernel its
+    projections and experts launch."""
+
+    label: str
+    preset: str
+    gemm: str
+
+
+# (a) a small config (hidden 256, 4 layers: 1 dense, 3 MoE), bf16, under
+# every preset the DeepSeek path serves
+DEEPSEEK_SMALL = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=4,
+                      num_attention_heads=8, num_key_value_heads=8, q_lora_rank=128, kv_lora_rank=128,
+                      qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32, n_routed_experts=16,
+                      moe_intermediate_size=128, num_experts_per_tok=4, n_group=4, topk_group=2, n_shared_experts=1,
+                      first_k_dense_replace=1, routed_scaling_factor=2.5, max_position_embeddings=4096)
+DEEPSEEK_SMALL_PATHS = (
+    DeepseekPath("int4", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_int4_wo"),
+    DeepseekPath("nvfp4", "NVFP4_DEFAULT_CFG", "qmm_fp4_wo"),
+    DeepseekPath("fp8", "FP8_DEFAULT_CFG", "qmm_byte_wo"),
+    DeepseekPath("int8", "INT8_DEFAULT_CFG", "qmm_byte_wo"),
+    DeepseekPath("nvfp4_kv", "NVFP4_KV_CFG", "qmm_fp4_wo"),
+)
+DEEPSEEK_PROMPT = (4, 32)   # (a): prompts and ...
+DEEPSEEK_STEPS = 8          # ... greedy steps (the graphed decode: GRAPH_CHECK_STEPS)
+DEEPSEEK_E_BIAS_STD = 0.05  # the routers' correction bias, N(0, std^2): at 0 the bias would move nothing
+# (a): the f32 engine on every kernel's plain version against the model's
+# own fake-quant cached forward (f32, input quantizers off), teacher-forced
+# on the forward's greedy tokens and expert choices: the median logits gap
+# as a share of their scale (sums in another order: ~1e-6), and every
+# greedy token equal but at a tie of the forward's top two (DEEPSEEK_TIE).
+# kv_b's key and value halves swapped in the absorbed form move every row.
+DEEPSEEK_VS_FORWARD_MAX = 1e-3
+DEEPSEEK_TIE = 1e-4
+# (b) deepseek-ai/DeepSeek-V3's config.json (the public release), cut to
+# DEEPSEEK_V3_DEPTH of its 61 layers: layers 0-2 dense, layer 3 MoE
+DEEPSEEK_V3 = {"model_type": "deepseek_v3", "vocab_size": 129280, "hidden_size": 7168, "intermediate_size": 18432,
+               "num_hidden_layers": 61, "num_attention_heads": 128, "num_key_value_heads": 128,
+               "q_lora_rank": 1536, "kv_lora_rank": 512, "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+               "v_head_dim": 128, "n_routed_experts": 256, "num_experts_per_tok": 8, "n_group": 8, "topk_group": 4,
+               "n_shared_experts": 1, "moe_intermediate_size": 2048, "first_k_dense_replace": 3,
+               "routed_scaling_factor": 2.5, "norm_topk_prob": True, "rope_theta": 10000, "rms_norm_eps": 1e-6,
+               "max_position_embeddings": 163840, "tie_word_embeddings": False,
+               "rope_scaling": {"type": "yarn", "factor": 40, "beta_fast": 32, "beta_slow": 1, "mscale": 1.0,
+                                "mscale_all_dim": 1.0, "original_max_position_embeddings": 4096}}
+DEEPSEEK_V3_DEPTH = 4
+DEEPSEEK_V3_PATHS = (
+    DeepseekPath("int4", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_int4_wo"),
+    DeepseekPath("nvfp4_w4a4", "NVFP4_DEFAULT_CFG", "qmm_fp4_wo"),
+)
+DEEPSEEK_CALIB = (4, 2, 512)   # seeded calibration batches: count, B, T (an expert's C = 64)
+DEEPSEEK_V3_STEPS = 32         # (b): eager token steps, and the graphed ones held to them
+DEEPSEEK_KERNELS = ("qmm_int4_wo", "qmm_fp4_wo", "qmm_byte_wo")
+# DeepSeek-V3's GEMMs at its widths (kernels phase; alone: `--phases
+# build,kernels_deepseek`): projections at the 8 x 2048 prefill (N = 16384)
+# and a decode step (N = 8), experts at the prefill's C = 2 S k / E = 1024
+# and a decode step's C = 1; kv_a's O = 576 is no multiple of 128
+DEEPSEEK_GEMMS = (
+    ("deepseek-v3", "q_a_proj", 1536, 7168, ("int4", "nvfp4"), (16384, 8)),
+    ("deepseek-v3", "q_b_proj", 24576, 1536, ("int4", "nvfp4"), (16384, 8)),
+    ("deepseek-v3", "kv_a_proj", 576, 7168, ("int4", "nvfp4"), (16384, 8)),
+    ("deepseek-v3", "o_proj", 7168, 16384, ("int4", "nvfp4"), (16384, 8)),
+    ("deepseek-v3", "dense gate", 18432, 7168, ("int4", "nvfp4"), (16384, 8)),
+    ("deepseek-v3", "expert gate", 2048, 7168, ("int4", "nvfp4"), (1024, 1)),
+    ("deepseek-v3", "expert down", 7168, 2048, ("int4", "nvfp4"), (1024, 1)),
+)
+
+
+def _deepseek_params(torch, dev, cfg, seed: int) -> dict:
+    """Seeded random weights made on the card, the routers' `e_bias`
+    N(0, DEEPSEEK_E_BIAS_STD^2)."""
+    from tensorrt_model_optimizer_tpu_torch.models import deepseek
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = deepseek.init_params(cfg, g, device=dev)
+    b = params["layers_moe"]["moe.e_bias"]
+    params["layers_moe"]["moe.e_bias"] = torch.randn(b.shape, generator=g, device=dev) * DEEPSEEK_E_BIAS_STD
+    return params
+
+
+def _route_host(logits, bias, cfg):
+    """DeepSeek-V3's routing by a host loop in f64 (the rule, apart from
+    `models.deepseek.route`): sigmoid scores, the bias added for the choice,
+    groups by the sum of their top two, the top `topk_group` groups, the top
+    k of their experts; the weights from the scores, normalised (+1e-20),
+    times `routed_scaling_factor`. -> (sets of chosen experts, their
+    weights by expert, the margin below the last choice and the last
+    group), a row each."""
+    import numpy as np
+
+    E, k, G = cfg.n_routed_experts, cfg.num_experts_per_tok, cfg.n_group
+    per = E // G
+    out = []
+    for row in logits:
+        scores = 1.0 / (1.0 + np.exp(-row.astype(np.float64)))
+        choice = scores + bias
+        gscore = np.sort(choice.reshape(G, per), axis=-1)[:, -2:].sum(-1)
+        gorder = np.argsort(-gscore, kind="stable")
+        allowed = np.concatenate([np.arange(g * per, (g + 1) * per) for g in gorder[:cfg.topk_group]])
+        order = allowed[np.argsort(-choice[allowed], kind="stable")]
+        top = order[:k]
+        w = scores[top] / (scores[top].sum() + 1e-20) * cfg.routed_scaling_factor
+        margin = min(choice[order[k - 1]] - choice[order[k]] if len(order) > k else 1.0,
+                     gscore[gorder[cfg.topk_group - 1]] - gscore[gorder[cfg.topk_group]] if G > cfg.topk_group else 1.0)
+        out.append((set(top.tolist()), dict(zip(top.tolist(), w.tolist())), margin))
+    return out
+
+
+def _deepseek_route_check(torch, dev, cfg) -> dict:
+    """`models.deepseek.route` on the card against `_route_host` on seeded
+    logits and a N(0, DEEPSEEK_E_BIAS_STD^2) bias, at a decode step's S = 8
+    and 2048 rows of a prefill: the same experts in every row but at a tie
+    (margin <= 1e-5 in the host's scores), and their weights within 1e-5 of
+    the host's."""
+    from tensorrt_model_optimizer_tpu_torch.models import deepseek
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for S in (8, 2048):
+        logits = torch.randn((S, cfg.n_routed_experts), generator=g, device=dev)
+        bias = torch.randn((cfg.n_routed_experts,), generator=g, device=dev) * DEEPSEEK_E_BIAS_STD
+        w, i = deepseek.route(cfg, logits, bias)
+        host = _route_host(logits.double().cpu().numpy(), bias.double().cpu().numpy(), cfg)
+        apart, worst = [], 0.0
+        for r, (chosen, hw, margin) in enumerate(host):
+            got = i[r].tolist()
+            if set(got) != chosen:
+                apart.append(margin)
+                continue
+            worst = max(worst, max(abs(float(w[r, j]) - hw[e]) / abs(hw[e]) for j, e in enumerate(got)))
+        out[S] = {"rows": S, "rows_apart_at_ties": len(apart), "weights_worst_rel_err": worst}
+        if any(m > 1e-5 for m in apart) or not worst <= 1e-5:
+            raise AssertionError(f"deepseek route at S = {S}: {len(apart)} rows chose other experts than the host "
+                                 f"rule (margins {apart[:4]}), weights worst rel err {worst} (limit 1e-5)")
+    return out
+
+
+def _f32(torch, params: dict) -> dict:
+    return {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict) else v.float()) for k, v in params.items()}
+
+
+def _deepseek_absorbed_vs_naive(torch, dev, cfg, params, prompts) -> float:
+    """The model's cached forward (the absorbed form, the prompt then one
+    token at a time) against its naive forward, f32, within JAX's own 2e-4 /
+    1e-3 (tests/test_deepseek.py::test_decode_matches_prefill), with the
+    capacity at every token (a decode step's C = max(int(2 S k / E), 1)
+    drops repeated picks that the prompt's C keeps). Returns the largest
+    difference."""
+    from tensorrt_model_optimizer_tpu_torch.models import deepseek
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, capacity_factor=cfg.n_routed_experts / cfg.num_experts_per_tok)
+    p32 = _f32(torch, params)
+    T = prompts.shape[1]
+    naive = deepseek.forward(cfg32, p32, prompts)[0]
+    cache = deepseek.init_cache(cfg32, prompts.shape[0], T, device=dev)
+    half = T // 2
+    got, _, cache = deepseek.forward(cfg32, p32, prompts[:, :half], cache=cache)
+    steps = [got]
+    for t in range(half, T):
+        got, _, cache = deepseek.forward(cfg32, p32, prompts[:, t:t + 1], cache=cache)
+        steps.append(got)
+    cached = torch.cat(steps, dim=1)
+    err = float((cached - naive).abs().max())
+    if not bool(torch.isclose(cached, naive, atol=2e-4, rtol=1e-3).all()):
+        raise AssertionError(f"deepseek: the absorbed (cached) forward lies {err} from the naive one, beyond "
+                             "JAX's 2e-4 / 1e-3")
+    return err
+
+
+def _deepseek_vs_forward(torch, dev, label: str, preset: str, cfg, params, calib, prompts, steps: int) -> dict:
+    """The f32 model calibrated under `preset` (f32) and served by the f32
+    engine on every kernel's plain version: (i) where kv_b has an input
+    quantizer, the latent the engine's prefill caches is already on that
+    quantizer's grid (quantizing it again moves no element: it was cached
+    after the quantizer, as the model's forward caches it); (ii) with the
+    input quantizers off (an f32 ulp that moves a static int8 / fp8
+    activation code moves every later layer: 1-4% of the logits' scale at
+    4 layers in either direction), the engine teacher-forced on the model's
+    own fake-quant cached forward's greedy sequence (prefill, then `steps`
+    decode steps) and on its expert choices (`_pinned_routes`): every
+    position's logits gap (median <= DEEPSEEK_VS_FORWARD_MAX; sums in
+    another order read ~1e-6) and its greedy tokens (equal but at a tie of
+    the forward's top two, DEEPSEEK_TIE)."""
+    from tensorrt_model_optimizer_tpu_torch.models import deepseek, llama
+    from tensorrt_model_optimizer_tpu_torch.quant import quantizer
+    from tensorrt_model_optimizer_tpu_torch.serve import deepseek_engine
+    from tensorrt_model_optimizer_tpu_torch.serve.engine import PLAIN_ALL
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    qm = deepseek.quantize(cfg32, _f32(torch, params), preset, calib, device=dev)
+    B, T = prompts.shape
+    out = {}
+    kvb = qm.layout.get("self_attn.kv_b_proj.input")
+    if kvb.enable:
+        eng = deepseek_engine.DeepseekEngine(deepseek_engine.compress(qm), T, dev, PLAIN_ALL)
+        c = eng.init_cache(B)
+        eng.prefill(prompts, c)
+        moved = 0
+        for key, _ in deepseek.GROUPS:
+            if f"ckv_{key}" in c:
+                st = qm.qstate[key]["self_attn.kv_b_proj"]["input"]
+                for i, rows in enumerate(c[f"ckv_{key}"]):
+                    moved += int((quantizer.quantize(rows, kvb, llama.slice_state(st, i)) != rows).sum())
+        out["cached_latent_moved_by_its_quantizer"] = moved
+        if moved:
+            raise AssertionError(f"deepseek {label}: {moved} elements of the cached latent move when kv_b's input "
+                                 "quantizer quantizes them again: the latent was cached before it")
+        del eng, c
+    qm = _without_input_quantizers(qm)
+    eng = deepseek_engine.DeepseekEngine(deepseek_engine.compress(qm), T + steps, dev, PLAIN_ALL)
+    with _pinned_routes(deepseek) as pins:
+        pins.record()
+        cache = deepseek.init_cache(cfg32, B, T + steps, device=dev)
+        logits, _, cache = qm.forward(prompts, cache=cache)
+        ref, seq = [logits[:, -1]], [prompts]
+        for _ in range(steps):
+            seq.append(ref[-1].argmax(-1)[:, None])
+            logits, _, cache = qm.forward(seq[-1], cache=cache)
+            ref.append(logits[:, -1])
+        pins.replay()
+        c = eng.init_cache(B)
+        got = [eng.prefill(prompts, c)] + [eng._model_step(t.to(torch.int32), c) for t in seq[1:]]
+    gaps, flips = [], []
+    for lg, r in zip(got, ref):
+        g_, m_ = _gaps(lg, r)
+        gaps += g_
+        flips += m_
+    out.update(engine_f32_plain_vs_forward_median_gap=statistics.median(gaps), worst=max(gaps),
+               greedy_flips_at_ties=flips, engine_routing_choices_apart=pins.apart)
+    if not out["engine_f32_plain_vs_forward_median_gap"] <= DEEPSEEK_VS_FORWARD_MAX or any(m > DEEPSEEK_TIE for m in flips):
+        raise AssertionError(f"deepseek {label}: the f32 engine lies {out['engine_f32_plain_vs_forward_median_gap']} "
+                             f"(median) of the logits' scale from the model's fake-quant forward (limit "
+                             f"{DEEPSEEK_VS_FORWARD_MAX}); greedy tokens apart at forward margins {flips[:4]} "
+                             f"(ties: <= {DEEPSEEK_TIE})")
+    return out
+
+
+def _deepseek_small(torch, dev) -> dict:
+    """(a) The small config under each preset of DEEPSEEK_SMALL_PATHS, bf16,
+    seeded weights: `deepseek.quantize` (max, on a seeded batch), compress,
+    the kernel engine against the all-plain engine on the kernel engine's
+    routing over DEEPSEEK_PROMPT and DEEPSEEK_STEPS (MOE_PLAIN_MEDIAN_MAX),
+    the path's kernel launched and no other, the graphed decode (unroll 1
+    and 8, GRAPH_CHECK_STEPS) bit-equal to the eager steps, the f32 plain engine against the
+    model's fake-quant forward (`_deepseek_vs_forward`); once, the absorbed
+    form against the naive one and the routing against the host rule
+    (`_deepseek_route_check`). Returns the launch counts."""
+    from tensorrt_model_optimizer_tpu_torch.models import deepseek
+    from tensorrt_model_optimizer_tpu_torch.serve import deepseek_engine
+
+    launches: dict = {}
+    cfg = deepseek.DeepseekConfig(**DEEPSEEK_SMALL, dtype=torch.bfloat16)
+    params = _deepseek_params(torch, dev, cfg, 5)
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, T = DEEPSEEK_PROMPT
+    prompts = torch.randint(0, cfg.vocab_size, (B, T), generator=g, device=dev)
+    calib = [torch.randint(0, cfg.vocab_size, (2, 64), generator=g, device=dev)]
+    log(json.dumps({"phase": "deepseek_small", "route_vs_host_rule": _deepseek_route_check(torch, dev, cfg),
+                    "absorbed_vs_naive_f32_max_err": _deepseek_absorbed_vs_naive(torch, dev, cfg, params, prompts)}))
+    rows = _graph_rows(T, GRAPH_CHECK_STEPS)
+    for path in DEEPSEEK_SMALL_PATHS:
+        t_path = time.perf_counter()
+        cm = deepseek_engine.compress(deepseek.quantize(cfg, params, path.preset, calib, device=dev))
+        ek = deepseek_engine.DeepseekEngine(cm, rows, dev)
+        _counts(reset=True)
+        held = _pinned_pair(torch, lambda plain: deepseek_engine.DeepseekEngine(ek.cm, rows, dev, plain), prompts,
+                            DEEPSEEK_STEPS, lambda e: e.init_cache(B), deepseek)
+        n = _counts()  # the comparison's kernel engine: its kernels, not counted in the kernels line
+        row = {"phase": "deepseek_small", "path": path.label, "preset": path.preset,
+               "kinds_served": sorted(set(ek.cm.kinds.values())), "launches": {k: v for k, v in n.items() if v},
+               **held}
+        if {k for k, v in n.items() if v} != {path.gemm}:
+            raise AssertionError(f"deepseek {path.label}: launched {n}, the path's kernel is {path.gemm}")
+        if not held["kernel_logits_finite"] or not held["median_gap_vs_plain_pinned"] <= MOE_PLAIN_MEDIAN_MAX:
+            raise AssertionError(f"deepseek {path.label}: the kernel engine lies {held['median_gap_vs_plain_pinned']} "
+                                 f"(median) of the logits' scale from the plain engine's on the same routing (limit "
+                                 f"{MOE_PLAIN_MEDIAN_MAX}); logits finite: {held['kernel_logits_finite']}")
+        _counts(reset=True)  # the served path: prefill, eager steps, graphed steps
+        cache = ek.init_cache(B)
+        tok0 = tok = torch.argmax(ek.prefill(prompts, cache), dim=-1).to(torch.int32)[:, None]
+        start, toks, walls = _clone_cache(cache), [], []
+        for _ in range(GRAPH_CHECK_STEPS):
+            t0 = time.perf_counter()
+            tok, _ = _eager_step(torch, ek, tok, cache)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            toks.append(tok)
+        _graphed_decode(torch, ek, f"deepseek {path.label}", tok0, start, toks, cache, statistics.median(walls),
+                        profile_unrolls=False, profile_eager=False)
+        for k, c in _counts().items():
+            launches[k] = launches.get(k, 0) + c
+        ek.release_graphs()
+        row.update(_deepseek_vs_forward(torch, dev, path.label, path.preset, cfg, params, calib, prompts,
+                                        DEEPSEEK_STEPS))
+        row["seconds"] = time.perf_counter() - t_path
+        log(json.dumps(row))
+        del ek, cm, cache, start
+    return launches
+
+
+class _event_spans:
+    """Device time of named functions of modules, summed over their calls:
+    each wrapped in a pair of CUDA events (no sync), read on `ms()`.
+    Restores the functions on exit."""
+
+    def __init__(self, torch, targets: dict):
+        self.torch, self.targets, self.events, self.real = torch, targets, {k: [] for k in targets}, {}
+
+    def __enter__(self):
+        for name, (mod, attr) in self.targets.items():
+            real = self.real[name] = getattr(mod, attr)
+
+            def timed(*a, _real=real, _name=name, **kw):
+                s, e = self.torch.cuda.Event(enable_timing=True), self.torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = _real(*a, **kw)
+                e.record()
+                self.events[_name].append((s, e))
+                return out
+            setattr(mod, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self.real[name])
+
+    def ms(self) -> dict:
+        self.torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in ev) for k, ev in self.events.items()}
+
+
+def _deepseek_moe_layer(cm):
+    """The compressed model cut to its one MoE layer (DEEPSEEK_V3_DEPTH's
+    layer 3) alone: no dense group, the same packs and states."""
+    from tensorrt_model_optimizer_tpu_torch.models import deepseek
+
+    if deepseek.group_layers(cm.model_cfg)[1] != 1:
+        raise ValueError(f"{deepseek.group_layers(cm.model_cfg)} layers: the cut takes a model with one MoE layer")
+    cfg = dataclasses.replace(cm.model_cfg, num_hidden_layers=1, first_k_dense_replace=0)
+    return dataclasses.replace(cm, model_cfg=cfg, params={k: v for k, v in cm.params.items() if k != "layers_dense"},
+                               qstate={k: v for k, v in cm.qstate.items() if k != "dense"})
+
+
+def _deepseek_full_path(torch, dev, sz: Sizes, path: DeepseekPath, cfg, params, prompt, calib,
+                        profile: bool) -> dict:
+    """One path at DeepSeek-V3's widths: `deepseek.quantize` (max) on
+    DEEPSEEK_CALIB's batches, compress, the engine: TTFT of the 8 x 2048
+    prefill, DEEPSEEK_V3_STEPS eager token steps, the graphed steps held to
+    them (unroll 1 and 8, capture ms), where `profile` one eager step and
+    one prefill profiled (device ms, idle share, kernels), one prefill with
+    the MLA einsums and the expert GEMMs timed by CUDA events, peak memory
+    in set-up and in serving, launches, and the prefill's logits against
+    the all-plain engine on all its layers on the kernel engine's routing,
+    with the input quantizers off (MOE_PLAIN_MEDIAN_MAX, as the full phase
+    holds its paths: W4A4's dynamic NVFP4 block scales cross an e4m3
+    rounding edge at a bf16 ulp of a GEMM, which moves a whole block's codes,
+    and four such layers at V3's widths read 0.35 of the logits' scale with
+    73% of the plain engine's own expert choices apart). W4A4 as served is
+    held on the MoE layer alone (`_deepseek_moe_layer`, depth 1: attention,
+    the 256 experts, the shared one; MOE_PLAIN_MEDIAN_MAX), before the
+    weight-only check. Returns the launch counts."""
+    from tensorrt_model_optimizer_tpu_torch.models import deepseek
+    from tensorrt_model_optimizer_tpu_torch.serve import deepseek_engine, engine
+
+    sync = torch.cuda.synchronize
+    secs, t_part = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t_part
+        sync()
+        secs[name] = round(time.perf_counter() - t_part, 1)
+        t_part = time.perf_counter()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qm = deepseek.quantize(cfg, params, path.preset, calib, device=dev)
+    sync()
+    calib_s = time.perf_counter() - t0
+    cm = deepseek_engine.compress(qm)
+    del qm
+    rows = _graph_rows(prompt.shape[1], DEEPSEEK_V3_STEPS)
+    eng = deepseek_engine.DeepseekEngine(cm, rows, dev)
+    del cm
+    torch.cuda.empty_cache()
+    lap("setup")
+    setup_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    _counts(reset=True)
+    cache = eng.init_cache(prompt.shape[0])
+    sync()
+    t0 = time.perf_counter()
+    logits = eng.prefill(prompt, cache)
+    sync()
+    ttft_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = _counts()
+    tok0 = tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    start = _clone_cache(cache)
+    step_ms, toks = [], []
+    _counts(reset=True)
+    lap("prefill")
+    for _ in range(DEEPSEEK_V3_STEPS):
+        t0 = time.perf_counter()
+        tok, step_logits = _eager_step(torch, eng, tok, cache)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(tok)
+    step_launches = {k: v // DEEPSEEK_V3_STEPS for k, v in _counts().items() if v}
+    lap("eager_steps")
+    label = f"deepseek_v3 {path.label}"
+    graphs = _graphed_decode(torch, eng, label, tok0, start, toks, cache, statistics.median(step_ms),
+                             profile_unrolls=False, profile_eager=profile)
+    eager = graphs.pop("eager")
+    lap("graphs")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: n + prefill_launches[k] for k, n in _counts().items()}
+    finite = bool(torch.isfinite(logits).all() and torch.isfinite(step_logits).all())
+    eng.release_graphs()
+    del cache, start
+    pre = {"per_call_device_busy_ms": None, "device_idle_share": None, "top": []}
+    if profile:
+        pre = _profile(torch, f"{label} prefill", lambda: eng.prefill(prompt, eng.init_cache(prompt.shape[0])), 1,
+                       ttft_ms)
+    with _event_spans(torch, {"mla_einsums": (deepseek_engine, "absorbed_attention"),
+                              "expert_gemms": (engine, "_expert_linear")}) as spans:
+        eng.prefill(prompt, eng.init_cache(prompt.shape[0]))
+    span_ms = spans.ms()
+    lap("profile")
+    weight_only = _without_input_quantizers(eng.cm)
+    held = _pinned_pair(torch, lambda plain: deepseek_engine.DeepseekEngine(weight_only, rows, dev, plain), prompt,
+                        1, lambda e: e.init_cache(prompt.shape[0]), deepseek)
+    layer = held
+    if weight_only.layout != eng.cm.layout:  # W4A4: as served, on the MoE layer alone
+        alone = _deepseek_moe_layer(eng.cm)
+        layer = _pinned_pair(torch, lambda plain: deepseek_engine.DeepseekEngine(alone, rows, dev, plain), prompt,
+                             1, lambda e: e.init_cache(prompt.shape[0]), deepseek)
+        del alone
+    lap("vs_plain")
+    Ld, Lm = deepseek.group_layers(cfg)
+    row = {"phase": "deepseek_full", "model": "deepseek_v3", "path": path.label, "preset": path.preset,
+           "kinds": sorted(set(eng.cm.kinds.values())), "layers": cfg.num_hidden_layers, "dense_layers": Ld,
+           "moe_layers": Lm, "batch": prompt.shape[0], "prompt": prompt.shape[1], "calib_s": calib_s,
+           "setup_peak_mem_gb": setup_peak, "ttft_ms": ttft_ms, "prefill_device_ms": pre["per_call_device_busy_ms"],
+           "prefill_idle_share": pre["device_idle_share"], "prefill_top_kernels": pre["top"][:6],
+           "prefill_mla_einsum_ms": span_ms["mla_einsums"], "prefill_expert_gemm_ms": span_ms["expert_gemms"],
+           "eager_ms_per_token_step": statistics.median(step_ms), "graphs": graphs,
+           "eager_step_device_ms": eager["device_ms_per_token_step"], "eager_step_idle_share": eager["device_idle_share"],
+           "eager_step_kernels": eager["kernels_per_token_step"], "peak_mem_gb": peak_gb,
+           "packed_weight_gb": eng.cm.packed_bytes / 1e9,
+           "prefill_launches": {k: v for k, v in prefill_launches.items() if v}, "token_step_launches": step_launches,
+           "logits_finite": finite, "all_layers_input_quantizers_off": held, "moe_layer_alone_as_served": layer,
+           "seconds": secs}
+    log(json.dumps(row))
+    if not finite or not held["kernel_logits_finite"] or not layer["kernel_logits_finite"]:
+        raise AssertionError(f"deepseek v3 {path.label}: non-finite logits")
+    if not layer["median_gap_vs_plain_pinned"] <= MOE_PLAIN_MEDIAN_MAX:
+        raise AssertionError(f"deepseek v3 {path.label}: as served, the MoE layer alone's prefill logits lie "
+                             f"{layer['median_gap_vs_plain_pinned']} (median) of their scale from the plain engine's "
+                             f"on the same routing, the limit is {MOE_PLAIN_MEDIAN_MAX}")
+    if {k for k, n in launches.items() if n > 0} != {path.gemm}:
+        raise AssertionError(f"deepseek v3 {path.label}: launched {launches}, the path's kernel is {path.gemm}")
+    if not held["median_gap_vs_plain_pinned"] <= MOE_PLAIN_MEDIAN_MAX:
+        raise AssertionError(f"deepseek v3 {path.label}: the prefill's logits over all {cfg.num_hidden_layers} layers "
+                             f"(input quantizers off) lie {held['median_gap_vs_plain_pinned']} (median) of their "
+                             f"scale from the plain engine's on the same routing, the limit is {MOE_PLAIN_MEDIAN_MAX}")
+    del eng, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _deepseek_full(torch, dev, sz: Sizes) -> dict:
+    """(b) DeepSeek-V3's widths (DEEPSEEK_V3, its published config.json:
+    yarn, the softmax factor 1.874) on DEEPSEEK_V3_DEPTH of its 61 layers,
+    seeded random bf16 weights made on the card a layer (an expert) at a
+    time: the routing against the host rule at its 256 experts, then each
+    path of DEEPSEEK_V3_PATHS (`_deepseek_full_path`, the first profiled).
+    Returns the launch counts."""
+    from tensorrt_model_optimizer_tpu_torch.models import hf_loader
+
+    cfg = dataclasses.replace(hf_loader.deepseek_config_from_hf(DEEPSEEK_V3), num_hidden_layers=DEEPSEEK_V3_DEPTH)
+    log(json.dumps({"phase": "deepseek_full", "model": "deepseek_v3", "softmax_scale_factor": cfg.softmax_scale_factor,
+                    "route_vs_host_rule": _deepseek_route_check(torch, dev, cfg)}))
+    t0 = time.perf_counter()
+    params = _deepseek_params(torch, dev, cfg, 0)
+    torch.cuda.synchronize()
+    log(json.dumps({"phase": "deepseek_full", "model": "deepseek_v3", "layers": DEEPSEEK_V3_DEPTH,
+                    "init_params_s": time.perf_counter() - t0, "weights_gb": sum(
+                        t.numel() * t.element_size() for v in params.values()
+                        for t in (v.values() if isinstance(v, dict) else [v])) / 1e9}))
+    g = torch.Generator(device=dev).manual_seed(2)
+    n, B, T = DEEPSEEK_CALIB
+    calib = [torch.randint(0, cfg.vocab_size, (B, T), generator=g, device=dev) for _ in range(n)]
+    prompt = torch.randint(0, cfg.vocab_size, (sz.batch, sz.prompt), generator=g, device=dev)
+    launches: dict = {}
+    for i, path in enumerate(DEEPSEEK_V3_PATHS):
+        for k, c in _deepseek_full_path(torch, dev, sz, path, cfg, params, prompt, calib, profile=i == 0).items():
+            launches[k] = launches.get(k, 0) + c
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_deepseek(torch, dev, sz: Sizes) -> dict:
+    """(a) `_deepseek_small`, then (b) `_deepseek_full`. Returns the launch
+    counts of all its runs."""
+    launches = _deepseek_small(torch, dev)
+    for k, c in _deepseek_full(torch, dev, sz).items():
+        launches[k] = launches.get(k, 0) + c
+    return launches
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -4533,7 +5086,7 @@ ANCHOR_ONLY = ("skip_softmax_flash_cuda_core", "paged_attention_prefill_cuda_cor
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,anchor,full,deploy,calib,accuracy,moe,families",
+    ap.add_argument("--phases", default="build,kernels,anchor,full,deploy,calib,accuracy,moe,families,deepseek",
                     help="comma-separated; add 'profile' for device time by kernel in the full run")
     args = ap.parse_args(argv)
     import torch
@@ -4564,10 +5117,13 @@ def main(argv=None) -> int:
         timed("build", phase_build)
     if "kernels" in phases:
         timed("kernels", phase_kernels, torch, dev, sz, timer, rows)
-    elif "kernels_families" in phases:  # the families' GEMM shapes alone
-        rows.update({k: {"shapes": []} for k in ("qmm_w4a8", "qmm_int4_wo", "qmm_fp4_wo")})
-        timed("kernels_families", _phase_kernels_families, torch, dev, sz, timer, rows,
-              torch.Generator(device=dev).manual_seed(0))
+    else:  # the families' or DeepSeek-V3's GEMM shapes alone
+        for name, table in (("kernels_families", FAMILY_GEMMS), ("kernels_deepseek", DEEPSEEK_GEMMS)):
+            if name in phases:
+                for k in ("qmm_w4a8", "qmm_int4_wo", "qmm_fp4_wo"):
+                    rows.setdefault(k, {"shapes": []})
+                timed(name, _phase_kernels_families, torch, dev, sz, timer, rows,
+                      torch.Generator(device=dev).manual_seed(0), table)
     anchor_launches = {}
     if "anchor" in phases:
         anchor_launches = timed("anchor", phase_anchor, torch, dev, sz)
@@ -4613,6 +5169,16 @@ def main(argv=None) -> int:
         if never:
             raise AssertionError(f"families: kernels its paths did not launch: {never}")
         launches = {k: (launches or {}).get(k, 0) + fam.get(k, 0) for k in KERNELS}
+    if "deepseek_small" in phases and "deepseek" not in phases:  # (a) of deepseek alone
+        timed("deepseek_small", _deepseek_small, torch, dev)
+    if "deepseek_full" in phases and "deepseek" not in phases:  # (b) of deepseek alone
+        timed("deepseek_full", _deepseek_full, torch, dev, sz)
+    if "deepseek" in phases:
+        ds = timed("deepseek", phase_deepseek, torch, dev, sz)
+        never = [k for k in DEEPSEEK_KERNELS if not ds.get(k)]
+        if never:
+            raise AssertionError(f"deepseek: kernels its paths did not launch: {never}")
+        launches = {k: (launches or {}).get(k, 0) + ds.get(k, 0) for k in KERNELS}
     log(json.dumps({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t_start, 1)}))
     out = []
     for name, (src, replaces) in KERNELS.items():

@@ -10,8 +10,12 @@ port's; `compressed_from_jax` turns a JAX `CompressedModel` (canonical kinds, as
 `quant.compress.compress` returns them) into the port's, so both packages
 compute the same function (the quantizer state comes along, the `k_bmm` /
 `v_bmm` amax of a KV preset included); `cache_from_jax` and `paged_from_jax`
-do the same for a dense cache (either engine's layout) and a `PagedKV` pool. Objects are read
-by their fields: this module imports neither JAX nor the JAX package.
+do the same for a dense cache (either engine's layout) and a `PagedKV` pool. JAX's
+DeepSeek models cross the same way: `DeepseekConfig` (the port's
+`softmax_scale_factor` at its default, JAX's scale), `DeepseekQuantizedModel`
+and `DeepseekCompressedModel` (both layer groups, the experts' stacks,
+`e_bias` in f32). Objects are read by their fields: this module imports
+neither JAX nor the JAX package.
 
 bf16 and fp8 arrays (NVFP4's e4m3 block scales among them) reach numpy as
 `ml_dtypes` types, which `torch.from_numpy` rejects; they cross as a
@@ -89,31 +93,45 @@ def layout_from_jax(layout) -> QuantLayout:
 
 
 def llama_cfg_from_jax(cfg) -> LlamaConfig:
-    """A JAX LlamaConfig, MixtralConfig, GptOssConfig or Llama4Config -> the
-    port's class of the same name (every field carried, the dtype as the
-    torch dtype)."""
+    """A JAX LlamaConfig, MixtralConfig, GptOssConfig, Llama4Config or
+    DeepseekConfig -> the port's class of the same name (every field
+    carried, the dtype as the torch dtype; a field the JAX class lacks, as
+    DeepSeek's `softmax_scale_factor`, keeps the port's default)."""
+    from .models.deepseek import DeepseekConfig
     from .models.gpt_oss import GptOssConfig
     from .models.llama4 import Llama4Config
     from .models.mixtral import MixtralConfig
 
-    by_name = {c.__name__: c for c in (GptOssConfig, Llama4Config)}
+    by_name = {c.__name__: c for c in (GptOssConfig, Llama4Config, DeepseekConfig)}
     cls = by_name.get(type(cfg).__name__, MixtralConfig if hasattr(cfg, "num_experts") else LlamaConfig)
     rs = cfg.rope_scaling
     if rs is not None:
         rs = RopeScaling(**{f.name: getattr(rs, f.name) for f in dataclasses.fields(RopeScaling)})
-    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cls) if f.name not in ("rope_scaling", "dtype")}
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cls)
+          if f.name not in ("rope_scaling", "dtype") and hasattr(cfg, f.name)}
     return cls(rope_scaling=rs, dtype=torch_dtype(cfg.dtype), **kw)
+
+
+def _quant_cfg_from_jax(qc):
+    from .quant.config import QuantizeConfig
+
+    return QuantizeConfig(rules=tuple((p, quantizer_cfg_from_jax(c)) for p, c in qc.rules), algorithm=qc.algorithm)
 
 
 def quantized_from_jax(qm, device="cpu"):
     """A JAX `QuantizedModel` (`quant.ptq.quantize`'s output: raw weights,
-    layout, calibrated state, the config) -> the port's, on `device`."""
+    layout, calibrated state, the config) or `DeepseekQuantizedModel` ->
+    the port's, on `device`."""
     from .models import gpt_oss, llama4, mixtral
-    from .quant.config import QuantizeConfig
     from .quant.ptq import QuantizedModel
 
     qc = qm.quant_cfg
     cfg = llama_cfg_from_jax(qm.model_cfg)
+    if type(qm).__name__ == "DeepseekQuantizedModel":
+        from .models.deepseek import DeepseekQuantizedModel
+
+        return DeepseekQuantizedModel(cfg, params_from_jax(qm.params, device), layout_from_jax(qm.layout),
+                                      params_from_jax(qm.qstate, device), _quant_cfg_from_jax(qc))
     forward = {gpt_oss.GptOssConfig: gpt_oss.forward, llama4.Llama4Config: llama4.forward,
                mixtral.MixtralConfig: mixtral.forward}.get(type(cfg))
     return QuantizedModel(
@@ -121,21 +139,27 @@ def quantized_from_jax(qm, device="cpu"):
         params=params_from_jax(qm.params, device),
         layout=layout_from_jax(qm.layout),
         qstate=params_from_jax(qm.qstate, device),
-        quant_cfg=QuantizeConfig(rules=tuple((p, quantizer_cfg_from_jax(c)) for p, c in qc.rules),
-                                 algorithm=qc.algorithm),
+        quant_cfg=_quant_cfg_from_jax(qc),
         adapters=params_from_jax(qm.adapters, device),
         forward_fn=forward,
     )
 
 
-def compressed_from_jax(cm, device="cpu") -> CompressedModel:
-    """A JAX `CompressedModel` -> the port's, on `device`."""
+def compressed_from_jax(cm, device="cpu"):
+    """A JAX `CompressedModel` (or `DeepseekCompressedModel`: both layer
+    groups' packs, the routed experts' stacks, `e_bias` in f32) -> the
+    port's, on `device`."""
     for name, kind in cm.kinds.items():
         if kind not in ("int4", "nvfp4", "mxfp4", "int8", "fp8", "bf16"):
             raise NotImplementedError(
                 f"{name}: JAX kind {kind!r} is a TPU serving layout; pass the model as "
                 "`quant.compress.compress` returns it (canonical packs)")
     params = params_from_jax(cm.params, device)
+    if type(cm).__name__ == "DeepseekCompressedModel":
+        from .serve.deepseek_engine import DeepseekCompressedModel
+
+        return DeepseekCompressedModel(llama_cfg_from_jax(cm.model_cfg), params, dict(cm.kinds),
+                                       layout_from_jax(cm.layout), params_from_jax(cm.qstate, device))
     params["layers"].pop("__adapters__", None)  # JAX's copy of the adapters for its layer scan
     return CompressedModel(
         model_cfg=llama_cfg_from_jax(cm.model_cfg),

@@ -1,12 +1,15 @@
 """HF checkpoint loading and saving (port of `models/hf_loader.py`): the
 Llama family (llama, mistral, Qwen2's attention biases, Qwen3's q/k norms)
 and the MoE families (`load_hf_moe_checkpoint`: qwen3_moe, mixtral, dbrx,
-gpt_oss with its MXFP4-shipped experts, llama4 / llama4_text).
+gpt_oss with its MXFP4-shipped experts, llama4 / llama4_text, deepseek_v3
+through `load_hf_deepseek_checkpoint`).
 
 Reads `config.json` and every `*.safetensors` file of a directory into the
 stacked-layer params dict (experts stacked `[L, E, out, in]`), and writes
 one back (`save_hf_checkpoint`, MoE stacks under the qwen3_moe or mixtral
-names). DeepSeek checkpoints raise, naming ROADMAP queue 1 item 5. The
+names). `deepseek_v2` raises: it routes by a softmax (and carries no
+`e_score_correction_bias`), where the port's DeepSeek has V3's sigmoid
+router; JAX's loader fails on the missing bias instead. The
 safetensors format is parsed and written here (an 8-byte little-endian
 header length, a JSON header padded with spaces to a multiple of 8, then
 raw little-endian bytes) so the port needs no `safetensors` package; BF16
@@ -68,6 +71,12 @@ def save_safetensors(tensors: dict, path: str) -> None:
             f.write(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().data)
 
 
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """transformers' `yarn_get_mscale`: 0.1 mscale ln(factor) + 1 (1 for a
+    factor <= 1)."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
 def _rope_scaling_from_hf(d: dict) -> Optional[RopeScaling]:
     rs = d.get("rope_scaling")
     if not rs:
@@ -79,10 +88,7 @@ def _rope_scaling_from_hf(d: dict) -> Optional[RopeScaling]:
         mscale, mscale_all = rs.get("mscale"), rs.get("mscale_all_dim")
         if attention_factor is None and mscale and mscale_all:
             # DeepSeek's yarn: the temperature from the mscale pair
-            def _ms(m):
-                return 0.1 * m * math.log(factor) + 1.0 if factor > 1 else 1.0
-
-            attention_factor = _ms(mscale) / _ms(mscale_all)
+            attention_factor = yarn_mscale(factor, mscale) / yarn_mscale(factor, mscale_all)
         return RopeScaling(
             rope_type="yarn", factor=factor, attention_factor=attention_factor,
             beta_fast=float(rs.get("beta_fast") or 32.0), beta_slow=float(rs.get("beta_slow") or 1.0),
@@ -100,14 +106,15 @@ def _rope_scaling_from_hf(d: dict) -> Optional[RopeScaling]:
     )
 
 
-# model types of JAX's loaders that the port does not have yet -> what brings them
-NOT_PORTED = {mt: "ROADMAP queue 1 item 5" for mt in ("deepseek_v2", "deepseek_v3")}
+# model types of JAX's loaders that the port refuses -> why
+NOT_PORTED = {"deepseek_v2": "DeepSeek-V2 routes by a softmax over the experts (no e_score_correction_bias); "
+                             "the port's DeepSeek serves V3's sigmoid router only"}
 
 
 def config_from_hf(d: dict) -> LlamaConfig:
     mt = d.get("model_type")
     if mt in NOT_PORTED:
-        raise NotImplementedError(f"model_type {mt!r} is not ported yet: {NOT_PORTED[mt]}")
+        raise NotImplementedError(f"model_type {mt!r}: {NOT_PORTED[mt]}")
     return LlamaConfig(
         rope_scaling=_rope_scaling_from_hf(d),
         attention_bias=d.get("attention_bias", mt == "qwen2"),
@@ -479,8 +486,9 @@ def load_hf_moe_checkpoint(path: str, dtype=torch.bfloat16, device=None):
     q/k norms, expert width moe_intermediate_size), mixtral
     (block_sparse_moe.gate, experts.{e}.{w1,w3,w2}), dbrx, gpt_oss
     (`gpt_oss_from_tensors`) or llama4 / llama4_text (`_load_llama4`); experts
-    stacked [L, E, out, in], every tensor cast to `dtype` on `device`.
-    deepseek raises, naming ROADMAP queue 1 item 5."""
+    stacked [L, E, out, in], every tensor cast to `dtype` on `device`;
+    deepseek_v3 through `load_hf_deepseek_checkpoint` (deepseek_v2
+    raises, naming its softmax router)."""
     from .mixtral import MixtralConfig
 
     dev = resolve_device(device)
@@ -488,7 +496,9 @@ def load_hf_moe_checkpoint(path: str, dtype=torch.bfloat16, device=None):
         d = json.load(f)
     mt = d.get("model_type")
     if mt in NOT_PORTED:
-        raise NotImplementedError(f"model_type {mt!r} is not ported yet: {NOT_PORTED[mt]}")
+        raise NotImplementedError(f"model_type {mt!r}: {NOT_PORTED[mt]}")
+    if mt == "deepseek_v3":
+        return load_hf_deepseek_checkpoint(path, dtype, device)
     if mt == "dbrx":
         return _load_dbrx(path, d, dtype, dev)
     if mt == "gpt_oss":
@@ -519,3 +529,110 @@ def load_hf_moe_checkpoint(path: str, dtype=torch.bfloat16, device=None):
                                                  for e in range(E)]) for i in range(L)])
     params = {"embed_tokens": get("model.embed_tokens.weight"), "layers": layers, "norm": get("model.norm.weight")}
     return cfg, _head(params, cfg, raw, get)
+
+
+def deepseek_softmax_scale_factor(d: dict) -> float:
+    """What transformers multiplies DeepSeek's softmax scale by
+    (`DeepseekV3Attention.__init__`): yarn_mscale(factor, mscale_all_dim)^2
+    where `rope_scaling` has a non-zero `mscale_all_dim`, else 1."""
+    rs = d.get("rope_scaling") or {}
+    m_all = rs.get("mscale_all_dim", 0)
+    if not m_all:
+        return 1.0
+    m = yarn_mscale(float(rs["factor"]), float(m_all))
+    return m * m
+
+
+def deinterleave_rope_rows(w: torch.Tensor, dr: int, head_dim: int = 0) -> torch.Tensor:
+    """Rope-branch output rows from interleaved (x0, y0, x1, y1, ...: real
+    DeepSeek checkpoints, `rope_interleave`, which transformers'
+    `apply_rotary_pos_emb_interleave` turns half-split on the activations)
+    to half-split order, the order `llama.rope` rotates: new[j] = old[2j],
+    new[dr/2 + j] = old[2j + 1]. `head_dim=0`: the last `dr` rows of `w`
+    (kv_a_proj_with_mqa); `head_dim>0`: the last `dr` rows of every
+    `head_dim` block (q_proj / q_b_proj)."""
+    perm = torch.cat([torch.arange(0, dr, 2), torch.arange(1, dr, 2)]).to(w.device)
+    if head_dim == 0:
+        nope = w.shape[0] - dr
+        return torch.cat([w[:nope], w[nope:][perm]], dim=0)
+    heads = w.reshape(w.shape[0] // head_dim, head_dim, *w.shape[1:])
+    nope = head_dim - dr
+    return torch.cat([heads[:, :nope], heads[:, nope:][:, perm]], dim=1).reshape(w.shape)
+
+
+def deepseek_config_from_hf(d: dict, dtype=torch.bfloat16):
+    """A DeepSeek-V3 config.json's fields -> DeepseekConfig (yarn's cos /
+    sin factor from the mscale pair, the softmax factor from
+    `deepseek_softmax_scale_factor`); deepseek_v2 raises."""
+    from .deepseek import DeepseekConfig
+
+    return DeepseekConfig(**{
+        **config_from_hf(d).__dict__, "dtype": dtype,
+        "q_lora_rank": d.get("q_lora_rank") or 0, "kv_lora_rank": d["kv_lora_rank"],
+        "qk_nope_head_dim": d["qk_nope_head_dim"], "qk_rope_head_dim": d["qk_rope_head_dim"],
+        "v_head_dim": d["v_head_dim"], "n_routed_experts": d["n_routed_experts"],
+        "num_experts_per_tok": d["num_experts_per_tok"], "n_shared_experts": d.get("n_shared_experts", 1),
+        "moe_intermediate_size": d["moe_intermediate_size"],
+        "first_k_dense_replace": d.get("first_k_dense_replace", 0), "n_group": d.get("n_group", 1),
+        "topk_group": d.get("topk_group", 1), "routed_scaling_factor": d.get("routed_scaling_factor", 1.0),
+        "norm_topk_prob": d.get("norm_topk_prob", True),
+        "softmax_scale_factor": deepseek_softmax_scale_factor(d)})
+
+
+def load_hf_deepseek_checkpoint(path: str, dtype=torch.bfloat16, device=None):
+    """(DeepseekConfig, params) from a transformers-convention DeepSeek-V3
+    checkpoint directory: the dense and MoE layer groups stacked apart,
+    experts [L, E, out, in], `e_score_correction_bias` as `moe.e_bias` in
+    f32, the rope rows of q / q_b and kv_a_proj_with_mqa de-interleaved
+    where `rope_interleave` (default true), every other tensor cast to
+    `dtype` on `device`. The config's `softmax_scale_factor` is
+    transformers' yarn mscale squared (`deepseek_softmax_scale_factor`)."""
+    from .deepseek import attn_shapes
+
+    dev = resolve_device(device)
+    with open(os.path.join(path, "config.json")) as f:
+        d = json.load(f)
+    cfg = deepseek_config_from_hf(d, dtype)
+    raw, get = _reader(path, dtype, dev)
+    interleaved = d.get("rope_interleave", True)
+    dr, Ld, L, E = cfg.qk_rope_head_dim, cfg.first_k_dense_replace, cfg.num_hidden_layers, cfg.n_routed_experts
+    pre = "model.layers.{i}."
+
+    def attn_block(layers) -> dict:
+        stk = lambda fmt: torch.stack([get((pre + fmt).format(i=i)) for i in layers])
+        blk = {"input_layernorm": stk("input_layernorm.weight"),
+               "post_attention_layernorm": stk("post_attention_layernorm.weight"),
+               "self_attn.kv_a_norm": stk("self_attn.kv_a_layernorm.weight"),
+               "self_attn.kv_b_proj": stk("self_attn.kv_b_proj.weight"),
+               "self_attn.o_proj": stk("self_attn.o_proj.weight")}
+        kva = stk("self_attn.kv_a_proj_with_mqa.weight")
+        fix_q = (lambda w: deinterleave_rope_rows(w, dr, cfg.qk_head_dim)) if interleaved else (lambda w: w)
+        blk["self_attn.kv_a_proj"] = torch.stack([deinterleave_rope_rows(w, dr) for w in kva]) if interleaved else kva
+        if cfg.q_lora_rank:
+            blk["self_attn.q_a_proj"] = stk("self_attn.q_a_proj.weight")
+            blk["self_attn.q_a_norm"] = stk("self_attn.q_a_layernorm.weight")
+            blk["self_attn.q_b_proj"] = torch.stack([fix_q(w) for w in stk("self_attn.q_b_proj.weight")])
+        else:
+            blk["self_attn.q_proj"] = torch.stack([fix_q(w) for w in stk("self_attn.q_proj.weight")])
+        assert set(blk) >= set(attn_shapes(cfg))
+        return blk
+
+    params: dict[str, Any] = {"embed_tokens": get("model.embed_tokens.weight"), "norm": get("model.norm.weight")}
+    params["lm_head"] = get("lm_head.weight") if "lm_head.weight" in raw else params["embed_tokens"]
+    if Ld:
+        dense = attn_block(range(Ld))
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            dense[f"mlp.{proj}"] = torch.stack([get(f"model.layers.{i}.mlp.{proj}.weight") for i in range(Ld)])
+        params["layers_dense"] = dense
+    rng = range(Ld, L)
+    moe = attn_block(rng)
+    moe["moe.router"] = torch.stack([get(f"model.layers.{i}.mlp.gate.weight") for i in rng])
+    moe["moe.e_bias"] = torch.stack([raw[f"model.layers.{i}.mlp.gate.e_score_correction_bias"].to(
+        device=dev, dtype=torch.float32) for i in rng])
+    for proj in ("gate_proj", "up_proj", "down_proj"):
+        moe[f"moe.{proj}"] = torch.stack([torch.stack([get(f"model.layers.{i}.mlp.experts.{e}.{proj}.weight")
+                                                       for e in range(E)]) for i in rng])
+        moe[f"shared.{proj}"] = torch.stack([get(f"model.layers.{i}.mlp.shared_experts.{proj}.weight")
+                                             for i in rng])
+    params["layers_moe"] = moe
+    return cfg, params

@@ -52,6 +52,14 @@ class MixtralConfig(llama.LlamaConfig):
     swiglu_limit: Optional[float] = None
     swiglu_alpha: float = 1.702
 
+    def route_dispatch(self, x: torch.Tensor, lp: dict) -> "Dispatch":
+        """The serving engine's routing of x [S, H]: `route` on the layer's
+        router logits, then the capacity assignment (`route` is looked up
+        when called, so a caller may wrap it)."""
+        S = x.shape[0]
+        topw, topi = route(self, router_logits(self, x, lp))
+        return dispatch_combine(self, topw, topi, S, capacity(self, S))
+
     @staticmethod
     def tiny(**kw) -> "MixtralConfig":
         base = dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
@@ -194,6 +202,10 @@ class Dispatch:
     w_in: Optional[torch.Tensor]
     w_out: torch.Tensor
     C: int
+
+    @property
+    def experts(self) -> int:
+        return self.src.shape[0] // self.C
 
 
 def dispatch_combine(cfg: MixtralConfig, topw: torch.Tensor, topi: torch.Tensor, S: int, C: int) -> Dispatch:

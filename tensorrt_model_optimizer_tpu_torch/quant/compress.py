@@ -259,6 +259,21 @@ def weight_sites(layers: dict) -> list[str]:
                     and n.endswith(("gate_proj", "up_proj", "down_proj"))]
 
 
+def pack_stack(w: torch.Tensor, wcfg: Q.QuantizerConfig, st) -> tuple[str, dict]:
+    """A stacked weight [L, O, K] (or an expert stack [L, E, O, K]) packed
+    one layer (and expert) at a time under its stacked state -> (kind,
+    arrays stacked [L, ...] / [L, E, ...])."""
+    outs = []
+    for i in range(w.shape[0]):
+        sti = llama.slice_state(st, i)
+        if w.ndim == 4:
+            per = [compress_weight(w[i, e], wcfg, llama.slice_state(sti, e)) for e in range(w.shape[1])]
+            outs.append((per[0][0], _stack_arrays([a for _, a in per])))
+        else:
+            outs.append(compress_weight(w[i], wcfg, sti))
+    return outs[0][0], _stack_arrays([a for _, a in outs])
+
+
 @torch.no_grad()
 def compress(model: QuantizedModel) -> CompressedModel:
     """Pack every weight site the layout declares (`weight_sites`) per its
@@ -267,21 +282,9 @@ def compress(model: QuantizedModel) -> CompressedModel:
     per expert under its own state; the packs are JAX's by value."""
     new_layers = dict(model.params["layers"])
     kinds = {}
-    L = model.model_cfg.num_hidden_layers
     for name in weight_sites(model.params["layers"]):
-        wcfg = model.layout.get(f"{name}.weight")
         st = model.qstate.get(name, {}).get("weight")
-        w = model.params["layers"][name]
-        outs = []
-        for i in range(L):
-            sti = llama.slice_state(st, i)
-            if w.ndim == 4:
-                per = [compress_weight(w[i, e], wcfg, llama.slice_state(sti, e)) for e in range(w.shape[1])]
-                outs.append((per[0][0], _stack_arrays([a for _, a in per])))
-            else:
-                outs.append(compress_weight(w[i], wcfg, sti))
-        kinds[name] = outs[0][0]
-        new_layers[name] = _stack_arrays([a for _, a in outs])
+        kinds[name], new_layers[name] = pack_stack(model.params["layers"][name], model.layout.get(f"{name}.weight"), st)
     params = dict(model.params)
     params["layers"] = new_layers
     return CompressedModel(model.model_cfg, params, kinds, model.layout, model.qstate, model.adapters)
@@ -358,22 +361,29 @@ def convert_packed_layouts(cm: CompressedModel, nvfp4: str = "word2", int4: str 
     `EngineConfig.{nvfp4,int4}_layout`; MXFP4 under "i8" serves weight-only,
     as JAX's does."""
     want = {"nvfp4": nvfp4, "int4": int4, "mxfp4": "word2" if mxfp4 == "i8" else mxfp4}
-    new_layers = dict(cm.params["layers"])
-    kinds = dict(cm.kinds)
-    L = cm.model_cfg.num_hidden_layers
-    for name, kind in cm.kinds.items():
-        if kind not in want:
+    layers, kinds = convert_layers(cm.params["layers"], cm.kinds, want)
+    params = dict(cm.params)
+    params["layers"] = layers
+    return dataclasses.replace(cm, params=params, kinds=kinds)
+
+
+def convert_layers(layers: dict, kinds: dict, want: dict) -> tuple[dict, dict]:
+    """The stacked layers' packed sites of the canonical kinds in `want`
+    (kind -> TPU layout name) converted to their serving layouts, one layer
+    (and expert) at a time -> (new layers, new kinds); other sites as they
+    are."""
+    new_layers, new_kinds = dict(layers), dict(kinds)
+    for name, kind in kinds.items():
+        if kind not in want or name not in layers:
             continue
         outs = []
-        for i in range(L):
-            arr = layer_arrays(cm.params["layers"][name], i)
+        for i in range(layers[name]["packed"].shape[0]):
+            arr = layer_arrays(layers[name], i)
             if arr["packed"].ndim == 3:  # an expert stack: each expert its own site
                 conv = [word_convert_site(kind, layer_arrays(arr, e), want[kind]) for e in range(arr["packed"].shape[0])]
                 outs.append((conv[0][0], _stack_arrays([a for _, a in conv])))
             else:
                 outs.append(word_convert_site(kind, arr, want[kind]))
-        kinds[name] = outs[0][0]
+        new_kinds[name] = outs[0][0]
         new_layers[name] = _stack_arrays([a for _, a in outs])
-    params = dict(cm.params)
-    params["layers"] = new_layers
-    return dataclasses.replace(cm, params=params, kinds=kinds)
+    return new_layers, new_kinds

@@ -100,6 +100,10 @@ JAX's does; paged serving refuses all three and a sparse prefill refuses
 them too: JAX's paged step runs Llama4 as if it were Llama and its sparse
 prefill drops the sinks and the masks (ROADMAP queue 3).
 
+DeepSeek serves on its own engine (`serve/deepseek_engine.py`, over the MLA
+latent cache), which shares `StepEngine` with `Engine`: the host's record
+of a cache's pos and the graphed `decode_step`.
+
 Not ported (each raises `NotImplementedError` naming its slice): the
 tensor-parallel and speculative paths.
 """
@@ -425,15 +429,15 @@ def _expert_linear(x, name, kind, arrays, cm, ops):
 
 def _moe_ffn(cfg, cm, h2, lp, lstate, kinds, ops):
     """The routed-expert FFN on packed weights, h2 [S, H] -> [S, H]:
-    routing, dispatch and activation are the model's (`models.mixtral`), so
+    routing and dispatch are the model's (`cfg.route_dispatch`: mixtral's,
+    or DeepSeek's group-limited router), the activation `mixtral`'s, so
     serving computes the calibrated forward's function; each expert's C
     rows (C = max(int(capacity_factor S k / E), 1), JAX's) go through the
     ported GEMMs (`_expert_linear`). Gate and up share one input quantizer,
     applied once per expert's rows; down's input is not quantized."""
     S, H = h2.shape
-    E, k = cfg.num_experts, cfg.top_k
-    topw, topi = mixtral.route(cfg, mixtral.router_logits(cfg, h2, lp))
-    d = mixtral.dispatch_combine(cfg, topw, topi, S, mixtral.capacity(cfg, S))
+    d = cfg.route_dispatch(h2, lp)
+    E, k = d.experts, d.dest.shape[0] // S
     xe = mixtral.dispatch_tokens(d, h2, E)
     ist = (lstate or {}).get("moe.gate_proj", {}).get("input")
     icfg = cm.layout.get("moe.gate_proj.input")
@@ -451,9 +455,9 @@ def _moe_ffn(cfg, cm, h2, lp, lstate, kinds, ops):
 
 
 def _ffn(cfg, cm, h2, lp, lstate, kinds, ops, lin):
-    """The layer's FFN: routed experts where the layer has them (and
-    Llama4's shared expert added to their output, through `lin`), else the
-    dense MLP through `lin(x, name)`."""
+    """The layer's FFN: routed experts where the layer has them (and the
+    shared expert, Llama4's or DeepSeek's, added to their output through
+    `lin`), else the dense MLP through `lin(x, name)`."""
     if "moe.gate_proj" in lp:
         y = _moe_ffn(cfg, cm, h2, lp, lstate, kinds, ops)
         if "shared.gate_proj" in lp:
@@ -696,62 +700,23 @@ def _forget_cache(engine_ref, key: int) -> None:
         eng._caches.pop(key, None)
 
 
-class Engine:
-    """Generation engine over a compressed model, on `device` (cuda unless
-    the caller passes device="cpu"); the model must already live there."""
+class StepEngine:
+    """What an engine over a dense cache with a device `pos` needs for its
+    greedy decode: the host's record of each cache's pos (`_set_pos`,
+    `_room`), the fused `decode_step` (one CUDA-graph replay on the card,
+    the steps eagerly on the CPU or with `_eager`), `decode`, `generate`
+    and `generate_host`. A subclass gives `init_cache`, `prefill`,
+    `_model_step(tokens, cache) -> logits [B, V]` (updates the cache in
+    place, its pos included) and `_cache_rows(cache)`."""
 
-    def __init__(self, cm: CompressedModel, config: EngineConfig = EngineConfig(), device=None):
-        self.device = resolve_device(device)
-        if cm.params["embed_tokens"].device.type != self.device.type:
-            raise ValueError(f"model lives on {cm.params['embed_tokens'].device}, engine on {self.device}")
-        if config.kv_attention_kernel and config.attn_sparsity is not None:
-            raise NotImplementedError(
-                "kv_attention_kernel: prefill attention sparsity unsupported (flash prefill path owns attention)")
-        mcfg, sinks = cm.model_cfg, "self_attn.sinks" in cm.params["layers"]
-        span = mcfg.span()
-        if config.kv_attention_kernel and (span is not None or sinks):
-            # JAX refuses them too: its kernels attend causally, without sinks
-            raise NotImplementedError(
-                "kv_attention_kernel: " + ("Llama4's rope / nope chunked attention" if span and span[0] == "chunk"
-                                           else "sliding windows" if span else "attention sinks")
-                + " use the dense-cache einsum engine (kv_attention_kernel=False)")
-        if config.attn_sparsity is not None and (span is not None or sinks):
-            # JAX's sparse prefill attends causally over the fresh tokens and
-            # so drops the window, the chunk, the sinks and Llama4's
-            # temperature-tuned q (ROADMAP queue 3): the port refuses
-            raise NotImplementedError(
-                "attn_sparsity: the skip-softmax prefill attends causally, without sliding windows, Llama4's "
-                "chunks or attention sinks")
-        if config.kv_dtype not in _KV_DTYPES:
-            raise ValueError(f"kv_dtype {config.kv_dtype!r}: one of {_KV_DTYPES}")
-        # an NVFP4 KV preset selects the packed NVFP4 cache when the caller
-        # picked no storage dtype
-        kcfg = cm.layout.get("self_attn.k_bmm")
-        if config.kv_dtype is None and kcfg.enable and kcfg.is_fp and kcfg.num_bits == (2, 1):
-            config = dataclasses.replace(config, kv_dtype="nvfp4")
-        if config.kv_dtype in ("nvfp4", "nvfp4_fake") and cm.model_cfg.hd % 16:
-            raise ValueError(f"NVFP4 KV needs head_dim % 16 == 0, got {cm.model_cfg.hd}")
-        cm = convert_packed_layouts(cm, nvfp4=config.nvfp4_layout, int4=config.int4_layout,
-                                    mxfp4=config.nvfp4_layout)
-        for name, kind in cm.kinds.items():
-            if kind not in _SERVED_KINDS:
-                raise NotImplementedError(f"{name}: weight kind {kind!r} is served by a later slice")
-        self.cm = cm
-        self.cfg = cm.model_cfg
-        self.ecfg = config
-        self._ops = _ops(config.plain_ops)
-        self._flags = self.cfg.layer_flags()
-        L = self.cfg.num_hidden_layers
-        default = torch.full((L,), 448.0, dtype=torch.float32, device=self.device)
-        ka, va = _kv_amax_from(cm.qstate, "k"), _kv_amax_from(cm.qstate, "v")
-        self._ka = ka if ka is not None else default
-        self._va = va if va is not None else default
-        self._act_state = {name: {"input": sub["input"]} for name, sub in (cm.qstate or {}).items()
-                           if isinstance(sub, dict) and "input" in sub}
-        self.last_prefill_keep_frac = None  # [L] after a sparse prefill
+    def __init__(self, device):
+        self.device = device
         self._caches: dict = {}  # id(a cache's owner tensor) -> _CacheState, dropped with the owner
         self._graph_stream = None  # the side stream the decode steps are captured on
         self._eager = False  # True: the decode steps launch eagerly on the card too (the graphs' reference)
+
+    def _cache_rows(self, cache: dict) -> int:
+        raise NotImplementedError
 
     def _state(self, owner: torch.Tensor) -> "_CacheState":
         """What the engine keeps about the cache `owner` stands for (the
@@ -780,49 +745,6 @@ class Engine:
             return g.first
         return g(*inputs)
 
-    def init_cache(self, batch: int, max_len: Optional[int] = None) -> dict:
-        """The dense cache. Einsum engine: stored rows [L, B, S, n_kv, C]
-        (packed NVFP4: C = 9 hd/16 bytes). Kernel engine: kv-head-major
-        stored form [L, B, n_kv, S, C]; NVFP4 keeps its nibble planes in
-        "k"/"v" and its block-scale bytes in "ks"/"vs"."""
-        cfg = self.cfg
-        max_len = max_len or self.ecfg.max_seq_len
-        kvk = self.ecfg.kv_attention_kernel
-        dtype, last = self.ecfg.kv_dtype or cfg.dtype, cfg.hd
-        if dtype == "nvfp4":
-            dtype, last = torch.uint8, (cfg.hd // 2 if kvk else _kv_pack_width(cfg.hd))
-        elif dtype == "nvfp4_fake":
-            dtype = cfg.dtype
-
-        def rows(width, dt):
-            lead = (cfg.num_key_value_heads, max_len) if kvk else (max_len, cfg.num_key_value_heads)
-            return torch.zeros((cfg.num_hidden_layers, batch, *lead, width), dtype=dt, device=self.device)
-
-        cache = {"k": rows(last, dtype), "v": rows(last, dtype),
-                 "pos": torch.zeros((), dtype=torch.int32, device=self.device)}
-        if kvk and self.ecfg.kv_dtype == "nvfp4":
-            cache["ks"], cache["vs"] = rows(cfg.hd // 16, torch.uint8), rows(cfg.hd // 16, torch.uint8)
-        self._set_pos(cache, 0)
-        return cache
-
-    def _layers(self, x, positions, attend_of):
-        """Every layer in turn; `attend_of(i)` gives layer i's attention."""
-        layers = self.cm.params["layers"]
-        for i in range(self.cfg.num_hidden_layers):
-            lp = {k: (layer_arrays(v, i) if isinstance(v, dict) else v[i]) for k, v in layers.items()}
-            ad = None if self.cm.adapters is None else {
-                n: {k: a[i] for k, a in f.items()} for n, f in self.cm.adapters.items()}
-            x = _layer(self.cfg, self.cm, x, lp, llama.slice_state(self._act_state, i), self.cm.kinds,
-                       positions, self._ops, attend_of(i), ad, self._flags[i])
-        return x
-
-    def _logits(self, x: torch.Tensor, full: bool = False) -> torch.Tensor:
-        """The last position's logits [B, V] f32, or every position's [B, T, V]."""
-        params = self.cm.params
-        x = llama.norm(self.cfg, x, params["norm"])
-        head_w = params.get("lm_head", params["embed_tokens"])
-        return ((x if full else x[:, -1, :]) @ head_w.t().to(x.dtype)).float()
-
     def _set_pos(self, cache: dict, pos: int) -> None:
         """Record the dense cache's pos as a public call left it."""
         st = self._state(cache["pos"])
@@ -839,60 +761,12 @@ class Engine:
         if st.pos is None or st.version is None or st.version != _version(p):
             self._set_pos(cache, int(p))
         pos = st.pos
-        rows = cache["k"].shape[3 if self.ecfg.kv_attention_kernel else 2]
+        rows = self._cache_rows(cache)
         if empty and pos != 0:
             raise ValueError(f"prefill needs an empty cache (pos == 0), got pos {pos}")
         if pos + T > rows:
             raise ValueError(f"cache holds {rows} rows, step needs {pos + T}")
         return pos
-
-    @torch.inference_mode()
-    def _model_step(self, tokens: torch.Tensor, cache: dict, full_logits: bool = False,
-                    keep_fracs: Optional[list] = None) -> torch.Tensor:
-        """Forward over packed weights; updates `cache` in place, its pos
-        included. Returns the last position's logits [B, V] f32 (every
-        position's with `full_logits`). A list `keep_fracs` runs the einsum
-        engine's sparse prefill and receives each layer's kept share of
-        tiles. Reads nothing back to the host: the caller checks the room
-        (`_room`)."""
-        cfg = self.cfg
-        B, T = tokens.shape
-        pos = cache["pos"]
-        kvk = self.ecfg.kv_attention_kernel
-        if kvk and keep_fracs is not None:
-            raise NotImplementedError("kv_attention_kernel does not support sparse-prefill steps")
-        x = self.cm.params["embed_tokens"][tokens].to(cfg.dtype)
-        positions = (pos + torch.arange(T, device=self.device, dtype=torch.int32))[None].expand(B, T)
-        packed4 = "ks" in cache
-
-        sinks = self.cm.params["layers"].get("self_attn.sinks")
-
-        def attend_of(i):
-            if not kvk:
-                span = cfg.span() if self._flags[i] else None
-                return lambda q, k, v: _einsum_attn(cfg, self.ecfg, q, k, v, cache["k"][i], cache["v"][i], pos,
-                                                    self._ka[i], self._va[i], self._ops, keep_fracs, span,
-                                                    None if sinks is None else sinks[i])
-            cks, cvs = (cache["ks"][i], cache["vs"][i]) if packed4 else (None, None)
-            return lambda q, k, v: _dense_attn(cfg, self.ecfg, q, k, v, cache["k"][i], cache["v"][i], cks, cvs,
-                                               pos, self._ka[i], self._va[i], self._ops)
-
-        x = self._layers(x, positions, attend_of)
-        pos.add_(T)
-        return self._logits(x, full_logits)
-
-    def prefill(self, tokens: torch.Tensor, cache: dict) -> torch.Tensor:
-        """Prefill an empty cache with tokens [B, T]; returns logits [B, V].
-        With `attn_sparsity` set and T > 1 the einsum engine attends through
-        the skip-softmax kernel and records each layer's kept share of tiles
-        in `last_prefill_keep_frac` [L]."""
-        self._room(cache, tokens.shape[1], empty=True)
-        keep = [] if self.ecfg.attn_sparsity is not None and tokens.shape[1] > 1 else None
-        logits = self._model_step(tokens, cache, keep_fracs=keep)
-        self._set_pos(cache, tokens.shape[1])
-        if keep is not None:
-            self.last_prefill_keep_frac = torch.stack(keep)
-        return logits
 
     def _greedy_steps(self, tok: torch.Tensor, cache: dict, unroll: int) -> torch.Tensor:
         """`unroll` chained greedy steps, the argmax on the device."""
@@ -963,6 +837,155 @@ class Engine:
             tok, cache = self.decode_step(tok, cache)
             out.append(tok)
         return torch.cat(out, dim=1)
+
+
+class Engine(StepEngine):
+    """Generation engine over a compressed model, on `device` (cuda unless
+    the caller passes device="cpu"); the model must already live there."""
+
+    def __init__(self, cm: CompressedModel, config: EngineConfig = EngineConfig(), device=None):
+        super().__init__(resolve_device(device))
+        if cm.params["embed_tokens"].device.type != self.device.type:
+            raise ValueError(f"model lives on {cm.params['embed_tokens'].device}, engine on {self.device}")
+        if config.kv_attention_kernel and config.attn_sparsity is not None:
+            raise NotImplementedError(
+                "kv_attention_kernel: prefill attention sparsity unsupported (flash prefill path owns attention)")
+        mcfg, sinks = cm.model_cfg, "self_attn.sinks" in cm.params["layers"]
+        span = mcfg.span()
+        if config.kv_attention_kernel and (span is not None or sinks):
+            # JAX refuses them too: its kernels attend causally, without sinks
+            raise NotImplementedError(
+                "kv_attention_kernel: " + ("Llama4's rope / nope chunked attention" if span and span[0] == "chunk"
+                                           else "sliding windows" if span else "attention sinks")
+                + " use the dense-cache einsum engine (kv_attention_kernel=False)")
+        if config.attn_sparsity is not None and (span is not None or sinks):
+            # JAX's sparse prefill attends causally over the fresh tokens and
+            # so drops the window, the chunk, the sinks and Llama4's
+            # temperature-tuned q (ROADMAP queue 3): the port refuses
+            raise NotImplementedError(
+                "attn_sparsity: the skip-softmax prefill attends causally, without sliding windows, Llama4's "
+                "chunks or attention sinks")
+        if config.kv_dtype not in _KV_DTYPES:
+            raise ValueError(f"kv_dtype {config.kv_dtype!r}: one of {_KV_DTYPES}")
+        # an NVFP4 KV preset selects the packed NVFP4 cache when the caller
+        # picked no storage dtype
+        kcfg = cm.layout.get("self_attn.k_bmm")
+        if config.kv_dtype is None and kcfg.enable and kcfg.is_fp and kcfg.num_bits == (2, 1):
+            config = dataclasses.replace(config, kv_dtype="nvfp4")
+        if config.kv_dtype in ("nvfp4", "nvfp4_fake") and cm.model_cfg.hd % 16:
+            raise ValueError(f"NVFP4 KV needs head_dim % 16 == 0, got {cm.model_cfg.hd}")
+        cm = convert_packed_layouts(cm, nvfp4=config.nvfp4_layout, int4=config.int4_layout,
+                                    mxfp4=config.nvfp4_layout)
+        for name, kind in cm.kinds.items():
+            if kind not in _SERVED_KINDS:
+                raise NotImplementedError(f"{name}: weight kind {kind!r} is served by a later slice")
+        self.cm = cm
+        self.cfg = cm.model_cfg
+        self.ecfg = config
+        self._ops = _ops(config.plain_ops)
+        self._flags = self.cfg.layer_flags()
+        L = self.cfg.num_hidden_layers
+        default = torch.full((L,), 448.0, dtype=torch.float32, device=self.device)
+        ka, va = _kv_amax_from(cm.qstate, "k"), _kv_amax_from(cm.qstate, "v")
+        self._ka = ka if ka is not None else default
+        self._va = va if va is not None else default
+        self._act_state = {name: {"input": sub["input"]} for name, sub in (cm.qstate or {}).items()
+                           if isinstance(sub, dict) and "input" in sub}
+        self.last_prefill_keep_frac = None  # [L] after a sparse prefill
+
+    def _cache_rows(self, cache: dict) -> int:
+        return cache["k"].shape[3 if self.ecfg.kv_attention_kernel else 2]
+
+    def init_cache(self, batch: int, max_len: Optional[int] = None) -> dict:
+        """The dense cache. Einsum engine: stored rows [L, B, S, n_kv, C]
+        (packed NVFP4: C = 9 hd/16 bytes). Kernel engine: kv-head-major
+        stored form [L, B, n_kv, S, C]; NVFP4 keeps its nibble planes in
+        "k"/"v" and its block-scale bytes in "ks"/"vs"."""
+        cfg = self.cfg
+        max_len = max_len or self.ecfg.max_seq_len
+        kvk = self.ecfg.kv_attention_kernel
+        dtype, last = self.ecfg.kv_dtype or cfg.dtype, cfg.hd
+        if dtype == "nvfp4":
+            dtype, last = torch.uint8, (cfg.hd // 2 if kvk else _kv_pack_width(cfg.hd))
+        elif dtype == "nvfp4_fake":
+            dtype = cfg.dtype
+
+        def rows(width, dt):
+            lead = (cfg.num_key_value_heads, max_len) if kvk else (max_len, cfg.num_key_value_heads)
+            return torch.zeros((cfg.num_hidden_layers, batch, *lead, width), dtype=dt, device=self.device)
+
+        cache = {"k": rows(last, dtype), "v": rows(last, dtype),
+                 "pos": torch.zeros((), dtype=torch.int32, device=self.device)}
+        if kvk and self.ecfg.kv_dtype == "nvfp4":
+            cache["ks"], cache["vs"] = rows(cfg.hd // 16, torch.uint8), rows(cfg.hd // 16, torch.uint8)
+        self._set_pos(cache, 0)
+        return cache
+
+    def _layers(self, x, positions, attend_of):
+        """Every layer in turn; `attend_of(i)` gives layer i's attention."""
+        layers = self.cm.params["layers"]
+        for i in range(self.cfg.num_hidden_layers):
+            lp = {k: (layer_arrays(v, i) if isinstance(v, dict) else v[i]) for k, v in layers.items()}
+            ad = None if self.cm.adapters is None else {
+                n: {k: a[i] for k, a in f.items()} for n, f in self.cm.adapters.items()}
+            x = _layer(self.cfg, self.cm, x, lp, llama.slice_state(self._act_state, i), self.cm.kinds,
+                       positions, self._ops, attend_of(i), ad, self._flags[i])
+        return x
+
+    def _logits(self, x: torch.Tensor, full: bool = False) -> torch.Tensor:
+        """The last position's logits [B, V] f32, or every position's [B, T, V]."""
+        params = self.cm.params
+        x = llama.norm(self.cfg, x, params["norm"])
+        head_w = params.get("lm_head", params["embed_tokens"])
+        return ((x if full else x[:, -1, :]) @ head_w.t().to(x.dtype)).float()
+
+    @torch.inference_mode()
+    def _model_step(self, tokens: torch.Tensor, cache: dict, full_logits: bool = False,
+                    keep_fracs: Optional[list] = None) -> torch.Tensor:
+        """Forward over packed weights; updates `cache` in place, its pos
+        included. Returns the last position's logits [B, V] f32 (every
+        position's with `full_logits`). A list `keep_fracs` runs the einsum
+        engine's sparse prefill and receives each layer's kept share of
+        tiles. Reads nothing back to the host: the caller checks the room
+        (`_room`)."""
+        cfg = self.cfg
+        B, T = tokens.shape
+        pos = cache["pos"]
+        kvk = self.ecfg.kv_attention_kernel
+        if kvk and keep_fracs is not None:
+            raise NotImplementedError("kv_attention_kernel does not support sparse-prefill steps")
+        x = self.cm.params["embed_tokens"][tokens].to(cfg.dtype)
+        positions = (pos + torch.arange(T, device=self.device, dtype=torch.int32))[None].expand(B, T)
+        packed4 = "ks" in cache
+
+        sinks = self.cm.params["layers"].get("self_attn.sinks")
+
+        def attend_of(i):
+            if not kvk:
+                span = cfg.span() if self._flags[i] else None
+                return lambda q, k, v: _einsum_attn(cfg, self.ecfg, q, k, v, cache["k"][i], cache["v"][i], pos,
+                                                    self._ka[i], self._va[i], self._ops, keep_fracs, span,
+                                                    None if sinks is None else sinks[i])
+            cks, cvs = (cache["ks"][i], cache["vs"][i]) if packed4 else (None, None)
+            return lambda q, k, v: _dense_attn(cfg, self.ecfg, q, k, v, cache["k"][i], cache["v"][i], cks, cvs,
+                                               pos, self._ka[i], self._va[i], self._ops)
+
+        x = self._layers(x, positions, attend_of)
+        pos.add_(T)
+        return self._logits(x, full_logits)
+
+    def prefill(self, tokens: torch.Tensor, cache: dict) -> torch.Tensor:
+        """Prefill an empty cache with tokens [B, T]; returns logits [B, V].
+        With `attn_sparsity` set and T > 1 the einsum engine attends through
+        the skip-softmax kernel and records each layer's kept share of tiles
+        in `last_prefill_keep_frac` [L]."""
+        self._room(cache, tokens.shape[1], empty=True)
+        keep = [] if self.ecfg.attn_sparsity is not None and tokens.shape[1] > 1 else None
+        logits = self._model_step(tokens, cache, keep_fracs=keep)
+        self._set_pos(cache, tokens.shape[1])
+        if keep is not None:
+            self.last_prefill_keep_frac = torch.stack(keep)
+        return logits
 
     # ---------------- paged KV + continuous batching ----------------
 

@@ -84,6 +84,14 @@ def test_the_walk_covers_the_gpt_oss_llama4_slice():
     assert "examples/hf_ptq_torch.py" in walked
 
 
+def test_the_walk_covers_the_deepseek_slice():
+    walked = {os.path.relpath(p, ROOT) for p in _sources()}
+    pkg = "tensorrt_model_optimizer_tpu_torch/"
+    assert {pkg + m for m in ("models/deepseek.py", "serve/deepseek_engine.py", "models/hf_loader.py",
+                              "quant/compress.py", "convert.py", "serve/engine.py")} <= walked
+    assert "chip_smoke.py" in walked
+
+
 def test_the_recipe_reader_never_imports_yaml():
     """Loading every builtin recipe, with overrides, adds no `yaml` module."""
     code = (

@@ -11,7 +11,9 @@
 # routes), of the engine's CUDA-graph decode step (serve/step_graph.py), and
 # of compress's MX packs (quant/compress.py, the accuracy phase), and of the
 # einsum engine's sinks and per-layer masks (serve/engine.py, the families
-# phase).
+# phase), and of DeepSeek's routing weights, absorbed MLA and latent-cache
+# order (models/deepseek.py, serve/deepseek_engine.py, the deepseek phase)
+# and of its W4A4 hold at DeepSeek-V3's widths.
 # Each case plants one fault in a copy of the tree in a fresh `mktemp -d`
 # directory (under $TMPDIR, removed on exit) and runs `chip_smoke.py --phases
 # build,kernels` there (a case may name other phases); every case must exit
@@ -156,4 +158,22 @@ run families_full_w4a8_last_block_scale qmm_w4a8.cu 's/__ldg(s + (size_t)kb \* O
 # has no INT4 path), the odd column of each pair with the even column's
 # block scale
 run families_full_int4_scale_col qmm_wo_common.cuh 's/__fmul_rn(part\[i\]\[j\]\[1\], s1)/__fmul_rn(part[i][j][1], s0)/' build,families_full
+# The deepseek phase's small config alone (`--phases build,deepseek_small`),
+# three faults of DeepSeek's plain PyTorch path that no kernel comparison
+# sees (the kernel and the plain engine share it): the route's weights
+# taken from the choice (scores + e_bias) instead of the scores, which the
+# host rule of `_deepseek_route_check` reads first ...
+run deepseek_route_weights_from_choice models/deepseek.py 's/    return _weights(cfg, scores, topi), topi/    return _weights(cfg, choice, topi), topi/' build,deepseek_small
+# ... kv_b's key and value halves swapped in the engine's absorbed form (the
+# f32 engine against the model's fake-quant forward, DEEPSEEK_VS_FORWARD_MAX) ...
+run deepseek_kvb_halves_swapped serve/deepseek_engine.py 's/        wk, wv = wkb\[hs, :dn\].float(), wkb\[hs, dn:\].float()/        wv, wk = wkb[hs, :dn].float(), wkb[hs, dn:].float()/' build,deepseek_small
+# ... and the latent cached before kv_b's input quantizer (the cached latent
+# moves when that quantizer quantizes it again)
+run deepseek_latent_cached_before_kvb_quantizer serve/deepseek_engine.py 's/    eng_mod._write_rows(ckv, 1, rows, c_q)/    eng_mod._write_rows(ckv, 1, rows, c_kv)/' build,deepseek_small
+# The deepseek phase's V3 widths alone (`--phases build,deepseek_full`): W4A4
+# as served on the MoE layer alone against the all-plain engine
+# (MOE_PLAIN_MEDIAN_MAX, held before the weight-only check of all 4
+# layers), NVFP4's last 32-chunk of K with the chunk before's block scales
+# (1 of 224 at K 7168)
+run deepseek_full_nvfp4_last_chunk_scale qmm_fp4_wo.cu 's/reinterpret_cast<const uint16_t\*>(sp + 2 \* chunk)/reinterpret_cast<const uint16_t*>(sp + 2 * (chunk > 0 \&\& (chunk + 1) * 16 >= row_bytes ? chunk - 1 : chunk))/' build,deepseek_full
 exit $missed
