@@ -186,6 +186,34 @@ Phases (any failure raises, and the script exits non-zero):
            input quantizers off, and W4A4 as served on the MoE layer alone
            (alone: `--phases build,deepseek_full`). The kernels phase gains the GEMMs at V3's
            shapes (`DEEPSEEK_GEMMS`; alone: `--phases build,kernels_deepseek`).
+  speculative
+           tree-speculative decoding and the drafters (`phase_speculative`):
+           (a) artifacts/anchor-llama in f32 as tools/bench_specdec.py runs it:
+           Medusa (3 heads), EAGLE-1 TTT, EAGLE-3 TTT and DFlash trained on
+           the card (300 steps of 8 x 65 synthlang tokens, lr 1e-3, TTT 3;
+           seconds and last-step accuracies), each drafter's acceptance and
+           tokens per step with the unquantized and the W4A8_AWQ_BETA
+           fake-quant base beside JAX's CPU record
+           (artifacts/specdec_r02.jsonl); W4A8_AWQ_BETA compressed and served
+           by the einsum engine (W4A8 GEMM, int8 KV): `generate_speculative`
+           with the trained heads for 64 tokens, equal to `generate_host`'s,
+           the verify forward against the all-plain engine, and the oracle
+           round (`_spec_oracle`: the greedy continuation on the tree's
+           deepest path, the logits at its nodes and its compacted rows
+           against eager 1-row steps, SPEC_ANCHOR_ORACLE_MAX; alone:
+           `--phases build,speculative_anchor`); (b) Llama-3.1-8B at full
+           width (32 layers, seeded bf16), INT4 weight-only, the einsum
+           engine with a bf16 cache, batch 1, a 128-token prompt, 3 seeded
+           Medusa heads: `generate_speculative` for 32 tokens, the verify
+           round's wall, device time and idle share, GEMM launches a round,
+           the graphed batch-1 step (unroll 8) and r = verify / step, peak
+           memory, the verify forward against the plain GEMMs at depths 1
+           and 2 (SPEC_PLAIN_MAX), the oracle round (SPEC_ORACLE_MAX,
+           SPEC_ROWS_MAX), the tokens against `generate_host`'s (a mismatch
+           traced to a near tie); the INT4 and W4A8 GEMMs at N = 7 and N = 1
+           (SPEC_GEMMS) join the kernels line (alone: `--phases
+           build,speculative_full`). Raises unless qmm_w4a8 and qmm_int4_wo
+           launched on its served runs.
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -5042,6 +5070,438 @@ def phase_deepseek(torch, dev, sz: Sizes) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# speculative decoding (PR 15): the drafters trained and measured on the
+# anchor, tree verification served on the anchor and on Llama-3.1-8B
+# ---------------------------------------------------------------------------
+
+SPEC_RECORD = os.path.join(HERE, "artifacts", "specdec_r02.jsonl")  # JAX's record (tools/bench_specdec.py, CPU)
+# tools/bench_specdec.py's settings: 300 train steps of 8 x 65 synthlang
+# tokens (stream seed 11, batches from numpy seed 3), lr 1e-3, TTT 3 steps;
+# acceptance over 64 tokens after the stream's first 32
+SPEC_TRAIN = dict(steps=300, batch=8, seq=64, lr=1e-3, ttt=3)
+SPEC_PROMPT, SPEC_DECODE = 32, 64
+SPEC_DRAFTED = {"medusa": 3, "eagle": 3, "eagle3": 3, "dflash": 4}  # draft tokens a round proposes
+SPEC_SERVED = (64, 64)   # the anchor served: prompt (the stream's first 64 tokens) and generate_speculative tokens
+SPEC_8B = dict(prompt=128, max_seq=512, new=32, heads=3)  # tools/bench_specdec_engine.py's phase_8b, batch 1
+SPEC_DEPTHS = (1, 2)      # 8B: the verify forward on the kernels against the plain GEMMs at these depths ...
+SPEC_PLAIN_MAX = 5e-2     # ... relative error of the logits (the full phase's limit for its paths)
+# The oracle round (the greedy continuation on the tree's deepest path)
+# against eager 1-row steps on the same tokens: the median logits gap at the
+# accepted nodes and the compacted rows' relative Frobenius error (worst
+# layer, k or v) may be at most these, as a share of their scale. The anchor
+# runs f32 activations (ulps of f32 sums apart: int8 codes flip rarely; an
+# H100 read 1e-7 and 0); the 8B bf16 (a 7-row forward against 1-row steps:
+# the einsum T > 1 path against the split T = 1 path, bf16 roundings
+# carried through 32 layers): an H100 read 0.0164 and 0.0184 there, and
+# 0.0530 and 0.0921 with the verify mask letting each node see its siblings
+# (the planted fault whose effect is smallest: one more row among 135)
+SPEC_ANCHOR_ORACLE_MAX = 1e-4
+SPEC_ORACLE_MAX = 3e-2
+SPEC_ROWS_MAX = 3e-2
+SPEC_TIE_MAX = 1e-2  # 8B: where the speculative tokens leave generate_host's, the reference's top-2 gap (the anchors' rule)
+SPEC_KERNELS = ("qmm_w4a8", "qmm_int4_wo")
+# the GEMMs of the 8B verify round (7 tree rows at batch 1) and of a batch-1
+# decode step, INT4 (the 8B path's) and W4A8 (the anchor's)
+SPEC_GEMMS = tuple(("llama3-8b", label, O, K, ("int4", "w4a8"), (7, 1)) for O, K, label in Sizes().qmm_shapes)
+
+
+def _spec_batches(stream, n: int, rng, bs: int, seq: int):
+    import numpy as np
+
+    for _ in range(n):
+        starts = rng.integers(0, stream.size - seq - 1, size=bs)
+        yield np.stack([stream[s: s + seq + 1] for s in starts])
+
+
+def _spec_train(torch, dev, cfg, params, stream) -> dict:
+    """Medusa (3 heads), EAGLE-1 TTT, EAGLE-3 TTT and DFlash (block 4)
+    trained on the card with JAX's settings (SPEC_TRAIN): name -> (draft,
+    {train_s, last_loss, last_accs}). Medusa's and DFlash's accuracies are
+    read after training on the last batch (per head / offset: top-1 against
+    the token it predicts), TTT's are its step's."""
+    import numpy as np
+
+    from tensorrt_model_optimizer_tpu_torch.speculative import dflash, eagle, medusa
+
+    t = SPEC_TRAIN
+    g = torch.Generator(device=dev).manual_seed(1)
+    makers = {
+        "medusa": (medusa.init_medusa(cfg, medusa.MedusaConfig(num_heads=3, num_layers=1), g, device=dev),
+                   medusa.make_medusa_train_step(cfg, lr=t["lr"])),
+        "eagle": (eagle.init_eagle(cfg, eagle.EagleConfig(num_layers=1), g, device=dev),
+                  eagle.make_eagle_ttt_train_step(cfg, ttt_steps=t["ttt"], lr=t["lr"])),
+        "eagle3": (eagle.init_eagle3(cfg, eagle.EagleConfig(num_layers=1), g, device=dev),
+                   eagle.make_eagle3_ttt_train_step(cfg, ttt_steps=t["ttt"], lr=t["lr"])),
+        "dflash": (dflash.init_dflash(cfg, dflash.DFlashConfig(block_size=4), g, device=dev),
+                   dflash.make_dflash_train_step(cfg, dflash.DFlashConfig(block_size=4), lr=t["lr"])),
+    }
+    out = {}
+    for name, (draft, step) in makers.items():
+        rng = np.random.default_rng(3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in _spec_batches(stream, t["steps"], rng, t["batch"], t["seq"]):
+            res = step(draft, params, torch.from_numpy(b).to(dev))
+            draft = res[0]
+        torch.cuda.synchronize()
+        info = {"train_s": time.perf_counter() - t0, "last_loss": float(res[1])}
+        toks = torch.from_numpy(b).to(dev)
+        with torch.no_grad():
+            if name == "medusa":
+                _, hl = medusa.medusa_logits(cfg, params, draft, toks)
+                accs = [hl[h][:, :-(h + 2)].argmax(-1).eq(toks[:, h + 2:]).float().mean() for h in range(3)]
+            elif name == "dflash":
+                _, blk = dflash.dflash_logits(cfg, params, draft, toks)
+                accs = [blk[i][:, :-(i + 1)].argmax(-1).eq(toks[:, i + 1:]).float().mean() for i in range(4)]
+            else:
+                accs = list(res[2])
+        info["last_accs"] = [float(a) for a in accs]
+        if not math.isfinite(info["last_loss"]):
+            raise AssertionError(f"speculative anchor: {name}'s training loss is {info['last_loss']}")
+        out[name] = (draft, info)
+    return out
+
+
+def _spec_acceptance(cfg, params, qm, drafts: dict, prompt) -> dict:
+    """Each drafter's acceptance over SPEC_DECODE tokens with the
+    unquantized base and with the W4A8 fake-quant base (`qm`'s layout; JAX's
+    DFlash harness takes no layout, so DFlash has the first only); tokens
+    per verify = 1 + rate x drafted tokens (bench_specdec's count)."""
+    from tensorrt_model_optimizer_tpu_torch.speculative import dflash, eagle, medusa
+
+    verify = {"medusa": medusa.propose_and_verify, "eagle": eagle.propose_and_verify,
+              "eagle3": eagle.propose_and_verify, "dflash": dflash.propose_and_verify}
+    out = {}
+    for name, (draft, _) in drafts.items():
+        t0 = time.perf_counter()
+        _, rate = verify[name](cfg, params, draft, prompt, SPEC_DECODE)
+        row = {"accept_rate_unquantized_base": rate, "tokens_per_step_unquantized_base": 1 + rate * SPEC_DRAFTED[name],
+               "accept_rate_w4a8_base": None, "tokens_per_step_w4a8_base": None}
+        if name != "dflash":
+            _, rq = verify[name](cfg, qm.params, draft, prompt, SPEC_DECODE, layout=qm.layout, qstate=qm.qstate)
+            row.update(accept_rate_w4a8_base=rq, tokens_per_step_w4a8_base=1 + rq * SPEC_DRAFTED[name])
+        row["harness_s"] = time.perf_counter() - t0
+        out[name] = row
+    return out
+
+
+def _oracle_candidates(tree, greedy: list, vocab: int):
+    """Candidate tokens with the greedy continuation on the tree's deepest
+    path (node 0 = greedy[0]) and tokens outside it on every other node ->
+    (cand, the path's nodes, node 0 first)."""
+    import numpy as np
+
+    node = max(range(tree.n_nodes), key=lambda i: (tree.depth[i], -i))
+    chain = [node]
+    while tree.parent[chain[-1]] >= 0:
+        chain.append(tree.parent[chain[-1]])
+    chain.reverse()
+    others = iter(t for t in range(vocab) if t not in set(greedy))
+    cand = np.array([next(others) for _ in range(tree.n_nodes)], np.int32)
+    for i in chain:
+        cand[i] = greedy[tree.depth[i]]
+    return cand, chain
+
+
+def _rows_gap(got, ref) -> float:
+    """The worst layer's relative Frobenius error of stored k or v rows
+    [L, 1, a, n_kv, C] (int8 codes and bf16 values read as floats)."""
+    d = (got.float() - ref.float()).flatten(1).norm(dim=1)
+    return float((d / ref.float().flatten(1).norm(dim=1).clamp_min(1e-30)).max())
+
+
+def _spec_oracle(torch, eng, prompt, label: str, logits_max: float, rows_max: float, decode_on: int = 8) -> dict:
+    """One verify round through `_verify_round` / `_compact` with the
+    greedy continuation on the default tree's deepest path, held against
+    eager 1-row steps on the same tokens: the logits at the path's nodes
+    against the steps' (median gap <= logits_max of the scale), and the
+    path's compacted k / v rows against the rows the steps stored (worst
+    layer's relative Frobenius error <= rows_max). Then the cache decodes
+    `decode_on` greedy steps on: where its tokens first part from greedy,
+    the 1-row step's top-2 gap must be a near tie (SPEC_TIE_MAX); the
+    acceptance and the bonus are reported (the caller holds them where it
+    must)."""
+    from tensorrt_model_optimizer_tpu_torch.speculative.tree import accept_nodes, build_tree
+
+    tree = build_tree()
+    a = tree.max_depth + 1
+    ref = eng.init_cache(1)
+    logits = eng.prefill(prompt, ref)
+    greedy, steps = [int(logits.argmax())], []
+    for _ in range(a + decode_on):
+        lg = eng._model_step(torch.tensor([[greedy[-1]]], dtype=torch.int32, device=prompt.device), ref)
+        steps.append(lg[0])
+        greedy.append(int(lg.argmax()))
+    cand, chain = _oracle_candidates(tree, greedy, eng.cfg.vocab_size)
+    cache, _, _ = eng._spec_prefill(prompt)
+    v_logits, _, pos = eng._verify_round(cache, cand, tree)
+    nodes, bonus = accept_nodes(tree, cand, v_logits.argmax(-1).cpu().numpy())
+    gaps, _ = _gaps(v_logits[chain], torch.stack(steps[:a]))
+    eng._compact(cache, pos, chain)
+    rows = max(_rows_gap(cache[n][:, :, pos:pos + a], ref[n][:, :, pos:pos + a]) for n in ("k", "v"))
+    more = eng.decode(torch.tensor([[greedy[a]]], dtype=torch.int32, device=prompt.device), cache, decode_on)[0]
+    eng.release_graphs()
+    apart = [j for j, t in enumerate(more.tolist()) if t != greedy[a + 1 + j]]
+    tie = None  # where the decoded tokens first part from greedy: the 1-row step's top-2 gap there
+    if apart:
+        top2 = steps[a + apart[0]].topk(2).values
+        tie = float((top2[0] - top2[1]) / steps[a + apart[0]].abs().max())
+    row = {"phase": "speculative", "what": f"{label} oracle round", "tree_nodes": tree.n_nodes, "path": chain,
+           "accepted_nodes": nodes, "bonus_equal_greedy": bonus == greedy[a],
+           "median_logits_gap_vs_1row_steps": statistics.median(gaps), "worst_logits_gap_vs_1row_steps": max(gaps),
+           "compacted_rows_rel_err_vs_1row_steps": rows, "decoded_on_equal_greedy": not apart,
+           "decoded_on_first_apart": apart[0] if apart else None, "reference_top2_gap_there": tie}
+    log(json.dumps(row))
+    if not statistics.median(gaps) <= logits_max:
+        raise AssertionError(f"{label} oracle round: the verify logits at the accepted nodes lie "
+                             f"{statistics.median(gaps)} of their scale (median) from the 1-row steps', limit {logits_max}")
+    if not rows <= rows_max:
+        raise AssertionError(f"{label} oracle round: the compacted rows lie {rows} (relative) from the rows the "
+                             f"1-row steps stored, limit {rows_max}")
+    if tie is not None and not tie <= SPEC_TIE_MAX:
+        raise AssertionError(f"{label} oracle round: the compacted cache decodes away from greedy at step "
+                             f"{apart[0]}, not at a near tie (top-2 gap {tie})")
+    return row
+
+
+def _spec_anchor(torch, dev) -> dict:
+    """(a) artifacts/anchor-llama in f32, as tools/bench_specdec.py and
+    tools/bench_specdec_engine.py's anchor phase run it: the four drafters
+    trained on the card (`_spec_train`), their acceptance with the
+    unquantized and the W4A8_AWQ_BETA fake-quant base beside JAX's CPU
+    record; then W4A8_AWQ_BETA_CFG compressed and served by the einsum
+    engine (W4A8 GEMM, int8 KV): `generate_speculative` with the trained
+    Medusa heads, its tokens equal to `generate_host`'s, the verify forward
+    on the kernels against the all-plain engine's (f32: equal within 1e-6),
+    and the oracle round (`_spec_oracle`). Returns the served run's
+    launches."""
+    import numpy as np
+
+    from tensorrt_model_optimizer_tpu_torch.models import hf_loader
+    from tensorrt_model_optimizer_tpu_torch.quant import compress, ptq
+    from tensorrt_model_optimizer_tpu_torch.serve.engine import PLAIN_ALL
+    from tensorrt_model_optimizer_tpu_torch.speculative.tree import build_tree
+    from tensorrt_model_optimizer_tpu_torch.utils import synthlang
+
+    cfg, params = hf_loader.load_hf_checkpoint(ANCHOR, dtype=torch.float32, device=dev)
+    stream = synthlang.SynthLang(0).token_stream(max(SPEC_TRAIN["steps"], 64) * 8 * 65, seed=11)
+    t0 = time.perf_counter()
+    drafts = _spec_train(torch, dev, cfg, params, stream)
+    calib = [torch.from_numpy(stream[i * 2048:(i + 1) * 2048].reshape(8, 256).astype(np.int64)).to(dev)
+             for i in range(2)]
+    qm = ptq.quantize(cfg, params, "W4A8_AWQ_BETA_CFG", calib, device=dev)
+    prompt = torch.from_numpy(stream[:SPEC_PROMPT][None].astype(np.int64)).to(dev)
+    accept = _spec_acceptance(cfg, params, qm, drafts, prompt)
+    with open(SPEC_RECORD) as f:
+        record = {r["method"]: r for r in map(json.loads, f)}
+    for name, (_, info) in drafts.items():
+        log(json.dumps({"phase": "speculative", "what": f"anchor {name}", **info, **accept[name],
+                        "jax_cpu_record": record.get(name)}))
+    # served: W4A8 on the einsum engine, int8 KV
+    n_prompt, n_new = SPEC_SERVED
+    served = torch.from_numpy(stream[:n_prompt][None].astype(np.int64)).to(dev)
+    cm = compress.compress(qm)
+    max_seq = n_prompt + n_new + build_tree().n_nodes + 1
+    eng = _engine(torch, cm, max_seq, dev, kv_attention_kernel=False, int4_layout="a8")
+    plain = _engine(torch, cm, max_seq, dev, PLAIN_ALL, kv_attention_kernel=False, int4_layout="a8")
+    heads = drafts["medusa"][0]
+    eng.generate_speculative(served, heads, 8)  # warm-up
+    torch.cuda.synchronize()
+    _counts(reset=True)
+    t1 = time.perf_counter()
+    toks, rate = eng.generate_speculative(served, heads, n_new)
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t1
+    launches = _counts()
+    eng.generate_host(served, 8)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    host = eng.generate_host(served, n_new)[0].tolist()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t1
+    # the verify forward of one round, kernels against plain, on the same cache state
+    tree = build_tree()
+    cand = np.array(toks[:tree.n_nodes], np.int32)
+    vk = eng._verify_round(eng._spec_prefill(served)[0], cand, tree)[0]
+    vp = plain._verify_round(plain._spec_prefill(served)[0], cand, tree)[0]
+    row = {"phase": "speculative", "what": "anchor served, W4A8_AWQ_BETA, einsum engine, int8 KV",
+           "prompt": n_prompt, "new_tokens": n_new, "accept_rate": rate, "tokens_equal_generate_host": toks == host,
+           "wall_s_speculative": spec_s, "wall_s_generate_host": host_s,
+           "verify_logits_rel_err_kernel_vs_plain": _rel(vk, vp), "launches": {k: v for k, v in launches.items() if v}}
+    log(json.dumps(row))
+    if toks != host:
+        first = next(i for i, (a, b) in enumerate(zip(toks, host)) if a != b)
+        raise AssertionError(f"speculative anchor: generate_speculative's tokens leave generate_host's at {first}")
+    if not row["verify_logits_rel_err_kernel_vs_plain"] <= 1e-6:
+        raise AssertionError(f"speculative anchor: verify logits kernel vs plain {row['verify_logits_rel_err_kernel_vs_plain']}")
+    oracle = _spec_oracle(torch, eng, served, "anchor", SPEC_ANCHOR_ORACLE_MAX, SPEC_ANCHOR_ORACLE_MAX)
+    if oracle["accepted_nodes"] != oracle["path"] or not oracle["bonus_equal_greedy"] \
+            or not oracle["decoded_on_equal_greedy"]:
+        raise AssertionError(f"speculative anchor: the oracle round did not accept its path and decode on to the "
+                             f"greedy tokens: {oracle}")
+    log(json.dumps({"phase": "speculative", "what": "anchor", "seconds": time.perf_counter() - t0}))
+    return launches
+
+
+def _spec_full(torch, dev, sz: Sizes, timer: Timer, rows: dict) -> dict:
+    """(b) Llama-3.1-8B at full width (32 layers, seeded random bf16 weights
+    made on the card as the full phase makes them), INT4 weight-only, the
+    einsum engine with a bf16 cache, batch 1, a 128-token prompt, max_seq_len
+    512, 3 seeded Medusa heads at the 8B's widths: `generate_speculative`
+    for 32 tokens (launches counted), the verify round's wall, device time
+    and idle share, GEMM launches a round, the batch-1 `decode_step(unroll=8)`
+    per token and r = verify / step, peak memory; the verify forward on the
+    kernels against the plain GEMMs at depths 1 and 2; the oracle round
+    (`_spec_oracle`); the speculative tokens against `generate_host`'s, a
+    mismatch traced to the reference's top-2 gap. The GEMMs at the verify
+    round's N = 7 and a step's N = 1 (SPEC_GEMMS) join the kernels line's
+    shapes. Returns the speculative run's launches."""
+    import numpy as np
+
+    from tensorrt_model_optimizer_tpu_torch.models import llama
+    from tensorrt_model_optimizer_tpu_torch.quant import compress, config, ptq
+    from tensorrt_model_optimizer_tpu_torch.speculative import medusa
+    from tensorrt_model_optimizer_tpu_torch.speculative.tree import build_tree
+
+    for k in ("qmm_w4a8", "qmm_int4_wo"):
+        rows.setdefault(k, {"shapes": []})
+    _phase_kernels_families(torch, dev, sz, timer, rows, torch.Generator(device=dev).manual_seed(0), SPEC_GEMMS)
+    sync = torch.cuda.synchronize
+    s = SPEC_8B
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama.LlamaConfig.llama3_8b()
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    cm = compress.compress(ptq.quantize(cfg, params, config.INT4_BLOCKWISE_WEIGHT_ONLY_CFG, device=dev))
+    del params
+    heads = medusa.init_medusa(cfg, medusa.MedusaConfig(num_heads=s["heads"]),
+                               torch.Generator(device=dev).manual_seed(4), device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (1, s["prompt"]), generator=torch.Generator(device=dev).manual_seed(2),
+                           device=dev)
+    eng = _engine(torch, cm, s["max_seq"], dev, kv=None, kv_attention_kernel=False)
+    sync()
+    setup_s = time.perf_counter() - t0
+    eng.generate_speculative(prompt, heads, 4)  # warm-up
+    sync()
+    rounds = []
+    real = eng._verify_round
+
+    def timed_round(*a):
+        sync()
+        t1 = time.perf_counter()
+        out = real(*a)
+        sync()
+        rounds.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    eng._verify_round = timed_round
+    _counts(reset=True)
+    t1 = time.perf_counter()
+    toks, rate = eng.generate_speculative(prompt, heads, s["new"])
+    sync()
+    spec_s = time.perf_counter() - t1
+    launches = _counts()
+    eng._verify_round = real
+    # one verify round alone: its GEMM launches, wall, device time, idle share
+    tree = build_tree()
+    cand = np.array(toks[:tree.n_nodes], np.int32)
+    cache, _, _ = eng._spec_prefill(prompt)
+
+    def one_round():
+        cache["pos"].fill_(s["prompt"])
+        eng._verify_round(cache, cand, tree)
+
+    one_round()
+    _counts(reset=True)
+    one_round()
+    gemms_per_round = _counts()["qmm_int4_wo"]
+    walls = []
+    for _ in range(5):
+        sync()
+        t1 = time.perf_counter()
+        one_round()
+        sync()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    verify_ms = statistics.median(walls)
+    prof = _profile(torch, "8B verify round (7 tree rows, batch 1)", one_round, 1, verify_ms)
+    # the batch-1 graphed step, unroll 8
+    c1 = eng.init_cache(1)
+    tok = eng.prefill(prompt, c1).argmax(-1).to(torch.int32)[:, None]
+    tok, _ = eng.decode_step(tok, c1, unroll=8)  # the capture
+    step_walls = []
+    for _ in range(3):
+        sync()
+        t1 = time.perf_counter()
+        tok, _ = eng.decode_step(tok, c1, unroll=8)
+        sync()
+        step_walls.append((time.perf_counter() - t1) * 1e3 / 8)
+    step_ms = statistics.median(step_walls)
+    eng.release_graphs()
+    del c1
+    host = eng.generate_host(prompt, s["new"])[0].tolist()
+    match = [a == b for a, b in zip(toks, host)]
+    trace = None
+    if not all(match):  # the reference's top-2 gap where the tokens first part
+        first = match.index(False)
+        rc = eng.init_cache(1)
+        lg = eng.prefill(prompt, rc)
+        for t in host[:first]:
+            lg = eng._model_step(torch.tensor([[t]], dtype=torch.int32, device=dev), rc)
+        top2 = lg[0].topk(2).values
+        trace = {"first_mismatch": first, "reference_top2_gap": float((top2[0] - top2[1]) / lg[0].abs().max())}
+        del rc
+    row = {"phase": "speculative", "what": "llama3_8b, INT4 weight-only, einsum engine, bf16 cache",
+           "layers": cfg.num_hidden_layers, "batch": 1, "prompt": s["prompt"], "max_seq_len": s["max_seq"],
+           "medusa_heads": s["heads"], "new_tokens": s["new"], "setup_s": setup_s, "accept_rate": rate,
+           "verify_rounds": len(rounds), "tokens_per_verify": (len(toks) - 1) / max(len(rounds), 1),
+           "wall_s_speculative": spec_s, "verify_round_ms_in_run_median": statistics.median(rounds),
+           "verify_round_ms": verify_ms, "verify_round_device_ms": prof["per_call_device_busy_ms"],
+           "verify_round_device_idle_share": prof["device_idle_share"],
+           "verify_round_kernels": prof["per_call_kernel_launches"], "gemm_launches_per_verify_round": gemms_per_round,
+           "graphed_step_unroll8_ms_per_token": step_ms, "r_verify_over_step": verify_ms / step_ms,
+           "tokens_equal_generate_host": sum(match), "mismatch_trace": trace,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": {k: v for k, v in launches.items() if v}}
+    log(json.dumps(row))
+    if gemms_per_round != 7 * cfg.num_hidden_layers:
+        raise AssertionError(f"speculative 8B: {gemms_per_round} INT4 GEMM launches a verify round, want 224")
+    if trace is not None and not trace["reference_top2_gap"] <= SPEC_TIE_MAX:
+        raise AssertionError(f"speculative 8B: tokens leave generate_host's away from a near tie: {trace}")
+    # the verify forward on the kernels against the plain GEMMs, at depths 1 and 2
+    for d in SPEC_DEPTHS:
+        sub = _truncate(cm, d)
+        out = []
+        for plain in ((), ("int4_wo",)):
+            e = _engine(torch, sub, s["max_seq"], dev, plain, kv=None, kv_attention_kernel=False)
+            out.append(e._verify_round(e._spec_prefill(prompt)[0], cand, tree)[0])
+            del e
+        rel = _rel(out[0], out[1])
+        log(json.dumps({"phase": "speculative", "what": "8B verify forward, kernels vs plain GEMMs", "depth": d,
+                        "logits_rel_err": rel, "argmax_agree": float((out[0].argmax(-1) == out[1].argmax(-1))
+                                                                     .float().mean())}))
+        if not rel <= SPEC_PLAIN_MAX:
+            raise AssertionError(f"speculative 8B: depth-{d} verify logits rel err {rel} vs plain > {SPEC_PLAIN_MAX}")
+    _spec_oracle(torch, eng, prompt, "8B", SPEC_ORACLE_MAX, SPEC_ROWS_MAX)
+    del eng, cm, heads, cache
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "speculative", "what": "8B", "seconds": time.perf_counter() - t0}))
+    return launches
+
+
+def phase_speculative(torch, dev, sz: Sizes, timer: Timer, rows: dict) -> dict:
+    """(a) `_spec_anchor`, then (b) `_spec_full`. Returns the launch counts
+    of both served runs; raises unless each of SPEC_KERNELS launched."""
+    launches = _spec_anchor(torch, dev)
+    for k, c in _spec_full(torch, dev, sz, timer, rows).items():
+        launches[k] = launches.get(k, 0) + c
+    never = [k for k in SPEC_KERNELS if not launches.get(k)]
+    if never:
+        raise AssertionError(f"speculative: kernels its paths did not launch: {never}")
+    return launches
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -5086,7 +5546,8 @@ ANCHOR_ONLY = ("skip_softmax_flash_cuda_core", "paged_attention_prefill_cuda_cor
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,anchor,full,deploy,calib,accuracy,moe,families,deepseek",
+    ap.add_argument("--phases", default="build,kernels,anchor,full,deploy,calib,accuracy,moe,families,deepseek,"
+                                        "speculative",
                     help="comma-separated; add 'profile' for device time by kernel in the full run")
     args = ap.parse_args(argv)
     import torch
@@ -5179,6 +5640,13 @@ def main(argv=None) -> int:
         if never:
             raise AssertionError(f"deepseek: kernels its paths did not launch: {never}")
         launches = {k: (launches or {}).get(k, 0) + ds.get(k, 0) for k in KERNELS}
+    if "speculative_anchor" in phases and "speculative" not in phases:  # (a) of speculative alone
+        timed("speculative_anchor", _spec_anchor, torch, dev)
+    if "speculative_full" in phases and "speculative" not in phases:  # (b) of speculative alone
+        timed("speculative_full", _spec_full, torch, dev, sz, timer, rows)
+    if "speculative" in phases:
+        spec = timed("speculative", phase_speculative, torch, dev, sz, timer, rows)
+        launches = {k: (launches or {}).get(k, 0) + spec.get(k, 0) for k in KERNELS}
     log(json.dumps({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t_start, 1)}))
     out = []
     for name, (src, replaces) in KERNELS.items():

@@ -14,8 +14,9 @@ do the same for a dense cache (either engine's layout) and a `PagedKV` pool. JAX
 DeepSeek models cross the same way: `DeepseekConfig` (the port's
 `softmax_scale_factor` at its default, JAX's scale), `DeepseekQuantizedModel`
 and `DeepseekCompressedModel` (both layer groups, the experts' stacks,
-`e_bias` in f32). Objects are read by their fields: this module imports
-neither JAX nor the JAX package.
+`e_bias` in f32). `drafts_from_jax` carries the speculative drafts (Medusa
+heads, EAGLE-1 / EAGLE-3 drafts, DFlash blocks). Objects are read by their
+fields: this module imports neither JAX nor the JAX package.
 
 bf16 and fp8 arrays (NVFP4's e4m3 block scales among them) reach numpy as
 `ml_dtypes` types, which `torch.from_numpy` rejects; they cross as a
@@ -71,6 +72,17 @@ def params_from_jax(tree, device="cpu"):
                               pre_quant_scale=params_from_jax(tree.pre_quant_scale, device),
                               bias=params_from_jax(tree.bias, device))
     return tensor_from_array(tree, device)
+
+
+def drafts_from_jax(draft: dict, device="cpu") -> dict:
+    """A JAX speculative draft's parameter tree (`init_medusa`, `init_eagle`,
+    `init_eagle3`, `init_dflash` or a train step's output) -> the port's, on
+    `device`. EAGLE-3's `aux_layer_ids` stays a tuple of ints (JAX's jitted
+    train step hands them back as arrays)."""
+    out = params_from_jax(draft, device)
+    if "aux_layer_ids" in draft:
+        out["aux_layer_ids"] = tuple(int(i) for i in np.asarray(draft["aux_layer_ids"]).reshape(-1))
+    return out
 
 
 def _block(b):

@@ -104,8 +104,20 @@ DeepSeek serves on its own engine (`serve/deepseek_engine.py`, over the MLA
 latent cache), which shares `StepEngine` with `Engine`: the host's record
 of a cache's pos and the graphed `decode_step`.
 
+Tree-speculative decoding (`Engine.generate_speculative`, JAX's, batch 1,
+the einsum engine): Medusa heads on the last accepted hidden state propose a
+candidate tree; one verify forward writes its N nodes at cache rows pos ..
+pos + N - 1 at positions pos + depth under a mask over cache rows (the
+prompt and each node's ancestors: `_model_step(positions=, mask=)`); the
+accepted nodes' stored rows (int8 codes, fp8 or packed NVFP4 bytes as they
+are) move to pos .. pos + a - 1 in place and pos becomes pos + a. A tree
+that would run past the cache raises (JAX fails there on its host-side
+mask), and so does a model with a window or chunk (GPT-OSS, Llama4): JAX's
+tree mask replaces it in every layer, and its speculative tokens then leave
+its greedy ones (ROADMAP queue 3).
+
 Not ported (each raises `NotImplementedError` naming its slice): the
-tensor-parallel and speculative paths.
+tensor-parallel paths.
 """
 
 from __future__ import annotations
@@ -194,6 +206,9 @@ def _ops(plain: tuple) -> dict:
         raise ValueError(f"plain_ops: unknown kernels {sorted(set(plain) - set(PLAIN_ALL))}")
     return {name: pair[name in plain] for name, pair in _KERNELS.items()}
 
+
+_NO_KERNEL_MASK = ("kv_attention_kernel does not support a mask over cache rows (tree-speculative verification): "
+                   "use the einsum engine")
 
 INT_MM_MIN_ROWS = 17  # torch._int_mm takes more than 16 rows; fewer are padded with zero rows
 
@@ -541,21 +556,26 @@ def _write_rows(cache: torch.Tensor, dim: int, rows: torch.Tensor, src: torch.Te
     cache.index_copy_(dim, rows, src)
 
 
-def _einsum_attn(cfg, ecfg, q, k, v, ck, cv, pos, ka, va, ops, keep_fracs, span=None, sinks=None):
+def _einsum_attn(cfg, ecfg, q, k, v, ck, cv, pos, ka, va, ops, keep_fracs, span=None, sinks=None, mask=None):
     """Attention of one layer of the einsum engine over its dense cache ck/cv
     [B, S, n_kv, C], written in place at rows pos .. pos + T - 1 (pos: the
     cache's 0-d int32 tensor). `keep_fracs` is a list for a sparse prefill
     (the layer's kept share of tiles is appended), else None. `span`: the
     layer's window or chunk (the config's `span()`) where it is flagged, else None
     (causal); `sinks` [nH]: GPT-OSS's sink logits, which join the softmax
-    (`llama.sink_softmax`). Returns ctx [B*T, nH*hd]."""
+    (`llama.sink_softmax`). `mask` ([1, 1, T, S] additive over cache rows,
+    JAX's `mask_override`) replaces the causal or span mask, and every T
+    then attends over the whole cache as a prefill does (tree
+    verification). Returns ctx [B*T, nH*hd]."""
     B, T, nH, hd = q.shape
     nKV, S = cfg.num_key_value_heads, ck.shape[1]
     rep, dt, kv_dtype = nH // nKV, cfg.dtype, ecfg.kv_dtype
     k_st = _kv_store(k, kv_dtype, ka).to(ck.dtype)
     v_st = _kv_store(v, kv_dtype, va).to(cv.dtype)
     qg = q.reshape(B, T, nKV, rep, hd).float()
-    mask = llama.span_mask(S, pos + torch.arange(T, device=q.device), span)
+    split = T == 1 and mask is None
+    if mask is None:
+        mask = llama.span_mask(S, pos + torch.arange(T, device=q.device), span)
 
     def probs_of(scores):  # [B, nKV, rep, T, S] f32 -> probabilities in the activation dtype
         scores = scores.reshape(B, nH, T, S).div_(math.sqrt(hd)).add_(mask)
@@ -564,7 +584,7 @@ def _einsum_attn(cfg, ecfg, q, k, v, ck, cv, pos, ka, va, ops, keep_fracs, span=
         return torch.softmax(scores, dim=-1).to(dt).reshape(B, nKV, rep, T, S)
 
     rows = _rows_at(pos, T)
-    if T == 1:
+    if split:
         # split attention: the old cache with slot pos patched with the
         # current token's QDQ'd k; its weight comes out of the probabilities
         # and returns with its QDQ'd v; the row lands after the read. The
@@ -932,30 +952,42 @@ class Engine(StepEngine):
                        positions, self._ops, attend_of(i), ad, self._flags[i])
         return x
 
-    def _logits(self, x: torch.Tensor, full: bool = False) -> torch.Tensor:
-        """The last position's logits [B, V] f32, or every position's [B, T, V]."""
+    def _logits(self, x: torch.Tensor, full: bool = False, hidden: bool = False):
+        """The last position's logits [B, V] f32, or every position's [B, T, V];
+        with `hidden` also the post-norm hidden state [B, T, H]."""
         params = self.cm.params
         x = llama.norm(self.cfg, x, params["norm"])
         head_w = params.get("lm_head", params["embed_tokens"])
-        return ((x if full else x[:, -1, :]) @ head_w.t().to(x.dtype)).float()
+        logits = ((x if full else x[:, -1, :]) @ head_w.t().to(x.dtype)).float()
+        return (logits, x) if hidden else logits
 
     @torch.inference_mode()
     def _model_step(self, tokens: torch.Tensor, cache: dict, full_logits: bool = False,
-                    keep_fracs: Optional[list] = None) -> torch.Tensor:
+                    keep_fracs: Optional[list] = None, positions: Optional[torch.Tensor] = None,
+                    mask: Optional[torch.Tensor] = None, return_hidden: bool = False):
         """Forward over packed weights; updates `cache` in place, its pos
         included. Returns the last position's logits [B, V] f32 (every
-        position's with `full_logits`). A list `keep_fracs` runs the einsum
+        position's with `full_logits`), and with `return_hidden` also the
+        post-norm hidden state [B, T, H]. A list `keep_fracs` runs the einsum
         engine's sparse prefill and receives each layer's kept share of
-        tiles. Reads nothing back to the host: the caller checks the room
-        (`_room`)."""
+        tiles. `positions` [1, T] (default pos .. pos + T - 1) are the rope
+        positions; `mask` [1, 1, T, S] (JAX's `mask_override`: additive over
+        cache rows) replaces the causal or span mask in every layer (the
+        einsum engine only; tree verification, where a row's cache slot is
+        not its position). Reads nothing back to the host: the caller checks
+        the room (`_room`)."""
         cfg = self.cfg
         B, T = tokens.shape
         pos = cache["pos"]
         kvk = self.ecfg.kv_attention_kernel
         if kvk and keep_fracs is not None:
             raise NotImplementedError("kv_attention_kernel does not support sparse-prefill steps")
+        if kvk and mask is not None:
+            raise NotImplementedError(_NO_KERNEL_MASK)
         x = self.cm.params["embed_tokens"][tokens].to(cfg.dtype)
-        positions = (pos + torch.arange(T, device=self.device, dtype=torch.int32))[None].expand(B, T)
+        if positions is None:
+            positions = (pos + torch.arange(T, device=self.device, dtype=torch.int32))[None]
+        positions = positions.expand(B, T)
         packed4 = "ks" in cache
 
         sinks = self.cm.params["layers"].get("self_attn.sinks")
@@ -965,14 +997,14 @@ class Engine(StepEngine):
                 span = cfg.span() if self._flags[i] else None
                 return lambda q, k, v: _einsum_attn(cfg, self.ecfg, q, k, v, cache["k"][i], cache["v"][i], pos,
                                                     self._ka[i], self._va[i], self._ops, keep_fracs, span,
-                                                    None if sinks is None else sinks[i])
+                                                    None if sinks is None else sinks[i], mask)
             cks, cvs = (cache["ks"][i], cache["vs"][i]) if packed4 else (None, None)
             return lambda q, k, v: _dense_attn(cfg, self.ecfg, q, k, v, cache["k"][i], cache["v"][i], cks, cvs,
                                                pos, self._ka[i], self._va[i], self._ops)
 
         x = self._layers(x, positions, attend_of)
         pos.add_(T)
-        return self._logits(x, full_logits)
+        return self._logits(x, full_logits, return_hidden)
 
     def prefill(self, tokens: torch.Tensor, cache: dict) -> torch.Tensor:
         """Prefill an empty cache with tokens [B, T]; returns logits [B, V].
@@ -986,6 +1018,100 @@ class Engine(StepEngine):
         if keep is not None:
             self.last_prefill_keep_frac = torch.stack(keep)
         return logits
+
+    # ---------------- tree-speculative decoding ----------------
+
+    def _check_speculative(self, batch: int) -> None:
+        if batch != 1:
+            raise ValueError(f"tree-speculative decoding is single-sequence, got batch {batch}")
+        if self.ecfg.kv_attention_kernel:
+            raise NotImplementedError(_NO_KERNEL_MASK)
+        if self.cfg.span() is not None:
+            # JAX's verify mask replaces the window / chunk in every layer, so
+            # its speculative tokens leave its own greedy ones (ROADMAP queue 3)
+            raise NotImplementedError(
+                "tree-speculative decoding does not support sliding windows or Llama4's chunked attention: "
+                "the tree mask would replace the layers' window / chunk")
+
+    def _spec_prefill(self, prompt: torch.Tensor) -> tuple[dict, torch.Tensor, torch.Tensor]:
+        """A fresh cache prefilled with prompt [1, T] -> (cache, every
+        position's logits [1, T, V], the post-norm hidden state [1, T, H])."""
+        cache = self.init_cache(1)
+        self._room(cache, prompt.shape[1], empty=True)
+        logits, hidden = self._model_step(prompt.to(self.device), cache, full_logits=True, return_hidden=True)
+        self._set_pos(cache, prompt.shape[1])
+        return cache, logits, hidden
+
+    def _verify_round(self, cache: dict, cand: np.ndarray, tree) -> tuple[torch.Tensor, torch.Tensor, int]:
+        """One verify forward of the tree's N candidate tokens `cand` at cache
+        rows pos .. pos + N - 1 and positions pos + depth, each node seeing
+        the rows before pos and its ancestors' rows -> (logits [N, V],
+        post-norm hidden [N, H], pos). Leaves the cache's pos at pos + N
+        until `_compact`."""
+        N = tree.n_nodes
+        pos = self._room(cache, N)
+        allow = np.zeros((N, self._cache_rows(cache)), bool)
+        allow[:, :pos] = True
+        allow[:, pos:pos + N] = tree.attn_mask
+        mask = torch.from_numpy(np.where(allow, 0.0, -1e9).astype(np.float32)).to(self.device)[None, None]
+        positions = torch.tensor([[pos + d for d in tree.depth]], dtype=torch.int32, device=self.device)
+        logits, hidden = self._model_step(torch.from_numpy(np.asarray(cand, np.int32)[None]).to(self.device),
+                                          cache, full_logits=True, positions=positions, mask=mask,
+                                          return_hidden=True)
+        return logits[0], hidden[0], pos
+
+    def _compact(self, cache: dict, pos: int, nodes: list) -> None:
+        """The stored k/v rows of the accepted `nodes` (slots pos + node) to
+        rows pos .. pos + a - 1, in place in their stored form, and pos =
+        pos + a."""
+        a = len(nodes)
+        take = torch.tensor([pos + i for i in nodes], device=self.device)
+        dst = torch.arange(pos, pos + a, device=self.device)
+        for name in ("k", "v"):
+            c = cache[name]
+            c = c.view(torch.uint8) if c.element_size() == 1 else c  # index_copy_ has no fp8 kernel
+            c.index_copy_(2, dst, c.index_select(2, take))
+        cache["pos"].fill_(pos + a)
+        self._set_pos(cache, pos + a)
+
+    @torch.inference_mode()
+    def generate_speculative(self, prompt: torch.Tensor, medusa_params: dict, max_new_tokens: int = 32,
+                             tree=None) -> tuple[list, float]:
+        """Greedy Medusa tree-speculative decoding on the engine's cache
+        (JAX's, step for step): prompt [1, T] -> (max_new_tokens greedy
+        tokens as ints, acceptance rate: accepted / proposed draft tokens).
+        Each round: the heads on the last accepted hidden state, their top-k
+        by depth laid on `tree` (default `speculative.tree.build_tree()`),
+        one verify forward (`_verify_round`), greedy acceptance along the
+        tree, the accepted rows compacted (`_compact`). The tokens are plain
+        greedy decoding's; speculation changes the number of forwards."""
+        from ..speculative import medusa as med_mod
+        from ..speculative import tree as tree_mod
+
+        self._check_speculative(prompt.shape[0])
+        tree = tree or tree_mod.build_tree()
+        cache, logits, hidden = self._spec_prefill(prompt)
+        head_w = self.cm.params.get("lm_head", self.cm.params["embed_tokens"])
+        base_tok = int(torch.argmax(logits[0, -1]))
+        h_last = hidden[:, -1, :]
+        k_needed = max(tree.choice) + 1
+        # the base token is emitted once here; each round then emits its
+        # accepted draft tokens and the bonus (the next round's base)
+        out = [base_tok]
+        n_acc_total = n_prop_total = 0
+        while len(out) < max_new_tokens:
+            head_lg = med_mod.apply_heads(medusa_params, h_last, head_w.to(h_last.dtype))
+            head_topk = np.stack([tree_mod.top_k_ids(head_lg[d][0], k_needed) for d in range(tree.max_depth)])
+            cand = tree_mod.assemble_candidates(tree, base_tok, head_topk)
+            v_logits, v_hidden, pos = self._verify_round(cache, cand, tree)
+            nodes, bonus = tree_mod.accept_nodes(tree, cand, torch.argmax(v_logits, dim=-1).cpu().numpy())
+            n_acc_total += len(nodes) - 1
+            n_prop_total += tree.n_nodes - 1
+            self._compact(cache, pos, nodes)
+            out.extend([int(cand[i]) for i in nodes[1:]] + [bonus])
+            base_tok = bonus
+            h_last = v_hidden[nodes[-1]][None]
+        return out[:max_new_tokens], n_acc_total / max(n_prop_total, 1)
 
     # ---------------- paged KV + continuous batching ----------------
 

@@ -3,7 +3,8 @@ package, neither in its sources nor when it is imported. Nor does it import
 `safetensors` or `yaml` (the card's machine lacks both): the port reads and
 writes the safetensors format itself (`models/hf_loader.py`) and reads its
 recipes' YAML subset itself (`recipes/loader.py`). The same holds for
-chip_smoke.py, the port's PTQ CLI and its accuracy-table tool."""
+chip_smoke.py, the port's PTQ CLI, its speculative-decoding example and its
+accuracy-table tool."""
 
 import ast
 import os
@@ -24,6 +25,7 @@ def _sources():
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "examples", "hf_ptq_torch.py")
+    yield os.path.join(ROOT, "examples", "speculative_decoding_torch.py")
     yield os.path.join(ROOT, "tools", "torch_accuracy_table.py")
     yield os.path.join(ROOT, "tools", "torch_moe_accuracy_table.py")
 
@@ -90,6 +92,15 @@ def test_the_walk_covers_the_deepseek_slice():
     assert {pkg + m for m in ("models/deepseek.py", "serve/deepseek_engine.py", "models/hf_loader.py",
                               "quant/compress.py", "convert.py", "serve/engine.py")} <= walked
     assert "chip_smoke.py" in walked
+
+
+def test_the_walk_covers_the_speculative_slice():
+    walked = {os.path.relpath(p, ROOT) for p in _sources()}
+    pkg = "tensorrt_model_optimizer_tpu_torch/"
+    assert {pkg + m for m in ("speculative/tree.py", "speculative/medusa.py", "speculative/eagle.py",
+                              "speculative/dflash.py", "export/spec_export.py", "quant/qat.py", "convert.py",
+                              "serve/engine.py")} <= walked
+    assert "examples/speculative_decoding_torch.py" in walked
 
 
 def test_the_recipe_reader_never_imports_yaml():

@@ -13,7 +13,8 @@
 # einsum engine's sinks and per-layer masks (serve/engine.py, the families
 # phase), and of DeepSeek's routing weights, absorbed MLA and latent-cache
 # order (models/deepseek.py, serve/deepseek_engine.py, the deepseek phase)
-# and of its W4A4 hold at DeepSeek-V3's widths.
+# and of its W4A4 hold at DeepSeek-V3's widths, and of the engine's tree
+# verification and compaction (serve/engine.py, the speculative phase).
 # Each case plants one fault in a copy of the tree in a fresh `mktemp -d`
 # directory (under $TMPDIR, removed on exit) and runs `chip_smoke.py --phases
 # build,kernels` there (a case may name other phases); every case must exit
@@ -176,4 +177,21 @@ run deepseek_latent_cached_before_kvb_quantizer serve/deepseek_engine.py 's/    
 # layers), NVFP4's last 32-chunk of K with the chunk before's block scales
 # (1 of 224 at K 7168)
 run deepseek_full_nvfp4_last_chunk_scale qmm_fp4_wo.cu 's/reinterpret_cast<const uint16_t\*>(sp + 2 \* chunk)/reinterpret_cast<const uint16_t*>(sp + 2 * (chunk > 0 \&\& (chunk + 1) * 16 >= row_bytes ? chunk - 1 : chunk))/' build,deepseek_full
+# The speculative phase (`--phases build,speculative`): three faults of the
+# engine's tree verification that no kernel comparison sees (the kernel and
+# the plain engine share it), each caught by the oracle round against eager
+# 1-row steps (SPEC_ANCHOR_ORACLE_MAX on the anchor, first): the compaction
+# takes rows pos .. pos + a - 1 in slot order instead of the accepted nodes'
+# slots ...
+run spec_compact_slot_order serve/engine.py 's/take = torch.tensor(\[pos + i for i in nodes\], device=self.device)/take = torch.arange(pos, pos + a, device=self.device)/' build,speculative
+# ... the verify mask lets each node see its siblings ...
+run spec_tree_mask_siblings serve/engine.py 's/allow\[:, pos:pos + N\] = tree.attn_mask$/allow[:, pos:pos + N] = tree.attn_mask | (np.array(tree.parent)[:, None] == np.array(tree.parent)[None, :])/' build,speculative
+# ... and the verify positions taken as pos + node index instead of pos + depth
+run spec_positions_by_node_index serve/engine.py 's/positions = torch.tensor(\[\[pos + d for d in tree.depth\]\]/positions = torch.tensor([[pos + j for j in range(N)]]/' build,speculative
+# The same three at Llama-3.1-8B's width alone (`--phases
+# build,speculative_full`): the 8B oracle round's limits (SPEC_ORACLE_MAX,
+# SPEC_ROWS_MAX) against each fault
+run spec_full_compact_slot_order serve/engine.py 's/take = torch.tensor(\[pos + i for i in nodes\], device=self.device)/take = torch.arange(pos, pos + a, device=self.device)/' build,speculative_full
+run spec_full_tree_mask_siblings serve/engine.py 's/allow\[:, pos:pos + N\] = tree.attn_mask$/allow[:, pos:pos + N] = tree.attn_mask | (np.array(tree.parent)[:, None] == np.array(tree.parent)[None, :])/' build,speculative_full
+run spec_full_positions_by_node_index serve/engine.py 's/positions = torch.tensor(\[\[pos + d for d in tree.depth\]\]/positions = torch.tensor([[pos + j for j in range(N)]]/' build,speculative_full
 exit $missed
