@@ -60,12 +60,12 @@ Phases (any failure raises, and the script exits non-zero):
            on the first 4 layers. Launch counts are set to 0 before each path
            and read after it; the prefill logits are held against the plain
            version of that path's GEMM at depths 1 and 2, and for W4A8 at
-           depths 1, 2, 4, 8 and 32 against the all-plain engine and an engine
+           depths 1, 2, 4 and 8 against the all-plain engine and an engine
            that runs only flash attention on its plain version. The INT4 path
            then serves 12 requests (1024-token prompts behind a 256-token
            shared prefix) through `Engine.serve` over int8 pages: 8 slots,
            page 16, prefix cache, unroll 4, all 32 layers; runs the einsum
-           engine on 16 layers with dense and sparse prefill of 8 x 2048
+           engine on 8 layers with dense and sparse prefill of 8 x 2048
            tokens and 32 decode steps; and on 4 layers NVFP4_KV_CFG serves
            packed NVFP4 pages and generates over the dense NVFP4 KV cache at
            batch 8 x 2048. Every path of FULL_PATHS also runs its 32 decode
@@ -86,7 +86,7 @@ Phases (any failure raises, and the script exits non-zero):
            <= CALIB_PLAIN_REL_MAX, input quantizers off, as the full phase
            holds its paths), and their error against the unquantized engine
            beside the max-calibrated counterpart's (informational).
-           INT4_AWQ_CFG and INT4_BLOCKWISE_WEIGHT_ONLY_CFG run all 32 layers,
+           INT4_AWQ_CFG and INT4_BLOCKWISE_WEIGHT_ONLY_CFG run 16 layers,
            every other preset the first 4; W4A8_AWQ_BETA_CFG serves with
            int4_layout="a8". INT4_AWQ, W4A8_AWQ_BETA, INT8_SMOOTHQUANT and
            NVFP4_SVDQUANT also export -> load -> serve at 4 layers (loaded
@@ -120,7 +120,7 @@ Phases (any failure raises, and the script exits non-zero):
            and the int4x / int8a8 layouts served against their fake-quant
            forward; (b) the 8B shape: ACC_PATHS calibrated and served as the
            calib phase serves its paths (NF4 on the INT4 kernel at 64-blocks,
-           32 layers too), perplexity and KL at full width, layerwise
+           16 layers too), perplexity and KL at full width, layerwise
            calibration of 32 layers brought from host memory one at a time
            (its amax equal to the one-shot calibration's on 4 layers); (c)
            examples/hf_ptq_torch.py on the anchor: nvfp4_ptq exported,
@@ -138,7 +138,7 @@ Phases (any failure raises, and the script exits non-zero):
            load -> serve for INT4 and NVFP4 (arrays, logits and tokens equal
            to the engine over the export's tensors in memory), the
            unquantized ppl and NVFP4's Δppl against JAX's pin; (b)
-           Qwen3-30B-A3B at full width on 8 of its 48 layers (seeded random
+           Qwen3-30B-A3B at full width on 4 of its 48 layers (seeded random
            bf16), W4A8, INT4 and NVFP4: TTFT of 8 x 2048, eager and graphed
            (unroll 1 and 8) token steps (tokens and cache equal), profiled
            prefill and step, peak memory, launches per kernel, the depth-2
@@ -157,7 +157,7 @@ Phases (any failure raises, and the script exits non-zero):
            build,families_small`); (c) Llama-4-Scout's widths on 4 of 48
            layers, NVFP4 / W4A8, and an 8448-token prompt past position 8192
            held against the all-plain engine on all 4 layers; (b)
-           GPT-OSS-20B at full width on 8 of its 24 layers, MXFP4 / NVFP4 / INT4
+           GPT-OSS-20B at full width on 4 of its 24 layers, MXFP4 / NVFP4 / INT4
            ((c) and (b) alone: `--phases build,families_full`): TTFT of 8 x
            2048, eager and graphed (unroll 1 and 8) steps over 32 decode
            steps, peak memory, launches, and the depth-2 prefill against the
@@ -214,6 +214,28 @@ Phases (any failure raises, and the script exits non-zero):
            (SPEC_GEMMS) join the kernels line (alone: `--phases
            build,speculative_full`). Raises unless qmm_w4a8 and qmm_int4_wo
            launched on its served runs.
+  train    the training side: (a) Llama-3.1-8B's widths on
+           TRAIN_DEPTH (4) layers, seeded bf16 weights on the card,
+           W4A8_AWQ_BETA calibrated, then Adam steps on one 4 x 512 batch
+           in four modes: QAT, LSQ (learn_amax on the int sites, the amax
+           trained), QAD (KD against the unquantized teacher) and QLoRA
+           (rank-16 adapters over the frozen fake-quant base): losses finite
+           and falling, step ms, tokens/s, peak memory; the QAT'd model
+           compressed and served, W4A8 (tokens equal to the plain engine's)
+           and INT4 weight-only (the anchors' near-tie rule); (d)
+           AutoQuantize of the same weights (W4A8_AWQ_BETA against
+           FP8_DEFAULT at 6 bits): within the budget, the mixed forward
+           finite (alone: `--phases build,train_full`). On the anchor (f32):
+           (b) a QAT and an LSQ step card against CPU (gradients and updated
+           tensors, TRAIN_CARD_CPU_FROB_MAX); (c) the QATTrainer stopped at
+           step 3 and resumed, equal to the uninterrupted run under
+           deterministic algorithms, its saved state restoring to equal
+           logits; (e) JAX's QAT recovery (INT8_SMOOTHQUANT, 600 Adam steps,
+           tools/torch_accuracy_table.py's recipe): ppl and MMLU before and
+           after beside JAX's, the ppl down by at least QAT_RECOVERY_MIN
+           (alone: `--phases build,train_anchor`). The training steps launch
+           no kernel of the port (no kernel has a backward: the wrappers
+           refuse under grad); the served runs launch rows 1 and 4.
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -1996,7 +2018,9 @@ def _full_path(torch, dev, sz: Sizes, path: Path, cfg, params, prompt, profile: 
     #   with them on is reported beside it, not held: there one flipped
     #   activation code moves a value by 12.5% or more.
     w4a8 = path.gemm == "qmm_w4a8"
-    for depth in ((1, 2, 4, 8, path.depth) if w4a8 else (1, 2)):
+    # (no hold at all 32 layers, ~25 s of plain GEMMs: the default run's
+    # time; depth 8 shows the amplification)
+    for depth in ((1, 2, 4, 8) if w4a8 else (1, 2)):
         subcm = _truncate(eng.cm, depth)
         plain_gemm = PLAIN_ALL if w4a8 else (PLAIN_NAME[path.gemm],)
 
@@ -2104,9 +2128,9 @@ def _decided_apart(keeps: list, decided: list, exact: bool) -> dict:
     return facts
 
 
-# the einsum engine's full-width run: 16 of the 8B's 32 layers since the
-# deepseek phase joined the default run (32 before: the run's time)
-FULL_EINSUM_DEPTH = 16
+# the einsum engine's full-width run: 8 of the 8B's 32 layers (the default
+# run's time)
+FULL_EINSUM_DEPTH = 8
 
 
 def _full_einsum(torch, dev, sz: Sizes, cm, prompt, profile: bool) -> dict:
@@ -2730,8 +2754,9 @@ def phase_deploy(torch, dev, sz: Sizes) -> dict:
 # The calibration algorithms at full width: each preset this slice unlocks,
 # calibrated on the card on 4 seeded batches of [2, 512] tokens, compressed
 # and served by the kernel engine. INT4_AWQ_CFG (the headline) and its
-# max-calibrated counterpart on all 32 layers, every other preset on the
-# first 4 (the cut the 4-layer formats of FULL_PATHS take for time).
+# max-calibrated counterpart on 16 layers, every other
+# preset on the first 4 (the cut the 4-layer formats of FULL_PATHS take for
+# time).
 @dataclasses.dataclass(frozen=True)
 class CalibPath:
     label: str
@@ -2744,8 +2769,8 @@ class CalibPath:
 
 
 CALIB_PATHS = (
-    CalibPath("int4_max", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", depth=32),  # the headline's comparison (max)
-    CalibPath("int4_awq", "INT4_AWQ_CFG", depth=32, deploy=True),
+    CalibPath("int4_max", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", depth=16),
+    CalibPath("int4_awq", "INT4_AWQ_CFG", depth=16, deploy=True),
     CalibPath("w8a8_smoothquant", "INT8_SMOOTHQUANT_CFG", max_counterpart="INT8_DEFAULT_CFG", deploy=True),
     CalibPath("int4_gptq", "INT4_GPTQ_CFG"),
     CalibPath("int4_local_hessian", "INT4_LOCAL_HESSIAN_CFG"),
@@ -3318,9 +3343,9 @@ ACC_ANCHOR_SERVED = (
     ("int8a8", "NVFP4_WEIGHT_ONLY_CFG", (("nvfp4_layout", "i8"),)),
 )
 # full width: served as `_calib_serve` serves CALIB_PATHS (NF4 on the INT4
-# kernel at 64-blocks also on all 32 layers)
+# kernel at 64-blocks also on 16 layers)
 ACC_PATHS = (
-    CalibPath("nf4_32", "NF4_WEIGHT_ONLY_CFG", depth=32),
+    CalibPath("nf4_16", "NF4_WEIGHT_ONLY_CFG", depth=16),
     CalibPath("nf4", "NF4_WEIGHT_ONLY_CFG"),
     CalibPath("mxfp6", "MXFP6_DEFAULT_CFG"),
     CalibPath("mxfp8", "MXFP8_DEFAULT_CFG"),
@@ -3663,9 +3688,8 @@ QWEN3_30B_A3B = dict(vocab_size=151936, hidden_size=2048, intermediate_size=768,
                      num_attention_heads=32, num_key_value_heads=4, head_dim=128, rope_theta=1e6, rms_norm_eps=1e-6,
                      max_position_embeddings=40960, tie_word_embeddings=False, qk_norm=True, num_experts=128,
                      top_k=8, norm_topk_prob=True)
-# 8 layers since the families phase joined the default run (16 before: its
-# graph captures and eager steps would take the run past 1000 s)
-MOE_FULL_DEPTH = 8
+# 4 layers: its graph captures and eager steps take the default run's time
+MOE_FULL_DEPTH = 4
 MOE_FULL_PATHS = (
     MoePath("w4a8", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_w4a8", (("int4_layout", "a8"),)),
     MoePath("int4", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_int4_wo"),
@@ -4108,9 +4132,9 @@ GPT_OSS_20B = dict(vocab_size=201088, hidden_size=2880, intermediate_size=2880, 
                    top_k=4, sliding_window=128, swiglu_limit=7.0, attention_bias=True)
 GPT_OSS_YARN = dict(rope_type="yarn", factor=32.0, original_max_position_embeddings=4096, beta_fast=32.0,
                     beta_slow=1.0, truncate=False)
-# 8 of its 24 layers since the deepseek phase joined the default run (all 24
-# before: with it the run read 1064 s on one host, ~1170 s on a slower one)
-GPT_OSS_DEPTH = 8
+# 4 of its 24 layers: the default run's time (at 8, with the train phase, it
+# read 1107 s on one host and 1250 s on a slower one)
+GPT_OSS_DEPTH = 4
 GPT_OSS_PATHS = (
     FamilyPath("mxfp4", "gpt_oss", "MXFP4_WEIGHT_ONLY_CFG", "qmm_fp4_wo"),
     FamilyPath("nvfp4", "gpt_oss", "NVFP4_WEIGHT_ONLY_CFG", "qmm_fp4_wo"),
@@ -5502,6 +5526,365 @@ def phase_speculative(torch, dev, sz: Sizes, timer: Timer, rows: dict) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# train: the training side (QAT, LSQ, QAD, QLoRA, the trainer, AutoQuantize)
+# --------------------------------------------------------------------------
+
+TRAIN_DEPTH = 4              # (a), (d): Llama-3.1-8B's widths on 4 of its 32 layers
+TRAIN_TOKENS = (4, 512)      # (a): a step's batch, 4 x 512 tokens (and the 513th as the last target)
+TRAIN_STEPS = 3              # (a): timed Adam steps a mode, after one untimed warm-up step, all on one batch
+TRAIN_LR = 1e-4              # Adam's learning rate in (a) and (b) (JAX's make_optax_train_step default)
+TRAIN_PRESET = "W4A8_AWQ_BETA_CFG"
+TRAIN_CALIB = (2, 2, 512)    # (a): seeded calibration batches: count, B, T
+TRAIN_LORA_RANK = 16         # (a): QLoRA adapters on all seven projections
+TRAIN_SERVE = (2, 64, 8)     # (a): the QAT'd model served: prompts B x T, greedy steps
+# (a) the QAT'd model served through both GEMM routes, each kernel engine
+# against the engine whose GEMM (only) runs its plain version: W4A8 (row 1,
+# bit-exact: every step's logits and the free-running tokens equal) and INT4
+# weight-only (row 4) by the calib phase's rule, the first CALIB_PLAIN_DEPTH
+# layers' prefill logits within CALIB_PLAIN_REL_MAX with the input
+# quantizers off (AWQ's pre_quant_scale kept); its 4-layer lock step is
+# printed. On the QAT'd model (trained to a loss of 0.48 on its batch) a bf16
+# ulp of INT4's output grows over 4 layers: the median gap read 0.076 of the
+# logits' scale, 0.066 with the static FP8 input quantizer on; W4A8 with the
+# attention kernels plain too read 0.044 (flash's bf16 P.V against f32)
+TRAIN_SERVED = (("w4a8", (("int4_layout", "a8"),), "qmm_w4a8"), ("int4", (), "qmm_int4_wo"))
+TRAIN_KERNELS = ("qmm_w4a8", "qmm_int4_wo", "flash_gqa", "kv_decode_attention")
+# (b): gradients and updated tensors, card against CPU, relative Frobenius, of
+# INT8 weight-only QAT and LSQ steps. With INT8_DEFAULT's static activation
+# quantizers on, the two devices' f32 activations put codes on either side of
+# rounding ties (each an amax / 127 step of a per-tensor grid): the loss read
+# 1.6e-4 apart and k_proj's gradient 0.039 (relative Frobenius); the weights'
+# codes are the same bits on both devices
+TRAIN_CARD_CPU_FROB_MAX = 1e-4
+TRAIN_TRAINER = dict(steps=6, save=3, batch=4, seq=129)  # (c): steps, checkpoint cadence, batch of the stream
+TRAIN_AUTOQ = dict(bits=6.0, tokens=(2, 256), candidates=(TRAIN_PRESET, "FP8_DEFAULT_CFG"))  # (d), as hf_ptq.py:143
+# (e) JAX's QAT recovery on the anchor (ACCURACY.md: INT8_SMOOTHQUANT_CFG ppl
+# 2.9087 -> 2.8777 after QAT, bf16 2.8594; MMLU 0.863 -> 0.868, 600
+# questions); the port must take at least half of JAX's 0.0310 off its own
+# PTQ ppl
+QAT_RECOVERY = dict(preset="INT8_SMOOTHQUANT_CFG", jax_ppl=(2.9087, 2.8777), jax_mmlu=(0.863, 0.868),
+                    jax_bf16_ppl=2.8594, mmlu_n=120)
+QAT_RECOVERY_MIN = 0.5 * (2.9087 - 2.8777)
+
+
+def _lsq_cfg(qcfg):
+    """`qcfg` with learn_amax on every static int site, sequential children
+    included (llm_qat's --lsq rule, one level down for W4A8's INT4 stage)."""
+    from tensorrt_model_optimizer_tpu_torch.quant.config import QuantizeConfig
+
+    def lsq(c):
+        if c.sequential:
+            return c.replace(sequential=tuple(lsq(s) for s in c.sequential))
+        return c.replace(learn_amax=True) if c.enable and not c.is_fp and not c.dynamic else c
+
+    return QuantizeConfig(rules=tuple((p, lsq(c)) for p, c in qcfg.rules), algorithm=qcfg.algorithm)
+
+
+def _adam_mode(torch, loss_of, tree, steps: int) -> dict:
+    """Adam (TRAIN_LR) on `tree` through `qat.value_and_grad(loss_of)`, one
+    untimed warm-up step then `steps` timed ones: {"losses", "step_ms",
+    "peak_gb", "tree"}."""
+    from tensorrt_model_optimizer_tpu_torch.quant import qat
+
+    adam = qat.Adam(TRAIN_LR)
+    state = adam.init(tree)
+    losses, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = qat.value_and_grad(loss_of, tree)
+        updates, state = adam.update(grads, state)
+        tree = qat.apply_updates(tree, updates)
+        del grads, updates
+        losses.append(float(loss))  # syncs
+        if i:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "step_ms": statistics.median(walls), "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "tree": tree}
+
+
+def _train_full(torch, dev) -> dict:
+    """(a) Llama-3.1-8B's widths on TRAIN_DEPTH layers, seeded bf16 weights
+    on the card: TRAIN_PRESET calibrated, then Adam QAT steps on one
+    TRAIN_TOKENS batch: plain, LSQ (learn_amax on the int sites, the amax
+    trained with the weights), QAD (KD against the unquantized teacher) and
+    QLoRA (rank-TRAIN_LORA_RANK adapters over the frozen fake-quant base):
+    losses finite and falling, step ms, tokens/s, peak memory. The plain
+    mode's model is compressed and served by the kernel engine through
+    TRAIN_SERVED's routes against the same engine on the plain GEMM. (d) AutoQuantize of
+    the same weights: TRAIN_AUTOQ's candidates under its budget, the mixed
+    model through `forward_unrolled`. Returns the serve runs' launch counts."""
+    from tensorrt_model_optimizer_tpu_torch.distill import distillation
+    from tensorrt_model_optimizer_tpu_torch.models import llama
+    from tensorrt_model_optimizer_tpu_torch.peft import lora
+    from tensorrt_model_optimizer_tpu_torch.quant import auto, compress, ptq, qat
+
+    sync = torch.cuda.synchronize
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_hidden_layers=TRAIN_DEPTH)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    n, B, T = TRAIN_CALIB
+    calib = [torch.randint(0, cfg.vocab_size, (B, T), generator=g, device=dev) for _ in range(n)]
+    batch = torch.randint(0, cfg.vocab_size, (TRAIN_TOKENS[0], TRAIN_TOKENS[1] + 1), generator=g, device=dev)
+    qm = ptq.quantize(cfg, params, TRAIN_PRESET, calib, device=dev)
+    sync()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in [params["embed_tokens"], params["lm_head"], params["norm"],
+                                      *params["layers"].values()])
+    tokens = TRAIN_TOKENS[0] * TRAIN_TOKENS[1]
+    card = nvidia_smi()
+    rows, failures = {}, []
+
+    def report(mode, res, extra=None):
+        ls = res["losses"]
+        row = {"phase": "train_full", "mode": mode, "layers": TRAIN_DEPTH, "params_b": n_params / 1e9,
+               "batch": list(TRAIN_TOKENS), "losses": ls, "step_ms": res["step_ms"],
+               "tokens_per_s": tokens / (res["step_ms"] / 1e3), "peak_gb": res["peak_gb"], "card": card,
+               **(extra or {})}
+        log(json.dumps(row))
+        rows[mode] = row
+        if not all(math.isfinite(v) for v in ls) or not ls[-1] < ls[0]:
+            failures.append(f"train {mode}: losses {ls} not finite and falling")
+
+    lsq_layout = llama.build_layout(cfg, _lsq_cfg(qm.quant_cfg))
+    tcfg = qat.train_cfg(cfg)
+    res = _adam_mode(torch, lambda p: qat.qat_loss(cfg, qm.layout, p, qm.qstate, batch), qm.params, TRAIN_STEPS)
+    trained = dataclasses.replace(qm, params=res.pop("tree"))
+    report("qat", res)
+    res = _adam_mode(torch, lambda pq: qat.qat_loss(cfg, lsq_layout, pq[0], pq[1], batch), (qm.params, qm.qstate),
+                     TRAIN_STEPS)
+    p_lsq, qs_lsq = res.pop("tree")
+    moved = max(float((a - b).abs().max()) for a, b in zip(
+        [s.amax[0] for s in (qs_lsq[k]["weight"] for k in llama.PROJ_NAMES)],
+        [s.amax[0] for s in (qm.qstate[k]["weight"] for k in llama.PROJ_NAMES)]))
+    report("lsq", res, {"int4_block_amax_moved_max": moved})
+    if not moved > 0:
+        failures.append("train lsq: the INT4 block amax did not move")
+    del p_lsq, qs_lsq
+    kd = distillation.KDConfig()
+    res = _adam_mode(torch, lambda p: distillation.distill_loss(cfg, p, params, batch, kd, qm.layout, qm.qstate),
+                     qm.params, TRAIN_STEPS)
+    res.pop("tree")
+    report("qad", res, {"teacher": "the unquantized bf16 weights", "kd": dataclasses.asdict(kd)})
+    adapters = lora.init_adapters(cfg, lora.LoRAConfig(rank=TRAIN_LORA_RANK), torch.Generator(device=dev).manual_seed(3),
+                                  device=dev)
+    res = _adam_mode(torch, lambda a: qat.cross_entropy(
+        llama.forward(tcfg, qm.params, batch[:, :-1], layout=qm.layout, qstate=qm.qstate, adapters=a)[0],
+        batch[:, 1:]), adapters, TRAIN_STEPS)
+    res.pop("tree")
+    report("qlora", res, {"rank": TRAIN_LORA_RANK})
+    del adapters, res
+    torch.cuda.empty_cache()
+
+    # the QAT'd model served on the ported GEMMs, kernel against plain
+    cm = compress.compress(trained)
+    del trained
+    B, T, steps = TRAIN_SERVE
+    prompts = torch.randint(0, cfg.vocab_size, (B, T), generator=g, device=dev)
+    _counts(reset=True)
+    for label, layouts, gemm in TRAIN_SERVED:
+        exact = gemm == "qmm_w4a8"
+        served = cm if exact else _without_input_quantizers(cm)
+        plain = (PLAIN_NAME[gemm],)
+        ek = _engine(torch, served, T + 2 * steps, dev, **dict(layouts))
+        ep = _engine(torch, served, T + 2 * steps, dev, plain, **dict(layouts))
+        held = _lockstep(torch, (ek, ep), prompts, steps)
+        gaps = [g for lk, lp in held for g in _gaps(lk, lp)[0]]
+        row = {"phase": "train_serve", "path": label, "plain": plain[0], "kinds": sorted(set(ek.cm.kinds.values())),
+               "lockstep_median_gap": statistics.median(gaps), "lockstep_worst_gap": max(gaps), "card": card}
+        if exact:
+            free = ek.generate(prompts, steps)
+            row.update(logits_equal=all(torch.equal(k, p) for k, p in held),
+                       tokens_equal=bool(torch.equal(free, ep.generate(prompts, steps))))
+            if not row["logits_equal"] or not row["tokens_equal"]:
+                failures.append(f"train serve {label}: the bit-exact GEMM's engine leaves its plain version's: {row}")
+        else:
+            sub = _truncate(served, CALIB_PLAIN_DEPTH)
+            out = _engine(torch, sub, T, dev, **dict(layouts))
+            ref = _engine(torch, sub, T, dev, plain, **dict(layouts))
+            rel = _rel(out.prefill(prompts, out.init_cache(B)), ref.prefill(prompts, ref.init_cache(B)))
+            row.update(depth=CALIB_PLAIN_DEPTH, prefill_logits_rel_err=rel, limit=CALIB_PLAIN_REL_MAX,
+                       tokens_row0=ek.generate(prompts, steps)[0].tolist())
+            if not rel <= CALIB_PLAIN_REL_MAX:
+                failures.append(f"train serve {label}: depth-{CALIB_PLAIN_DEPTH} prefill logits {rel} from plain")
+            del out, ref
+        log(json.dumps(row))
+        del ek, ep
+    launches = _counts()
+    log(json.dumps({"phase": "train_launches", "served": [label for label, _, _ in TRAIN_SERVED],
+                    **{k: launches[k] for k in TRAIN_KERNELS}}))
+    del cm
+
+    # (d) AutoQuantize at full width
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    a = TRAIN_AUTOQ
+    toks = torch.randint(0, cfg.vocab_size, a["tokens"], generator=g, device=dev)
+    res = auto.auto_quantize(cfg, params, list(a["candidates"]), [toks], effective_bits=a["bits"])
+    sync()
+    search_s = time.perf_counter() - t0
+    with torch.no_grad():
+        logits, _ = llama.forward_unrolled(cfg, params, toks, res.layer_layouts, res.qstate_list)
+    picks = [v for c in res.choice for v in c.values()]
+    row = {"phase": "train_autoquantize", "layers": TRAIN_DEPTH, "candidates": list(a["candidates"]),
+           "budget_bits": a["bits"], "achieved_bits": res.effective_bits,
+           "picks": {c: picks.count(i) for i, c in enumerate(a["candidates"])}, "choice": res.choice,
+           "search_s": search_s, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "mixed_logits_finite": bool(torch.isfinite(logits).all()), "card": card}
+    log(json.dumps(row))
+    if not res.effective_bits <= a["bits"] or not row["mixed_logits_finite"]:
+        failures.append(f"train autoquantize: {res.effective_bits} bits against {a['bits']}, finite "
+                        f"{row['mixed_logits_finite']}")
+    log(json.dumps({"phase": "train_full_setup", "setup_s": setup_s, "card": card}))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+def _train_anchor(torch, dev) -> None:
+    """On artifacts/anchor-llama in f32: (b) one QAT step and one LSQ step
+    (Adam, TRAIN_LR) on the card and on the CPU from the same weights, INT8
+    weight-only (the LSQ step learning the weights' per-channel amax), each
+    device calibrating itself on one batch and training on another: every
+    gradient and updated tensor within TRAIN_CARD_CPU_FROB_MAX (relative
+    Frobenius); (c) the QATTrainer (quantize on the first step,
+    checkpoints, resume) under deterministic algorithms: a run stopped at
+    TRAIN_TRAINER["save"] and resumed ends equal to the uninterrupted run,
+    and its saved state restores to equal logits; (e) JAX's QAT recovery
+    (QAT_RECOVERY, the recipe of tools/torch_accuracy_table.py): ppl and
+    MMLU before and after, beside JAX's."""
+    import importlib.util
+    import tempfile
+
+    from tensorrt_model_optimizer_tpu_torch.models import hf_loader
+    from tensorrt_model_optimizer_tpu_torch.opt import state as mto
+    from tensorrt_model_optimizer_tpu_torch.opt import trainer
+    from tensorrt_model_optimizer_tpu_torch.quant import ptq, qat
+    from tensorrt_model_optimizer_tpu_torch.quant.config import get_preset
+    from tensorrt_model_optimizer_tpu_torch.utils import synthlang
+
+    card = nvidia_smi()
+    cfg, params = hf_loader.load_hf_checkpoint(ANCHOR, dtype=torch.float32, device=dev)
+    cpu_params = hf_loader.load_hf_checkpoint(ANCHOR, dtype=torch.float32, device="cpu")[1]
+    lang = synthlang.SynthLang(0)
+    calib = lang.eval_batches(1, 4, 256, seed=555)
+    train = lang.eval_batches(1, 4, 129, seed=777)[0]
+
+    # (b) card against CPU
+    out = {}
+    weights_only = get_preset("INT8_DEFAULT_CFG").with_rules({"*input_quantizer": {"enable": False}})
+    for name, qcfg, lsq in (("qat", weights_only, False), ("lsq", _lsq_cfg(weights_only), True)):
+        for where, p in (("card", params), ("cpu", cpu_params)):
+            d = p["embed_tokens"].device
+            qm = ptq.quantize(cfg, p, qcfg, [torch.from_numpy(b).to(d) for b in calib], device=d)
+            toks = torch.from_numpy(train).to(d)
+            tree = (qm.params, qm.qstate) if lsq else qm.params
+            loss, grads = qat.value_and_grad(
+                lambda t: qat.qat_loss(cfg, qm.layout, t[0] if lsq else t, t[1] if lsq else qm.qstate, toks), tree)
+            adam = qat.Adam(TRAIN_LR)
+            updates, _ = adam.update(grads, adam.init(tree))
+            out[(name, where)] = (float(loss), grads, qat.apply_updates(tree, updates))
+        from tensorrt_model_optimizer_tpu_torch.utils.tree import flatten_with_names
+
+        worst = {}
+        for what, i in (("gradients", 1), ("updated", 2)):
+            c, h = flatten_with_names(out[(name, "card")][i]), flatten_with_names(out[(name, "cpu")][i])
+            frob = {k: _rel_frob(c[k].cpu(), h[k]) for k in c if h[k].float().norm() > 0}
+            k = max(frob, key=frob.get)
+            worst[what] = {"tensor": k, "rel_frobenius": frob[k], "tensors": len(frob)}
+        row = {"phase": "train_card_cpu", "mode": name, "loss_card": out[(name, "card")][0],
+               "loss_cpu": out[(name, "cpu")][0], **worst, "limit": TRAIN_CARD_CPU_FROB_MAX, "card": card}
+        log(json.dumps(row))
+        if not all(w["rel_frobenius"] <= TRAIN_CARD_CPU_FROB_MAX for w in worst.values()):
+            raise AssertionError(f"train card/cpu {name}: {worst}")
+    del out
+
+    # (c) the trainer: resume equals the uninterrupted run
+    t = TRAIN_TRAINER
+    stream = lang.token_stream(16 * t["batch"] * t["seq"], seed=99)
+    batches = [stream[i * t["batch"] * t["seq"]:(i + 1) * t["batch"] * t["seq"]].reshape(t["batch"], t["seq"])
+               for i in range(t["steps"] + 2)]
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+            def make(out_dir, steps):
+                return trainer.QATTrainer(cfg, params, trainer.TrainerConfig(
+                    output_dir=os.path.join(d, out_dir), max_steps=steps, save_steps=t["save"], eval_steps=t["save"],
+                    quant_preset="INT8_DEFAULT_CFG", calib_batches=2), eval_batches=batches[-1:], device=dev)
+
+            whole = make("whole", t["steps"]).train(iter(batches))
+            first = make("split", t["save"])
+            first.train(iter(batches))
+            again = make("split", t["steps"])
+            if not again.resume() or again.step != t["save"]:
+                raise AssertionError("train trainer: resume found no checkpoint at the save step")
+            resumed = again.train(iter(batches[t["save"]:]))
+            diff = max(float((resumed.params["layers"][k] - v).abs().max()) for k, v in whole.params["layers"].items())
+            diff = max(diff, float((resumed.params["embed_tokens"] - whole.params["embed_tokens"]).abs().max()))
+            path = os.path.join(d, "saved")
+            mto.save(resumed, path)
+            back = mto.restore(path, device=dev)
+            probe = torch.from_numpy(batches[0]).to(dev)
+            with torch.no_grad():
+                same_logits = torch.equal(back.forward(probe)[0], resumed.forward(probe)[0])
+            row = {"phase": "train_trainer", "steps": t["steps"], "resumed_at": t["save"],
+                   "resumed_vs_uninterrupted_max_abs": diff, "saved_state_logits_equal": same_logits,
+                   "history": again.history, "seconds": time.perf_counter() - t0, "card": card}
+    finally:
+        torch.use_deterministic_algorithms(was)
+    log(json.dumps(row))
+    if diff != 0.0 or not same_logits:
+        raise AssertionError(f"train trainer: resumed run {diff} from the uninterrupted one, saved-state logits "
+                             f"equal {same_logits}")
+
+    # (e) JAX's QAT recovery on the anchor
+    spec = importlib.util.spec_from_file_location("torch_accuracy_table",
+                                                  os.path.join(HERE, "tools", "torch_accuracy_table.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    r = QAT_RECOVERY
+    calib8 = [torch.from_numpy(b).to(dev) for b in lang.eval_batches(8, 4, 256, seed=555)]  # JAX's tool's
+    ev = [torch.from_numpy(b).to(dev) for b in lang.eval_batches(4, 8, 256, seed=999)]
+    data_dir = lang.write_mmlu_data(tempfile.mkdtemp(prefix="chip_smoke_qat_mmlu_"), n_test=r["mmlu_n"])
+    ptq_m = ptq.quantize(cfg, params, r["preset"], calib8, device=dev)
+    with torch.no_grad():
+        before = tool.score(lambda x: ptq_m.forward(x)[0], ev, data_dir, mmlu_n=r["mmlu_n"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, losses = tool.qat_recover(ptq_m, dev)
+    torch.cuda.synchronize()
+    qat_s = time.perf_counter() - t0
+    with torch.no_grad():
+        after = tool.score(lambda x: model.forward(x)[0], ev, data_dir, mmlu_n=r["mmlu_n"])
+    row = {"phase": "train_qat_recovery", "preset": r["preset"], "steps": tool.QAT_RECIPE["steps"],
+           "ppl_ptq": before["ppl"], "ppl_qat": after["ppl"],
+           "recovered": before["ppl"] - after["ppl"], "required": QAT_RECOVERY_MIN,
+           "gap_to_jax_qat": after["ppl"] - r["jax_ppl"][1], "mmlu_ptq": before["mmlu"], "mmlu_qat": after["mmlu"], "mmlu_n": after["mmlu_n"], "jax_ppl": r["jax_ppl"], "jax_mmlu": r["jax_mmlu"],
+           "jax_bf16_ppl": r["jax_bf16_ppl"], "first_loss": losses[0], "last_loss": losses[-1],
+           "qat_s": qat_s, "ms_per_step": qat_s * 1e3 / len(losses), "card": card}
+    log(json.dumps(row))
+    if not row["recovered"] >= QAT_RECOVERY_MIN:
+        raise AssertionError(f"train qat recovery: ppl {before['ppl']} -> {after['ppl']}, recovered "
+                             f"{row['recovered']} < {QAT_RECOVERY_MIN}")
+
+
+def phase_train(torch, dev) -> dict:
+    """(a) + (d) at full width, then (b), (c), (e) on the anchor. Returns
+    the launch counts of (a)'s served runs (the training steps launch no
+    kernel of the port: the flash kernel has no backward and training reads
+    flash as einsum; the GEMM kernels serve packed weights only)."""
+    launches = _train_full(torch, dev)
+    torch.cuda.empty_cache()
+    _train_anchor(torch, dev)
+    return launches
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -5547,7 +5930,7 @@ ANCHOR_ONLY = ("skip_softmax_flash_cuda_core", "paged_attention_prefill_cuda_cor
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,anchor,full,deploy,calib,accuracy,moe,families,deepseek,"
-                                        "speculative",
+                                        "speculative,train",
                     help="comma-separated; add 'profile' for device time by kernel in the full run")
     args = ap.parse_args(argv)
     import torch
@@ -5647,6 +6030,16 @@ def main(argv=None) -> int:
     if "speculative" in phases:
         spec = timed("speculative", phase_speculative, torch, dev, sz, timer, rows)
         launches = {k: (launches or {}).get(k, 0) + spec.get(k, 0) for k in KERNELS}
+    if "train_full" in phases and "train" not in phases:  # (a) and (d) of train alone
+        timed("train_full", _train_full, torch, dev)
+    if "train_anchor" in phases and "train" not in phases:  # (b), (c) and (e) of train alone
+        timed("train_anchor", _train_anchor, torch, dev)
+    if "train" in phases:
+        trained = timed("train", phase_train, torch, dev)
+        never = [k for k in TRAIN_KERNELS if not trained.get(k)]
+        if never:
+            raise AssertionError(f"train: kernels its served runs did not launch: {never}")
+        launches = {k: (launches or {}).get(k, 0) + trained.get(k, 0) for k in KERNELS}
     log(json.dumps({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t_start, 1)}))
     out = []
     for name, (src, replaces) in KERNELS.items():

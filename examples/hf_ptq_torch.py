@@ -41,17 +41,19 @@ def parse_args(argv=None):
     ap.add_argument("--batch_size", default="2",
                     help="calibration batch size, or 'auto': the largest power of two whose forward fits")
     ap.add_argument("--export_path", default=None)
-    ap.add_argument("--save_state", default=None, help="dir for the mto-style state (not ported)")
+    ap.add_argument("--save_state", default=None, help="dir for the mto-style state (`opt/state.save`)")
     ap.add_argument("--eval_ppl", action="store_true", default=True)
     ap.add_argument("--auto_quantize_bits", type=float, default=None,
-                    help="AutoQuantize's effective-bits budget (not ported)")
+                    help="AutoQuantize with this effective-bits budget: --qformat against FP8_DEFAULT_CFG")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     """Runs the CLI; returns {"preset", "ppl_before", "ppl_after",
-    "quant_algo" (with --export_path), "model" (the QuantizedModel)}."""
+    "quant_algo" (with --export_path), "model" (the QuantizedModel)}, or
+    with --auto_quantize_bits {"preset", "ppl_before", "auto_quantize_bits",
+    "mixed_logits_finite"}."""
     args = parse_args(argv)
     import torch
 
@@ -60,9 +62,6 @@ def main(argv=None) -> dict:
     from tensorrt_model_optimizer_tpu_torch.quant import ptq
     from tensorrt_model_optimizer_tpu_torch.utils import dataset, evaluate
 
-    if args.save_state:
-        raise NotImplementedError("--save_state: the mto-style state (opt/state) comes with ROADMAP queue 1 "
-                                  "item 10")
     dev = resolve_device(args.device)
     qformat, label = args.qformat, args.qformat
     if args.recipe:
@@ -75,8 +74,7 @@ def main(argv=None) -> dict:
         args.batch_size = recipe.calib.batch_size
         args.calib_seq_len = recipe.calib.seq_len
         args.export_path = args.export_path or recipe.export_path
-        if recipe.save_state:
-            raise NotImplementedError("save_state: the mto-style state comes with ROADMAP queue 1 item 10")
+        args.save_state = args.save_state or recipe.save_state
         print(f"[hf_ptq] recipe {args.recipe} -> preset {recipe.quant.preset}", flush=True)
 
     t0 = time.time()
@@ -98,10 +96,6 @@ def main(argv=None) -> dict:
     print(f"[hf_ptq] model loaded in {time.time() - t0:.1f}s: {cfg.num_hidden_layers}L x "
           f"{cfg.hidden_size}h on {dev}" + (f" ({family.name})" if family else ""), flush=True)
     fwd = family.forward if family else llama.forward
-    if args.auto_quantize_bits:
-        raise NotImplementedError(f"--auto_quantize_bits: {'auto_quantize_moe' if family else 'AutoQuantize'} "
-                                  "needs gradients through the model; it comes with the training-side slice "
-                                  "(ROADMAP queue 1 item 8)")
 
     seq = min(args.calib_seq_len, cfg.max_position_embeddings)
     if str(args.batch_size) == "auto":
@@ -118,6 +112,9 @@ def main(argv=None) -> dict:
         out["ppl_before"] = evaluate.perplexity(cfg, params, batches[:4], forward_fn=family and family.forward)
         print(f"[hf_ptq] bf16 ppl {out['ppl_before']:.6f}", flush=True)
 
+    if args.auto_quantize_bits:
+        return _auto_quantize(args, cfg, params, qformat, batches, family, out)
+
     t0 = time.time()
     if family is None:
         model = ptq.quantize(cfg, params, qformat, batches, device=dev)
@@ -131,6 +128,12 @@ def main(argv=None) -> dict:
         print(f"[hf_ptq] quantized ppl {out['ppl_after']:.6f} "
               f"(delta {out['ppl_after'] - out['ppl_before']:+.6f})", flush=True)
 
+    if args.save_state:
+        from tensorrt_model_optimizer_tpu_torch.opt import state as opt_state
+
+        opt_state.save(model, args.save_state)
+        print(f"[hf_ptq] modelopt state saved to {args.save_state}", flush=True)
+
     if args.export_path:
         from tensorrt_model_optimizer_tpu_torch.export import hf_export
 
@@ -138,6 +141,36 @@ def main(argv=None) -> dict:
         out["quant_algo"] = qc["quantization"]["quant_algo"]
         print(f"[hf_ptq] exported {out['quant_algo']} checkpoint to {args.export_path}", flush=True)
     out["model"] = model
+    return out
+
+
+def _auto_quantize(args, cfg, params, qformat, batches, family, out: dict) -> dict:
+    """--auto_quantize_bits: `qformat` against FP8_DEFAULT_CFG per (layer,
+    group) under the budget (`auto_quantize_moe` for an MoE family), then
+    the mixed-precision forward; adds "auto_quantize_bits" (achieved) and,
+    for Llama, "mixed_logits_finite"."""
+    import torch
+
+    from tensorrt_model_optimizer_tpu_torch.models import llama
+    from tensorrt_model_optimizer_tpu_torch.quant import auto
+
+    t0 = time.time()
+    if family is not None:
+        res = auto.auto_quantize_moe(cfg, params, [qformat, "FP8_DEFAULT_CFG"], batches,
+                                     effective_bits=args.auto_quantize_bits, forward_fn=family.forward)
+        print(f"[hf_ptq] auto_quantize_moe achieved {res.effective_bits:.2f} effective bits in "
+              f"{time.time() - t0:.1f}s", flush=True)
+        out["auto_quantize_bits"] = res.effective_bits
+        return out
+    res = auto.auto_quantize(cfg, params, [qformat, "FP8_DEFAULT_CFG"], batches,
+                             effective_bits=args.auto_quantize_bits)
+    print(f"[hf_ptq] auto_quantize achieved {res.effective_bits:.2f} effective bits in {time.time() - t0:.1f}s",
+          flush=True)
+    with torch.no_grad():
+        logits, _ = llama.forward_unrolled(cfg, params, batches[0], res.layer_layouts, res.qstate_list)
+    out["auto_quantize_bits"] = res.effective_bits
+    out["mixed_logits_finite"] = bool(torch.isfinite(logits).all())
+    print("[hf_ptq] mixed-precision forward OK", flush=True)
     return out
 
 

@@ -15,7 +15,10 @@ DeepSeek models cross the same way: `DeepseekConfig` (the port's
 `softmax_scale_factor` at its default, JAX's scale), `DeepseekQuantizedModel`
 and `DeepseekCompressedModel` (both layer groups, the experts' stacks,
 `e_bias` in f32). `drafts_from_jax` carries the speculative drafts (Medusa
-heads, EAGLE-1 / EAGLE-3 drafts, DFlash blocks). Objects are read by their
+heads, EAGLE-1 / EAGLE-3 drafts, DFlash blocks), `adapters_from_jax` LoRA
+adapters; a layout's `learn_amax` flags and a trained quantizer state cross
+with `quantized_from_jax` / `layout_from_jax` / `params_from_jax` as any
+other field and tensor do. Objects are read by their
 fields: this module imports neither JAX nor the JAX package.
 
 bf16 and fp8 arrays (NVFP4's e4m3 block scales among them) reach numpy as
@@ -83,6 +86,13 @@ def drafts_from_jax(draft: dict, device="cpu") -> dict:
     if "aux_layer_ids" in draft:
         out["aux_layer_ids"] = tuple(int(i) for i in np.asarray(draft["aux_layer_ids"]).reshape(-1))
     return out
+
+
+def adapters_from_jax(adapters, device="cpu") -> dict:
+    """JAX LoRA adapters (`peft.lora.init_adapters` or a train step's
+    output: {proj: {"A" [L, r, d_in], "B" [L, d_out, r], "scale" [L]}}) ->
+    the port's tensors on `device`, dtypes kept (bf16 bit for bit)."""
+    return params_from_jax(adapters, device)
 
 
 def _block(b):

@@ -38,7 +38,7 @@ from .llama import LlamaConfig, RopeScaling
 _NP_DTYPES = {
     "F64": np.float64, "F32": np.float32, "F16": np.float16, "BF16": np.uint16,
     "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
-    "U8": np.uint8, "BOOL": np.bool_, "F8_E4M3": np.uint8, "F8_E5M2": np.uint8,
+    "U8": np.uint8, "U16": np.uint16, "BOOL": np.bool_, "F8_E4M3": np.uint8, "F8_E5M2": np.uint8,
 }
 _VIEWED = {"BF16": torch.bfloat16, "F8_E4M3": torch.float8_e4m3fn, "F8_E5M2": torch.float8_e5m2}
 
@@ -47,7 +47,7 @@ _VIEWED = {"BF16": torch.bfloat16, "F8_E4M3": torch.float8_e4m3fn, "F8_E5M2": to
 _ST_ORDER = ("BOOL", "F4", "F6_E2M3", "F6_E3M2", "U8", "I8", "F8_E5M2", "F8_E4M3", "F8_E8M0", "I16", "U16",
              "F16", "BF16", "I32", "U32", "F32", "C64", "F64", "I64", "U64")
 _ST_NAMES = {torch.bool: "BOOL", torch.uint8: "U8", torch.int8: "I8", torch.float8_e5m2: "F8_E5M2",
-             torch.float8_e4m3fn: "F8_E4M3", torch.int16: "I16", torch.float16: "F16", torch.bfloat16: "BF16",
+             torch.float8_e4m3fn: "F8_E4M3", torch.int16: "I16", torch.uint16: "U16", torch.float16: "F16", torch.bfloat16: "BF16",
              torch.int32: "I32", torch.float32: "F32", torch.float64: "F64", torch.int64: "I64"}
 
 
@@ -135,11 +135,12 @@ def config_from_hf(d: dict) -> LlamaConfig:
 
 
 class SafetensorsDir:
-    """Name -> tensor view over every `*.safetensors` file of a directory.
-    Files are memory-mapped; a tensor is read when it is asked for."""
+    """Name -> tensor view over every `*.safetensors` file of a directory
+    (or over one file, given its path). Files are memory-mapped; a tensor
+    is read when it is asked for."""
 
     def __init__(self, path: str):
-        files = sorted(glob(os.path.join(path, "*.safetensors")))
+        files = [path] if os.path.isfile(path) else sorted(glob(os.path.join(path, "*.safetensors")))
         if not files:
             raise FileNotFoundError(f"no safetensors under {path}")
         self._entries: dict[str, tuple[np.memmap, dict]] = {}

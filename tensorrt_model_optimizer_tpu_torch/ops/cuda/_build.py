@@ -13,6 +13,13 @@ unchanged one is reused. `build_all` starts one
 stream as `void*` and return `cudaGetLastError()` as an int; `check`
 raises when it is not 0. Kernels allocate nothing: wrappers allocate with
 `torch.empty` and launch on `torch.cuda.current_stream()`.
+
+A ctypes launch writes into a tensor that autograd never sees, so the
+kernels have no backward: every wrapper calls `refuse_grad` before it
+launches, and raises where a gradient would have been asked of it (grad
+mode on and an input that requires grad) instead of returning a detached
+output. Training reads `attn_impl="flash"` as the einsum attention
+(`quant/qat.py` `train_cfg`).
 """
 
 from __future__ import annotations
@@ -120,3 +127,19 @@ def stream() -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would track an op on these inputs: grad mode is on
+    and one of them (None and non-tensors skipped) requires grad."""
+    import torch
+
+    return torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where a kernel launched through ctypes would silently drop the
+    gradient of its output (`needs_grad`)."""
+    if needs_grad(*tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward, and an input requires grad; "
+                           "run it under torch.no_grad() or train through the plain PyTorch path")

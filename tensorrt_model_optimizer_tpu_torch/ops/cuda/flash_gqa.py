@@ -53,6 +53,7 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
         raise ValueError(f"flash_gqa: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if q.device.type == "cpu":
         return flash_attention_gqa_plain(q, k, v, causal, sm_scale)
+    _build.refuse_grad("flash_gqa", q, k, v)
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16) or d not in (32, 64, 128):
         raise ValueError(f"flash_gqa kernel: bf16 and head_dim 32/64/128, got {q.dtype} d={d}")
     global launches

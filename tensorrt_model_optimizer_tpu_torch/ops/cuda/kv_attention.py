@@ -108,6 +108,7 @@ def kv_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.T
         raise ValueError("kv_attention: nvfp4 needs k_scales / v_scales [B, n_kv, S, hd/16]")
     if q.device.type == "cpu":
         return kv_decode_attention_plain(q, k_cache, v_cache, k_new, v_new, pos, fmt, k_scales, v_scales)
+    _build.refuse_grad("kv_decode_attention", q, k_cache, v_cache, k_new, v_new, k_scales, v_scales)
     code, dtype = FORMATS[fmt]
     rep = HR // n_kv
     if k_cache.dtype != dtype or v_cache.dtype != dtype:

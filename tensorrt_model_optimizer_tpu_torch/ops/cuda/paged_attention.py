@@ -164,6 +164,7 @@ def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     if q.device.type == "cpu":
         return paged_attention_decode_plain(q, k_pages, v_pages, block_table, seq_lens, fmt,
                                             k_scale_pages, v_scale_pages)
+    _build.refuse_grad("paged_attention_decode", q, k_pages, v_pages, k_scale_pages, v_scale_pages)
     scales = (k_scale_pages, v_scale_pages) if fmt == "nvfp4" else ()
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"paged_attention_decode: the kernel takes bf16 or f32 q, got {q.dtype}")
@@ -212,6 +213,7 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor, v_pages: tor
     if q.device.type == "cpu":
         return paged_attention_prefill_plain(q, k_pages, v_pages, block_table, ctx_lens, chunk_k, chunk_v,
                                              fmt, k_scale_pages, v_scale_pages, chunk_k_scales, chunk_v_scales)
+    _build.refuse_grad(what, q, k_pages, v_pages, chunk_k, chunk_v, k_scale_pages, v_scale_pages)
     chunk_k, chunk_v = chunk_k.contiguous(), chunk_v.contiguous()
     scales = ()
     if fmt == "nvfp4":

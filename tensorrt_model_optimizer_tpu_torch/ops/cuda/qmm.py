@@ -207,6 +207,7 @@ def w4a8_matmul(x8: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) ->
     _check(x8, packed, scales)
     if x8.device.type == "cpu":
         return w4a8_matmul_plain(x8, packed, scales)
+    _build.refuse_grad("qmm_w4a8", x8, packed, scales)
     if not (packed.is_cuda and scales.is_cuda and x8.is_cuda):
         raise ValueError("w4a8: tensors on different devices")
     global launches

@@ -215,6 +215,7 @@ def int4_wo_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) 
     bsz = int4_block(packed, scales)
     if x.device.type == "cpu":
         return int4_wo_matmul_plain(x, packed, scales)
+    _build.refuse_grad("qmm_int4_wo", x, packed, scales)
     x = _check_x(x, "int4_wo", packed, scales)
     packed, scales = _ready(packed), _ready(scales)
     y = torch.empty((N, O), dtype=torch.bfloat16, device=x.device)
@@ -245,6 +246,7 @@ def fp4_wo_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         raise ValueError("fp4_wo: global_scale must be one f32 value")
     if x.device.type == "cpu":
         return fp4_wo_matmul_plain(x, packed, scales, global_scale)
+    _build.refuse_grad("qmm_fp4_wo", x, packed, scales, global_scale)
     x = _check_x(x, "fp4_wo", packed, scales, *(() if global_scale is None else (global_scale,)))
     packed, scales = _ready(packed), _ready(scales)
     gs = _build.c_void_p(None) if global_scale is None else _build.ptr(global_scale.contiguous())
@@ -270,6 +272,7 @@ def byte_wo_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> tor
         raise ValueError(f"byte_wo: shapes x {tuple(x.shape)} q {tuple(q.shape)} scale {tuple(scale.shape)}")
     if x.device.type == "cpu":
         return byte_wo_matmul_plain(x, q, scale)
+    _build.refuse_grad("qmm_byte_wo", x, q, scale)
     if K % 16:
         raise ValueError(f"byte_wo: K must be a multiple of 16 (16-byte weight loads), got {K}")
     x = _check_x(x, "byte_wo", q, scale)

@@ -130,6 +130,7 @@ def skip_softmax_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, thresh
         raise ValueError(f"skip_softmax_flash: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if q.device.type == "cpu":
         return skip_softmax_flash_plain(q, k, v, threshold, block_q, block_k, causal)
+    _build.refuse_grad("skip_softmax_flash", q, k, v)
     if not (q.dtype == k.dtype == v.dtype and q.dtype in _DTYPES) or d not in (16, 32, 64, 128):
         raise ValueError(f"skip_softmax_flash kernel: f32 or bf16, head_dim 16/32/64/128, got {q.dtype} d={d}")
     bq, bk = tile_sizes(S, block_q, block_k)

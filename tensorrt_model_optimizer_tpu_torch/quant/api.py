@@ -1,8 +1,7 @@
 """mtq-style API façade (port of `quant/api.py`): the reference's
 `modelopt.torch.quantization` entry-point names mapped onto this port
 (`quantize`, `calibrate`, `compress`, `fold_weight`, `disable_quantizer`,
-`print_quant_summary`, `compute_quantization_mse`). `auto_quantize` needs
-gradients through the model and comes with the training-side slice."""
+`print_quant_summary`, `compute_quantization_mse`, `auto_quantize`)."""
 
 from __future__ import annotations
 
@@ -13,17 +12,10 @@ import torch
 
 from ..models import llama
 from . import quantizer as Q
+from .auto import auto_quantize  # noqa: F401
 from .compress import compress  # noqa: F401
 from .config import PRESETS, choices, get_preset, make_config  # noqa: F401
 from .ptq import QuantizedModel, calibrate, print_quant_summary, quantize  # noqa: F401
-
-
-def auto_quantize(*args, **kwargs):
-    """AutoQuantize (`mtq.auto_quantize`) scores formats by gradients
-    through the model: it comes with the training-side modules (ROADMAP
-    queue 1 item 8, `quant/auto.py`)."""
-    raise NotImplementedError("auto_quantize needs gradients through the model: it comes with the "
-                              "training-side slice (ROADMAP queue 1 item 8)")
 
 
 def _quantized_weight(model: QuantizedModel, name: str, cfg: Q.QuantizerConfig) -> torch.Tensor:

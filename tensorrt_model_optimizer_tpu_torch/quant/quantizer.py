@@ -9,9 +9,10 @@ static blocks, generic dynamic blocks), NVFP4 (dynamic E4M3 block scales
 under a calibrated global amax), the MX float formats and MXINT (E8M0 block
 scales) and the Hadamard rotation (`rotate`). A static block with integer
 `scale_bits` (NF4_BLOCK64) quantizes as JAX's does: an int grid under the
-calibrated per-block amax; the scale bits are not applied. Custom backends raise `NotImplementedError`. No
-gradients flow here: QAT's straight-through estimators come with the
-training slice.
+calibrated per-block amax; the scale bits are not applied. Custom backends raise `NotImplementedError`.
+Gradients flow as JAX's do: every format goes through its straight-through
+estimator (`ops/ste.py`), and a `learn_amax` int site gives its amax the
+LSQ gradient.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from ..ops import numerics
+from ..ops import numerics, ste
 from ..ops.hadamard import blocked_fwht
 from ..ops.formats import BlockSpec, NumBits
 
@@ -61,6 +62,22 @@ class QuantizerConfig:
     @property
     def is_fp(self) -> bool:
         return isinstance(self.num_bits, tuple)
+
+    @property
+    def fake_bits(self) -> float:
+        """Effective bits with the block scales' share (AutoQuantize's cost)."""
+        if self.sequential:
+            return min(c.fake_bits for c in self.sequential)
+        if not self.enable:
+            return 16.0
+        bits = sum(self.num_bits) + 1 if self.is_fp else self.num_bits
+        if self.block is not None and self.block.scale_bits is not None:
+            sb = self.block.scale_bits
+            sbits = sum(sb) + 1 if isinstance(sb, tuple) else sb
+            bsz = self.block.sizes[0][1] if self.block.sizes else 1
+            if bsz > 0:
+                bits = bits + sbits / bsz
+        return float(bits)
 
     def replace(self, **kw) -> "QuantizerConfig":
         return dataclasses.replace(self, **kw)
@@ -242,21 +259,23 @@ def _mxint(x: torch.Tensor, num_bits: int, ax: int, bsz: int) -> torch.Tensor:
 
 
 def _dispatch(x, cfg: QuantizerConfig, state: QuantizerState):
+    """One format's fake quant with its straight-through gradient, routed as
+    JAX's `_fake_quant_dispatch` routes it (`ops/ste.py`)."""
     if cfg.backend is not None:
         raise NotImplementedError("custom quant backends are not ported")
     blk = cfg.block
     if blk is not None and _block_dynamic(cfg) and blk.sizes:
         ax, bsz = blk.sizes[0]
         if blk.scale_bits == (4, 3) and cfg.num_bits == (2, 1):
-            return numerics.fake_quant_nvfp4(x, bsz, state.amax, ax)
+            return ste.fake_quant_nvfp4_ste(x, bsz, state.amax, ax)
         if blk.scale_bits == (8, 0):
             if not cfg.is_fp:
-                return _mxint(x, cfg.num_bits, ax, bsz)
+                return ste.pass_through(lambda t: _mxint(t, cfg.num_bits, ax, bsz), x)
             e, m = cfg.num_bits
-            return numerics.fake_quant_mx(x, e, m, bsz, ax)
-        return _fake_quant(x, cfg, numerics.block_reduce_amax(x.float(), blk.sizes))
+            return ste.fake_quant_mx_ste(x, e, m, bsz, ax)
+        return ste.pass_through(lambda t: _fake_quant(t, cfg, numerics.block_reduce_amax(t.float(), blk.sizes)), x)
     if cfg.dynamic:
-        return _fake_quant(x, cfg, _dynamic_amax(x, cfg))
+        return ste.pass_through(lambda t: _fake_quant(t, cfg, _dynamic_amax(t, cfg)), x)
     amax = state.amax
     if amax is None and cfg.constant_amax is not None:
         amax = torch.full((), cfg.constant_amax, dtype=torch.float32, device=x.device)  # no host copy
@@ -264,4 +283,11 @@ def _dispatch(x, cfg: QuantizerConfig, state: QuantizerState):
         raise ValueError(f"static quantizer used before calibration (amax is None); cfg={cfg}")
     if blk is not None and blk.sizes:
         amax = numerics.expand_block_scale(amax, x.shape, blk.sizes)
-    return _fake_quant(x, cfg, amax)
+    if cfg.pass_through_bwd:
+        return ste.pass_through(lambda t: _fake_quant(t, cfg, amax), x)
+    if cfg.is_fp:
+        e, m = cfg.num_bits
+        return ste.fake_quant_fp_ste(x, amax, e, m)
+    if cfg.learn_amax:
+        return ste.fake_quant_int_lsq(x, amax, cfg.num_bits)
+    return ste.fake_quant_int_ste(x, amax, cfg.num_bits, cfg.unsigned, cfg.narrow_range)

@@ -207,6 +207,38 @@ def _ops(plain: tuple) -> dict:
     return {name: pair[name in plain] for name, pair in _KERNELS.items()}
 
 
+_WEIGHT_ONLY_OPS = {"int4wo": "int4_wo", "nvfp4wo": "fp4_wo", "mxfp4wo": "fp4_wo", "int8": "byte_wo",
+                    "fp8": "byte_wo"}
+
+
+def weight_only_kernels(cm: CompressedModel, plain_ops: tuple = ()) -> dict:
+    """Projection -> the weight-only GEMM kernel (`plain_ops` name) that
+    serves it, for the projections whose kernel this engine launches (an
+    INT8 projection under an int input quantizer is W8A8, `int8_mm`)."""
+    out = {}
+    for name, kind in cm.kinds.items():
+        op = _WEIGHT_ONLY_OPS.get(kind)
+        icfg = cm.layout.get(f"{name}.input")
+        if op is None or op in plain_ops or (kind == "int8" and icfg.enable and not icfg.is_fp):
+            continue
+        out[name] = op
+    return out
+
+
+def weight_only_refusal(cm: CompressedModel, device: torch.device, plain_ops: tuple = ()) -> Optional[str]:
+    """Why an engine on `device` cannot serve `cm`, or None: on the card the
+    weight-only GEMM kernels take bf16 activations only, and the engine's
+    activations are the model's dtype. JAX's kernels take any dtype (ROADMAP
+    queue 3, a deliberate difference): the port refuses at construction,
+    where the model would otherwise fail at its first GEMM."""
+    kernels = weight_only_kernels(cm, plain_ops)
+    if device.type != "cuda" or not kernels or cm.model_cfg.dtype == torch.bfloat16:
+        return None
+    return (f"the weight-only GEMM kernels ({', '.join(sorted(set(kernels.values())))}) take bf16 activations, "
+            f"and this model's activations are {cm.model_cfg.dtype}: serve it in bf16, or name the kernels "
+            "in EngineConfig.plain_ops")
+
+
 _NO_KERNEL_MASK = ("kv_attention_kernel does not support a mask over cache rows (tree-speculative verification): "
                    "use the einsum engine")
 
@@ -899,6 +931,9 @@ class Engine(StepEngine):
         for name, kind in cm.kinds.items():
             if kind not in _SERVED_KINDS:
                 raise NotImplementedError(f"{name}: weight kind {kind!r} is served by a later slice")
+        refusal = weight_only_refusal(cm, self.device, config.plain_ops)
+        if refusal is not None:
+            raise TypeError(refusal)
         self.cm = cm
         self.cfg = cm.model_cfg
         self.ecfg = config

@@ -11,7 +11,7 @@ parameter) and drops the hidden-regression term.
 
 The draft's layers are `llama._decoder_layer` with an empty layout on the
 einsum attention: a base config with `attn_impl="flash"` is read as
-"einsum" here, since the flash kernel has no backward.
+"einsum" here (`qat.train_cfg`), since the flash kernel has no backward.
 """
 
 from __future__ import annotations
@@ -30,10 +30,6 @@ from .medusa import _base_layers, _causal, _hidden_states, head_weight, randn_in
 @dataclasses.dataclass(frozen=True)
 class EagleConfig:
     num_layers: int = 1
-
-
-def _einsum(cfg: llama.LlamaConfig) -> llama.LlamaConfig:
-    return cfg if cfg.attn_impl == "einsum" else dataclasses.replace(cfg, attn_impl="einsum")
 
 
 def init_eagle(cfg: llama.LlamaConfig, ecfg: EagleConfig, generator: torch.Generator, device=None) -> dict:
@@ -68,7 +64,7 @@ def eagle_forward(cfg, params, eagle, tokens, base_hidden):
     """Draft forward: fuse(embed(tokens), base_hidden) -> the next hidden.
     tokens [B, T]; base_hidden [B, T, H]. -> (pred_hidden [B, T, H],
     draft_logits [B, T, V] f32)."""
-    cfg = _einsum(cfg)
+    cfg = qat_mod.train_cfg(cfg)
     B, T = tokens.shape
     positions, mask = _causal(B, T, tokens.device)
     x = _fuse(cfg, params, eagle, tokens, base_hidden)
@@ -124,7 +120,7 @@ def eagle_ttt_forward(cfg, params, eagle, tokens, base_hidden, ttt_steps: int):
     right by one, attending to every earlier step's KV through the TTT mask.
     -> [(pred_hidden, logits)] a step. Each step's KV lands in a new cache
     tensor (`llama._write_at` clones): nothing autograd saved is written."""
-    cfg = _einsum(cfg)
+    cfg = qat_mod.train_cfg(cfg)
     B, T = tokens.shape
     nKV, hd = cfg.num_key_value_heads, cfg.hd
     S_total = ttt_steps * T

@@ -20,6 +20,7 @@ import torch
 from .. import resolve_device
 from ..models import llama
 from ..quant import qat as qat_mod
+from ..utils.tree import map_tensors
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,40 +102,19 @@ def medusa_logits(cfg, params, medusa, tokens, layout=None, qstate=None):
     return base_logits, apply_heads(medusa, hidden, head_weight(params))
 
 
-def _map_tensors(fn: Callable, tree):
-    """`fn` on every tensor of a tree of dicts / lists / tuples (in their
-    order); anything else stays as it is."""
-    if isinstance(tree, dict):
-        return {k: _map_tensors(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tensors(fn, v) for v in tree)
-    return fn(tree) if isinstance(tree, torch.Tensor) else tree
-
-
 def sgd_step(draft, loss_fn: Callable, lr: float):
     """One SGD step of a draft's tensors: `loss_fn(draft)` -> loss, or (loss,
     aux). The gradients reach the draft's tensors only (the base model's
     stay constants). -> (new draft, loss or (loss, aux), detached). A tensor
     the loss does not reach keeps its value (JAX's zero gradient)."""
-    leaves = []
+    out = {}
 
-    def track(t):
-        t = t.detach().requires_grad_(True)
-        leaves.append(t)
-        return t
+    def scalar(d):
+        out["res"] = loss_fn(d)
+        return out["res"][0] if isinstance(out["res"], tuple) else out["res"]
 
-    live = _map_tensors(track, draft)
-    with torch.enable_grad():
-        out = loss_fn(live)
-        loss = out[0] if isinstance(out, tuple) else out
-        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
-    with torch.no_grad():
-        def update(p):
-            g = next(grads)
-            return p.detach().clone() if g is None else p.detach() - lr * g.to(p.dtype)
-
-        new = _map_tensors(update, live)
-    return new, _map_tensors(torch.Tensor.detach, out)
+    _, grads = qat_mod.value_and_grad(scalar, draft)
+    return qat_mod.sgd_update(draft, grads, lr), map_tensors(torch.Tensor.detach, out["res"])
 
 
 def make_medusa_train_step(cfg: llama.LlamaConfig, lr: float = 1e-3):

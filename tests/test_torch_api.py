@@ -7,7 +7,8 @@
    logits' scale: the same values, one matmul order);
  - `compute_quantization_mse`: equal to JAX's within 1e-6 relative (f32
    means in another order); `disable_quantizer` the same sites as JAX's;
- - `auto_quantize` raises, naming its slice;
+ - `auto_quantize` is `quant/auto.py`'s (held to JAX's in
+   `test_torch_auto_quantize.py`);
  - `layerwise_calibrate`: every amax bit-equal to the one-shot max
    calibration's (`ptq.quantize`), from stacked layers and through a
    `layer_loader`; a run stopped after layer k and resumed from its
@@ -70,8 +71,9 @@ def test_disable_quantizer_and_auto_quantize():
     for pattern in ("*mlp*", "*.input", "self_attn.q_proj.weight"):
         assert tapi.disable_quantizer(tm, pattern).layout == convert.layout_from_jax(
             japi.disable_quantizer(jm, pattern).layout)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tapi.auto_quantize(tm.model_cfg, tm.params, ["NVFP4_DEFAULT_CFG"], [])
+    from tensorrt_model_optimizer_tpu_torch.quant import auto as tauto
+
+    assert tapi.auto_quantize is tauto.auto_quantize  # ported: tests/test_torch_auto_quantize.py holds it to JAX
     assert tapi.get_preset("NF4_WEIGHT_ONLY_CFG") is tconfig.NF4_WEIGHT_ONLY_CFG
     assert tapi.quantize is tptq.quantize and tapi.PRESETS is tconfig.PRESETS
 

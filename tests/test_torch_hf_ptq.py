@@ -7,8 +7,8 @@ recipe, its overrides and a tokens file of the anchor's language written
 here: the unquantized ppl and the quantized ppl within 1e-3 relative of
 JAX's printed value (JAX prints 3 decimals; the bf16 forwards' rounding
 moves calibrated amaxes, read: 7e-4 and 9e-4 relative); the export's
-quant_algo is JAX's. Arguments that need modules not ported raise, naming
-their ROADMAP queue 1 item."""
+quant_algo is JAX's. A family not ported raises, naming its ROADMAP queue
+1 item; `--save_state` and `--auto_quantize_bits` run (once refused)."""
 
 import importlib.util
 import json
@@ -17,6 +17,7 @@ import re
 import sys
 
 import numpy as np
+import torch
 import pytest
 
 from tensorrt_model_optimizer_tpu_torch.utils import synthlang
@@ -78,16 +79,29 @@ def test_cli_moe_family_equals_jax_cli(tokens, tmp_path, monkeypatch, capsys):
     assert abs(out["ppl_before"] - jb) <= 1e-3 * jb, (out["ppl_before"], jb)
     assert abs(out["ppl_after"] - jq) <= 1e-3 * jq, (out["ppl_after"], jq)
     assert out["quant_algo"] == "W4A16_AWQ" and out["model"].forward_fn is not None
-    with pytest.raises(NotImplementedError, match="auto_quantize_moe.*item 8"):
-        _load("examples/hf_ptq_torch.py", "hf_ptq_torch").main(["--device", "cpu", "--model", moe,
-                                                                "--auto_quantize_bits", "5"])
+    aq = _load("examples/hf_ptq_torch.py", "hf_ptq_torch").main(
+        ["--device", "cpu", "--model", moe, "--qformat", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "--calib_data", tokens,
+         "--calib_batches", "1", "--calib_seq_len", "64", "--auto_quantize_bits", "5"])
+    assert aq["auto_quantize_bits"] <= 5 + 1e-9  # auto_quantize_moe's active-expert costing, within the budget
 
 
 @pytest.mark.parametrize("extra,item", [(["--auto_quantize_bits", "5"], "item 8"), (["--save_state", "/tmp/s"], "item 10")])
-def test_cli_unported_arguments_raise(extra, item):
+def test_cli_unported_arguments_raise(extra, item, tmp_path):
+    """The two arguments once refused (naming ROADMAP's items 8 and 10) now
+    run: AutoQuantize within its budget to a finite mixed forward, and the
+    mto state saved where asked and restored to the quantized model."""
     cli = _load("examples/hf_ptq_torch.py", "hf_ptq_torch")
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(["--device", "cpu", *extra])
+    base = ["--device", "cpu", "--calib_batches", "2", "--calib_seq_len", "32"]
+    if extra[0] == "--save_state":
+        out = cli.main([*base, "--save_state", str(tmp_path / "s")])
+        from tensorrt_model_optimizer_tpu_torch.opt import state
+
+        back = state.restore(str(tmp_path / "s"), device="cpu")
+        assert back.quant_cfg == out["model"].quant_cfg
+        assert torch.equal(back.params["layers"]["mlp.up_proj"], out["model"].params["layers"]["mlp.up_proj"])
+        return
+    out = cli.main([*base, "--qformat", "NVFP4_DEFAULT_CFG", *extra])  # against FP8_DEFAULT_CFG
+    assert out["auto_quantize_bits"] <= 5 + 1e-9 and out["mixed_logits_finite"] and "ppl_after" not in out
 
 
 def test_cli_refuses_other_families(tmp_path):
@@ -107,7 +121,7 @@ def test_cli_tiny_model_runs(tmp_path):
 
 def test_accuracy_tool_writes_only_its_own_file(tmp_path, monkeypatch):
     """Two presets, 2 questions a subject: the table's keys, JAX's QAT row
-    recorded as null with its reason, the bf16 row's ppl JAX's record's
+    null with its reason (neither preset loses more than JAX's 0.005), the bf16 row's ppl JAX's record's
     (artifacts/accuracy_table.json, f32 on both sides: 1e-5 relative)."""
     monkeypatch.setenv("ACC_PRESETS", "NF4_WEIGHT_ONLY_CFG,MXFP6_DEFAULT_CFG")
     monkeypatch.setenv("ACC_MMLU_N", "2")
@@ -121,7 +135,8 @@ def test_accuracy_tool_writes_only_its_own_file(tmp_path, monkeypatch):
     for row in out["presets"].values():
         assert {"ppl", "d_ppl", "kl", "mmlu", "mmlu_ci95", "mmlu_n", "d_mmlu_pct"} <= set(row)
         assert row["mmlu_n"] == 10
-    assert out["qat_recovery"] is None and "item 8" in out["qat_recovery_reason"]
+    # both presets lie within JAX's 0.005: no QAT row, by JAX's rule (the recipe: test_qat_recovery_recipe)
+    assert out["qat_recovery"] is None and "0.005" in out["qat_recovery_reason"]
     with open(record) as f:
         assert abs(out["bf16"]["ppl"] - json.load(f)["bf16"]["ppl"]) <= 1e-5 * out["bf16"]["ppl"]
     assert (os.path.getmtime(record), os.path.getmtime(os.path.join(ROOT, "ACCURACY.md"))) == before

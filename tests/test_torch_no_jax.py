@@ -3,8 +3,8 @@ package, neither in its sources nor when it is imported. Nor does it import
 `safetensors` or `yaml` (the card's machine lacks both): the port reads and
 writes the safetensors format itself (`models/hf_loader.py`) and reads its
 recipes' YAML subset itself (`recipes/loader.py`). The same holds for
-chip_smoke.py, the port's PTQ CLI, its speculative-decoding example and its
-accuracy-table tool."""
+chip_smoke.py, the port's examples (PTQ, QAT, eval, serving, speculative
+decoding) and its accuracy-table tool."""
 
 import ast
 import os
@@ -26,6 +26,8 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "examples", "hf_ptq_torch.py")
     yield os.path.join(ROOT, "examples", "speculative_decoding_torch.py")
+    for name in ("llm_qat_torch.py", "llm_eval_torch.py", "serve_demo_torch.py"):
+        yield os.path.join(ROOT, "examples", name)
     yield os.path.join(ROOT, "tools", "torch_accuracy_table.py")
     yield os.path.join(ROOT, "tools", "torch_moe_accuracy_table.py")
 
@@ -101,6 +103,17 @@ def test_the_walk_covers_the_speculative_slice():
                               "speculative/dflash.py", "export/spec_export.py", "quant/qat.py", "convert.py",
                               "serve/engine.py")} <= walked
     assert "examples/speculative_decoding_torch.py" in walked
+
+
+def test_the_walk_covers_the_training_slice():
+    walked = {os.path.relpath(p, ROOT) for p in _sources()}
+    pkg = "tensorrt_model_optimizer_tpu_torch/"
+    assert {pkg + m for m in ("ops/ste.py", "quant/quantizer.py", "quant/qat.py", "quant/auto.py", "quant/api.py",
+                              "utils/tree.py", "distill/losses.py", "distill/loss_balancers.py",
+                              "distill/distillation.py", "peft/lora.py", "opt/mode.py", "opt/state.py",
+                              "opt/trainer.py", "ops/cuda/_build.py", "convert.py")} <= walked
+    assert {"examples/llm_qat_torch.py", "examples/llm_eval_torch.py", "examples/serve_demo_torch.py",
+            "examples/hf_ptq_torch.py", "tools/torch_accuracy_table.py"} <= walked
 
 
 def test_the_recipe_reader_never_imports_yaml():
