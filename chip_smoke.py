@@ -6,7 +6,10 @@
 
 Phases (any failure raises, and the script exits non-zero):
   build    nvcc-builds every kernel of `tensorrt_model_optimizer_tpu_torch/csrc`
-           (one process per source, in parallel) and prints the build time.
+           (one process per source, in parallel, started before any other
+           phase; the kernels phase runs while they compile, each wrapper's
+           first launch waiting for its own source) and prints each
+           source's compile seconds.
   kernels  each kernel against its plain PyTorch version on the card, at the
            Llama-3.1-8B shapes of the served path, with CUDA-event timings,
            the bound (bytes or operations) and, where PyTorch has one call for
@@ -56,15 +59,15 @@ Phases (any failure raises, and the script exits non-zero):
   full     Llama-3.1-8B at full width (seeded random bf16 weights on the
            card, made once): for each path of `FULL_PATHS`, PTQ -> compress ->
            engine, batch 8 x 2048-token prompts then 32 decode steps. W4A8,
-           INT4 and NVFP4 run at full depth (32 layers), the other four paths
-           on the first 4 layers. Launch counts are set to 0 before each path
+           INT4 and NVFP4 run on FULL_DEPTH (8) of the 32 layers, the other
+           four paths on the first 4 layers. Launch counts are set to 0 before each path
            and read after it; the prefill logits are held against the plain
            version of that path's GEMM at depths 1 and 2, and for W4A8 at
            depths 1, 2, 4 and 8 against the all-plain engine and an engine
            that runs only flash attention on its plain version. The INT4 path
            then serves 12 requests (1024-token prompts behind a 256-token
            shared prefix) through `Engine.serve` over int8 pages: 8 slots,
-           page 16, prefix cache, unroll 4, all 32 layers; runs the einsum
+           page 16, prefix cache, unroll 4, all its FULL_DEPTH layers; runs the einsum
            engine on 8 layers with dense and sparse prefill of 8 x 2048
            tokens and 32 decode steps; and on 4 layers NVFP4_KV_CFG serves
            packed NVFP4 pages and generates over the dense NVFP4 KV cache at
@@ -86,10 +89,11 @@ Phases (any failure raises, and the script exits non-zero):
            <= CALIB_PLAIN_REL_MAX, input quantizers off, as the full phase
            holds its paths), and their error against the unquantized engine
            beside the max-calibrated counterpart's (informational).
-           INT4_AWQ_CFG and INT4_BLOCKWISE_WEIGHT_ONLY_CFG run 16 layers,
-           every other preset the first 4; W4A8_AWQ_BETA_CFG serves with
+           INT4_AWQ_CFG and INT4_BLOCKWISE_WEIGHT_ONLY_CFG run 8 layers,
+           every other preset the first 2; W4A8_AWQ_BETA_CFG serves with
            int4_layout="a8". INT4_AWQ, W4A8_AWQ_BETA, INT8_SMOOTHQUANT and
-           NVFP4_SVDQUANT also export -> load -> serve at 4 layers (loaded
+           NVFP4_SVDQUANT also export -> load -> serve at 4 layers or their
+           own depth, if less (loaded
            against the export's tensors held in memory, DEPLOY_GAP_MAX). Then
            on artifacts/anchor-llama every calibration module runs on the
            card and on the CPU over the same f32 captures under the parity
@@ -120,7 +124,7 @@ Phases (any failure raises, and the script exits non-zero):
            and the int4x / int8a8 layouts served against their fake-quant
            forward; (b) the 8B shape: ACC_PATHS calibrated and served as the
            calib phase serves its paths (NF4 on the INT4 kernel at 64-blocks,
-           16 layers too), perplexity and KL at full width, layerwise
+           8 layers too), perplexity and KL at full width, layerwise
            calibration of 32 layers brought from host memory one at a time
            (its amax equal to the one-shot calibration's on 4 layers); (c)
            examples/hf_ptq_torch.py on the anchor: nvfp4_ptq exported,
@@ -138,10 +142,10 @@ Phases (any failure raises, and the script exits non-zero):
            load -> serve for INT4 and NVFP4 (arrays, logits and tokens equal
            to the engine over the export's tensors in memory), the
            unquantized ppl and NVFP4's Δppl against JAX's pin; (b)
-           Qwen3-30B-A3B at full width on 4 of its 48 layers (seeded random
-           bf16), W4A8, INT4 and NVFP4: TTFT of 8 x 2048, eager and graphed
-           (unroll 1 and 8) token steps (tokens and cache equal), profiled
-           prefill and step, peak memory, launches per kernel, the depth-2
+           Qwen3-30B-A3B at full width on MOE_FULL_DEPTH (2) of its 48 layers
+           (seeded random bf16), W4A8, INT4 and NVFP4: TTFT of 8 x 2048, eager
+           and graphed (unroll 1 and 8) token steps (tokens and cache equal),
+           prefill and step profiled under `profile`, peak memory, launches per kernel, the depth-2
            prefill against the all-plain engine on the kernel engine's
            routing; (c) Mixtral-8x7B's widths on 2 layers, INT4.
   families GPT-OSS and Llama4 on the einsum engine, the one JAX serves them
@@ -157,7 +161,7 @@ Phases (any failure raises, and the script exits non-zero):
            build,families_small`); (c) Llama-4-Scout's widths on 4 of 48
            layers, NVFP4 / W4A8, and an 8448-token prompt past position 8192
            held against the all-plain engine on all 4 layers; (b)
-           GPT-OSS-20B at full width on 4 of its 24 layers, MXFP4 / NVFP4 / INT4
+           GPT-OSS-20B at full width on 2 of its 24 layers, MXFP4 / NVFP4 / INT4
            ((c) and (b) alone: `--phases build,families_full`): TTFT of 8 x
            2048, eager and graphed (unroll 1 and 8) steps over 32 decode
            steps, peak memory, launches, and the depth-2 prefill against the
@@ -176,13 +180,13 @@ Phases (any failure raises, and the script exits non-zero):
            quantizer's grid, the f32 plain engine against the model's
            fake-quant forward (DEEPSEEK_VS_FORWARD_MAX; alone: `--phases
            build,deepseek_small`); (b) DeepSeek-V3's widths (its
-           config.json: yarn factor 40, the softmax factor 1.874) on 4 of
-           its 61 layers (3 dense, 1 MoE), INT4 and NVFP4 W4A4: calibration
+           config.json: yarn factor 40, the softmax factor 1.874) on 2 of
+           its 61 layers (1 dense, 1 MoE), INT4 and NVFP4 W4A4: calibration
            on 4 seeded [2, 512] batches, TTFT of 8 x 2048, the MLA einsums'
            and the expert GEMMs' ms (CUDA events), eager and graphed (unroll
            1 and 8) steps over 32 decode steps (INT4's prefill and eager step
-           profiled), peak memory, launches, and the prefill against the
-           all-plain engine on all 4 layers on the kernel engine's routing,
+           profiled under `profile`), peak memory, launches, and the prefill against the
+           all-plain engine on both layers on the kernel engine's routing,
            input quantizers off, and W4A4 as served on the MoE layer alone
            (alone: `--phases build,deepseek_full`). The kernels phase gains the GEMMs at V3's
            shapes (`DEEPSEEK_GEMMS`; alone: `--phases build,kernels_deepseek`).
@@ -190,7 +194,8 @@ Phases (any failure raises, and the script exits non-zero):
            tree-speculative decoding and the drafters (`phase_speculative`):
            (a) artifacts/anchor-llama in f32 as tools/bench_specdec.py runs it:
            Medusa (3 heads), EAGLE-1 TTT, EAGLE-3 TTT and DFlash trained on
-           the card (300 steps of 8 x 65 synthlang tokens, lr 1e-3, TTT 3;
+           the card (the first 100 of JAX's 300 steps of 8 x 65 synthlang
+           tokens, lr 1e-3, TTT 3;
            seconds and last-step accuracies), each drafter's acceptance and
            tokens per step with the unquantized and the W4A8_AWQ_BETA
            fake-quant base beside JAX's CPU record
@@ -230,12 +235,43 @@ Phases (any failure raises, and the script exits non-zero):
            tensors, TRAIN_CARD_CPU_FROB_MAX); (c) the QATTrainer stopped at
            step 3 and resumed, equal to the uninterrupted run under
            deterministic algorithms, its saved state restoring to equal
-           logits; (e) JAX's QAT recovery (INT8_SMOOTHQUANT, 600 Adam steps,
+           logits; (e) JAX's QAT recovery (INT8_SMOOTHQUANT, the first
+           QAT_RECOVERY_STEPS of the 600 Adam steps of
            tools/torch_accuracy_table.py's recipe): ppl and MMLU before and
            after beside JAX's, the ppl down by at least QAT_RECOVERY_MIN
            (alone: `--phases build,train_anchor`). The training steps launch
            no kernel of the port (no kernel has a backward: the wrappers
            refuse under grad); the served runs launch rows 1 and 4.
+  prune    weight sparsity and Minitron pruning (`phase_prune`): (a)
+           Llama-3.1-8B's widths on 4 layers (the first 4 of a seeded
+           8-layer bf16 model), 2:4 by magnitude and by SparseGPT from 4
+           seeded [2, 512] batches (seconds a layer, peak memory); the dense
+           and the SparseGPT model under INT4 served W4A8 and weight-only:
+           TTFT of 8 x 2048 and the graphed step side by side (A B B A), the
+           packed weights decoded by the plain dequantizer 0 wherever the
+           mask is off, W4A8's logits equal to its plain GEMM's at every
+           one of 32 steps, INT4 by the calib phase's depth-2 rule; (b)
+           Minitron importance from the same batches, the model cut to
+           Llama-3.1-Minitron-4B-Width's widths (hidden 3072, FFN 9216, 32 /
+           8 heads of 128) and the 8-layer one to 4 layers by depth; KD Adam
+           steps of the student against the dense teacher (falling loss);
+           the student served both ways and held the same way, W4A8
+           exported -> loaded -> served (logits equal to the engine over the
+           export's tensors in memory); rows 1 and 4 at its GEMM shapes
+           (`MINITRON_GEMMS`, joining the kernels line's shapes); (c) masked
+           QAT: 3 Adam steps of W4A8_AWQ_BETA through
+           `make_optax_train_step(masks=...)`, every masked-off weight 0
+           after each; (d) Qwen3-30B-A3B's widths on 2 layers, experts
+           pruned 128 -> 64 by routing importance, W4A8 on the MoE engine
+           (`_moe_full_path`: held on pinned routes); (e) on
+           artifacts/anchor-llama in f32: both sparsifiers card against CPU
+           (PRUNE_OUT_ERR_REL, PRUNE_MASK_APART_MAX), ppl dense -> 2:4 ->
+           2:4 + FP8, that FP8 model served against its fake-quant forward,
+           FastNAS's ratio and an AutoNAS search's best config card against
+           CPU. `--phases build,prune_full` / `build,prune_anchor` run the
+           parts. Raises unless each of PRUNE_KERNELS launched.
+Add `profile` to --phases for device time by kernel (torch.profiler) of
+the paths' prefills and decode steps; the default run profiles nothing.
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -281,6 +317,11 @@ class Sizes:
     reps: int = 20
 
 
+# whether `_profile` runs the profiler: set by main when --phases names
+# `profile`
+PROFILING = False
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -301,7 +342,9 @@ class Timer:
     time (the KV kernels' 20-70 us against ~0.1 ms of Python) is timed from
     an event the idle device stamped before the launch arrived, so its
     reading is the host's enqueue time (on an H100 the same kv decode read
-    0.035 and 0.066 ms in two runs of this script before the spin)."""
+    0.035 and 0.066 ms in two runs of this script before the spin). A call
+    that takes SLOW_S or more after the warm-up (the library's int8 GEMM at N =
+    16384: 2 s) is timed by that one call alone."""
 
     CLOCK_HZ = 2.0e9  # at least the card's clock: the spin lasts at least as long as asked
 
@@ -309,15 +352,22 @@ class Timer:
         self.torch = torch
         self.flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
 
+    SLOW_S = 0.25  # a call at least this long (the first timed one's wall) is its own timing
+
     def __call__(self, fn, reps: int) -> float:
         torch = self.torch
-        fn()
+        fn()  # warm-up: first-call work (plans, caches) stays out of the timings
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         self.flush_buf.add_(1)
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
         fn()
+        e.record()
         host_s = time.perf_counter() - t0  # one rep's enqueue on the host
         torch.cuda.synchronize()
+        if time.perf_counter() - t0 >= self.SLOW_S:  # the host's enqueue is a sliver of such a call
+            return s.elapsed_time(e)
         torch.cuda._sleep(int(min(2.0 * reps * host_s + 1e-3, 0.2) * self.CLOCK_HZ))
         pairs = []
         for _ in range(reps):
@@ -332,11 +382,13 @@ class Timer:
 
 
 def phase_build():
+    """Wait for the nvcc processes main started (`_build.start_all`; a
+    wrapper's first launch waits for its own source) and print each
+    source's compile seconds and the longest."""
     from tensorrt_model_optimizer_tpu_torch.ops.cuda import _build
 
-    t0 = time.perf_counter()
-    report = _build.build_all()
-    log(json.dumps({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+    report = _build.wait()
+    log(json.dumps({"phase": "build", "seconds": round(max(v["seconds"] for v in report.values()), 3),
                     "per_source_s": {k: round(v["seconds"], 3) for k, v in report.items()}}))
     for name, r in report.items():
         for line in r["ptxas"].splitlines():
@@ -398,14 +450,14 @@ def phase_kernels(torch, dev, sz: Sizes, timer: Timer, rows: dict):
     rows["qmm_w4a8"] = dict(shapes[0], shapes=shapes)
 
     _phase_kernels_wo(torch, dev, sz, timer, rows, g)
-
-    _phase_kernels_kv(torch, dev, sz, timer, rows, g)
-
+    # in the order their sources finish compiling (`phase_build`): the
+    # GEMMs', flash's and skip-softmax's first, the paged kernels' last
     _phase_kernels_flash(torch, dev, sz, timer, rows, g)
     _phase_kernels_skip(torch, dev, sz, timer, rows, g)
-    _phase_kernels_moe(torch, dev, sz, timer, rows, g)
     _phase_kernels_families(torch, dev, sz, timer, rows, g)
     _phase_kernels_families(torch, dev, sz, timer, rows, g, DEEPSEEK_GEMMS)
+    _phase_kernels_kv(torch, dev, sz, timer, rows, g)
+    _phase_kernels_moe(torch, dev, sz, timer, rows, g)
 
 
 # The new shapes the MoE paths give the ported kernels: Qwen3-30B-A3B's
@@ -1282,7 +1334,7 @@ class Path:
     label: str
     preset: str          # preset name; "" = weight-only INT8 (INT8_DEFAULT_CFG without input quantizers)
     gemm: str            # the path's GEMM kernel (a key of KERNELS)
-    depth: int = 32      # layers of the full-width run (the model has 32)
+    depth: int = 8       # layers of the full-width run (the model has 32: FULL_DEPTH)
     layouts: tuple = ()  # EngineConfig layout fields, as (name, value) pairs
     calib: bool = False  # the preset has static input quantizers: calibrate on one batch
 
@@ -1294,12 +1346,13 @@ class Path:
         return config.INT8_DEFAULT_CFG.with_rules({"*input_quantizer": {"enable": False}})
 
 
-# W4A8, INT4 and NVFP4 at full depth; the formats that share a kernel with
+# W4A8, INT4 and NVFP4 at FULL_DEPTH; the formats that share a kernel with
 # them (MXFP4, and NVFP4 with its activation quantizers: dynamic block scales
 # under a calibrated global amax, fake-quantized before the GEMM) or that
 # move twice the weight bytes (INT8, FP8) on 4 layers, which launches every
 # kernel at every full-width shape all the same. The anchor runs every path
 # at its own depth (6 layers).
+FULL_DEPTH = Path.depth
 FULL_PATHS = (
     Path("w4a8", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_w4a8", layouts=(("int4_layout", "a8"),)),
     Path("int4", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_int4_wo"),
@@ -1782,7 +1835,12 @@ def _profile(torch, label: str, fn, calls: int, wall_ms_unprofiled: float) -> di
     """Device time by kernel over `calls` calls of the served path, and the
     device's idle share against the same calls' wall time measured without
     the profiler (its own host cost would inflate the idle share). Logs the
-    row and returns it."""
+    row and returns it. Unless the run asks for `profile` (PROFILING), runs
+    nothing and returns the row's device fields as None: the profiler's host
+    cost, seconds a call, does not fit the default run's time."""
+    if not PROFILING:
+        return {"per_call_device_busy_ms": None, "per_call_kernel_launches": None, "device_idle_share": None,
+                "top": [], "host_top": []}
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1856,7 +1914,7 @@ def _graphed_decode(torch, eng, label: str, tok0, start: dict, eager_toks: list,
         raise ValueError(f"{label}: {steps} eager steps leave unroll {short} no replay after its capture to hold")
     out = {"eager": {"wall_ms_per_token_step": eager_ms, "device_ms_per_token_step": None,
                      "device_idle_share": None, "kernels_per_token_step": None}}
-    if profile_eager:
+    if profile_eager and PROFILING:
         c = _clone_cache(start)
         prof = _profile(torch, f"{label} decode step, eager",
                         lambda: [_eager_step(torch, eng, tok0, c) for _ in range(2)], 2, eager_ms)
@@ -1897,7 +1955,7 @@ def _graphed_decode(torch, eng, label: str, tok0, start: dict, eager_toks: list,
             "pipelined_wall_ms_per_token_step": pipelined,
             "event_ms_per_token_step": statistics.median(s.elapsed_time(e) for s, e in ev) / u,
             "host_launches_per_token_step": 3 / u, "tokens_equal_eager": True, "cache_equal_eager": True}
-        if profile_unrolls:
+        if profile_unrolls and PROFILING:
             calls = 2 if u == 1 else 1
             prof = _profile(torch, f"{label} decode step, graph unroll {u}",
                             lambda: [eng.decode_step(tok, cache, unroll=u) for _ in range(calls)], calls, wall * u)
@@ -1986,7 +2044,7 @@ def _full_path(torch, dev, sz: Sizes, path: Path, cfg, params, prompt, profile: 
     if prefill_launches["flash_gqa"] != path.depth:
         raise AssertionError(f"full {path.label}: the prefill launched flash {prefill_launches['flash_gqa']} times "
                              f"over {path.depth} layers")
-    if profile and path.depth == params["layers"]["input_layernorm"].shape[0]:
+    if profile and path.depth == FULL_DEPTH:
         _profile(torch, f"{path.label} prefill", lambda: eng.prefill(prompt, eng.init_cache(sz.batch)), 1, ttft_ms)
         pc = eng.init_cache(sz.batch)
         eng.prefill(prompt, pc)
@@ -1997,8 +2055,8 @@ def _full_path(torch, dev, sz: Sizes, path: Path, cfg, params, prompt, profile: 
 
     # The prefill logits against the same engine with this path's GEMM on
     # its plain version, at depths 1 and 2 (the plain versions are slow; W4A8
-    # keeps its depths 1, 2, 4, 8 and 32). The logits are bf16 values, so one
-    # ulp is 2^-8 (0.4%) of the largest. Held to 5e-2 of the logits' scale at
+    # at 1, 2, 4 and 8, all FULL_DEPTH layers). The logits are bf16 values,
+    # so one ulp is 2^-8 (0.4%) of the largest. Held to 5e-2 of the logits' scale at
     # depth 2, for every path:
     # - The weight-only GEMMs write bf16; kernel and plain version round the
     #   same f32 sum, taken in another order, so a few outputs in a thousand
@@ -2018,8 +2076,6 @@ def _full_path(torch, dev, sz: Sizes, path: Path, cfg, params, prompt, profile: 
     #   with them on is reported beside it, not held: there one flipped
     #   activation code moves a value by 12.5% or more.
     w4a8 = path.gemm == "qmm_w4a8"
-    # (no hold at all 32 layers, ~25 s of plain GEMMs: the default run's
-    # time; depth 8 shows the amplification)
     for depth in ((1, 2, 4, 8) if w4a8 else (1, 2)):
         subcm = _truncate(eng.cm, depth)
         plain_gemm = PLAIN_ALL if w4a8 else (PLAIN_NAME[path.gemm],)
@@ -2754,14 +2810,13 @@ def phase_deploy(torch, dev, sz: Sizes) -> dict:
 # The calibration algorithms at full width: each preset this slice unlocks,
 # calibrated on the card on 4 seeded batches of [2, 512] tokens, compressed
 # and served by the kernel engine. INT4_AWQ_CFG (the headline) and its
-# max-calibrated counterpart on 16 layers, every other
-# preset on the first 4 (the cut the 4-layer formats of FULL_PATHS take for
-# time).
+# max-calibrated counterpart on 8 layers, every other preset on the first 2
+# (the default run's time; CALIB_PLAIN_DEPTH's hold takes all 2).
 @dataclasses.dataclass(frozen=True)
 class CalibPath:
     label: str
     preset: str
-    depth: int = 4
+    depth: int = 2
     layouts: tuple = ()    # EngineConfig layout fields
     kv: object = "int8"    # "int8", or "fp8" where the preset quantizes the KV cache to fp8
     max_counterpart: str = "INT4_BLOCKWISE_WEIGHT_ONLY_CFG"  # the max-calibrated preset its error is read beside
@@ -2769,8 +2824,8 @@ class CalibPath:
 
 
 CALIB_PATHS = (
-    CalibPath("int4_max", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", depth=16),
-    CalibPath("int4_awq", "INT4_AWQ_CFG", depth=16, deploy=True),
+    CalibPath("int4_max", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", depth=8),
+    CalibPath("int4_awq", "INT4_AWQ_CFG", depth=8, deploy=True),
     CalibPath("w8a8_smoothquant", "INT8_SMOOTHQUANT_CFG", max_counterpart="INT8_DEFAULT_CFG", deploy=True),
     CalibPath("int4_gptq", "INT4_GPTQ_CFG"),
     CalibPath("int4_local_hessian", "INT4_LOCAL_HESSIAN_CFG"),
@@ -3185,7 +3240,7 @@ def _truncated_qm(qm, depth: int):
 
 def _calib_deploy(torch, dev, sz: Sizes, path: CalibPath, qm, prompt) -> tuple:
     """export (1 GiB shards, a temporary directory) -> load -> serve at
-    DEPLOY_DEPTH: the loaded engine's prefill logits (256 tokens) against
+    DEPLOY_DEPTH (or the path's depth where it is less): the loaded engine's prefill logits (256 tokens) against
     the engine over the export's own tensors held in memory (the same
     conversion, no disk; median gap <= DEPLOY_GAP_MAX), and against the
     engine over `compress`'s model (printed: the checkpoint's fp16 storage
@@ -3197,7 +3252,8 @@ def _calib_deploy(torch, dev, sz: Sizes, path: CalibPath, qm, prompt) -> tuple:
     from tensorrt_model_optimizer_tpu_torch.quant import compress
     from tensorrt_model_optimizer_tpu_torch.serve import loader
 
-    qm = _truncated_qm(qm, DEPLOY_DEPTH) if qm.model_cfg.num_hidden_layers != DEPLOY_DEPTH else qm
+    depth = min(DEPLOY_DEPTH, qm.model_cfg.num_hidden_layers)
+    qm = _truncated_qm(qm, depth) if qm.model_cfg.num_hidden_layers != depth else qm
     layouts, kv = dict(path.layouts), _kv_of(torch, path)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_calib_deploy_") as d:
         t0 = time.perf_counter()
@@ -3225,7 +3281,7 @@ def _calib_deploy(torch, dev, sz: Sizes, path: CalibPath, qm, prompt) -> tuple:
                                                         dict(hf_export._iter_export_tensors(qm)), dev)))
     row = {"quant_algo": qc["quantization"]["quant_algo"], "lora_rank": qc["quantization"].get("lora_rank"),
            "adapters_loaded": loaded.adapters is not None, "export_s": export_s, "load_s": load_s,
-           "layers": DEPLOY_DEPTH, "loaded_vs_in_memory_export": held,
+           "layers": depth, "loaded_vs_in_memory_export": held,
            "loaded_vs_compress": vs(out, served(compress.compress(qm)))}
     failed = [] if held["median_logits_gap"] <= DEPLOY_GAP_MAX and row["adapters_loaded"] == (qm.adapters is not None) \
         else [f"calib deploy {path.label}: {row}"]
@@ -3234,7 +3290,7 @@ def _calib_deploy(torch, dev, sz: Sizes, path: CalibPath, qm, prompt) -> tuple:
 
 def phase_calib(torch, dev, sz: Sizes) -> dict:
     """Every path of CALIB_PATHS at full width (seeded random bf16 weights,
-    32 layers made once, the 4-layer paths on the first 4): calibrate on the
+    32 layers made once, each path on its first `depth`): calibrate on the
     card (seconds, peak memory), compress, serve (`_calib_serve`), the
     prefill logits' error against the unquantized engine beside the
     max-calibrated counterpart's (informational: the weights are random);
@@ -3343,9 +3399,9 @@ ACC_ANCHOR_SERVED = (
     ("int8a8", "NVFP4_WEIGHT_ONLY_CFG", (("nvfp4_layout", "i8"),)),
 )
 # full width: served as `_calib_serve` serves CALIB_PATHS (NF4 on the INT4
-# kernel at 64-blocks also on 16 layers)
+# kernel at 64-blocks also on 8 layers)
 ACC_PATHS = (
-    CalibPath("nf4_16", "NF4_WEIGHT_ONLY_CFG", depth=16),
+    CalibPath("nf4_8", "NF4_WEIGHT_ONLY_CFG", depth=8),
     CalibPath("nf4", "NF4_WEIGHT_ONLY_CFG"),
     CalibPath("mxfp6", "MXFP6_DEFAULT_CFG"),
     CalibPath("mxfp8", "MXFP8_DEFAULT_CFG"),
@@ -3688,8 +3744,8 @@ QWEN3_30B_A3B = dict(vocab_size=151936, hidden_size=2048, intermediate_size=768,
                      num_attention_heads=32, num_key_value_heads=4, head_dim=128, rope_theta=1e6, rms_norm_eps=1e-6,
                      max_position_embeddings=40960, tie_word_embeddings=False, qk_norm=True, num_experts=128,
                      top_k=8, norm_topk_prob=True)
-# 4 layers: its graph captures and eager steps take the default run's time
-MOE_FULL_DEPTH = 4
+# 2 layers: its graph captures and eager steps take the default run's time
+MOE_FULL_DEPTH = 2
 MOE_FULL_PATHS = (
     MoePath("w4a8", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_w4a8", (("int4_layout", "a8"),)),
     MoePath("int4", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_int4_wo"),
@@ -4132,9 +4188,10 @@ GPT_OSS_20B = dict(vocab_size=201088, hidden_size=2880, intermediate_size=2880, 
                    top_k=4, sliding_window=128, swiglu_limit=7.0, attention_bias=True)
 GPT_OSS_YARN = dict(rope_type="yarn", factor=32.0, original_max_position_embeddings=4096, beta_fast=32.0,
                     beta_slow=1.0, truncate=False)
-# 4 of its 24 layers: the default run's time (at 8, with the train phase, it
-# read 1107 s on one host and 1250 s on a slower one)
-GPT_OSS_DEPTH = 4
+# 2 of its 24 layers (a sliding-window layer and a full one): the default
+# run's time (at 8, with the train phase, it read 1107 s on one host and
+# 1250 s on a slower one; the run with prune at 4 overran 1200 s)
+GPT_OSS_DEPTH = 2
 GPT_OSS_PATHS = (
     FamilyPath("mxfp4", "gpt_oss", "MXFP4_WEIGHT_ONLY_CFG", "qmm_fp4_wo"),
     FamilyPath("nvfp4", "gpt_oss", "NVFP4_WEIGHT_ONLY_CFG", "qmm_fp4_wo"),
@@ -4619,7 +4676,8 @@ DEEPSEEK_E_BIAS_STD = 0.05  # the routers' correction bias, N(0, std^2): at 0 th
 DEEPSEEK_VS_FORWARD_MAX = 1e-3
 DEEPSEEK_TIE = 1e-4
 # (b) deepseek-ai/DeepSeek-V3's config.json (the public release), cut to
-# DEEPSEEK_V3_DEPTH of its 61 layers: layers 0-2 dense, layer 3 MoE
+# DEEPSEEK_V3_DEPTH of its 61 layers: one of its 3 dense layers and one MoE
+# layer (first_k_dense_replace 1), the default run's time
 DEEPSEEK_V3 = {"model_type": "deepseek_v3", "vocab_size": 129280, "hidden_size": 7168, "intermediate_size": 18432,
                "num_hidden_layers": 61, "num_attention_heads": 128, "num_key_value_heads": 128,
                "q_lora_rank": 1536, "kv_lora_rank": 512, "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
@@ -4629,7 +4687,7 @@ DEEPSEEK_V3 = {"model_type": "deepseek_v3", "vocab_size": 129280, "hidden_size":
                "max_position_embeddings": 163840, "tie_word_embeddings": False,
                "rope_scaling": {"type": "yarn", "factor": 40, "beta_fast": 32, "beta_slow": 1, "mscale": 1.0,
                                 "mscale_all_dim": 1.0, "original_max_position_embeddings": 4096}}
-DEEPSEEK_V3_DEPTH = 4
+DEEPSEEK_V3_DEPTH = 2
 DEEPSEEK_V3_PATHS = (
     DeepseekPath("int4", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "qmm_int4_wo"),
     DeepseekPath("nvfp4_w4a4", "NVFP4_DEFAULT_CFG", "qmm_fp4_wo"),
@@ -4917,7 +4975,7 @@ class _event_spans:
 
 def _deepseek_moe_layer(cm):
     """The compressed model cut to its one MoE layer (DEEPSEEK_V3_DEPTH's
-    layer 3) alone: no dense group, the same packs and states."""
+    last) alone: no dense group, the same packs and states."""
     from tensorrt_model_optimizer_tpu_torch.models import deepseek
 
     if deepseek.group_layers(cm.model_cfg)[1] != 1:
@@ -5062,7 +5120,8 @@ def _deepseek_full(torch, dev, sz: Sizes) -> dict:
     Returns the launch counts."""
     from tensorrt_model_optimizer_tpu_torch.models import hf_loader
 
-    cfg = dataclasses.replace(hf_loader.deepseek_config_from_hf(DEEPSEEK_V3), num_hidden_layers=DEEPSEEK_V3_DEPTH)
+    cfg = dataclasses.replace(hf_loader.deepseek_config_from_hf(DEEPSEEK_V3), num_hidden_layers=DEEPSEEK_V3_DEPTH,
+                              first_k_dense_replace=1)
     log(json.dumps({"phase": "deepseek_full", "model": "deepseek_v3", "softmax_scale_factor": cfg.softmax_scale_factor,
                     "route_vs_host_rule": _deepseek_route_check(torch, dev, cfg)}))
     t0 = time.perf_counter()
@@ -5102,8 +5161,11 @@ def phase_deepseek(torch, dev, sz: Sizes) -> dict:
 SPEC_RECORD = os.path.join(HERE, "artifacts", "specdec_r02.jsonl")  # JAX's record (tools/bench_specdec.py, CPU)
 # tools/bench_specdec.py's settings: 300 train steps of 8 x 65 synthlang
 # tokens (stream seed 11, batches from numpy seed 3), lr 1e-3, TTT 3 steps;
-# acceptance over 64 tokens after the stream's first 32
-SPEC_TRAIN = dict(steps=300, batch=8, seq=64, lr=1e-3, ttt=3)
+# acceptance over 64 tokens after the stream's first 32. The run trains the
+# first 100 of those 300 batches (the default run's time), so its acceptance
+# is printed beside JAX's 300-step record, not like for like
+# (tools/torch_specdec_parity.py holds the 300-step trajectories to JAX's)
+SPEC_TRAIN = dict(steps=100, jax_steps=300, batch=8, seq=64, lr=1e-3, ttt=3)
 SPEC_PROMPT, SPEC_DECODE = 32, 64
 SPEC_DRAFTED = {"medusa": 3, "eagle": 3, "eagle3": 3, "dflash": 4}  # draft tokens a round proposes
 SPEC_SERVED = (64, 64)   # the anchor served: prompt (the stream's first 64 tokens) and generate_speculative tokens
@@ -5140,7 +5202,7 @@ def _spec_batches(stream, n: int, rng, bs: int, seq: int):
 
 def _spec_train(torch, dev, cfg, params, stream) -> dict:
     """Medusa (3 heads), EAGLE-1 TTT, EAGLE-3 TTT and DFlash (block 4)
-    trained on the card with JAX's settings (SPEC_TRAIN): name -> (draft,
+    trained on the card with JAX's settings for SPEC_TRAIN's steps: name -> (draft,
     {train_s, last_loss, last_accs}). Medusa's and DFlash's accuracies are
     read after training on the last batch (per head / offset: top-1 against
     the token it predicts), TTT's are its step's."""
@@ -5309,7 +5371,7 @@ def _spec_anchor(torch, dev) -> dict:
     from tensorrt_model_optimizer_tpu_torch.utils import synthlang
 
     cfg, params = hf_loader.load_hf_checkpoint(ANCHOR, dtype=torch.float32, device=dev)
-    stream = synthlang.SynthLang(0).token_stream(max(SPEC_TRAIN["steps"], 64) * 8 * 65, seed=11)
+    stream = synthlang.SynthLang(0).token_stream(max(SPEC_TRAIN["jax_steps"], 64) * 8 * 65, seed=11)
     t0 = time.perf_counter()
     drafts = _spec_train(torch, dev, cfg, params, stream)
     calib = [torch.from_numpy(stream[i * 2048:(i + 1) * 2048].reshape(8, 256).astype(np.int64)).to(dev)
@@ -5562,7 +5624,9 @@ TRAIN_AUTOQ = dict(bits=6.0, tokens=(2, 256), candidates=(TRAIN_PRESET, "FP8_DEF
 # (e) JAX's QAT recovery on the anchor (ACCURACY.md: INT8_SMOOTHQUANT_CFG ppl
 # 2.9087 -> 2.8777 after QAT, bf16 2.8594; MMLU 0.863 -> 0.868, 600
 # questions); the port must take at least half of JAX's 0.0310 off its own
-# PTQ ppl
+# PTQ ppl, in the first QAT_RECOVERY_STEPS of the recipe's 600 steps (the
+# default run's time: 600 took 59 s on an H100's host)
+QAT_RECOVERY_STEPS = 150
 QAT_RECOVERY = dict(preset="INT8_SMOOTHQUANT_CFG", jax_ppl=(2.9087, 2.8777), jax_mmlu=(0.863, 0.868),
                     jax_bf16_ppl=2.8594, mmlu_n=120)
 QAT_RECOVERY_MIN = 0.5 * (2.9087 - 2.8777)
@@ -5857,12 +5921,13 @@ def _train_anchor(torch, dev) -> None:
         before = tool.score(lambda x: ptq_m.forward(x)[0], ev, data_dir, mmlu_n=r["mmlu_n"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model, losses = tool.qat_recover(ptq_m, dev)
+    model, losses = tool.qat_recover(ptq_m, dev, steps=QAT_RECOVERY_STEPS)
     torch.cuda.synchronize()
     qat_s = time.perf_counter() - t0
     with torch.no_grad():
         after = tool.score(lambda x: model.forward(x)[0], ev, data_dir, mmlu_n=r["mmlu_n"])
-    row = {"phase": "train_qat_recovery", "preset": r["preset"], "steps": tool.QAT_RECIPE["steps"],
+    row = {"phase": "train_qat_recovery", "preset": r["preset"], "steps": QAT_RECOVERY_STEPS,
+           "jax_steps": tool.QAT_RECIPE["steps"],
            "ppl_ptq": before["ppl"], "ppl_qat": after["ppl"],
            "recovered": before["ppl"] - after["ppl"], "required": QAT_RECOVERY_MIN,
            "gap_to_jax_qat": after["ppl"] - r["jax_ppl"][1], "mmlu_ptq": before["mmlu"], "mmlu_qat": after["mmlu"], "mmlu_n": after["mmlu_n"], "jax_ppl": r["jax_ppl"], "jax_mmlu": r["jax_mmlu"],
@@ -5882,6 +5947,499 @@ def phase_train(torch, dev) -> dict:
     launches = _train_full(torch, dev)
     torch.cuda.empty_cache()
     _train_anchor(torch, dev)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# prune: weight sparsity, Minitron pruning and the search framework
+# (sparsity/{magnitude,sparsegpt,sparsify}.py, prune/, opt/, nas/)
+# ---------------------------------------------------------------------------
+
+PRUNE_DEPTH = 4             # (a)-(c): Llama-3.1-8B's widths on 4 of its 32 layers: the first 4 ...
+PRUNE_DEPTH_FROM = 8        # ... of a seeded 8-layer model, whose depth prune (b) keeps 4 of its 8
+PRUNE_CALIB = (4, 2, 512)   # seeded calibration batches (count, B, T): SparseGPT's Hessians, the importance
+PRUNE_PRESET = "INT4_BLOCKWISE_WEIGHT_ONLY_CFG"  # served under PRUNE_SERVED's two routes, as FULL_PATHS' W4A8 and INT4
+PRUNE_SERVED = TRAIN_SERVED  # W4A8 (row 1, held bit for bit to its plain GEMM) and INT4 weight-only (row 4)
+# nvidia/Llama-3.1-Minitron-4B-Width-Base's config.json: hidden 3072, FFN 9216,
+# 32 query / 8 kv heads of 128 (Llama-3.1-8B's heads kept, head_dim kept)
+MINITRON_WIDTH = dict(hidden_size=3072, intermediate_size=9216, num_kv_heads=8)
+PRUNE_KD = dict(steps=4, tokens=(2, 512))  # (b): KD Adam steps (TRAIN_LR) of the pruned student on one batch
+PRUNE_QAT_STEPS = 3         # (c): masked Adam steps on TRAIN_PRESET, one TRAIN_TOKENS batch
+PRUNE_MOE = dict(depth=2, keep=64)  # (d): Qwen3-30B-A3B on 2 of its 48 layers, 128 -> 64 experts a layer
+# The GEMM shapes the Minitron-4B-Width widths give rows 1 and 4 (new K:
+# 3072 and 9216), at a prefill of 8 x 2048 and a decode step of 8
+MINITRON_GEMMS = tuple(("minitron-4b-width", label, O, K, ("int4", "w4a8"), (16384, 8)) for label, O, K in (
+    ("q_proj", 4096, 3072), ("k_proj/v_proj", 1024, 3072), ("o_proj", 3072, 4096),
+    ("gate_proj/up_proj", 9216, 3072), ("down_proj", 3072, 9216)))
+PRUNE_KERNELS = ("qmm_w4a8", "qmm_int4_wo", "flash_gqa", "kv_decode_attention")
+# (e) on artifacts/anchor-llama in f32, the card against the CPU. Magnitude
+# masks and weights are equal bit for bit. SparseGPT's choices follow f32
+# sums in another order (cuSOLVER's Cholesky against LAPACK's), and the
+# anchor's activations make H ill-conditioned (mlp's down_proj: K = 704 from
+# 512 tokens, rank-deficient but for the damping): a mask that flips at a
+# near tie cascades through its row's later blocks. So SparseGPT is held by
+# what it optimizes: each projection's reconstruction error ||X (W_s -
+# W)^T||^2 on the card within PRUNE_OUT_ERR_REL of the CPU's, with at most
+# PRUNE_MASK_APART_MAX of its mask elements apart; the weights' relative
+# Frobenius distance is printed. On an H100: q / k / v masks equal, weights
+# 1.0e-5 apart; o / gate / up / down 4 / 22 / 6 / 210 mask elements apart
+# (down 1.9e-4 of its elements), weights 3.4e-3-1.4e-2 apart, the
+# reconstruction errors within 7.2e-5 of the CPU's
+PRUNE_OUT_ERR_REL = 1e-3
+PRUNE_MASK_APART_MAX = 1e-3
+PRUNE_ANCHOR_SEARCH = dict(fastnas_steps=6, search_iterations=4)
+
+
+def _masked_nonzero(torch, cm, masks: dict) -> dict:
+    """Each masked projection of a compressed model decoded by the plain
+    dequantizer (`compress.decompress_weight`: the canonical "int4" / "fp8"
+    packs, or the served "int4a8" / "int4wo" rows a layer at a time): the
+    number of decoded values that are not 0 where the mask is off."""
+    from tensorrt_model_optimizer_tpu_torch.quant import compress
+
+    out = {}
+    for name, mask in masks.items():
+        kind, arrays = cm.kinds[name], cm.params["layers"][name]
+        L, O, K = mask.shape
+        if kind in ("int4", "fp8"):
+            w = compress.decompress_weight(kind, arrays, torch.float32)
+        else:
+            w = torch.stack([compress.decompress_weight(kind, compress.layer_arrays(arrays, i), torch.float32)
+                             for i in range(L)])
+        out[name] = int((w[..., :K][~mask] != 0).sum())
+    return out
+
+
+def _serve_ab(torch, engines: dict, prompt, steps: int, launches: dict) -> dict:
+    """TTFT and the graphed token step of each engine (name -> engine) in
+    the same call, in order then in reverse (A B B A): an untimed warm-up
+    prefill each, then each round a prefill of `prompt` (TTFT) and `steps`
+    steps through decode_step(unroll=8) (wall a token step: the calls after
+    the capturing one). Medians over the two rounds; the timed runs' launch
+    counts are added to `launches`."""
+    sync = torch.cuda.synchronize
+    for eng in engines.values():
+        eng.prefill(prompt, eng.init_cache(prompt.shape[0]))
+    times = {name: {"ttft_ms": [], "step_ms": []} for name in engines}
+    for order in (list(engines), list(engines)[::-1]):
+        for name in order:
+            eng = engines[name]
+            cache = eng.init_cache(prompt.shape[0])
+            _counts(reset=True)
+            sync()
+            t0 = time.perf_counter()
+            logits = eng.prefill(prompt, cache)
+            sync()
+            times[name]["ttft_ms"].append((time.perf_counter() - t0) * 1e3)
+            tok, walls = torch.argmax(logits, dim=-1).to(torch.int32)[:, None], []
+            for _ in range(steps // 8):
+                t0 = time.perf_counter()
+                tok, cache = eng.decode_step(tok, cache, unroll=8)
+                sync()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            times[name]["step_ms"].append(statistics.median(walls[1:]) / 8)
+            for k, n in _counts().items():
+                launches[k] = launches.get(k, 0) + n
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"prune: {name}'s prefill logits are not finite")
+            eng.release_graphs()
+            del cache
+    return {name: {"ttft_ms": statistics.median(t["ttft_ms"]), "graphed_ms_per_token_step": statistics.median(
+        t["step_ms"]), "readings": t} for name, t in times.items()}
+
+
+def _hold_served(torch, dev, sz: Sizes, label: str, cm, gemm: str, layouts: dict, prompt) -> dict:
+    """The kernel engine over `cm` against the engine whose GEMM (only)
+    runs its plain version: W4A8 (bit-exact) in lock step over the prompt
+    and sz.decode_steps tokens, every step's logits equal; INT4 weight-only
+    by the calib phase's rule, the first CALIB_PLAIN_DEPTH layers' prefill
+    logits within CALIB_PLAIN_REL_MAX. Raises; returns the readings."""
+    plain = (PLAIN_NAME[gemm],)
+    if gemm == "qmm_w4a8":
+        ek = _engine(torch, cm, sz.max_seq, dev, **layouts)
+        ep = _engine(torch, cm, sz.max_seq, dev, plain, **layouts)
+        held = _lockstep(torch, (ek, ep), prompt, sz.decode_steps)
+        gaps = [g for lk, lp in held for g in _gaps(lk, lp)[0]]
+        row = {"steps_held": len(held), "logits_equal_every_step": all(torch.equal(k, p) for k, p in held),
+               "worst_logits_gap": max(gaps)}
+        if not row["logits_equal_every_step"]:
+            raise AssertionError(f"prune {label}: the W4A8 engine's logits leave its plain GEMM's: {row}")
+        return row
+    sub = _truncate(cm, CALIB_PLAIN_DEPTH)
+    out = _engine(torch, sub, sz.max_seq, dev, **layouts)
+    ref = _engine(torch, sub, sz.max_seq, dev, plain, **layouts)
+    rel = _rel(out.prefill(prompt, out.init_cache(sz.batch)), ref.prefill(prompt, ref.init_cache(sz.batch)))
+    row = {"depth": CALIB_PLAIN_DEPTH, "prefill_logits_rel_err": rel, "limit": CALIB_PLAIN_REL_MAX}
+    if not rel <= CALIB_PLAIN_REL_MAX:
+        raise AssertionError(f"prune {label}: depth-{CALIB_PLAIN_DEPTH} prefill logits {rel} from the plain GEMM's")
+    return row
+
+
+def _prune_full(torch, dev, sz: Sizes, timer: Timer, rows: dict) -> dict:
+    """(a) 2:4 sparsity at Llama-3.1-8B's widths on PRUNE_DEPTH layers
+    (seeded bf16 on the card): magnitude, then SparseGPT from PRUNE_CALIB
+    (seconds, peak memory); the dense and the SparseGPT model through
+    PRUNE_PRESET -> compress -> the kernel engine under both PRUNE_SERVED
+    routes: TTFT of 8 x 2048 and the graphed step side by side (`_serve_ab`),
+    the packed weights decoded by the plain dequantizer 0 wherever the mask
+    is off, and the sparse model held to its plain GEMM (`_hold_served`).
+    (b) Minitron: importance from PRUNE_CALIB, the 4-layer model cut to
+    MINITRON_WIDTH and the 8-layer one to 4 layers by depth; PRUNE_KD
+    steps of the width-pruned student against the dense teacher (losses
+    finite and falling); the student served under both routes and held the
+    same way; W4A8's unified HF export -> `load_quantized_checkpoint` ->
+    engine, its logits equal to the engine's over the export's tensors held
+    in memory; rows 1 and 4 at MINITRON_GEMMS. (c) Masked QAT: TRAIN_PRESET
+    on the SparseGPT model, PRUNE_QAT_STEPS Adam steps through
+    `make_optax_train_step(masks=...)`: finite losses, every masked-off
+    weight 0 after every step. (d) Qwen3-30B-A3B's widths on PRUNE_MOE's
+    layers, its experts pruned 128 -> 64 by routing importance, W4A8 served
+    on the MoE engine (`_moe_full_path`: held to the all-plain engine on
+    pinned routes). Returns the launch counts of the served runs."""
+    import tempfile
+
+    from tensorrt_model_optimizer_tpu_torch.distill import distillation
+    from tensorrt_model_optimizer_tpu_torch.export import hf_export
+    from tensorrt_model_optimizer_tpu_torch.models import llama, mixtral
+    from tensorrt_model_optimizer_tpu_torch.prune import minitron, minitron_moe
+    from tensorrt_model_optimizer_tpu_torch.quant import compress, ptq, qat
+    from tensorrt_model_optimizer_tpu_torch.serve import loader
+    from tensorrt_model_optimizer_tpu_torch.sparsity import magnitude, sparsify
+
+    sync = torch.cuda.synchronize
+    card = nvidia_smi()
+    launches: dict = {}
+    cfg8 = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_hidden_layers=PRUNE_DEPTH_FROM)
+    t0 = time.perf_counter()
+    params8 = llama.init_params(cfg8, torch.Generator(device=dev).manual_seed(0), device=dev)
+    cfg = dataclasses.replace(cfg8, num_hidden_layers=PRUNE_DEPTH)
+    params = {**params8, "layers": {k: v[:PRUNE_DEPTH] for k, v in params8["layers"].items()}}
+    g = torch.Generator(device=dev).manual_seed(7)
+    n, B, T = PRUNE_CALIB
+    calib = [torch.randint(0, cfg.vocab_size, (B, T), generator=g, device=dev) for _ in range(n)]
+    prompt = torch.randint(0, cfg.vocab_size, (sz.batch, sz.prompt), generator=g, device=dev)
+    sync()
+    log(json.dumps({"phase": "prune_setup", "layers": PRUNE_DEPTH_FROM, "init_params_s": time.perf_counter() - t0,
+                    "card": card}))
+
+    # (a) 2:4 sparsity
+    t0 = time.perf_counter()
+    _, mag_masks = sparsify.sparsify(cfg, params, "magnitude")
+    sync()
+    mag_s = time.perf_counter() - t0
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    sp, masks = sparsify.sparsify(cfg, params, "sparsegpt", calib_batches=calib)
+    sync()
+    sgpt_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ratios = {k: magnitude.sparsity_ratio(m) for k, m in masks.items()}
+    off = {k: int((sp["layers"][k][~m] != 0).sum()) for k, m in masks.items()}
+    row = {"phase": "prune_sparsify", "layers": PRUNE_DEPTH, "pattern": "2:4", "calib_batches": list(PRUNE_CALIB),
+           "magnitude_s": mag_s, "sparsegpt_s": sgpt_s, "sparsegpt_s_per_layer": sgpt_s / PRUNE_DEPTH,
+           "peak_gb": peak_gb, "peak_over_start_gb": peak_gb - base_gb,
+           "down_proj_hessian_gb": cfg.intermediate_size ** 2 * 4 / 1e9, "sparsity": ratios,
+           "masked_weights_not_zero": off,
+           "mask_agreement_with_magnitude": {k: float((masks[k] == mag_masks[k]).float().mean()) for k in masks},
+           "card": card}
+    log(json.dumps(row))
+    if any(off.values()) or any(r != 0.5 for r in ratios.values()):
+        raise AssertionError(f"prune sparsify: {row}")
+    del mag_masks
+
+    served = {}
+    for label, layouts, gemm in PRUNE_SERVED:
+        layouts = dict(layouts)
+        cms = {"dense": compress.compress(ptq.quantize(cfg, params, PRUNE_PRESET, None, device=dev)),
+               "sparse_2_4": compress.compress(ptq.quantize(cfg, sp, PRUNE_PRESET, None, device=dev))}
+        engines = {k: _engine(torch, cm, sz.max_seq, dev, **layouts) for k, cm in cms.items()}
+        zeros = {"canonical": _masked_nonzero(torch, cms["sparse_2_4"], masks),
+                 "served": _masked_nonzero(torch, engines["sparse_2_4"].cm, masks)}
+        times = _serve_ab(torch, engines, prompt, sz.decode_steps, launches)
+        del engines
+        held = _hold_served(torch, dev, sz, f"2:4 {label}", cms["sparse_2_4"], gemm, layouts, prompt)
+        row = {"phase": "prune_sparse_serve", "path": label, "layers": PRUNE_DEPTH, "batch": sz.batch,
+               "prompt": sz.prompt, "decode_steps": sz.decode_steps, **{k: v for k, v in times.items()},
+               "sparse_over_dense_ttft": times["sparse_2_4"]["ttft_ms"] / times["dense"]["ttft_ms"],
+               "sparse_over_dense_step": times["sparse_2_4"]["graphed_ms_per_token_step"] /
+               times["dense"]["graphed_ms_per_token_step"],
+               "masked_values_not_zero": zeros, "vs_plain_gemm": held, "card": card}
+        log(json.dumps(row))
+        served[label] = times["dense"]
+        if any(n for z in zeros.values() for n in z.values()):
+            raise AssertionError(f"prune 2:4 {label}: decoded packed weights not 0 where the mask is off: {zeros}")
+        del cms
+        torch.cuda.empty_cache()
+
+    # (b) Minitron width and depth pruning
+    sync()
+    t0 = time.perf_counter()
+    scores = minitron.importance(cfg, params, calib)
+    scfg, student, plan = minitron.prune(cfg, params, scores, **MINITRON_WIDTH)
+    sync()
+    prune_s = time.perf_counter() - t0
+    shapes = {k: list(v.shape[1:]) for k, v in student["layers"].items() if k in llama.PROJ_NAMES}
+    q, kv = cfg.num_attention_heads * cfg.hd, cfg.num_key_value_heads * cfg.hd
+    H, I = MINITRON_WIDTH["hidden_size"], MINITRON_WIDTH["intermediate_size"]
+    want = {"self_attn.q_proj": [q, H], "self_attn.k_proj": [kv, H], "self_attn.v_proj": [kv, H],
+            "self_attn.o_proj": [H, q], "mlp.gate_proj": [I, H], "mlp.up_proj": [I, H], "mlp.down_proj": [H, I]}
+    t0 = time.perf_counter()
+    dcfg, dparams, dplan = minitron.prune(cfg8, params8, minitron.importance(cfg8, params8, calib),
+                                          num_layers=PRUNE_DEPTH)
+    with torch.no_grad():
+        dlogits = llama.forward(dcfg, dparams, calib[0])[0]
+    sync()
+    row = {"phase": "prune_minitron", "widths": {"hidden": scfg.hidden_size, "ffn": scfg.intermediate_size,
+                                                 "heads": scfg.num_attention_heads, "kv_heads": scfg.num_key_value_heads,
+                                                 "head_dim": scfg.hd},
+           "projection_shapes": shapes, "importance_and_prune_s": prune_s,
+           "kept_kv_groups": plan.keep_kv_groups.tolist(), "kept_hidden_first": plan.keep_hidden[:8].tolist(),
+           "depth": {"from": PRUNE_DEPTH_FROM, "to": dcfg.num_hidden_layers, "kept_layers": dplan.keep_layers.tolist(),
+                     "s": time.perf_counter() - t0, "logits_finite": bool(torch.isfinite(dlogits).all())},
+           "student_params_b": sum(v.numel() for v in [student["embed_tokens"], student["lm_head"],
+                                                       *student["layers"].values()]) / 1e9, "card": card}
+    log(json.dumps(row))
+    if shapes != want or scfg.hd != cfg.hd or dplan.keep_layers.tolist()[-1] != PRUNE_DEPTH_FROM - 1 or \
+            not row["depth"]["logits_finite"]:
+        raise AssertionError(f"prune minitron: {row}")
+    del dparams, dlogits
+    kd_batch = torch.randint(0, cfg.vocab_size, (PRUNE_KD["tokens"][0], PRUNE_KD["tokens"][1] + 1), generator=g,
+                             device=dev)
+    kd = distillation.KDConfig()
+    res = _adam_mode(torch, lambda p: distillation.distill_loss(scfg, p, params, kd_batch, kd, teacher_cfg=cfg),
+                     student, PRUNE_KD["steps"])
+    student = res.pop("tree")
+    row = {"phase": "prune_distill", "steps": PRUNE_KD["steps"] + 1, "batch": list(PRUNE_KD["tokens"]),
+           "losses": res["losses"], "step_ms": res["step_ms"], "peak_gb": res["peak_gb"],
+           "teacher": f"the dense {PRUNE_DEPTH}-layer bf16 model", "kd": dataclasses.asdict(kd), "card": card}
+    log(json.dumps(row))
+    ls = res["losses"]
+    if not all(math.isfinite(v) for v in ls) or not ls[-1] < ls[0]:
+        raise AssertionError(f"prune distill: losses {ls} not finite and falling")
+    del res
+    torch.cuda.empty_cache()
+    for label, layouts, gemm in PRUNE_SERVED:
+        layouts = dict(layouts)
+        qm = ptq.quantize(scfg, student, PRUNE_PRESET, None, device=dev)
+        cm = compress.compress(qm)
+        times = _serve_ab(torch, {"minitron_4b_width": _engine(torch, cm, sz.max_seq, dev, **layouts)}, prompt,
+                          sz.decode_steps, launches)["minitron_4b_width"]
+        held = _hold_served(torch, dev, sz, f"minitron {label}", cm, gemm, layouts, prompt)
+        row = {"phase": "prune_minitron_serve", "path": label, "layers": PRUNE_DEPTH, **times,
+               "dense_8b_widths_same_call": served[label],
+               "over_dense_ttft": times["ttft_ms"] / served[label]["ttft_ms"],
+               "over_dense_step": times["graphed_ms_per_token_step"] / served[label]["graphed_ms_per_token_step"],
+               "vs_plain_gemm": held, "card": card}
+        if gemm == "qmm_w4a8":  # export -> load -> serve
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_prune_") as d:
+                sync()
+                t0 = time.perf_counter()
+                qc = hf_export.export_hf_checkpoint(qm, d)
+                with open(os.path.join(d, "config.json")) as f:
+                    hf_cfg = json.load(f)
+                loaded = loader.load_quantized_checkpoint(d, device=dev)
+                sync()
+                deploy_s = time.perf_counter() - t0
+            streamed = loader.compressed_from_export(hf_cfg, qc["quantization"],
+                                                     dict(hf_export._iter_export_tensors(qm)), dev)
+            outs = {}
+            for name, model in (("loaded", loaded), ("in_memory_export", streamed), ("in_memory_compress", cm)):
+                e = _engine(torch, model, sz.max_seq, dev, **layouts)
+                outs[name] = e.prefill(prompt, e.init_cache(sz.batch))
+                del e
+            row["deploy"] = {"quant_algo": qc["quantization"]["quant_algo"], "export_load_s": deploy_s,
+                             "hf_config": {k: hf_cfg[k] for k in ("hidden_size", "intermediate_size", "head_dim",
+                                                                  "num_attention_heads", "num_key_value_heads")},
+                             "logits_equal_in_memory_export": bool(torch.equal(outs["loaded"], outs["in_memory_export"])),
+                             "median_gap_vs_compress": statistics.median(_gaps(outs["loaded"], outs["in_memory_compress"])[0])}
+            if not row["deploy"]["logits_equal_in_memory_export"]:
+                raise AssertionError(f"prune minitron deploy: the loaded engine's logits differ from the engine's "
+                                     f"over the export's tensors: {row['deploy']}")
+            del loaded, streamed, outs
+        log(json.dumps(row))
+        del qm, cm
+        torch.cuda.empty_cache()
+    for k in ("qmm_w4a8", "qmm_int4_wo"):
+        rows.setdefault(k, {"shapes": []})
+    _phase_kernels_families(torch, dev, sz, timer, rows, torch.Generator(device=dev).manual_seed(0), MINITRON_GEMMS)
+    del student, scores
+    torch.cuda.empty_cache()
+
+    # (c) masked QAT
+    qm = ptq.quantize(cfg, sp, TRAIN_PRESET, calib[:2], device=dev)
+    before = {k: int((qm.params["layers"][k][~m] != 0).sum()) for k, m in masks.items()}
+    step_fn, init_fn = qat.make_optax_train_step(cfg, qm.layout, qat.Adam(TRAIN_LR), masks=masks)
+    opt = init_fn(qm.params, qm.qstate)
+    batch = torch.randint(0, cfg.vocab_size, (TRAIN_TOKENS[0], TRAIN_TOKENS[1] + 1), generator=g, device=dev)
+    p, losses, walls, off, negative = qm.params, [], [], [], 0
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(PRUNE_QAT_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        p, _, opt, loss = step_fn(p, qm.qstate, opt, batch)
+        losses.append(float(loss))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        off.append(sum(int((p["layers"][k][~m] != 0).sum()) for k, m in masks.items()))
+        negative = sum(int(torch.signbit(p["layers"][k][~m]).sum()) for k, m in masks.items())
+    moved = all(not torch.equal(p["layers"][k], qm.params["layers"][k]) for k in masks)
+    row = {"phase": "prune_masked_qat", "preset": TRAIN_PRESET, "layers": PRUNE_DEPTH, "batch": list(TRAIN_TOKENS),
+           "losses": losses, "step_ms": walls, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "masked_not_zero_before": sum(before.values()), "masked_not_zero_after_each_step": off,
+           "masked_zeros_negative_sign": negative, "kept_weights_moved": moved, "card": card}
+    log(json.dumps(row))
+    if not all(math.isfinite(v) for v in losses) or any(off) or any(before.values()) or not moved:
+        raise AssertionError(f"prune masked qat: {row}")
+    del qm, p, opt, sp, params, params8, masks
+    torch.cuda.empty_cache()
+
+    # (d) expert pruning at Qwen3-30B-A3B's widths
+    mcfg = mixtral.MixtralConfig(**{**QWEN3_30B_A3B, "num_hidden_layers": PRUNE_MOE["depth"]})
+    mparams = mixtral.init_params(mcfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    mcalib = [torch.randint(0, mcfg.vocab_size, (B, T), generator=g, device=dev) for _ in range(n)]
+    sync()
+    t0 = time.perf_counter()
+    mscores = minitron_moe.expert_importance(mcfg, mparams, mcalib)
+    pcfg, pparams = minitron_moe.prune_experts(mcfg, mparams, PRUNE_MOE["keep"], mscores)
+    sync()
+    row = {"phase": "prune_experts", "model": "qwen3_30b_a3b", "layers": PRUNE_MOE["depth"],
+           "experts": [mcfg.num_experts, pcfg.num_experts], "top_k": pcfg.top_k, "seconds": time.perf_counter() - t0,
+           "kept_importance_share": [float(torch.sort(mscores[i], descending=True).values[:PRUNE_MOE["keep"]].sum() /
+                                           mscores[i].sum()) for i in range(PRUNE_MOE["depth"])],
+           "router_rows": list(pparams["layers"]["moe.router"].shape), "card": card}
+    log(json.dumps(row))
+    if pparams["layers"]["moe.gate_proj"].shape[1] != PRUNE_MOE["keep"] or pcfg.top_k != mcfg.top_k:
+        raise AssertionError(f"prune experts: {row}")
+    del mparams
+    mprompt = torch.randint(0, pcfg.vocab_size, (sz.batch, sz.prompt), generator=g, device=dev)
+    for k, v in _moe_full_path(torch, dev, sz, MOE_FULL_PATHS[0], pcfg, pparams, mprompt,
+                               f"qwen3_30b_a3b_{PRUNE_MOE['keep']}_experts").items():
+        launches[k] = launches.get(k, 0) + v
+    del pparams
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _sgpt_out_err(torch, cfg, params, new, caps) -> dict:
+    """||X (W_s - W)^T||_F^2 of each projection over the captured inputs
+    (f64, on the CPU): the reconstruction error SparseGPT minimizes."""
+    from tensorrt_model_optimizer_tpu_torch.quant.ptq import CAPTURE_GROUPS
+
+    out = {}
+    for key, members in CAPTURE_GROUPS.items():
+        X = caps[key].double()
+        for name in members:
+            d = (new["layers"][name].cpu().double() - params["layers"][name].double())
+            out[name] = float(sum((X[i] @ d[i].t()).square().sum() for i in range(cfg.num_hidden_layers)))
+    return out
+
+
+def _prune_anchor(torch, dev) -> dict:
+    """(e) artifacts/anchor-llama in f32: magnitude and SparseGPT 2:4 on the
+    card and on the CPU from the same weights and synthlang calibration
+    batches (magnitude: masks and weights equal; SparseGPT: masks apart at
+    most PRUNE_MASK_APART_MAX, the reconstruction error within
+    PRUNE_OUT_ERR_REL of the CPU's); ppl dense -> magnitude -> SparseGPT ->
+    SparseGPT + FP8_DEFAULT (fake quant), and that FP8 model in bf16
+    served by the kernel engine (FP8 byte GEMM) against its fake-quant
+    forward (ENGINE_VS_FAKE_QUANT_MAX), its packed codes 0 where the mask is
+    off; FastNAS's ratio and a short AutoNAS search's best config on the
+    card equal to the CPU's. Returns the served run's launch counts."""
+    from tensorrt_model_optimizer_tpu_torch.models import hf_loader, llama
+    from tensorrt_model_optimizer_tpu_torch.nas import autonas
+    from tensorrt_model_optimizer_tpu_torch.quant import compress, ptq
+    from tensorrt_model_optimizer_tpu_torch.sparsity import sparsify
+    from tensorrt_model_optimizer_tpu_torch.utils import evaluate, synthlang
+
+    cfg, params = hf_loader.load_hf_checkpoint(ANCHOR, dtype=torch.float32, device=dev)
+    cpu = hf_loader.load_hf_checkpoint(ANCHOR, dtype=torch.float32, device="cpu")[1]
+    lang = synthlang.SynthLang(0)
+    ev = [torch.from_numpy(b).to(dev) for b in lang.eval_batches(2, 8, 256, seed=999)]
+    calib_np = lang.eval_batches(4, 4, 256, seed=555)
+    calib, calib_cpu = [torch.from_numpy(b).to(dev) for b in calib_np], [torch.from_numpy(b) for b in calib_np]
+    with torch.no_grad():
+        caps = sparsify._captures(cfg, cpu, calib_cpu, 128)
+    failures, card_models = [], {}
+    for method in ("magnitude", "sparsegpt"):
+        t0 = time.perf_counter()
+        on_card, m_card = sparsify.sparsify(cfg, params, method, calib_batches=calib)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu, m_cpu = sparsify.sparsify(cfg, cpu, method, calib_batches=calib_cpu)
+        cpu_s = time.perf_counter() - t0
+        per = {}
+        for name in llama.PROJ_NAMES:
+            a, b = on_card["layers"][name].cpu(), on_cpu["layers"][name]
+            per[name] = {"masks_apart": int((m_card[name].cpu() != m_cpu[name]).sum()),
+                         "weights_rel_frob": _rel_frob(a, b), "weights_equal": bool(torch.equal(a, b))}
+        row = {"phase": "prune_anchor_card_cpu", "method": method, "card_s": card_s, "cpu_s": cpu_s, "per": per}
+        if method == "sparsegpt":
+            e_card, e_cpu = _sgpt_out_err(torch, cfg, cpu, on_card, caps), _sgpt_out_err(torch, cfg, cpu, on_cpu, caps)
+            for name in per:
+                per[name]["out_err_rel_vs_cpu"] = abs(e_card[name] - e_cpu[name]) / e_cpu[name]
+                per[name]["masks_apart_share"] = per[name]["masks_apart"] / m_cpu[name].numel()
+            bad = {k: v for k, v in per.items() if not (v["out_err_rel_vs_cpu"] <= PRUNE_OUT_ERR_REL
+                                                        and v["masks_apart_share"] <= PRUNE_MASK_APART_MAX)}
+        else:
+            bad = {k: v for k, v in per.items() if v["masks_apart"] or not v["weights_equal"]}
+        log(json.dumps(row))
+        if bad:
+            failures.append(f"prune anchor {method}: card against CPU: {bad}")
+        card_models[method] = (on_card, m_card)
+        del on_cpu, m_cpu
+    sgpt, masks = card_models["sparsegpt"]
+    fp8 = ptq.quantize(cfg, sgpt, "FP8_DEFAULT_CFG", calib, device=dev)
+    ppl = {"dense": evaluate.perplexity(cfg, params, ev),
+           "magnitude_2_4": evaluate.perplexity(cfg, card_models["magnitude"][0], ev),
+           "sparsegpt_2_4": evaluate.perplexity(cfg, sgpt, ev),
+           "sparsegpt_2_4_fp8": evaluate.perplexity(cfg, fp8.params, ev, layout=fp8.layout, qstate=fp8.qstate)}
+    bcfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    bf = ptq.quantize(bcfg, {k: (v.to(torch.bfloat16) if isinstance(v, torch.Tensor) else
+                                 {n: a.to(torch.bfloat16) for n, a in v.items()}) for k, v in sgpt.items()},
+                      "FP8_DEFAULT_CFG", calib, device=dev)
+    cm = compress.compress(bf)
+    g = torch.Generator(device=dev).manual_seed(6)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 64), generator=g, device=dev)
+    eng = _engine(torch, cm, 128, dev, kv=None)
+    _counts(reset=True)
+    served = eng.prefill(prompt, eng.init_cache(prompt.shape[0]))
+    launches = _counts()
+    gap = statistics.median(_gaps(served, bf.forward(prompt)[0][:, -1])[0])
+    zeros = _masked_nonzero(torch, cm, masks)
+    t0 = time.perf_counter()
+    ratio_card = autonas.fastnas_prune(cfg, params, calib, steps=PRUNE_ANCHOR_SEARCH["fastnas_steps"])[2]
+    ratio_cpu = autonas.fastnas_prune(cfg, cpu, calib_cpu, steps=PRUNE_ANCHOR_SEARCH["fastnas_steps"])[2]
+    space = autonas.convert(cfg)
+    it = PRUNE_ANCHOR_SEARCH["search_iterations"]
+    s_card = autonas.search(cfg, params, space, calib, iterations=it)[0]
+    s_cpu = autonas.search(cfg, cpu, space, calib_cpu, iterations=it)[0]
+    row = {"phase": "prune_anchor", "ppl": ppl, "fp8_served_vs_fake_quant_median_gap": gap,
+           "limit": ENGINE_VS_FAKE_QUANT_MAX, "fp8_masked_codes_not_zero": zeros,
+           "kinds_served": sorted(set(eng.cm.kinds.values())),
+           "fastnas_ratio": {"card": ratio_card, "cpu": ratio_cpu},
+           "autonas_best": {"card": s_card.best_config, "cpu": s_cpu.best_config,
+                            "card_score": s_card.best_score, "cpu_score": s_cpu.best_score},
+           "search_s": time.perf_counter() - t0, "card": nvidia_smi()}
+    log(json.dumps(row))
+    if not all(math.isfinite(v) for v in ppl.values()) or not gap <= ENGINE_VS_FAKE_QUANT_MAX or any(zeros.values()):
+        failures.append(f"prune anchor: ppl {ppl}, FP8 served gap {gap}, codes not zero {zeros}")
+    if ratio_card != ratio_cpu or s_card.best_config != s_cpu.best_config:
+        failures.append(f"prune anchor: the searches on the card and on the CPU differ: {row['fastnas_ratio']}, "
+                        f"{row['autonas_best']}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+def phase_prune(torch, dev, sz: Sizes, timer: Timer, rows: dict) -> dict:
+    """(a)-(d) at full width (`_prune_full`), then (e) on the anchor
+    (`_prune_anchor`). Returns the launch counts of the served runs."""
+    launches = _prune_full(torch, dev, sz, timer, rows)
+    torch.cuda.empty_cache()
+    for k, n in _prune_anchor(torch, dev).items():
+        launches[k] = launches.get(k, 0) + n
     return launches
 
 
@@ -5930,17 +6488,22 @@ ANCHOR_ONLY = ("skip_softmax_flash_cuda_core", "paged_attention_prefill_cuda_cor
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,anchor,full,deploy,calib,accuracy,moe,families,deepseek,"
-                                        "speculative,train",
-                    help="comma-separated; add 'profile' for device time by kernel in the full run")
+                                        "speculative,train,prune",
+                    help="comma-separated; add 'profile' for device time by kernel (torch.profiler: the prefill and "
+                         "decode steps of each phase's paths, the full run's at FULL_DEPTH)")
     args = ap.parse_args(argv)
     import torch
 
-    from tensorrt_model_optimizer_tpu_torch.ops.cuda import _build  # noqa: F401  (fails outside the repo)
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import _build  # fails outside the repo
 
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
+    global PROFILING
+    PROFILING = "profile" in phases
+    if "build" in phases:  # nvcc compiles while the kernels phase runs what is built
+        _build.start_all()
     dev, sz = torch.device("cuda"), Sizes()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5957,11 +6520,11 @@ def main(argv=None) -> int:
         seconds[name] = round(time.perf_counter() - t0, 1)
         return result
 
-    if "build" in phases:
-        timed("build", phase_build)
     if "kernels" in phases:
         timed("kernels", phase_kernels, torch, dev, sz, timer, rows)
-    else:  # the families' or DeepSeek-V3's GEMM shapes alone
+    if "build" in phases:  # what is still compiling (the kernels phase has waited for what it ran)
+        timed("build", phase_build)
+    if "kernels" not in phases:  # the families' or DeepSeek-V3's GEMM shapes alone
         for name, table in (("kernels_families", FAMILY_GEMMS), ("kernels_deepseek", DEEPSEEK_GEMMS)):
             if name in phases:
                 for k in ("qmm_w4a8", "qmm_int4_wo", "qmm_fp4_wo"):
@@ -6040,6 +6603,16 @@ def main(argv=None) -> int:
         if never:
             raise AssertionError(f"train: kernels its served runs did not launch: {never}")
         launches = {k: (launches or {}).get(k, 0) + trained.get(k, 0) for k in KERNELS}
+    if "prune_full" in phases and "prune" not in phases:  # (a)-(d) of prune alone
+        timed("prune_full", _prune_full, torch, dev, sz, timer, rows)
+    if "prune_anchor" in phases and "prune" not in phases:  # (e) of prune alone
+        timed("prune_anchor", _prune_anchor, torch, dev)
+    if "prune" in phases:
+        pruned = timed("prune", phase_prune, torch, dev, sz, timer, rows)
+        never = [k for k in PRUNE_KERNELS if not pruned.get(k)]
+        if never:
+            raise AssertionError(f"prune: kernels its served runs did not launch: {never}")
+        launches = {k: (launches or {}).get(k, 0) + pruned.get(k, 0) for k in KERNELS}
     log(json.dumps({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t_start, 1)}))
     out = []
     for name, (src, replaces) in KERNELS.items():

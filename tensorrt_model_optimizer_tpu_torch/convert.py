@@ -18,7 +18,9 @@ and `DeepseekCompressedModel` (both layer groups, the experts' stacks,
 heads, EAGLE-1 / EAGLE-3 drafts, DFlash blocks), `adapters_from_jax` LoRA
 adapters; a layout's `learn_amax` flags and a trained quantizer state cross
 with `quantized_from_jax` / `layout_from_jax` / `params_from_jax` as any
-other field and tensor do. Objects are read by their
+other field and tensor do, and so do sparsity masks (`params_from_jax` of
+JAX's bool masks gives the port's). Minitron's importance scores and plans
+are numpy in both packages and need no conversion. Objects are read by their
 fields: this module imports neither JAX nor the JAX package.
 
 bf16 and fp8 arrays (NVFP4's e4m3 block scales among them) reach numpy as

@@ -8,8 +8,9 @@ library with a plain C interface:
 
 The library name carries a hash of the source, of the `csrc/*.cuh` headers
 that sources share, and of the flags, so an edited source rebuilds and an
-unchanged one is reused. `build_all` starts one
-`nvcc` per source, all at once. Entry points take every pointer and the
+unchanged one is reused. `start_all` starts one
+`nvcc` per source, all at once, and returns; `load` waits for the one
+source it needs, `build_all` for every source it names. Entry points take every pointer and the
 stream as `void*` and return `cudaGetLastError()` as an int; `check`
 raises when it is not 0. Kernels allocate nothing: wrappers allocate with
 `torch.empty` and launch on `torch.cuda.current_stream()`.
@@ -24,10 +25,12 @@ output. Training reads `attn_impl="flash"` as the einsum attention
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 import threading
 import time
@@ -41,6 +44,9 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_build_lock = threading.Lock()
+_pending: dict[str, tuple] = {}   # name -> (nvcc process, the thread that waits for it)
+_report: dict[str, dict] = {}     # name -> the finished build's seconds, output and exit code
 
 
 def _nvcc() -> str:
@@ -66,30 +72,83 @@ def _target(name: str) -> tuple[str, list[str]]:
     return out, cmd
 
 
-def build_all(names=None) -> dict[str, dict]:
-    """Compile every source that has no up-to-date library, one nvcc per
-    source in parallel. Returns {name: {"seconds", "built", "ptxas"}}."""
-    names = list(names or sources())
+def start_all(names=None) -> None:
+    """Start one nvcc per named source (default: all) that has no
+    up-to-date library and is not building already, and return at once.
+    A thread waits for each process and records its seconds and output;
+    `wait` joins them. The compilers run at the lowest CPU priority, so
+    that work on the card meanwhile is not starved of the host. Processes
+    still running when Python exits are killed with their children."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs, report = {}, {}
+    with _build_lock:
+        for name in list(names or sources()):
+            out, cmd = _target(name)
+            if name in _pending:
+                continue
+            if os.path.exists(out):
+                _report[name] = {"seconds": 0.0, "built": False, "ptxas": "", "returncode": 0}
+                continue
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                    start_new_session=True)  # its own group: cicc and ptxas die with it
+            try:  # below the process that launches and times kernels while the rest compiles
+                os.setpriority(os.PRIO_PGRP, proc.pid, 19)
+            except ProcessLookupError:
+                pass
+
+            def finish(name=name, proc=proc, t0=t0, out=out):
+                log, _ = proc.communicate()
+                if proc.returncode == 0:
+                    os.replace(out + ".tmp", out)
+                _report[name] = {"seconds": time.perf_counter() - t0, "built": True, "ptxas": log,
+                                 "returncode": proc.returncode}
+
+            thread = threading.Thread(target=finish, name=f"nvcc {name}", daemon=True)
+            thread.start()
+            _pending[name] = (proc, thread)
+
+
+def wait(names=None) -> dict[str, dict]:
+    """Wait for the named sources' builds (default: all) started by
+    `start_all`. Returns {name: {"seconds", "built", "ptxas"}} ("built"
+    False where the library was already there); raises naming each source
+    that failed to compile."""
+    names = list(names or sources())
+    report, failed = {}, []
     for name in names:
-        out, cmd = _target(name)
-        if os.path.exists(out):
-            report[name] = {"seconds": 0.0, "built": False, "ptxas": ""}
-            continue
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), time.perf_counter(), out)
-    failed = []
-    for name, (proc, t0, out) in procs.items():
-        log, _ = proc.communicate()
-        report[name] = {"seconds": time.perf_counter() - t0, "built": True, "ptxas": log}
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
-        else:
-            os.replace(out + ".tmp", out)
+        with _build_lock:
+            entry = _pending.get(name)
+        if entry is not None:
+            entry[1].join()
+            with _build_lock:
+                _pending.pop(name, None)
+        r = _report[name]
+        if r["returncode"] != 0:
+            failed.append(f"{name}: nvcc exit {r['returncode']}\n{r['ptxas']}")
+        report[name] = {k: r[k] for k in ("seconds", "built", "ptxas")}
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return report
+
+
+def build_all(names=None) -> dict[str, dict]:
+    """Compile every named source (default: all) that has no up-to-date
+    library, one nvcc per source in parallel, and wait for them. Returns
+    {name: {"seconds", "built", "ptxas"}}."""
+    start_all(names)
+    return wait(names)
+
+
+@atexit.register
+def _kill_pending() -> None:
+    with _build_lock:
+        procs = [proc for proc, _ in _pending.values()]
+    for proc in procs:
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -98,7 +157,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             out, _ = _target(name)
-            if not os.path.exists(out):
+            if name in _pending or not os.path.exists(out):
                 build_all([name])
             lib = ctypes.CDLL(out)
             _libs[name] = lib

@@ -20,7 +20,7 @@ from typing import Callable
 import torch
 
 from ...ops import numerics
-from ...sparsity.sparsegpt import hessian_from_acts
+from ...sparsity.sparsegpt import hessian_from_acts, hinv_factor
 from ..quantizer import QuantizerConfig
 
 
@@ -32,10 +32,7 @@ def gptq_quantize(w: torch.Tensor, H: torch.Tensor,
     block = min(block, K)
     if K % block:
         block = 1
-    # the upper Cholesky factor of H^-1 (rows index columns), H^-1 taken
-    # from H's own factor: JAX's cholesky(inv(H)).T, but an f32 inverse of
-    # a Hessian of 512 tokens at K = 4096 is not positive definite
-    Hinv = torch.linalg.cholesky(torch.cholesky_inverse(torch.linalg.cholesky(H)), upper=True)
+    Hinv = hinv_factor(H)
     d = torch.diagonal(Hinv)
     W = w.float().clone()
     for start in range(0, K, block):

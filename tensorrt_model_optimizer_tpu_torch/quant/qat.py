@@ -151,14 +151,13 @@ def make_optax_train_step(model_cfg, layout, optimizer: Optional[Adam] = None, t
     `train_amax` the quantizer state trains too (the `learn_amax` sites'
     amax take LSQ gradients; every other amax a zero gradient; a
     pre_quant_scale its true one), as JAX's step trains the whole
-    (params, qstate) pair.
+    (params, qstate) pair. `masks` ({projection: bool [L, O, K]},
+    `sparsity.sparsify`'s) re-project the weights after every update, so
+    masked-off weights stay 0 (masked QAT of a sparse model).
 
     Returns (step_fn, init_fn): init_fn(params, qstate) -> opt_state;
     step_fn(params, qstate, opt_state, tokens) -> (params, qstate,
     opt_state, loss)."""
-    if masks is not None:
-        raise NotImplementedError("sparsity masks re-project weights after each step: they come with weight "
-                                  "sparsity (`sparsity/sparsify.py`, ROADMAP queue 1 item 9)")
     optimizer = optimizer or Adam(1e-4)
 
     def init_fn(params, qstate):
@@ -175,6 +174,10 @@ def make_optax_train_step(model_cfg, layout, optimizer: Optional[Adam] = None, t
                                          params)
             updates, opt_state = optimizer.update(grads, opt_state)
             params = apply_updates(params, updates)
+        if masks is not None:
+            from ..sparsity import sparsify
+
+            params = sparsify.reapply(params, masks)
         return params, qstate, opt_state, loss
 
     return step_fn, init_fn

@@ -1,2 +1,3 @@
-"""Sparsity (port of `tensorrt_model_optimizer_tpu.sparsity`): attention
-sparsity (skip-softmax, VSA) and its RULER calibration."""
+"""Sparsity (port of `tensorrt_model_optimizer_tpu.sparsity`): N:M weight
+sparsity by magnitude or SparseGPT (`magnitude`, `sparsegpt`, `sparsify`),
+and attention sparsity (skip-softmax, VSA) with its RULER calibration."""

@@ -4,7 +4,8 @@ package, neither in its sources nor when it is imported. Nor does it import
 writes the safetensors format itself (`models/hf_loader.py`) and reads its
 recipes' YAML subset itself (`recipes/loader.py`). The same holds for
 chip_smoke.py, the port's examples (PTQ, QAT, eval, serving, speculative
-decoding) and its accuracy-table tool."""
+decoding, sparsity, prune-and-distill, chained optimizations) and its
+accuracy-table tool."""
 
 import ast
 import os
@@ -26,7 +27,8 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "examples", "hf_ptq_torch.py")
     yield os.path.join(ROOT, "examples", "speculative_decoding_torch.py")
-    for name in ("llm_qat_torch.py", "llm_eval_torch.py", "serve_demo_torch.py"):
+    for name in ("llm_qat_torch.py", "llm_eval_torch.py", "serve_demo_torch.py", "llm_sparsity_torch.py",
+                 "prune_distill_torch.py", "chained_optimization_torch.py"):
         yield os.path.join(ROOT, "examples", name)
     yield os.path.join(ROOT, "tools", "torch_accuracy_table.py")
     yield os.path.join(ROOT, "tools", "torch_moe_accuracy_table.py")
@@ -114,6 +116,16 @@ def test_the_walk_covers_the_training_slice():
                               "opt/trainer.py", "ops/cuda/_build.py", "convert.py")} <= walked
     assert {"examples/llm_qat_torch.py", "examples/llm_eval_torch.py", "examples/serve_demo_torch.py",
             "examples/hf_ptq_torch.py", "tools/torch_accuracy_table.py"} <= walked
+
+
+def test_the_walk_covers_the_sparsity_and_pruning_slice():
+    walked = {os.path.relpath(p, ROOT) for p in _sources()}
+    pkg = "tensorrt_model_optimizer_tpu_torch/"
+    assert {pkg + m for m in ("sparsity/magnitude.py", "sparsity/sparsegpt.py", "sparsity/sparsify.py",
+                              "prune/minitron.py", "prune/minitron_moe.py", "opt/hparam.py", "opt/searcher.py",
+                              "opt/dependency.py", "nas/autonas.py", "quant/qat.py")} <= walked
+    assert {"examples/llm_sparsity_torch.py", "examples/prune_distill_torch.py",
+            "examples/chained_optimization_torch.py", "chip_smoke.py"} <= walked
 
 
 def test_the_recipe_reader_never_imports_yaml():

@@ -28,8 +28,9 @@ calibration maximum on the wrong side of the straight-through clip.
    Adam steps' losses within 1e-4 and the parameters within 1e-3 of their
    scale (random routing has near ties: an f32 ulp moves a token to another
    expert, as the MoE engine tests know; measured 1.8e-5 and 4.9e-4).
- - The refusal of sparsity masks, and a flash config's step equal to the
-   einsum config's (training reads flash as einsum)."""
+ - Sparsity masks re-projecting the weights after a step, and a flash
+   config's step equal to the einsum config's (training reads flash as
+   einsum)."""
 
 import dataclasses
 
@@ -239,9 +240,25 @@ def test_mixtral_forward_fn_equals_jax():
 
 
 def test_masks_are_refused_naming_weight_sparsity(tiny):
-    _, _, tcfg, _, _ = tiny
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tqat.make_optax_train_step(tcfg, tllama.QuantLayout(sites=()), masks={"mlp.up_proj": None})
+    """Sparsity masks came with weight sparsity: the step takes them and
+    re-projects the weights after the update (JAX's step; the masked steps
+    against JAX's are in test_torch_sparsity.py): the maskless step's
+    params with the masked-off weights at 0."""
+    from tensorrt_model_optimizer_tpu_torch.sparsity import sparsify
+
+    _, _, tcfg, tp, tokens = tiny
+    lay = tllama.QuantLayout(sites=())
+    sp, masks = sparsify.sparsify(tcfg, tp)
+    step_m, init_m = tqat.make_optax_train_step(tcfg, lay, masks=masks)
+    step, init = tqat.make_optax_train_step(tcfg, lay)
+    pm, _, _, lm = step_m(sp, None, init_m(sp, None), torch.from_numpy(tokens))
+    p, _, _, l = step(sp, None, init(sp, None), torch.from_numpy(tokens))
+    assert float(lm) == float(l)
+    for k, v in p["layers"].items():
+        want = v * masks[k].to(v.dtype) if k in masks else v
+        assert torch.equal(pm["layers"][k], want), k
+        if k in masks:
+            assert (pm["layers"][k][~masks[k]] == 0).all() and not (v[~masks[k]] == 0).all()
 
 
 def test_flash_config_trains_through_the_einsum(tiny):

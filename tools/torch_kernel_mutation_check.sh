@@ -173,7 +173,7 @@ run deepseek_kvb_halves_swapped serve/deepseek_engine.py 's/        wk, wv = wkb
 run deepseek_latent_cached_before_kvb_quantizer serve/deepseek_engine.py 's/    eng_mod._write_rows(ckv, 1, rows, c_q)/    eng_mod._write_rows(ckv, 1, rows, c_kv)/' build,deepseek_small
 # The deepseek phase's V3 widths alone (`--phases build,deepseek_full`): W4A4
 # as served on the MoE layer alone against the all-plain engine
-# (MOE_PLAIN_MEDIAN_MAX, held before the weight-only check of all 4
+# (MOE_PLAIN_MEDIAN_MAX, held before the weight-only check of both
 # layers), NVFP4's last 32-chunk of K with the chunk before's block scales
 # (1 of 224 at K 7168)
 run deepseek_full_nvfp4_last_chunk_scale qmm_fp4_wo.cu 's/reinterpret_cast<const uint16_t\*>(sp + 2 \* chunk)/reinterpret_cast<const uint16_t*>(sp + 2 * (chunk > 0 \&\& (chunk + 1) * 16 >= row_bytes ? chunk - 1 : chunk))/' build,deepseek_full
@@ -194,4 +194,10 @@ run spec_positions_by_node_index serve/engine.py 's/positions = torch.tensor(\[\
 run spec_full_compact_slot_order serve/engine.py 's/take = torch.tensor(\[pos + i for i in nodes\], device=self.device)/take = torch.arange(pos, pos + a, device=self.device)/' build,speculative_full
 run spec_full_tree_mask_siblings serve/engine.py 's/allow\[:, pos:pos + N\] = tree.attn_mask$/allow[:, pos:pos + N] = tree.attn_mask | (np.array(tree.parent)[:, None] == np.array(tree.parent)[None, :])/' build,speculative_full
 run spec_full_positions_by_node_index serve/engine.py 's/positions = torch.tensor(\[\[pos + d for d in tree.depth\]\]/positions = torch.tensor([[pos + j for j in range(N)]]/' build,speculative_full
+# The prune phase (`--phases build,prune`): W4A8's prefill route at the
+# Minitron-4B-Width widths' K = 3072 only (24 128-blocks: q, k, v, gate and
+# up of the pruned student), the last block of K with the block before's
+# scales; the student's W4A8 engine held to its plain GEMM (logits equal at
+# every step) and MINITRON_GEMMS' bit-exact rows see it, no other shape does
+run prune_w4a8_k3072_last_block_scale qmm_w4a8.cu 's/__ldg(s + (size_t)kb \* O + orow + 8 \* h)/__ldg(s + (size_t)(kb == nblk - 1 \&\& nblk == 24 ? kb - 1 : kb) * O + orow + 8 * h)/' build,prune
 exit $missed
