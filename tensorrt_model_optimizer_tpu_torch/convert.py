@@ -20,7 +20,13 @@ adapters; a layout's `learn_amax` flags and a trained quantizer state cross
 with `quantized_from_jax` / `layout_from_jax` / `params_from_jax` as any
 other field and tensor do, and so do sparsity masks (`params_from_jax` of
 JAX's bool masks gives the port's). Minitron's importance scores and plans
-are numpy in both packages and need no conversion. Objects are read by their
+are numpy in both packages and need no conversion. The diffusion, VLM, RNN and
+CV families cross with their configs (`dit_cfg_from_jax`,
+`unet_cfg_from_jax`, `vlm_cfg_from_jax`, `rnn_cfg_from_jax`,
+`cv_cfg_from_jax`), `params_from_jax` (DiT's and the ViT's stacked `[depth,
+...]` blocks, the UNet's, RNN's, CV model's and DMD discriminator's flat
+dicts) and `params_from_jax` / `layout_from_jax` for the calibrated state,
+stacked as JAX's scan carries it. Objects are read by their
 fields: this module imports neither JAX nor the JAX package.
 
 bf16 and fp8 arrays (NVFP4's e4m3 block scales among them) reach numpy as
@@ -134,6 +140,57 @@ def llama_cfg_from_jax(cfg) -> LlamaConfig:
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cls)
           if f.name not in ("rope_scaling", "dtype") and hasattr(cfg, f.name)}
     return cls(rope_scaling=rs, dtype=torch_dtype(cfg.dtype), **kw)
+
+
+def config_from_jax(cfg, cls):
+    """A JAX config dataclass -> the port's `cls` of the same fields (the
+    dtype as the torch dtype; a `LlamaConfig` field through
+    `llama_cfg_from_jax`, a `ViTConfig` field through this one)."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(cfg, f.name)
+        if f.name == "dtype":
+            v = torch_dtype(v)
+        elif type(v).__name__ == "LlamaConfig":
+            v = llama_cfg_from_jax(v)
+        elif dataclasses.is_dataclass(v):
+            from .models.vlm import ViTConfig
+
+            v = config_from_jax(v, ViTConfig)
+        kw[f.name] = v
+    return cls(**kw)
+
+
+def dit_cfg_from_jax(cfg):
+    """A JAX `DiTConfig` -> the port's."""
+    from .models.dit import DiTConfig
+
+    return config_from_jax(cfg, DiTConfig)
+
+
+def unet_cfg_from_jax(cfg):
+    from .models.unet import UNetConfig
+
+    return config_from_jax(cfg, UNetConfig)
+
+
+def vlm_cfg_from_jax(cfg):
+    """A JAX `VLMConfig` (its ViT and its Llama LM) -> the port's."""
+    from .models.vlm import VLMConfig
+
+    return config_from_jax(cfg, VLMConfig)
+
+
+def rnn_cfg_from_jax(cfg):
+    from .models.rnn import RNNConfig
+
+    return config_from_jax(cfg, RNNConfig)
+
+
+def cv_cfg_from_jax(cfg):
+    from .nas.cv import CVConfig
+
+    return config_from_jax(cfg, CVConfig)
 
 
 def _quant_cfg_from_jax(qc):

@@ -46,7 +46,8 @@ JAX's files; it needs an MXFP4 weight preset, as JAX's does. Llama4's
 shared expert has no name in the unified checkpoint: its model raises, as
 JAX's does.
 
-Not ported (raises `NotImplementedError` naming its slice): VLM export.
+`export_vlm_checkpoint` writes the VLM family (`models/vlm.py`) in LLaVA's
+naming, byte for byte JAX's file.
 """
 
 from __future__ import annotations
@@ -510,5 +511,65 @@ def export_gpt_oss_checkpoint(model: QuantizedModel, export_dir: str, max_shard_
     return hf_quant_config
 
 
+def _iter_vlm_tensors(cfg, params, layout, qstate, lm_model: QuantizedModel, algo: str):
+    """The VLM checkpoint's tensors in JAX's order: the LM tower under
+    `language_model.`, the ViT's blocks (each stacked site a block at a
+    time), its patch and position embeddings and final norm, then the
+    projector."""
+    for k, t in _iter_export_tensors(lm_model):
+        yield f"language_model.{k}", t
+    v, vp = cfg.vision, params["vision"]
+    for name in ("attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2"):
+        wcfg = layout.get(f"vision.{name}.weight")
+        wst_all = (qstate or {}).get(f"vision.{name}", {}).get("weight")
+        for i in range(v.depth):
+            for suf, t in _export_weight(vp["blocks"][name][i], wcfg, llama.slice_state(wst_all, i), algo).items():
+                yield f"vision_tower.blocks.{i}.{name}.{suf}", t
+            yield f"vision_tower.blocks.{i}.{name}.bias", _f16(vp["blocks"][name + "__bias"][i])
+    yield "vision_tower.patch_embed.weight", _f16(vp["patch_embed"])
+    yield "vision_tower.pos_embed", _f16(vp["pos_embed"])
+    yield "vision_tower.ln_f.weight", _f16(vp["ln_f"])
+    for i, name in enumerate(("fc1", "fc2"), start=1):
+        wst = (qstate or {}).get(f"proj.{name}", {}).get("weight")
+        for suf, t in _export_weight(params["proj"][name], layout.get(f"proj.{name}.weight"), wst, algo).items():
+            yield f"multi_modal_projector.linear_{i}.{suf}", t
+
+
 def export_vlm_checkpoint(cfg, params, layout, qstate, export_dir: str, quant_cfg=None) -> dict:
-    raise NotImplementedError("VLM export comes with the slice that ports models/vlm.py")
+    """The VLM (`models/vlm.py`) as one unified checkpoint in LLaVA's naming:
+    `language_model.*` (the LM tower through the unified exporter),
+    `vision_tower.blocks.{i}.*` and `multi_modal_projector.linear_{1,2}.*`
+    (each site through the same per-format weight export), plus
+    `hf_quant_config.json` and a `config.json` with `model_type`
+    "llava-style-vlm" and the ViT's `vision_config`. File for file and byte
+    for byte JAX's. `quant_cfg` (a QuantizeConfig or preset name) gives the
+    algorithm tag where the weights are INT8. Returns hf_quant_config."""
+    from ..quant.config import get_preset
+
+    os.makedirs(export_dir, exist_ok=True)
+    qcfg = get_preset(quant_cfg) if isinstance(quant_cfg, str) else quant_cfg
+    lm_state = {k: st for k, st in (qstate or {}).items() if not k.startswith(("vision.", "proj."))}
+    lm_model = QuantizedModel(cfg.lm, params["lm"], layout, lm_state, qcfg)
+    algo, group_size = _quant_algo(lm_model)
+    _save(dict(_iter_vlm_tensors(cfg, params, layout, qstate, lm_model, algo)),
+          os.path.join(export_dir, "model.safetensors"))
+    hf_quant_config = {
+        "producer": dict(PRODUCER),
+        "quantization": {
+            "quant_algo": algo,
+            "kv_cache_quant_algo": _kv_algo(lm_model),
+            **({"group_size": group_size} if group_size else {}),
+            "exclude_modules": ["lm_head"],
+        },
+    }
+    with open(os.path.join(export_dir, "hf_quant_config.json"), "w") as f:
+        json.dump(hf_quant_config, f, indent=2)
+    v = cfg.vision
+    hf_cfg = hf_loader.config_to_hf(cfg.lm)
+    hf_cfg["model_type"] = "llava-style-vlm"
+    hf_cfg["vision_config"] = {"img_size": v.img_size, "patch_size": v.patch_size, "hidden_size": v.hidden_size,
+                               "depth": v.depth, "num_heads": v.num_heads}
+    hf_cfg["quantization_config"] = hf_quant_config["quantization"]
+    with open(os.path.join(export_dir, "config.json"), "w") as f:
+        json.dump(hf_cfg, f, indent=2)
+    return hf_quant_config

@@ -3,10 +3,10 @@
 through the whole pipeline (PTQ, export, serving).
 
 `llama` (llama, qwen2, qwen3, mistral), `mixtral` (mixtral, qwen3_moe,
-dbrx), `llama4` (llama4, llama4_text) and `gpt_oss` are registered as in
-JAX. JAX's other families are not ported yet: `get` and
-`for_hf_model_type` raise `NotImplementedError` naming the ROADMAP item
-that brings each.
+dbrx), `llama4` (llama4, llama4_text), `gpt_oss` and `dit` (no HF model
+type) are registered as in JAX. JAX's other family, `mamba`, is not ported
+yet: `get` and `for_hf_model_type` raise `NotImplementedError` naming the
+ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ _REGISTRY: dict[str, ModelFamily] = {}
 # JAX's families the port does not have yet: name -> (HF model types, what brings it)
 NOT_PORTED = {
     "mamba": (("nemotron_h", "mamba2"), "ROADMAP queue 1 item 10 (models/mamba.py)"),
-    "dit": ((), "ROADMAP queue 1 item 10 (models/dit.py)"),
 }
 
 
@@ -66,6 +65,7 @@ def families() -> list[str]:
 
 
 def _register_builtins():
+    from . import dit as dit_mod
     from . import gpt_oss as gpt_oss_mod
     from . import llama as llama_mod
     from . import llama4 as llama4_mod
@@ -91,6 +91,9 @@ def _register_builtins():
         forward=gpt_oss_mod.forward, build_layout=gpt_oss_mod.build_layout,
         init_quant_state=gpt_oss_mod.init_quant_state, param_specs=gpt_oss_mod.param_specs,
         hf_model_types=("gpt_oss",)))
+    register(ModelFamily(
+        name="dit", config_cls=dit_mod.DiTConfig, init_params=dit_mod.init_params, forward=dit_mod.forward,
+        build_layout=dit_mod.build_layout, init_quant_state=dit_mod.init_quant_state, hf_model_types=()))
 
 
 _register_builtins()

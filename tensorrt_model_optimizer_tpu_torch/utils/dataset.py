@@ -133,6 +133,19 @@ def get_max_batch_size(forward_fn: Callable, seq_len: int = 512, vocab_size: int
 
 
 def vlm_calib_batches(n_batches: int, batch: int = 2, img: int = 64, seq: int = 32, seed: int = 0):
-    """VLM calibration pairs come with the VLM model (ROADMAP queue 1 item
-    10, `models/vlm.py`)."""
-    raise NotImplementedError("vlm_calib_batches comes with the VLM model (ROADMAP queue 1 item 10)")
+    """Synthetic VLM calibration pairs: [(pixels [batch, img, img, 3] f32 in
+    [-1, 1], synthlang text tokens [batch, seq] int32)], numpy, the JAX
+    package's numbers draw for draw (the pixels from
+    `np.random.default_rng(seed)`, the text from `SynthLang(0)`'s stream
+    seeded `seed + 1`)."""
+    from . import synthlang
+
+    lang = synthlang.SynthLang(0)
+    rng = np.random.default_rng(seed)
+    stream = lang.token_stream(n_batches * batch * seq + seq, seed=seed + 1)
+    out = []
+    for i in range(n_batches):
+        px = rng.uniform(-1, 1, size=(batch, img, img, 3)).astype(np.float32)
+        s = i * batch * seq
+        out.append((px, stream[s: s + batch * seq].reshape(batch, seq).astype(np.int32)))
+    return out

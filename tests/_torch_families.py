@@ -73,10 +73,14 @@ def state_errors(tq, jq) -> dict:
 
 
 def bits(a):
-    """An array's bits as numpy (one-byte float forms as bytes)."""
+    """An array's bits as numpy (one-byte float forms as bytes, bf16 as int16)."""
     if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:
+            return a.view(torch.int16).numpy()
         return (a.view(torch.uint8) if a.element_size() == 1 and a.is_floating_point() else a).numpy()
     a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return a.view(np.int16)
     return a.view(np.uint8) if a.dtype.name.startswith("float8") else a
 
 

@@ -80,5 +80,11 @@ def test_max_batch_size_stops_at_out_of_memory():
 
 
 def test_vlm_calib_batches_names_its_slice():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tds.vlm_calib_batches(2)
+    # ported with the VLM (models/vlm.py): JAX's pairs, draw for draw
+    for kw in ({}, dict(batch=3, img=32, seq=16, seed=4)):
+        ours, theirs = tds.vlm_calib_batches(2, **kw), jds.vlm_calib_batches(2, **kw)
+        assert len(ours) == len(theirs) == 2
+        for (px, tk), (jpx, jtk) in zip(ours, theirs):
+            assert px.dtype == np.float32 and tk.dtype == np.int32
+            np.testing.assert_array_equal(px, jpx)
+            np.testing.assert_array_equal(tk, jtk)

@@ -163,5 +163,7 @@ def test_unported_families_raise(base, tmp_path):
         texport.export_hf_checkpoint(shared, str(tmp_path / "shared"))
     with pytest.raises(NotImplementedError, match="native MXFP4"):
         texport.export_gpt_oss_checkpoint(tm, str(tmp_path / "oss"))
-    with pytest.raises(NotImplementedError, match="VLM"):
+    # the VLM exports since the diffusion / VLM slice (test_torch_vlm.py holds
+    # its file byte-equal to JAX's); without a model it fails as JAX's does
+    with pytest.raises((AttributeError, TypeError)):
         texport.export_vlm_checkpoint(None, None, None, None, str(tmp_path / "vlm"))

@@ -4,8 +4,8 @@ package, neither in its sources nor when it is imported. Nor does it import
 writes the safetensors format itself (`models/hf_loader.py`) and reads its
 recipes' YAML subset itself (`recipes/loader.py`). The same holds for
 chip_smoke.py, the port's examples (PTQ, QAT, eval, serving, speculative
-decoding, sparsity, prune-and-distill, chained optimizations) and its
-accuracy-table tool."""
+decoding, sparsity, prune-and-distill, chained optimizations, diffusion and
+VLM PTQ) and its accuracy-table tool."""
 
 import ast
 import os
@@ -28,7 +28,8 @@ def _sources():
     yield os.path.join(ROOT, "examples", "hf_ptq_torch.py")
     yield os.path.join(ROOT, "examples", "speculative_decoding_torch.py")
     for name in ("llm_qat_torch.py", "llm_eval_torch.py", "serve_demo_torch.py", "llm_sparsity_torch.py",
-                 "prune_distill_torch.py", "chained_optimization_torch.py"):
+                 "prune_distill_torch.py", "chained_optimization_torch.py", "diffusion_ptq_torch.py",
+                 "vlm_ptq_torch.py"):
         yield os.path.join(ROOT, "examples", name)
     yield os.path.join(ROOT, "tools", "torch_accuracy_table.py")
     yield os.path.join(ROOT, "tools", "torch_moe_accuracy_table.py")
@@ -161,3 +162,12 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_the_walk_covers_the_diffusion_vlm_slice():
+    walked = {os.path.relpath(p, ROOT) for p in _sources()}
+    pkg = "tensorrt_model_optimizer_tpu_torch/"
+    assert {pkg + m for m in ("models/dit.py", "models/unet.py", "models/vlm.py", "models/rnn.py",
+                              "fastgen/dmd.py", "fastgen/trainers.py", "nas/cv.py", "export/hf_export.py",
+                              "utils/dataset.py", "convert.py")} <= walked
+    assert {"examples/diffusion_ptq_torch.py", "examples/vlm_ptq_torch.py", "chip_smoke.py"} <= walked

@@ -14,7 +14,9 @@
 # phase), and of DeepSeek's routing weights, absorbed MLA and latent-cache
 # order (models/deepseek.py, serve/deepseek_engine.py, the deepseek phase)
 # and of its W4A4 hold at DeepSeek-V3's widths, and of the engine's tree
-# verification and compaction (serve/engine.py, the speculative phase).
+# verification and compaction (serve/engine.py, the speculative phase), and
+# of the DiT denoise step on the three weight-only GEMMs (the diffusion
+# phase).
 # Each case plants one fault in a copy of the tree in a fresh `mktemp -d`
 # directory (under $TMPDIR, removed on exit) and runs `chip_smoke.py --phases
 # build,kernels` there (a case may name other phases); every case must exit
@@ -200,4 +202,15 @@ run spec_full_positions_by_node_index serve/engine.py 's/positions = torch.tenso
 # scales; the student's W4A8 engine held to its plain GEMM (logits equal at
 # every step) and MINITRON_GEMMS' bit-exact rows see it, no other shape does
 run prune_w4a8_k3072_last_block_scale qmm_w4a8.cu 's/__ldg(s + (size_t)kb \* O + orow + 8 \* h)/__ldg(s + (size_t)(kb == nblk - 1 \&\& nblk == 24 ? kb - 1 : kb) * O + orow + 8 * h)/' build,prune
+# The diffusion phase (`--phases build,diffusion`): DiT-XL/2's denoise step on
+# the weight-only GEMMs against the all-plain step at depth 2
+# (DIFF_PLAIN_MAX), one fault in each kernel the step launches: FP8 (the
+# step's second format), the e4m3 decoder's high pair read from the low
+# half of each word ...
+run diffusion_fp8_high_pair qmm_byte_wo.cu 's/hi = fpdec::e4m3x2_to_float2(w >> 16);/hi = fpdec::e4m3x2_to_float2(w);/' build,diffusion
+# ... NVFP4 (the third), the second 16-block of every 32-chunk with the
+# first block's scale ...
+run diffusion_fp4_second_block qmm_fp4_wo.cu 's/sc = wo::e4m3_to_float(q < 2 ? r.s \& 0xFFu : (r.s >> 8) \& 0xFFu);/sc = wo::e4m3_to_float(r.s \& 0xFFu);/' build,diffusion
+# ... and INT4_AWQ (the fourth), the nibbles' sign flip dropped
+run diffusion_int4_sign qmm_int4_wo.cu 's/r.v.z : r.v.w) ^ 0x88888888u;/r.v.z : r.v.w);/' build,diffusion
 exit $missed
