@@ -296,6 +296,23 @@ Phases (any failure raises, and the script exits non-zero):
            `export_vlm_checkpoint` (sizes); LSTM and GRU (hidden 1024, 2
            layers, 8 x 256) under INT8; CV FastNAS card against CPU. It runs
            no kernel and raises if any launched.
+  hybrid   the Mamba2 hybrid family (`phase_hybrid`): (a) Nemotron-H-8B at
+           full width and depth (52 blocks, seeded bf16): an 8 x 2048
+           prefill into the cache and 32 greedy steps through
+           `mamba.generate` (TTFT, median step, peak), prefill + 4 recurrent
+           steps against the full forward and a two-chunk prefill against
+           the one-shot one; (b) FP8 / NVFP4 PTQ at all 52 blocks, max
+           calibration on 2 x [2, 512] (seconds, fake-quant TTFT and step,
+           the logits' correlation with bf16 against JAX's bars); (c) hybrid
+           Minitron on blocks 12-19 (`M-M*-M-M`): heads 128 -> 64, FFN
+           21504 -> 10752, hidden 4096 -> 3072, 8 -> 6 blocks, TTFT and step
+           beside the unpruned 8; (d) Puzzletron at Llama-3.1-8B's widths on
+           4 layers (an attn2mamba candidate a layer), `run_puzzle`,
+           `run_puzzle_constrained` on the H100's roofline, a saved child
+           reloaded; (e) tiny configs card against CPU in f32; (f)
+           `find_max_batch_size` through the card's real OOM on (c)'s 8
+           blocks at 2048 tokens, the host packer against the torch packers.
+           It runs no kernel and raises if any launched.
 Add `profile` to --phases for device time by kernel (torch.profiler) of
 the paths' prefills and decode steps; the default run profiles nothing.
 The last lines are the kernels JSON, the card's name and power limit, and
@@ -6971,6 +6988,400 @@ def phase_vision(torch, dev) -> dict:
                     "launched none here (every count 0)"}))
     return out
 
+# ---------------------------------------------------------------------------
+# hybrid: Nemotron-H-8B, its PTQ, hybrid Minitron, Puzzletron, the utilities
+# ---------------------------------------------------------------------------
+
+HYBRID_PROMPT = (8, 2048)    # (a): the prefill, batch x tokens
+HYBRID_STEPS = 32            # (a): greedy steps after the prefill
+HYBRID_TAIL = 4              # (a): recurrent steps held against the full forward
+# (a): the last logits' relative Frobenius gap, bf16 throughout: its roundings compound over 52 random
+# blocks (0.033-0.037 on the CPU at widths 512-1024, tools/torch_hybrid_ptq_depth.py --tail); a lost state is O(1)
+HYBRID_CACHE_MAX = 1e-1
+HYBRID_CALIB = (2, 2, 512)   # (b): seeded calibration batches: count, B, T
+HYBRID_EVAL = (2, 512)       # (b): the batch the fake-quant logits are correlated on
+HYBRID_FQ_STEPS = 4          # (b): timed fake-quant decode steps
+# (b): the logits' correlation with bf16. JAX's bars (tests/test_mamba.py:77-78) hold at its test's depth,
+# 5 blocks: they are held on Nemotron-H-8B's blocks HYBRID_JAX_CUT. Over random weights the quantization
+# noise compounds with depth in both packages (tools/torch_hybrid_ptq_depth.py, CPU: 0.938 / 0.622 at 52
+# blocks, width independent): all 52 blocks are held to HYBRID_CORR_52.
+HYBRID_CORR_JAX = {"FP8_DEFAULT_CFG": 0.98, "NVFP4_DEFAULT_CFG": 0.75}
+HYBRID_JAX_CUT = (12, 17)    # "M-M*-": a mixer, MLPs, the attention block, as JAX's "MM*M-"
+HYBRID_CORR_52 = {"FP8_DEFAULT_CFG": 0.90, "NVFP4_DEFAULT_CFG": 0.55}
+HYBRID_CUT = (12, 20)        # (c): Nemotron-H-8B's blocks 12-19, "M-M*-M-M"
+HYBRID_PRUNE = dict(mamba_num_heads=64, intermediate_size=10752, hidden_size=3072, num_kv_heads=8, num_blocks=6)
+HYBRID_PRUNE_STEPS = 8       # (c): timed decode steps of the pruned and unpruned cuts
+PUZZLE_DEPTH = 4             # (d): Llama-3.1-8B's widths on 4 layers
+PUZZLE_TOKENS = (2, 128)     # (d): the scoring batch (and one more for the importance)
+PUZZLE_DISTILL = 120         # (d): attn2mamba's Adam steps, JAX's default
+PUZZLE_RATIO = 0.7
+HYBRID_CARD_CPU = 1e-5       # (e): max-relative, the CPU tests' tolerance against JAX
+HYBRID_CARD_CPU_ADAM = 1e-3  # (e): attn2mamba's distilled score (Adam amplifies the sums' order)
+OOM_CEILING = 64             # (f): batch rows probed at most
+
+
+def _sync_time(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _decode_ms(torch, fwd, cfg, params, prompt, steps: int, max_len: int) -> dict:
+    """Prefill (the TTFT, a synchronized wall) then `steps` greedy steps,
+    each timed alone -> {"ttft_ms", "step_ms" (median), "tokens"}."""
+    from tensorrt_model_optimizer_tpu_torch.models import mamba
+
+    cache = mamba.init_cache(cfg, prompt.shape[0], max_len, device=prompt.device)
+    (logits, _, cache), ttft = _sync_time(torch, lambda: fwd(prompt, cache))
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    del logits
+    toks, times = [tok], []
+    for _ in range(steps):
+        (logits, _, cache), ms = _sync_time(torch, lambda: fwd(tok, cache))
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        toks.append(tok)
+        times.append(ms)
+    return {"ttft_ms": ttft, "step_ms": statistics.median(times), "tokens": torch.cat(toks, dim=1)}
+
+
+def _hybrid_full(torch, dev) -> dict:
+    """(a) and (b): Nemotron-H-8B, all 52 blocks."""
+    from tensorrt_model_optimizer_tpu_torch.models import mamba
+
+    cfg = mamba.MambaConfig.nemotron_h_8b()
+    g = torch.Generator(device=dev).manual_seed(19)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = _sync_time(torch, lambda: mamba.init_params(cfg, g, dev))
+    n_params = sum(v.numel() for sub in params.values() for v in (sub.values() if isinstance(sub, dict) else [sub]))
+    B, T = HYBRID_PROMPT
+    prompt = torch.randint(0, cfg.vocab_size, (B, T + HYBRID_TAIL), generator=g, device=dev, dtype=torch.int32)
+    max_len = T + HYBRID_STEPS + 1
+    fwd = (lambda t, c: mamba.forward(cfg, params, t, cache=c))
+    with torch.no_grad():
+        timed_run = _decode_ms(torch, fwd, cfg, params, prompt[:, :T], HYBRID_STEPS, max_len)
+        gen = mamba.generate(cfg, params, prompt[:, :T], max_new_tokens=HYBRID_STEPS + 1, max_len=max_len)
+        if not torch.equal(gen, timed_run["tokens"]):
+            raise AssertionError("hybrid (a): generate's tokens differ from the timed loop's")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # prefill + HYBRID_TAIL recurrent steps against the full forward on the same tokens
+        full_last = mamba.forward(cfg, params, prompt)[0][:, -1].float()
+        cache = mamba.init_cache(cfg, B, T + HYBRID_TAIL, device=dev)
+        one_logits, _, cache = mamba.forward(cfg, params, prompt[:, :T], cache=cache)
+        one_last = one_logits[:, -1].float()
+        del one_logits
+        for t in range(T, T + HYBRID_TAIL):
+            step, _, cache = mamba.forward(cfg, params, prompt[:, t:t + 1], cache=cache)
+        tail_err, tail_max = _rel_frob(step[:, -1].float(), full_last), _rel(step[:, -1].float(), full_last)
+        # two chunks of T / 2 against the one-shot prefill
+        cache = mamba.init_cache(cfg, B, T, device=dev)
+        _, _, cache = mamba.forward(cfg, params, prompt[:, :T // 2], cache=cache)
+        two = mamba.forward(cfg, params, prompt[:, T // 2:T], cache=cache)[0][:, -1].float()
+        chunk_err, chunk_max = _rel_frob(two, one_last), _rel(two, one_last)
+        del cache, two, step
+    for name, err in (("prefill + recurrent vs full forward", tail_err), ("two-chunk vs one-shot prefill", chunk_err)):
+        if not err <= HYBRID_CACHE_MAX:
+            raise AssertionError(f"hybrid (a): {name}: {err} > {HYBRID_CACHE_MAX}")
+    out = {"params_b": n_params / 1e9, "init_ms": init_ms, "ttft_ms": timed_run["ttft_ms"],
+           "step_ms": timed_run["step_ms"], "peak_gib": peak, "tail_vs_full_frob": tail_err, "tail_vs_full_max": tail_max,
+           "two_chunk_vs_one_frob": chunk_err, "two_chunk_vs_one_max": chunk_max, "limit_frob": HYBRID_CACHE_MAX}
+    log(json.dumps({"phase": "hybrid", "part": f"(a) nemotron-h-8b, 52 blocks, bf16, {B} x {T} + {HYBRID_STEPS} steps",
+                    **out}))
+    torch.cuda.empty_cache()
+    out["ptq"] = _hybrid_ptq(torch, dev, cfg, params, g)
+    return out
+
+
+def _hybrid_ptq(torch, dev, cfg, params, g) -> dict:
+    """(b) FP8 and NVFP4 at all 52 blocks: max calibration, the fake-quant
+    TTFT and step, the logits' correlation with bf16."""
+    from tensorrt_model_optimizer_tpu_torch.models import mamba
+
+    n, cb, ct = HYBRID_CALIB
+    calib = [torch.randint(0, cfg.vocab_size, (cb, ct), generator=g, device=dev, dtype=torch.int32) for _ in range(n)]
+    ev = torch.randint(0, cfg.vocab_size, HYBRID_EVAL, generator=g, device=dev, dtype=torch.int32)
+    cut_cfg, cut_params = _pattern_slice(cfg, params, *HYBRID_JAX_CUT)
+
+    def corr_of(c, p, qm) -> tuple[bool, float]:
+        with torch.no_grad():
+            ref = mamba.forward(c, p, ev)[0].double().flatten()
+            got = qm.forward(ev)[0]
+            finite = bool(torch.isfinite(got).all())
+            return finite, float(torch.corrcoef(torch.stack([got.double().flatten(), ref]))[0, 1])
+
+    out = {}
+    for preset in ("FP8_DEFAULT_CFG", "NVFP4_DEFAULT_CFG"):
+        qm, calib_ms = _sync_time(torch, lambda: mamba.quantize(cfg, params, preset, calib, device=dev))
+        finite, corr = corr_of(cfg, params, qm)
+        with torch.no_grad():
+            fwd = (lambda t, c: qm.forward(t, cache=c))
+            run = _decode_ms(torch, fwd, cfg, params, ev[:, :256], HYBRID_FQ_STEPS, 256 + HYBRID_FQ_STEPS + 1)
+        del qm
+        cut_finite, cut_corr = corr_of(cut_cfg, cut_params, mamba.quantize(cut_cfg, cut_params, preset, calib,
+                                                                          device=dev))
+        if not (finite and cut_finite and corr >= HYBRID_CORR_52[preset] and cut_corr >= HYBRID_CORR_JAX[preset]):
+            raise AssertionError(f"hybrid (b) {preset}: finite {finite} / {cut_finite}, corr {corr} (>= "
+                                 f"{HYBRID_CORR_52[preset]}), 5-block corr {cut_corr} (>= {HYBRID_CORR_JAX[preset]})")
+        out[preset] = {"calib_s": calib_ms / 1e3, "fq_ttft_ms_2x256": run["ttft_ms"], "fq_step_ms": run["step_ms"],
+                       "corr_52": corr, "corr_52_min": HYBRID_CORR_52[preset], "corr_5": cut_corr,
+                       "corr_5_min_jax": HYBRID_CORR_JAX[preset]}
+        torch.cuda.empty_cache()
+    log(json.dumps({"phase": "hybrid", "part": f"(b) ptq, 52 blocks (and blocks {HYBRID_JAX_CUT[0]}-"
+                    f"{HYBRID_JAX_CUT[1] - 1}, {cut_cfg.hybrid_pattern}), calib {n} x [{cb}, {ct}], eval "
+                    f"{HYBRID_EVAL[0]} x {HYBRID_EVAL[1]}", **out}))
+    return out
+
+
+def _pattern_slice(cfg, params: dict, lo: int, hi: int):
+    """Blocks lo .. hi-1 of a hybrid model: (cfg, params) sharing the
+    model's tensors (views of its stacks, the same embedding and head)."""
+    from tensorrt_model_optimizer_tpu_torch.models import mamba
+
+    sub = {k: v for k, v in params.items() if not isinstance(v, dict)}
+    for kind, key in mamba.PARAM_KEY.items():
+        occ = [cfg.hybrid_pattern[:i].count(kind) for i in range(lo, hi) if cfg.hybrid_pattern[i] == kind]
+        if occ:
+            sub[key] = {n: t[occ[0]:occ[-1] + 1] for n, t in params[key].items()}
+    return dataclasses.replace(cfg, hybrid_pattern=cfg.hybrid_pattern[lo:hi]), sub
+
+
+def _hybrid_cut(torch, dev, g):
+    """Nemotron-H-8B's blocks HYBRID_CUT at full width, seeded bf16."""
+    from tensorrt_model_optimizer_tpu_torch.models import mamba
+
+    full = mamba.MambaConfig.nemotron_h_8b()
+    cfg = dataclasses.replace(full, hybrid_pattern=full.hybrid_pattern[HYBRID_CUT[0]:HYBRID_CUT[1]])
+    return cfg, mamba.init_params(cfg, g, dev)
+
+
+def _hybrid_minitron(torch, dev) -> dict:
+    """(c) hybrid Minitron on the 8-block cut."""
+    from tensorrt_model_optimizer_tpu_torch.models import mamba
+    from tensorrt_model_optimizer_tpu_torch.prune import minitron_hybrid
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    cfg, params = _hybrid_cut(torch, dev, g)
+    batches = [torch.randint(0, cfg.vocab_size, (2, 512), generator=g, device=dev, dtype=torch.int32)
+               for _ in range(2)]
+    scores, imp_ms = _sync_time(torch, lambda: minitron_hybrid.importance(cfg, params, batches))
+    (pcfg, pparams, plan), prune_ms = _sync_time(torch, lambda: minitron_hybrid.prune(cfg, params, scores,
+                                                                                        **HYBRID_PRUNE))
+    if pcfg.mamba_num_heads % pcfg.n_groups or len(pcfg.hybrid_pattern) != HYBRID_PRUNE["num_blocks"]:
+        raise AssertionError(f"hybrid (c): pruned to {pcfg}")
+    B, T = HYBRID_PROMPT
+    prompt = torch.randint(0, cfg.vocab_size, (B, T), generator=g, device=dev, dtype=torch.int32)
+    out = {"pattern": cfg.hybrid_pattern, "pruned_pattern": plan.new_pattern, "importance_ms": imp_ms,
+           "prune_ms": prune_ms}
+    with torch.no_grad():
+        for label, c, p in (("unpruned", cfg, params), ("pruned", pcfg, pparams)):
+            run = _decode_ms(torch, (lambda t, cache, c=c, p=p: mamba.forward(c, p, t, cache=cache)), c, p, prompt,
+                             HYBRID_PRUNE_STEPS, T + HYBRID_PRUNE_STEPS + 1)
+            lg = mamba.forward(c, p, prompt[:2, :256])[0]
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"hybrid (c): {label} logits not finite")
+            out[label] = {"ttft_ms": run["ttft_ms"], "step_ms": run["step_ms"],
+                          "params_b": sum(v.numel() for sub in p.values()
+                                          for v in (sub.values() if isinstance(sub, dict) else [sub])) / 1e9}
+    log(json.dumps({"phase": "hybrid", "part": f"(c) minitron on blocks {HYBRID_CUT[0]}-{HYBRID_CUT[1] - 1}, "
+                    f"{B} x {T} + {HYBRID_PRUNE_STEPS} steps", "targets": HYBRID_PRUNE, **out}))
+    return {"cfg": cfg, "params": params, **out}
+
+
+def _hybrid_puzzle(torch, dev) -> dict:
+    """(d) Puzzletron at Llama-3.1-8B's widths on PUZZLE_DEPTH layers."""
+    import tempfile
+
+    from tensorrt_model_optimizer_tpu_torch.models import llama
+    from tensorrt_model_optimizer_tpu_torch.puzzletron import puzzle
+
+    cfg = llama.LlamaConfig.llama3_8b(num_hidden_layers=PUZZLE_DEPTH)
+    g = torch.Generator(device=dev).manual_seed(22)
+    params = llama.init_params(cfg, g, dev)
+    batches = [torch.randint(0, cfg.vocab_size, PUZZLE_TOKENS, generator=g, device=dev, dtype=torch.int32)
+               for _ in range(2)]
+    kinds = puzzle.DEFAULT_KINDS + ("attn2mamba",)
+    lib, lib_ms = _sync_time(torch, lambda: puzzle.build_and_score_library(cfg, params, batches, kinds=kinds,
+                                                                           distill_steps=PUZZLE_DISTILL))
+    res = puzzle.run_puzzle(lib, PUZZLE_RATIO)
+    full_stats = [puzzle.subblock_stats(c[0]) for c in lib]
+    budget_ms = PUZZLE_RATIO * sum(s.decode_ms for s in full_stats)
+    cres = puzzle.run_puzzle_constrained(lib, decode_budget_ms=budget_ms)
+    with torch.no_grad():
+        lg = puzzle.forward_hetero(cfg, params, res, batches[1])
+        clg = puzzle.forward_hetero(cfg, params, cres, batches[1])
+        if not (bool(torch.isfinite(lg).all()) and bool(torch.isfinite(clg).all())):
+            raise AssertionError("hybrid (d): forward_hetero not finite")
+        with tempfile.TemporaryDirectory() as d:
+            puzzle.save_child(d, cfg, params, res)
+            bcfg, bparams, back = puzzle.load_child(d, device=dev)
+        for c, orig in zip(back.layers, res.layers):  # the shared gap: a saved child keeps no mixer config
+            c.mamba_cfg = orig.mamba_cfg
+        round_trip = float((puzzle.forward_hetero(bcfg, bparams, back, batches[1]) - lg).abs().max())
+    if round_trip != 0.0 or bcfg != cfg:
+        raise AssertionError(f"hybrid (d): save_child -> load_child moved the logits by {round_trip}")
+    mamba_scores = [c.score for cands in lib for c in cands if c.name == "attn2mamba"]
+    out = {"library_s": lib_ms / 1e3, "distill_steps": PUZZLE_DISTILL, "candidates": [len(c) for c in lib],
+           "attn2mamba_scores": mamba_scores, "choices": res.choices,
+           "params_ratio": res.total_params / res.full_params, "constrained_choices": cres.choices,
+           "decode_budget_ms": budget_ms,
+           "constrained_decode_ms": sum(puzzle.subblock_stats(c).decode_ms for c in cres.layers),
+           "round_trip_max_abs": round_trip}
+    log(json.dumps({"phase": "hybrid", "part": f"(d) puzzletron, llama-3.1-8b widths, {PUZZLE_DEPTH} layers, "
+                    f"{PUZZLE_TOKENS[0]} x {PUZZLE_TOKENS[1]}", **out}))
+    return out
+
+
+def _hybrid_card_cpu(torch, dev) -> dict:
+    """(e) tiny configs in f32 (TF32 off), the card against the CPU."""
+    from tensorrt_model_optimizer_tpu_torch.models import llama, mamba
+    from tensorrt_model_optimizer_tpu_torch.prune import minitron_hybrid
+    from tensorrt_model_optimizer_tpu_torch.puzzletron import puzzle
+    from tensorrt_model_optimizer_tpu_torch.utils.tree import flatten_with_names, map_tensors
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("hybrid (e): TF32 is on")
+    cpu = torch.device("cpu")
+    to = (lambda tree: map_tensors(lambda a: a.to(dev), tree))
+    g = torch.Generator().manual_seed(23)
+    cfg = mamba.MambaConfig.tiny(hybrid_pattern="MM*M-M*-", mamba_num_heads=8)
+    p = mamba.init_params(cfg, g, cpu)
+    p["layers_mamba"]["mixer.conv_b"] = torch.randn(p["layers_mamba"]["mixer.conv_b"].shape, generator=g) * 0.1
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=g, dtype=torch.int32)
+    errs = {}
+    with torch.no_grad():
+        errs["forward"] = _card_cpu(torch, "mamba forward", mamba.forward(cfg, to(p), toks.to(dev))[0],
+                                    mamba.forward(cfg, p, toks)[0], HYBRID_CARD_CPU)
+        c_card, c_cpu = mamba.init_cache(cfg, 2, 32, device=dev), mamba.init_cache(cfg, 2, 32, device=cpu)
+        worst = 0.0
+        for sl in (slice(0, 20), slice(20, 21), slice(21, 22), slice(22, 23)):
+            a, _, c_card = mamba.forward(cfg, to(p), toks[:, sl].to(dev), cache=c_card)
+            b, _, c_cpu = mamba.forward(cfg, p, toks[:, sl], cache=c_cpu)
+            worst = max(worst, _card_cpu(torch, "prefill/decode logits", a, b, HYBRID_CARD_CPU),
+                        *(_card_cpu(torch, f"cache {k}", c_card[k], c_cpu[k], HYBRID_CARD_CPU)
+                          for k in ("conv", "ssm", "k", "v")))
+        errs["prefill_decode"] = worst
+        q_card = mamba.quantize(cfg, to(p), "FP8_DEFAULT_CFG", [toks.to(dev)], device=dev)
+        q_cpu = mamba.quantize(cfg, p, "FP8_DEFAULT_CFG", [toks], device=cpu)
+        ref = flatten_with_names(q_cpu.qstate)
+        errs["fp8_amax"] = max(_card_cpu(torch, f"amax {k}", v, ref[k], HYBRID_CARD_CPU)
+                               for k, v in flatten_with_names(q_card.qstate).items())
+        # JAX's rule for fake-quant logits: the CPU's state on both sides
+        q_card.qstate = to(q_cpu.qstate)
+        errs["fp8_logits"] = _card_cpu(torch, "fp8 logits", q_card.forward(toks.to(dev))[0],
+                                       q_cpu.forward(toks)[0], HYBRID_CARD_CPU)
+    batches = [torch.randint(0, cfg.vocab_size, (2, 16), generator=g, dtype=torch.int32) for _ in range(2)]
+    s_cpu = minitron_hybrid.importance(cfg, p, batches)
+    s_card = minitron_hybrid.importance(cfg, to(p), [b.to(dev) for b in batches])
+    errs["prune_scores"] = max(_card_cpu(torch, f"importance {f}", torch.from_numpy(getattr(s_card, f)),
+                                         torch.from_numpy(getattr(s_cpu, f)), HYBRID_CARD_CPU)
+                               for f in ("mamba_head", "kv_group", "ffn", "hidden", "block"))
+    kw = dict(mamba_num_heads=4, intermediate_size=96, hidden_size=48, num_blocks=6)
+    pc_cpu, pp_cpu, _ = minitron_hybrid.prune(cfg, p, s_cpu, **kw)
+    pc_card, pp_card, _ = minitron_hybrid.prune(cfg, to(p), s_cpu, **kw)
+    shapes = lambda t: {k: tuple(v.shape) for k, v in flatten_with_names(t).items()}
+    if pc_cpu != pc_card or shapes(pp_cpu) != shapes(pp_card):
+        raise AssertionError("hybrid (e): the pruned shapes differ")
+    lcfg = llama.LlamaConfig.tiny(num_hidden_layers=2, dtype=torch.float32)
+    lp = llama.init_params(lcfg, g, cpu)
+    lb = [torch.randint(0, lcfg.vocab_size, (2, 16), generator=g, dtype=torch.int32) for _ in range(2)]
+    kinds = puzzle.DEFAULT_KINDS + ("attn2mamba",)
+    inits = [puzzle.seeded_mixer(puzzle.mixer_config(lcfg), i, cpu) for i in range(2)]  # one start for both
+    lib_card = puzzle.build_and_score_library(lcfg, to(lp), [b.to(dev) for b in lb], kinds=kinds, distill_steps=20,
+                                              init_mixers=inits)
+    lib_cpu = puzzle.build_and_score_library(lcfg, lp, lb, kinds=kinds, distill_steps=20, init_mixers=inits)
+    worst = worst_adam = 0.0
+    for cc, cp in zip(lib_card, lib_cpu):
+        for a, b in zip(cc, cp):
+            err = abs(a.score - b.score) / max(abs(b.score), 1e-30)
+            lim = HYBRID_CARD_CPU_ADAM if a.name == "attn2mamba" else HYBRID_CARD_CPU
+            if a.name != b.name or not err <= lim:
+                raise AssertionError(f"hybrid (e): puzzletron {a.name} score {err} > {lim}")
+            if a.name == "attn2mamba":
+                worst_adam = max(worst_adam, err)
+            else:
+                worst = max(worst, err)
+    errs["puzzle_scores"], errs["puzzle_attn2mamba_score"] = worst, worst_adam
+    log(json.dumps({"phase": "hybrid", "part": "(e) card vs cpu (tiny, f32, tf32 off)", **errs,
+                    "limits": {"max_rel": HYBRID_CARD_CPU, "attn2mamba_score": HYBRID_CARD_CPU_ADAM}}))
+    return errs
+
+
+def _hybrid_utils(torch, dev, cut: dict) -> dict:
+    """(f) the OOM probe on (c)'s 8 blocks at 2048 tokens, the host packer."""
+    import numpy as np
+
+    from tensorrt_model_optimizer_tpu_torch import csrc
+    from tensorrt_model_optimizer_tpu_torch.models import mamba
+    from tensorrt_model_optimizer_tpu_torch.ops import numerics
+    from tensorrt_model_optimizer_tpu_torch.utils import memory, perf
+
+    cfg, params = cut["cfg"], cut["params"]
+    g = torch.Generator(device=dev).manual_seed(24)
+    probes = []
+
+    def try_fn(b):
+        probes.append(b)
+        torch.cuda.empty_cache()  # each probe on an emptied cache: the boundary is not the last probe's fragments
+        toks = torch.randint(0, cfg.vocab_size, (b, HYBRID_PROMPT[1]), generator=g, device=dev, dtype=torch.int32)
+        with torch.no_grad():
+            mamba.forward(cfg, params, toks)
+        torch.cuda.synchronize()
+
+    torch.cuda.empty_cache()
+    timer = perf.Timer()
+    with timer.time("probe"):
+        best = memory.find_max_batch_size(try_fn, start=1, ceiling=OOM_CEILING)
+    oomed = [b for b in probes if b > best]
+    if not oomed or best >= OOM_CEILING:
+        raise AssertionError(f"hybrid (f): the probe met no OOM below {OOM_CEILING} (probes {probes})")
+    try_fn(best)  # the card recovered: the largest fitting batch runs again after the OOMs
+    stats = memory.device_memory_stats()
+    # the host packer against the port's torch packers, on the card's weights
+    w = params["layers_mlp"]["mlp.up_proj"][0][:256, :1024].float()
+    bam = w.abs().reshape(256, -1, 64).amax(-1)
+    scale = torch.where(bam == 0, torch.ones_like(bam), bam / 7.0)
+    q = torch.clamp(torch.round(w / scale.repeat_interleave(64, dim=1)), -8, 7).to(torch.int8)
+    wn, sn = w.cpu().numpy(), scale.cpu().numpy()
+    int4_equal = bool(np.array_equal(csrc.int4_round_and_pack(wn, sn, 64), numerics.pack_int4(q).cpu().numpy()))
+    g_amax = w.abs().max()
+    packed, scales = csrc.nvfp4_quantize_and_pack(wn, float(g_amax) / (6.0 * 448.0), 16)
+    tp, ts, _ = numerics.real_quant_nvfp4(w, 16, g_amax)
+    nvfp4_equal = bool(np.array_equal(packed, tp.cpu().numpy())) and bool(
+        np.allclose(scales, ts.float().cpu().numpy(), rtol=1e-6, atol=0))
+    unpack_equal = bool(np.array_equal(csrc.int4_unpack(csrc.int4_round_and_pack(wn, sn, 64)), q.cpu().numpy()))
+    if not (int4_equal and nvfp4_equal and unpack_equal):
+        raise AssertionError(f"hybrid (f): pack_ext int4 {int4_equal}, nvfp4 {nvfp4_equal}, unpack {unpack_equal}")
+    out = {"max_batch": best, "ceiling": OOM_CEILING, "probes": probes, "probe_s": timer.totals["probe"],
+           "bytes_limit_gib": stats["bytes_limit"] / 2**30, "pack_ext_lib": os.path.relpath(csrc.build(), HERE),
+           "int4_equal": int4_equal, "nvfp4_equal": nvfp4_equal, "unpack_equal": unpack_equal}
+    log(json.dumps({"phase": "hybrid", "part": f"(f) find_max_batch_size, {len(cfg.hybrid_pattern)} blocks x "
+                    f"{HYBRID_PROMPT[1]} tokens; pack_ext", **out}))
+    return out
+
+
+def phase_hybrid(torch, dev) -> dict:
+    """The Mamba2 hybrid family, Minitron, Puzzletron and the utilities. No
+    part reaches a TPU kernel in JAX, and none launches one here: the
+    launch counts must stay 0."""
+    _counts(reset=True)
+    out = {"full": _hybrid_full(torch, dev)}
+    torch.cuda.empty_cache()
+    cut = _hybrid_minitron(torch, dev)
+    torch.cuda.empty_cache()
+    out["utils"] = _hybrid_utils(torch, dev, cut)
+    del cut
+    torch.cuda.empty_cache()
+    out["puzzle"] = _hybrid_puzzle(torch, dev)
+    torch.cuda.empty_cache()
+    out["card_cpu"] = _hybrid_card_cpu(torch, dev)
+    launched = {k: n for k, n in _counts().items() if n}
+    if launched:
+        raise AssertionError(f"hybrid: launched kernels {launched}; its paths have none")
+    log(json.dumps({"phase": "hybrid", "kernels": "none: Mamba, Minitron-hybrid, Puzzletron, the tracer and the "
+                    "utilities reach no TPU kernel in JAX, and launched none here (every count 0)"}))
+    return out
+
 
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -7017,7 +7428,7 @@ ANCHOR_ONLY = ("skip_softmax_flash_cuda_core", "paged_attention_prefill_cuda_cor
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,anchor,full,deploy,calib,accuracy,moe,families,deepseek,"
-                                        "speculative,train,prune,diffusion,vision",
+                                        "speculative,train,prune,diffusion,vision,hybrid",
                     help="comma-separated; add 'profile' for device time by kernel (torch.profiler: the prefill and "
                          "decode steps of each phase's paths, the full run's at FULL_DEPTH)")
     args = ap.parse_args(argv)
@@ -7151,6 +7562,8 @@ def main(argv=None) -> int:
         launches = {k: (launches or {}).get(k, 0) + diffused.get(k, 0) for k in KERNELS}
     if "vision" in phases:
         timed("vision", phase_vision, torch, dev)
+    if "hybrid" in phases:
+        timed("hybrid", phase_hybrid, torch, dev)
     log(json.dumps({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t_start, 1)}))
     out = []
     for name, (src, replaces) in KERNELS.items():

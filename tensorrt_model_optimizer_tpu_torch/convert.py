@@ -23,7 +23,9 @@ JAX's bool masks gives the port's). Minitron's importance scores and plans
 are numpy in both packages and need no conversion. The diffusion, VLM, RNN and
 CV families cross with their configs (`dit_cfg_from_jax`,
 `unet_cfg_from_jax`, `vlm_cfg_from_jax`, `rnn_cfg_from_jax`,
-`cv_cfg_from_jax`), `params_from_jax` (DiT's and the ViT's stacked `[depth,
+`cv_cfg_from_jax`), and so does the hybrid Mamba family
+(`mamba_cfg_from_jax`, `quantized_from_jax` of a `MambaQuantizedModel`,
+`cache_from_jax` of its cache), `params_from_jax` (DiT's and the ViT's stacked `[depth,
 ...]` blocks, the UNet's, RNN's, CV model's and DMD discriminator's flat
 dicts) and `params_from_jax` / `layout_from_jax` for the calibrated state,
 stacked as JAX's scan carries it. Objects are read by their
@@ -193,6 +195,15 @@ def cv_cfg_from_jax(cfg):
     return config_from_jax(cfg, CVConfig)
 
 
+def mamba_cfg_from_jax(cfg):
+    """A JAX `MambaConfig` -> the port's (every field, the dtype as the
+    torch dtype, `time_step_limit` a tuple)."""
+    from .models.mamba import MambaConfig
+
+    out = config_from_jax(cfg, MambaConfig)
+    return dataclasses.replace(out, time_step_limit=tuple(out.time_step_limit))
+
+
 def _quant_cfg_from_jax(qc):
     from .quant.config import QuantizeConfig
 
@@ -201,12 +212,21 @@ def _quant_cfg_from_jax(qc):
 
 def quantized_from_jax(qm, device="cpu"):
     """A JAX `QuantizedModel` (`quant.ptq.quantize`'s output: raw weights,
-    layout, calibrated state, the config) or `DeepseekQuantizedModel` ->
-    the port's, on `device`."""
-    from .models import gpt_oss, llama4, mixtral
+    layout, calibrated state, the config), `DeepseekQuantizedModel` or
+    `MambaQuantizedModel` (the hybrid stacks and the {"mamba", "attn",
+    "mlp"} state; `quantize_family("mamba")`'s `QuantizedModel` gets the
+    port's `mamba.forward`) -> the port's, on `device`."""
+    from .models import gpt_oss, llama4, mamba, mixtral
     from .quant.ptq import QuantizedModel
 
     qc = qm.quant_cfg
+    if type(qm.model_cfg).__name__ == "MambaConfig":
+        mcfg = mamba_cfg_from_jax(qm.model_cfg)
+        parts = (mcfg, params_from_jax(qm.params, device), layout_from_jax(qm.layout),
+                 params_from_jax(qm.qstate, device), _quant_cfg_from_jax(qc))
+        if type(qm).__name__ == "MambaQuantizedModel":
+            return mamba.MambaQuantizedModel(*parts)
+        return QuantizedModel(*parts, forward_fn=mamba.forward)
     cfg = llama_cfg_from_jax(qm.model_cfg)
     if type(qm).__name__ == "DeepseekQuantizedModel":
         from .models.deepseek import DeepseekQuantizedModel
@@ -257,7 +277,8 @@ def cache_from_jax(cache, device="cpu") -> dict:
     S, n_kv, C], packed NVFP4 as one uint8 row of 9 hd/16 bytes) or the kernel
     engine's ("k", "v" [L, B, n_kv, S, C] and, for NVFP4, "ks", "vs"), and
     "pos", a 0-d int32 tensor on `device` as JAX's is. fp8 rows cross as
-    integer views, bit for bit."""
+    integer views, bit for bit. The hybrid Mamba cache ("conv", "ssm" f32,
+    "k", "v", "pos") crosses the same way."""
     return {k: (torch.tensor(int(v), dtype=torch.int32, device=device) if k == "pos"
                 else tensor_from_array(v, device)) for k, v in cache.items()}
 

@@ -55,6 +55,7 @@ from .. import resolve_device
 from ..quant import quantizer as Q
 from ..quant.config import QuantizeConfig
 from ..quant.quantizer import QuantizerConfig, QuantizerState
+from ..trace.tracer import scanned, tied
 from . import llama, mixtral
 
 
@@ -475,6 +476,7 @@ def _moe_mlp(cfg: DeepseekConfig, x, lp, lstate, layout, calib):
         return Q.quantize(lp[name][e], wcfg, llama.slice_state(lst.get(name, {}).get("weight", QuantizerState()), e))
 
     ye = []
+    tied(mixtral.expert_stacks(lp))  # JAX's dispatch einsums batch over this axis
     for e in range(E):
         h_in = Q.quantize(xe[e], icfg, ist) if icfg.enable and not calib and ist is not None else xe[e]
         g = h_in @ w_of("moe.gate_proj", e).t().to(h_in.dtype)
@@ -545,7 +547,7 @@ def forward(cfg: DeepseekConfig, params: dict, tokens: torch.Tensor, *,
     for key, pkey in GROUPS:
         if pkey not in params:
             continue
-        group, gstate = params[pkey], (qstate or {}).get(key)
+        group, gstate = scanned(params[pkey]), (qstate or {}).get(key)  # JAX: a lax.scan a group
         emitted, ckvs, kpes = [], [], []
         for i in range(group["input_layernorm"].shape[0]):
             lp = {n: v[i] for n, v in group.items()}

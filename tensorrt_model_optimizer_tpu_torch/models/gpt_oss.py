@@ -25,6 +25,7 @@ import torch
 
 from .. import resolve_device
 from ..quant.config import QuantizeConfig
+from ..trace.tracer import scanned
 from . import llama, mixtral
 
 
@@ -125,8 +126,9 @@ def forward(cfg: GptOssConfig, params: dict, tokens: torch.Tensor, *,
              True: llama.span_mask(T, ar, cfg.span())[None, None]}
     per_layer = {k: v for k, v in (qstate or {}).items() if not k.startswith(llama.GLOBAL_SITES)} or None
     emitted, captures = [], {"attn_in": [], "moe_in": []}
+    layers = scanned(params["layers"])  # JAX's lax.scan over this stack
     for i, sliding in enumerate(cfg.layer_flags()):
-        lp = {k: v[i] for k, v in params["layers"].items()}
+        lp = {k: v[i] for k, v in layers.items()}
         x, st, caps = mixtral._layer(cfg, layout, calib, x, lp, llama.slice_state(per_layer, i), positions,
                                      masks[sliding], capture_tokens)
         emitted.append(st)

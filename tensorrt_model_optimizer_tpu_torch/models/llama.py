@@ -35,6 +35,7 @@ from ..ops.cuda import flash_gqa
 from ..quant import quantizer as Q
 from ..quant.config import QuantizeConfig
 from ..quant.quantizer import QuantizerConfig, QuantizerState
+from ..trace.tracer import scanned
 
 Params = dict
 QuantState = dict
@@ -630,7 +631,7 @@ def forward(cfg: LlamaConfig, params: Params, tokens: Optional[torch.Tensor], *,
 
     per_layer_state = {k: v for k, v in (qstate or {}).items()
                        if not k.startswith(GLOBAL_SITES)} or None
-    layers = params["layers"]
+    layers = scanned(params["layers"])  # JAX's lax.scan over this stack
     emitted, new_k, new_v = [], [], []
     captures: dict = {k: [] for k in CAPTURE_KEYS} if capture_tokens else {}
     for i in range(cfg.num_hidden_layers):

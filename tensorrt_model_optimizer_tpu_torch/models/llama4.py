@@ -27,6 +27,7 @@ import torch
 from .. import resolve_device
 from ..quant import quantizer as Q
 from ..quant.config import QuantizeConfig
+from ..trace.tracer import scanned
 from . import llama, mixtral
 
 SHARED_NAMES = ("shared.gate_proj", "shared.up_proj", "shared.down_proj")
@@ -221,8 +222,9 @@ def forward(cfg: Llama4Config, params: dict, tokens: torch.Tensor, *,
              True: llama.span_mask(T, ar, cfg.span())[None, None]}
     per_layer = {k: v for k, v in (qstate or {}).items() if not k.startswith(llama.GLOBAL_SITES)} or None
     emitted, captures = [], {"attn_in": [], "moe_in": []}
+    layers = scanned(params["layers"])  # JAX's lax.scan over this stack
     for i, use_rope in enumerate(cfg.layer_flags()):
-        lp = {k: v[i] for k, v in params["layers"].items()}
+        lp = {k: v[i] for k, v in layers.items()}
         lstate = llama.slice_state(per_layer, i)
         h = llama.norm(cfg, x, lp["input_layernorm"])
         if capture_tokens:

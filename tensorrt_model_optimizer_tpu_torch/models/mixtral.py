@@ -30,6 +30,7 @@ from .. import resolve_device
 from ..quant import quantizer as Q
 from ..quant.config import QuantizeConfig
 from ..quant.quantizer import QuantizerState
+from ..trace.tracer import scanned, tied
 from . import llama
 
 
@@ -269,6 +270,14 @@ def router_logits(cfg: MixtralConfig, x: torch.Tensor, lp: dict) -> torch.Tensor
     return logits
 
 
+def expert_stacks(lp: dict) -> list:
+    """A layer's expert stacks [E, ...] (the biases too), in the order
+    JAX's dispatch einsums meet them: gate, up, then down."""
+    names = ("moe.gate_proj", "moe.up_proj", "moe.gate_proj__bias", "moe.up_proj__bias", "moe.down_proj",
+             "moe.down_proj__bias")
+    return [lp[n] for n in names if n in lp]
+
+
 def _moe_mlp(cfg: MixtralConfig, x, lp, lstate, layout, calib):
     """Top-k routed expert MLP with capacity dispatch; x [B, T, H] ->
     (y [B, T, H], emitted state)."""
@@ -295,6 +304,7 @@ def _moe_mlp(cfg: MixtralConfig, x, lp, lstate, layout, calib):
             return w
         return Q.quantize(w, wcfg, llama.slice_state(lst.get(name, {}).get("weight", QuantizerState()), e))
 
+    tied(expert_stacks(lp))  # JAX's dispatch einsums batch over this axis
     ye = []
     for e in range(E):
         h_in = Q.quantize(xe[e], icfg, ist) if quant_in else xe[e]
@@ -362,8 +372,9 @@ def forward(cfg: MixtralConfig, params: dict, tokens: torch.Tensor, *,
     mask = llama.causal_mask(T, tokens.device)
     per_layer = {k: v for k, v in (qstate or {}).items() if not k.startswith(llama.GLOBAL_SITES)} or None
     emitted, captures = [], {"attn_in": [], "moe_in": []}
+    layers = scanned(params["layers"])  # JAX's lax.scan over this stack
     for i in range(cfg.num_hidden_layers):
-        lp = {k: v[i] for k, v in params["layers"].items()}
+        lp = {k: v[i] for k, v in layers.items()}
         x, st, caps = _layer(cfg, layout, calib, x, lp, llama.slice_state(per_layer, i), positions, mask,
                              capture_tokens)
         emitted.append(st)

@@ -3,10 +3,9 @@
 through the whole pipeline (PTQ, export, serving).
 
 `llama` (llama, qwen2, qwen3, mistral), `mixtral` (mixtral, qwen3_moe,
-dbrx), `llama4` (llama4, llama4_text), `gpt_oss` and `dit` (no HF model
-type) are registered as in JAX. JAX's other family, `mamba`, is not ported
-yet: `get` and `for_hf_model_type` raise `NotImplementedError` naming the
-ROADMAP item that brings it.
+dbrx), `llama4` (llama4, llama4_text), `gpt_oss`, `mamba` (nemotron_h,
+mamba2) and `dit` (no HF model type) are registered as in JAX: every JAX
+family is ported.
 """
 
 from __future__ import annotations
@@ -29,11 +28,6 @@ class ModelFamily:
 
 _REGISTRY: dict[str, ModelFamily] = {}
 
-# JAX's families the port does not have yet: name -> (HF model types, what brings it)
-NOT_PORTED = {
-    "mamba": (("nemotron_h", "mamba2"), "ROADMAP queue 1 item 10 (models/mamba.py)"),
-}
-
 
 def register(family: ModelFamily) -> ModelFamily:
     if family.name in _REGISTRY:
@@ -43,8 +37,6 @@ def register(family: ModelFamily) -> ModelFamily:
 
 
 def get(name: str) -> ModelFamily:
-    if name in NOT_PORTED and name not in _REGISTRY:
-        raise NotImplementedError(f"model family {name!r} is not ported yet: {NOT_PORTED[name][1]}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown model family {name!r}; registered: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
@@ -54,9 +46,6 @@ def for_hf_model_type(model_type: str) -> ModelFamily:
     for fam in _REGISTRY.values():
         if model_type in fam.hf_model_types:
             return fam
-    for name, (types, item) in NOT_PORTED.items():
-        if model_type in types:
-            raise NotImplementedError(f"model_type {model_type!r} ({name}) is not ported yet: {item}")
     raise KeyError(f"no registered family handles model_type={model_type!r}")
 
 
@@ -69,6 +58,7 @@ def _register_builtins():
     from . import gpt_oss as gpt_oss_mod
     from . import llama as llama_mod
     from . import llama4 as llama4_mod
+    from . import mamba as mamba_mod
     from . import mixtral as mixtral_mod
 
     register(ModelFamily(
@@ -91,6 +81,11 @@ def _register_builtins():
         forward=gpt_oss_mod.forward, build_layout=gpt_oss_mod.build_layout,
         init_quant_state=gpt_oss_mod.init_quant_state, param_specs=gpt_oss_mod.param_specs,
         hf_model_types=("gpt_oss",)))
+    register(ModelFamily(
+        name="mamba", config_cls=mamba_mod.MambaConfig, init_params=mamba_mod.init_params,
+        forward=mamba_mod.forward, build_layout=mamba_mod.build_layout,
+        init_quant_state=mamba_mod.init_quant_state, param_specs=mamba_mod.param_specs,
+        hf_model_types=("nemotron_h", "mamba2")))
     register(ModelFamily(
         name="dit", config_cls=dit_mod.DiTConfig, init_params=dit_mod.init_params, forward=dit_mod.forward,
         build_layout=dit_mod.build_layout, init_quant_state=dit_mod.init_quant_state, hf_model_types=()))

@@ -7,8 +7,8 @@ depth); a candidate subnet is materialized by importance-ordered slicing
 (Minitron's scores), scored by its calibration loss (`qat.qat_loss` with no
 quantizer sites) and searched by evolution under a parameter budget
 (`search`), or cut by a binary search on a uniform FFN ratio under a loss
-budget (`fastnas_prune`). `convert_traced` (the search space from a traced
-forward) needs the tracer, `trace/tracer.py`, which is not ported.
+budget (`fastnas_prune`). `convert_traced` builds the search space of any
+model from its traced forward (`trace.trace_dim_groups`).
 """
 
 from __future__ import annotations
@@ -140,9 +140,28 @@ def fastnas_prune(cfg: llama.LlamaConfig, params: llama.Params, batches: list, m
     return materialize(cfg, params, scores, uniform(ratio)) + (ratio,)
 
 
-def convert_traced(forward_fn, params: dict, cfg, **kw) -> SearchSpace:
-    """The search space from a traced forward (JAX: the jaxpr dependency
-    trace of any model). Not ported: it needs `trace/tracer.py`."""
-    raise NotImplementedError("convert_traced builds the search space from a traced forward: it needs the tracer "
-                              "(`trace/tracer.py`, ROADMAP queue 1 item 10), which is not ported; `convert` "
-                              "builds Llama's")
+def convert_traced(forward_fn, params: dict, cfg, *, width_ratios=(0.5, 0.75, 1.0),
+                   min_width: int = 8) -> SearchSpace:
+    """The search space from a traced forward (`trace.trace_dim_groups`
+    over the aten graph of `forward_fn(params, tokens)`, any model): every
+    multi-site dimension group becomes a width Hparam (ratio-scaled,
+    `min_width`-aligned sizes and the full size), every `depth` group a
+    depth Hparam over 1..L; groups that touch the embedding or the head
+    are skipped (not prunable widths). JAX's names and choices."""
+    from ..trace import trace_dim_groups
+
+    res = trace_dim_groups(forward_fn, params, cfg)
+    hparams = {}
+    for g in res["groups"]:
+        if g.name == "depth":  # one depth hparam a scanned stack
+            key = f"depth.{g.sites[0][0].split('/')[0]}"
+            hparams[key] = Hparam(key, choices=tuple(range(1, g.size + 1)))
+            continue
+        if any(s[0] in ("embed_tokens", "lm_head") for s in g.sites) or len(g.sites) < 2:
+            continue
+        align = min(min_width, g.size)
+        choices = tuple(sorted({min(max(int(g.size * r) // align * align, align), g.size)
+                                for r in width_ratios} | {g.size}))
+        key = f"width.{g.name}"
+        hparams[key] = Hparam(key, choices=choices)
+    return SearchSpace(hparams=hparams)

@@ -1,4 +1,4 @@
 """Structured pruning (port of `tensorrt_model_optimizer_tpu.prune`):
-Minitron width / depth pruning of Llama (`minitron`) and expert pruning of
-the routed-MoE families (`minitron_moe`). `minitron_hybrid` (it needs the
-mamba models) is not ported."""
+Minitron width / depth pruning of Llama (`minitron`), expert pruning of the
+routed-MoE families (`minitron_moe`) and Mamba-head / width / depth pruning
+of the hybrid Mamba2 stacks (`minitron_hybrid`)."""

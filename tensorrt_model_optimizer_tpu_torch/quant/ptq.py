@@ -222,16 +222,21 @@ def calibrate(model: QuantizedModel, calib_batches: Iterable[torch.Tensor]) -> Q
 
 
 def _validate(qstate) -> list[str]:
-    """Post-calibration sanity: every amax finite and non-negative."""
+    """Post-calibration sanity: every amax finite and non-negative (states
+    at any depth: the hybrid family nests one level more)."""
     problems = []
-    for name, sub in qstate.items():
-        states = [(name, sub)] if isinstance(sub, Q.QuantizerState) else [
-            (f"{name}.{k}", s) for k, s in sub.items()]
-        for site, st in states:
-            amaxes = st.amax if isinstance(st.amax, tuple) else (st.amax,)
-            for a in amaxes:
-                if a is not None and not bool(torch.all(torch.isfinite(a) & (a >= 0))):
-                    problems.append(f"{site}: amax has NaN/Inf or negative entries")
+
+    def walk(site, st):
+        if isinstance(st, dict):
+            for k, s in st.items():
+                walk(f"{site}.{k}" if site else k, s)
+            return
+        amaxes = st.amax if isinstance(st.amax, tuple) else (st.amax,)
+        for a in amaxes:
+            if a is not None and not bool(torch.all(torch.isfinite(a) & (a >= 0))):
+                problems.append(f"{site}: amax has NaN/Inf or negative entries")
+
+    walk("", qstate)
     return problems
 
 
@@ -621,13 +626,23 @@ def quantize_family(family, model_cfg, params, quant_cfg: QuantizeConfig | str,
     and gptq through the shared-input capture groups), then max passes
     through the family's forward, whose emitted state is the model's (one
     dummy [1, 8] forward without batches, as JAX's). Other methods raise,
-    as JAX's do. The returned model's `forward` is the family's."""
+    as JAX's do. A family whose forward takes no `capture_tokens` (mamba)
+    has no capture groups: smoothquant, awq and gptq raise
+    `NotImplementedError` naming the method before any work, where JAX's
+    fail in the capture forward with a `TypeError`. The returned model's
+    `forward` is the family's."""
+    import inspect
+
     from ..models import registry
 
     dev = resolve_device(device)
     fam = registry.get(family) if isinstance(family, str) else family
     qcfg = get_preset(quant_cfg) if isinstance(quant_cfg, str) else quant_cfg
     method = _method_of(qcfg.algorithm)
+    if (method in ("smoothquant", "awq_lite", "awq_full", "gptq")
+            and "capture_tokens" not in inspect.signature(fam.forward).parameters):
+        raise NotImplementedError(f"{method!r} calibration needs the family's capture forward (capture_tokens), "
+                                  f"which family {fam.name!r} lacks; it supports max calibration")
     layout = fam.build_layout(model_cfg, qcfg)
     qstate = fam.init_quant_state(model_cfg, layout, dev)
     batches = [b.to(dev) for b in calib_batches] if calib_batches is not None else []

@@ -224,7 +224,7 @@ def test_forward_packed_refuses_f32_on_the_card(quantized, model):
 def test_registry_has_dit():
     fam = treg.get("dit")
     assert fam.forward is tdit.forward and fam.config_cls is tdit.DiTConfig and fam.hf_model_types == ()
-    assert "dit" in treg.families() and "dit" not in treg.NOT_PORTED
+    assert "dit" in treg.families()
 
 
 def test_init_params_shapes_match_jax():

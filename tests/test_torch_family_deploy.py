@@ -237,14 +237,17 @@ def test_deploy_loop(oss, tmp_path):
 
 
 def test_registry_matches_jax():
-    # dit is registered since the diffusion slice (tests/test_torch_dit.py)
-    assert treg.families() == ["dit", "gpt_oss", "llama", "llama4", "mixtral"]
+    # dit is registered since the diffusion slice (tests/test_torch_dit.py),
+    # mamba since the hybrid slice (tests/test_torch_mamba.py)
+    assert treg.families() == ["dit", "gpt_oss", "llama", "llama4", "mamba", "mixtral"]
     for mt in ("llama4", "llama4_text", "gpt_oss"):
         assert treg.for_hf_model_type(mt).name == jreg.for_hf_model_type(mt).name
     assert treg.get("gpt_oss").forward is tgpt.forward and treg.get("llama4").forward is tl4.forward
     assert treg.get("llama4").config_cls is tl4.Llama4Config and treg.get("gpt_oss").init_params is tgpt.init_params
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        treg.get("mamba")
+    from tensorrt_model_optimizer_tpu_torch.models import mamba as tmamba
+
+    assert treg.get("mamba").forward is tmamba.forward
+    assert treg.for_hf_model_type("nemotron_h").name == jreg.for_hf_model_type("nemotron_h").name == "mamba"
 
 
 def test_llama4_export_raises_as_jax(tmp_path):

@@ -106,9 +106,11 @@ def test_cli_unported_arguments_raise(extra, item, tmp_path):
 
 def test_cli_refuses_other_families(tmp_path):
     # mixtral, qwen3_moe and dbrx run since the MoE-families slice (test_torch_moe_ptq.py),
-    # gpt_oss and llama4 since the GPT-OSS / Llama4 slice; mamba is not ported
+    # gpt_oss and llama4 since the GPT-OSS / Llama4 slice; nemotron_h is the
+    # mamba family since the hybrid slice, and both CLIs send it to the MoE
+    # loader, which has no Nemotron-H reader (JAX: hf_loader.py:608-609)
     (tmp_path / "config.json").write_text(json.dumps({"model_type": "nemotron_h"}))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="MoE model_type 'nemotron_h'"):
         _load("examples/hf_ptq_torch.py", "hf_ptq_torch").main(["--device", "cpu", "--model", str(tmp_path)])
 
 

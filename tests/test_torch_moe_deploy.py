@@ -164,17 +164,13 @@ def test_dbrx_loads_as_jax(tmp_path):
 def test_registry_matches_jax():
     # llama4 and gpt_oss are registered since the GPT-OSS / Llama4 slice
     # (tests/test_torch_family_deploy.py holds their entries to JAX's)
-    # dit is registered since the diffusion slice (tests/test_torch_dit.py)
-    assert treg.families() == ["dit", "gpt_oss", "llama", "llama4", "mixtral"]
-    for mt in ("llama", "qwen2", "qwen3", "mistral", "mixtral", "qwen3_moe", "dbrx"):
+    # dit is registered since the diffusion slice (tests/test_torch_dit.py),
+    # mamba since the hybrid slice (tests/test_torch_mamba.py)
+    assert treg.families() == jreg.families() == ["dit", "gpt_oss", "llama", "llama4", "mamba", "mixtral"]
+    for mt in ("llama", "qwen2", "qwen3", "mistral", "mixtral", "qwen3_moe", "dbrx", "nemotron_h", "mamba2"):
         assert treg.for_hf_model_type(mt).name == jreg.for_hf_model_type(mt).name
     assert treg.get("mixtral").forward is tmix.forward
-    assert "mamba" in jreg.families() and "dit" in jreg.families()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        treg.get("mamba")
-    for mt in ("nemotron_h", "mamba2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-            treg.for_hf_model_type(mt)
+    assert treg.get("mamba").name == jreg.get("mamba").name == "mamba"
     with pytest.raises(ValueError):
         treg.register(treg.get("llama"))
     # deepseek_v3 loads since the DeepSeek slice (tests/test_torch_deepseek.py

@@ -17,7 +17,8 @@ AutoNAS / FastNAS (`nas/autonas.py`) against the JAX package.
    `search` visits the same candidates: history scores within 1e-5
    relative, the same best config (JAX recompiles its eager forward per
    subnet shape, so its search is held at two iterations).
- - `convert_traced` raises, naming the tracer."""
+ - `convert_traced` (the tracer's search space) on the tiny Llama: JAX's
+   hparam names and choices (every family: tests/test_torch_trace.py)."""
 
 import dataclasses
 
@@ -34,6 +35,7 @@ from tensorrt_model_optimizer_tpu.opt import hparam as jhp
 from tensorrt_model_optimizer_tpu.opt import searcher as jsearch
 from tensorrt_model_optimizer_tpu.prune import minitron as jmin
 from tensorrt_model_optimizer_tpu_torch import convert
+from tensorrt_model_optimizer_tpu_torch.models import llama as tllama
 from tensorrt_model_optimizer_tpu_torch.nas import autonas as tnas
 from tensorrt_model_optimizer_tpu_torch.opt import dependency as tdep
 from tensorrt_model_optimizer_tpu_torch.opt import hparam as thp
@@ -214,5 +216,12 @@ def test_autonas_search_equals_jax(small):
 
 
 def test_convert_traced_names_the_tracer():
-    with pytest.raises(NotImplementedError, match="trace/tracer.py"):
-        tnas.convert_traced(None, {}, None)
+    """Was the refusal naming the tracer; the tracer is ported, so this holds
+    the traced search space to JAX's."""
+    jcfg = jllama.LlamaConfig.tiny(num_hidden_layers=2)
+    pn = llama_params_np(jcfg, 3)
+    tcfg = convert.llama_cfg_from_jax(jcfg)
+    js = jnas.convert_traced(lambda p, t: jllama.forward(jcfg, p, t)[0], tree_map(jnp.asarray, pn), jcfg)
+    ts = tnas.convert_traced(lambda p, t: tllama.forward(tcfg, p, t)[0], tree_map(torch.from_numpy, pn), tcfg)
+    assert {k: h.choices for k, h in ts.hparams.items()} == {k: h.choices for k, h in js.hparams.items()}
+    assert ts.hparams["depth.layers"].choices == (1, 2)

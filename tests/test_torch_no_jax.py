@@ -5,7 +5,9 @@ writes the safetensors format itself (`models/hf_loader.py`) and reads its
 recipes' YAML subset itself (`recipes/loader.py`). The same holds for
 chip_smoke.py, the port's examples (PTQ, QAT, eval, serving, speculative
 decoding, sparsity, prune-and-distill, chained optimizations, diffusion and
-VLM PTQ) and its accuracy-table tool."""
+VLM PTQ) and its accuracy-table tool. The host packer's loader
+(`csrc/__init__.py`) builds the port's own `pack_ext.cpp` and reaches
+nothing of the JAX package's `csrc/`."""
 
 import ast
 import os
@@ -171,3 +173,32 @@ def test_the_walk_covers_the_diffusion_vlm_slice():
                               "fastgen/dmd.py", "fastgen/trainers.py", "nas/cv.py", "export/hf_export.py",
                               "utils/dataset.py", "convert.py")} <= walked
     assert {"examples/diffusion_ptq_torch.py", "examples/vlm_ptq_torch.py", "chip_smoke.py"} <= walked
+
+
+def test_the_walk_covers_the_hybrid_slice():
+    walked = {os.path.relpath(p, ROOT) for p in _sources()}
+    pkg = "tensorrt_model_optimizer_tpu_torch/"
+    assert {pkg + m for m in ("models/mamba.py", "models/registry.py", "prune/minitron_hybrid.py",
+                              "puzzletron/puzzle.py", "trace/tracer.py", "nas/autonas.py", "utils/logging.py",
+                              "utils/memory.py", "utils/perf.py", "utils/tracking.py", "csrc/__init__.py",
+                              "convert.py", "quant/ptq.py")} <= walked
+
+
+def test_the_host_packer_reaches_nothing_of_jax():
+    """Building and calling the port's packer loads no JAX module and no
+    library from the JAX package's csrc/."""
+    code = (
+        "import sys, numpy as np\n"
+        "before = set(sys.modules)\n"
+        "from tensorrt_model_optimizer_tpu_torch import csrc\n"
+        "out = csrc.int4_unpack(np.arange(8, dtype=np.uint8))\n"
+        "new = sorted(set(sys.modules) - before)\n"
+        f"bad = [m for m in new if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'tensorrt_model_optimizer_tpu/csrc' not in maps\n"
+        "assert 'build/pack_ext/libpack_ext-' in maps\n"
+        "print(out.shape)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
