@@ -313,6 +313,37 @@ Phases (any failure raises, and the script exits non-zero):
            `find_max_batch_size` through the card's real OOM on (c)'s 8
            blocks at 2048 tokens, the host packer against the torch packers.
            It runs no kernel and raises if any launched.
+  tp       multi-GPU serving on the one card (`phase_tp`): the GEMMs at
+           the local shapes of Llama-3.1-8B at TP 4 and 2 (TP_GEMMS), flash
+           and kv decode at TP 4's heads, paged decode and prefill at TP
+           2's (TP_ATTN, TP_PAGED), each against its plain version and
+           timed; then TP_WORLD ranks, each a process (nccl with a card a
+           rank where there are that many cards, else gloo with every rank
+           on cuda:0; printed), the parent building each model once, running
+           its single-card reference and handing each rank only its shard:
+           (a) Llama-3.1-8B on 4 layers at TP 4 in W4A8, INT4 and NVFP4 and
+           W4A8 at TP 2, int8 KV, kernel attention, 8 x 2048 prefill and 32
+           eager steps; (b) paged serving at TP 2 (INT4, int8 pages, the
+           full phase's 12 requests behind a shared prefix; then 8 of them
+           a slot each, a paged chunk step and 15 paged decode steps); (c)
+           Qwen3-30B-A3B on 2 layers at EP 4, INT4, calibrated through
+           `quant.sharded` (amaxes equal to the single card's), then served;
+           (d) DeepSeek-V3 on 2 layers (1 dense, 1 MoE) at TP / EP 4, INT4;
+           (e) ring attention (8B heads, 4 x 2048 tokens a rank, f32,
+           against SDPA) and the 4-stage pipeline against the unsharded
+           forward; (f) save_sharded -> restore_sharded of the INT4 model
+           (2 layers), each rank's shards and the gathered model equal to
+           it. The decode steps are teacher-forced: each rank is fed the
+           single card's greedy tokens. Held: the median over rows of the
+           prefill's and every step's logits' max gap to the single card's
+           within TP_LOGITS_MAX of its scale; (c) and (d) on the single
+           card's expert choices (`_pinned_routes`) within TP_MOE_PINNED_MAX
+           and MOE_PLAIN_MEDIAN_MAX, the unpinned prefill's gap reported; W4A8's
+           row site alone (layer 0's down_proj on an f32 input) within
+           TP_ROWSITE_MAX; (b)'s serve: a request's first token apart only
+           at a near-tie (TP_TIE_MAX); equal greedy tokens counted. Timings
+           are one card's, collectives on the host. `tp_full` runs (a) at
+           8 layers, `tp_llama` (a) alone, `tp_moe` (c) and (d) alone.
 Add `profile` to --phases for device time by kernel (torch.profiler) of
 the paths' prefills and decode steps; the default run profiles nothing.
 The last lines are the kernels JSON, the card's name and power limit, and
@@ -7383,6 +7414,749 @@ def phase_hybrid(torch, dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ tp phase
+# Multi-GPU serving on the one card: W ranks, each its own process
+# (`parallel.mesh.launch`), nccl with a card a rank where there are W cards,
+# else gloo with every rank on cuda:0. Every rank launches the ported kernels
+# at its shard's local shapes; the parent builds and compresses each model
+# once, runs its single-card reference and frees it, and hands each rank only
+# its shard (CUDA IPC: no copy). The timings are single-card times with host
+# collectives, not multi-card times.
+TP_WORLD = 4
+TP_LLAMA_DEPTH = 4               # (a): Llama-3.1-8B's widths on 4 of its 32 layers (tp_full: 8)
+TP_FORMATS = (                   # (a): label, preset, EngineConfig layouts, the GEMM kernel
+    ("w4a8", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", (("int4_layout", "a8"),), "qmm_w4a8"),
+    ("int4", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", (), "qmm_int4_wo"),
+    ("nvfp4", "NVFP4_WEIGHT_ONLY_CFG", (), "qmm_fp4_wo"),
+)
+TP_STEPS = 32                    # (a), (c): the prefill and 31 eager decode steps
+# The prefill's and every decode step's logits, the steps teacher-forced (each
+# rank fed the single card's greedy tokens): the median over the rows of max
+# |tp - single| / the single card's largest. bf16: each row site's partials
+# are rounded to bf16 and summed in bf16 (JAX's psum in the output dtype), a
+# few ulps a GEMM; W4A8's per-token int8 codes amplify them over random
+# layers: prefill medians 0.032-0.034 (INT4, NVFP4), 0.078-0.085 (W4A8) at 4
+# layers; a row site's SUM halved reads 0.61-0.63 (H100 80GB HBM3, 700.00
+# W). (c) and (d) replay the single card's expert choices
+# (`_pinned_routes`): unpinned, a bf16 ulp sends a token to another of 128
+# random routers' near-tied experts (Qwen3-30B-A3B read 0.088, 0.150 and 0.175
+# on three prompts), which would hide a wrong expert slice; the unpinned
+# prefill gap is reported beside. Pinned, DeepSeek-V3 reads 0.0153 (prefill)
+# and <= 0.0149 (steps), held at MOE_PLAIN_MEDIAN_MAX; Qwen3-30B-A3B 0.054 and
+# <= 0.065, held at TP_MOE_PINNED_MAX; each rank running the next rank's
+# experts' rows (a wrong expert offset, planted) reads 1.19 and 0.65 (H100 80GB
+# HBM3, 700.00 W).
+TP_LOGITS_MAX = 0.2
+TP_MOE_PINNED_MAX = 0.1
+# The W4A8 row site alone (`engine._qlinear` of layer 0's down_proj on each
+# rank's K-slice of one seeded f32 input [TP_ROWSITE_ROWS, 14336], against
+# the single card's on the whole input): the same int8 codes (the per-token
+# amax MAX-reduced), int32-exact block sums, so the gap is the f32 SUM's order;
+# a shard that quantizes against its own amax moves its codes by the int8
+# step. Over whole models the logits cannot see that fault: a per-token int8
+# code flips at an ulp of its input, so bf16 and even f32 models read 0.10 /
+# 0.035 of the scale with the MAX and 0.10 / 0.061 without it (H100 80GB HBM3,
+# 700.00 W).
+TP_ROWSITE_ROWS = 2048
+TP_ROWSITE_MAX = 1e-5
+TP_TIE_MAX = 0.2                 # (b): a request's first token apart only where the reference's margin is this small
+TP_PAGED_SLOTS = 8               # (b), teacher-forced: 8 of the requests, a slot each,
+TP_PAGED_CHUNK = 64              # ... their last 64 prompt tokens one paged chunk step,
+TP_PAGED_STEPS = 16              # ... then 15 paged decode steps, each held at TP_LOGITS_MAX
+TP_MOE_DEPTH = 2                 # (c): Qwen3-30B-A3B, 2 of 48 layers, EP 4, INT4
+TP_MOE_PROMPT = (4, 512)
+TP_DS_PROMPT = (4, 512)          # (d): DeepSeek-V3, 2 of 61 layers (1 dense, 1 MoE), TP / EP 4, INT4
+TP_DS_STEPS = 16                 # (d): the prefill and 15 decode steps
+TP_RING = (4, 2048, 32, 8, 128)  # (e): B, tokens a rank, q heads, kv heads, head_dim
+TP_RING_MAX = 2e-4               # ring against SDPA (f32), JAX's bound
+TP_PIPE_TOKENS = (4, 512)        # (e): the pipeline's batch (4 microbatches) at 8B widths, TP_LLAMA_DEPTH layers
+TP_PIPE_MAX = 5e-2               # bf16: the microbatches' GEMMs take other shapes than the whole batch's
+TP_SAVE_DEPTH = 2                # (f): the INT4-calibrated model saved and restored, 2 layers at 8B widths
+# The local GEMM shapes the tp phase's ranks launch (Llama-3.1-8B at TP 4 and
+# 2: gate / up, down, k_proj; Qwen3-30B-A3B's and DeepSeek-V3's experts under
+# EP 4 keep their per-expert shapes, which the moe and deepseek phases time):
+# prefill (N = 16384) and decode (N = 8) rows, W4A8, INT4 and NVFP4.
+TP_GEMMS = (
+    ("llama3-8b tp4", "gate/up", 3584, 4096, ("w4a8", "int4", "nvfp4"), (16384, 8)),
+    ("llama3-8b tp4", "down", 4096, 3584, ("w4a8", "int4", "nvfp4"), (16384, 8)),
+    ("llama3-8b tp4", "k_proj", 256, 4096, ("w4a8", "int4", "nvfp4"), (16384, 8)),
+    ("llama3-8b tp2", "gate/up", 7168, 4096, ("w4a8",), (16384, 8)),
+    ("llama3-8b tp2", "down", 4096, 7168, ("w4a8",), (16384, 8)),
+)
+TP_ATTN = (8, 8, 2, 128, 2080, 2048)  # flash and kv decode at TP 4: B, q heads, kv heads, hd, S, pos
+TP_PAGED = (8, 16, 4, 128)            # paged decode / prefill at TP 2: B, q heads, kv heads, hd
+TP_KERNELS = ("qmm_w4a8", "qmm_int4_wo", "qmm_fp4_wo", "flash_gqa", "kv_decode_attention", "paged_attention_decode",
+              "paged_attention_prefill_tc")
+
+
+def _tp_attention_rows(torch, dev, sz: Sizes, timer: Timer, rows: dict, g) -> None:
+    """Flash and kv decode at TP 4's local heads (TP_ATTN: 8 q / 2 kv heads
+    of the 8B's 32 / 8), paged decode and paged prefill (tensor cores) at TP
+    2's (TP_PAGED), each against its plain version, timed, with its bound;
+    the rows join each kernel's `shapes`."""
+    from tensorrt_model_optimizer_tpu_torch.ops.cuda import flash_gqa, kv_attention, paged_attention
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, H, Hkv, hd, S, pos = TP_ATTN
+    q = torch.randn((B, H, pos, hd), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((B, Hkv, pos, hd), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    out = flash_gqa.flash_attention_gqa(q, k, v)
+    worst, err = _held(out, flash_gqa.flash_attention_gqa_plain(q.float(), k.float(), v.float()))
+    if not worst <= 1.0:
+        raise AssertionError(f"flash_gqa tp4: worst err/limit {worst}, max abs err {err}")
+    ms = timer(lambda: flash_gqa.flash_attention_gqa(q, k, v), sz.reps)
+    b_ms, b_by = bound(2 * (2 * q.numel() + 2 * k.numel()), 4.0 * B * H * hd * pos * (pos + 1) / 2, "bf16")
+    row = {"shape": f"llama3-8b tp4 B={B} H={H} Hkv={Hkv} T={pos} d={hd}", "route": "tensor_core",
+           "max_abs_err": err, "worst_err_over_limit": worst, "ms": ms,
+           "plain_ms": timer(lambda: flash_gqa.flash_attention_gqa_plain(q, k, v), 2), "bound_ms": b_ms,
+           "bound_by": b_by, "bound_share": b_ms / ms,
+           "library_ms": timer(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), sz.reps)}
+    rows.setdefault("flash_gqa", {"shapes": []})["shapes"].append(row)
+    log(json.dumps({"kernel": "flash_gqa", **row}))
+    del q, k, v, out
+    kc, ks, qf = _stored_rows(torch, dev, g, (B, Hkv, S, hd), "int8")
+    vc, vs, _ = _stored_rows(torch, dev, g, (B, Hkv, S, hd), "int8")
+    qd = torch.randn((B, H, hd), generator=g, device=dev) / math.sqrt(hd) * qf
+    kn, vn = (torch.randn((B, Hkv, 1, hd), generator=g, device=dev) for _ in range(2))
+    args = (qd, kc, vc, kn, vn, torch.tensor(pos, dtype=torch.int32, device=dev), "int8", ks, vs)
+    out, ref = kv_attention.kv_decode_attention(*args), kv_attention.kv_decode_attention_plain(*args)
+    rel = _rel(out, ref)
+    if not rel <= 1e-5:
+        raise AssertionError(f"kv_decode_attention tp4: rel err {rel} > 1e-5")
+    ms = timer(lambda: kv_attention.kv_decode_attention(*args), sz.reps)
+    b_ms, b_by = bound(2 * B * Hkv * pos * _kv_row_bytes("int8", hd) + 2 * B * Hkv * hd * 4 + 2 * qd.numel() * 4,
+                       4.0 * B * H * (pos + 1) * hd, "bf16")
+    row = {"shape": f"int8 llama3-8b tp4 B={B} n_kv={Hkv} rep={H // Hkv} S={S} pos={pos}",
+           "max_abs_err": float((out - ref).abs().max()), "rel_err": rel, "ms": ms,
+           "plain_ms": timer(lambda: kv_attention.kv_decode_attention_plain(*args), 2), "bound_ms": b_ms,
+           "bound_by": b_by, "bound_share": b_ms / ms, "library_ms": None}
+    rows.setdefault("kv_decode_attention", {"shapes": []})["shapes"].append(row)
+    log(json.dumps({"kernel": "kv_decode_attention", **row}))
+    del kc, vc, ks, vs
+    B, nH, n_kv, hd = TP_PAGED
+    psz = dataclasses.replace(sz, kv=(B, n_kv, nH // n_kv, hd, S, pos))
+    page = sz.page
+    kp, vp, ksp, vsp, qf, table, tl = _paged_pool(torch, dev, g, psz, "int8", [2048] * B, 2048 // page + 2)
+    q = (torch.randn((B, nH, hd), generator=g, device=dev) * qf).to(torch.bfloat16)
+    args = (q, kp, vp, table, tl, "raw", ksp, vsp)
+    out = paged_attention.paged_attention_decode(*args)
+    worst, err = _held(out, paged_attention.paged_attention_decode_plain(*args, out_dtype=torch.float32))
+    if not worst <= 1.0:
+        raise AssertionError(f"paged_attention_decode tp2: worst err/limit {worst}, max abs err {err}")
+    ms = timer(lambda: paged_attention.paged_attention_decode(*args), sz.reps)
+    b_ms, b_by = bound(2 * n_kv * 2048 * B * _kv_row_bytes("int8", hd) + 2 * q.numel() * 2 + table.numel() * 4,
+                       4.0 * nH * 2048 * B * hd, "bf16")
+    row = {"shape": f"int8 llama3-8b tp2 B={B} n_kv={n_kv} rep={nH // n_kv} page={page} lens=2048", "max_abs_err": err,
+           "worst_err_over_limit": worst, "ms": ms,
+           "plain_ms": timer(lambda: paged_attention.paged_attention_decode_plain(*args), 2), "bound_ms": b_ms,
+           "bound_by": b_by, "bound_share": b_ms / ms, "library_ms": None}
+    rows.setdefault("paged_attention_decode", {"shapes": []})["shapes"].append(row)
+    log(json.dumps({"kernel": "paged_attention_decode", **row}))
+    T, ctx = sz.chunk, [1024] * B
+    kp, vp, ksp, vsp, qf, table, tl = _paged_pool(torch, dev, g, psz, "int8", ctx, 1024 // page + 2)
+    ck, cks, _ = _stored_rows(torch, dev, g, (B, T, n_kv, hd), "int8")
+    cv, cvs, _ = _stored_rows(torch, dev, g, (B, T, n_kv, hd), "int8")
+    q = (torch.randn((B, T, nH, hd), generator=g, device=dev) * qf).to(torch.bfloat16)
+    args = (q, kp, vp, table, tl, ck, cv, "raw", ksp, vsp, cks, cvs)
+    out = paged_attention.paged_attention_prefill(*args)
+    worst, err = _held(out, paged_attention.paged_attention_prefill_plain(*args, out_dtype=torch.float32))
+    if not worst <= 1.0:
+        raise AssertionError(f"paged_attention_prefill tp2: worst err/limit {worst}, max abs err {err}")
+    ms = timer(lambda: paged_attention.paged_attention_prefill(*args), sz.reps)
+    rows_read = sum(ctx) + B * T
+    b_ms, b_by = bound(2 * n_kv * rows_read * _kv_row_bytes("int8", hd) + 2 * q.numel() * 2 + table.numel() * 4,
+                       4.0 * nH * T * hd * sum(c + T for c in ctx), "bf16")
+    row = {"shape": f"int8 llama3-8b tp2 B={B} T={T} n_kv={n_kv} rep={nH // n_kv} page={page} ctx=1024",
+           "route": "tensor_core", "max_abs_err": err, "worst_err_over_limit": worst, "ms": ms,
+           "plain_ms": timer(lambda: paged_attention.paged_attention_prefill_plain(*args), 2), "bound_ms": b_ms,
+           "bound_by": b_by, "bound_share": b_ms / ms, "library_ms": None}
+    rows.setdefault("paged_attention_prefill_tc", {"shapes": []})["shapes"].append(row)
+    log(json.dumps({"kernel": "paged_attention_prefill", **row}))
+
+
+def _tp_decode(torch, eng, prompt, steps: int, ref=None) -> dict:
+    """The prefill of `prompt`, then steps - 1 eager decode steps, each fed
+    the greedy token of the step before (the single card's reference run,
+    `ref` None) or the reference's token at that step (teacher-forced: a
+    rank, `ref` the reference's readings), so every step's logits can be
+    held against the reference's at the same context. Returns the prefill
+    logits [B, V] f32, the greedy tokens [B, steps], the prefill's and a
+    step's wall ms (synchronized); the reference also every step's logits
+    `steps` [steps - 1, B, V], a rank each step's rows' gaps `step_gaps`
+    (`_gaps`) against them."""
+    sync = torch.cuda.synchronize
+    cache = eng.init_cache(prompt.shape[0])
+    sync()
+    t0 = time.perf_counter()
+    logits = eng.prefill(prompt, cache)
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    toks, outs = [tok], []
+    t0 = time.perf_counter()
+    for j in range(steps - 1):
+        feed = tok if ref is None else ref["tokens"][:, j:j + 1].to(device=tok.device, dtype=torch.int32)
+        step = eng._dp_gather(eng._model_step(eng._dp_rows(feed), cache)).float()
+        outs.append(step)
+        tok = torch.argmax(step, dim=-1).to(torch.int32)[:, None]
+        toks.append(tok)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3 / max(steps - 1, 1)
+    out = {"logits": logits.float(), "tokens": torch.cat(toks, dim=1), "prefill_ms": prefill_ms, "step_ms": step_ms,
+           "limit": TP_LOGITS_MAX}
+    if ref is None:
+        out["steps"] = torch.stack(outs)
+    else:
+        out["step_gaps"] = [_gaps(o, r.to(o.device))[0] for o, r in zip(outs, ref["steps"])]
+    return out
+
+
+def _forced_ref(ref: dict) -> dict:
+    """What a teacher-forced rank needs of the single card's run."""
+    return {"tokens": ref["tokens"], "steps": ref["steps"]}
+
+
+def _tp_hold(torch, label: str, got: dict, ref: dict) -> dict:
+    """A rank's teacher-forced run against the single card's: the median
+    over the rows of each row's max |Δ| of the prefill logits, and of every
+    decode step's logits, within `ref["limit"]` of the reference's largest
+    logit (the holds; the max reported), and the count of greedy choices
+    equal to the reference's at the same context. Returns the readings, and
+    under "failed" the holds they fail."""
+    gaps, _ = _gaps(got["logits"].cpu(), ref["logits"].cpu())
+    step_medians = [statistics.median(g) for g in got["step_gaps"]]
+    toks, rtoks = got["tokens"].cpu(), ref["tokens"].cpu()
+    reading = {"max_gap": max(gaps), "median_gap": statistics.median(gaps), "limit": ref["limit"],
+               "steps_held": len(step_medians), "step_median_gap_max": max(step_medians, default=0.0),
+               "step_median_gap_median": statistics.median(step_medians) if step_medians else 0.0,
+               "step_max_gap": max((max(g) for g in got["step_gaps"]), default=0.0),
+               "equal_tokens": int((toks == rtoks).sum()), "tokens": toks.numel(), "failed": []}
+    if not reading["median_gap"] <= ref["limit"]:
+        reading["failed"].append(f"tp {label}: prefill logits {reading['median_gap']} of the single card's scale "
+                                 f"apart (median) > {ref['limit']}")
+    if not reading["step_median_gap_max"] <= ref["limit"]:
+        worst = max(range(len(step_medians)), key=step_medians.__getitem__)
+        reading["failed"].append(f"tp {label}: decode step {worst + 1}'s logits {step_medians[worst]} of the "
+                                 f"single card's scale apart (median) > {ref['limit']}")
+    return reading
+
+
+def _paged_forced(torch, eng, prompts: list, geom: dict, steps: int, ref=None) -> dict:
+    """Paged serving's steps held one by one: each prompt in a slot of its
+    own (its pages in turn), its first tokens prefilled into the slot
+    (`prefill_into_slot`), its last TP_PAGED_CHUNK as one chunk step over
+    every slot (the paged prefill), then steps - 1 paged decode steps, fed
+    the greedy token (`ref` None) or the reference's (teacher-forced).
+    Returns the chunk's and the steps' logits [steps, B, V] and greedy
+    tokens [B, steps] (the reference), or the rows' gaps a step against
+    the reference's and the tokens (a rank)."""
+    n, P, C = len(prompts), prompts[0].shape[0], TP_PAGED_CHUNK
+    per_seq = geom["max_pages_per_seq"] - 1
+    cache = eng.init_paged_cache(geom["n_pages"], geom["page_size"], n, geom["max_pages_per_seq"])
+    for s in range(n):
+        cache.block_table[s, :per_seq] = torch.arange(s * per_seq, (s + 1) * per_seq, dtype=torch.int32)
+        eng.prefill_into_slot(cache, s, prompts[s][None, :P - C])
+    active = torch.ones((n,), dtype=torch.bool, device=eng.device)
+    outs = [eng.paged_step(torch.stack([p[P - C:] for p in prompts]), cache, active).float()]
+    toks = [torch.argmax(outs[0], dim=-1).to(torch.int32)[:, None]]
+    for j in range(steps - 1):
+        feed = toks[-1] if ref is None else ref["tokens"][:, j:j + 1].to(device=eng.device, dtype=torch.int32)
+        outs.append(eng.paged_step(feed, cache, active).float())
+        toks.append(torch.argmax(outs[-1], dim=-1).to(torch.int32)[:, None])
+    tokens = torch.cat(toks, dim=1)
+    if ref is None:
+        return {"steps": torch.stack(outs), "tokens": tokens}
+    return {"step_gaps": [_gaps(o, r.to(o.device))[0] for o, r in zip(outs, ref["steps"])], "tokens": tokens.cpu()}
+
+
+def _tp_rank(rank: int, world: int, parts: list) -> dict:
+    """A rank of the tp phase: each part of the plan in turn (every rank the
+    same parts, in the same order, each with this rank's shard); returns
+    {label: readings}."""
+    import torch
+
+    from tensorrt_model_optimizer_tpu_torch.parallel import mesh as M
+    from tensorrt_model_optimizer_tpu_torch.serve import engine as E
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from tensorrt_model_optimizer_tpu_torch.parallel.mesh import launch_device
+
+    out = {}
+    for part in parts:
+        part = _to_device(part, launch_device())  # the parent's tensors live on cuda:0
+        kind, label = part["kind"], part["label"]
+        torch.cuda.reset_peak_memory_stats()
+        _counts(reset=True)
+        if kind == "llama":
+            mesh = M.Mesh({"tp": part["tp"]})
+            eng = E.Engine(part["cm"], E.EngineConfig(mesh=mesh, max_seq_len=part["max_seq"], kv_dtype=torch.int8,
+                                                      kv_attention_kernel=True, **dict(part["layouts"])))
+            eng._eager = True  # gloo's collectives run on the host: no CUDA graph
+            res = _tp_decode(torch, eng, part["prompt"], part["steps"], part["ref"])
+            res["logits"], res["tokens"] = res["logits"].cpu(), res["tokens"].cpu()
+            if part.get("rowsite") is not None:
+                res["launches"] = {k: n for k, n in _counts().items() if n}  # the served path's, not the check's
+                x, ref = part["rowsite"]
+                k = x.shape[1] // eng._tp.size
+                y = _tp_rowsite(eng, x[:, eng._tp.index * k:(eng._tp.index + 1) * k])
+                res["rowsite_gap"] = float((y - ref).abs().max() / ref.abs().max())
+            del eng
+        elif kind == "paged":
+            from tensorrt_model_optimizer_tpu_torch.serve.scheduler import Request
+
+            mesh = M.Mesh({"tp": part["tp"]})
+            eng = E.Engine(part["cm"], E.EngineConfig(mesh=mesh, max_seq_len=part["max_seq"], kv_dtype=torch.int8,
+                                                      kv_attention_kernel=True, paged_attention_kernel=True))
+            eng._eager = True
+            reqs = [Request(rid=i, prompt=p.cpu().numpy(), max_new_tokens=n)
+                    for i, (p, n) in enumerate(zip(part["prompts"], part["new"]))]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs, metrics = eng.serve(reqs, **part["geom"], prefix_cache=True, unroll=part["unroll"],
+                                      collect_metrics=True)
+            torch.cuda.synchronize()
+            res = {"outs": outs, "wall_s": time.perf_counter() - t0, "tok_s": metrics["tok_s"],
+                   "chunked_prefills": metrics["chunked_prefills"],
+                   "forced": _paged_forced(torch, eng, part["prompts"][:TP_PAGED_SLOTS], part["geom"],
+                                           TP_PAGED_STEPS, part["forced_ref"])}
+            del eng
+        elif kind == "moe":
+            from tensorrt_model_optimizer_tpu_torch.quant import sharded
+
+            calib_mesh = M.Mesh({"expert": world})
+            qm = sharded.quantize_sharded("mixtral", part["cfg"], part["params"], part["preset"], part["calib"],
+                                          calib_mesh, device=calib_mesh.device)
+            gap = _state_gap(torch, qm.qstate, part["ref_qstate"])
+            if gap != 0.0:
+                raise AssertionError(f"tp moe: sharded amax {gap} apart from the single card's (weight-only: equal)")
+            del qm
+            mesh = M.Mesh({"tp": world})
+            eng = E.Engine(part["cm"], E.EngineConfig(mesh=mesh, max_seq_len=part["max_seq"], kv_dtype=torch.int8,
+                                                      kv_attention_kernel=True))
+            eng._eager = True
+            res = _tp_pinned(torch, eng, part, None)
+            res["amax_gap"] = gap
+            del eng
+        elif kind == "deepseek":
+            from tensorrt_model_optimizer_tpu_torch.serve import deepseek_engine as dse
+
+            mesh = M.Mesh({"tp": world})
+            eng = dse.DeepseekEngine(part["cm"], part["max_seq"], mesh=mesh)
+            eng._eager = True
+            from tensorrt_model_optimizer_tpu_torch.models import deepseek
+
+            res = _tp_pinned(torch, eng, part, deepseek)
+            del eng
+        elif kind == "ring":
+            from tensorrt_model_optimizer_tpu_torch.parallel import ring_attention as ra
+
+            mesh = M.Mesh({"context": world})
+            q, k, v = part["qkv"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = ra.ring_attention(q, k, v, mesh, "context", True)
+            torch.cuda.synchronize()
+            ring_ms = (time.perf_counter() - t0) * 1e3
+            r = part["ref"]
+            res = {"max_err": float((o.float() - r).abs().max() / r.abs().max()), "ms": ring_ms}
+            mesh = M.Mesh({"pipe": world})
+            from tensorrt_model_optimizer_tpu_torch.parallel import pipeline
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = pipeline.pipeline_forward(part["cfg"], part["params"], part["tokens"], mesh, num_microbatches=world)
+            torch.cuda.synchronize()
+            res["pipeline_ms"] = (time.perf_counter() - t0) * 1e3
+            pr = part["pipe_ref"]
+            res["pipeline_max_err"] = float((logits - pr).abs().max() / pr.abs().max())
+        elif kind == "save":
+            from tensorrt_model_optimizer_tpu_torch.opt import state
+
+            mesh = M.Mesh({"tensor": world})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state.save_sharded(part["model"], part["path"], mesh)
+            save_s = time.perf_counter() - t0
+            local = state.restore_sharded(part["path"], mesh)
+            specs = state._param_specs(part["model"])
+            from tensorrt_model_optimizer_tpu_torch.utils import tree
+
+            want, got = tree.flatten_with_names(part["model"].params), tree.flatten_with_names(local.params)
+            for name, w in want.items():
+                shard = state._shard_of(tuple(specs.get(name, ())), mesh.coords, mesh.shape)
+                if not torch.equal(got[name], state._slice(w, shard)):
+                    raise AssertionError(f"tp save: rank {rank}'s restored {name} differs from its shard")
+            res = {"save_s": save_s, "restore_s": time.perf_counter() - t0 - save_s}
+        else:
+            raise ValueError(kind)
+        res.setdefault("launches", {k: n for k, n in _counts().items() if n})
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[label] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_pinned(torch, eng, part: dict, module) -> dict:
+    """(c), (d) on a rank: the teacher-forced run on the single card's
+    expert choices (`_pinned_routes(module)` replaying the reference's,
+    `part["routes"]`), and the prefill again on the rank's own routing (its
+    gaps reported beside, not held)."""
+    with _pinned_routes(module) as pins:
+        pins.choices = list(part["routes"])
+        pins.replay()
+        res = _tp_decode(torch, eng, part["prompt"], part["steps"], part["ref"])
+        if pins.choices:
+            raise AssertionError(f"tp {part['label']}: {len(pins.choices)} recorded routings left over")
+    own = eng.prefill(part["prompt"], eng.init_cache(part["prompt"].shape[0])).float().cpu()
+    gaps, _ = _gaps(own, part["ref_logits"].cpu())
+    return {**{k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in res.items()},
+            "routing_choices_apart": pins.apart, "unpinned_median_gap": statistics.median(gaps),
+            "unpinned_max_gap": max(gaps)}
+
+
+def _to_device(x, dev):
+    """x with every tensor in it (dicts, lists, tuples, dataclasses) on dev."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: _to_device(v, dev) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_device(v, dev) for v in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: _to_device(getattr(x, f.name), dev)
+                                         for f in dataclasses.fields(x) if f.init})
+    return x
+
+
+def _tp_rowsite(eng, x):
+    """Layer 0's down_proj of `eng` through `engine._qlinear` on x (f32): on a
+    rank under a mesh its row-parallel form (the per-token amax MAX-reduced,
+    the partial SUMmed), on the single card the whole GEMM."""
+    from tensorrt_model_optimizer_tpu_torch.quant.compress import layer_arrays
+    from tensorrt_model_optimizer_tpu_torch.serve import engine as E
+
+    name = "mlp.down_proj"
+    arrays = layer_arrays(eng.cm.params["layers"][name], 0)
+    return E._qlinear(x, name, eng.cm.kinds[name], arrays, eng.cm, None, eng._ops, tp=eng._tp, row=eng._tp is not None)
+
+
+def _state_gap(torch, a: dict, b: dict) -> float:
+    """max |a - b| over every amax and pre_quant_scale of two quantizer states."""
+    from tensorrt_model_optimizer_tpu_torch.utils import tree
+
+    fa, fb = tree.flatten_with_names(a), tree.flatten_with_names(b)
+    if set(fa) != set(fb):
+        raise AssertionError(f"tp: quantizer states with other sites: {sorted(set(fa) ^ set(fb))}")
+    return max((float((fa[k].float() - fb[k].float()).abs().max()) for k in fa
+                if isinstance(fa[k], torch.Tensor) and fa[k].numel()), default=0.0)
+
+
+def _tp_launch(torch, world: int, rank_parts: list) -> tuple[list, str, list]:
+    """The ranks of the tp phase: backend and devices by `mesh.rank_devices`,
+    printed; returns (each rank's readings, backend, devices)."""
+    from tensorrt_model_optimizer_tpu_torch.parallel import mesh as M
+
+    backend, devices = M.rank_devices(world)
+    log(json.dumps({"phase": "tp", "ranks": world, "backend": backend,
+                    "rank_devices": {r: d for r, d in enumerate(devices)}}))
+    t0 = time.perf_counter()
+    out = M.launch(_tp_rank, world, backend=backend, devices=devices, args=(world,),
+                   rank_args=[(p,) for p in rank_parts], timeout_s=600)
+    log(json.dumps({"phase": "tp", "ranks": world, "launch_s": time.perf_counter() - t0}))
+    return out, backend, devices
+
+
+TP_PARTS = "abcdef"
+
+
+def phase_tp(torch, dev, sz: Sizes, timer: Timer, rows: dict, full: bool = False, parts: str = TP_PARTS) -> dict:
+    """Tensor, expert and data parallel serving of the port on the one card
+    (see the module docstring's `tp`): the local-shape kernel rows, then the
+    single-card references and each rank's shard, then the ranks; returns
+    the launch counts summed over ranks. `parts` names the parts run
+    ("a": Llama alone is `--phases build,tp_llama`, "cd" the MoE models
+    alone `tp_moe`; both skip the kernel rows)."""
+    from tensorrt_model_optimizer_tpu_torch.models import llama
+    from tensorrt_model_optimizer_tpu_torch.quant import compress, ptq
+    from tensorrt_model_optimizer_tpu_torch.serve import engine as E
+    from tensorrt_model_optimizer_tpu_torch.serve import tp as tp_mod
+
+    if parts == TP_PARTS:
+        for k in ("qmm_w4a8", "qmm_int4_wo", "qmm_fp4_wo"):
+            rows.setdefault(k, {"shapes": []})
+        gk = torch.Generator(device=dev).manual_seed(24)
+        _phase_kernels_families(torch, dev, sz, timer, rows, gk, TP_GEMMS)
+        _tp_attention_rows(torch, dev, sz, timer, rows, gk)
+    g = torch.Generator(device=dev).manual_seed(20)
+    sync = torch.cuda.synchronize
+    W, depth = TP_WORLD, (2 * TP_LLAMA_DEPTH if full else TP_LLAMA_DEPTH)
+    refs, parts4, parts2 = {}, [[] for _ in range(W)], [[] for _ in range(2)]
+    t0 = time.perf_counter()
+
+    # (a) Llama-3.1-8B, TP 4 in three formats and W4A8 at TP 2
+    cfg = llama.LlamaConfig.llama3_8b(num_hidden_layers=depth)
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    B, T = sz.batch, sz.prompt
+    prompt = torch.randint(0, cfg.vocab_size, (B, T), generator=g, device=dev)
+    max_seq = T + TP_STEPS
+    cms = {}
+    row_x = torch.randn((TP_ROWSITE_ROWS, cfg.intermediate_size), generator=g, device=dev)
+    for label, preset, layouts, _ in (TP_FORMATS if "a" in parts else ()):
+        cm = cms.setdefault(preset, compress.compress(ptq.quantize(cfg, params, preset, device=dev)))
+        eng = E.Engine(cm, E.EngineConfig(max_seq_len=max_seq, kv_dtype=torch.int8, kv_attention_kernel=True,
+                                          **dict(layouts)), device=dev)
+        eng._eager = True
+        refs[label] = _tp_decode(torch, eng, prompt, TP_STEPS)
+        if label == "w4a8":
+            refs["rowsite"] = _tp_rowsite(eng, row_x)
+        del eng
+        torch.cuda.empty_cache()
+        for world, plan in ((W, parts4),) + (((2, parts2),) if label == "w4a8" else ()):
+            lab = f"llama3_8b {label} tp{world}"
+            refs[lab] = refs[label]
+            for r in range(world):
+                plan[r].append({"kind": "llama", "label": lab, "tp": world, "layouts": layouts, "max_seq": max_seq,
+                                 "prompt": prompt, "steps": TP_STEPS, "ref": _forced_ref(refs[label]),
+                                 "rowsite": (row_x, refs["rowsite"]) if label == "w4a8" else None,
+                                 "cm": tp_mod.shard_compressed(cm, world, r, "tp")})
+    save_dir = None
+    if "b" in parts:
+        _tp_paged_part(torch, dev, sz, cfg, cms, refs, parts2, max_seq)
+    if "f" in parts:
+        save_dir = _tp_save_part(torch, dev, params, parts4)
+    # each part draws its data from a generator of its own, so what it reads
+    # does not depend on the parts before it
+    if "e" in parts:
+        _tp_ring_part(torch, dev, torch.Generator(device=dev).manual_seed(21), cfg, params, parts4)
+    if "c" in parts:
+        _tp_moe_part(torch, dev, torch.Generator(device=dev).manual_seed(22), refs, parts4)
+    if "d" in parts:
+        _tp_deepseek_part(torch, dev, torch.Generator(device=dev).manual_seed(23), refs, parts4)
+    del cms
+    torch.cuda.empty_cache()
+    sync()
+    log(json.dumps({"phase": "tp", "setup_s": time.perf_counter() - t0,
+                    "parent_gb": torch.cuda.memory_allocated() / 1e9}))
+    launches = _tp_run(torch, refs, parts4, parts2)
+    if save_dir is not None:
+        _tp_save_check(torch, dev, save_dir, parts4[0])
+    never = [k for k in TP_KERNELS if not launches.get(k)] if parts == TP_PARTS else []
+    if never:
+        raise AssertionError(f"tp: kernels no rank launched: {never}")
+    return launches
+
+
+def _tp_paged_part(torch, dev, sz, cfg, cms, refs, parts2, max_seq):
+    """(b) paged serving at TP 2: INT4, int8 pages, 12 requests behind a shared prefix."""
+    from tensorrt_model_optimizer_tpu_torch.serve import engine as E
+    from tensorrt_model_optimizer_tpu_torch.serve import tp as tp_mod
+
+    run = PagedRun()
+    geom = run.geometry(sz.page)
+    prompts, reqs = run.make(torch, dev, cfg.vocab_size, seed=7)
+    new = [r.max_new_tokens for r in reqs()]
+    cm = cms["INT4_BLOCKWISE_WEIGHT_ONLY_CFG"]
+    eng = E.Engine(cm, E.EngineConfig(max_seq_len=max_seq, kv_dtype=torch.int8, kv_attention_kernel=True,
+                                      paged_attention_kernel=True), device=dev)
+    eng._eager = True
+    refs["paged"] = eng.serve(reqs(), **geom, prefix_cache=True, unroll=run.unroll)
+    first = eng.init_cache(len(prompts), max_len=run.prompt)
+    refs["paged_first"] = eng.prefill(torch.stack(prompts), first)  # each request's first-token logits
+    refs["paged_forced"] = _paged_forced(torch, eng, prompts[:TP_PAGED_SLOTS], geom, TP_PAGED_STEPS)
+    del eng, first
+    for r in range(2):
+        parts2[r].append({"kind": "paged", "label": "llama3_8b int4 paged tp2", "tp": 2, "max_seq": max_seq,
+                          "cm": tp_mod.shard_compressed(cm, 2, r, "tp"), "prompts": prompts, "new": new,
+                          "geom": geom, "unroll": run.unroll, "forced_ref": refs["paged_forced"]})
+
+
+def _tp_save_part(torch, dev, params, parts4) -> str:
+    """(f) the INT4 model's first TP_SAVE_DEPTH layers, saved by the ranks."""
+    import tempfile
+
+    from tensorrt_model_optimizer_tpu_torch.models import llama
+    from tensorrt_model_optimizer_tpu_torch.quant import ptq
+
+    qm = ptq.quantize(llama.LlamaConfig.llama3_8b(num_hidden_layers=TP_SAVE_DEPTH),
+                      {**params, "layers": {k: v[:TP_SAVE_DEPTH] for k, v in params["layers"].items()}},
+                      "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", device=dev)
+    save_dir = tempfile.mkdtemp(prefix="tp_save_")
+    for r in range(TP_WORLD):
+        parts4[r].append({"kind": "save", "label": "save_sharded", "model": qm, "path": os.path.join(save_dir, "ckpt")})
+    return save_dir
+
+
+def _tp_save_check(torch, dev, save_dir: str, part0: list) -> None:
+    """(f) the restore with no mesh gathers the saved model, equal."""
+    import shutil
+
+    from tensorrt_model_optimizer_tpu_torch.opt import state
+    from tensorrt_model_optimizer_tpu_torch.utils import tree
+
+    qm = next(p["model"] for p in part0 if p["kind"] == "save")
+    t0 = time.perf_counter()
+    back = tree.flatten_with_names(state.restore_sharded(os.path.join(save_dir, "ckpt"), device=dev).params)
+    for name, w in tree.flatten_with_names(qm.params).items():
+        if not torch.equal(back[name], w):
+            raise AssertionError(f"tp save: the gathered restore's {name} differs from the saved model's")
+    log(json.dumps({"phase": "tp", "part": "save_sharded", "gathered_restore_s": time.perf_counter() - t0,
+                    "equal": True}))
+    shutil.rmtree(save_dir, ignore_errors=True)
+
+
+def _tp_ring_part(torch, dev, g, cfg, params, parts4) -> None:
+    """(e) ring attention at 8B's attention widths, the pipeline on the 8B's layers."""
+    from tensorrt_model_optimizer_tpu_torch.models import llama
+
+    W = TP_WORLD
+    Bq, Tr, Hq, Hk, hd = TP_RING
+    qkv = [torch.randn((Bq, W * Tr, H, hd), generator=g, device=dev) for H in (Hq, Hk, Hk)]
+    q, k, v = qkv[0], *(x.repeat_interleave(Hq // Hk, dim=2) for x in qkv[1:])
+    ring_ref = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True).transpose(1, 2)
+    ptoks = torch.randint(0, cfg.vocab_size, TP_PIPE_TOKENS, generator=g, device=dev)
+    pipe_ref = llama.forward(cfg, params, ptoks)[0]
+    for r in range(W):
+        sl = slice(r * Tr, (r + 1) * Tr)
+        parts4[r].append({"kind": "ring", "label": "ring+pipeline", "qkv": (q[:, sl], k[:, sl], v[:, sl]),
+                          "ref": ring_ref[:, sl], "cfg": cfg, "params": params, "tokens": ptoks,
+                          "pipe_ref": pipe_ref})
+
+
+def _tp_moe_part(torch, dev, g, refs, parts4) -> None:
+    """(c) Qwen3-30B-A3B at EP 4: the sharded calibration, then serving."""
+    from tensorrt_model_optimizer_tpu_torch.models import mixtral
+    from tensorrt_model_optimizer_tpu_torch.quant import compress, ptq
+    from tensorrt_model_optimizer_tpu_torch.serve import engine as E
+    from tensorrt_model_optimizer_tpu_torch.serve import tp as tp_mod
+
+    W = TP_WORLD
+    mcfg = mixtral.MixtralConfig(**{**QWEN3_30B_A3B, "num_hidden_layers": TP_MOE_DEPTH})
+    mparams = mixtral.init_params(mcfg, torch.Generator(device=dev).manual_seed(3), device=dev)
+    mcal = [torch.randint(0, mcfg.vocab_size, TP_MOE_PROMPT, generator=g, device=dev)]
+    mq = ptq.quantize_family("mixtral", mcfg, mparams, "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", mcal, device=dev)
+    mcm = compress.compress(mq)
+    mprompt = torch.randint(0, mcfg.vocab_size, TP_MOE_PROMPT, generator=g, device=dev)
+    eng = E.Engine(mcm, E.EngineConfig(max_seq_len=TP_MOE_PROMPT[1] + TP_STEPS, kv_dtype=torch.int8,
+                                       kv_attention_kernel=True), device=dev)
+    eng._eager = True
+    label = "qwen3_30b_a3b int4 ep4"
+    with _pinned_routes() as pins:
+        pins.record()
+        ref = refs[label] = dict(_tp_decode(torch, eng, mprompt, TP_STEPS), limit=TP_MOE_PINNED_MAX)
+    del eng
+    for r in range(W):
+        parts4[r].append({"kind": "moe", "label": label, "cfg": mcfg, "params": mparams,
+                          "preset": "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "calib": mcal, "ref_qstate": mq.qstate,
+                          "cm": tp_mod.shard_compressed(mcm, W, r, "tp"), "prompt": mprompt, "steps": TP_STEPS,
+                          "max_seq": TP_MOE_PROMPT[1] + TP_STEPS, "ref": _forced_ref(ref), "routes": pins.choices,
+                          "ref_logits": ref["logits"]})
+
+
+
+def _tp_deepseek_part(torch, dev, g, refs, parts4) -> None:
+    """(d) DeepSeek-V3 at TP / EP 4."""
+    from tensorrt_model_optimizer_tpu_torch.models import deepseek, hf_loader
+    from tensorrt_model_optimizer_tpu_torch.serve import deepseek_engine, deepseek_tp
+
+    W = TP_WORLD
+
+    dcfg = dataclasses.replace(hf_loader.deepseek_config_from_hf(DEEPSEEK_V3), num_hidden_layers=DEEPSEEK_V3_DEPTH,
+                               first_k_dense_replace=1)
+    dparams = _deepseek_params(torch, dev, dcfg, 0)
+    dcal = [torch.randint(0, dcfg.vocab_size, (1, 64), generator=g, device=dev)]
+    dcm = deepseek_engine.compress(deepseek.quantize(dcfg, dparams, "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", dcal,
+                                                     device=dev))
+    del dparams
+    torch.cuda.empty_cache()
+    dprompt = torch.randint(0, dcfg.vocab_size, TP_DS_PROMPT, generator=g, device=dev)
+    dmax = TP_DS_PROMPT[1] + TP_DS_STEPS
+    eng = deepseek_engine.DeepseekEngine(dcm, dmax, dev)
+    eng._eager = True
+    label = "deepseek_v3 int4 tp4"
+    with _pinned_routes(deepseek) as pins:
+        pins.record()
+        ref = refs[label] = dict(_tp_decode(torch, eng, dprompt, TP_DS_STEPS), limit=MOE_PLAIN_MEDIAN_MAX)
+    del eng
+    for r in range(W):
+        parts4[r].append({"kind": "deepseek", "label": label, "cm": deepseek_tp.shard_deepseek(dcm, W, r),
+                          "prompt": dprompt, "steps": TP_DS_STEPS, "max_seq": dmax, "ref": _forced_ref(ref),
+                          "routes": pins.choices, "ref_logits": ref["logits"]})
+
+
+def _tp_run(torch, refs: dict, parts4: list, parts2: list) -> dict:
+    """Launch the ranks (4, then 2) and hold what each returns (every
+    reading printed before a failed hold raises); returns the launch counts
+    summed over ranks."""
+    launches: dict = {}
+    failed = []
+    for world, parts in ((TP_WORLD, parts4), (2, parts2)):
+        if not any(parts):
+            continue
+        outs, backend, _ = _tp_launch(torch, world, parts)
+        for rank, res in enumerate(outs):
+            for label, got in res.items():
+                for kname, n in got["launches"].items():
+                    launches[kname] = launches.get(kname, 0) + n
+                row = {"phase": "tp", "part": label, "rank": rank, "backend": backend,
+                       "peak_gb": got["peak_gb"], "launches": got["launches"]}
+                if label in refs and "logits" in got:
+                    row.update(_tp_hold(torch, f"{label} rank {rank}", got, refs[label]))
+                    failed += row["failed"]
+                    row.update(prefill_ms=got["prefill_ms"], step_ms=got["step_ms"],
+                               single_card_prefill_ms=refs[label]["prefill_ms"],
+                               single_card_step_ms=refs[label]["step_ms"])
+                    row.update({k: got[k] for k in ("amax_gap", "routing_choices_apart", "unpinned_median_gap",
+                                                     "unpinned_max_gap") if k in got})
+                    if "rowsite_gap" in got:
+                        row["rowsite_gap"] = got["rowsite_gap"]
+                        if not got["rowsite_gap"] <= TP_ROWSITE_MAX:
+                            failed.append(f"tp {label} rank {rank}: the W4A8 row site {got['rowsite_gap']} of the "
+                                          f"single card's scale apart > {TP_ROWSITE_MAX}")
+                    gemm = {"w4a8": "qmm_w4a8", "int4": "qmm_int4_wo", "nvfp4": "qmm_fp4_wo"}.get(
+                        label.split()[1], "qmm_int4_wo")
+                    if not got["launches"].get(gemm):
+                        failed.append(f"tp {label} rank {rank}: {gemm} never launched: {got['launches']}")
+                elif "outs" in got:
+                    ref = refs["paged"]
+                    equal = sum(int(a == b) for rid in ref for a, b in zip(got["outs"][rid], ref[rid]))
+                    total = sum(len(v) for v in ref.values())
+                    first = refs["paged_first"]
+                    margins = [float((first[rid].max() - first[rid, got["outs"][rid][0]]) / first[rid].abs().max())
+                               for rid in ref if got["outs"][rid][0] != ref[rid][0]]
+                    row.update(equal_tokens=equal, tokens=total, first_apart_margins=margins,
+                               wall_s=got["wall_s"], tok_s=got["tok_s"], chunked_prefills=got["chunked_prefills"])
+                    forced = got["forced"]
+                    medians = [statistics.median(g) for g in forced["step_gaps"]]
+                    row["forced"] = {"steps_held": len(medians), "median_gap_max": max(medians),
+                                     "median_gap_median": statistics.median(medians),
+                                     "max_gap": max(max(g) for g in forced["step_gaps"]),
+                                     "equal_tokens": int((forced["tokens"] == refs["paged_forced"]["tokens"].cpu()).sum()),
+                                     "tokens": forced["tokens"].numel()}
+                    if not max(medians) <= TP_LOGITS_MAX:
+                        failed.append(f"tp paged rank {rank}: a teacher-forced paged step's logits {max(medians)} of "
+                                      f"the single card's scale apart (median) > {TP_LOGITS_MAX}")
+                    failed += [f"tp paged rank {rank}: {k} never launched"
+                               for k in ("paged_attention_decode", "paged_attention_prefill_tc") if not got["launches"].get(k)]
+                    if margins and not max(margins) <= TP_TIE_MAX:
+                        failed.append(f"tp paged rank {rank}: a request's first token parts from the single card's "
+                                      f"where its margin is {max(margins)} > {TP_TIE_MAX}")
+                elif label == "ring+pipeline":
+                    row.update({k: got[k] for k in ("max_err", "ms", "pipeline_ms", "pipeline_max_err")})
+                    if not got["max_err"] <= TP_RING_MAX:
+                        failed.append(f"tp ring rank {rank}: {got['max_err']} > {TP_RING_MAX} of SDPA's scale")
+                    if not got["pipeline_max_err"] <= TP_PIPE_MAX:
+                        failed.append(f"tp pipeline rank {rank}: {got['pipeline_max_err']} > {TP_PIPE_MAX}")
+                else:
+                    row.update({k: got[k] for k in ("save_s", "restore_s")})
+                log(json.dumps(row))
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return launches
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -7428,7 +8202,7 @@ ANCHOR_ONLY = ("skip_softmax_flash_cuda_core", "paged_attention_prefill_cuda_cor
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,anchor,full,deploy,calib,accuracy,moe,families,deepseek,"
-                                        "speculative,train,prune,diffusion,vision,hybrid",
+                                        "speculative,train,prune,diffusion,vision,hybrid,tp",
                     help="comma-separated; add 'profile' for device time by kernel (torch.profiler: the prefill and "
                          "decode steps of each phase's paths, the full run's at FULL_DEPTH)")
     args = ap.parse_args(argv)
@@ -7564,6 +8338,13 @@ def main(argv=None) -> int:
         timed("vision", phase_vision, torch, dev)
     if "hybrid" in phases:
         timed("hybrid", phase_hybrid, torch, dev)
+    if "tp" in phases or "tp_full" in phases:  # tp_full: (a) at twice the depth
+        ranked = timed("tp", phase_tp, torch, dev, sz, timer, rows, "tp_full" in phases)
+        launches = {k: (launches or {}).get(k, 0) + ranked.get(k, 0) for k in KERNELS}
+    elif "tp_llama" in phases:  # (a) alone
+        timed("tp_llama", phase_tp, torch, dev, sz, timer, rows, False, "a")
+    elif "tp_moe" in phases:  # (c) and (d) alone
+        timed("tp_moe", phase_tp, torch, dev, sz, timer, rows, False, "cd")
     log(json.dumps({"phase_seconds": seconds, "total_seconds": round(time.perf_counter() - t_start, 1)}))
     out = []
     for name, (src, replaces) in KERNELS.items():

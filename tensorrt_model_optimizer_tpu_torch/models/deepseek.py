@@ -205,8 +205,8 @@ def param_specs(cfg: DeepseekConfig) -> dict:
     """The JAX package's PartitionSpecs as tuples of mesh-axis names: MLA's
     head projections over "tensor" (kv_a and q_a replicated, o_proj by
     rows), experts over "expert", shared experts and the dense MLP as
-    llama's. Tensor and expert parallelism come with ROADMAP queue 1 item 7;
-    this is the layout they will shard by."""
+    llama's: the layout `quant/sharded.py` shards the expert stacks by and
+    `opt/state.save_sharded` writes the shards of."""
     col, row = (None, "tensor", None), (None, None, "tensor")
 
     def attn_specs():
@@ -454,8 +454,10 @@ class _SharedLayoutView:
         return self._layout.get(key.replace("mlp.", "shared.", 1))
 
 
-def _moe_mlp(cfg: DeepseekConfig, x, lp, lstate, layout, calib):
-    """Routed experts + shared experts; x [B, T, H] -> (y, emitted state)."""
+def _moe_mlp(cfg: DeepseekConfig, x, lp, lstate, layout, calib, ep=None, tp=None):
+    """Routed experts + shared experts; x [B, T, H] -> (y, emitted state).
+    Under expert parallelism (`ep`, `tp`) the routed experts are this
+    rank's share, as in `mixtral._moe_mlp`; the shared experts replicate."""
     B, T, H = x.shape
     E, k = cfg.n_routed_experts, cfg.num_experts_per_tok
     S = B * T
@@ -465,7 +467,9 @@ def _moe_mlp(cfg: DeepseekConfig, x, lp, lstate, layout, calib):
 
     topw, topi = route(cfg, router_logits(xf, lp), lp["moe.e_bias"])
     d = dispatch(cfg, topw, topi, S)
-    xe = mixtral.dispatch_tokens(d, xf, E)
+    El = lp["moe.gate_proj"].shape[0]  # E, or this rank's share under expert parallelism
+    e0 = ep.index * El if ep is not None else 0
+    xe = mixtral.dispatch_tokens(d, xf, E)[e0:e0 + El]
     icfg = layout.get("moe.gate_proj.input")
     ist = lst.get("moe.gate_proj", {}).get("input")
 
@@ -477,13 +481,13 @@ def _moe_mlp(cfg: DeepseekConfig, x, lp, lstate, layout, calib):
 
     ye = []
     tied(mixtral.expert_stacks(lp))  # JAX's dispatch einsums batch over this axis
-    for e in range(E):
+    for e in range(El):
         h_in = Q.quantize(xe[e], icfg, ist) if icfg.enable and not calib and ist is not None else xe[e]
         g = h_in @ w_of("moe.gate_proj", e).t().to(h_in.dtype)
         u = h_in @ w_of("moe.up_proj", e).t().to(h_in.dtype)
         y = (torch.nn.functional.silu(g.float()) * u.float()).to(xe.dtype)
         ye.append(y @ w_of("moe.down_proj", e).t().to(y.dtype))
-    y = mixtral.combine_tokens(d, torch.stack(ye), S, k, x.dtype)
+    y = mixtral.combine_local(d, torch.stack(ye), e0, S, k, x.dtype, ep, tp)
 
     parts = ("gate_proj", "up_proj", "down_proj")
     shared, st_sh, _ = llama._mlp(x, {f"mlp.{p}": lp[f"shared.{p}"] for p in parts},
@@ -499,7 +503,7 @@ def _moe_mlp(cfg: DeepseekConfig, x, lp, lstate, layout, calib):
             if wcfg.enable:
                 st = lst.get(name, {}).get("weight", QuantizerState())
                 new_state.setdefault(name, {})["weight"] = llama.stack_states(
-                    [Q.collect(lp[name][e], wcfg, llama.slice_state(st, e)) for e in range(E)])
+                    [Q.collect(lp[name][e], wcfg, llama.slice_state(st, e)) for e in range(El)])
         if icfg.enable:
             new_state.setdefault("moe.gate_proj", {})["input"] = Q.collect(
                 x, icfg, ist if ist is not None else QuantizerState())
@@ -529,12 +533,14 @@ GROUPS = (("dense", "layers_dense"), ("moe", "layers_moe"))  # (state / cache ke
 
 def forward(cfg: DeepseekConfig, params: dict, tokens: torch.Tensor, *,
             layout: Optional[llama.QuantLayout] = None, qstate: Optional[dict] = None, calib: bool = False,
-            cache: Optional[dict] = None, positions: Optional[torch.Tensor] = None):
+            cache: Optional[dict] = None, positions: Optional[torch.Tensor] = None, ep=None, tp=None):
     """-> (logits f32 [B, T, V], new qstate, new cache). qstate follows
     `init_quant_state`'s {"dense", "moe"} split; the state returned is the
     emitted one (calibrating, or given one), else None. `cache`
     (`init_cache`'s dict) runs the absorbed form with the tokens written at
-    pos; the new cache is returned (the given one is not written)."""
+    pos; the new cache is returned (the given one is not written). `ep` /
+    `tp`: the expert-parallel axes of a rank holding its share of the
+    routed experts (`_moe_mlp`; `quant/sharded.py`)."""
     layout = layout or llama.QuantLayout(sites=())
     B, T = tokens.shape
     if positions is None:
@@ -558,7 +564,7 @@ def forward(cfg: DeepseekConfig, params: dict, tokens: torch.Tensor, *,
             x = x + attn
             h = llama.rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
             if key == "moe":
-                y, st_m = _moe_mlp(cfg, h, lp, lstate, layout, calib)
+                y, st_m = _moe_mlp(cfg, h, lp, lstate, layout, calib, ep, tp)
             else:
                 y, st_m, _ = llama._mlp(h, lp, lstate, layout, calib)
             x = x + y

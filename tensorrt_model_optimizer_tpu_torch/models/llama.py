@@ -189,9 +189,9 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, device=None) -> Pa
 
 def param_specs(cfg: LlamaConfig) -> dict:
     """The JAX package's PartitionSpecs as tuples of mesh-axis names (None:
-    not sharded): megatron column / row parallel over "tensor". Tensor
-    parallelism itself comes with ROADMAP queue 1 item 7; this is the
-    layout it will shard by."""
+    not sharded): megatron column / row parallel over "tensor", the plan
+    `serve/tp.py` serves by and `opt/state.save_sharded` writes the shards
+    of."""
     col, row = (None, "tensor", None), (None, None, "tensor")
     layers = {"input_layernorm": (None, None), "post_attention_layernorm": (None, None),
               "self_attn.q_proj": col, "self_attn.k_proj": col, "self_attn.v_proj": col,

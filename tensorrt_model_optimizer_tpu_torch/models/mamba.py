@@ -186,8 +186,9 @@ def param_specs(cfg: MambaConfig) -> dict:
     """The JAX package's PartitionSpecs as tuples of mesh-axis names (None:
     not sharded): in_proj column-parallel (heads and groups both live on its
     output dim), out_proj row-parallel, attention / MLP megatron column /
-    row, the conv and the per-head vectors on their channel dim. Tensor
-    parallelism itself comes with ROADMAP queue 1 item 7."""
+    row, the conv and the per-head vectors on their channel dim. No engine
+    serves the hybrid under a mesh: JAX's tensor-parallel engine takes the
+    Llama and MoE families and DeepSeek only."""
     col, row = (None, "tensor", None), (None, None, "tensor")
     specs: dict = {"embed_tokens": ("tensor", None), "norm": (None,)}
     if not cfg.tie_word_embeddings:

@@ -252,6 +252,24 @@ def combine_tokens(d: Dispatch, ye: torch.Tensor, S: int, k: int, dtype) -> torc
     return (rows[d.dest].float() * d.w_out[:, None]).reshape(S, k, H).sum(dim=1).to(dtype)
 
 
+def combine_local(d: Dispatch, ye: torch.Tensor, e0: int, S: int, k: int, dtype, ep=None, tp=None) -> torch.Tensor:
+    """`combine_tokens` of experts e0 .. e0 + n - 1's outputs ye [n, C, H]
+    (all E experts where n = E) under expert parallelism: the down
+    partials SUMmed over `tp` (each expert's down K sharded over it), the
+    other experts' rows 0, and the combined partial SUMmed over `ep` (the
+    axis the experts shard over). `ep` / `tp`: `parallel.mesh.Axis`, or
+    None for one rank."""
+    if tp is not None:
+        ye = tp.sum(ye)
+    E = d.experts
+    if ye.shape[0] != E:  # the other ranks' experts' rows are 0 here: this rank's pairs only
+        full = torch.zeros((E,) + tuple(ye.shape[1:]), dtype=ye.dtype, device=ye.device)
+        full[e0:e0 + ye.shape[0]] = ye
+        ye = full
+    out = combine_tokens(d, ye, S, k, dtype)
+    return ep.sum(out) if ep is not None else out
+
+
 def expert_act(cfg: MixtralConfig, g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Expert nonlinearity in f32: silu(gate) * up, or GPT-OSS's clamped swiglu."""
     gf, uf = g.float(), u.float()
@@ -278,9 +296,13 @@ def expert_stacks(lp: dict) -> list:
     return [lp[n] for n in names if n in lp]
 
 
-def _moe_mlp(cfg: MixtralConfig, x, lp, lstate, layout, calib):
+def _moe_mlp(cfg: MixtralConfig, x, lp, lstate, layout, calib, ep=None, tp=None):
     """Top-k routed expert MLP with capacity dispatch; x [B, T, H] ->
-    (y [B, T, H], emitted state)."""
+    (y [B, T, H], emitted state). Under expert parallelism (`ep`, `tp`:
+    `parallel.mesh.Axis`) the layer's stacks hold this rank's E / e
+    experts, each its 1 / t of gate / up rows and down columns: routing and
+    dispatch run over all E on the replicated activations, the local
+    experts' rows through their shares (`combine_local`)."""
     B, T, H = x.shape
     E, k = cfg.num_experts, cfg.top_k
     S = B * T
@@ -288,7 +310,11 @@ def _moe_mlp(cfg: MixtralConfig, x, lp, lstate, layout, calib):
     xf = x.reshape(S, H)
     topw, topi = route(cfg, router_logits(cfg, xf, lp))
     d = dispatch_combine(cfg, topw, topi, S, C)
-    xe = dispatch_tokens(d, xf, E)
+    El = lp["moe.gate_proj"].shape[0]  # E, or this rank's share under expert parallelism
+    if ep is not None and cfg.moe_bias:
+        raise NotImplementedError("expert parallelism: expert biases are not sharded")
+    e0 = ep.index * El if ep is not None else 0
+    xe = dispatch_tokens(d, xf, E)[e0:e0 + El]
     lst = lstate or {}
     ist = lst.get("moe.gate_proj", {}).get("input")
     icfg = layout.get("moe.gate_proj.input")
@@ -306,7 +332,7 @@ def _moe_mlp(cfg: MixtralConfig, x, lp, lstate, layout, calib):
 
     tied(expert_stacks(lp))  # JAX's dispatch einsums batch over this axis
     ye = []
-    for e in range(E):
+    for e in range(El):
         h_in = Q.quantize(xe[e], icfg, ist) if quant_in else xe[e]
         g = h_in @ w_of("moe.gate_proj", e).t().to(h_in.dtype)
         u = h_in @ w_of("moe.up_proj", e).t().to(h_in.dtype)
@@ -318,7 +344,7 @@ def _moe_mlp(cfg: MixtralConfig, x, lp, lstate, layout, calib):
         if cfg.moe_bias:
             dn = dn + lp["moe.down_proj__bias"][e].to(dn.dtype)
         ye.append(dn)
-    y = combine_tokens(d, torch.stack(ye), S, k, x.dtype)
+    y = combine_local(d, torch.stack(ye), e0, S, k, x.dtype, ep, tp)
 
     new_state = {}
     if calib:
@@ -327,7 +353,7 @@ def _moe_mlp(cfg: MixtralConfig, x, lp, lstate, layout, calib):
             if wcfg.enable:
                 st = lst.get(name, {}).get("weight", QuantizerState())
                 new_state.setdefault(name, {})["weight"] = llama.stack_states(
-                    [Q.collect(lp[name][e], wcfg, llama.slice_state(st, e)) for e in range(E)])
+                    [Q.collect(lp[name][e], wcfg, llama.slice_state(st, e)) for e in range(El)])
         st_in = lst.get("moe.gate_proj", {}).get("input")
         if icfg.enable or st_in is not None:
             # carried through where the site is off: weight-only AWQ parks
@@ -337,7 +363,7 @@ def _moe_mlp(cfg: MixtralConfig, x, lp, lstate, layout, calib):
     return y.reshape(B, T, H), new_state
 
 
-def _layer(cfg, layout, calib, x, lp, lstate, positions, mask, capture_tokens):
+def _layer(cfg, layout, calib, x, lp, lstate, positions, mask, capture_tokens, ep=None, tp=None):
     caps = {}
     h = llama.norm(cfg, x, lp["input_layernorm"])
     if capture_tokens:
@@ -347,7 +373,7 @@ def _layer(cfg, layout, calib, x, lp, lstate, positions, mask, capture_tokens):
     h = llama.norm(cfg, x, lp["post_attention_layernorm"])
     if capture_tokens:
         caps["moe_in"] = llama._grab(h, capture_tokens)
-    moe_out, st_m = _moe_mlp(cfg, h, lp, lstate, layout, calib)
+    moe_out, st_m = _moe_mlp(cfg, h, lp, lstate, layout, calib, ep, tp)
     return x + moe_out, {**st_a, **st_m}, caps
 
 
@@ -359,12 +385,14 @@ def _head(cfg, params, x):
 
 def forward(cfg: MixtralConfig, params: dict, tokens: torch.Tensor, *,
             layout: Optional[llama.QuantLayout] = None, qstate: Optional[dict] = None,
-            calib: bool = False, capture_tokens: int = 0):
+            calib: bool = False, capture_tokens: int = 0, ep=None, tp=None):
     """MoE forward (prefill style; serving runs `serve.engine`) -> (logits
     f32 [B, T, V], state), or with `capture_tokens > 0` (logits, state,
     captures): captures {"attn_in", "moe_in"} [L, n, H], the inputs the
     calibration searches see. The state is the emitted per-layer state
-    (calibrating, or given one), else None."""
+    (calibrating, or given one), else None. `ep` / `tp`: the expert-parallel
+    axes of a rank holding its share of the expert stacks (`_moe_mlp`;
+    `quant/sharded.py`)."""
     layout = layout or llama.QuantLayout(sites=())
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device, dtype=torch.int32)[None, :].expand(B, T)
@@ -376,7 +404,7 @@ def forward(cfg: MixtralConfig, params: dict, tokens: torch.Tensor, *,
     for i in range(cfg.num_hidden_layers):
         lp = {k: v[i] for k, v in layers.items()}
         x, st, caps = _layer(cfg, layout, calib, x, lp, llama.slice_state(per_layer, i), positions, mask,
-                             capture_tokens)
+                             capture_tokens, ep, tp)
         emitted.append(st)
         for key, t in caps.items():
             captures[key].append(t)

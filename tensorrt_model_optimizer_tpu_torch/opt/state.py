@@ -13,8 +13,18 @@ key for key, so a directory saved by either package restores in the other:
     adapters.safetensors     SVDQuant's low-rank branch ("<proj>/<part>"), f32
 
 The files are written and read by the port's own safetensors code
-(`models/hf_loader.py`). Sharded save / restore wait for multi-GPU
-(ROADMAP queue 1 item 7).
+(`models/hf_loader.py`).
+
+`save_sharded(model, path, mesh)` is the multi-GPU save (JAX's writes
+through orbax, which the port does not have): every rank of the mesh holds
+the whole model and writes only its shards of the weights, by the family's
+`param_specs` (Llama's column / row plan over "tensor", the experts over
+"expert"), to `arrays/rank<r>.safetensors` (a shard that several ranks
+hold is written by one of them), beside `arrays/index.json` (each weight's
+whole shape, its spec and the mesh) and the replicated files rank 0 writes
+as `save` does: `modelopt_state.json`, `quant_state.safetensors`,
+`adapters.safetensors`. `restore_sharded(path, mesh)` gives each rank its
+own shards (on the mesh's device); with no mesh it gathers the whole model.
 """
 
 from __future__ import annotations
@@ -169,16 +179,119 @@ def _ensure_slots(qstate: dict, saved: dict) -> dict:
     return out
 
 
-def save_sharded(model: ptq.QuantizedModel, path: str) -> None:
-    """Multi-host sharded save: it comes with multi-GPU (ROADMAP queue 1 item 7)."""
-    raise NotImplementedError("save_sharded writes each rank's shards: it comes with multi-GPU "
-                              "(ROADMAP queue 1 item 7); `save` writes one directory")
+def _param_specs(model: ptq.QuantizedModel) -> dict:
+    """{leaf name: spec tuple} of the model's weights: Llama's plan, the
+    MoE families' (experts over "expert") where the layers hold experts."""
+    from ..models import mixtral
+
+    if "moe.gate_proj" in model.params["layers"]:
+        specs = mixtral.param_specs(model.model_cfg)
+    else:
+        specs = llama.param_specs(model.model_cfg)
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: v})
+        return out
+
+    return flat(specs)
 
 
-def restore_sharded(path: str, shardings=None) -> ptq.QuantizedModel:
-    """Sharded restore: it comes with multi-GPU (ROADMAP queue 1 item 7)."""
-    raise NotImplementedError("restore_sharded places each rank's shards: it comes with multi-GPU "
-                              "(ROADMAP queue 1 item 7); `restore` reads one directory")
+def _shard_of(spec: tuple, coords: dict, shape: dict) -> tuple:
+    """The (dim, index, count) slices a rank at `coords` holds of a weight
+    with `spec` on a mesh of `shape` (only the axes the mesh has shard)."""
+    return tuple((dim, coords[ax], shape[ax]) for dim, ax in enumerate(spec) if ax in shape and shape[ax] > 1)
+
+
+def _slice(t: torch.Tensor, shard: tuple) -> torch.Tensor:
+    for dim, i, n in shard:
+        size = t.shape[dim]
+        if size % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not divide by {n}")
+        t = t.narrow(dim, i * (size // n), size // n)
+    return t.contiguous()
+
+
+def save_sharded(model: ptq.QuantizedModel, path: str, mesh=None) -> None:
+    """Each rank of `mesh` writes its shards of the weights (see the module
+    docstring); no mesh: one process writes one shard, the whole model."""
+    import torch.distributed as dist
+
+    shape = dict(mesh.shape) if mesh is not None else {}
+    coords = dict(mesh.coords) if mesh is not None else {}
+    rank = mesh.rank if mesh is not None else 0
+    specs = _param_specs(model)
+    arrays = os.path.join(path, "arrays")
+    os.makedirs(arrays, exist_ok=True)
+    mine, index = {}, {}
+    for name, t in tree_util.flatten_with_names(model.params).items():
+        spec = tuple(specs.get(name, ()))
+        shard = _shard_of(spec, coords, shape)
+        index[name] = {"shape": list(t.shape), "spec": list(spec)}
+        held = {ax for dim, ax in enumerate(spec) if ax in shape}
+        if all(coords[ax] == 0 for ax in shape if ax not in held):  # one writer of each shard
+            mine[name] = _slice(t, shard)
+    hf_loader.save_safetensors(_params_to_named(mine), os.path.join(arrays, f"rank{rank}.safetensors"))
+    if rank == 0:
+        with open(os.path.join(arrays, "index.json"), "w") as f:
+            json.dump({"params": index, "mesh": shape,
+                       "ranks": _all_coords(mesh) if mesh is not None else {"0": {}}}, f, indent=1)
+        save(model, path, save_params=False)
+    if mesh is not None:
+        dist.barrier()
+
+
+def _all_coords(mesh) -> dict:
+    """{rank: its coords} of every rank of the mesh (row-major over its axes)."""
+    import itertools
+
+    names = mesh.names
+    return {str(r): dict(zip(names, c))
+            for r, c in enumerate(itertools.product(*(range(mesh.shape[n]) for n in names)))}
+
+
+def restore_sharded(path: str, mesh=None, device=None) -> ptq.QuantizedModel:
+    """Restore a `save_sharded` directory: with `mesh`, each rank's own
+    shards of the weights (the mesh's axes the save sharded over must have
+    the saved sizes), on the mesh's device; with none, the whole model,
+    gathered from every rank's file, on `device`."""
+    dev = mesh.device if mesh is not None and device is None else resolve_device(device)
+    with open(os.path.join(path, "arrays", "index.json")) as f:
+        index = json.load(f)
+    saved_shape, ranks = index["mesh"], index["ranks"]
+    files = {}
+
+    def entry(r: str, name: str) -> torch.Tensor:
+        if r not in files:
+            files[r] = _named_from_file(os.path.join(path, "arrays", f"rank{r}.safetensors"), "cpu")
+        return files[r][name]
+
+    params = {}
+    for name, meta in index["params"].items():
+        spec = tuple(meta["spec"])
+        held = [ax for ax in spec if ax in saved_shape and saved_shape[ax] > 1]
+        writers = {r: c for r, c in ranks.items() if all(c[ax] == 0 for ax in saved_shape if ax not in held)}
+        if mesh is not None:
+            for ax in held:
+                if mesh.size(ax) != saved_shape[ax]:
+                    raise ValueError(f"{name}: saved over {ax}={saved_shape[ax]}, the mesh has {mesh.size(ax)}")
+            (r,) = [r for r, c in writers.items() if all(c[ax] == mesh.index(ax) for ax in held)]
+            params[name] = entry(r, name).to(dev)
+            continue
+        whole = None
+        for r, c in writers.items():
+            part = entry(r, name)
+            if whole is None:
+                whole = torch.empty(meta["shape"], dtype=part.dtype)
+            view = whole
+            for dim, ax in enumerate(spec):
+                if ax in held:
+                    n = meta["shape"][dim] // saved_shape[ax]
+                    view = view.narrow(dim, c[ax] * n, n)
+            view.copy_(part)
+        params[name] = whole.to(dev)
+    return restore(path, params=tree_util.nest(params), device=dev)
 
 
 quant_registry.register(

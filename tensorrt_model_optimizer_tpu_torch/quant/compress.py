@@ -221,7 +221,9 @@ class CompressedModel:
     """Packed-weight model: projections replaced by packed dicts.
     `kinds` maps site name -> format kind (drives kernel dispatch);
     `adapters` is SVDQuant's low-rank branch {name: {"A" [L, r, K], "B" [L,
-    O, r], "scale" [L]}}, served in high precision, or None."""
+    O, r], "scale" [L]}}, served in high precision, or None. `shard` is
+    (axis, n_shards, rank) for one rank's shard of a model
+    (`serve/tp.py shard_compressed`), else None."""
 
     model_cfg: llama.LlamaConfig
     params: dict
@@ -229,6 +231,7 @@ class CompressedModel:
     layout: llama.QuantLayout
     qstate: llama.QuantState
     adapters: Optional[dict] = None
+    shard: Optional[tuple] = None
 
     @property
     def packed_bytes(self) -> int:

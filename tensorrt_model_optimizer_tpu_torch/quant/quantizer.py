@@ -226,11 +226,14 @@ def _fake_quant(x, cfg: QuantizerConfig, amax):
 
 
 def quantize(x: torch.Tensor, cfg: QuantizerConfig,
-             state: Optional[QuantizerState] = None) -> torch.Tensor:
+             state: Optional[QuantizerState] = None, amax_reduce=None) -> torch.Tensor:
     """Fake-quantize `x` per the config: pre_quant_scale multiply, the
     Hadamard rotation where `rotate` (exact when the paired weight site
     rotates its input dim too: (xH)(WH)^T = xW^T), then the format's fake
-    quant."""
+    quant. `amax_reduce` (a function) reduces a DYNAMIC per-token or
+    per-tensor amax across ranks: the tensor-parallel engine passes a MAX
+    over its axis for a row-parallel site's input, whose K is sharded (the
+    block formats' scales are local to each shard and need none)."""
     state = state or QuantizerState()
     if state.pre_quant_scale is not None:
         x = x * state.pre_quant_scale.to(x.dtype)
@@ -242,12 +245,12 @@ def quantize(x: torch.Tensor, cfg: QuantizerConfig,
         amaxes = state.amax if isinstance(state.amax, tuple) else (None,) * len(cfg.sequential)
         for sub, am in zip(cfg.sequential, amaxes):
             if sub.enable:
-                x = _dispatch(x, sub, QuantizerState(amax=am))
+                x = _dispatch(x, sub, QuantizerState(amax=am), amax_reduce)
         return x
     if cfg.bias_corr and state.bias is not None:
         b = state.bias.to(x.dtype)
-        return _dispatch(x - b, cfg, state) + b
-    return _dispatch(x, cfg, state)
+        return _dispatch(x - b, cfg, state, amax_reduce) + b
+    return _dispatch(x, cfg, state, amax_reduce)
 
 
 def _mxint(x: torch.Tensor, num_bits: int, ax: int, bsz: int) -> torch.Tensor:
@@ -258,7 +261,7 @@ def _mxint(x: torch.Tensor, num_bits: int, ax: int, bsz: int) -> torch.Tensor:
     return numerics.fake_quant_int(x, amax_full, num_bits)
 
 
-def _dispatch(x, cfg: QuantizerConfig, state: QuantizerState):
+def _dispatch(x, cfg: QuantizerConfig, state: QuantizerState, amax_reduce=None):
     """One format's fake quant with its straight-through gradient, routed as
     JAX's `_fake_quant_dispatch` routes it (`ops/ste.py`)."""
     if cfg.backend is not None:
@@ -275,7 +278,11 @@ def _dispatch(x, cfg: QuantizerConfig, state: QuantizerState):
             return ste.fake_quant_mx_ste(x, e, m, bsz, ax)
         return ste.pass_through(lambda t: _fake_quant(t, cfg, numerics.block_reduce_amax(t.float(), blk.sizes)), x)
     if cfg.dynamic:
-        return ste.pass_through(lambda t: _fake_quant(t, cfg, _dynamic_amax(t, cfg)), x)
+        def dyn(t):
+            am = _dynamic_amax(t, cfg)
+            return _fake_quant(t, cfg, am if amax_reduce is None else amax_reduce(am))
+
+        return ste.pass_through(dyn, x)
     amax = state.amax
     if amax is None and cfg.constant_amax is not None:
         amax = torch.full((), cfg.constant_amax, dtype=torch.float32, device=x.device)  # no host copy

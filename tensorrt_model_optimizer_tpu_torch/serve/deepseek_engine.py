@@ -34,8 +34,14 @@ MLP, routed and shared experts) into the canonical kinds of
    is one CUDA-graph replay on the card (`engine.StepEngine`), the steps
    eagerly on the CPU.
 
-There is no mesh here: tensor and expert parallelism (`serve/deepseek_tp.py`)
-come with ROADMAP queue 1 item 7.
+`DeepseekEngine(cm, mesh=..., tp_axis=...)` serves one rank's shard of the
+model (`serve/deepseek_tp.py`: MLA over heads, the routed experts over the
+same axis, the shared experts and the dense MLPs column / row parallel; a
+whole model is sharded at construction): the row sites SUM their partial
+outputs (the routed and the shared expert's partials in one SUM, as JAX's),
+a dynamic per-token amax at their input is MAX-reduced first, and the
+latent cache is replicated. On the card the decode step is a CUDA graph
+only under an nccl group; under gloo it raises unless `_eager` is set.
 """
 
 from __future__ import annotations
@@ -49,7 +55,9 @@ from .. import resolve_device
 from ..models import deepseek as ds
 from ..models import llama
 from ..quant import quantizer as Q
+from ..parallel.mesh import Axis
 from ..quant.compress import convert_layers, decompress_weight, layer_arrays, pack_stack
+from . import deepseek_tp as dtp
 from . import engine as eng_mod
 
 SCORE_BYTES = 2 << 30  # f32 scores of one head group at most (a prefill at V3's widths: 16 heads of 128)
@@ -70,6 +78,7 @@ class DeepseekCompressedModel:
     kinds: dict
     layout: llama.QuantLayout
     qstate: dict
+    shard: Optional[tuple] = None  # (axis, n_shards, rank) of one rank's shard (`deepseek_tp.shard_deepseek`)
 
     @property
     def packed_bytes(self) -> int:
@@ -102,21 +111,27 @@ def compress(qm: ds.DeepseekQuantizedModel) -> DeepseekCompressedModel:
     return DeepseekCompressedModel(cfg, params, kinds, qm.layout, qm.qstate)
 
 
-def _lin(cm, lstate, name: str, x: torch.Tensor, lp: dict, ops) -> torch.Tensor:
+def _lin(cm, lstate, name: str, x: torch.Tensor, lp: dict, ops, tp: Optional[Axis] = None,
+         reduce: bool = True) -> torch.Tensor:
     """y = q_act(x) @ dequant(W)^T for x [N, K]: the site's input quantizer,
-    then the weight's ported GEMM."""
+    then the weight's ported GEMM. Under tensor parallelism (`tp`) a row
+    site MAX-reduces a dynamic per-token amax before quantizing and SUMs
+    its partial output (unless `reduce` is False)."""
+    row = tp is not None and tp.size > 1 and name in dtp.DS_ROW
     icfg = cm.layout.get(f"{name}.input")
     ist = (lstate or {}).get(name, {}).get("input")
     if icfg.enable or (ist is not None and ist.pre_quant_scale is not None):
-        x = Q.quantize(x, icfg, ist)
-    return eng_mod._qlinear(x, name, cm.kinds[name], lp[name], cm, None, ops, skip_input_quant=True)
+        x = Q.quantize(x, icfg, ist, amax_reduce=tp.max if row else None)
+    return eng_mod._qlinear(x, name, cm.kinds[name], lp[name], cm, None, ops, skip_input_quant=True, tp=tp,
+                            row=row, reduce_out=reduce)
 
 
-def _mla_decode(cfg: ds.DeepseekConfig, cm, x, lp, lstate, positions, mask, ckv, kpe, pos, wkb, ops):
+def _mla_decode(cfg: ds.DeepseekConfig, cm, x, lp, lstate, positions, mask, ckv, kpe, pos, wkb, ops, tp=None):
     """Absorbed MLA of one layer over its latent cache ckv [B, S, r], kpe
     [B, S, dr] (written in place at rows pos .. pos + T - 1 before the
     attention reads them); x [B, T, H] -> [B * T, H]. `wkb` [nH, dn + dv, r]
-    is the layer's dequantized kv_b."""
+    is the layer's dequantized kv_b. Under tensor parallelism cfg's heads
+    are this rank's and o_proj SUMs over `tp`."""
     B, T, H = x.shape
     nH = cfg.num_attention_heads
     dn, dr, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
@@ -149,7 +164,7 @@ def _mla_decode(cfg: ds.DeepseekConfig, cm, x, lp, lstate, positions, mask, ckv,
     eng_mod._write_rows(kpe, 1, rows, k_pe)
 
     ctx = absorbed_attention(cfg, q_nope, q_pe, ckv, kpe, wkb, mask)
-    return _lin(cm, lstate, "self_attn.o_proj", ctx, lp, ops)
+    return _lin(cm, lstate, "self_attn.o_proj", ctx, lp, ops, tp)
 
 
 def absorbed_attention(cfg: ds.DeepseekConfig, q_nope, q_pe, ckv, kpe, wkb, mask) -> torch.Tensor:
@@ -197,8 +212,18 @@ class DeepseekEngine(eng_mod.StepEngine):
     PyTorch versions run instead, on any device, to hold the kernel path
     against them."""
 
-    def __init__(self, cm: DeepseekCompressedModel, max_seq_len: int = 2048, device=None, plain_ops: tuple = ()):
-        super().__init__(resolve_device(device))
+    def __init__(self, cm: DeepseekCompressedModel, max_seq_len: int = 2048, device=None, plain_ops: tuple = (),
+                 mesh=None, tp_axis: str = "tp"):
+        super().__init__(resolve_device(mesh.device if device is None and mesh is not None else device), mesh)
+        self._tp = Axis(mesh, tp_axis) if mesh is not None else None
+        if mesh is not None:
+            d, r = self._tp.size, self._tp.index
+            if cm.shard is None:
+                cm = dtp.shard_deepseek(cm, d, r, tp_axis)
+            elif tuple(cm.shard) != (tp_axis, d, r):
+                raise ValueError(f"the model is shard {cm.shard}, this rank serves ({tp_axis!r}, {d}, {r})")
+        elif cm.shard is not None:
+            raise ValueError(f"the model is shard {cm.shard} of a mesh: give the engine the mesh")
         if cm.params["embed_tokens"].device.type != self.device.type:
             raise ValueError(f"model lives on {cm.params['embed_tokens'].device}, engine on {self.device}")
         cfg = cm.model_cfg
@@ -254,13 +279,14 @@ class DeepseekEngine(eng_mod.StepEngine):
                 lstate = self._lstates[key][i]
                 h = llama.rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps)
                 x = x + _mla_decode(cfg, self.cm, h, lp, lstate, positions, mask, cache[f"ckv_{key}"][i],
-                                    cache[f"kpe_{key}"][i], pos, self._kvb[key][i], self._ops).reshape(x.shape)
+                                    cache[f"kpe_{key}"][i], pos, self._kvb[key][i], self._ops, self._tp).reshape(x.shape)
                 h2 = llama.rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps).reshape(B * T, -1)
 
-                def lin(v, name, lp=lp, lstate=lstate):
-                    return _lin(self.cm, lstate, name, v, lp, self._ops)
+                def lin(v, name, reduce=True, lp=lp, lstate=lstate):
+                    return _lin(self.cm, lstate, name, v, lp, self._ops, self._tp, reduce)
 
-                x = x + eng_mod._ffn(cfg, self.cm, h2, lp, lstate, self.cm.kinds, self._ops, lin).reshape(x.shape)
+                x = x + eng_mod._ffn(cfg, self.cm, h2, lp, lstate, self.cm.kinds, self._ops, lin, self._tp,
+                                     one_sum=True).reshape(x.shape)
         pos.add_(T)
         x = llama.rms_norm(x, self.cm.params["norm"], cfg.rms_norm_eps)
         head_w = self.cm.params.get("lm_head", self.cm.params["embed_tokens"])

@@ -116,8 +116,32 @@ mask), and so does a model with a window or chunk (GPT-OSS, Llama4): JAX's
 tree mask replaces it in every layer, and its speculative tokens then leave
 its greedy ones (ROADMAP queue 3).
 
-Not ported (each raises `NotImplementedError` naming its slice): the
-tensor-parallel paths.
+Tensor, expert and data parallelism (`EngineConfig.mesh`, a
+`parallel.mesh.Mesh` of one process per rank): the engine serves the
+rank's shard (`serve/tp.py`: a whole model is sharded at construction, a
+shard from `tp.shard_compressed` is taken as it is), every kernel at its
+local shapes. A row-parallel projection (o / down / the shared expert's
+down) all-reduces (SUM) its partial output over `tp_axis` in the output
+dtype, after the cast, as JAX's psum; before it quantizes its input, a
+dynamic per-token amax (W4A8's and int8a8's int8 activations, W8A8's, a
+dynamic input quantizer) is all-reduced (MAX), JAX's `reduce_amax`, so
+every shard quantizes against the single-device scale.
+`overlap_collectives` is taken and changes nothing: JAX splits such a
+projection into two output halves, each with its own SUM, for its
+scheduler to overlap; the halves' SUMs give the one SUM's values, and a
+collective here runs in turn with the compute (gloo's on the host, nccl's
+on the one stream), so the port serves it through the one SUM. MoE
+layers are expert-parallel over the same axis: the routing runs on the
+replicated activations, each rank runs its E/d experts' rows and SUMs
+the combined partial (`mixtral.combine_local`). `dp_axis`
+shards the batch: the dense entry points take and return the whole batch
+(each replica serves its rows and the results are gathered over the axis),
+and `serve` gives each replica every n-th request, its share of the pages
+and slots and its own scheduler, then gathers the outputs. On the card a
+decode step is a CUDA graph only under an nccl group (its collectives are
+captured with it, a route written but not run on more than one card);
+under gloo, whose collectives run on the host, `decode_step` and
+`paged_decode_step` raise unless the engine's `_eager` is set.
 """
 
 from __future__ import annotations
@@ -140,9 +164,11 @@ from ..ops.cuda import paged_attention as pa
 from ..ops.cuda import qmm, qmm_wo
 from ..ops.cuda import sparse_attention as ssa
 from ..quant import quantizer as Q
+from ..parallel.mesh import Axis, all_gather_object
 from ..quant.compress import CompressedModel, convert_packed_layouts, layer_arrays
 from . import paged_cache as pc
 from . import step_graph
+from . import tp as tp_mod
 from .sampling import SamplingConfig, sample
 from .scheduler import Scheduler
 
@@ -183,6 +209,17 @@ class EngineConfig:
     # calibrate_threshold` or `sparsity.ruler.calibrate_threshold_ruler`.
     attn_sparsity: Optional[float] = None
     attn_sparsity_blocks: tuple = (128, 128)
+    # tensor / expert parallelism over the mesh axis `tp_axis` of a
+    # `parallel.mesh.Mesh` (the engine then serves this rank's shard, see
+    # serve/tp.py); data parallelism over `dp_axis` where set (the batch,
+    # the page pool and the slots shard over it)
+    mesh: Any = None
+    tp_axis: str = "tp"
+    dp_axis: Optional[str] = None
+    # JAX's: row-parallel projections as two output halves, each with its
+    # own SUM, for its scheduler to overlap; the same values as the one SUM,
+    # which is what the port runs (see the module docstring)
+    overlap_collectives: bool = False
 
 
 _KERNELS = {  # plain_ops name -> (kernel wrapper, plain version)
@@ -286,11 +323,13 @@ def _int8_acts(x: torch.Tensor, a_amax: torch.Tensor, lo: int):
     return torch.clamp(torch.round(x.float() / a_scale), lo, 127).to(torch.int8), a_scale
 
 
-def _token_int8_acts(x: torch.Tensor):
+def _token_int8_acts(x: torch.Tensor, red: Optional[Axis] = None):
     """W4A8's (and int8a8's) activations: per-token dynamic int8 codes of x
     (any leading axes) under each row's amax / 127, clipped to +-127, and
-    the scale."""
-    return _int8_acts(x, torch.amax(torch.abs(x.float()), dim=-1, keepdim=True), -127)
+    the scale. `red`: the axis a row-parallel site's K is sharded over,
+    whose MAX of each row's amax is taken first (JAX's `reduce_amax`)."""
+    amax = torch.amax(torch.abs(x.float()), dim=-1, keepdim=True)
+    return _int8_acts(x, amax if red is None else red.max(amax), -127)
 
 
 def _lora(x, y, adapter):
@@ -301,11 +340,23 @@ def _lora(x, y, adapter):
     return y + lo * adapter["scale"].to(y.dtype)
 
 
-def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, ops, adapter=None, skip_input_quant=False):
+def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, ops, adapter=None, skip_input_quant=False,
+             tp: Optional[Axis] = None, row: bool = False, reduce_out: bool = True):
     """y = q_act(x) @ dequant(W)^T for x [N, K] (2-D), plus the adapter's
     low-rank branch where there is one. `skip_input_quant`: the caller has
     applied the input quantizer (an expert block's one shared site), so
-    neither it nor its pre_quant_scale applies here."""
+    neither it nor its pre_quant_scale applies here.
+
+    Under tensor parallelism `row` marks a row-parallel site, whose K is
+    sharded over `tp`: a dynamic per-token activation amax is MAX-reduced
+    over the axis before quantizing, and the partial output (the adapter's
+    partial with it) is SUM-reduced in the output dtype, unless
+    `reduce_out` is False (the caller folds it into a later SUM)."""
+    red = tp if (tp is not None and row and tp.size > 1) else None
+
+    def out(y):
+        return red.sum(y) if red is not None and reduce_out else y
+
     icfg = cm.layout.get(f"{name}.input")
     if skip_input_quant:
         icfg, ist = Q.DISABLED, None
@@ -313,9 +364,9 @@ def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, ops, adapter=None,
         # per-token dynamic int8 activations, clipped to +-127
         if ist is not None and ist.pre_quant_scale is not None:
             x = x * ist.pre_quant_scale.to(x.dtype)
-        x8, a_scale = _token_int8_acts(x)
+        x8, a_scale = _token_int8_acts(x, red)
         y = ops["w4a8"](x8, arrays["packed"], arrays["scales"])
-        return _lora(x, (y * a_scale).to(x.dtype), adapter)
+        return out(_lora(x, (y * a_scale).to(x.dtype), adapter))
     if kind == "int8" and icfg.enable and not icfg.is_fp:
         # W8A8: per-token int8 activations (the static amax's first element
         # where the site is static), clipped to [-128, 127]; int32 products,
@@ -324,21 +375,23 @@ def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, ops, adapter=None,
             x = x * ist.pre_quant_scale.to(x.dtype)
         if icfg.dynamic or icfg.per_token or ist is None or ist.amax is None:
             a_amax = torch.amax(torch.abs(x.float()), dim=-1, keepdim=True)
+            if red is not None:
+                a_amax = red.max(a_amax)
         else:
             a_amax = ist.amax.float().reshape(1, -1)[:, :1].expand(x.shape[0], 1)
         x8, a_scale = _int8_acts(x, a_amax, -128)
         y = int8_mm(x8, arrays["q"]).float() * a_scale * arrays["scale"].reshape(1, -1)
-        return y.to(x.dtype)
+        return out(y.to(x.dtype))
     if kind == "int8a8":
         # NVFP4's values as per-channel int8 under per-token int8
         # activations clipped to +-127; the input quantizer is not applied
         if ist is not None and ist.pre_quant_scale is not None:
             x = x * ist.pre_quant_scale.to(x.dtype)
-        x8, a_scale = _token_int8_acts(x)
+        x8, a_scale = _token_int8_acts(x, red)
         y = int8_mm(x8, arrays["q"]).float() * a_scale * arrays["scale"].reshape(1, -1)
-        return _lora(x, y.to(x.dtype), adapter)
+        return out(_lora(x, y.to(x.dtype), adapter))
     if icfg.enable or (ist is not None and ist.pre_quant_scale is not None):
-        x = Q.quantize(x, icfg, ist)
+        x = Q.quantize(x, icfg, ist, amax_reduce=None if red is None else red.max)
     if kind == "int4wo":
         y = ops["int4_wo"](x, arrays["packed"], arrays["scales"])
     elif kind in ("nvfp4wo", "mxfp4wo"):
@@ -351,7 +404,7 @@ def _qlinear(x, name, kind, arrays, cm: CompressedModel, ist, ops, adapter=None,
         y = x @ arrays["w"].to(x.dtype).t()
     else:
         raise NotImplementedError(f"weight kind {kind!r} is served by a later slice")
-    return _lora(x, y, adapter)
+    return out(_lora(x, y, adapter))
 
 
 def _kv_pack_width(hd: int) -> int:
@@ -474,61 +527,82 @@ def _expert_linear(x, name, kind, arrays, cm, ops):
     return (y * a_scale).to(x.dtype)
 
 
-def _moe_ffn(cfg, cm, h2, lp, lstate, kinds, ops):
+def _n_experts(arrays: dict) -> int:
+    return next(v for v in arrays.values() if isinstance(v, torch.Tensor)).shape[0]
+
+
+def _moe_ffn(cfg, cm, h2, lp, lstate, kinds, ops, ep: Optional[Axis] = None, reduce: bool = True):
     """The routed-expert FFN on packed weights, h2 [S, H] -> [S, H]:
     routing and dispatch are the model's (`cfg.route_dispatch`: mixtral's,
     or DeepSeek's group-limited router), the activation `mixtral`'s, so
     serving computes the calibrated forward's function; each expert's C
     rows (C = max(int(capacity_factor S k / E), 1), JAX's) go through the
     ported GEMMs (`_expert_linear`). Gate and up share one input quantizer,
-    applied once per expert's rows; down's input is not quantized."""
+    applied once per expert's rows; down's input is not quantized.
+
+    Expert parallelism (the layer's stacks hold E/d experts, `ep` the axis
+    they shard over): the routing runs on the replicated activations over
+    all E experts, this rank runs its own experts' rows, combines its
+    tokens' pairs with those experts and SUMs the partial over the axis
+    (unless `reduce` is False: the caller folds it into a later SUM)."""
     S, H = h2.shape
     d = cfg.route_dispatch(h2, lp)
     E, k = d.experts, d.dest.shape[0] // S
-    xe = mixtral.dispatch_tokens(d, h2, E)
+    El = _n_experts(lp["moe.gate_proj"])
+    e0 = (ep.index if ep is not None else 0) * El
+    xe = mixtral.dispatch_tokens(d, h2, E)[e0:e0 + El]
     ist = (lstate or {}).get("moe.gate_proj", {}).get("input")
     icfg = cm.layout.get("moe.gate_proj.input")
     if icfg.enable or (ist is not None and ist.pre_quant_scale is not None):
         # one site for the block, quantized per expert's rows as JAX's
         # engine does (a dynamic scale sees only that expert's rows)
-        xe = torch.stack([Q.quantize(xe[e], icfg, ist) for e in range(E)])
+        xe = torch.stack([Q.quantize(xe[e], icfg, ist) for e in range(El)])
 
     def lin(x, name):
         y = _expert_linear(x, name, kinds[name], lp[name], cm, ops)
         return y if not cfg.moe_bias else y + lp[name + "__bias"][:, None].to(y.dtype)
 
     y = mixtral.expert_act(cfg, lin(xe, "moe.gate_proj"), lin(xe, "moe.up_proj")).to(h2.dtype)
-    return mixtral.combine_tokens(d, lin(y, "moe.down_proj"), S, k, h2.dtype)
+    return mixtral.combine_local(d, lin(y, "moe.down_proj"), e0, S, k, h2.dtype, ep if reduce else None)
 
 
-def _ffn(cfg, cm, h2, lp, lstate, kinds, ops, lin):
+def _ffn(cfg, cm, h2, lp, lstate, kinds, ops, lin, ep: Optional[Axis] = None, one_sum: bool = False):
     """The layer's FFN: routed experts where the layer has them (and the
     shared expert, Llama4's or DeepSeek's, added to their output through
-    `lin`), else the dense MLP through `lin(x, name)`."""
+    `lin`), else the dense MLP through `lin(x, name)`. Under expert
+    parallelism over `ep` the routed and the shared partials take a SUM each
+    (JAX's engine), or with `one_sum` one SUM of both (JAX's DeepSeek
+    engine); `lin(x, name, reduce=False)` leaves a row site's partial
+    unreduced."""
     if "moe.gate_proj" in lp:
-        y = _moe_ffn(cfg, cm, h2, lp, lstate, kinds, ops)
+        y = _moe_ffn(cfg, cm, h2, lp, lstate, kinds, ops, ep, reduce=not one_sum)
         if "shared.gate_proj" in lp:
             ys = (torch.nn.functional.silu(lin(h2, "shared.gate_proj").float())
                   * lin(h2, "shared.up_proj").float()).to(h2.dtype)
-            y = y + lin(ys, "shared.down_proj")
-        return y
+            y = y + lin(ys, "shared.down_proj", reduce=not one_sum)
+        return ep.sum(y) if (one_sum and ep is not None) else y
     y = (torch.nn.functional.silu(lin(h2, "mlp.gate_proj").float()) * lin(h2, "mlp.up_proj").float()).to(h2.dtype)
     return lin(y, "mlp.down_proj")
 
 
-def _layer(cfg, cm, x, lp, lstate, kinds, positions, ops, attend, adapters=None, flag: bool = False):
+def _layer(cfg, cm, x, lp, lstate, kinds, positions, ops, attend, adapters=None, flag: bool = False,
+           tp: Optional[Axis] = None):
     """One decoder layer on packed weights: projections (their biases, the
     qkv clamp and the per-head q/k norms where the model has them) and
     rope (the config's `rope_qk`; Llama4's by the layer's `flag`), then
     `attend(q [B, T, nH, hd], k, v [B, T, nKV, hd]) -> ctx [B*T, nH*hd]`,
     then the output projection and the FFN. `adapters`: this layer's
-    low-rank branches by projection, or None."""
+    low-rank branches by projection, or None. Under tensor parallelism
+    (`tp`, the layer being this rank's shard: cfg's heads are the local
+    ones) the row sites reduce over the axis (`_qlinear`) and the experts
+    are expert-parallel over it."""
     B, T, H = x.shape
     hd, nH, nKV = cfg.hd, cfg.num_attention_heads, cfg.num_key_value_heads
 
-    def lin(inp, name):
+    def lin(inp, name, reduce=True):
         ist = (lstate or {}).get(name, {}).get("input")
-        y = _qlinear(inp, name, kinds[name], lp[name], cm, ist, ops, (adapters or {}).get(name))
+        y = _qlinear(inp, name, kinds[name], lp[name], cm, ist, ops, (adapters or {}).get(name), tp=tp,
+                     row=name in tp_mod.ROW_SITES, reduce_out=reduce)
         return y if name + "__bias" not in lp else y + lp[name + "__bias"].to(y.dtype)
 
     h2 = llama.norm(cfg, x, lp["input_layernorm"]).reshape(B * T, H)
@@ -540,7 +614,7 @@ def _layer(cfg, cm, x, lp, lstate, kinds, positions, ops, attend, adapters=None,
     ctx = attend(q, k, v)
     x = x + lin(ctx, "self_attn.o_proj").reshape(B, T, H)
     h2 = llama.norm(cfg, x, lp["post_attention_layernorm"]).reshape(B * T, H)
-    return x + _ffn(cfg, cm, h2, lp, lstate, kinds, ops, lin).reshape(B, T, H)
+    return x + _ffn(cfg, cm, h2, lp, lstate, kinds, ops, lin, tp).reshape(B, T, H)
 
 
 def _dense_attn(cfg, ecfg, q, k, v, ck, cv, cks, cvs, pos, ka, va, ops):
@@ -761,11 +835,32 @@ class StepEngine:
     `_model_step(tokens, cache) -> logits [B, V]` (updates the cache in
     place, its pos included) and `_cache_rows(cache)`."""
 
-    def __init__(self, device):
+    def __init__(self, device, mesh=None):
         self.device = device
+        self._mesh = mesh
         self._caches: dict = {}  # id(a cache's owner tensor) -> _CacheState, dropped with the owner
         self._graph_stream = None  # the side stream the decode steps are captured on
         self._eager = False  # True: the decode steps launch eagerly on the card too (the graphs' reference)
+
+    def _dp_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This data-parallel replica's rows of a whole-batch tensor (all of
+        it without a data-parallel axis)."""
+        return t
+
+    def _dp_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every replica's rows, in replica order (t without the axis)."""
+        return t
+
+    def _graphable(self) -> None:
+        """A decode step on the card is a CUDA graph, which holds a
+        collective only where the card runs it (nccl): under a gloo mesh
+        (the collectives run on the host) it raises, unless `_eager`."""
+        m = self._mesh
+        if m is not None and m.world > 1 and m.backend != "nccl":
+            raise RuntimeError(
+                f"decode steps on the card are captured as CUDA graphs, which cannot hold the {m.backend} "
+                "backend's collectives (they run on the host): set the engine's _eager = True to launch the steps "
+                "eagerly, or serve over an nccl group")
 
     def _cache_rows(self, cache: dict) -> int:
         raise NotImplementedError
@@ -837,14 +932,15 @@ class StepEngine:
         if unroll < 1:
             raise ValueError(f"unroll {unroll} < 1")
         pos = self._room(cache, unroll)
-        tok = tok.to(device=self.device, dtype=torch.int32)
+        tok = self._dp_rows(tok.to(device=self.device, dtype=torch.int32))
         if self.device.type != "cuda" or self._eager:
             tok = self._greedy_steps(tok, cache, unroll)
         else:
+            self._graphable()
             key = ("dense", step_graph.tensor_key(*(cache[k] for k in sorted(cache))), tok.shape, unroll)
             tok = self._replay(cache["pos"], key, lambda t: self._greedy_steps(t, cache, unroll), tok)
         self._set_pos(cache, pos + unroll)
-        return tok, cache
+        return self._dp_gather(tok), cache
 
     def decode(self, first_token: torch.Tensor, cache: dict, steps: int,
                sampling: Optional[SamplingConfig] = None,
@@ -860,7 +956,7 @@ class StepEngine:
             if greedy:
                 tok, cache = self.decode_step(tok, cache)
             else:
-                tok = sample(self._model_step(tok, cache), sampling, generator)[:, None]
+                tok = sample(self._dp_gather(self._model_step(self._dp_rows(tok), cache)), sampling, generator)[:, None]
             out.append(tok)
         self._set_pos(cache, pos + steps)
         if not out:
@@ -896,7 +992,20 @@ class Engine(StepEngine):
     the caller passes device="cpu"); the model must already live there."""
 
     def __init__(self, cm: CompressedModel, config: EngineConfig = EngineConfig(), device=None):
-        super().__init__(resolve_device(device))
+        mesh = config.mesh
+        super().__init__(resolve_device(mesh.device if device is None and mesh is not None else device), mesh)
+        self._tp = Axis(mesh, config.tp_axis) if mesh is not None else None
+        self._dp = Axis(mesh, config.dp_axis) if mesh is not None and config.dp_axis else None
+        if mesh is not None:
+            d, r = self._tp.size, self._tp.index
+            if config.nvfp4_layout == "i8" and "nvfp4" in cm.kinds.values():  # a shard given as it is, too
+                raise NotImplementedError(tp_mod.I8_UNDER_MESH)
+            if cm.shard is None:
+                cm = tp_mod.shard_compressed(cm, d, r, config.tp_axis, config.nvfp4_layout)
+            elif tuple(cm.shard) != (config.tp_axis, d, r):
+                raise ValueError(f"the model is shard {cm.shard}, this rank serves ({config.tp_axis!r}, {d}, {r})")
+        elif cm.shard is not None:
+            raise ValueError(f"the model is shard {cm.shard} of a mesh: give the engine the mesh")
         if cm.params["embed_tokens"].device.type != self.device.type:
             raise ValueError(f"model lives on {cm.params['embed_tokens'].device}, engine on {self.device}")
         if config.kv_attention_kernel and config.attn_sparsity is not None:
@@ -951,11 +1060,25 @@ class Engine(StepEngine):
     def _cache_rows(self, cache: dict) -> int:
         return cache["k"].shape[3 if self.ecfg.kv_attention_kernel else 2]
 
-    def init_cache(self, batch: int, max_len: Optional[int] = None) -> dict:
-        """The dense cache. Einsum engine: stored rows [L, B, S, n_kv, C]
-        (packed NVFP4: C = 9 hd/16 bytes). Kernel engine: kv-head-major
-        stored form [L, B, n_kv, S, C]; NVFP4 keeps its nibble planes in
-        "k"/"v" and its block-scale bytes in "ks"/"vs"."""
+    def _dp_rows(self, t: torch.Tensor) -> torch.Tensor:
+        if self._dp is None or self._dp.size == 1:
+            return t
+        n = self._dp.size
+        if t.shape[0] % n:
+            raise ValueError(f"batch {t.shape[0]} does not divide over the {n} data-parallel replicas")
+        b = t.shape[0] // n
+        return t[self._dp.index * b:(self._dp.index + 1) * b]
+
+    def _dp_gather(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self._dp is None else self._dp.gather(t, 0)
+
+    def init_cache(self, batch: int, max_len: Optional[int] = None, replica: bool = False) -> dict:
+        """The dense cache (this rank's shard of it under a mesh: its kv heads,
+        and its replica's rows of the `batch` unless `replica` says the batch
+        is the replica's already; `tp.cache_specs`). Einsum engine: stored
+        rows [L, B, S, n_kv, C] (packed NVFP4: C = 9 hd/16 bytes). Kernel
+        engine: kv-head-major stored form [L, B, n_kv, S, C]; NVFP4 keeps its
+        nibble planes in "k"/"v" and its block-scale bytes in "ks"/"vs"."""
         cfg = self.cfg
         max_len = max_len or self.ecfg.max_seq_len
         kvk = self.ecfg.kv_attention_kernel
@@ -964,10 +1087,13 @@ class Engine(StepEngine):
             dtype, last = torch.uint8, (cfg.hd // 2 if kvk else _kv_pack_width(cfg.hd))
         elif dtype == "nvfp4_fake":
             dtype = cfg.dtype
+        n_kv = cfg.num_key_value_heads * (self._tp.size if self._tp is not None else 1)  # the whole model's
+        spec = tp_mod.cache_specs(self.ecfg.tp_axis, None if replica else self.ecfg.dp_axis, kvk)["k"]
 
         def rows(width, dt):
-            lead = (cfg.num_key_value_heads, max_len) if kvk else (max_len, cfg.num_key_value_heads)
-            return torch.zeros((cfg.num_hidden_layers, batch, *lead, width), dtype=dt, device=self.device)
+            lead = (n_kv, max_len) if kvk else (max_len, n_kv)
+            shape = tp_mod.local_shape((cfg.num_hidden_layers, batch, *lead, width), spec, self._mesh)
+            return torch.zeros(shape, dtype=dt, device=self.device)
 
         cache = {"k": rows(last, dtype), "v": rows(last, dtype),
                  "pos": torch.zeros((), dtype=torch.int32, device=self.device)}
@@ -984,7 +1110,7 @@ class Engine(StepEngine):
             ad = None if self.cm.adapters is None else {
                 n: {k: a[i] for k, a in f.items()} for n, f in self.cm.adapters.items()}
             x = _layer(self.cfg, self.cm, x, lp, llama.slice_state(self._act_state, i), self.cm.kinds,
-                       positions, self._ops, attend_of(i), ad, self._flags[i])
+                       positions, self._ops, attend_of(i), ad, self._flags[i], self._tp)
         return x
 
     def _logits(self, x: torch.Tensor, full: bool = False, hidden: bool = False):
@@ -1045,7 +1171,11 @@ class Engine(StepEngine):
         """Prefill an empty cache with tokens [B, T]; returns logits [B, V].
         With `attn_sparsity` set and T > 1 the einsum engine attends through
         the skip-softmax kernel and records each layer's kept share of tiles
-        in `last_prefill_keep_frac` [L]."""
+        in `last_prefill_keep_frac` [L]. Under a data-parallel axis the
+        tokens and the logits are the whole batch's, the cache the replica's."""
+        return self._dp_gather(self._prefill(self._dp_rows(tokens), cache))
+
+    def _prefill(self, tokens: torch.Tensor, cache: dict) -> torch.Tensor:
         self._room(cache, tokens.shape[1], empty=True)
         keep = [] if self.ecfg.attn_sparsity is not None and tokens.shape[1] > 1 else None
         logits = self._model_step(tokens, cache, keep_fracs=keep)
@@ -1162,13 +1292,19 @@ class Engine(StepEngine):
 
     def init_paged_cache(self, n_pages: int, page_size: int, max_slots: int,
                          max_pages_per_seq: int) -> pc.PagedKV:
+        """The page pool: this rank's shard under a mesh (its kv heads; its
+        replica's share of the pages and slots, `tp.paged_cache_specs`)."""
         self._check_paged()
         cfg = self.cfg
         dtype = self.ecfg.kv_dtype or cfg.dtype
         packed4 = dtype == "nvfp4"  # nibble planes + E4M3 scale pools
         if dtype in ("nvfp4", "nvfp4_fake"):
             dtype = cfg.dtype
-        return pc.init_paged(cfg.num_hidden_layers, n_pages, page_size, cfg.num_key_value_heads, cfg.hd,
+        spec = tp_mod.paged_cache_specs(packed4, self.ecfg.tp_axis, self.ecfg.dp_axis)
+        n_kv = cfg.num_key_value_heads * (self._tp.size if self._tp is not None else 1)
+        _, n_pages, n_kv, _, _ = tp_mod.local_shape((1, n_pages, n_kv, page_size, 1), spec["k_pages"], self._mesh)
+        (max_slots,) = tp_mod.local_shape((max_slots,), spec["seq_lens"], self._mesh)
+        return pc.init_paged(cfg.num_hidden_layers, n_pages, page_size, n_kv, cfg.hd,
                              max_slots, max_pages_per_seq, dtype, packed_nvfp4=packed4, device=self.device)
 
     @torch.inference_mode()
@@ -1179,8 +1315,8 @@ class Engine(StepEngine):
         becomes T. Returns the logits [1, V]."""
         self._check_paged()
         T = tokens.shape[1]
-        dense = self.init_cache(1, max_len=T)
-        logits = self.prefill(tokens.to(self.device), dense)
+        dense = self.init_cache(1, max_len=T, replica=True)
+        logits = self._prefill(tokens.to(self.device), dense)
         page = cache.page_size
         pos = torch.arange(T, device=self.device)
         page_ids = cache.block_table[slot].clamp_min(0).long()[pos // page]
@@ -1272,6 +1408,7 @@ class Engine(StepEngine):
         active = active.to(self.device)
         if self.device.type != "cuda" or self._eager:
             return self._paged_greedy_steps(tok, cache, active, unroll, return_all)
+        self._graphable()
         key = ("paged", step_graph.tensor_key(cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales,
                                               cache.block_table), tok.shape, unroll, return_all)
         return self._replay(cache.seq_lens, key,
@@ -1314,6 +1451,9 @@ class Engine(StepEngine):
         route, and the scheduler's free pages at the end."""
         if unroll > page_size:
             raise ValueError(f"unroll {unroll} > page_size {page_size}")
+        if self._dp is not None and self._dp.size > 1:
+            return self._serve_replicas(requests, n_pages, page_size, max_slots, max_pages_per_seq, prefix_cache,
+                                        unroll, collect_metrics)
         sched = Scheduler(max_slots, n_pages, page_size, max_pages_per_seq, prefix_cache=prefix_cache)
         for r in requests:
             sched.submit(r)
@@ -1378,3 +1518,31 @@ class Engine(StepEngine):
             "chunked_prefills": chunked_prefills,
             "free_pages": len(sched.free_pages),
         }
+
+    def _serve_replicas(self, requests, n_pages, page_size, max_slots, max_pages_per_seq, prefix_cache, unroll,
+                        collect_metrics):
+        """`serve` under a data-parallel axis: replica i serves requests i,
+        i + n, ... with its own scheduler over its share of the pages and
+        slots (`init_paged_cache`'s); the outputs are gathered over the axis
+        (every request's `output` set). Metrics are this replica's."""
+        n, i = self._dp.size, self._dp.index
+        for what, v in (("n_pages", n_pages), ("max_slots", max_slots)):
+            if v % n:
+                raise ValueError(f"{what} {v} does not divide over the {n} data-parallel replicas")
+        requests = list(requests)
+        dp, ecfg = self._dp, self.ecfg
+        # the replica serves its own requests alone, over its own share of the pool
+        self._dp, self.ecfg = None, dataclasses.replace(ecfg, dp_axis=None)
+        try:
+            res = self.serve(requests[i::n], n_pages // n, page_size, max_slots // n, max_pages_per_seq,
+                             prefix_cache, unroll, collect_metrics)
+        finally:
+            self._dp, self.ecfg = dp, ecfg
+        outs, metrics = res if collect_metrics else (res, None)
+        merged = {}
+        for part in all_gather_object(outs, self._mesh, ecfg.dp_axis):
+            merged.update(part)
+        for r in requests:
+            r.output = list(merged[r.rid])
+        merged = {r.rid: merged[r.rid] for r in requests}
+        return (merged, {**metrics, "replicas": n}) if collect_metrics else merged

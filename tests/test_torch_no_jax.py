@@ -5,7 +5,7 @@ writes the safetensors format itself (`models/hf_loader.py`) and reads its
 recipes' YAML subset itself (`recipes/loader.py`). The same holds for
 chip_smoke.py, the port's examples (PTQ, QAT, eval, serving, speculative
 decoding, sparsity, prune-and-distill, chained optimizations, diffusion and
-VLM PTQ) and its accuracy-table tool. The host packer's loader
+VLM PTQ, sharded MoE and DeepSeek PTQ) and its accuracy-table tool. The host packer's loader
 (`csrc/__init__.py`) builds the port's own `pack_ext.cpp` and reaches
 nothing of the JAX package's `csrc/`."""
 
@@ -31,7 +31,7 @@ def _sources():
     yield os.path.join(ROOT, "examples", "speculative_decoding_torch.py")
     for name in ("llm_qat_torch.py", "llm_eval_torch.py", "serve_demo_torch.py", "llm_sparsity_torch.py",
                  "prune_distill_torch.py", "chained_optimization_torch.py", "diffusion_ptq_torch.py",
-                 "vlm_ptq_torch.py"):
+                 "vlm_ptq_torch.py", "moe_ptq_sharded_torch.py", "deepseek_ptq_sharded_torch.py"):
         yield os.path.join(ROOT, "examples", name)
     yield os.path.join(ROOT, "tools", "torch_accuracy_table.py")
     yield os.path.join(ROOT, "tools", "torch_moe_accuracy_table.py")
@@ -202,3 +202,13 @@ def test_the_host_packer_reaches_nothing_of_jax():
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_the_walk_covers_the_multi_gpu_slice():
+    walked = {os.path.relpath(p, ROOT) for p in _sources()}
+    pkg = "tensorrt_model_optimizer_tpu_torch/"
+    assert {pkg + m for m in ("parallel/mesh.py", "parallel/ring_attention.py", "parallel/pipeline.py",
+                              "serve/tp.py", "serve/deepseek_tp.py", "quant/sharded.py", "opt/state.py",
+                              "serve/engine.py", "serve/deepseek_engine.py")} <= walked
+    assert {"examples/moe_ptq_sharded_torch.py", "examples/deepseek_ptq_sharded_torch.py",
+            "chip_smoke.py"} <= walked

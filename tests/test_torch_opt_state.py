@@ -150,8 +150,17 @@ def test_port_roundtrip_with_external_params_and_registry(smoothquant, tmp_path)
 
 
 def test_sharded_save_and_restore_wait_for_multi_gpu(smoothquant, tmp_path):
+    """Multi-GPU save / restore came with the multi-GPU slice (its mesh
+    round trips are in test_torch_sharded_ptq.py); with no mesh one process
+    writes the whole model as one shard and the restore gathers it back,
+    weights and quantizer state equal."""
     _, tm, _ = smoothquant
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tstate.save_sharded(tm, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tstate.restore_sharded(str(tmp_path))
+    tstate.save_sharded(tm, str(tmp_path))
+    back = tstate.restore_sharded(str(tmp_path), device="cpu")
+    from tensorrt_model_optimizer_tpu_torch.utils import tree
+
+    for mine, theirs in ((tm.params, back.params), (tm.qstate, back.qstate)):
+        a, b = tree.flatten_with_names(mine), tree.flatten_with_names(theirs)
+        assert set(a) == set(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
